@@ -1,0 +1,216 @@
+"""Heterogeneous relational GNN (``multi_modal_gnn_tpu/models/rgcn.py``).
+
+ID-embedding tables per node type, the patient table through an MLP + L2
+norm, then ``num_layers`` x [per-relation SAGE summed per destination type ->
+per-type BatchNorm -> activation -> dropout between layers], and
+degree-gated dual edge heads.  Submodules keep the flax names
+(``embed_<type>``, ``conv_<i>.neigh_<relation>``, ``bn_<i>_<type>``, ...), so
+the weight bridge maps parameters one for one.
+
+The serving section (:meth:`HeteroRGCN.compute_node_state`,
+:meth:`HeteroRGCN.predict_pairs_cached`) runs the eval-mode forward once and
+answers each request with the pair heads alone.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from multi_modal_gnn_tpu_torch.graph.hetero import HeteroGraph
+from multi_modal_gnn_tpu_torch.graph.schema import LAB, PATIENT, EdgeTypeKey, mirror_edge_type
+from multi_modal_gnn_tpu_torch.models.layers import (
+    EdgeRegressionHead,
+    FactoredEdgeHead,
+    PatientEncoder,
+    batch_norm,
+    get_activation,
+    make_dense,
+)
+from multi_modal_gnn_tpu_torch.ops.segment import aggregate_neighbors
+
+
+def _et_key(et: EdgeTypeKey) -> str:
+    return "__".join(et)
+
+
+class HeteroSAGELayer(nn.Module):
+    """Per-relation SAGE convolutions summed per destination type:
+    ``out_r[dst] = W_neigh_r agg_r(x_src)[dst] + W_root_r x[dst] + b_r``.
+
+    Each destination type runs one matmul over the concatenated messages and
+    its own features: the neighbor weights are stacked along K and the root
+    weights summed.  Parameters stay per relation (``neigh_<key>``,
+    ``root_<key>``)."""
+
+    def __init__(
+        self,
+        edge_types: Sequence[EdgeTypeKey],
+        node_types: Sequence[str],
+        hidden_dim: int,
+        aggregation: str = "mean",
+        impl: str = "xla",
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.edge_types = tuple(edge_types)
+        self.node_types = tuple(node_types)
+        self.aggregation = aggregation
+        self.impl = impl
+        for et in self.edge_types:
+            key = _et_key(et)
+            self.add_module(f"neigh_{key}", make_dense(hidden_dim, hidden_dim, generator=generator))
+            self.add_module(
+                f"root_{key}", make_dense(hidden_dim, hidden_dim, bias=False, generator=generator)
+            )
+
+    def forward(self, x_dict: Dict[str, torch.Tensor], graph: HeteroGraph) -> Dict[str, torch.Tensor]:
+        by_dst: Dict[str, list] = {}
+        for et in self.edge_types:
+            by_dst.setdefault(et[2], []).append(et)
+        out: Dict[str, torch.Tensor] = {}
+        for dst_t, ets in by_dst.items():
+            parts, weights = [], []
+            bias = root = None
+            for et in ets:
+                parts.append(
+                    aggregate_neighbors(
+                        x_dict[et[0]], graph.edges[et], self.aggregation, impl=self.impl,
+                        edges_rev=graph.edges.get(mirror_edge_type(et)),
+                    )
+                )
+                neigh = getattr(self, f"neigh_{_et_key(et)}")
+                rw = getattr(self, f"root_{_et_key(et)}").weight
+                weights.append(neigh.weight)
+                bias = neigh.bias if bias is None else bias + neigh.bias
+                root = rw if root is None else root + rw
+            weights.append(root)
+            parts.append(x_dict[dst_t])
+            out[dst_t] = F.linear(torch.cat(parts, dim=-1), torch.cat(weights, dim=1), bias)
+        # node types that receive no relation pass through unchanged
+        for nt in self.node_types:
+            if nt in x_dict:
+                out.setdefault(nt, x_dict[nt])
+        return out
+
+
+class HeteroRGCN(nn.Module):
+    def __init__(
+        self,
+        node_counts: Tuple[Tuple[str, int], ...],
+        edge_types: Sequence[EdgeTypeKey],
+        hidden_dim: int = 128,
+        num_layers: int = 2,
+        dropout: float = 0.2,
+        activation: str = "relu",
+        use_batch_norm: bool = True,
+        aggregation: str = "mean",
+        head_hidden_dims: Sequence[int] = (64, 32),
+        degree_threshold: int = 6,
+        impl: str = "xla",
+        head_style: str = "concat",
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        if head_style not in ("concat", "factored"):
+            raise ValueError(f"head_style must be concat|factored, got {head_style!r}")
+        self.node_counts = tuple(node_counts)
+        self.num_layers = num_layers
+        self.use_batch_norm = use_batch_norm
+        self.degree_threshold = degree_threshold
+        self.head_style = head_style
+        self.act = get_activation(activation)
+        for nt, n in self.node_counts:
+            emb = nn.Embedding(n, hidden_dim)
+            bound = math.sqrt(6.0 / (n + hidden_dim))  # xavier-uniform
+            with torch.no_grad():
+                emb.weight.uniform_(-bound, bound, generator=generator)
+            self.add_module(f"embed_{nt}", emb)
+        self.patient_encoder = PatientEncoder(hidden_dim, dropout, use_batch_norm, generator)
+        for i in range(num_layers):
+            self.add_module(
+                f"conv_{i}",
+                HeteroSAGELayer(
+                    edge_types, self.node_types, hidden_dim, aggregation, impl, generator
+                ),
+            )
+            if use_batch_norm:
+                for nt in self.node_types:
+                    self.add_module(f"bn_{i}_{nt}", batch_norm(hidden_dim))
+        for name in ("edge_predictor", "tabular_mlp"):
+            if head_style == "factored":
+                head = FactoredEdgeHead(hidden_dim, head_hidden_dims, 1, dropout, generator)
+            else:
+                head = EdgeRegressionHead(2 * hidden_dim, head_hidden_dims, 1, dropout, generator)
+            self.add_module(name, head)
+        self.inter_layer_dropout = nn.Dropout(dropout)
+
+    @property
+    def node_types(self) -> Tuple[str, ...]:
+        return tuple(name for name, _ in self.node_counts)
+
+    def encode_nodes(self) -> Dict[str, torch.Tensor]:
+        """Initial embeddings; the patient table goes through the encoder."""
+        x_dict = {nt: getattr(self, f"embed_{nt}").weight for nt in self.node_types}
+        if PATIENT in x_dict:
+            x_dict[PATIENT] = self.patient_encoder(x_dict[PATIENT])
+        return x_dict
+
+    def propagate(self, x_dict: Dict[str, torch.Tensor], graph: HeteroGraph) -> Dict[str, torch.Tensor]:
+        for i in range(self.num_layers):
+            x_dict = getattr(self, f"conv_{i}")(x_dict, graph)
+            if self.use_batch_norm:
+                x_dict = {nt: getattr(self, f"bn_{i}_{nt}")(x) for nt, x in x_dict.items()}
+            x_dict = {nt: self.act(x) for nt, x in x_dict.items()}
+            if i < self.num_layers - 1:
+                x_dict = {nt: self.inter_layer_dropout(x) for nt, x in x_dict.items()}
+        return x_dict
+
+    def forward(self, graph: HeteroGraph) -> Dict[str, torch.Tensor]:
+        return self.propagate(self.encode_nodes(), graph)
+
+    def _heads(self, init_p, init_l, final_p, final_l, p_idx, l_idx, degrees) -> torch.Tensor:
+        if self.head_style == "factored":
+            tab = self.tabular_mlp(init_p, init_l, p_idx, l_idx)[..., 0]
+            gnn = self.edge_predictor(final_p, final_l, p_idx, l_idx)[..., 0]
+        else:
+            tab = self.tabular_mlp(torch.cat([init_p[p_idx], init_l[l_idx]], dim=-1))[..., 0]
+            gnn = self.edge_predictor(torch.cat([final_p[p_idx], final_l[l_idx]], dim=-1))[..., 0]
+        return torch.where(degrees < self.degree_threshold, tab, gnn)
+
+    def predict_lab_values(self, graph: HeteroGraph, p_idx, l_idx) -> torch.Tensor:
+        """Degree-gated dual-head prediction for (patient, lab) pairs: the
+        tabular head below the degree threshold, the GNN head above."""
+        initial = self.encode_nodes()
+        final = self.propagate(initial, graph)
+        return self._heads(
+            initial[PATIENT], initial[LAB], final[PATIENT], final[LAB], p_idx, l_idx,
+            graph.patient_lab_degree[p_idx],
+        )
+
+    def compute_node_state(self, graph: HeteroGraph) -> Dict[str, torch.Tensor]:
+        """Everything :meth:`predict_pairs_cached` needs, from one eval-mode
+        forward over the full graph."""
+        if self.training:
+            raise RuntimeError("compute_node_state is an eval-mode forward: call model.eval() first")
+        initial = self.encode_nodes()
+        final = self.propagate(initial, graph)
+        state = {
+            "init_p": initial[PATIENT],
+            "init_l": initial[LAB],
+            "final_p": final[PATIENT],
+            "final_l": final[LAB],
+            "degree": graph.patient_lab_degree,
+        }
+        return {k: v.detach() for k, v in state.items()}
+
+    def predict_pairs_cached(self, state: Dict[str, torch.Tensor], p_idx, l_idx) -> torch.Tensor:
+        """``predict_lab_values`` in eval mode, from a node-state dict."""
+        return self._heads(
+            state["init_p"], state["init_l"], state["final_p"], state["final_l"], p_idx, l_idx,
+            state["degree"][p_idx],
+        )

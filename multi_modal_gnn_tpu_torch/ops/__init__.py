@@ -1,0 +1,10 @@
+"""Neighbor aggregation and the CUDA segment kernels."""
+
+from multi_modal_gnn_tpu_torch.ops.segment import (
+    aggregate_neighbors,
+    aggregation_tier,
+    segment_mean,
+    segment_sum,
+)
+
+__all__ = ["aggregate_neighbors", "aggregation_tier", "segment_mean", "segment_sum"]

@@ -1,0 +1,61 @@
+"""Serving with cached node state (``multi_modal_gnn_tpu/serving.py``).
+
+For a frozen model and graph the node state is constant: it is computed
+once by one eval-mode forward over the full graph, and each request runs
+only the pair heads on its (patient, lab) batch.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from multi_modal_gnn_tpu_torch.graph.hetero import HeteroGraph
+from multi_modal_gnn_tpu_torch.models.rgcn import HeteroRGCN
+
+
+def compute_node_state(model: HeteroRGCN, graph: HeteroGraph) -> Dict[str, torch.Tensor]:
+    """Put ``model`` in eval mode and run the forward that fills the state
+    (``init_p``, ``init_l``, ``final_p``, ``final_l``, ``degree``)."""
+    model.eval()
+    with torch.no_grad():
+        return model.compute_node_state(graph)
+
+
+def _as_index(idx, bound: int, name: str, device) -> torch.Tensor:
+    t = torch.as_tensor(idx).to(device=device, dtype=torch.long)
+    if t.dim() != 1:
+        raise ValueError(f"{name}: expected a 1-D index batch, got shape {tuple(t.shape)}")
+    if t.numel() and (int(t.min()) < 0 or int(t.max()) >= bound):
+        raise IndexError(f"{name}: indices must lie in [0, {bound})")
+    return t
+
+
+def build_serving_fn(
+    model: HeteroRGCN,
+    graph: HeteroGraph,
+    state: Optional[Dict[str, torch.Tensor]] = None,
+) -> Tuple[Callable, Dict[str, torch.Tensor]]:
+    """``(fn, state)`` with ``fn(p_idx, l_idx) -> predictions`` computed on
+    the state's device from the cached node state."""
+    if state is None:
+        state = compute_node_state(model, graph)
+    device = state["init_p"].device
+    num_p, num_l = state["init_p"].shape[0], state["init_l"].shape[0]
+
+    def fn(p_idx, l_idx) -> torch.Tensor:
+        p = _as_index(p_idx, num_p, "patient", device)
+        l = _as_index(l_idx, num_l, "lab", device)
+        if p.shape != l.shape:
+            raise ValueError(f"patient/lab batches differ in length: {p.shape} vs {l.shape}")
+        with torch.no_grad():
+            return model.predict_pairs_cached(state, p, l)
+
+    return fn, state
+
+
+def predict_patient(fn: Callable, patient: int, num_labs: int) -> torch.Tensor:
+    """Predictions of every lab for one patient."""
+    labs = torch.arange(num_labs)
+    return fn(torch.full_like(labs, int(patient)), labs)

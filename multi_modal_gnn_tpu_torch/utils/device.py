@@ -1,0 +1,29 @@
+"""The CUDA device: presence, float32 numerics and identity."""
+
+from __future__ import annotations
+
+import subprocess
+
+import torch
+
+
+def require_cuda() -> torch.device:
+    """The first CUDA device; raises when PyTorch sees none."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: torch.cuda.is_available() is false")
+    return torch.device("cuda", 0)
+
+
+def disable_tf32() -> None:
+    """Full float32 in matmuls and convolutions (TF32 keeps ~3 digits)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def gpu_identity() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` reports them."""
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return proc.stdout.strip()
