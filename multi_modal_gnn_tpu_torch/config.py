@@ -1,4 +1,5 @@
-"""The ``model`` and ``graph`` config sections, as frozen dataclasses.
+"""The ``model``, ``graph`` and ``train`` config sections, as frozen
+dataclasses.
 
 Field names and defaults follow ``multi_modal_gnn_tpu/config.py``.
 :meth:`Config.from_dict` accepts the JAX ``Config.to_dict()`` output (where
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 
 class ConfigError(ValueError):
@@ -74,17 +75,93 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class OptimizerConfig:
+    type: str = "adam"  # adam only: the port rejects sgd
+    lr: float = 1e-3
+    weight_decay: float = 1e-5
+    momentum: float = 0.9  # sgd only; kept for the JAX field set
+    # extra L2 decay on the ID-embedding tables (embed_*) only
+    embedding_weight_decay: float = 0.0
+
+    def __post_init__(self):
+        if self.type.lower() != "adam":
+            raise ConfigError(
+                f"train.optimizer.type={self.type!r}: the PyTorch port runs adam only"
+            )
+
+
+@dataclass(frozen=True)
+class LRSchedulerConfig:
+    enabled: bool = True
+    type: str = "reduce_on_plateau"  # reduce_on_plateau | step
+    factor: float = 0.5
+    patience: int = 10
+    threshold: float = 1e-4  # relative improvement threshold (torch default)
+    min_lr: float = 0.0
+    step_size: int = 30  # step scheduler only
+    gamma: float = 0.1  # step scheduler only
+
+    def __post_init__(self):
+        if self.type not in ("reduce_on_plateau", "step"):
+            raise ConfigError(f"train.lr_scheduler.type invalid: {self.type!r}")
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    task: str = "edge_regression"
+    mask_fraction: float = 0.2
+    train_split: float = 0.7
+    val_split: float = 0.15
+    test_split: float = 0.15
+    loss: str = "mae"  # mae | mse | huber
+    epochs: int = 100
+    batch_size: Optional[int] = None  # None = full batch, the only mode ported
+    early_stopping_patience: int = 15
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    lr_scheduler: LRSchedulerConfig = field(default_factory=LRSchedulerConfig)
+    seed: int = 42
+    # extras.lab_tile_rows (None/"auto" | int), extras.lab_tile_mode ("span"),
+    # extras.lab_reweighting (bool)
+    extras: Dict[str, Any] = field(default_factory=dict)
+
+    def __post_init__(self):
+        total = self.train_split + self.val_split + self.test_split
+        if abs(total - 1.0) > 1e-6:
+            raise ConfigError(f"train/val/test splits must sum to 1.0, got {total}")
+        if self.loss not in ("mae", "mse", "huber"):
+            raise ConfigError(f"train.loss invalid: {self.loss!r}")
+        if self.task != "edge_regression":
+            raise ConfigError(f"train.task invalid: {self.task!r}")
+        if self.batch_size is not None:
+            raise ConfigError(
+                "train.batch_size: the PyTorch port trains full-batch only (batch_size: null)"
+            )
+        unknown = set(self.extras) - _TRAIN_EXTRAS
+        if unknown:
+            raise ConfigError(
+                f"unsupported train extras: {sorted(unknown)} (mini-batch, warm start, "
+                "multi-device and optimizer layouts are not ported yet)"
+            )
+        if str(self.extras.get("lab_tile_mode", "span")) != "span":
+            raise ConfigError(
+                "train.extras.lab_tile_mode: the PyTorch port runs span-mode lab tiles only"
+            )
+
+
+@dataclass(frozen=True)
 class Config:
     graph: GraphConfig = field(default_factory=GraphConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
 
     @staticmethod
     def from_dict(d: Dict[str, Any]) -> "Config":
         """Build from a dict shaped like the JAX ``Config.to_dict()``; only
-        its ``model`` and ``graph`` sections are read."""
+        its ``model``, ``graph`` and ``train`` sections are read."""
         return Config(
             graph=_graph_from_dict(dict(d.get("graph") or {})),
             model=_model_from_dict(dict(d.get("model") or {})),
+            train=_train_from_dict(dict(d.get("train") or {})),
         )
 
 
@@ -94,6 +171,9 @@ _GRAPH_IGNORED = {
     "cluster_labs_by_frequency", "num_shards", "shard_kernel_plans",
 }
 _MODEL_IGNORED = {"num_heads", "dual_head_fusion", "hgt_dense_attn_bytes"}
+# accepted and dropped: TPU device placement and dispatch
+_TRAIN_IGNORED = {"device", "num_devices", "donate_state"}
+_TRAIN_EXTRAS = {"lab_tile_rows", "lab_tile_mode", "lab_reweighting"}
 
 
 def _fields(cls) -> set:
@@ -144,3 +224,30 @@ def _model_from_dict(d: Dict[str, Any]) -> ModelConfig:
         edge_head=EdgeHeadConfig(**head),
         extras=extras,
     )
+
+
+def _section(d: Dict[str, Any], cls, name: str):
+    """``cls`` from a JAX-shaped section dict; keys that are not fields are
+    the JAX ``extras``, which these sections do not take."""
+    known = _fields(cls) - {"extras"}
+    unknown = set(d) - known
+    if unknown:
+        raise ConfigError(f"unsupported {name} setting(s): {sorted(unknown)}")
+    return cls(**d)
+
+
+def _train_from_dict(d: Dict[str, Any]) -> TrainConfig:
+    scan_chunk = int(d.pop("scan_chunk", 1) or 1)
+    if scan_chunk != 1:
+        raise ConfigError("train.scan_chunk > 1 is a TPU dispatch mode; the port runs 1")
+    for name in _TRAIN_IGNORED:
+        d.pop(name, None)
+    optimizer = _section(dict(d.pop("optimizer", None) or {}), OptimizerConfig, "train.optimizer")
+    scheduler = _section(
+        dict(d.pop("lr_scheduler", None) or {}), LRSchedulerConfig, "train.lr_scheduler"
+    )
+    # JAX to_dict flattens extras into the section
+    extras = dict(d.pop("extras", None) or {})
+    known = _fields(TrainConfig) - {"optimizer", "lr_scheduler", "extras"}
+    extras.update({k: d.pop(k) for k in list(d) if k not in known})
+    return TrainConfig(**d, optimizer=optimizer, lr_scheduler=scheduler, extras=extras)

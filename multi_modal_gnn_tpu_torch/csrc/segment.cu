@@ -2,13 +2,19 @@
 // (sm_90a).  Built by ops/_build.py into a shared library with a plain C
 // interface and called through ctypes from ops/segment_kernels.py.
 //
-// Replaces three Pallas TPU kernels of multi_modal_gnn_tpu/ops/pallas_segment.py:
+// Replaces four Pallas TPU kernels of multi_modal_gnn_tpu/ops/pallas_segment.py:
 //   K1  _windowed_segment_sum_fwd / _segment_kernel
 //         -> mmgnn_segment_sum_windowed
 //   K2f _fused_table_segment_sum_fwd / _fused_table_kernel_take
 //         -> mmgnn_fused_table_segment_sum
+//   K2b _fused_table_segment_sum_bwd / _fused_table_bwd_kernel_take
+//         -> mmgnn_fused_table_segment_sum_bwd (notes at the kernel)
 //   K3  _span_dma_segment_sum_fwd / _span_dma_kernel
 //         -> mmgnn_span_segment_sum
+//
+// K1 also serves as the backward of the span and paired tiers (the reverse
+// relation's windowed sum of the scaled upstream gradient), and of a row
+// gather with a GatherPlan (ops/segment.py).
 //
 // All three compute, for a windowed plan (graph/hetero.py),
 //   out[tile_map[t] * 128 + local[e]] += row(e)       for every slot e of tile t
@@ -304,6 +310,77 @@ span_sum_kernel(const float* __restrict__ table, int num_rows, const int* __rest
   flush_window(acc, out, window, d);
 }
 
+// K2b, the transpose of K2f: dT[src[e], :] += g[tile_map[t] * 128 + local[e], :]
+// over the real slots e of every tile t, into a small table dT [num_src, d].
+//
+// What bounds it on the H100: bytes.  One add per gathered element, against
+// reading the E slots' indices and the [num_dst, d] gradient once.  The TPU
+// kept the whole dT resident in VMEM; here a 512 x 128 f32 dT is 256 KB, more
+// than the 227 KB of shared memory a block may use.  So each block owns one
+// slice of `cols` columns (blockIdx.y) of the whole table, sized by the
+// wrapper to fit (32 columns of a 500-row table: 66 KB with the +1 row pad
+// that spreads rows over banks), and a group of consecutive tiles
+// (blockIdx.x).  Slots are dst-sorted within a window, so runs of equal src
+// are short and there is nothing to merge in registers: every slot adds
+// its row slice into the shared table with shared-memory atomics (cols/4
+// lanes per slot, 4 columns each, four rows loaded before they are added).
+// The block flushes its non-zero entries to the zeroed dT with global f32
+// atomics once, at the end; the summation order changes from run to run.
+__global__ void __launch_bounds__(THREADS)
+fused_table_bwd_kernel(const float* __restrict__ g, const int* __restrict__ src,
+                       const int* __restrict__ local, const int* __restrict__ tile_map,
+                       int num_tiles, int tiles_per_block, int num_src, int d, int cols,
+                       float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  float* acc = reinterpret_cast<float*>(smem4);  // [num_src, cols + 1]
+  const int stride = cols + 1;
+  for (int i = threadIdx.x; i < num_src * stride; i += THREADS) acc[i] = 0.f;
+  __syncthreads();
+  const int c0 = blockIdx.y * cols;
+  const int lanes_per_slot = cols / 4;
+  const int slots_per_pass = THREADS / lanes_per_slot;
+  const int sub = threadIdx.x / lanes_per_slot;
+  const int c = (threadIdx.x % lanes_per_slot) * 4;
+  const int t0 = blockIdx.x * tiles_per_block;
+  const int t1 = min(t0 + tiles_per_block, num_tiles);
+  for (int t = t0; t < t1; ++t) {
+    const long long row0 = (long long)tile_map[t] * WINDOW;
+    for (int i0 = sub; i0 < TILE_E; i0 += BATCH * slots_per_pass) {
+      int ss[BATCH];
+      float4 v[BATCH];
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        const int i = i0 + u * slots_per_pass;
+        ss[u] = -1;
+        v[u] = zero4();
+        if (i < TILE_E) {
+          const long long e = (long long)t * TILE_E + i;
+          const int l = local[e];
+          if (l < WINDOW) {
+            ss[u] = src[e];
+            v[u] = __ldg(reinterpret_cast<const float4*>(g + (row0 + l) * d + c0 + c));
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        if (ss[u] < 0) continue;
+        float* a = acc + ss[u] * stride + c;
+        atomicAdd(a + 0, v[u].x);
+        atomicAdd(a + 1, v[u].y);
+        atomicAdd(a + 2, v[u].z);
+        atomicAdd(a + 3, v[u].w);
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < num_src * cols; i += THREADS) {
+    const int r = i / cols, cc = i % cols;
+    const float v = acc[r * stride + cc];
+    if (v != 0.f) atomicAdd(out + (long long)r * d + c0 + cc, v);
+  }
+}
+
 template <class Rows>
 int launch_windowed(Rows rows, const int* src, const int* local, const int* tile_map,
                     int num_tiles, int tiles_per_block, int d, float* out, void* stream) {
@@ -340,6 +417,21 @@ int mmgnn_fused_table_segment_sum(const float* table, const int* win_src, const 
                                   int d, float* out, void* stream) {
   return launch_windowed(TableRows{table, d}, win_src, local, tile_map, num_tiles,
                          tiles_per_block, d, out, stream);
+}
+
+// K2b.  dT[win_src[e]] += g[tile_map[t] * 128 + local[e]]; g holds the
+// destination rows [num_dst, d], dT [num_src, d] is zeroed by the caller.
+int mmgnn_fused_table_segment_sum_bwd(const float* g, const int* win_src, const int* local,
+                                      const int* tile_map, int num_tiles, int tiles_per_block,
+                                      int num_src, int d, int cols, float* out, void* stream) {
+  const size_t smem = sizeof(float) * (size_t)num_src * (cols + 1);
+  cudaError_t err = cudaFuncSetAttribute(fused_table_bwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((num_tiles + tiles_per_block - 1) / tiles_per_block, d / cols);
+  fused_table_bwd_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      g, win_src, local, tile_map, num_tiles, tiles_per_block, num_src, d, cols, out);
+  return cudaGetLastError();
 }
 
 // K3.  row(e) = table[span_src[e]], read from the tile's staged block

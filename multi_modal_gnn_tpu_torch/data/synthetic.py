@@ -30,6 +30,7 @@ from multi_modal_gnn_tpu_torch.graph.schema import (
     PATIENT_MEDICATION,
     EdgeTypeKey,
 )
+from multi_modal_gnn_tpu_torch.utils.device import resolve_device
 
 
 @dataclass(frozen=True)
@@ -165,8 +166,10 @@ def generate_synthetic_edges(
 
 
 def make_synthetic_graph(
-    spec: Optional[SyntheticSpec] = None, config: Optional[Config] = None
+    spec: Optional[SyntheticSpec] = None, config: Optional[Config] = None, device=None
 ) -> HeteroGraph:
-    """Generate the cohort and assemble its graph on the CPU."""
+    """Generate the cohort and assemble its graph on ``device`` (default:
+    the card; raises without one)."""
+    device = resolve_device(device)
     edge_arrays, node_counts = generate_synthetic_edges(spec or SyntheticSpec.tiny())
-    return assemble_graph(edge_arrays, node_counts, config)
+    return assemble_graph(edge_arrays, node_counts, config).to(device)

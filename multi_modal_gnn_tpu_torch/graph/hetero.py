@@ -10,7 +10,9 @@ Numpy copies of the JAX package's host-side plan builders
   ``win_local == WINDOW``;
 * :func:`build_src_span_plan` — the span layout: each tile's real sources
   lie in one ``span_rows``-row block of the source table;
-* :func:`build_dense_adjacency` — the mean-normalized dense adjacency.
+* :func:`build_dense_adjacency` — the mean-normalized dense adjacency;
+* :func:`build_gather_plan` — the windowed layout of a row gather's backward
+  (:class:`GatherPlan`).
 
 :class:`EdgeSet` and :class:`HeteroGraph` keep the JAX field names; their
 tensors are built on the CPU and moved with ``.to(device)``.
@@ -335,6 +337,53 @@ def regroup_slots_by_lab_span(
         local2,
         np.asarray(tile_windows, dtype=np.int32),
         np.asarray(tile_bases, dtype=np.int32),
+    )
+
+
+@dataclass
+class GatherPlan:
+    """Windowed layout for the backward of a row gather ``y = x[idx]``: its
+    cotangent ``dx[r] = sum_{p: idx[p] == r} g[p]`` is a windowed segment sum
+    over (position -> idx) pairs.
+
+    ``identity``: the batch is already laid out in this plan's slot order
+    (slot-major train batches), so the backward needs no reorder gather.
+    ``lab_block_map`` / ``lab_block_rows`` / ``lab_span_mode``: span-bounded
+    lab tiles (:func:`regroup_slots_by_lab_span`); ``lab_block_map[t]`` is the
+    lab-table row base of tile ``t``."""
+
+    win_src: torch.Tensor  # int32 [E_win] positions into the gathered batch
+    win_local: torch.Tensor  # int32 [E_win] target row offset within window
+    win_tile_map: torch.Tensor  # int32 [E_win / TILE_E]
+    num_windows: int = 0
+    num_rows: int = 0
+    identity: bool = False
+    lab_block_map: Optional[torch.Tensor] = None  # int32 [E_win / TILE_E]
+    lab_block_rows: int = 0
+    lab_span_mode: bool = False
+
+    def to(self, device) -> "GatherPlan":
+        return dataclasses.replace(
+            self,
+            **{
+                f.name: getattr(self, f.name).to(device)
+                for f in dataclasses.fields(self)
+                if isinstance(getattr(self, f.name), torch.Tensor)
+            },
+        )
+
+
+def build_gather_plan(idx: np.ndarray, num_rows: int) -> GatherPlan:
+    """Plan the backward of ``x[idx]`` (host-side, once)."""
+    idx = np.asarray(idx, dtype=np.int32)
+    order = np.argsort(idx, kind="stable").astype(np.int32)
+    win_src, win_local, win_tile_map, num_windows = build_window_plan(order, idx[order], num_rows)
+    return GatherPlan(
+        win_src=_tensor(win_src),
+        win_local=_tensor(win_local),
+        win_tile_map=_tensor(win_tile_map),
+        num_windows=num_windows,
+        num_rows=int(num_rows),
     )
 
 

@@ -26,12 +26,15 @@ from multi_modal_gnn_tpu_torch.graph.hetero import (
     build_window_plan,
 )
 from multi_modal_gnn_tpu_torch.graph.schema import EdgeTypeKey
+from multi_modal_gnn_tpu_torch.utils.device import resolve_device
 
 _SEP = "||"
 
 
-def load_graph(path) -> HeteroGraph:
-    """Load ``<path>.npz`` + ``<path>.meta.json`` onto the CPU."""
+def load_graph(path, device=None) -> HeteroGraph:
+    """Load ``<path>.npz`` + ``<path>.meta.json`` onto ``device`` (default:
+    the card; raises without one)."""
+    device = resolve_device(device)
     path = Path(path)
     if path.suffix == ".npz":
         path = path.with_suffix("")
@@ -84,4 +87,4 @@ def load_graph(path) -> HeteroGraph:
         edges=edges,
         patient_lab_degree=degree,
         node_counts=tuple(sorted(sidecar["node_counts"].items())),
-    )
+    ).to(device)

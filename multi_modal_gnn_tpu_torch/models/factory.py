@@ -9,6 +9,7 @@ import torch
 from multi_modal_gnn_tpu_torch.config import Config
 from multi_modal_gnn_tpu_torch.graph.hetero import HeteroGraph
 from multi_modal_gnn_tpu_torch.models.rgcn import HeteroRGCN
+from multi_modal_gnn_tpu_torch.utils.device import resolve_device
 
 # head_style "auto": factored heads from this many patients up
 FACTORED_HEAD_MIN_PATIENTS = 20_000
@@ -21,7 +22,8 @@ def build_model(
     generator: Optional[torch.Generator] = None,
 ) -> HeteroRGCN:
     """RGCN sized to ``graph``, weights drawn from ``generator`` (on the
-    CPU) and moved to ``device``."""
+    CPU) and moved to ``device`` (default: the card; raises without one)."""
+    device = resolve_device(device)
     mc = config.model
     head_style = mc.head_style
     if head_style == "auto":
@@ -42,4 +44,4 @@ def build_model(
         head_style=head_style,
         generator=generator,
     )
-    return model.to(device) if device is not None else model
+    return model.to(device)

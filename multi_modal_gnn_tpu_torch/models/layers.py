@@ -1,17 +1,28 @@
 """Shared building blocks (``multi_modal_gnn_tpu/models/layers.py``):
-the torch-Linear init with a fan-in override, the edge heads and the
-patient encoder.  Weights are ``[out, in]`` as in ``torch.nn.Linear``; the
-weight bridge (``models/convert.py``) transposes flax ``[in, out]`` kernels.
+the torch-Linear init with a fan-in override, flax-semantics BatchNorm, the
+edge heads and the patient encoder.  Weights are ``[out, in]`` as in
+``torch.nn.Linear``; the weight bridge (``models/convert.py``) transposes
+flax ``[in, out]`` kernels.
+
+As in the JAX package, every forward takes ``train`` explicitly: it turns
+on dropout and batch statistics (which also update BatchNorm's running
+averages).  Edge-head dropout on the fused path draws from the kernels'
+counter-based generator with the caller's ``seed``; every other dropout
+draws from torch's generator.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from multi_modal_gnn_tpu_torch.graph.hetero import GatherPlan
+from multi_modal_gnn_tpu_torch.ops.pairhead import fused_pair_head
+from multi_modal_gnn_tpu_torch.ops.segment import take_with_plan
 
 
 def make_dense(
@@ -47,10 +58,30 @@ def get_activation(name: str) -> Callable:
         raise ValueError(f"Unknown activation: {name}") from None
 
 
-def batch_norm(dim: int) -> nn.BatchNorm1d:
-    """BatchNorm matching flax ``BatchNorm(momentum=0.9, epsilon=1e-5)``
-    in eval mode (flax's momentum 0.9 is torch's 0.1)."""
-    return nn.BatchNorm1d(dim, eps=1e-5, momentum=0.1)
+class FlaxBatchNorm(nn.BatchNorm1d):
+    """flax ``BatchNorm(momentum=0.9, epsilon=1e-5)`` over the rows of
+    ``[N, C]``.  With ``train`` it normalises with the batch mean and the
+    biased batch variance ``E[x^2] - E[x]^2`` (clipped at 0, flax's fast
+    variance) and moves the running averages 0.1 of the way to them, the
+    variance included: ``nn.BatchNorm1d`` would move it towards the unbiased
+    one.  Without ``train`` it normalises with the running averages.
+    Parameter and buffer names are ``nn.BatchNorm1d``'s."""
+
+    def __init__(self, dim: int):
+        super().__init__(dim, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            return F.batch_norm(
+                x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps
+            )
+        mean = x.mean(dim=0)
+        var = ((x * x).mean(dim=0) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)
+            self.num_batches_tracked.add_(1)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
 
 
 class EdgeRegressionHead(nn.Module):
@@ -72,18 +103,24 @@ class EdgeRegressionHead(nn.Module):
         for i, name in enumerate(self.hidden_names):
             self.add_module(name, make_dense(dims[i + 1], dims[i], generator=generator))
         self.dense_out = make_dense(output_dim, dims[-1], generator=generator)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = float(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         for name in self.hidden_names:
-            x = self.dropout(F.relu(getattr(self, name)(x)))
+            x = F.dropout(F.relu(getattr(self, name)(x)), self.dropout, train)
         return self.dense_out(x)
 
 
 class FactoredEdgeHead(nn.Module):
     """:class:`EdgeRegressionHead` on ``concat([x_p[p], x_l[l]])`` with its
-    first layer split into per-node projections, gathered per pair
-    (the unfused path of the JAX head)."""
+    first layer split into per-node projections, gathered per pair.
+
+    With a slot-major batch (an identity ``patient_plan``) and the 2-layer
+    head, the MLP after the projections runs in the fused pair-head kernels
+    (``ops/pairhead.py``), tile-masked by ``tile_mask`` and with dropout drawn
+    from ``seed``.  Otherwise the projections are gathered per pair
+    (through :func:`take_with_plan` where plans are given) and the MLP runs
+    as torch layers."""
 
     def __init__(
         self,
@@ -106,14 +143,42 @@ class FactoredEdgeHead(nn.Module):
                 name, make_dense(hidden_dims[i], hidden_dims[i - 1], generator=generator)
             )
         self.dense_out = make_dense(output_dim, hidden_dims[-1], generator=generator)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = float(dropout)
 
-    def forward(self, x_p_nodes, x_l_nodes, p_idx, l_idx) -> torch.Tensor:
+    def forward(
+        self,
+        x_p_nodes: torch.Tensor,
+        x_l_nodes: torch.Tensor,
+        p_idx: torch.Tensor,
+        l_idx: torch.Tensor,
+        train: bool = False,
+        patient_plan: Optional[GatherPlan] = None,
+        lab_plan: Optional[GatherPlan] = None,
+        tile_mask: Optional[torch.Tensor] = None,
+        seed: Tuple[int, int] = (0, 0),
+    ) -> torch.Tensor:
         proj_p = self.proj_patient(x_p_nodes)
         proj_l = self.proj_lab(x_l_nodes)
-        x = self.dropout(F.relu(proj_p[p_idx] + proj_l[l_idx]))
+        rate = self.dropout if train else 0.0
+        if (
+            patient_plan is not None
+            and patient_plan.identity
+            and len(self.hidden_names) == 1
+            and self.dense_out.out_features == 1
+        ):
+            out = fused_pair_head(
+                proj_p.contiguous(), proj_l.contiguous(),
+                self.dense_1.weight.t().contiguous(), self.dense_1.bias,
+                self.dense_out.weight[0], self.dense_out.bias,
+                l_idx, patient_plan.win_local, patient_plan.win_tile_map, seed, tile_mask,
+                patient_plan.lab_block_map, patient_plan.num_windows, rate,
+                patient_plan.lab_block_rows, patient_plan.lab_span_mode,
+            )
+            return out[:, None]
+        x = take_with_plan(proj_p, p_idx, patient_plan) + take_with_plan(proj_l, l_idx, lab_plan)
+        x = F.dropout(F.relu(x), rate, train)
         for name in self.hidden_names:
-            x = self.dropout(F.relu(getattr(self, name)(x)))
+            x = F.dropout(F.relu(getattr(self, name)(x)), rate, train)
         return self.dense_out(x)
 
 
@@ -133,16 +198,16 @@ class PatientEncoder(nn.Module):
         for i in range(2):
             self.add_module(f"dense_{i}", make_dense(hidden_dim, hidden_dim, generator=generator))
             if use_batch_norm:
-                self.add_module(f"bn_{i}", batch_norm(hidden_dim))
+                self.add_module(f"bn_{i}", FlaxBatchNorm(hidden_dim))
         self.dense_out = make_dense(hidden_dim, hidden_dim, generator=generator)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = float(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         for i in range(2):
             x = getattr(self, f"dense_{i}")(x)
             if self.use_batch_norm:
-                x = getattr(self, f"bn_{i}")(x)
-            x = self.dropout(F.relu(x))
+                x = getattr(self, f"bn_{i}")(x, train)
+            x = F.dropout(F.relu(x), self.dropout, train)
         x = self.dense_out(x)
         norm = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
         return x / norm.clamp_min(1e-12)

@@ -7,9 +7,11 @@ degree-gated dual edge heads.  Submodules keep the flax names
 (``embed_<type>``, ``conv_<i>.neigh_<relation>``, ``bn_<i>_<type>``, ...), so
 the weight bridge maps parameters one for one.
 
-The serving section (:meth:`HeteroRGCN.compute_node_state`,
-:meth:`HeteroRGCN.predict_pairs_cached`) runs the eval-mode forward once and
-answers each request with the pair heads alone.
+Training runs :meth:`HeteroRGCN.predict_lab_values` with ``train=True``,
+the batch's gather plans and its per-slot degrees.  The serving section
+(:meth:`HeteroRGCN.compute_node_state`, :meth:`HeteroRGCN.predict_pairs_cached`)
+runs the eval-mode forward once and answers each request with the pair heads
+alone.
 """
 
 from __future__ import annotations
@@ -21,17 +23,18 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from multi_modal_gnn_tpu_torch.graph.hetero import HeteroGraph
+from multi_modal_gnn_tpu_torch.graph.hetero import TILE_E, GatherPlan, HeteroGraph
 from multi_modal_gnn_tpu_torch.graph.schema import LAB, PATIENT, EdgeTypeKey, mirror_edge_type
 from multi_modal_gnn_tpu_torch.models.layers import (
     EdgeRegressionHead,
     FactoredEdgeHead,
+    FlaxBatchNorm,
     PatientEncoder,
-    batch_norm,
     get_activation,
     make_dense,
 )
-from multi_modal_gnn_tpu_torch.ops.segment import aggregate_neighbors
+from multi_modal_gnn_tpu_torch.ops.segment import aggregate_neighbors, take_with_plan
+from multi_modal_gnn_tpu_torch.utils.rng import stream_seed_pair
 
 
 def _et_key(et: EdgeTypeKey) -> str:
@@ -123,6 +126,7 @@ class HeteroRGCN(nn.Module):
         self.use_batch_norm = use_batch_norm
         self.degree_threshold = degree_threshold
         self.head_style = head_style
+        self.impl = impl
         self.act = get_activation(activation)
         for nt, n in self.node_counts:
             emb = nn.Embedding(n, hidden_dim)
@@ -140,56 +144,105 @@ class HeteroRGCN(nn.Module):
             )
             if use_batch_norm:
                 for nt in self.node_types:
-                    self.add_module(f"bn_{i}_{nt}", batch_norm(hidden_dim))
+                    self.add_module(f"bn_{i}_{nt}", FlaxBatchNorm(hidden_dim))
         for name in ("edge_predictor", "tabular_mlp"):
             if head_style == "factored":
                 head = FactoredEdgeHead(hidden_dim, head_hidden_dims, 1, dropout, generator)
             else:
                 head = EdgeRegressionHead(2 * hidden_dim, head_hidden_dims, 1, dropout, generator)
             self.add_module(name, head)
-        self.inter_layer_dropout = nn.Dropout(dropout)
+        self.dropout = float(dropout)
 
     @property
     def node_types(self) -> Tuple[str, ...]:
         return tuple(name for name, _ in self.node_counts)
 
-    def encode_nodes(self) -> Dict[str, torch.Tensor]:
+    def encode_nodes(self, train: bool = False) -> Dict[str, torch.Tensor]:
         """Initial embeddings; the patient table goes through the encoder."""
         x_dict = {nt: getattr(self, f"embed_{nt}").weight for nt in self.node_types}
         if PATIENT in x_dict:
-            x_dict[PATIENT] = self.patient_encoder(x_dict[PATIENT])
+            x_dict[PATIENT] = self.patient_encoder(x_dict[PATIENT], train)
         return x_dict
 
-    def propagate(self, x_dict: Dict[str, torch.Tensor], graph: HeteroGraph) -> Dict[str, torch.Tensor]:
+    def propagate(
+        self, x_dict: Dict[str, torch.Tensor], graph: HeteroGraph, train: bool = False
+    ) -> Dict[str, torch.Tensor]:
         for i in range(self.num_layers):
             x_dict = getattr(self, f"conv_{i}")(x_dict, graph)
             if self.use_batch_norm:
-                x_dict = {nt: getattr(self, f"bn_{i}_{nt}")(x) for nt, x in x_dict.items()}
+                x_dict = {nt: getattr(self, f"bn_{i}_{nt}")(x, train) for nt, x in x_dict.items()}
             x_dict = {nt: self.act(x) for nt, x in x_dict.items()}
             if i < self.num_layers - 1:
-                x_dict = {nt: self.inter_layer_dropout(x) for nt, x in x_dict.items()}
+                x_dict = {nt: F.dropout(x, self.dropout, train) for nt, x in x_dict.items()}
         return x_dict
 
-    def forward(self, graph: HeteroGraph) -> Dict[str, torch.Tensor]:
-        return self.propagate(self.encode_nodes(), graph)
+    def forward(self, graph: HeteroGraph, train: bool = False) -> Dict[str, torch.Tensor]:
+        return self.propagate(self.encode_nodes(train), graph, train)
 
-    def _heads(self, init_p, init_l, final_p, final_l, p_idx, l_idx, degrees) -> torch.Tensor:
+    def _heads(
+        self, init_p, init_l, final_p, final_l, p_idx, l_idx, degrees, train: bool = False,
+        patient_plan: Optional[GatherPlan] = None, lab_plan: Optional[GatherPlan] = None,
+        dropout_seed: int = 0,
+    ) -> torch.Tensor:
         if self.head_style == "factored":
-            tab = self.tabular_mlp(init_p, init_l, p_idx, l_idx)[..., 0]
-            gnn = self.edge_predictor(final_p, final_l, p_idx, l_idx)[..., 0]
+            # degree-predicated head tiles: with a slot-major batch, a tile
+            # whose real slots all lie at or above the threshold never uses
+            # its tabular prediction (the gate below discards it), so the
+            # fused kernel skips the tile; all-low tiles skip the GNN head
+            tab_mask = gnn_mask = None
+            if patient_plan is not None and patient_plan.identity and degrees.shape[0] % TILE_E == 0:
+                low = (degrees < self.degree_threshold).reshape(-1, TILE_E)
+                tab_mask = low.any(dim=1).to(torch.int32)
+                gnn_mask = (~low).any(dim=1).to(torch.int32)
+            common = dict(train=train, patient_plan=patient_plan, lab_plan=lab_plan)
+            tab = self.tabular_mlp(
+                init_p, init_l, p_idx, l_idx, tile_mask=tab_mask,
+                seed=stream_seed_pair(dropout_seed, "tabular_mlp"), **common,
+            )[..., 0]
+            gnn = self.edge_predictor(
+                final_p, final_l, p_idx, l_idx, tile_mask=gnn_mask,
+                seed=stream_seed_pair(dropout_seed, "edge_predictor"), **common,
+            )[..., 0]
         else:
-            tab = self.tabular_mlp(torch.cat([init_p[p_idx], init_l[l_idx]], dim=-1))[..., 0]
-            gnn = self.edge_predictor(torch.cat([final_p[p_idx], final_l[l_idx]], dim=-1))[..., 0]
+            def take(x_p, x_l):
+                return torch.cat(
+                    [take_with_plan(x_p, p_idx, patient_plan), take_with_plan(x_l, l_idx, lab_plan)],
+                    dim=-1,
+                )
+
+            tab = self.tabular_mlp(take(init_p, init_l), train)[..., 0]
+            gnn = self.edge_predictor(take(final_p, final_l), train)[..., 0]
         return torch.where(degrees < self.degree_threshold, tab, gnn)
 
-    def predict_lab_values(self, graph: HeteroGraph, p_idx, l_idx) -> torch.Tensor:
+    def predict_lab_values(
+        self,
+        graph: HeteroGraph,
+        p_idx: torch.Tensor,
+        l_idx: torch.Tensor,
+        train: bool = False,
+        patient_plan: Optional[GatherPlan] = None,
+        lab_plan: Optional[GatherPlan] = None,
+        degrees: Optional[torch.Tensor] = None,
+        dropout_seed: int = 0,
+    ) -> torch.Tensor:
         """Degree-gated dual-head prediction for (patient, lab) pairs: the
-        tabular head below the degree threshold, the GNN head above."""
-        initial = self.encode_nodes()
-        final = self.propagate(initial, graph)
+        tabular head below the degree threshold, the GNN head above.
+
+        With the kernel path (``impl="pallas"``) the batch's gather plans
+        route the pair gathers' backward through K1, and an identity patient
+        plan (a slot-major batch) runs the factored heads in the fused
+        pair-head kernels, each skipping the tiles the gate discards.
+        ``degrees`` is the per-pair patient lab-degree (gathered here when
+        None); ``dropout_seed`` seeds the fused heads' dropout."""
+        initial = self.encode_nodes(train)
+        final = self.propagate(initial, graph, train)
+        use_plans = self.impl == "pallas"
+        if degrees is None:
+            degrees = graph.patient_lab_degree[p_idx.long()]
         return self._heads(
-            initial[PATIENT], initial[LAB], final[PATIENT], final[LAB], p_idx, l_idx,
-            graph.patient_lab_degree[p_idx],
+            initial[PATIENT], initial[LAB], final[PATIENT], final[LAB], p_idx, l_idx, degrees,
+            train, patient_plan if use_plans else None, lab_plan if use_plans else None,
+            dropout_seed,
         )
 
     def compute_node_state(self, graph: HeteroGraph) -> Dict[str, torch.Tensor]:

@@ -1,10 +1,11 @@
-"""Build and load the CUDA segment kernels (``csrc/segment.cu``).
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-At first use ``nvcc`` compiles the source in this checkout into a shared
-library with a plain C interface under ``multi_modal_gnn_tpu_torch/_build/``
-(named by the source's hash, so an edited source builds anew), and ctypes
-loads it.  A missing ``nvcc`` or a failed build raises; there is no other
-path to the kernels.
+At first use ``nvcc`` compiles every source in this checkout, one process
+per source and all at once, and links the objects into one shared library
+with a plain C interface under ``multi_modal_gnn_tpu_torch/_build/`` (named
+by the sources' hash, so an edited source builds anew); ctypes loads it.
+A missing ``nvcc`` or a failed build raises; there is no other path to the
+kernels.
 """
 
 from __future__ import annotations
@@ -15,15 +16,13 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "segment.cu"
+SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""  # nvcc's output (register and shared-memory report) of this process's build
@@ -40,24 +39,59 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
 
 
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.name.encode() + src.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def build() -> Path:
-    """Compile ``csrc/segment.cu`` unless a library of this source exists."""
+    """Compile ``csrc/*.cu`` unless a library of these sources exists."""
     global build_log
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libmmgnn_segment_{digest}.so"
+    out = BUILD_DIR / f"libmmgnn_kernels_{_digest()}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True, timeout=600,
-    )
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objects: List[Path] = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in SOURCES]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for src, obj in zip(SOURCES, objects)
+    ]
+    logs, failed = [], []
+    for src, proc in zip(SOURCES, procs):
+        try:
+            text, _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text, _ = proc.communicate()
+            text += "\n(timed out)"
+        logs.append(f"== {src.name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    tmp = out.with_suffix(f".{tag}")
+    try:
+        if not failed:
+            link = subprocess.run(
+                [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objects)],
+                capture_output=True, text=True, timeout=600,
+            )
+            logs.append(f"== link\n{link.stdout}{link.stderr}")
+            if link.returncode != 0:
+                failed.append("link")
+        build_log = "\n".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
+        tmp.replace(out)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed building {SOURCE}:\n{build_log}")
-    tmp.replace(out)
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     return out
 
 
@@ -67,15 +101,20 @@ def load() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     lib = ctypes.CDLL(str(build()))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mmgnn_segment_sum_windowed.argtypes = [p, p, p, p, i, i, i, p, p]
-    lib.mmgnn_fused_table_segment_sum.argtypes = [p, p, p, p, i, i, i, p, p]
-    lib.mmgnn_span_segment_sum.argtypes = [p, i, p, p, p, p, i, i, i, i, p, p]
-    for fn in (
-        lib.mmgnn_segment_sum_windowed,
-        lib.mmgnn_fused_table_segment_sum,
-        lib.mmgnn_span_segment_sum,
-    ):
+    p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+    head = [p, i, p, i, p, p, p, p, p, p, p, p, p, i, i, i, u, u, u, f, i]
+    signatures = {
+        "mmgnn_segment_sum_windowed": [p, p, p, p, i, i, i, p, p],
+        "mmgnn_fused_table_segment_sum": [p, p, p, p, i, i, i, p, p],
+        "mmgnn_fused_table_segment_sum_bwd": [p, p, p, p, i, i, i, i, i, p, p],
+        "mmgnn_span_segment_sum": [p, i, p, p, p, p, i, i, i, i, p, p],
+        "mmgnn_pair_head_fwd": [*head, p, p],
+        "mmgnn_pair_head_bwd": [*head, p, i, p, p, p, p, p, p, p],
+        "mmgnn_pair_head_bwd_shared_bytes": [i],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     _lib = lib
     return lib

@@ -15,6 +15,14 @@ that applies, in this order:
 ``impl="xla"`` and ``max`` aggregation take the segment path
 (``index_add_`` / ``scatter_reduce``).  The gates match the JAX ones in its
 ``take`` gather mode, so both packages pick the same tier on the same graph.
+
+Each kernel tier is a ``torch.autograd.Function`` whose backward is a kernel,
+as the JAX ``custom_vjp``s are: ``fused_table`` runs K2b; ``span`` and
+``paired`` run K1 over the mirror relation's windowed plan on the scaled
+upstream gradient (``d x_src[s] = sum_{e: src e = s} g[dst e] / deg``);
+``windowed`` (no mirror plan) gathers the gradient rows back to the slots
+and scatter-adds them.  :func:`take_with_plan` is a row gather whose backward
+is K1 over a :class:`~multi_modal_gnn_tpu_torch.graph.hetero.GatherPlan`.
 """
 
 from __future__ import annotations
@@ -23,9 +31,10 @@ from typing import Optional
 
 import torch
 
-from multi_modal_gnn_tpu_torch.graph.hetero import EdgeSet
+from multi_modal_gnn_tpu_torch.graph.hetero import TILE_E, WINDOW, EdgeSet, GatherPlan
 from multi_modal_gnn_tpu_torch.ops.segment_kernels import (
     fused_table_segment_sum,
+    fused_table_segment_sum_bwd,
     segment_sum_windowed,
     span_segment_sum,
 )
@@ -96,6 +105,84 @@ def _finish(total: torch.Tensor, edges: EdgeSet, aggregation: str, dtype) -> tor
     return out.to(dtype)
 
 
+def _forward_sum(x: torch.Tensor, edges: EdgeSet, tier: str) -> torch.Tensor:
+    if tier == "fused_table":
+        return fused_table_segment_sum(
+            x, edges.win_src, edges.win_local, edges.win_tile_map, edges.num_windows
+        )
+    if tier == "span":
+        return span_segment_sum(
+            x, edges.span_src, edges.span_local, edges.span_tile_map, edges.span_base,
+            edges.num_windows, edges.span_rows,
+        )
+    return segment_sum_windowed(
+        x, edges.win_src, edges.win_local, edges.win_tile_map, edges.num_windows
+    )
+
+
+def _backward_sum(g: torch.Tensor, edges: EdgeSet, edges_rev: Optional[EdgeSet], tier: str):
+    """``d x_src`` from the (degree-scaled, f32, contiguous) destination
+    gradient ``g [num_dst, D]``."""
+    if tier == "fused_table":
+        return fused_table_segment_sum_bwd(
+            g, edges.win_src, edges.win_local, edges.win_tile_map, edges.num_src
+        )
+    if tier in ("span", "paired"):
+        return segment_sum_windowed(
+            g, edges_rev.win_src, edges_rev.win_local, edges_rev.win_tile_map,
+            edges_rev.num_windows,
+        )[: edges_rev.num_dst]
+    # windowed: the slot rows' gradient, scatter-added onto their sources
+    real = edges.win_local < WINDOW
+    window_of_slot = torch.repeat_interleave(edges.win_tile_map.long(), TILE_E)[real]
+    rows = window_of_slot * WINDOW + edges.win_local[real].long()
+    dx = torch.zeros(edges.num_src, g.shape[1], dtype=torch.float32, device=g.device)
+    return dx.index_add_(0, edges.win_src[real].long(), g.index_select(0, rows))
+
+
+class _KernelAggregate(torch.autograd.Function):
+    """A kernel tier's aggregation with its kernel backward."""
+
+    @staticmethod
+    def forward(ctx, x, edges, edges_rev, tier, aggregation):
+        ctx.edges, ctx.edges_rev, ctx.tier, ctx.aggregation = edges, edges_rev, tier, aggregation
+        ctx.dtype = x.dtype
+        return _finish(_forward_sum(x, edges, tier), edges, aggregation, x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        edges = ctx.edges
+        g = g.float()
+        if ctx.aggregation == "mean":
+            g = g / edges.dst_count.clamp_min(1.0)[:, None]
+        dx = _backward_sum(g.contiguous(), edges, ctx.edges_rev, ctx.tier)
+        return dx.to(ctx.dtype), None, None, None, None
+
+
+class _TakeWithPlan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, idx, plan):
+        ctx.plan, ctx.dtype = plan, x.dtype
+        return x.index_select(0, idx.long())
+
+    @staticmethod
+    def backward(ctx, g):
+        plan = ctx.plan
+        g = g.float().contiguous()
+        # identity plans (slot-major batches): the gradient is already in slot order
+        src = None if plan.identity else plan.win_src
+        dx = segment_sum_windowed(g, src, plan.win_local, plan.win_tile_map, plan.num_windows)
+        return dx[: plan.num_rows].to(ctx.dtype), None, None
+
+
+def take_with_plan(x: torch.Tensor, idx: torch.Tensor, plan: Optional[GatherPlan]) -> torch.Tensor:
+    """``x[idx]`` whose backward runs K1 over ``plan`` (a plain gather
+    without one)."""
+    if plan is None:
+        return x.index_select(0, idx.long())
+    return _TakeWithPlan.apply(x, idx, plan)
+
+
 def aggregate_neighbors(
     x_src: torch.Tensor,
     edges: EdgeSet,
@@ -113,22 +200,8 @@ def aggregate_neighbors(
         if aggregation == "sum":
             out = out * edges.dst_count.clamp_min(1.0)[:, None]
         return out
-    if tier == "fused_table":
-        total = fused_table_segment_sum(
-            x_src, edges.win_src, edges.win_local, edges.win_tile_map, edges.num_windows
-        )
-        return _finish(total, edges, aggregation, x_src.dtype)
-    if tier == "span":
-        total = span_segment_sum(
-            x_src, edges.span_src, edges.span_local, edges.span_tile_map, edges.span_base,
-            edges.num_windows, edges.span_rows,
-        )
-        return _finish(total, edges, aggregation, x_src.dtype)
-    if tier in ("paired", "windowed"):
-        total = segment_sum_windowed(
-            x_src, edges.win_src, edges.win_local, edges.win_tile_map, edges.num_windows
-        )
-        return _finish(total, edges, aggregation, x_src.dtype)
+    if tier in ("fused_table", "span", "paired", "windowed"):
+        return _KernelAggregate.apply(x_src, edges, edges_rev, tier, aggregation)
 
     # segment path: padding edges point at the dummy segment num_dst
     gathered = x_src.index_select(0, edges.src.long())

@@ -2,20 +2,22 @@
 their plain PyTorch versions.
 
 Each wrapper takes its plain version for tensors on the CPU and launches its
-kernel for tensors on a CUDA device; any other device raises.  All return
-the f32 sum per window row, ``[num_windows * 128, D]``; the caller slices
-``[:num_dst]`` and divides by the in-degree for a mean.
+kernel for tensors on a CUDA device; any other device raises.  The forward
+kernels return the f32 sum per window row, ``[num_windows * 128, D]``; the
+caller slices ``[:num_dst]`` and divides by the in-degree for a mean.
+K2b returns the small table's gradient ``[num_src, D]``.
 
-=========================  =================================================
-wrapper                    replaces (``multi_modal_gnn_tpu/ops/pallas_segment.py``)
-=========================  =================================================
-segment_sum_windowed       K1  ``_windowed_segment_sum_fwd`` / ``_segment_kernel``
-fused_table_segment_sum    K2f ``_fused_table_segment_sum_fwd`` / ``_fused_table_kernel_take``
-span_segment_sum           K3  ``_span_dma_segment_sum_fwd`` / ``_span_dma_kernel``
-=========================  =================================================
+============================  =================================================
+wrapper                       replaces (``multi_modal_gnn_tpu/ops/pallas_segment.py``)
+============================  =================================================
+segment_sum_windowed          K1  ``_windowed_segment_sum_fwd`` / ``_segment_kernel``
+fused_table_segment_sum       K2f ``_fused_table_segment_sum_fwd`` / ``_fused_table_kernel_take``
+fused_table_segment_sum_bwd   K2b ``_fused_table_segment_sum_bwd`` / ``_fused_table_bwd_kernel_take``
+span_segment_sum              K3  ``_span_dma_segment_sum_fwd`` / ``_span_dma_kernel``
+============================  =================================================
 
-The kernels are forward-only: the backward kernels (K2b, and K1 as the
-backward of the paired and span tiers) come with the training port.
+K1 is also the backward of the span and paired tiers and of a planned row
+gather (``ops/segment.py``).
 """
 
 from __future__ import annotations
@@ -31,11 +33,16 @@ from multi_modal_gnn_tpu_torch.graph.hetero import TILE_E, WINDOW
 launch_counts: Dict[str, int] = {
     "segment_sum_windowed": 0,
     "fused_table_segment_sum": 0,
+    "fused_table_segment_sum_bwd": 0,
     "span_segment_sum": 0,
 }
 
 _MAX_SHARED_BYTES = 232_448  # dynamic shared memory one H100 block may use
 _BLOCKS_PER_SM_TARGET = 8
+# K2b: shared bytes of one block's column slice of dT (at most 100 KB, so
+# two or more blocks share an SM), and the blocks per SM the grid aims at
+_K2B_SHARED_BUDGET = 100 * 1024
+_K2B_BLOCKS_PER_SM = 4
 
 
 def reset_launch_counts() -> None:
@@ -73,6 +80,14 @@ def fused_table_segment_sum_plain(table, win_src, win_local, win_tile_map, num_w
     return segment_sum_windowed_plain(table, win_src, win_local, win_tile_map, num_windows)
 
 
+def fused_table_segment_sum_bwd_plain(g, win_src, win_local, win_tile_map, num_src: int):
+    real = win_local < WINDOW
+    window_of_slot = torch.repeat_interleave(win_tile_map.long(), TILE_E)[real]
+    rows = window_of_slot * WINDOW + win_local[real].long()
+    out = torch.zeros(num_src, g.shape[1], dtype=torch.float32, device=g.device)
+    return out.index_add_(0, win_src[real].long(), g.float().index_select(0, rows))
+
+
 def span_segment_sum_plain(
     table, span_src, span_local, span_tile_map, span_base, num_windows: int, span_rows: int
 ):
@@ -92,14 +107,6 @@ def _on_cpu(*tensors: Optional[torch.Tensor]) -> bool:
     if devices == {"cuda"}:
         return False
     raise ValueError(f"segment kernels take tensors all on the CPU or all on one GPU, got {devices}")
-
-
-def _check_forward_only(x: torch.Tensor, name: str) -> None:
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError(
-            f"{name}: the CUDA segment kernels are forward-only; their backward "
-            "kernels come with the training port (see ROADMAP.md)"
-        )
 
 
 def _check_rows(x: torch.Tensor, name: str) -> None:
@@ -156,7 +163,6 @@ def segment_sum_windowed(x, idx, win_local, win_tile_map, num_windows: int) -> t
     name = "segment_sum_windowed"
     if _on_cpu(x, idx, win_local, win_tile_map):
         return segment_sum_windowed_plain(x, idx, win_local, win_tile_map, num_windows)
-    _check_forward_only(x, name)
     _check_rows(x, name)
     slots = win_local.shape[0]
     pairs = [(win_local, slots), (win_tile_map, slots // TILE_E)]
@@ -186,7 +192,6 @@ def fused_table_segment_sum(table, win_src, win_local, win_tile_map, num_windows
     name = "fused_table_segment_sum"
     if _on_cpu(table, win_src, win_local, win_tile_map):
         return fused_table_segment_sum_plain(table, win_src, win_local, win_tile_map, num_windows)
-    _check_forward_only(table, name)
     _check_rows(table, name)
     slots = win_local.shape[0]
     num_tiles = _check_plan(
@@ -208,6 +213,48 @@ def fused_table_segment_sum(table, win_src, win_local, win_tile_map, num_windows
     return out
 
 
+def _k2b_columns(num_src: int, d: int) -> int:
+    """Widest column slice (a power of two, 4..128, dividing d) whose
+    ``[num_src, cols + 1]`` shared table fits the budget."""
+    for cols in (128, 64, 32, 16, 8, 4):
+        if d % cols == 0 and 4 * num_src * (cols + 1) <= _K2B_SHARED_BUDGET:
+            return cols
+    raise ValueError(
+        f"fused_table_segment_sum_bwd: a {num_src}-row table does not fit a block's shared memory"
+    )
+
+
+def fused_table_segment_sum_bwd(g, win_src, win_local, win_tile_map, num_src: int) -> torch.Tensor:
+    """K2b: ``dT[win_src[e]] += g[tile_map[t]*128 + local[e]]`` over the real
+    slots: the gradient of K2f's small table, from the destination rows
+    ``g [num_dst, D]``."""
+    name = "fused_table_segment_sum_bwd"
+    if _on_cpu(g, win_src, win_local, win_tile_map):
+        return fused_table_segment_sum_bwd_plain(g, win_src, win_local, win_tile_map, num_src)
+    _check_rows(g, name)
+    slots = win_local.shape[0]
+    num_tiles = _check_plan(
+        name, g.device, slots, (win_src, slots), (win_local, slots),
+        (win_tile_map, slots // TILE_E),
+    )
+    d = g.shape[1]
+    cols = _k2b_columns(num_src, d)
+    col_blocks = d // cols
+    sms = torch.cuda.get_device_properties(g.device).multi_processor_count
+    tiles_per_block = max(1, -(-num_tiles * col_blocks // (sms * _K2B_BLOCKS_PER_SM)))
+    out = torch.zeros(num_src, d, dtype=torch.float32, device=g.device)
+    from multi_modal_gnn_tpu_torch.ops import _build
+
+    rc = _build.load().mmgnn_fused_table_segment_sum_bwd(
+        _ptr(g), _ptr(win_src), _ptr(win_local), _ptr(win_tile_map), num_tiles,
+        tiles_per_block, num_src, d, cols, _ptr(out),
+        ctypes.c_void_p(torch.cuda.current_stream(g.device).cuda_stream),
+    )
+    _raise_on(rc, name)
+    launch_counts[name] += 1
+    return out
+
+
 def span_segment_sum(
     table, span_src, span_local, span_tile_map, span_base, num_windows: int, span_rows: int
 ) -> torch.Tensor:
@@ -220,7 +267,6 @@ def span_segment_sum(
         return span_segment_sum_plain(
             table, span_src, span_local, span_tile_map, span_base, num_windows, span_rows
         )
-    _check_forward_only(table, name)
     _check_rows(table, name)
     slots = span_local.shape[0]
     num_tiles = _check_plan(

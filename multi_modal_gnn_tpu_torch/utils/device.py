@@ -14,6 +14,12 @@ def require_cuda() -> torch.device:
     return torch.device("cuda", 0)
 
 
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; None means the card
+    (:func:`require_cuda`).  Tests pass ``device="cpu"``."""
+    return require_cuda() if device is None else torch.device(device)
+
+
 def disable_tf32() -> None:
     """Full float32 in matmuls and convolutions (TF32 keeps ~3 digits)."""
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -44,8 +44,8 @@ SCRIPT = textwrap.dedent(
     from multi_modal_gnn_tpu_torch.serving import build_serving_fn, predict_patient
 
     config = Config.from_dict({"model": {"hidden_dim": 16, "use_pallas": True}})
-    graph = make_synthetic_graph(SyntheticSpec.tiny(), config)
-    model = build_model(config, graph, generator=torch.Generator().manual_seed(0))
+    graph = make_synthetic_graph(SyntheticSpec.tiny(), config, device="cpu")
+    model = build_model(config, graph, device="cpu", generator=torch.Generator().manual_seed(0))
     fn, _ = build_serving_fn(model, graph)
     out = predict_patient(fn, 0, graph.num_nodes("lab"))
     assert out.shape == (graph.num_nodes("lab"),) and bool(torch.isfinite(out).all())

@@ -71,7 +71,7 @@ def test_bridge_loads_strict(tiny_bundle):
         variables = _jax_variables(jax_model, tiny_bundle.graph)
         edge_arrays = {et: tuple(tiny_bundle.host_edges[et]) for et in tiny_bundle.host_edges}
         graph = assemble_graph(edge_arrays, dict(tiny_bundle.graph.node_counts), Config.from_dict(cfg.to_dict()))
-        model = build_model(Config.from_dict(cfg.to_dict()), graph)
+        model = build_model(Config.from_dict(cfg.to_dict()), graph, device="cpu")
         sd = state_dict_from_flax(variables)
         result = model.load_state_dict(sd, strict=True)
         assert not result.missing_keys and not result.unexpected_keys
@@ -135,7 +135,7 @@ def test_slice_engages_every_kernel_tier(slice_case):
 @pytest.mark.parametrize("head_style", HEAD_STYLES)
 def test_slice_matches_jax(slice_case, head_style):
     graph, variables = slice_case["graph"], slice_case["variables"][head_style]
-    model = build_model(Config.from_dict(slice_case["cfg"][head_style].to_dict()), graph)
+    model = build_model(Config.from_dict(slice_case["cfg"][head_style].to_dict()), graph, device="cpu")
     assert model.head_style == head_style
     model.load_state_dict(state_dict_from_flax(variables), strict=True)
     state = compute_node_state(model, graph)
@@ -163,7 +163,7 @@ def test_slice_matches_jax(slice_case, head_style):
 
 def test_serving_rejects_bad_requests(slice_case):
     graph = slice_case["graph"]
-    model = build_model(Config.from_dict(slice_case["cfg"]["factored"].to_dict()), graph)
+    model = build_model(Config.from_dict(slice_case["cfg"]["factored"].to_dict()), graph, device="cpu")
     fn, _ = build_serving_fn(model, graph)
     with pytest.raises(IndexError):
         fn([graph.num_nodes("patient")], [0])

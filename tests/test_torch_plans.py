@@ -164,7 +164,7 @@ def test_load_graph_matches_jax(tmp_path, dense_bytes):
     )
     path = jax_save_graph(bundle, tmp_path / "graph")
     want = jax_load_graph(path).graph
-    got = load_graph(path)
+    got = load_graph(path, device="cpu")
     assert_graphs_equal(got, want)
     if dense_bytes == 0:
         assert any(es.span_rows for es in got.edges.values())
