@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving and training paths on one CUDA GPU.
+"""Smoke run of the PyTorch port's RGCN and HGT serving and training paths on
+one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -7,8 +8,9 @@ Phases, each printing one line with its seconds:
   1. device        the card's name and power limit (nvidia-smi); TF32 off
   2. build         compile csrc/*.cu for sm_90a, one nvcc per source
   3. graph         the scale_100k synthetic graph (seed 0, 100k patients, ~5M
-                   patient-lab edges), dense budget 0, span rows 256; per
-                   relation its aggregation tier, edges, windows and tiles
+                   patient-lab edges, numbered as the JAX package numbers
+                   nodes), dense budget 0, span rows 256; per relation its
+                   aggregation tier, edges, windows and tiles
   4. kernels       K1, K2f, K3 against their plain PyTorch versions at the
                    graph's relation shapes: errors, tolerance, median times
   5. slice         the RGCN at full width (hidden 128, 2 layers, heads (64,
@@ -29,6 +31,21 @@ Phases, each printing one line with its seconds:
                    launch counts), the median epoch time, the bench's
                    train_patient_lab_edges_per_sec, a validation loss, and
                    one torch.profiler epoch: top device kernels, idle share
+ 10. hgt-graph     the HGT attention plans of the same graph: per destination
+                   group its edges, windows, resident or span layouts, tiles
+ 11. hgt-kernels   K6, K7, K8 against their plain versions on every group's
+                   plans (both layouts), also with NaN rows past every table;
+                   the patient and lab groups' median times and bounds
+ 12. hgt-slice     the HGT at full width (hidden 128, 2 layers, 4 heads, head
+                   (64, 32), seeded weights): compute_node_state on the flash
+                   tier against the same weights on the segment tier (plain
+                   PyTorch) on the card, and three 500-lab patient requests
+ 13. hgt-train-step one Adam step with dropout 0, flash tier against segment
+                   tier: loss, every gradient, the parameters, peak memory;
+                   K6, K7 and K8 launched
+ 14. hgt-train     5 HGT epochs with dropout 0.2: median epoch time,
+                   train_patient_lab_edges_per_sec, a validation loss, launch
+                   counts, one profiled epoch
 Then a JSON line of per-kernel results, the nvidia-smi line, and the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero before the last line; without a CUDA device it fails in phase 1.
@@ -39,6 +56,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import math
 import statistics
 import sys
 import time
@@ -86,6 +104,7 @@ FP32_FLOPS = 67e12
 
 SEGMENT_SOURCE = "multi_modal_gnn_tpu_torch/csrc/segment.cu"
 PAIRHEAD_SOURCE = "multi_modal_gnn_tpu_torch/csrc/pairhead.cu"
+ATTENTION_SOURCE = "multi_modal_gnn_tpu_torch/csrc/attention.cu"
 KERNELS = {  # wrapper: (source, the TPU kernel it replaces)
     "segment_sum_windowed": (SEGMENT_SOURCE, "multi_modal_gnn_tpu/ops/pallas_segment.py:117"),
     "fused_table_segment_sum": (SEGMENT_SOURCE, "multi_modal_gnn_tpu/ops/pallas_segment.py:279"),
@@ -93,12 +112,35 @@ KERNELS = {  # wrapper: (source, the TPU kernel it replaces)
     "span_segment_sum": (SEGMENT_SOURCE, "multi_modal_gnn_tpu/ops/pallas_segment.py:529"),
     "pair_head_fwd": (PAIRHEAD_SOURCE, "multi_modal_gnn_tpu/ops/pallas_pairhead.py:296"),
     "pair_head_bwd": (PAIRHEAD_SOURCE, "multi_modal_gnn_tpu/ops/pallas_pairhead.py:362"),
+    "flash_attention_fwd": (ATTENTION_SOURCE, "multi_modal_gnn_tpu/ops/pallas_attention.py:216"),
+    "flash_attention_dq": (ATTENTION_SOURCE, "multi_modal_gnn_tpu/ops/pallas_attention.py:363"),
+    "flash_attention_dkv": (ATTENTION_SOURCE, "multi_modal_gnn_tpu/ops/pallas_attention.py:508"),
 }
 # FLOPs per active slot: pre0 adds (64), h0 @ W1 (2 * 64 * 32), b1 (32),
 # h1 . w2 (2 * 32); the backward adds dw2 (64), dpre1 @ W1^T and the dW1
 # outer products (2 * 2 * 64 * 32) and the dPp / dPl scatters (2 * 64)
 HEAD_FWD_FLOPS = 64 + 2 * 64 * 32 + 32 + 2 * 32
 HEAD_BWD_FLOPS = HEAD_FWD_FLOPS + 64 + 2 * 2 * 64 * 32 + 2 * 64
+# HGT: 4 heads of 32 columns.  FLOPs per edge and column: K6 takes q . k and
+# p * v (2 + 2); K7 and K8 about twice that (q . k, dO . v and one or two
+# weighted sums)
+HGT_HEADS = 4
+HGT_FWD_FLOPS_PER_COL = 4
+HGT_BWD_FLOPS_PER_COL = 8
+HGT_PLAIN_REPS = 5  # the plain versions gather [E, 128] tensors: fewer repetitions
+# A whole HGT step, flash tier against the segment tier, both on the card,
+# per gradient tensor in the 2-norm (plus STEP_GRAD_ZERO_FLOOR).  The two
+# tiers sum every softmax and its backward in another order, so the head's
+# inputs differ in the last bits; a head unit within that rounding of its
+# ReLU's kink, or a prediction within it of its target under the MAE, takes
+# the other branch and moves its rows' gradients by a whole term.  The
+# embedding tables, which collect those rows, drift most: embed_patient
+# 3.4e-3 to 3.5e-3, embed_lab 1.8e-3 to 1.9e-3 in three runs, every other
+# tensor below 1e-3 of its norm or under the floor (NVIDIA H100 80GB HBM3,
+# 700.00 W).  Held to three times the largest drift; a fault of the path (a
+# group's gradient dropped, misscaled or sent through the wrong plan) moves
+# whole terms of a tensor
+HGT_STEP_GRAD_NORM_REL = 1e-2
 
 
 def _phase(name: str, t0: float, msg: str) -> None:
@@ -255,10 +297,12 @@ def main() -> int:
 
     from multi_modal_gnn_tpu_torch.config import Config, GraphConfig, ModelConfig
     from multi_modal_gnn_tpu_torch.data import SyntheticSpec, make_synthetic_graph
+    from multi_modal_gnn_tpu_torch.graph.attn_plan import ensure_attn_plans
     from multi_modal_gnn_tpu_torch.graph.hetero import SPAN_MIN_SRC, TILE_E, WINDOW
-    from multi_modal_gnn_tpu_torch.graph.schema import LAB, PATIENT, PATIENT_LAB, mirror_edge_type
+    from multi_modal_gnn_tpu_torch.graph.schema import LAB, PATIENT, mirror_edge_type
     from multi_modal_gnn_tpu_torch.models import build_model
     from multi_modal_gnn_tpu_torch.ops import _build, aggregation_tier
+    from multi_modal_gnn_tpu_torch.ops import attention_kernels as ak
     from multi_modal_gnn_tpu_torch.ops import pairhead_kernels as pk
     from multi_modal_gnn_tpu_torch.ops import segment_kernels as sk
     from multi_modal_gnn_tpu_torch.serving import (
@@ -267,12 +311,12 @@ def main() -> int:
         predict_patient,
     )
     from multi_modal_gnn_tpu_torch.training import Trainer, masker_from_config
-    from multi_modal_gnn_tpu_torch.training.masker import _pad_batch
     from multi_modal_gnn_tpu_torch.utils.device import disable_tf32, gpu_identity, require_cuda
 
     def reset_counts():
         sk.reset_launch_counts()
         pk.reset_launch_counts()
+        ak.reset_launch_counts()
 
     def read_counts():
         return {**sk.launch_counts, **pk.launch_counts}
@@ -519,29 +563,6 @@ def main() -> int:
         f"tiles run: GNN head {float(masks['gnn'].float().mean()):.4f}, "
         f"tabular head {float(masks['tab'].float().mean()):.4f}"
     )
-    # The JAX package's table path (graph/build.py) numbers patients by
-    # ascending lab degree and labs by descending frequency
-    # (graph.cluster_patients_by_degree and cluster_labs_by_frequency); the
-    # port keeps the generator's order.  The same train rows, numbered so:
-    p_tr, l_tr, v_tr = masker.split_arrays("train")
-    deg = graph_cpu.patient_lab_degree.numpy()
-    es_pl = graph_cpu.edges[PATIENT_LAB]
-    freq = np.bincount(es_pl.dst.numpy()[es_pl.mask.numpy() > 0], minlength=num_l)
-    p_new, l_new = np.empty(num_p, np.int64), np.empty(num_l, np.int64)
-    p_new[np.argsort(deg, kind="stable")] = np.arange(num_p)
-    l_new[np.argsort(-freq, kind="stable")] = np.arange(num_l)
-    relabelled, _ = _pad_batch(
-        p_new[p_tr], l_new[l_tr], v_tr, masker.pad_multiple, num_p, num_l, slot_major=True,
-        lab_block_rows=plan.lab_block_rows,
-    )
-    low_r = (np.sort(deg)[relabelled.patient_idx.numpy()] < config.model.degree_threshold).reshape(-1, TILE_E)
-    print(
-        f"    the same rows with the JAX package's degree / frequency numbering: slots "
-        f"{relabelled.patient_idx.shape[0]}  tiles {low_r.shape[0]}  tiles run: GNN head "
-        f"{float((~low_r).any(axis=1).mean()):.4f}, tabular head {float(low_r.any(axis=1).mean()):.4f}"
-    )
-    del relabelled, low_r
-
     # K2b on the three fused-table relations; the largest one is timed
     for et in sorted((et for et, t in tiers.items() if t == "fused_table"),
                      key=lambda et: -graph.edges[et].num_valid):
@@ -757,15 +778,272 @@ def main() -> int:
 
     if failed_grads:
         raise AssertionError(f"train-step gradients outside tolerance: {failed_grads}")
+    del model, trainer
+    torch.cuda.empty_cache()
+
+    # 10. hgt-graph --------------------------------------------------------
+    t0 = time.perf_counter()
+    hgt_config = dataclasses.replace(
+        config, model=dataclasses.replace(config.model, architecture="HGT", num_heads=HGT_HEADS)
+    )
+    nh = HGT_HEADS
+    graph_hgt_cpu = ensure_attn_plans(graph_cpu, hgt_config)
+    plans_cpu = graph_hgt_cpu.attn_plans or {}
+    for dst_t, plan in plans_cpu.items():
+        sides = [
+            f"{name} {side.num_windows} windows, "
+            f"{f'span {side.span_rows}' if side.use_span else 'resident'}, "
+            f"{side.arrays()[1].shape[0] // TILE_E} tiles"
+            for name, side in (("fwd", plan.fwd), ("rev", plan.rev))
+        ]
+        print(
+            f"    {dst_t}: {len(plan.rel_keys)} relations  E {plan.num_edges}  "
+            f"virtual sources {plan.num_src_total}  " + "; ".join(sides)
+        )
+    if not {PATIENT, LAB} <= set(plans_cpu):
+        raise AssertionError(f"no attention plan for the patient or lab group: {sorted(plans_cpu)}")
+    graph_hgt = graph_hgt_cpu.to(dev)
+    graph_seg = dataclasses.replace(graph_hgt, attn_plans=None)  # the segment tier
+    plans = graph_hgt.attn_plans
+    _phase("hgt-graph", t0, f"attention plans for {sorted(plans)}; a group without one runs the segment tier")
+
+    # 11. hgt-kernels ------------------------------------------------------
+    t0 = time.perf_counter()
+    attn_results = {}
+
+    def attn_problem(plan, seed):
+        g = torch.Generator().manual_seed(seed)
+        q = torch.randn(plan.num_dst, d, generator=g) / math.sqrt(d // nh)  # scaled, as the model's
+        rows = [torch.randn(n, d, generator=g) for n in (plan.num_src_total,) * 2 + (plan.num_dst,)]
+        return [t.to(dev) for t in (q, *rows)]
+
+    def nan_padded(x, extra=4096):
+        out = torch.full((x.shape[0] + extra, x.shape[1]), float("nan"), device=dev)
+        out[: x.shape[0]] = x
+        return out
+
+    for seed, (dst_t, plan) in enumerate(sorted(plans.items(), key=lambda kv: -kv[1].num_edges)):
+        q, k, v, dout = attn_problem(plan, 10 + seed)
+        n, ns = plan.num_dst, plan.num_src_total
+        fwd_args = (*plan.fwd.arrays(), plan.fwd.num_windows, nh)
+        rev_args = (*plan.rev.arrays(), plan.rev.num_windows, nh)
+        tag = (f"{dst_t} group (fwd {'span' if plan.fwd.use_span else 'resident'}, "
+               f"rev {'span' if plan.rev.use_span else 'resident'})")
+        out_p, lse_p = ak.flash_attention_fwd_plain(q, k, v, *fwd_args)
+        lse_d = lse_p[:n].contiguous()
+        delta = (dout * out_p[:n]).reshape(n, nh, -1).sum(-1).contiguous()
+        stats = (q, k, v, dout, lse_d, delta)
+        dq_p = ak.flash_attention_dq_plain(*stats, *fwd_args)
+        dk_p, dv_p = ak.flash_attention_dkv_plain(*stats, *rev_args)
+        # the kernels on the plain tables, then on tables with NaN rows past them
+        errs = {}
+        for label, (qx, kx, vx, dx) in (
+            ("", (q, k, v, dout)),
+            (", NaN rows past every table",
+             (nan_padded(q)[:n], nan_padded(k), nan_padded(v), nan_padded(dout)[:n])),
+        ):
+            out, lse = ak.flash_attention_fwd(qx, kx, vx, *fwd_args)
+            dq = ak.flash_attention_dq(qx, kx, vx, dx, lse_d, delta, *fwd_args)
+            dk, dv = ak.flash_attention_dkv(qx, kx, vx, dx, lse_d, delta, *rev_args)
+            torch.cuda.synchronize()
+            errs.setdefault("flash_attention_fwd", []).extend([
+                _compare(f"K6 out, {tag}{label}", out[:n], out_p[:n], KERNEL_ATOL, KERNEL_RTOL)[0],
+                _compare(f"K6 lse, {tag}{label}", lse[:n], lse_p[:n], KERNEL_ATOL, KERNEL_RTOL)[0],
+            ])
+            errs.setdefault("flash_attention_dq", []).append(
+                _compare_scaled(f"K7 dq, {tag}{label}", dq[:n], dq_p[:n], GRAD_REL)
+            )
+            errs.setdefault("flash_attention_dkv", []).extend([
+                _compare_scaled(f"K8 dk, {tag}{label}", dk[:ns], dk_p[:ns], GRAD_REL),
+                _compare_scaled(f"K8 dv, {tag}{label}", dv[:ns], dv_p[:ns], GRAD_REL),
+            ])
+            del out, lse, dq, dk, dv
+        if dst_t not in (PATIENT, LAB):
+            continue
+        # times and bounds at this group's shapes
+        e = plan.num_edges
+        fwd_plan, rev_plan = _nbytes(*plan.fwd.arrays()), _nbytes(*plan.rev.arrays())
+        stats_bytes = _nbytes(q, k, v, dout, lse_d, delta)
+        work = {
+            "flash_attention_fwd": (
+                lambda: ak.flash_attention_fwd(q, k, v, *fwd_args),
+                lambda: ak.flash_attention_fwd_plain(q, k, v, *fwd_args),
+                _nbytes(q, k, v) + fwd_plan + _nbytes(out_p, lse_p), e * HGT_FWD_FLOPS_PER_COL * d,
+            ),
+            "flash_attention_dq": (
+                lambda: ak.flash_attention_dq(*stats, *fwd_args),
+                lambda: ak.flash_attention_dq_plain(*stats, *fwd_args),
+                stats_bytes + fwd_plan + _nbytes(dq_p), e * HGT_BWD_FLOPS_PER_COL * d,
+            ),
+            "flash_attention_dkv": (
+                lambda: ak.flash_attention_dkv(*stats, *rev_args),
+                lambda: ak.flash_attention_dkv_plain(*stats, *rev_args),
+                stats_bytes + rev_plan + _nbytes(dk_p, dv_p), e * HGT_BWD_FLOPS_PER_COL * d,
+            ),
+        }
+        for name, (kernel, plain, nbytes, flops) in work.items():
+            ms, plain_ms = _median_ms(kernel), _median_ms(plain, HGT_PLAIN_REPS)
+            bound = _bound(nbytes, flops)
+            print(
+                f"    {name} on the {dst_t} group: kernel {ms:.4f} ms (median of {TIMING_REPS})  "
+                f"plain {plain_ms:.4f} ms (median of {HGT_PLAIN_REPS})  bound {bound['bound_ms']:.4f} ms "
+                f"({bound['bound_by']})  library none"
+            )
+            attn_results.setdefault(name, {})[dst_t] = {
+                "max_abs_err": max(errs[name]), "ms": ms, "plain_ms": plain_ms, **bound,
+                "library_ms": None,
+            }
+        del q, k, v, dout, out_p, lse_p, dq_p, dk_p, dv_p, stats, work
+    torch.cuda.empty_cache()
+    _phase("hgt-kernels", t0, "K6, K7, K8 match their plain versions on every group, NaN rows past the tables too")
+
+    # 12. hgt-slice --------------------------------------------------------
+    t0 = time.perf_counter()
+    model = build_model(hgt_config, graph_cpu, generator=torch.Generator().manual_seed(0))
+    layer0 = model.hgt_0
+    print("    tiers: " + ", ".join(f"{nt} {layer0.tier(graph_hgt, nt)}" for nt in layer0.groups()))
+    reset_counts()
+    t_state = time.perf_counter()
+    state = compute_node_state(model, graph_hgt)
+    torch.cuda.synchronize()
+    state_s = time.perf_counter() - t_state
+    hgt_serving_launches = dict(ak.launch_counts)  # the HGT serving path ends here
+    if not hgt_serving_launches["flash_attention_fwd"]:
+        raise AssertionError(f"K6 did not launch on the HGT serving path: {hgt_serving_launches}")
+    state_seg = compute_node_state(model, graph_seg)
+    for key in ("final_p", "final_l"):
+        _compare(f"HGT state[{key}], flash tier vs segment tier", state[key], state_seg[key], SLICE_ATOL, SLICE_RTOL)
+    fn, _ = build_serving_fn(model, graph_hgt, state)
+    fn_seg, _ = build_serving_fn(model, graph_seg, state_seg)
+    patients = [int(x) for x in np.random.default_rng(1).integers(0, num_p, 3)]
+    latencies = []
+    for patient in patients:
+        t_req = time.perf_counter()
+        out = predict_patient(fn, patient, num_l)
+        torch.cuda.synchronize()
+        latencies.append(time.perf_counter() - t_req)
+        _compare(f"HGT request, patient {patient} ({out.shape[0]} labs)", out, predict_patient(fn_seg, patient, num_l),
+                 SLICE_ATOL, SLICE_RTOL)
+    warm = []
+    for _ in range(5):
+        t_state = time.perf_counter()
+        compute_node_state(model, graph_hgt)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t_state)
+    _phase(
+        "hgt-slice", t0,
+        f"compute_node_state first call {state_s * 1e3:.1f} ms, steady median {statistics.median(warm) * 1e3:.2f} ms "
+        f"(5 runs); 3 requests p50 {statistics.median(latencies) * 1e3:.3f} ms (first pass); "
+        f"launches {hgt_serving_launches}",
+    )
+    del model, state, state_seg, fn, fn_seg
+    torch.cuda.empty_cache()
+
+    # 13. hgt-train-step ---------------------------------------------------
+    t0 = time.perf_counter()
+    hgt0 = dataclasses.replace(hgt_config, model=dataclasses.replace(hgt_config.model, dropout=0.0))
+    hgt0_seg = dataclasses.replace(hgt0, model=dataclasses.replace(hgt0.model, extras={"hgt_flash": "off"}))
+    sup = masker.supervision_mask(0, batch_cpu).to(dev)
+    steps = {}
+    for tier, cfg, g in (("flash", hgt0, graph_hgt), ("segment", hgt0_seg, graph_seg)):
+        model = build_model(cfg, graph_cpu, generator=torch.Generator().manual_seed(0))
+        trainer = Trainer(model, g, masker, cfg)
+        b = trainer.get_batch("train")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t_step = time.perf_counter()
+        loss = trainer.train_step(b, sup, 0)
+        torch.cuda.synchronize()
+        steps[tier] = dict(
+            loss=loss, ms=(time.perf_counter() - t_step) * 1e3,
+            peak_gb=torch.cuda.max_memory_allocated() / 2**30, launches=dict(ak.launch_counts),
+            grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            params={n: p.detach().cpu() for n, p in model.named_parameters()},
+        )
+        del model, trainer, b
+        torch.cuda.empty_cache()
+    flash, seg = steps["flash"], steps["segment"]
+    if not all(flash["launches"].values()) or any(seg["launches"].values()):
+        raise AssertionError(f"launches: flash tier {flash['launches']}, segment tier {seg['launches']}")
+    _compare("HGT train step loss, flash vs segment tier", torch.tensor(flash["loss"]), torch.tensor(seg["loss"]),
+             0.0, STEP_LOSS_RTOL)
+    floor = STEP_GRAD_ZERO_FLOOR * max(float(g.norm()) for g in seg["grads"].values())
+    failed_hgt = [
+        name for name, g in seg["grads"].items()
+        if not _compare_norm(f"HGT grad {name}", flash["grads"][name], g, HGT_STEP_GRAD_NORM_REL, floor)
+    ]
+    for name, p_seg in seg["params"].items():
+        diff = float((flash["params"][name] - p_seg).abs().max())
+        if diff > STEP_PARAM_ATOL:
+            raise AssertionError(f"HGT param {name}: max |d| {diff:.3e} > {STEP_PARAM_ATOL}")
+    if failed_hgt:
+        raise AssertionError(f"HGT train-step gradients outside tolerance: {failed_hgt}")
+    _phase(
+        "hgt-train-step", t0,
+        f"loss {flash['loss']:.6f} (segment tier {seg['loss']:.6f}); first step: flash "
+        f"{flash['ms']:.1f} ms, peak {flash['peak_gb']:.2f} GiB; segment {seg['ms']:.1f} ms, peak "
+        f"{seg['peak_gb']:.2f} GiB (torch.cuda.max_memory_allocated); launches {flash['launches']}",
+    )
+    del steps, flash, seg
+
+    # 14. hgt-train --------------------------------------------------------
+    t0 = time.perf_counter()
+    model = build_model(hgt_config, graph_cpu, generator=torch.Generator().manual_seed(1))
+    trainer = Trainer(model, graph_hgt, masker, hgt_config)
+    trainer.train_epoch()  # warm-up
+    trainer.epoch += 1
+    torch.cuda.synchronize()
+    reset_counts()
+    hgt_epoch_ms, hgt_losses = [], []
+    for _ in range(TRAIN_EPOCHS):
+        t_ep = time.perf_counter()
+        hgt_losses.append(trainer.train_epoch())
+        torch.cuda.synchronize()
+        hgt_epoch_ms.append((time.perf_counter() - t_ep) * 1e3)
+        trainer.epoch += 1
+    hgt_train_launches = dict(ak.launch_counts)  # the HGT training path ends here
+    if not all(hgt_train_launches.values()):
+        raise AssertionError(f"a kernel of the HGT training path did not launch: {hgt_train_launches}")
+    if not all(np.isfinite(hgt_losses)):
+        raise AssertionError(f"non-finite HGT training loss: {hgt_losses}")
+    hgt_val = trainer.validate("val")
+    if not np.isfinite(hgt_val):
+        raise AssertionError(f"non-finite HGT validation loss {hgt_val}")
+    hgt_edges_per_s = n_train * TRAIN_EPOCHS / (sum(hgt_epoch_ms) / 1e3)
+    print(f"    losses {['%.6f' % x for x in hgt_losses]}  val loss {hgt_val:.6f}")
+    print(f"    epoch ms {['%.2f' % x for x in hgt_epoch_ms]}  launches in {TRAIN_EPOCHS} epochs {hgt_train_launches}")
+    wall_ms, busy_ms, top = _device_profile(trainer.train_epoch)
+    print(
+        f"    profiled epoch: wall {wall_ms:.2f} ms  device busy {busy_ms:.2f} ms  "
+        f"idle share {max(0.0, 1 - busy_ms / wall_ms):.4f}"
+    )
+    for name, ms in top[:12]:
+        print(f"      {ms:9.3f} ms  {100 * ms / max(busy_ms, 1e-9):5.1f} %  {name[:130]}")
+    _phase(
+        "hgt-train", t0,
+        f"{TRAIN_EPOCHS} epochs, dropout {hgt_config.model.dropout}: median epoch "
+        f"{statistics.median(hgt_epoch_ms):.2f} ms  train_patient_lab_edges_per_sec {hgt_edges_per_s:.1f} "
+        f"({n_train} train rows)",
+    )
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        entry = {
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": train_launches[name], **results[name],
-        }
-        if name in serving_launches:
-            entry["launches_serving"] = serving_launches[name]
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces}
+        if name in attn_results:  # the patient group's times; every timed group under "groups"
+            entry.update(
+                launches=hgt_train_launches[name],
+                launches_per_step=hgt_train_launches[name] // TRAIN_EPOCHS,
+                launches_serving=hgt_serving_launches[name],
+                **attn_results[name][PATIENT], groups=attn_results[name],
+            )
+        else:
+            entry.update(
+                launches=train_launches[name], launches_per_step=train_launches[name] // TRAIN_EPOCHS,
+                **results[name],
+            )
+            if name in serving_launches:
+                entry["launches_serving"] = serving_launches[name]
         if name == "segment_sum_windowed":
             entry["as_span_backward"] = k1_backward
         kernels.append(entry)

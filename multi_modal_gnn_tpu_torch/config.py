@@ -30,6 +30,11 @@ class GraphConfig:
     dense_adjacency_max_bytes: int = 268_435_456
     # span-plan block height for big-source relations; 0 builds no span plan
     src_span_rows: int = 256
+    # node numbering of synthetic graphs (data/synthetic.py): patients by
+    # ascending lab degree, labs by descending frequency, as the JAX graph
+    # build numbers them; both off keeps the generator's own order
+    cluster_patients_by_degree: bool = True
+    cluster_labs_by_frequency: bool = True
 
 
 @dataclass(frozen=True)
@@ -42,21 +47,32 @@ class EdgeHeadConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
+    architecture: str = "RGCN"  # RGCN | HGT
     hidden_dim: int = 128
     num_layers: int = 2
     dropout: float = 0.2
     activation: str = "relu"  # relu | elu | leaky_relu
     use_batch_norm: bool = True
     aggregation: str = "mean"  # mean | sum | max
+    num_heads: int = 4  # HGT only
     degree_threshold: int = 6
     edge_head: EdgeHeadConfig = field(default_factory=EdgeHeadConfig)
     compute_dtype: str = "float32"
     # run neighbor aggregation through the tiered kernels (ops/segment.py)
     use_pallas: bool = False
-    # extras.head_style: auto | concat | factored
+    # extras.head_style: auto | concat | factored (RGCN); extras.hgt_flash:
+    # auto | off and extras.hgt_dense_attn_bytes (HGT)
     extras: Dict[str, Any] = field(default_factory=dict)
 
     def __post_init__(self):
+        if self.architecture not in ("RGCN", "HGT"):
+            raise ConfigError(f"model.architecture must be RGCN|HGT, got {self.architecture!r}")
+        if self.architecture == "HGT" and (self.num_heads <= 0 or self.hidden_dim % self.num_heads):
+            raise ConfigError(
+                f"model.num_heads={self.num_heads} must divide hidden_dim={self.hidden_dim}"
+            )
+        if self.hgt_flash not in ("auto", "off"):
+            raise ConfigError(f"model.extras.hgt_flash invalid: {self.hgt_flash!r}")
         if self.activation not in ("relu", "elu", "leaky_relu"):
             raise ConfigError(f"model.activation invalid: {self.activation!r}")
         if self.aggregation not in ("mean", "sum", "max"):
@@ -72,6 +88,15 @@ class ModelConfig:
     @property
     def head_style(self) -> str:
         return str(self.extras.get("head_style", "auto"))
+
+    @property
+    def hgt_flash(self) -> str:
+        value = str(self.extras.get("hgt_flash", "auto")).lower()
+        return "off" if value in ("off", "0", "false") else value
+
+    @property
+    def hgt_dense_attn_bytes(self) -> int:
+        return int(self.extras.get("hgt_dense_attn_bytes", 134_217_728))
 
 
 @dataclass(frozen=True)
@@ -166,11 +191,10 @@ class Config:
 
 
 # accepted and dropped: they change TPU layout or TPU kernel choice only
-_GRAPH_IGNORED = {
-    "node_types", "add_self_loops", "cluster_patients_by_degree",
-    "cluster_labs_by_frequency", "num_shards", "shard_kernel_plans",
-}
-_MODEL_IGNORED = {"num_heads", "dual_head_fusion", "hgt_dense_attn_bytes"}
+_GRAPH_IGNORED = {"node_types", "add_self_loops", "num_shards", "shard_kernel_plans"}
+_MODEL_IGNORED = {"dual_head_fusion"}
+# model keys that the JAX ``to_dict`` flattens out of ``extras``
+_MODEL_EXTRAS = {"head_style", "hgt_flash", "hgt_dense_attn_bytes"}
 # accepted and dropped: TPU device placement and dispatch
 _TRAIN_IGNORED = {"device", "num_devices", "donate_state"}
 _TRAIN_EXTRAS = {"lab_tile_rows", "lab_tile_mode", "lab_reweighting"}
@@ -196,9 +220,6 @@ def _graph_from_dict(d: Dict[str, Any]) -> GraphConfig:
 
 
 def _model_from_dict(d: Dict[str, Any]) -> ModelConfig:
-    arch = d.pop("architecture", "RGCN")
-    if arch != "RGCN":
-        raise ConfigError(f"model.architecture={arch!r}: the PyTorch port runs RGCN only")
     if d.pop("value_context", False):
         raise ConfigError("model.extras.value_context is not supported by the PyTorch port yet")
     head = dict(d.pop("edge_head", None) or {})
@@ -213,8 +234,7 @@ def _model_from_dict(d: Dict[str, Any]) -> ModelConfig:
     if unknown_head:
         raise ConfigError(f"unsupported edge_head setting(s): {sorted(unknown_head)}")
     extras = dict(d.pop("extras", None) or {})
-    if "head_style" in d:
-        extras["head_style"] = d.pop("head_style")
+    extras.update({k: d.pop(k) for k in _MODEL_EXTRAS & set(d)})
     known = _fields(ModelConfig) - {"edge_head", "extras"}
     unknown = set(d) - known - _MODEL_IGNORED
     if unknown:

@@ -3,11 +3,13 @@ as COO arrays, in numpy only.
 
 The random draws are made in the JAX generator's order from
 ``np.random.default_rng(spec.seed)``, so the topology and the normalized
-lab values are the same numbers.  The JAX package then wraps them in
-DataFrames and re-indexes nodes (patients by lab degree, labs by frequency,
-diagnoses and medications in first-seen order); the port keeps the
-generator's own indices, with every node type sized as the spec says.  The
-relabelling changes layout only, never results.
+lab values are the same numbers.  :func:`generate_synthetic_edges` returns
+them in the generator's own indices; :func:`make_synthetic_graph` numbers
+the nodes as the JAX package's graph build does (``graph.number_nodes``:
+patients by lab degree, labs by frequency, diagnoses and medications in
+first-seen order) unless both ``graph.cluster_*`` flags are off, so it
+builds the JAX package's ``make_synthetic_bundle(spec, config).graph``.  The
+numbering changes layout only, never results.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from multi_modal_gnn_tpu_torch.config import Config
-from multi_modal_gnn_tpu_torch.graph.build import assemble_graph
+from multi_modal_gnn_tpu_torch.graph.build import assemble_graph, number_nodes
 from multi_modal_gnn_tpu_torch.graph.hetero import HeteroGraph
 from multi_modal_gnn_tpu_torch.graph.schema import (
     DIAGNOSIS,
@@ -169,7 +171,16 @@ def make_synthetic_graph(
     spec: Optional[SyntheticSpec] = None, config: Optional[Config] = None, device=None
 ) -> HeteroGraph:
     """Generate the cohort and assemble its graph on ``device`` (default:
-    the card; raises without one)."""
+    the card; raises without one).  The nodes are numbered as the JAX
+    package numbers them, or in the generator's order when both
+    ``graph.cluster_patients_by_degree`` and ``cluster_labs_by_frequency``
+    are off."""
     device = resolve_device(device)
+    config = config or Config()
     edge_arrays, node_counts = generate_synthetic_edges(spec or SyntheticSpec.tiny())
+    gc = config.graph
+    if gc.cluster_patients_by_degree or gc.cluster_labs_by_frequency:
+        edge_arrays, node_counts = number_nodes(
+            edge_arrays, node_counts, gc.cluster_patients_by_degree, gc.cluster_labs_by_frequency
+        )
     return assemble_graph(edge_arrays, node_counts, config).to(device)

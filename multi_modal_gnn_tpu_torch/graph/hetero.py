@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -93,6 +93,8 @@ class HeteroGraph:
     edges: Dict[EdgeTypeKey, EdgeSet]
     patient_lab_degree: torch.Tensor  # int32 [num_patients]
     node_counts: Tuple[Tuple[str, int], ...] = ()
+    # HGT flash-attention plans per destination type (graph/attn_plan.py)
+    attn_plans: Optional[Dict[str, Any]] = None
 
     @property
     def node_count_map(self) -> Dict[str, int]:
@@ -114,6 +116,9 @@ class HeteroGraph:
             self,
             edges={et: es.to(device) for et, es in self.edges.items()},
             patient_lab_degree=self.patient_lab_degree.to(device),
+            attn_plans=None if self.attn_plans is None else {
+                dst_t: plan.to(device) for dst_t, plan in self.attn_plans.items()
+            },
         )
 
 

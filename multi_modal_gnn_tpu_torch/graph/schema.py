@@ -34,6 +34,10 @@ def reverse_edge_type(edge_type: EdgeTypeKey) -> EdgeTypeKey:
     return (dst, REV_PREFIX + rel, src)
 
 
+def is_reverse(edge_type: EdgeTypeKey) -> bool:
+    return edge_type[1].startswith(REV_PREFIX)
+
+
 def mirror_edge_type(edge_type: EdgeTypeKey) -> EdgeTypeKey:
     """The relation with src/dst swapped: forward <-> reverse (involution)."""
     src, rel, dst = edge_type

@@ -1,5 +1,5 @@
-"""Weight bridge: a flax variable tree of the JAX ``HeteroRGCN`` ->
-this port's ``state_dict``.
+"""Weight bridge: a flax variable tree of the JAX ``HeteroRGCN`` or
+``HeteroGT`` -> this port's ``state_dict``.
 
 The port's submodules carry the flax module names, so a flax path
 ``a/b/leaf`` becomes ``a.b.<torch leaf>``:
@@ -16,7 +16,10 @@ flax leaf                      torch leaf
 =============================  ===========================================
 
 The per-relation ``conv_<i>/neigh_<key>`` and ``root_<key>`` stay per
-relation; the layer folds them at call time, as the JAX layer does.
+relation; the layer folds them at call time, as the JAX layer does.  An HGT
+tree (``embed_<type>``, ``hgt_<i>/q_<type>``, ``k_<src__rel__dst>``,
+``v_<...>``, ``out_<type>``, ``edge_predictor/dense_<i>``) has no
+``batch_stats``.
 """
 
 from __future__ import annotations

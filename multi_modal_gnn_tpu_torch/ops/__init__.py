@@ -1,4 +1,4 @@
-"""Neighbor aggregation and the CUDA segment kernels."""
+"""Neighbor aggregation, HGT flash attention, and their CUDA kernels."""
 
 from multi_modal_gnn_tpu_torch.ops.segment import (
     aggregate_neighbors,

@@ -111,6 +111,9 @@ def load() -> ctypes.CDLL:
         "mmgnn_pair_head_fwd": [*head, p, p],
         "mmgnn_pair_head_bwd": [*head, p, i, p, p, p, p, p, p, p],
         "mmgnn_pair_head_bwd_shared_bytes": [i],
+        "mmgnn_flash_attention_fwd": [p, p, p, p, p, p, i, i, i, i, i, p, p, p, p, p, p],
+        "mmgnn_flash_attention_dq": [p, p, p, p, p, p, p, p, p, i, i, i, i, p, p],
+        "mmgnn_flash_attention_dkv": [p, p, p, p, p, p, p, p, p, i, i, i, i, p, p, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -56,6 +56,22 @@ def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: in
     return total / (count[:, None] if data.dim() > 1 else count)
 
 
+def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Softmax of ``logits [E, ...]`` within each segment (the HGT segment
+    tier).  The max shift carries no gradient, and a segment whose max is
+    not finite (only ``-inf`` logits, or none) is shifted by 0."""
+    ids = segment_ids.long()
+    index = ids.reshape((-1,) + (1,) * (logits.dim() - 1)).expand_as(logits)
+    seg_max = torch.full(
+        (num_segments,) + tuple(logits.shape[1:]), float("-inf"), dtype=logits.dtype,
+        device=logits.device,
+    ).scatter_reduce(0, index, logits.detach(), reduce="amax")
+    seg_max = torch.where(torch.isfinite(seg_max), seg_max, torch.zeros_like(seg_max))
+    exp = torch.exp(logits - seg_max.index_select(0, ids))
+    denom = segment_sum(exp, ids, num_segments)
+    return exp / denom.index_select(0, ids).clamp_min(1e-16)
+
+
 def fused_table_applicable(edges: EdgeSet, feature_dim: Optional[int] = None, itemsize: int = 4) -> bool:
     if edges.win_src is None:
         return False

@@ -7,17 +7,21 @@ only the pair heads on its (patient, lab) batch.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
 from multi_modal_gnn_tpu_torch.graph.hetero import HeteroGraph
+from multi_modal_gnn_tpu_torch.models.hgt import HeteroGT
 from multi_modal_gnn_tpu_torch.models.rgcn import HeteroRGCN
 
+Model = Union[HeteroRGCN, HeteroGT]
 
-def compute_node_state(model: HeteroRGCN, graph: HeteroGraph) -> Dict[str, torch.Tensor]:
+
+def compute_node_state(model: Model, graph: HeteroGraph) -> Dict[str, torch.Tensor]:
     """Put ``model`` in eval mode and run the forward that fills the state
-    (``init_p``, ``init_l``, ``final_p``, ``final_l``, ``degree``)."""
+    (``final_p``, ``final_l``; the RGCN adds ``init_p``, ``init_l`` and
+    ``degree``)."""
     model.eval()
     with torch.no_grad():
         return model.compute_node_state(graph)
@@ -33,7 +37,7 @@ def _as_index(idx, bound: int, name: str, device) -> torch.Tensor:
 
 
 def build_serving_fn(
-    model: HeteroRGCN,
+    model: Model,
     graph: HeteroGraph,
     state: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[Callable, Dict[str, torch.Tensor]]:
@@ -41,8 +45,8 @@ def build_serving_fn(
     the state's device from the cached node state."""
     if state is None:
         state = compute_node_state(model, graph)
-    device = state["init_p"].device
-    num_p, num_l = state["init_p"].shape[0], state["init_l"].shape[0]
+    device = state["final_p"].device
+    num_p, num_l = state["final_p"].shape[0], state["final_l"].shape[0]
 
     def fn(p_idx, l_idx) -> torch.Tensor:
         p = _as_index(p_idx, num_p, "patient", device)

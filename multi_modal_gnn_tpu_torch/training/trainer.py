@@ -18,12 +18,13 @@ from __future__ import annotations
 import copy
 import logging
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
 
 from multi_modal_gnn_tpu_torch.config import Config
+from multi_modal_gnn_tpu_torch.graph.attn_plan import ensure_attn_plans
 from multi_modal_gnn_tpu_torch.graph.hetero import HeteroGraph
 from multi_modal_gnn_tpu_torch.graph.schema import LAB
 from multi_modal_gnn_tpu_torch.models.losses import (
@@ -31,6 +32,7 @@ from multi_modal_gnn_tpu_torch.models.losses import (
     masked_mean_loss,
     weighted_regression_loss,
 )
+from multi_modal_gnn_tpu_torch.models.hgt import HeteroGT
 from multi_modal_gnn_tpu_torch.models.rgcn import HeteroRGCN
 from multi_modal_gnn_tpu_torch.training.masker import EdgeMasker, SplitBatch
 from multi_modal_gnn_tpu_torch.training.schedulers import build_scheduler
@@ -58,11 +60,12 @@ def build_optimizer(model: torch.nn.Module, train_config) -> torch.optim.Adam:
 class Trainer:
     """Drives the train and eval steps over a static graph on ``device``
     (default: the card; raises without one).  The model and graph are moved
-    there."""
+    there; an HGT on the kernel path gets the graph's attention plans
+    (:func:`~multi_modal_gnn_tpu_torch.graph.attn_plan.ensure_attn_plans`)."""
 
     def __init__(
         self,
-        model: HeteroRGCN,
+        model: Union[HeteroRGCN, HeteroGT],
         graph: HeteroGraph,
         masker: EdgeMasker,
         config: Config,
@@ -70,14 +73,15 @@ class Trainer:
     ):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
-        self.graph = graph.to(self.device)
+        self.graph = ensure_attn_plans(graph, config).to(self.device)
         self.masker = masker
         self.config = config
         tc = config.train
         self.optimizer = build_optimizer(self.model, tc)
         # every parameter gets a gradient, zero where the loss does not reach
-        # it (the last layer's non-patient, non-lab BatchNorms), so that
-        # Adam's coupled decay moves it as the JAX chain does
+        # it (the RGCN's last non-patient, non-lab BatchNorms; the HGT's last
+        # groups into diagnosis and medication), so that Adam's coupled decay
+        # moves it as the JAX chain does
         for param in self.model.parameters():
             param.grad = torch.zeros_like(param)
 

@@ -24,9 +24,12 @@ import torch
 from multi_modal_gnn_tpu_torch.config import Config, GraphConfig, ModelConfig
 from multi_modal_gnn_tpu_torch.data import SyntheticSpec, make_synthetic_graph
 from multi_modal_gnn_tpu_torch.graph import hetero
+from multi_modal_gnn_tpu_torch.graph.attn_plan import AttnGroupPlan, _build_side, ensure_attn_plans
 from multi_modal_gnn_tpu_torch.graph.schema import mirror_edge_type
 from multi_modal_gnn_tpu_torch.models import build_model
 from multi_modal_gnn_tpu_torch.ops import aggregate_neighbors, aggregation_tier
+from multi_modal_gnn_tpu_torch.ops import attention_kernels as ak
+from multi_modal_gnn_tpu_torch.ops.attention import flash_attention_group
 from multi_modal_gnn_tpu_torch.ops import pairhead_kernels as pk
 from multi_modal_gnn_tpu_torch.ops import segment_kernels as sk
 from multi_modal_gnn_tpu_torch.ops.pairhead import fused_pair_head
@@ -368,8 +371,13 @@ def test_train_step_on_gpu_matches_plain_on_cpu(gpu):
         mean_labs_per_patient=30.0, mean_diagnoses_per_patient=2.0,
         mean_medications_per_patient=3.0, latent_dim=4, seed=3,
     )
+    # the generator's node order, in which no gradient of this step lies
+    # within the two sides' rounding of 0 (Adam would move it by 2 * lr)
     config = Config(
-        graph=GraphConfig(dense_adjacency_max_bytes=0),
+        graph=GraphConfig(
+            dense_adjacency_max_bytes=0, cluster_patients_by_degree=False,
+            cluster_labs_by_frequency=False,
+        ),
         model=ModelConfig(use_pallas=True, dropout=0.0, extras={"head_style": "factored"}),
     )
     graph = make_synthetic_graph(spec, config, device="cpu")
@@ -408,3 +416,200 @@ def test_wrappers_reject_other_devices(plans):
     x = torch.empty(es.num_src, D, device="meta")
     with pytest.raises(ValueError):
         sk.fused_table_segment_sum(x, es.win_src, es.win_local, es.win_tile_map, es.num_windows)
+
+
+# -- flash attention (K6, K7, K8) --------------------------------------------
+#
+# Forward outputs are softmax-weighted means and LSE values, compared within
+# rtol=atol=1e-5; the backward's sums (up to a few hundred terms per row
+# here) are held per tensor to 1e-4 of their largest magnitude.
+
+ATTN_H, ATTN_HEADS = 128, 4
+
+
+def _attn_group(kind):
+    rng = np.random.default_rng(11)
+    resident_max, span_rows = 512, 128
+    if kind == "resident":
+        num_dst, num_src, e = 300, 150, 20_000
+    elif kind == "span":  # both sides span (the patient group's reverse side)
+        num_dst, num_src, e, resident_max = 300, 260, 20_000, 0
+    elif kind == "high_rung":  # a low-dst group over a wide source table
+        num_dst, num_src, e = 256, 6000, 20_000
+    elif kind == "duplicates":
+        num_dst, num_src, e = 64, 40, 2_000
+    else:  # "empty_rows": destinations 100.. receive no edge
+        num_dst, num_src, e = 400, 50, 3_000
+    src = rng.integers(0, num_src, e)
+    dst = rng.integers(0, 100 if kind == "empty_rows" else num_dst, e)
+    if kind == "duplicates":
+        src, dst = np.repeat(src, 4), np.repeat(dst, 4)
+    fwd = _build_side(src, dst, num_dst, num_src, span_rows, resident_max)
+    rev = _build_side(dst, src, num_src, num_dst, span_rows, resident_max)
+    if kind == "span":
+        assert fwd.use_span and rev.use_span
+    if kind == "high_rung":
+        assert fwd.use_span and fwd.span_rows >= 512
+    return AttnGroupPlan(
+        fwd=fwd, rev=rev, src_offsets=(0,), num_src_total=num_src, num_dst=num_dst,
+        num_edges=len(src),
+    )
+
+
+def _attn_inputs(plan, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn(plan.num_dst, ATTN_H, generator=gen) / (ATTN_H // ATTN_HEADS) ** 0.5
+    k = torch.randn(plan.num_src_total, ATTN_H, generator=gen)
+    v = torch.randn(plan.num_src_total, ATTN_H, generator=gen)
+    dout = torch.randn(plan.num_dst, ATTN_H, generator=gen)
+    return q, k, v, dout
+
+
+def _attn_all(plan, q, k, v, dout, fwd, dq, dkv):
+    """Outputs of K6, then K7 and K8 on the forward's LSE and delta."""
+    side, rev = plan.fwd, plan.rev
+    out, lse = fwd(q, k, v, *side.arrays(), side.num_windows, ATTN_HEADS)
+    n = plan.num_dst
+    o, lse_d = out[:n], lse[:n].contiguous()
+    delta = (dout * o).reshape(n, ATTN_HEADS, -1).sum(-1).contiguous()
+    stats = (q, k, v, dout, lse_d, delta)
+    g_q = dq(*stats, *side.arrays(), side.num_windows, ATTN_HEADS)
+    g_k, g_v = dkv(*stats, *rev.arrays(), rev.num_windows, ATTN_HEADS)
+    return out, lse, g_q, g_k, g_v
+
+
+def _attn_compare(got, want):
+    names = ("out", "lse", "dq", "dk", "dv")
+    for name, a, b in zip(names[:2], got[:2], want[:2]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=1e-5, atol=1e-5, err_msg=name)
+    for name, a, b in zip(names[2:], got[2:], want[2:]):
+        _assert_close_scaled(a.cpu().numpy(), b.cpu().numpy(), 1e-4, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["resident", "span", "high_rung", "duplicates", "empty_rows"])
+def test_flash_attention_kernels_match_plain(gpu, kind):
+    plan = _attn_group(kind).to(gpu)
+    inputs = [t.to(gpu) for t in _attn_inputs(plan)]
+    before = dict(ak.launch_counts)
+    got = _attn_all(plan, *inputs, ak.flash_attention_fwd, ak.flash_attention_dq, ak.flash_attention_dkv)
+    want = _attn_all(
+        plan, *inputs, ak.flash_attention_fwd_plain, ak.flash_attention_dq_plain,
+        ak.flash_attention_dkv_plain,
+    )
+    torch.cuda.synchronize()
+    _attn_compare(got, want)
+    assert all(ak.launch_counts[k] == before[k] + 1 for k in before), ak.launch_counts
+    if kind == "empty_rows":
+        assert float(got[0][100:].abs().max()) == 0.0
+        assert bool((got[1][100:plan.num_dst] == ak.EMPTY_LSE).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["resident", "span"])
+def test_flash_attention_kernels_never_read_rows_past_the_tables(gpu, kind):
+    plan = _attn_group(kind).to(gpu)
+    q, k, v, dout = [t.to(gpu) for t in _attn_inputs(plan, seed=1)]
+
+    def nan_rows(x, extra=256):
+        out = torch.full((x.shape[0] + extra, x.shape[1]), float("nan"), device=gpu)
+        out[: x.shape[0]] = x
+        return out
+
+    want = _attn_all(
+        plan, q, k, v, dout, ak.flash_attention_fwd_plain, ak.flash_attention_dq_plain,
+        ak.flash_attention_dkv_plain,
+    )
+    # q and dO are views whose storage holds NaN rows right past them
+    got = _attn_all(
+        plan, nan_rows(q)[: plan.num_dst], nan_rows(k), nan_rows(v), nan_rows(dout)[: plan.num_dst],
+        ak.flash_attention_fwd, ak.flash_attention_dq, ak.flash_attention_dkv,
+    )
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    _attn_compare(got, want)
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_on_gpu(gpu):
+    plan = _attn_group("span")
+    q, k, v, dout = _attn_inputs(plan, seed=2)
+    grads = []
+    for dev, p in ((gpu, plan.to(gpu)), (torch.device("cpu"), plan)):
+        leaves = [t.to(dev).requires_grad_() for t in (q, k, v)]
+        (flash_attention_group(*leaves, p, ATTN_HEADS) * dout.to(dev)).sum().backward()
+        grads.append([t.grad.cpu().numpy() for t in leaves])
+    for name, a, b in zip(("dq", "dk", "dv"), *grads):
+        _assert_close_scaled(a, b, 1e-4, name)
+
+
+def _hgt_setup():
+    spec = SyntheticSpec(
+        num_patients=4500, num_labs=300, num_diagnoses=100, num_medications=80,
+        mean_labs_per_patient=30.0, mean_diagnoses_per_patient=2.0,
+        mean_medications_per_patient=3.0, latent_dim=4, seed=3,
+    )
+    config = Config(
+        graph=GraphConfig(dense_adjacency_max_bytes=0),
+        model=ModelConfig(architecture="HGT", use_pallas=True, dropout=0.0),
+    )
+    graph = ensure_attn_plans(make_synthetic_graph(spec, config, device="cpu"), config)
+    return config, graph
+
+
+@pytest.mark.cuda
+def test_hgt_train_step_on_gpu_matches_plain_on_cpu(gpu):
+    config, graph = _hgt_setup()
+    assert {p.rev.use_span for p in graph.attn_plans.values()} == {False, True}
+    results = []
+    for dev in (gpu, torch.device("cpu")):
+        model = build_model(config, graph, device="cpu", generator=torch.Generator().manual_seed(0))
+        masker = EdgeMasker(graph, slot_major_train=True, slot_major_min_rows=0)
+        trainer = Trainer(model, graph, masker, config, device=dev)
+        sup = masker.supervision_mask(0, masker.get_split("train")).to(dev)
+        ak.reset_launch_counts()
+        loss = trainer.train_step(trainer.get_batch("train"), sup, 0)
+        if dev == gpu:
+            assert all(ak.launch_counts.values()), ak.launch_counts
+        else:
+            assert not any(ak.launch_counts.values())
+        results.append((loss, {k: v.cpu() for k, v in model.state_dict().items()}))
+    assert results[0][0] == pytest.approx(results[1][0], rel=1e-5)
+    for key, value in results[1][1].items():
+        np.testing.assert_allclose(results[0][1][key].numpy(), value.numpy(), atol=4e-4, err_msg=key)
+
+
+def test_attention_cpu_tensors_take_the_plain_version_and_launch_nothing():
+    plan = _attn_group("resident")
+    q, k, v, dout = _attn_inputs(plan)
+    ak.reset_launch_counts()
+    got = _attn_all(plan, q, k, v, dout, ak.flash_attention_fwd, ak.flash_attention_dq, ak.flash_attention_dkv)
+    want = _attn_all(
+        plan, q, k, v, dout, ak.flash_attention_fwd_plain, ak.flash_attention_dq_plain,
+        ak.flash_attention_dkv_plain,
+    )
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert not any(ak.launch_counts.values())
+
+
+@pytest.mark.cuda
+def test_attention_wrappers_reject_what_the_kernels_do_not_take(gpu):
+    plan = _attn_group("resident").to(gpu)
+    q, k, v, _ = [t.to(gpu) for t in _attn_inputs(plan)]
+    args = (*plan.fwd.arrays(), plan.fwd.num_windows)
+    with pytest.raises(TypeError):
+        ak.flash_attention_fwd(q.double(), k, v, *args, ATTN_HEADS)
+    with pytest.raises(ValueError):  # a head of 24 columns: 6 lanes do not reduce by xor shuffles
+        ak.flash_attention_fwd(q[:, :96].contiguous(), k[:, :96].contiguous(), v[:, :96].contiguous(), *args, 4)
+    with pytest.raises(ValueError):
+        ak.flash_attention_fwd(q, k[:, :64].contiguous(), v, *args, ATTN_HEADS)
+    with pytest.raises(ValueError):
+        ak.flash_attention_fwd(q, k, v, plan.fwd.arrays()[0].long(), *args[1:], ATTN_HEADS)
+
+
+def test_attention_wrappers_reject_other_devices():
+    plan = _attn_group("resident")
+    q = torch.empty(plan.num_dst, ATTN_H, device="meta")
+    with pytest.raises(ValueError):
+        ak.flash_attention_fwd(q, q, q, *plan.fwd.arrays(), plan.fwd.num_windows, ATTN_HEADS)

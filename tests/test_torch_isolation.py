@@ -3,7 +3,7 @@
 The card's machine has no jax, flax, pandas or yaml.  A subprocess makes
 them (and the JAX package) unimportable, then imports every module of the
 port, builds a tiny graph from the port's generator and serves a request on
-the CPU.
+the CPU with the RGCN and with the HGT on its flash-attention tier.
 """
 
 import subprocess
@@ -46,6 +46,18 @@ SCRIPT = textwrap.dedent(
     config = Config.from_dict({"model": {"hidden_dim": 16, "use_pallas": True}})
     graph = make_synthetic_graph(SyntheticSpec.tiny(), config, device="cpu")
     model = build_model(config, graph, device="cpu", generator=torch.Generator().manual_seed(0))
+    fn, _ = build_serving_fn(model, graph)
+    out = predict_patient(fn, 0, graph.num_nodes("lab"))
+    assert out.shape == (graph.num_nodes("lab"),) and bool(torch.isfinite(out).all())
+
+    from multi_modal_gnn_tpu_torch.graph.attn_plan import ensure_attn_plans
+    hgt = Config.from_dict({"model": {
+        "architecture": "HGT", "hidden_dim": 16, "use_pallas": True,
+        "extras": {"hgt_dense_attn_bytes": 0},
+    }})
+    graph = ensure_attn_plans(graph, hgt)
+    model = build_model(hgt, graph, device="cpu", generator=torch.Generator().manual_seed(0))
+    assert {model.hgt_0.tier(graph, nt) for nt in model.hgt_0.groups()} == {"flash"}
     fn, _ = build_serving_fn(model, graph)
     out = predict_patient(fn, 0, graph.num_nodes("lab"))
     assert out.shape == (graph.num_nodes("lab"),) and bool(torch.isfinite(out).all())

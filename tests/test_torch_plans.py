@@ -199,17 +199,36 @@ def test_config_accepts_jax_to_dict():
 @pytest.mark.parametrize(
     "model",
     [
-        {"architecture": "HGT"},
+        {"architecture": "GAT"},
         {"compute_dtype": "bfloat16"},
         {"compute_dtype": "auto"},
         {"value_context": True},
         {"edge_head": {"bilinear_rank": 4}},
         {"unknown_knob": 1},
+        {"architecture": "HGT", "value_context": True},
+        {"architecture": "HGT", "edge_head": {"bilinear_rank": 4}},
+        {"architecture": "HGT", "num_heads": 3},
+        {"architecture": "HGT", "extras": {"hgt_flash": "always"}},
     ],
 )
 def test_config_rejects_unsupported(model):
     with pytest.raises(port_config.ConfigError):
         port_config.Config.from_dict({"model": model})
+
+
+def test_config_reads_the_jax_hgt_settings():
+    jax_cfg = JaxConfig()
+    jax_cfg = jax_cfg.replace(
+        model=dataclasses.replace(
+            jax_cfg.model, architecture="HGT", num_heads=8,
+            extras={"hgt_flash": "off", "hgt_dense_attn_bytes": 0},
+        ),
+        graph=dataclasses.replace(jax_cfg.graph, cluster_labs_by_frequency=False),
+    )
+    cfg = port_config.Config.from_dict(jax_cfg.to_dict())
+    assert (cfg.model.architecture, cfg.model.num_heads) == ("HGT", 8)
+    assert (cfg.model.hgt_flash, cfg.model.hgt_dense_attn_bytes) == ("off", 0)
+    assert (cfg.graph.cluster_patients_by_degree, cfg.graph.cluster_labs_by_frequency) == (True, False)
 
 
 def test_config_rejects_one_way_relations():
