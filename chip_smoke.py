@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's RGCN and HGT serving and training paths on
-one CUDA GPU.
+"""Smoke run of the PyTorch port's RGCN and HGT serving and training paths,
+the RGCN's dual-head training path and the gather probe on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -46,6 +46,25 @@ Phases, each printing one line with its seconds:
  14. hgt-train     5 HGT epochs with dropout 0.2: median epoch time,
                    train_patient_lab_edges_per_sec, a validation loss, launch
                    counts, one profiled epoch
+ 15. dual-kernels  the train batch with lab_tile_rows 0 (the full lab table;
+                   slots, tiles, each head's share of tiles); K5f and K5b
+                   against their plain versions at dropout 0 and 0.2, with
+                   both heads' tile masks and without, and with NaN rows past
+                   proj_l and past the window-padded proj_p; K5f / K5b timed
+                   against K4f / K4b of both heads on the same batch
+ 16. dual-train-step one Adam step with dropout 0, dual_head_fusion on
+                   against off, both on the card from the same weights and
+                   masks: loss, every gradient, the parameters; K5 launched
+                   and K4 not on one side, the other way round on the other
+ 17. dual-train    5 epochs with dropout 0.2 and dual_head_fusion on: median
+                   epoch, train_patient_lab_edges_per_sec, a validation loss,
+                   an eval step over the train batch (K5f), one profiled
+                   epoch; then 5 epochs of off with lab_tile_rows 0 and 5 of
+                   the default span@256 tiles, for three epoch times
+ 18. gather-probe  P1: python -m multi_modal_gnn_tpu_torch.tools.bench_gather
+                   at the script's defaults (3840 tiles, 512 rows, H 64),
+                   then A / B / C against their plain versions at H 64 and
+                   128: errors, median times, bounds, library times
 Then a JSON line of per-kernel results, the nvidia-smi line, and the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero before the last line; without a CUDA device it fails in phase 1.
@@ -105,6 +124,7 @@ FP32_FLOPS = 67e12
 SEGMENT_SOURCE = "multi_modal_gnn_tpu_torch/csrc/segment.cu"
 PAIRHEAD_SOURCE = "multi_modal_gnn_tpu_torch/csrc/pairhead.cu"
 ATTENTION_SOURCE = "multi_modal_gnn_tpu_torch/csrc/attention.cu"
+PROBE_SOURCE = "multi_modal_gnn_tpu_torch/csrc/gather_probe.cu"
 KERNELS = {  # wrapper: (source, the TPU kernel it replaces)
     "segment_sum_windowed": (SEGMENT_SOURCE, "multi_modal_gnn_tpu/ops/pallas_segment.py:117"),
     "fused_table_segment_sum": (SEGMENT_SOURCE, "multi_modal_gnn_tpu/ops/pallas_segment.py:279"),
@@ -115,7 +135,20 @@ KERNELS = {  # wrapper: (source, the TPU kernel it replaces)
     "flash_attention_fwd": (ATTENTION_SOURCE, "multi_modal_gnn_tpu/ops/pallas_attention.py:216"),
     "flash_attention_dq": (ATTENTION_SOURCE, "multi_modal_gnn_tpu/ops/pallas_attention.py:363"),
     "flash_attention_dkv": (ATTENTION_SOURCE, "multi_modal_gnn_tpu/ops/pallas_attention.py:508"),
+    "pair_head_dual_fwd": (PAIRHEAD_SOURCE, "multi_modal_gnn_tpu/ops/pallas_pairhead.py:692"),
+    "pair_head_dual_bwd": (PAIRHEAD_SOURCE, "multi_modal_gnn_tpu/ops/pallas_pairhead.py:742"),
+    "gather_probe_indicator": (PROBE_SOURCE, "scripts/bench_gather_impl.py:47"),
+    "gather_probe_padded": (PROBE_SOURCE, "scripts/bench_gather_impl.py:47"),
+    "gather_probe_direct": (PROBE_SOURCE, "scripts/bench_gather_impl.py:47"),
 }
+# the RGCN training path's kernels with single heads (phases 8, 9) and with
+# the dual heads (phases 16, 17)
+SEGMENT_KERNELS = (
+    "segment_sum_windowed", "fused_table_segment_sum", "fused_table_segment_sum_bwd", "span_segment_sum",
+)
+RGCN_KERNELS = (*SEGMENT_KERNELS, "pair_head_fwd", "pair_head_bwd")
+DUAL_KERNELS = (*SEGMENT_KERNELS, "pair_head_dual_fwd", "pair_head_dual_bwd")
+HEAD_PATH_KERNELS = (*RGCN_KERNELS, "pair_head_dual_fwd", "pair_head_dual_bwd")
 # FLOPs per active slot: pre0 adds (64), h0 @ W1 (2 * 64 * 32), b1 (32),
 # h1 . w2 (2 * 32); the backward adds dw2 (64), dpre1 @ W1^T and the dW1
 # outer products (2 * 2 * 64 * 32) and the dPp / dPl scatters (2 * 64)
@@ -303,6 +336,7 @@ def main() -> int:
     from multi_modal_gnn_tpu_torch.models import build_model
     from multi_modal_gnn_tpu_torch.ops import _build, aggregation_tier
     from multi_modal_gnn_tpu_torch.ops import attention_kernels as ak
+    from multi_modal_gnn_tpu_torch.ops import gather_probe as gp
     from multi_modal_gnn_tpu_torch.ops import pairhead_kernels as pk
     from multi_modal_gnn_tpu_torch.ops import segment_kernels as sk
     from multi_modal_gnn_tpu_torch.serving import (
@@ -310,6 +344,7 @@ def main() -> int:
         compute_node_state,
         predict_patient,
     )
+    from multi_modal_gnn_tpu_torch.tools import bench_gather
     from multi_modal_gnn_tpu_torch.training import Trainer, masker_from_config
     from multi_modal_gnn_tpu_torch.utils.device import disable_tf32, gpu_identity, require_cuda
 
@@ -317,9 +352,11 @@ def main() -> int:
         sk.reset_launch_counts()
         pk.reset_launch_counts()
         ak.reset_launch_counts()
+        gp.reset_launch_counts()
 
-    def read_counts():
-        return {**sk.launch_counts, **pk.launch_counts}
+    def read_counts(names=RGCN_KERNELS):
+        counts = {**sk.launch_counts, **pk.launch_counts}
+        return {name: counts[name] for name in names}
 
     # 1. device ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1027,6 +1064,313 @@ def main() -> int:
         f"({n_train} train rows)",
     )
 
+    del model, trainer
+    torch.cuda.empty_cache()
+
+    # 15. dual-kernels -----------------------------------------------------
+    t0 = time.perf_counter()
+    dual_config = dataclasses.replace(
+        config,
+        model=dataclasses.replace(config.model, extras={"dual_head_fusion": "on"}),
+        train=dataclasses.replace(config.train, extras={"lab_tile_rows": 0}),
+    )
+    masker0 = masker_from_config(dual_config, graph_cpu)
+    batch0_cpu = masker0.get_split("train")
+    if not (batch0_cpu.patient_plan.identity and batch0_cpu.patient_plan.lab_block_rows == 0):
+        raise AssertionError("the lab_tile_rows 0 train batch is not slot-major over the full lab table")
+    batch0 = batch0_cpu.to(dev)
+    plan0 = batch0.patient_plan
+    slots0 = plan0.win_local.shape[0]
+    low0 = (graph.patient_lab_degree[batch0.patient_idx.long()] < config.model.degree_threshold).reshape(
+        -1, TILE_E
+    )
+    masks0 = {"tab": low0.any(dim=1).to(torch.int32), "gnn": (~low0).any(dim=1).to(torch.int32)}
+    real0 = plan0.win_local < WINDOW
+    active0 = {k: int((real0.reshape(-1, TILE_E) & (m[:, None] != 0)).sum()) for k, m in masks0.items()}
+    either0 = float(((masks0["tab"] != 0) | (masks0["gnn"] != 0)).float().mean())
+    print(
+        f"    train batch, lab_tile_rows 0: rows {batch0.num_valid}  slots {slots0} "
+        f"({slots0 / batch0.num_valid:.3f}x)  tiles {slots0 // TILE_E}  windows {plan0.num_windows}  "
+        f"tiles run: GNN head {float(masks0['gnn'].float().mean()):.4f}, tabular head "
+        f"{float(masks0['tab'].float().mean()):.4f}, either {either0:.4f}  active slots "
+        f"GNN {active0['gnn']}, tabular {active0['tab']}"
+    )
+    hg = torch.Generator().manual_seed(2)
+
+    def rand_head(b2):
+        return [
+            torch.randn(num_p, 64, generator=hg), torch.randn(num_l, 64, generator=hg),
+            torch.randn(64, 32, generator=hg) * 0.1, torch.randn(32, generator=hg) * 0.1,
+            torch.randn(32, generator=hg) * 0.1, torch.tensor([b2]),
+        ]
+
+    dual_params = [h.to(dev) for h in rand_head(0.3) + rand_head(-0.2)]
+    g_dual = [(torch.randn(slots0, generator=hg).to(dev) * real0).contiguous() for _ in range(2)]
+    seed4 = (2024, 7, 99, 13)
+    both_masks = (masks0["tab"], masks0["gnn"])
+
+    def dual_call(fn, params, rate, masks, *extra):
+        return fn(
+            *params, batch0.lab_idx, plan0.win_local, plan0.win_tile_map, seed4, *masks, rate, *extra
+        )
+
+    def dual_safe_grads(params, rate, masks):
+        margins = dual_call(pk.relu_margin_dual_plain, params[0:4] + params[6:10], rate, masks)
+        near = [int(((m <= KINK_MARGIN) & (m != 0)).sum()) for m in margins]
+        print(f"    {near[0]} tabular and {near[1]} GNN active slots lie within {KINK_MARGIN:g} of a "
+              f"ReLU kink: kept out of the backward check")
+        return [torch.where(m > KINK_MARGIN, g, torch.zeros_like(g)) for m, g in zip(margins, g_dual)]
+
+    dual_names = [f"{h}.{n}" for h in ("tab", "gnn") for n in names]
+    dual_errs = {"pair_head_dual_fwd": [], "pair_head_dual_bwd": []}
+    for rate in (0.0, 0.2):
+        for mname, m in (("both heads' masks", both_masks), ("no masks", (None, None))):
+            tag = f"rate {rate}, {mname}"
+            got = dual_call(pk.pair_head_dual_fwd, dual_params, rate, m)
+            want = dual_call(pk.pair_head_dual_fwd_plain, dual_params, rate, m)
+            dual_errs["pair_head_dual_fwd"] += [
+                _compare(f"pair_head_dual_fwd {h} ({tag})", a, b, HEAD_ATOL, HEAD_RTOL)[0]
+                for h, a, b in zip(("tab", "gnn"), got, want)
+            ]
+            g_safe = dual_safe_grads(dual_params, rate, m)
+            got = dual_call(pk.pair_head_dual_bwd, dual_params, rate, m, plan0.num_windows, *g_safe)
+            want = dual_call(pk.pair_head_dual_bwd_plain, dual_params, rate, m, *g_safe)
+            dual_errs["pair_head_dual_bwd"] += [
+                _compare_scaled(f"pair_head_dual_bwd d{n} ({tag})", a, b, GRAD_REL)
+                for n, a, b in zip(dual_names, got, want)
+            ]
+            del got, want
+    # NaN rows past proj_l and past the window-padded proj_p: never read
+    nan_params = []
+    for i, x in enumerate(dual_params):
+        if i % 6 in (0, 1):
+            rows = plan0.num_windows * WINDOW + WINDOW if i % 6 == 0 else num_l + 12
+            padded = torch.full((rows, 64), float("nan"), device=dev)
+            padded[: x.shape[0]] = x
+            x = padded
+        nan_params.append(x)
+    g_safe = dual_safe_grads(dual_params, 0.2, both_masks)
+    got = dual_call(pk.pair_head_dual_fwd, nan_params, 0.2, both_masks)
+    want = dual_call(pk.pair_head_dual_fwd_plain, dual_params, 0.2, both_masks)
+    for h, a, b in zip(("tab", "gnn"), got, want):
+        _compare(f"pair_head_dual_fwd {h}, NaN rows past the tables", a, b, HEAD_ATOL, HEAD_RTOL)
+    got = dual_call(pk.pair_head_dual_bwd, nan_params, 0.2, both_masks, plan0.num_windows, *g_safe)
+    want = dual_call(pk.pair_head_dual_bwd_plain, dual_params, 0.2, both_masks, *g_safe)
+    for i, (n, a, b) in enumerate(zip(dual_names, got, want)):
+        if i % 6 in (0, 1):
+            if float(a[b.shape[0]:].abs().sum()) != 0.0:
+                raise AssertionError(f"pair_head_dual_bwd d{n}: rows past the table are not 0")
+            a = a[: b.shape[0]]
+        _compare_scaled(f"pair_head_dual_bwd d{n}, NaN rows past the tables", a, b, GRAD_REL)
+    del got, want, nan_params
+    # times: K5f / K5b against K4f / K4b of both heads, same batch, dropout 0.2, masks
+    k4_heads = (
+        (dual_params[:6], seed4[:2], masks0["tab"], g_dual[0]),
+        (dual_params[6:], seed4[2:], masks0["gnn"], g_dual[1]),
+    )
+
+    def k4_both(backward: bool):
+        for head, seed, mask, g in k4_heads:
+            plan_args = (batch0.lab_idx, plan0.win_local, plan0.win_tile_map, seed, mask, None, 0.2, 0)
+            if backward:
+                pk.pair_head_bwd(*head, *plan_args, plan0.num_windows, g)
+            else:
+                pk.pair_head_fwd(*head, *plan_args)
+
+    dual_bytes = _nbytes(*dual_params, batch0.lab_idx, plan0.win_local, plan0.win_tile_map, *both_masks)
+    dual_active = sum(active0.values())  # each head's real slots in its unmasked tiles
+    timed(
+        "pair_head_dual_fwd", lambda: dual_call(pk.pair_head_dual_fwd, dual_params, 0.2, both_masks),
+        lambda: dual_call(pk.pair_head_dual_fwd_plain, dual_params, 0.2, both_masks), None,
+        dual_bytes + 2 * slots0 * 4, dual_active * HEAD_FWD_FLOPS, max(dual_errs["pair_head_dual_fwd"]),
+    )
+    timed(
+        "pair_head_dual_bwd",
+        lambda: dual_call(pk.pair_head_dual_bwd, dual_params, 0.2, both_masks, plan0.num_windows, *g_dual),
+        lambda: dual_call(pk.pair_head_dual_bwd_plain, dual_params, 0.2, both_masks, *g_dual), None,
+        dual_bytes + _nbytes(*g_dual) + _nbytes(*dual_params), dual_active * HEAD_BWD_FLOPS,
+        max(dual_errs["pair_head_dual_bwd"]),
+    )
+    k4_fwd_ms = _median_ms(lambda: k4_both(False))
+    k4_bwd_ms = _median_ms(lambda: k4_both(True))
+    results["pair_head_dual_fwd"]["k4_both_heads_ms"] = k4_fwd_ms
+    results["pair_head_dual_bwd"]["k4_both_heads_ms"] = k4_bwd_ms
+    print(
+        f"    same batch, same call: K5f {results['pair_head_dual_fwd']['ms']:.4f} ms vs K4f tabular + GNN "
+        f"{k4_fwd_ms:.4f} ms; K5b {results['pair_head_dual_bwd']['ms']:.4f} ms vs K4b tabular + GNN "
+        f"{k4_bwd_ms:.4f} ms (medians of {TIMING_REPS})"
+    )
+    del dual_params, g_dual, g_safe
+    torch.cuda.empty_cache()
+    _phase("dual-kernels", t0, "K5f and K5b match their plain versions, NaN rows past the tables too")
+
+    # 16. dual-train-step --------------------------------------------------
+    t0 = time.perf_counter()
+    sup0 = masker0.supervision_mask(0, batch0_cpu).to(dev)
+    dual_steps = {}
+    for mode in ("on", "off"):
+        cfg = dataclasses.replace(
+            dual_config,
+            model=dataclasses.replace(dual_config.model, dropout=0.0, extras={"dual_head_fusion": mode}),
+        )
+        model = build_model(cfg, graph_cpu, generator=torch.Generator().manual_seed(0))
+        trainer = Trainer(model, graph, masker0, cfg)
+        b = trainer.get_batch("train")
+        torch.cuda.synchronize()
+        reset_counts()
+        t_step = time.perf_counter()
+        loss = trainer.train_step(b, sup0, 0)
+        torch.cuda.synchronize()
+        dual_steps[mode] = dict(
+            loss=loss, ms=(time.perf_counter() - t_step) * 1e3,
+            launches=read_counts(HEAD_PATH_KERNELS),
+            grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            params={n: p.detach().cpu() for n, p in model.named_parameters()},
+        )
+        del model, trainer, b
+    on, off = dual_steps["on"], dual_steps["off"]
+    heads = {"on": ("pair_head_dual_fwd", "pair_head_dual_bwd"), "off": ("pair_head_fwd", "pair_head_bwd")}
+    for mode, other in (("on", "off"), ("off", "on")):
+        counts = dual_steps[mode]["launches"]
+        if not (all(counts[k] for k in (*SEGMENT_KERNELS, *heads[mode])) and not any(counts[k] for k in heads[other])):
+            raise AssertionError(f"dual_head_fusion {mode}: launches {counts}")
+    _compare("dual train step loss, on vs off", torch.tensor(on["loss"]), torch.tensor(off["loss"]), 0.0,
+             STEP_LOSS_RTOL)
+    floor = STEP_GRAD_ZERO_FLOOR * max(float(g.norm()) for g in off["grads"].values())
+    failed_dual = [
+        name for name, g in off["grads"].items()
+        if not _compare_norm(f"dual grad {name}", on["grads"][name], g, STEP_GRAD_NORM_REL, floor)
+    ]
+    for name, p_off in off["params"].items():
+        diff = float((on["params"][name] - p_off).abs().max())
+        if diff > STEP_PARAM_ATOL:
+            raise AssertionError(f"dual param {name}: max |d| {diff:.3e} > {STEP_PARAM_ATOL}")
+    if failed_dual:
+        raise AssertionError(f"dual train-step gradients outside tolerance: {failed_dual}")
+    _phase(
+        "dual-train-step", t0,
+        f"loss {on['loss']:.6f} (off {off['loss']:.6f}); first step on {on['ms']:.1f} ms, off {off['ms']:.1f} ms; "
+        f"launches on {on['launches']}, off {off['launches']}",
+    )
+    del dual_steps, on, off
+    torch.cuda.empty_cache()
+
+    # 17. dual-train -------------------------------------------------------
+    t0 = time.perf_counter()
+
+    def train_epochs(cfg, m):
+        model = build_model(cfg, graph_cpu, generator=torch.Generator().manual_seed(1))
+        trainer = Trainer(model, graph, m, cfg)
+        trainer.train_epoch()  # warm-up
+        trainer.epoch += 1
+        torch.cuda.synchronize()
+        reset_counts()
+        times, losses = [], []
+        for _ in range(TRAIN_EPOCHS):
+            t_ep = time.perf_counter()
+            losses.append(trainer.train_epoch())
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t_ep) * 1e3)
+            trainer.epoch += 1
+        launches = read_counts(HEAD_PATH_KERNELS)
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"non-finite training loss: {losses}")
+        return trainer, times, losses, launches
+
+    trainer, dual_epoch_ms, dual_losses, dual_launches = train_epochs(dual_config, masker0)
+    if not all(dual_launches[k] for k in DUAL_KERNELS) or dual_launches["pair_head_fwd"] or dual_launches["pair_head_bwd"]:
+        raise AssertionError(f"the dual training path's launches: {dual_launches}")
+    dual_val = trainer.validate("val")
+    reset_counts()
+    dual_train_eval = trainer.validate("train")  # the eval step over the slot-major batch
+    eval_launches = read_counts(("pair_head_dual_fwd", "pair_head_fwd"))
+    if eval_launches != {"pair_head_dual_fwd": 1, "pair_head_fwd": 0} or not np.isfinite([dual_val, dual_train_eval]).all():
+        raise AssertionError(f"eval step: launches {eval_launches}, losses {dual_val}, {dual_train_eval}")
+    dual_edges_per_s = n_train * TRAIN_EPOCHS / (sum(dual_epoch_ms) / 1e3)
+    print(f"    on: losses {['%.6f' % x for x in dual_losses]}  val loss {dual_val:.6f}  "
+          f"eval loss over the train batch {dual_train_eval:.6f} (launches {eval_launches})")
+    print(f"    on: epoch ms {['%.2f' % x for x in dual_epoch_ms]}  launches in {TRAIN_EPOCHS} epochs {dual_launches}")
+    wall_ms, busy_ms, top = _device_profile(trainer.train_epoch)
+    print(
+        f"    on, profiled epoch: wall {wall_ms:.2f} ms  device busy {busy_ms:.2f} ms  "
+        f"idle share {max(0.0, 1 - busy_ms / wall_ms):.4f}"
+    )
+    for name, ms in top[:12]:
+        print(f"      {ms:9.3f} ms  {100 * ms / max(busy_ms, 1e-9):5.1f} %  {name[:130]}")
+    del trainer
+    off_config = dataclasses.replace(
+        dual_config, model=dataclasses.replace(dual_config.model, extras={"dual_head_fusion": "off"})
+    )
+    epoch_medians = {"on, lab_tile_rows 0": statistics.median(dual_epoch_ms)}
+    for label, cfg, m in (("off, lab_tile_rows 0", off_config, masker0), ("default, span@256", config, masker)):
+        trainer, times, losses, launches = train_epochs(cfg, m)
+        if not all(launches[k] for k in RGCN_KERNELS) or launches["pair_head_dual_fwd"]:
+            raise AssertionError(f"{label}: launches {launches}")
+        epoch_medians[label] = statistics.median(times)
+        print(f"    {label}: epoch ms {['%.2f' % x for x in times]}  launches {launches}")
+        del trainer
+    _phase(
+        "dual-train", t0,
+        f"{TRAIN_EPOCHS} epochs each, dropout {config.model.dropout}; median epoch: "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in epoch_medians.items())
+        + f"; on: train_patient_lab_edges_per_sec {dual_edges_per_s:.1f} ({n_train} train rows)",
+    )
+    torch.cuda.empty_cache()
+
+    # 18. gather-probe -----------------------------------------------------
+    t0 = time.perf_counter()
+    gp.reset_launch_counts()
+    tool = bench_gather.main([])  # the tool at the script's defaults
+    probe_launches = dict(gp.launch_counts)  # the probe's path ends here
+    if not all(probe_launches.values()):
+        raise AssertionError(f"a kernel of the gather probe did not launch: {probe_launches}")
+    probe_results = {}
+    for h in (64, 128):
+        args = bench_gather.parse_args(["--h", str(h)])
+        idx, table, padded = (torch.from_numpy(a).to(dev) for a in bench_gather.make_inputs(args))
+        n_slots = idx.shape[0]
+        # kernel, its table, library call, FLOPs of the function (each slot's
+        # row sum); A's one-hot product does rows times that work, reported
+        # apart as onehot_ops_ms and not used as its bound
+        work = {
+            "gather_probe_indicator": (
+                lambda: gp.gather_probe_indicator(idx, table), table,
+                lambda: torch.index_select(table, 0, idx).sum(1), float(n_slots * h),
+            ),
+            "gather_probe_padded": (
+                lambda: gp.gather_probe_padded(idx, padded, h), padded,
+                lambda: torch.index_select(padded, 0, idx)[:, :h].sum(1), float(n_slots * h),
+            ),
+            "gather_probe_direct": (
+                lambda: gp.gather_probe_direct(idx, table), table,
+                lambda: torch.index_select(table, 0, idx).sum(1), float(n_slots * h),
+            ),
+        }
+        for name, (kernel, tbl, library, flops) in work.items():
+            plain = lambda tbl=tbl: gp.gather_rowsum_plain(idx, tbl, h)  # noqa: E731
+            err = _compare_scaled(f"{name}, H {h}", kernel(), plain(), 1e-5)
+            ms, plain_ms = _median_ms(kernel), _median_ms(plain)
+            bound = _bound(_nbytes(idx, tbl) + n_slots * 4, flops)
+            if name == "gather_probe_indicator":
+                bound["onehot_ops_ms"] = 2.0 * n_slots * args.rows * h / FP32_FLOPS * 1e3
+                layout = f"  one-hot product's operations {bound['onehot_ops_ms']:.4f} ms"
+            else:
+                layout = "  table in shared memory" if gp.direct_staged(*tbl.shape) else "  table through L2"
+            print(
+                f"    {name}, H {h}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound['bound_ms']:.4f} ms "
+                f"({bound['bound_by']}){layout}"
+            )
+            probe_results.setdefault(name, {})[h] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound,
+                "library_ms": _library_ms(f"{name} (index_select + sum), H {h}", library),
+            }
+        del idx, table, padded, work
+    _phase(
+        "gather-probe", t0,
+        "bench_gather at the script's defaults: " + ", ".join(f"{k} {v['ms']:.4f} ms" for k, v in tool.items())
+        + f"; launches {probe_launches}",
+    )
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces}
@@ -1036,6 +1380,13 @@ def main() -> int:
                 launches_per_step=hgt_train_launches[name] // TRAIN_EPOCHS,
                 launches_serving=hgt_serving_launches[name],
                 **attn_results[name][PATIENT], groups=attn_results[name],
+            )
+        elif name in probe_results:  # H 64, the script's default; H 128 under "at_h128"
+            entry.update(launches=probe_launches[name], **probe_results[name][64], at_h128=probe_results[name][128])
+        elif name in dual_errs:
+            entry.update(
+                launches=dual_launches[name], launches_per_step=dual_launches[name] // TRAIN_EPOCHS,
+                **results[name],
             )
         else:
             entry.update(

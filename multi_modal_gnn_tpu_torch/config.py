@@ -60,8 +60,9 @@ class ModelConfig:
     compute_dtype: str = "float32"
     # run neighbor aggregation through the tiered kernels (ops/segment.py)
     use_pallas: bool = False
-    # extras.head_style: auto | concat | factored (RGCN); extras.hgt_flash:
-    # auto | off and extras.hgt_dense_attn_bytes (HGT)
+    # extras.head_style: auto | concat | factored and extras.dual_head_fusion:
+    # auto | on | off (RGCN); extras.hgt_flash: auto | off and
+    # extras.hgt_dense_attn_bytes (HGT)
     extras: Dict[str, Any] = field(default_factory=dict)
 
     def __post_init__(self):
@@ -88,6 +89,13 @@ class ModelConfig:
     @property
     def head_style(self) -> str:
         return str(self.extras.get("head_style", "auto"))
+
+    @property
+    def dual_head_fusion(self) -> str:
+        """Both factored heads in one fused call: "on", "auto" (when the batch
+        carries no degree tile masks) or anything else for off, read as the
+        JAX factory reads it (``models/factory.py:76``)."""
+        return str(self.extras.get("dual_head_fusion", "auto"))
 
     @property
     def hgt_flash(self) -> str:
@@ -192,9 +200,8 @@ class Config:
 
 # accepted and dropped: they change TPU layout or TPU kernel choice only
 _GRAPH_IGNORED = {"node_types", "add_self_loops", "num_shards", "shard_kernel_plans"}
-_MODEL_IGNORED = {"dual_head_fusion"}
 # model keys that the JAX ``to_dict`` flattens out of ``extras``
-_MODEL_EXTRAS = {"head_style", "hgt_flash", "hgt_dense_attn_bytes"}
+_MODEL_EXTRAS = {"head_style", "dual_head_fusion", "hgt_flash", "hgt_dense_attn_bytes"}
 # accepted and dropped: TPU device placement and dispatch
 _TRAIN_IGNORED = {"device", "num_devices", "donate_state"}
 _TRAIN_EXTRAS = {"lab_tile_rows", "lab_tile_mode", "lab_reweighting"}
@@ -236,7 +243,7 @@ def _model_from_dict(d: Dict[str, Any]) -> ModelConfig:
     extras = dict(d.pop("extras", None) or {})
     extras.update({k: d.pop(k) for k in _MODEL_EXTRAS & set(d)})
     known = _fields(ModelConfig) - {"edge_head", "extras"}
-    unknown = set(d) - known - _MODEL_IGNORED
+    unknown = set(d) - known
     if unknown:
         raise ConfigError(f"unsupported model setting(s): {sorted(unknown)}")
     return ModelConfig(

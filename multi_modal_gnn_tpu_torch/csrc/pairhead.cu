@@ -2,9 +2,11 @@
 // ops/_build.py into the port's one shared library with a plain C interface
 // and called through ctypes from ops/pairhead_kernels.py.
 //
-// Replaces the two Pallas TPU kernels of multi_modal_gnn_tpu/ops/pallas_pairhead.py:
-//   K4f _fused_fwd / _fwd_kernel -> mmgnn_pair_head_fwd
-//   K4b _fused_bwd / _bwd_kernel -> mmgnn_pair_head_bwd
+// Replaces the four Pallas TPU kernels of multi_modal_gnn_tpu/ops/pallas_pairhead.py:
+//   K4f _fused_fwd / _fwd_kernel                -> mmgnn_pair_head_fwd
+//   K4b _fused_bwd / _bwd_kernel                -> mmgnn_pair_head_bwd
+//   K5f _dual_fused_fwd / _dual_fwd_kernel      -> mmgnn_pair_head_dual_fwd
+//   K5b _dual_fused_bwd / _dual_bwd_kernel      -> mmgnn_pair_head_dual_bwd
 //
 // For every slot e of tile t of a slot-major batch (training/masker.py):
 //   p = tile_map[t] * 128 + local[e]          (local == 128: padding slot)
@@ -19,22 +21,34 @@
 // rows >= num_p read zero (the TPU pads the table to whole windows), and
 // rows past the window block are never read.
 //
+// K5 runs both degree-gated heads (tabular and GNN) of one batch in one
+// launch: the same slots, windows and lab ids, each head with its own
+// tables, weights and tile mask.  The TPU kernel packed the two heads side
+// by side (128 lanes) under a block-diagonal W1 to fill its MXU passes; here
+// each head's [64] -> [32] product runs on its own, and a head's zero
+// blocks cost nothing.  A tile masked for both heads skips its body.
+//
 // Dropout: a counter-based generator, the same function as dropout_bits in
 // ops/pairhead_kernels.py, so the plain version draws the same masks:
 //   key(e)        = fmix32(seed0 ^ fmix32(e ^ fmix32(seed1)))
-//   bits(e, L, c) = fmix32(key(e) ^ (64 L + c + 1) * 0x9E3779B9)
+//   bits(e, L, c) = fmix32(key(e) ^ (S L + c + 1) * 0x9E3779B9)
 // (murmur3's finalizer; e the global slot, L the layer, c the column), kept
 // when bits >= threshold compared UNSIGNED, threshold = rate * 2^32, and
-// scaled by 1 / (1 - rate).  The backward recomputes the bits; no mask is
-// stored.  The TPU drew pltpu.prng_random_bits, which cannot be reproduced.
+// scaled by 1 / (1 - rate).  K4 draws with S = 64.  K5 draws ONE stream
+// over both heads' concatenated activations, as the TPU kernel does: seed
+// (seed_tab ^ seed_gnn), S = 128, the tabular head on columns 0..63 of
+// layer 0 and 0..31 of layer 1, the GNN head on 64..127 and 32..63.  The
+// backward recomputes the bits; no mask is stored.  The TPU drew
+// pltpu.prng_random_bits, which cannot be reproduced.
 //
-// What bounds them on the H100: operations.  64 x 32 FMAs per slot forward
-// (h0 @ W1), three times that backward (recomputed h0 @ W1, dpre1 @ W1^T and
-// the dW1 outer products), in float32 (TF32 would keep ~3 digits) against
-// the ~0.5 KB of Pp/Pl rows a slot reads, mostly from L2.
-//   * K4f: one thread per slot.  h0 and the 32 accumulators live in
+// What bounds them on the H100: operations.  64 x 32 FMAs per slot and head
+// forward (h0 @ W1), three times that backward (recomputed h0 @ W1, dpre1 @
+// W1^T and the dW1 outer products), in float32 (TF32 would keep ~3 digits)
+// against the ~0.5 KB of Pp/Pl rows a slot reads per head, mostly from L2.
+//   * K4f / K5f: one thread per slot.  h0 and the 32 accumulators live in
 //     registers; W1 sits in shared memory and is read as float4 broadcasts
-//     (every lane reads the same address).
+//     (every lane reads the same address).  K5f decodes a slot (window row,
+//     lab, dropout key) once and runs the heads its tile needs in turn.
 //   * K4b: a warp handles 32 slots at a time, first one slot per lane
 //     (recompute, dpre1, dpre0), then one column per lane for the
 //     reductions over slots, through per-warp shared staging rows (padded to
@@ -46,6 +60,12 @@
 //     block.  Four warps per block, one block per SM (~215 KB of shared
 //     memory at 500 labs); the shared-memory budget, not the registers,
 //     sets that.
+//   * K5b: K4b's blocks, one head per block: blockIdx.y = 0 takes the GNN
+//     head, which runs on most tiles, so its blocks are dispatched first;
+//     blockIdx.y = 1 the tabular head.  Both heads' dPl (2 x 128 KB at 500
+//     labs) cannot share one block's 227 KB, so each block keeps its own
+//     head's half resident and decodes its tiles' slots itself (8 bytes of
+//     indices per slot, from L2).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -81,6 +101,28 @@ struct Head {
   int dropout;
 };
 
+// Dropout counter layouts, compile-time so that each unrolled column's
+// counter (S L + O_L + c + 1) * 0x9E3779B9 folds to a constant.
+struct SingleCols {  // K4
+  static constexpr int S = H0, O0 = 0, O1 = 0;
+};
+struct TabCols {  // K5, the tabular head: columns 0..63 and 0..31
+  static constexpr int S = 2 * H0, O0 = 0, O1 = 0;
+};
+struct GnnCols {  // K5, the GNN head: columns 64..127 and 32..63
+  static constexpr int S = 2 * H0, O0 = H0, O1 = H1;
+};
+
+// The gradients of one head, each zeroed by the caller and accumulated with atomics.
+struct Grads {
+  float* __restrict__ dpp;  // [num_windows * 128 (or num_p if larger), 64]
+  float* __restrict__ dpl;  // [num_l, 64]
+  float* __restrict__ dw1;  // [64, 32]
+  float* __restrict__ db1;  // [32]
+  float* __restrict__ dw2;  // [32]
+  float* __restrict__ db2;  // [1]
+};
+
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   h ^= h >> 16;
   h *= 0x85ebca6bu;
@@ -94,8 +136,10 @@ __device__ __forceinline__ uint32_t slot_key(const Head& a, uint32_t e) {
   return fmix32(a.seed0 ^ fmix32(e ^ fmix32(a.seed1)));
 }
 
+template <class C>
 __device__ __forceinline__ bool keep(const Head& a, uint32_t key, int layer, int c) {
-  return fmix32(key ^ ((uint32_t)(layer * 64 + c + 1) * 0x9E3779B9u)) >= a.threshold;
+  const int col = layer * C::S + (layer ? C::O1 : C::O0) + c;
+  return fmix32(key ^ ((uint32_t)(col + 1) * 0x9E3779B9u)) >= a.threshold;
 }
 
 __device__ __forceinline__ bool tile_on(const Head& a, int t) {
@@ -157,6 +201,31 @@ __device__ void load_weights(const Head& a, float4* w1s, float* b1s, float* w2s,
   }
 }
 
+// One slot's output: the head MLP on Pp[p] + Pl[lr] (p a real patient row).
+template <class C>
+__device__ __forceinline__ float head_forward(const Head& a, int p, int lr, uint32_t key,
+                                              const float4* w1s, const float* b1s,
+                                              const float* w2s) {
+  float h0[H0];
+  load_pre0(a, p, lr, h0);
+#pragma unroll
+  for (int k = 0; k < H0; ++k) {
+    float h = fmaxf(h0[k], 0.f);
+    if (a.dropout) h = keep<C>(a, key, 0, k) ? h * a.scale : 0.f;
+    h0[k] = h;
+  }
+  float acc[H1];
+  layer1(w1s, b1s, h0, acc);
+  float result = a.b2[0];
+#pragma unroll
+  for (int j = 0; j < H1; ++j) {
+    float h = fmaxf(acc[j], 0.f);
+    if (a.dropout) h = keep<C>(a, key, 1, j) ? h * a.scale : 0.f;
+    result = fmaf(h, w2s[j], result);
+  }
+  return result;
+}
+
 __global__ void __launch_bounds__(FWD_THREADS)
 pair_head_fwd_kernel(Head a, int num_tiles, float* __restrict__ out) {
   __shared__ float4 w1s[H0 * H1 / 4];
@@ -169,27 +238,38 @@ pair_head_fwd_kernel(Head a, int num_tiles, float* __restrict__ out) {
   const int loc = a.local[e];
   float result = 0.f;
   if (tile_on(a, t) && loc < WINDOW) {
-    const int p = a.tile_map[t] * WINDOW + loc;
-    float h0[H0];
-    load_pre0(a, p, lab_row(a, t, a.lab[e]), h0);
     const uint32_t key = a.dropout ? slot_key(a, (uint32_t)e) : 0u;
-#pragma unroll
-    for (int k = 0; k < H0; ++k) {
-      float h = fmaxf(h0[k], 0.f);
-      if (a.dropout) h = keep(a, key, 0, k) ? h * a.scale : 0.f;
-      h0[k] = h;
-    }
-    float acc[H1];
-    layer1(w1s, b1s, h0, acc);
-    result = a.b2[0];
-#pragma unroll
-    for (int j = 0; j < H1; ++j) {
-      float h = fmaxf(acc[j], 0.f);
-      if (a.dropout) h = keep(a, key, 1, j) ? h * a.scale : 0.f;
-      result = fmaf(h, w2s[j], result);
-    }
+    result = head_forward<SingleCols>(a, a.tile_map[t] * WINDOW + loc, lab_row(a, t, a.lab[e]), key, w1s,
+                          b1s, w2s);
   }
   out[e] = result;
+}
+
+// K5f: ht and hg share lab, local, tile_map and the dropout seed; each
+// carries its own tables, weights, tile mask and dropout column offsets.
+__global__ void __launch_bounds__(FWD_THREADS)
+pair_head_dual_fwd_kernel(Head ht, Head hg, int num_tiles, float* __restrict__ out_t,
+                          float* __restrict__ out_g) {
+  __shared__ float4 w1s_t[H0 * H1 / 4], w1s_g[H0 * H1 / 4];
+  __shared__ float b1s_t[H1], w2s_t[H1], b1s_g[H1], w2s_g[H1];
+  load_weights(ht, w1s_t, b1s_t, w2s_t, FWD_THREADS);
+  load_weights(hg, w1s_g, b1s_g, w2s_g, FWD_THREADS);
+  __syncthreads();
+  const long long e = (long long)blockIdx.x * FWD_THREADS + threadIdx.x;
+  const int t = (int)(e / TILE_E);
+  if (t >= num_tiles) return;
+  const bool on_t = tile_on(ht, t), on_g = tile_on(hg, t);  // block-uniform
+  float res_t = 0.f, res_g = 0.f;
+  const int loc = (on_t || on_g) ? ht.local[e] : WINDOW;
+  if (loc < WINDOW) {
+    const int p = ht.tile_map[t] * WINDOW + loc;
+    const int lr = lab_row(ht, t, ht.lab[e]);
+    const uint32_t key = ht.dropout ? slot_key(ht, (uint32_t)e) : 0u;
+    if (on_t) res_t = head_forward<TabCols>(ht, p, lr, key, w1s_t, b1s_t, w2s_t);
+    if (on_g) res_g = head_forward<GnnCols>(hg, p, lr, key, w1s_g, b1s_g, w2s_g);
+  }
+  out_t[e] = res_t;
+  out_g[e] = res_g;
 }
 
 // Add the shared window block into rows [window * 128, +128) of dpp, and zero it.
@@ -202,11 +282,13 @@ __device__ void flush_dpp(float* dpp_s, float* __restrict__ dpp, int window) {
   }
 }
 
-__global__ void __launch_bounds__(BWD_THREADS, 1)
-pair_head_bwd_kernel(Head a, const float* __restrict__ g_out, int num_tiles,
-                     int tiles_per_block, float* __restrict__ dpp, float* __restrict__ dpl,
-                     float* __restrict__ dw1, float* __restrict__ db1, float* __restrict__ dw2,
-                     float* __restrict__ db2) {
+// The backward of one head over the tiles [blockIdx.x * tiles_per_block, +tiles_per_block).
+template <class C>
+__device__ __forceinline__ void pair_head_bwd_body(const Head& a, const float* __restrict__ g_out,
+                                                   int num_tiles, int tiles_per_block,
+                                                   const Grads& d) {
+  float* __restrict__ dpp = d.dpp;
+  float* __restrict__ dpl = d.dpl;
   extern __shared__ float4 smem4[];
   float4* w1s = smem4;                                               // [64 * 32]
   float* b1s = reinterpret_cast<float*>(w1s + H0 * H1 / 4);          // [32]
@@ -260,7 +342,7 @@ pair_head_bwd_kernel(Head a, const float* __restrict__ g_out, int num_tiles,
       for (int k = 0; k < H0; ++k) {
         if (h0[k] > 0.f) relu0[k / 32] |= 1u << (k % 32);
         float h = fmaxf(h0[k], 0.f);
-        if (a.dropout) h = keep(a, key, 0, k) ? h * a.scale : 0.f;
+        if (a.dropout) h = keep<C>(a, key, 0, k) ? h * a.scale : 0.f;
         h0[k] = h;
         stage_a[lane * STAGE_A + k] = h;  // h0 after dropout, for dW1
       }
@@ -268,7 +350,7 @@ pair_head_bwd_kernel(Head a, const float* __restrict__ g_out, int num_tiles,
       layer1(w1s, b1s, h0, acc);
 #pragma unroll
       for (int j = 0; j < H1; ++j) {
-        const bool kept = !a.dropout || keep(a, key, 1, j);
+        const bool kept = !a.dropout || keep<C>(a, key, 1, j);
         const float h1d = kept ? fmaxf(acc[j], 0.f) * (a.dropout ? a.scale : 1.f) : 0.f;
         stage_b[lane * STAGE_B + j] = go * h1d;  // dw2 terms
         const float dh1 = kept ? go * w2s[j] * (a.dropout ? a.scale : 1.f) : 0.f;
@@ -302,7 +384,7 @@ pair_head_bwd_kernel(Head a, const float* __restrict__ g_out, int num_tiles,
           dh = fmaf(acc[4 * q + 2], wv.z, dh);
           dh = fmaf(acc[4 * q + 3], wv.w, dh);
         }
-        if (a.dropout) dh = keep(a, key, 0, k) ? dh * a.scale : 0.f;
+        if (a.dropout) dh = keep<C>(a, key, 0, k) ? dh * a.scale : 0.f;
         if (!((relu0[k / 32] >> (k % 32)) & 1u)) dh = 0.f;
         stage_a[lane * STAGE_A + k] = dh;
       }
@@ -331,12 +413,30 @@ pair_head_bwd_kernel(Head a, const float* __restrict__ g_out, int num_tiles,
   }
 #pragma unroll
   for (int k = 0; k < H0; ++k) {
-    if (dw1_acc[k] != 0.f) atomicAdd(dw1 + k * H1 + lane, dw1_acc[k]);
+    if (dw1_acc[k] != 0.f) atomicAdd(d.dw1 + k * H1 + lane, dw1_acc[k]);
   }
-  atomicAdd(db1 + lane, db1_acc);
-  atomicAdd(dw2 + lane, dw2_acc);
+  atomicAdd(d.db1 + lane, db1_acc);
+  atomicAdd(d.dw2 + lane, dw2_acc);
   for (int off = 16; off > 0; off >>= 1) db2_acc += __shfl_xor_sync(FULL, db2_acc, off);
-  if (lane == 0) atomicAdd(db2, db2_acc);
+  if (lane == 0) atomicAdd(d.db2, db2_acc);
+}
+
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+pair_head_bwd_kernel(Head a, const float* __restrict__ g_out, int num_tiles, int tiles_per_block,
+                     Grads d) {
+  pair_head_bwd_body<SingleCols>(a, g_out, num_tiles, tiles_per_block, d);
+}
+
+// K5b: blockIdx.y = 0 runs the GNN head, 1 the tabular head.
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+pair_head_dual_bwd_kernel(Head hg, Head ht, const float* __restrict__ g_out_g,
+                          const float* __restrict__ g_out_t, int num_tiles, int tiles_per_block,
+                          Grads dg, Grads dt) {
+  if (blockIdx.y == 0) {
+    pair_head_bwd_body<GnnCols>(hg, g_out_g, num_tiles, tiles_per_block, dg);
+  } else {
+    pair_head_bwd_body<TabCols>(ht, g_out_t, num_tiles, tiles_per_block, dt);
+  }
 }
 
 Head make_head(const float* pp, int num_p, const float* pl, int num_l, const float* w1,
@@ -366,6 +466,29 @@ Head make_head(const float* pp, int num_p, const float* pl, int num_l, const flo
   a.scale = scale;
   a.dropout = dropout;
   return a;
+}
+
+// The two heads of K5: shared plan and seed, own tables and masks (their
+// dropout columns: TabCols, GnnCols).
+void make_dual(const float* const* tab, const float* const* gnn, int num_p, int num_l,
+               const int* lab, const int* local, const int* tile_map, const int* tab_mask,
+               const int* gnn_mask, unsigned seed0, unsigned seed1, unsigned threshold,
+               float scale, int dropout, Head* ht, Head* hg) {
+  *ht = make_head(tab[0], num_p, tab[1], num_l, tab[2], tab[3], tab[4], tab[5], lab, local,
+                  tile_map, tab_mask, nullptr, 0, 0, seed0, seed1, threshold, scale, dropout);
+  *hg = make_head(gnn[0], num_p, gnn[1], num_l, gnn[2], gnn[3], gnn[4], gnn[5], lab, local,
+                  tile_map, gnn_mask, nullptr, 0, 0, seed0, seed1, threshold, scale, dropout);
+}
+
+Grads make_grads(float* dpp, float* dpl, float* dw1, float* db1, float* dw2, float* db2) {
+  Grads d;
+  d.dpp = dpp;
+  d.dpl = dpl;
+  d.dw1 = dw1;
+  d.db1 = db1;
+  d.dw2 = dw2;
+  d.db2 = db2;
+  return d;
 }
 
 }  // namespace
@@ -413,7 +536,59 @@ int mmgnn_pair_head_bwd(const float* pp, int num_p, const float* pl, int num_l, 
   if (err != cudaSuccess) return err;
   const int blocks = (num_tiles + tiles_per_block - 1) / tiles_per_block;
   pair_head_bwd_kernel<<<blocks, BWD_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      a, g_out, num_tiles, tiles_per_block, dpp, dpl, dw1, db1, dw2, db2);
+      a, g_out, num_tiles, tiles_per_block, make_grads(dpp, dpl, dw1, db1, dw2, db2));
+  return cudaGetLastError();
+}
+
+// K5f.  out_t and out_g [num_tiles * 1024] are written in full (0 for
+// padding slots and for each head's masked tiles).
+int mmgnn_pair_head_dual_fwd(const float* pp_t, const float* pl_t, const float* w1_t,
+                             const float* b1_t, const float* w2_t, const float* b2_t,
+                             const float* pp_g, const float* pl_g, const float* w1_g,
+                             const float* b1_g, const float* w2_g, const float* b2_g, int num_p,
+                             int num_l, const int* lab, const int* local, const int* tile_map,
+                             const int* tab_mask, const int* gnn_mask, int num_tiles,
+                             unsigned seed0, unsigned seed1, unsigned threshold, float scale,
+                             int dropout, float* out_t, float* out_g, void* stream) {
+  const float* tab[6] = {pp_t, pl_t, w1_t, b1_t, w2_t, b2_t};
+  const float* gnn[6] = {pp_g, pl_g, w1_g, b1_g, w2_g, b2_g};
+  Head ht, hg;
+  make_dual(tab, gnn, num_p, num_l, lab, local, tile_map, tab_mask, gnn_mask, seed0, seed1,
+            threshold, scale, dropout, &ht, &hg);
+  const int blocks = num_tiles * (TILE_E / FWD_THREADS);
+  pair_head_dual_fwd_kernel<<<blocks, FWD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      ht, hg, num_tiles, out_t, out_g);
+  return cudaGetLastError();
+}
+
+// K5b.  Each head's dpp [num_windows * 128, 64], dpl [num_l, 64], dw1
+// [64, 32], db1, dw2 [32] and db2 [1] are zeroed by the caller.
+int mmgnn_pair_head_dual_bwd(const float* pp_t, const float* pl_t, const float* w1_t,
+                             const float* b1_t, const float* w2_t, const float* b2_t,
+                             const float* pp_g, const float* pl_g, const float* w1_g,
+                             const float* b1_g, const float* w2_g, const float* b2_g, int num_p,
+                             int num_l, const int* lab, const int* local, const int* tile_map,
+                             const int* tab_mask, const int* gnn_mask, int num_tiles,
+                             unsigned seed0, unsigned seed1, unsigned threshold, float scale,
+                             int dropout, const float* g_out_t, const float* g_out_g,
+                             int tiles_per_block, float* dpp_t, float* dpl_t, float* dw1_t,
+                             float* db1_t, float* dw2_t, float* db2_t, float* dpp_g,
+                             float* dpl_g, float* dw1_g, float* db1_g, float* dw2_g,
+                             float* db2_g, void* stream) {
+  const float* tab[6] = {pp_t, pl_t, w1_t, b1_t, w2_t, b2_t};
+  const float* gnn[6] = {pp_g, pl_g, w1_g, b1_g, w2_g, b2_g};
+  Head ht, hg;
+  make_dual(tab, gnn, num_p, num_l, lab, local, tile_map, tab_mask, gnn_mask, seed0, seed1,
+            threshold, scale, dropout, &ht, &hg);
+  const int smem = mmgnn_pair_head_bwd_shared_bytes(num_l);
+  cudaError_t err = cudaFuncSetAttribute(pair_head_dual_bwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 blocks((num_tiles + tiles_per_block - 1) / tiles_per_block, 2);
+  pair_head_dual_bwd_kernel<<<blocks, BWD_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      hg, ht, g_out_g, g_out_t, num_tiles, tiles_per_block,
+      make_grads(dpp_g, dpl_g, dw1_g, db1_g, dw2_g, db2_g),
+      make_grads(dpp_t, dpl_t, dw1_t, db1_t, dw2_t, db2_t));
   return cudaGetLastError();
 }
 

@@ -54,5 +54,6 @@ def build_model(
         aggregation=mc.aggregation,
         degree_threshold=mc.degree_threshold,
         head_style=head_style,
+        dual_head_fusion=mc.dual_head_fusion,
     )
     return model.to(device)

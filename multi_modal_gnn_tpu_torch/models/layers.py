@@ -120,7 +120,9 @@ class FactoredEdgeHead(nn.Module):
     (``ops/pairhead.py``), tile-masked by ``tile_mask`` and with dropout drawn
     from ``seed``.  Otherwise the projections are gathered per pair
     (through :func:`take_with_plan` where plans are given) and the MLP runs
-    as torch layers."""
+    as torch layers.  ``project_only`` hands the caller the node projections
+    and the MLP's pieces instead (``HeteroRGCN``'s dual-head fusion), read
+    from the same parameters."""
 
     def __init__(
         self,
@@ -156,9 +158,17 @@ class FactoredEdgeHead(nn.Module):
         lab_plan: Optional[GatherPlan] = None,
         tile_mask: Optional[torch.Tensor] = None,
         seed: Tuple[int, int] = (0, 0),
-    ) -> torch.Tensor:
+        project_only: bool = False,
+    ):
         proj_p = self.proj_patient(x_p_nodes)
         proj_l = self.proj_lab(x_l_nodes)
+        if project_only:
+            # (proj_p, proj_l, w1 [H0, H1], b1, w2, b2, seed): the JAX
+            # ``project_only`` tuple (``layers.py:181-186``), same parameters
+            return (
+                proj_p.contiguous(), proj_l.contiguous(), self.dense_1.weight.t().contiguous(),
+                self.dense_1.bias, self.dense_out.weight[0], self.dense_out.bias, tuple(seed),
+            )
         rate = self.dropout if train else 0.0
         if (
             patient_plan is not None

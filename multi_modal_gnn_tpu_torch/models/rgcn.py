@@ -33,6 +33,7 @@ from multi_modal_gnn_tpu_torch.models.layers import (
     get_activation,
     make_dense,
 )
+from multi_modal_gnn_tpu_torch.ops.pairhead import fused_pair_head_dual
 from multi_modal_gnn_tpu_torch.ops.segment import aggregate_neighbors, take_with_plan
 from multi_modal_gnn_tpu_torch.utils.rng import stream_seed_pair
 
@@ -116,6 +117,7 @@ class HeteroRGCN(nn.Module):
         degree_threshold: int = 6,
         impl: str = "xla",
         head_style: str = "concat",
+        dual_head_fusion: str = "auto",
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
@@ -126,6 +128,7 @@ class HeteroRGCN(nn.Module):
         self.use_batch_norm = use_batch_norm
         self.degree_threshold = degree_threshold
         self.head_style = head_style
+        self.dual_head_fusion = dual_head_fusion
         self.impl = impl
         self.act = get_activation(activation)
         for nt, n in self.node_counts:
@@ -179,30 +182,65 @@ class HeteroRGCN(nn.Module):
     def forward(self, graph: HeteroGraph, train: bool = False) -> Dict[str, torch.Tensor]:
         return self.propagate(self.encode_nodes(train), graph, train)
 
+    def _use_dual(self, patient_plan: Optional[GatherPlan], tab_mask) -> bool:
+        """JAX's rule (``rgcn.py:419-436``): ``on``, or ``auto`` without tile
+        masks, on a slot-major batch with no lab tiles and two-layer heads.
+        JAX also asks for eval mode, dropout 0 or a TPU there, because its
+        in-kernel dropout lowers only on the TPU; K5 draws its bits in the
+        kernel as the TPU kernel does, and its plain version draws the same
+        bits, so the port takes the dual path at any dropout."""
+        want = self.dual_head_fusion == "on" or (self.dual_head_fusion == "auto" and tab_mask is None)
+        return (
+            want
+            and patient_plan is not None
+            and patient_plan.identity
+            and not patient_plan.lab_block_rows
+            and len(self.tabular_mlp.hidden_names) == 1
+        )
+
     def _heads(
         self, init_p, init_l, final_p, final_l, p_idx, l_idx, degrees, train: bool = False,
         patient_plan: Optional[GatherPlan] = None, lab_plan: Optional[GatherPlan] = None,
-        dropout_seed: int = 0,
+        dropout_seed: int = 0, mask_degrees: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         if self.head_style == "factored":
             # degree-predicated head tiles: with a slot-major batch, a tile
             # whose real slots all lie at or above the threshold never uses
             # its tabular prediction (the gate below discards it), so the
-            # fused kernel skips the tile; all-low tiles skip the GNN head
+            # fused kernel skips the tile; all-low tiles skip the GNN head.
+            # As in JAX, only degrees the caller passed build masks.
             tab_mask = gnn_mask = None
-            if patient_plan is not None and patient_plan.identity and degrees.shape[0] % TILE_E == 0:
-                low = (degrees < self.degree_threshold).reshape(-1, TILE_E)
+            if (
+                patient_plan is not None
+                and patient_plan.identity
+                and mask_degrees is not None
+                and mask_degrees.shape[0] % TILE_E == 0
+            ):
+                low = (mask_degrees < self.degree_threshold).reshape(-1, TILE_E)
                 tab_mask = low.any(dim=1).to(torch.int32)
                 gnn_mask = (~low).any(dim=1).to(torch.int32)
-            common = dict(train=train, patient_plan=patient_plan, lab_plan=lab_plan)
-            tab = self.tabular_mlp(
-                init_p, init_l, p_idx, l_idx, tile_mask=tab_mask,
-                seed=stream_seed_pair(dropout_seed, "tabular_mlp"), **common,
-            )[..., 0]
-            gnn = self.edge_predictor(
-                final_p, final_l, p_idx, l_idx, tile_mask=gnn_mask,
-                seed=stream_seed_pair(dropout_seed, "edge_predictor"), **common,
-            )[..., 0]
+            seed_t = stream_seed_pair(dropout_seed, "tabular_mlp")
+            seed_g = stream_seed_pair(dropout_seed, "edge_predictor")
+            if self._use_dual(patient_plan, tab_mask):
+                *tab, seed_t = self.tabular_mlp(
+                    init_p, init_l, p_idx, l_idx, seed=seed_t, project_only=True
+                )
+                *gnn, seed_g = self.edge_predictor(
+                    final_p, final_l, p_idx, l_idx, seed=seed_g, project_only=True
+                )
+                tab, gnn = fused_pair_head_dual(
+                    *tab, *gnn, l_idx, patient_plan.win_local, patient_plan.win_tile_map,
+                    (*seed_t, *seed_g), tab_mask, gnn_mask, patient_plan.num_windows,
+                    self.dropout if train else 0.0,
+                )
+            else:
+                common = dict(train=train, patient_plan=patient_plan, lab_plan=lab_plan)
+                tab = self.tabular_mlp(
+                    init_p, init_l, p_idx, l_idx, tile_mask=tab_mask, seed=seed_t, **common,
+                )[..., 0]
+                gnn = self.edge_predictor(
+                    final_p, final_l, p_idx, l_idx, tile_mask=gnn_mask, seed=seed_g, **common,
+                )[..., 0]
         else:
             def take(x_p, x_l):
                 return torch.cat(
@@ -231,18 +269,19 @@ class HeteroRGCN(nn.Module):
         With the kernel path (``impl="pallas"``) the batch's gather plans
         route the pair gathers' backward through K1, and an identity patient
         plan (a slot-major batch) runs the factored heads in the fused
-        pair-head kernels, each skipping the tiles the gate discards.
-        ``degrees`` is the per-pair patient lab-degree (gathered here when
-        None); ``dropout_seed`` seeds the fused heads' dropout."""
+        pair-head kernels: each head on its own (K4), skipping the tiles the
+        gate discards, or both in one call (K5) under ``dual_head_fusion``.
+        ``degrees`` is the per-pair patient lab-degree: given, it also builds
+        the heads' tile masks; None, it is gathered here for the gate only.
+        ``dropout_seed`` seeds the fused heads' dropout."""
         initial = self.encode_nodes(train)
         final = self.propagate(initial, graph, train)
         use_plans = self.impl == "pallas"
-        if degrees is None:
-            degrees = graph.patient_lab_degree[p_idx.long()]
+        gate = degrees if degrees is not None else graph.patient_lab_degree[p_idx.long()]
         return self._heads(
-            initial[PATIENT], initial[LAB], final[PATIENT], final[LAB], p_idx, l_idx, degrees,
+            initial[PATIENT], initial[LAB], final[PATIENT], final[LAB], p_idx, l_idx, gate,
             train, patient_plan if use_plans else None, lab_plan if use_plans else None,
-            dropout_seed,
+            dropout_seed, mask_degrees=degrees,
         )
 
     def compute_node_state(self, graph: HeteroGraph) -> Dict[str, torch.Tensor]:

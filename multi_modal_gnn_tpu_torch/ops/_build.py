@@ -103,6 +103,7 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
     head = [p, i, p, i, p, p, p, p, p, p, p, p, p, i, i, i, u, u, u, f, i]
+    dual = [p] * 12 + [i, i, p, p, p, p, p, i, u, u, u, f, i]
     signatures = {
         "mmgnn_segment_sum_windowed": [p, p, p, p, i, i, i, p, p],
         "mmgnn_fused_table_segment_sum": [p, p, p, p, i, i, i, p, p],
@@ -111,6 +112,11 @@ def load() -> ctypes.CDLL:
         "mmgnn_pair_head_fwd": [*head, p, p],
         "mmgnn_pair_head_bwd": [*head, p, i, p, p, p, p, p, p, p],
         "mmgnn_pair_head_bwd_shared_bytes": [i],
+        "mmgnn_pair_head_dual_fwd": [*dual, p, p, p],
+        "mmgnn_pair_head_dual_bwd": [*dual, p, p, i, *[p] * 12, p],
+        "mmgnn_gather_indicator": [p, p, i, i, i, p, p],
+        "mmgnn_gather_direct": [p, p, i, i, i, i, i, i, p, p],
+        "mmgnn_gather_direct_staged_bytes": [i, i],
         "mmgnn_flash_attention_fwd": [p, p, p, p, p, p, i, i, i, i, i, p, p, p, p, p, p],
         "mmgnn_flash_attention_dq": [p, p, p, p, p, p, p, p, p, i, i, i, i, p, p],
         "mmgnn_flash_attention_dkv": [p, p, p, p, p, p, p, p, p, i, i, i, i, p, p, p],

@@ -1,16 +1,22 @@
 """The fused pair head (``multi_modal_gnn_tpu/ops/pallas_pairhead.py``
-``fused_pair_head``): the factored edge head's MLP over a slot-major batch
-with no per-pair intermediate in device memory, forward (K4f) or backward
-(K4b, which recomputes the forward and stores nothing).
+``fused_pair_head`` and ``fused_pair_head_dual``): the factored edge head's
+MLP over a slot-major batch with no per-pair intermediate in device memory,
+forward (K4f) or backward (K4b, which recomputes the forward and stores
+nothing); and both degree-gated heads in one call (K5f / K5b).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
-from multi_modal_gnn_tpu_torch.ops.pairhead_kernels import pair_head_bwd, pair_head_fwd
+from multi_modal_gnn_tpu_torch.ops.pairhead_kernels import (
+    pair_head_bwd,
+    pair_head_dual_bwd,
+    pair_head_dual_fwd,
+    pair_head_fwd,
+)
 
 
 class _FusedPairHead(torch.autograd.Function):
@@ -76,3 +82,68 @@ def fused_pair_head(
         lab_block_map, float(rate), int(lab_block_rows), int(num_windows),
     )
     return _FusedPairHead.apply(proj_p, proj_l, w1, b1, w2, b2, plan_args)
+
+
+class _FusedPairHeadDual(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *args):
+        *tensors, plan_args = args
+        ctx.plan_args = plan_args
+        ctx.save_for_backward(*tensors)
+        return pair_head_dual_fwd(*tensors, *plan_args[:-1])
+
+    @staticmethod
+    def backward(ctx, g_tab, g_gnn):
+        *plan, num_windows = ctx.plan_args
+        tensors = ctx.saved_tensors
+        win_local = plan[1]
+        g_tab, g_gnn = (
+            tensors[0].new_zeros(win_local.shape[0]) if g is None else g.float().contiguous()
+            for g in (g_tab, g_gnn)
+        )
+        grads = pair_head_dual_bwd(*tensors, *plan, num_windows, g_tab, g_gnn)
+        return (*grads, None)
+
+
+def fused_pair_head_dual(
+    proj_p_t: torch.Tensor,
+    proj_l_t: torch.Tensor,
+    w1_t: torch.Tensor,
+    b1_t: torch.Tensor,
+    w2_t: torch.Tensor,
+    b2_t: torch.Tensor,
+    proj_p_g: torch.Tensor,
+    proj_l_g: torch.Tensor,
+    w1_g: torch.Tensor,
+    b1_g: torch.Tensor,
+    w2_g: torch.Tensor,
+    b2_g: torch.Tensor,
+    lab_idx: torch.Tensor,
+    win_local: torch.Tensor,
+    win_tile_map: torch.Tensor,
+    seed4: Sequence[int],
+    tab_mask: Optional[torch.Tensor],
+    gnn_mask: Optional[torch.Tensor],
+    num_windows: int,
+    rate: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both degree-gated heads in one call: ``(out_tab, out_gnn)``.
+
+    The slot-major contract of :func:`fused_pair_head`, for two heads that
+    share the batch's slots and lab ids, each with its own node projections
+    and MLP weights (the ``_t`` tabular head, the ``_g`` GNN head).
+    ``seed4`` is both heads' seed pairs, ``(tab0, tab1, gnn0, gnn1)``: one
+    dropout stream over the heads' concatenated activations, seeded by
+    ``(tab0 ^ gnn0, tab1 ^ gnn1)``, so the dual head's dropout differs from
+    two single calls' (same distribution).  ``tab_mask`` / ``gnn_mask``
+    predicate per head: a head outputs exactly 0, and gets no gradient, on
+    its own masked tiles; a tile masked for both heads skips its body.  No
+    span-bounded lab tiles: every tile reads the whole lab table."""
+    plan_args = (
+        lab_idx, win_local, win_tile_map, tuple(int(s) for s in seed4), tab_mask, gnn_mask,
+        float(rate), int(num_windows),
+    )
+    return _FusedPairHeadDual.apply(
+        proj_p_t, proj_l_t, w1_t, b1_t, w2_t, b2_t, proj_p_g, proj_l_g, w1_g, b1_g, w2_g, b2_g,
+        plan_args,
+    )

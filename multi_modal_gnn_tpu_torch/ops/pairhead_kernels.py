@@ -6,6 +6,8 @@ wrapper             replaces (``multi_modal_gnn_tpu/ops/pallas_pairhead.py``)
 ==================  ============================================================
 pair_head_fwd       K4f ``_fused_fwd`` / ``_fwd_kernel``
 pair_head_bwd       K4b ``_fused_bwd`` / ``_bwd_kernel``
+pair_head_dual_fwd  K5f ``_dual_fused_fwd`` / ``_dual_fwd_kernel``
+pair_head_dual_bwd  K5b ``_dual_fused_bwd`` / ``_dual_bwd_kernel``
 ==================  ============================================================
 
 Each wrapper takes its plain version for tensors on the CPU and launches its
@@ -27,9 +29,19 @@ import torch
 from multi_modal_gnn_tpu_torch.graph.hetero import TILE_E, WINDOW
 from multi_modal_gnn_tpu_torch.ops.segment_kernels import _check_plan, _on_cpu, _ptr, _raise_on
 
-launch_counts: Dict[str, int] = {"pair_head_fwd": 0, "pair_head_bwd": 0}
+launch_counts: Dict[str, int] = {
+    "pair_head_fwd": 0, "pair_head_bwd": 0, "pair_head_dual_fwd": 0, "pair_head_dual_bwd": 0,
+}
 
 H0, H1 = 64, 32  # the head widths the kernels are compiled for
+# The dual head's one dropout stream numbers 2 * H0 columns per layer (the
+# tabular head first), so no column of layer 0 shares a counter with one of
+# layer 1.  The single head's stream numbers 64 columns per layer.
+DUAL_LAYER_STRIDE = 2 * H0
+# Dropout column layouts, as the kernels' SingleCols / TabCols / GnnCols:
+# (counters per layer, first column of layer 0, first column of layer 1).
+SINGLE_COLS = (H0, 0, 0)
+DUAL_COLS = ((DUAL_LAYER_STRIDE, 0, 0), (DUAL_LAYER_STRIDE, H0, H1))  # tabular, GNN
 _LAB_PAD = 128
 _MAX_SHARED_BYTES = 232_448
 _BWD_BLOCKS_PER_SM = 2
@@ -71,16 +83,26 @@ def _fmix32(h: torch.Tensor) -> torch.Tensor:
     return h ^ (h >> 16)
 
 
-def dropout_bits(seed: Sequence[int], slots: torch.Tensor, layer: int, width: int) -> torch.Tensor:
-    """uint32 draws (as int64) for columns ``0..width-1`` of layer ``layer``
-    at global slots ``slots``: ``[len(slots), width]``."""
+def dropout_bits(
+    seed: Sequence[int], slots: torch.Tensor, layer: int, width: int, stride: int = H0,
+    offset: int = 0,
+) -> torch.Tensor:
+    """uint32 draws (as int64) for columns ``offset..offset+width-1`` of
+    layer ``layer`` at global slots ``slots``: ``[len(slots), width]``.
+    Column ``c`` of layer ``L`` hashes the counter ``stride * L + c + 1``."""
     seed0, seed1 = int(seed[0]) & _M32, int(seed[1]) & _M32
     key = _fmix32(seed0 ^ _fmix32((slots.long() & _M32) ^ _fmix32_int(seed1)))
     ctr = torch.tensor(
-        [((layer * 64 + c + 1) * 0x9E3779B9) & _M32 for c in range(width)],
+        [((layer * stride + offset + c + 1) * 0x9E3779B9) & _M32 for c in range(width)],
         dtype=torch.int64, device=slots.device,
     )
     return _fmix32(key[:, None] ^ ctr[None, :])
+
+
+def dual_seed(seed4: Sequence[int]) -> Tuple[int, int]:
+    """The dual head's one seed pair from both heads' ``(tab0, tab1, gnn0,
+    gnn1)``, as ``_dual_seed`` combines them (``pallas_pairhead.py:553``)."""
+    return (int(seed4[0]) ^ int(seed4[2])) & _M32, (int(seed4[1]) ^ int(seed4[3])) & _M32
 
 
 def dropout_params(rate: float) -> Tuple[int, float]:
@@ -92,9 +114,12 @@ def dropout_params(rate: float) -> Tuple[int, float]:
     return threshold, float(np.float32(1.0) / np.float32(1.0 - rate))
 
 
-def _keep_mask(seed, slots: torch.Tensor, layer: int, width: int, threshold: int) -> torch.Tensor:
+def _keep_mask(
+    seed, slots: torch.Tensor, layer: int, width: int, threshold: int, cols=SINGLE_COLS
+) -> torch.Tensor:
+    stride, offset = cols[0], cols[1 + layer]
     parts = [
-        dropout_bits(seed, slots[i : i + _BITS_CHUNK], layer, width) >= threshold
+        dropout_bits(seed, slots[i : i + _BITS_CHUNK], layer, width, stride, offset) >= threshold
         for i in range(0, slots.shape[0], _BITS_CHUNK)
     ]
     return torch.cat(parts) if parts else torch.zeros(0, width, dtype=torch.bool, device=slots.device)
@@ -112,7 +137,7 @@ def _lab_base_max(num_l: int, lab_block_rows: int) -> int:
 
 def _layer1_plain(
     proj_p, proj_l, w1, b1, lab_idx, win_local, win_tile_map, seed,
-    tile_mask, lab_block_map, rate: float, lab_block_rows: int,
+    tile_mask, lab_block_map, rate: float, lab_block_rows: int, cols=SINGLE_COLS,
 ):
     """(active slots, their layer-1 pre-activations ``[n, H1]``, threshold,
     scale): the head up to its second ReLU."""
@@ -134,23 +159,24 @@ def _layer1_plain(
     h0 = torch.relu(pp + pl)
     threshold, scale = dropout_params(rate)
     if rate > 0:
-        h0 = torch.where(_keep_mask(seed, slots, 0, h0.shape[1], threshold), h0 * scale, zero)
+        h0 = torch.where(_keep_mask(seed, slots, 0, h0.shape[1], threshold, cols), h0 * scale, zero)
     return slots, h0 @ w1 + b1, threshold, scale
 
 
 def pair_head_fwd_plain(
     proj_p, proj_l, w1, b1, w2, b2, lab_idx, win_local, win_tile_map, seed,
-    tile_mask, lab_block_map, rate: float, lab_block_rows: int,
+    tile_mask, lab_block_map, rate: float, lab_block_rows: int, cols=SINGLE_COLS,
 ):
     """The head MLP on the gathered rows of every active slot (real, in an
-    unmasked tile); every other slot outputs 0.  Differentiable."""
+    unmasked tile); every other slot outputs 0.  ``cols`` is the dropout
+    column layout.  Differentiable."""
     slots, pre1, threshold, scale = _layer1_plain(
         proj_p, proj_l, w1, b1, lab_idx, win_local, win_tile_map, seed, tile_mask,
-        lab_block_map, rate, lab_block_rows,
+        lab_block_map, rate, lab_block_rows, cols,
     )
     h1 = torch.relu(pre1)
     if rate > 0:
-        keep = _keep_mask(seed, slots, 1, h1.shape[1], threshold)
+        keep = _keep_mask(seed, slots, 1, h1.shape[1], threshold, cols)
         h1 = torch.where(keep, h1 * scale, proj_p.new_zeros(()))
     out = proj_p.new_zeros(win_local.shape[0])
     return out.index_put((slots,), h1 @ w2 + b2)
@@ -158,7 +184,7 @@ def pair_head_fwd_plain(
 
 def relu_margin_plain(
     proj_p, proj_l, w1, b1, lab_idx, win_local, win_tile_map, seed,
-    tile_mask, lab_block_map, rate: float, lab_block_rows: int,
+    tile_mask, lab_block_map, rate: float, lab_block_rows: int, cols=SINGLE_COLS,
 ) -> torch.Tensor:
     """``min_j |pre1[e, j]|`` per slot (0 for inactive slots): how far each
     slot's layer-1 pre-activations lie from the ReLU's kink.
@@ -171,7 +197,7 @@ def relu_margin_plain(
     with torch.no_grad():
         slots, pre1, _, _ = _layer1_plain(
             proj_p, proj_l, w1, b1, lab_idx, win_local, win_tile_map, seed, tile_mask,
-            lab_block_map, rate, lab_block_rows,
+            lab_block_map, rate, lab_block_rows, cols,
         )
         out = proj_p.new_zeros(win_local.shape[0])
         return out.index_put((slots,), pre1.abs().amin(dim=1))
@@ -179,7 +205,7 @@ def relu_margin_plain(
 
 def pair_head_bwd_plain(
     proj_p, proj_l, w1, b1, w2, b2, lab_idx, win_local, win_tile_map, seed,
-    tile_mask, lab_block_map, rate: float, lab_block_rows: int, g_out,
+    tile_mask, lab_block_map, rate: float, lab_block_rows: int, g_out, cols=SINGLE_COLS,
 ):
     """Gradients of ``sum(pair_head_fwd_plain(...) * g_out)`` with respect
     to (proj_p, proj_l, w1, b1, w2, b2)."""
@@ -187,10 +213,54 @@ def pair_head_bwd_plain(
         leaves = [x.detach().requires_grad_() for x in (proj_p, proj_l, w1, b1, w2, b2)]
         out = pair_head_fwd_plain(
             *leaves, lab_idx, win_local, win_tile_map, seed, tile_mask, lab_block_map,
-            rate, lab_block_rows,
+            rate, lab_block_rows, cols,
         )
         grads = torch.autograd.grad(out, leaves, g_out, allow_unused=True)
     return tuple(torch.zeros_like(x) if gr is None else gr for x, gr in zip(leaves, grads))
+
+
+def pair_head_dual_fwd_plain(
+    proj_p_t, proj_l_t, w1_t, b1_t, w2_t, b2_t, proj_p_g, proj_l_g, w1_g, b1_g, w2_g, b2_g,
+    lab_idx, win_local, win_tile_map, seed4, tab_mask, gnn_mask, rate: float,
+):
+    """``(out_tab, out_gnn)``: each head's MLP on the gathered rows of every
+    real slot of a tile its own mask keeps, 0 elsewhere, with dropout drawn
+    from one stream over both heads' columns.  Differentiable."""
+    heads = ((proj_p_t, proj_l_t, w1_t, b1_t, w2_t, b2_t), (proj_p_g, proj_l_g, w1_g, b1_g, w2_g, b2_g))
+    plan = (lab_idx, win_local, win_tile_map, dual_seed(seed4))
+    return tuple(
+        pair_head_fwd_plain(*head, *plan, mask, None, rate, 0, cols=cols)
+        for head, mask, cols in zip(heads, (tab_mask, gnn_mask), DUAL_COLS)
+    )
+
+
+def relu_margin_dual_plain(
+    proj_p_t, proj_l_t, w1_t, b1_t, proj_p_g, proj_l_g, w1_g, b1_g,
+    lab_idx, win_local, win_tile_map, seed4, tab_mask, gnn_mask, rate: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per head, :func:`relu_margin_plain` of the dual head (0 where the head
+    is inactive)."""
+    heads = ((proj_p_t, proj_l_t, w1_t, b1_t), (proj_p_g, proj_l_g, w1_g, b1_g))
+    plan = (lab_idx, win_local, win_tile_map, dual_seed(seed4))
+    return tuple(
+        relu_margin_plain(*head, *plan, mask, None, rate, 0, cols=cols)
+        for head, mask, cols in zip(heads, (tab_mask, gnn_mask), DUAL_COLS)
+    )
+
+
+def pair_head_dual_bwd_plain(
+    proj_p_t, proj_l_t, w1_t, b1_t, w2_t, b2_t, proj_p_g, proj_l_g, w1_g, b1_g, w2_g, b2_g,
+    lab_idx, win_local, win_tile_map, seed4, tab_mask, gnn_mask, rate: float, g_out_t, g_out_g,
+):
+    """Gradients of ``sum(out_tab * g_out_t + out_gnn * g_out_g)`` with
+    respect to both heads' (proj_p, proj_l, w1, b1, w2, b2)."""
+    heads = ((proj_p_t, proj_l_t, w1_t, b1_t, w2_t, b2_t), (proj_p_g, proj_l_g, w1_g, b1_g, w2_g, b2_g))
+    plan = (lab_idx, win_local, win_tile_map, dual_seed(seed4))
+    return tuple(
+        grad
+        for head, mask, cols, g_out in zip(heads, (tab_mask, gnn_mask), DUAL_COLS, (g_out_t, g_out_g))
+        for grad in pair_head_bwd_plain(*head, *plan, mask, None, rate, 0, g_out, cols=cols)
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -295,3 +365,102 @@ def pair_head_bwd(
     _raise_on(rc, name)
     launch_counts[name] += 1
     return dpp[: proj_p.shape[0]], dpl, dw1, db1.view_as(b1), dw2.view_as(w2), db2.view_as(b2)
+
+
+def _check_dual(name, heads, lab_idx, win_local, win_tile_map, tab_mask, gnn_mask) -> int:
+    for head in heads:
+        _check_head(name, *head, lab_idx, win_local, win_tile_map, None, None, 0)
+    (pp_t, pl_t, *_), (pp_g, pl_g, *_) = heads
+    if pp_t.shape != pp_g.shape or pl_t.shape != pl_g.shape or pp_t.device != pp_g.device:
+        raise ValueError(f"{name}: both heads' node projections must share their shapes and device")
+    slots = win_local.shape[0]
+    pairs = [(m, slots // TILE_E) for m in (tab_mask, gnn_mask) if m is not None]
+    return _check_plan(name, pp_t.device, slots, (win_local, slots), *pairs)
+
+
+def _dual_args(heads, lab_idx, win_local, win_tile_map, seed4, tab_mask, gnn_mask, rate, num_tiles):
+    threshold, scale = dropout_params(rate)
+    seed = dual_seed(seed4)
+    return (
+        *(_ptr(x) for head in heads for x in head), heads[0][0].shape[0], heads[0][1].shape[0],
+        _ptr(lab_idx), _ptr(win_local), _ptr(win_tile_map), _ptr(tab_mask), _ptr(gnn_mask),
+        num_tiles, seed[0], seed[1], threshold, scale, int(rate > 0),
+    )
+
+
+def pair_head_dual_fwd(
+    proj_p_t, proj_l_t, w1_t, b1_t, w2_t, b2_t, proj_p_g, proj_l_g, w1_g, b1_g, w2_g, b2_g,
+    lab_idx, win_local, win_tile_map, seed4,
+    tab_mask: Optional[torch.Tensor], gnn_mask: Optional[torch.Tensor], rate: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5f: ``(out_tab, out_gnn)``, each ``[E_win]`` float32."""
+    name = "pair_head_dual_fwd"
+    heads = ((proj_p_t, proj_l_t, w1_t, b1_t, w2_t, b2_t), (proj_p_g, proj_l_g, w1_g, b1_g, w2_g, b2_g))
+    plan = (lab_idx, win_local, win_tile_map, seed4, tab_mask, gnn_mask)
+    if _on_cpu(proj_p_t, proj_l_t, proj_p_g, proj_l_g, w1_t, w1_g, lab_idx, win_local, win_tile_map,
+               tab_mask, gnn_mask):
+        return pair_head_dual_fwd_plain(*heads[0], *heads[1], *plan, rate)
+    num_tiles = _check_dual(name, heads, lab_idx, win_local, win_tile_map, tab_mask, gnn_mask)
+    out_t, out_g = (
+        torch.empty(win_local.shape[0], dtype=torch.float32, device=proj_p_t.device) for _ in range(2)
+    )
+    from multi_modal_gnn_tpu_torch.ops import _build
+
+    rc = _build.load().mmgnn_pair_head_dual_fwd(
+        *_dual_args(heads, *plan, rate, num_tiles), _ptr(out_t), _ptr(out_g),
+        ctypes.c_void_p(torch.cuda.current_stream(proj_p_t.device).cuda_stream),
+    )
+    _raise_on(rc, name)
+    launch_counts[name] += 1
+    return out_t, out_g
+
+
+def pair_head_dual_bwd(
+    proj_p_t, proj_l_t, w1_t, b1_t, w2_t, b2_t, proj_p_g, proj_l_g, w1_g, b1_g, w2_g, b2_g,
+    lab_idx, win_local, win_tile_map, seed4,
+    tab_mask: Optional[torch.Tensor], gnn_mask: Optional[torch.Tensor], rate: float,
+    num_windows: int, g_out_t: torch.Tensor, g_out_g: torch.Tensor,
+):
+    """K5b: both heads' (d_proj_p, d_proj_l, d_w1, d_b1, d_w2, d_b2), the
+    tabular head's first, of ``sum(out_tab * g_out_t + out_gnn * g_out_g)``;
+    the forward is recomputed."""
+    name = "pair_head_dual_bwd"
+    heads = ((proj_p_t, proj_l_t, w1_t, b1_t, w2_t, b2_t), (proj_p_g, proj_l_g, w1_g, b1_g, w2_g, b2_g))
+    plan = (lab_idx, win_local, win_tile_map, seed4, tab_mask, gnn_mask)
+    if _on_cpu(proj_p_t, proj_l_t, proj_p_g, proj_l_g, w1_t, w1_g, lab_idx, win_local, win_tile_map,
+               tab_mask, gnn_mask, g_out_t, g_out_g):
+        return pair_head_dual_bwd_plain(*heads[0], *heads[1], *plan, rate, g_out_t, g_out_g)
+    num_tiles = _check_dual(name, heads, lab_idx, win_local, win_tile_map, tab_mask, gnn_mask)
+    for g in (g_out_t, g_out_g):
+        if g.dtype != torch.float32 or not g.is_contiguous() or g.shape != win_local.shape:
+            raise ValueError(f"{name}: g_out must be contiguous float32 [E_win]")
+    from multi_modal_gnn_tpu_torch.ops import _build
+
+    lib = _build.load()
+    num_p, num_l = proj_p_t.shape[0], proj_l_t.shape[0]
+    need = lib.mmgnn_pair_head_bwd_shared_bytes(num_l)
+    if need > _MAX_SHARED_BYTES:
+        raise ValueError(
+            f"{name}: a {num_l}-row lab table needs {need} B of shared memory, "
+            f"the block limit is {_MAX_SHARED_BYTES}"
+        )
+    dev = proj_p_t.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tiles_per_block = max(1, -(-num_tiles // (sms * _BWD_BLOCKS_PER_SM)))
+    zeros = lambda *shape: torch.zeros(*shape, dtype=torch.float32, device=dev)  # noqa: E731
+    grads = [
+        [zeros(max(num_windows * WINDOW, num_p), H0), zeros(num_l, H0), zeros(H0, H1), zeros(H1),
+         zeros(H1), zeros(1)]
+        for _ in heads
+    ]
+    rc = lib.mmgnn_pair_head_dual_bwd(
+        *_dual_args(heads, *plan, rate, num_tiles), _ptr(g_out_t), _ptr(g_out_g), tiles_per_block,
+        *(_ptr(x) for head_grads in grads for x in head_grads),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+    )
+    _raise_on(rc, name)
+    launch_counts[name] += 1
+    out = []
+    for (pp, _, _, b1, w2, b2), (dpp, dpl, dw1, db1, dw2, db2) in zip(heads, grads):
+        out += [dpp[:num_p], dpl, dw1, db1.view_as(b1), dw2.view_as(w2), db2.view_as(b2)]
+    return tuple(out)

@@ -3,7 +3,9 @@
 The card's machine has no jax, flax, pandas or yaml.  A subprocess makes
 them (and the JAX package) unimportable, then imports every module of the
 port, builds a tiny graph from the port's generator and serves a request on
-the CPU with the RGCN and with the HGT on its flash-attention tier.
+the CPU with the RGCN and with the HGT on its flash-attention tier, runs the
+RGCN's dual heads (``dual_head_fusion: on``) on a slot-major batch, and the
+gather probe's plain versions and command line.
 """
 
 import subprocess
@@ -61,6 +63,29 @@ SCRIPT = textwrap.dedent(
     fn, _ = build_serving_fn(model, graph)
     out = predict_patient(fn, 0, graph.num_nodes("lab"))
     assert out.shape == (graph.num_nodes("lab"),) and bool(torch.isfinite(out).all())
+
+    from multi_modal_gnn_tpu_torch.ops import gather_probe, pairhead_kernels
+    from multi_modal_gnn_tpu_torch.tools import bench_gather
+    from multi_modal_gnn_tpu_torch.training import EdgeMasker
+    dual = Config.from_dict({"model": {
+        "hidden_dim": 16, "use_pallas": True,
+        "extras": {"head_style": "factored", "dual_head_fusion": "on"},
+    }})
+    graph = make_synthetic_graph(SyntheticSpec.tiny(), dual, device="cpu")
+    model = build_model(dual, graph, device="cpu", generator=torch.Generator().manual_seed(0))
+    batch = EdgeMasker(graph, slot_major_train=True, slot_major_min_rows=0).get_split("train")
+    preds = model.predict_lab_values(
+        graph, batch.patient_idx, batch.lab_idx, patient_plan=batch.patient_plan,
+        degrees=graph.patient_lab_degree[batch.patient_idx.long()],
+    )
+    assert bool(torch.isfinite(preds).all())
+    args = bench_gather.parse_args(["--tiles", "1", "--rows", "32", "--h", "16"])
+    idx, table, padded = (torch.from_numpy(a) for a in bench_gather.make_inputs(args))
+    sums = [gather_probe.gather_probe_indicator(idx, table),
+            gather_probe.gather_probe_padded(idx, padded, 16),
+            gather_probe.gather_probe_direct(idx, table)]
+    assert all(torch.allclose(s, sums[0], atol=1e-5) for s in sums)
+    assert not any(gather_probe.launch_counts.values()) and not any(pairhead_kernels.launch_counts.values())
     assert not any(blocked(name) for name in sys.modules), sorted(sys.modules)
     print("ISOLATED-OK")
     """
