@@ -6,13 +6,16 @@ the RGCN's dual-head training path and the gather probe on one CUDA GPU.
 
 Phases, each printing one line with its seconds:
   1. device        the card's name and power limit (nvidia-smi); TF32 off
-  2. build         compile csrc/*.cu for sm_90a, one nvcc per source
+  2. build         compile csrc/*.cu for sm_90a, one nvcc per source; the
+                   -Xptxas -v lines of every kernel, and of K2b and K3 (the
+                   two instances of incidence_kernel) by name
   3. graph         the scale_100k synthetic graph (seed 0, 100k patients, ~5M
                    patient-lab edges, numbered as the JAX package numbers
                    nodes), dense budget 0, span rows 256; per relation its
                    aggregation tier, edges, windows and tiles
   4. kernels       K1, K2f, K3 against their plain PyTorch versions at the
-                   graph's relation shapes: errors, tolerance, median times
+                   graph's relation shapes: errors, tolerance, median times;
+                   K3's launch shape and dynamic shared memory (K2b's in 7)
   5. slice         the RGCN at full width (hidden 128, 2 layers, heads (64,
                    32), float32, seeded weights): compute_node_state with the
                    kernels on the GPU against the plain versions on the CPU
@@ -20,9 +23,10 @@ Phases, each printing one line with its seconds:
                    batches of 256 and 4096 pairs, held against the plain
                    state's answers
   7. train-kernels the slot-major span@256 train batch (split seed 42); K2b on
-                   the three fused-table relations, K1 as the span tier's
-                   backward, K4f and K4b (dropout 0 and 0.2, both heads' tile
-                   masks) against their plain versions at these shapes
+                   the three fused-table relations (each timed), K1 as the
+                   span tier's backward, K4f and K4b (dropout 0 and 0.2, both
+                   heads' tile masks) against their plain versions at these
+                   shapes
   8. train-step    one Adam step with dropout 0 on the card against the same
                    step with the plain versions on the CPU: loss, every
                    gradient, the parameters and the BatchNorm statistics;
@@ -56,11 +60,12 @@ Phases, each printing one line with its seconds:
                    against off, both on the card from the same weights and
                    masks: loss, every gradient, the parameters; K5 launched
                    and K4 not on one side, the other way round on the other
- 17. dual-train    5 epochs with dropout 0.2 and dual_head_fusion on: median
-                   epoch, train_patient_lab_edges_per_sec, a validation loss,
-                   an eval step over the train batch (K5f), one profiled
-                   epoch; then 5 epochs of off with lab_tile_rows 0 and 5 of
-                   the default span@256 tiles, for three epoch times
+ 17. dual-train    5 epochs with dropout 0.2 each of dual_head_fusion on and
+                   off (lab_tile_rows 0) and the default span@256, in turns
+                   (one epoch of each a round, the order reversed every other
+                   round): median epochs, on's train_patient_lab_edges_per_sec,
+                   a validation loss, an eval step over the train batch (K5f),
+                   one profiled epoch of on
  18. gather-probe  P1: python -m multi_modal_gnn_tpu_torch.tools.bench_gather
                    at the script's defaults (3840 tiles, 512 rows, H 64),
                    then A / B / C against their plain versions at H 64 and
@@ -122,6 +127,11 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 
 SEGMENT_SOURCE = "multi_modal_gnn_tpu_torch/csrc/segment.cu"
+# K2b and K3 are the two instances of one kernel template in SEGMENT_SOURCE
+INCIDENCE_KERNELS = (
+    ("K2b incidence_kernel<false>", "incidence_kernelILb0E"),
+    ("K3 incidence_kernel<true>", "incidence_kernelILb1E"),
+)
 PAIRHEAD_SOURCE = "multi_modal_gnn_tpu_torch/csrc/pairhead.cu"
 ATTENTION_SOURCE = "multi_modal_gnn_tpu_torch/csrc/attention.cu"
 PROBE_SOURCE = "multi_modal_gnn_tpu_torch/csrc/gather_probe.cu"
@@ -174,6 +184,18 @@ HGT_PLAIN_REPS = 5  # the plain versions gather [E, 128] tensors: fewer repetiti
 # group's gradient dropped, misscaled or sent through the wrong plan) moves
 # whole terms of a tensor
 HGT_STEP_GRAD_NORM_REL = 1e-2
+
+
+def _ptxas_report(log: str, entry: str) -> list:
+    """The ``-Xptxas -v`` lines (registers, shared memory, stack, spills) of
+    the kernel whose mangled name contains ``entry``."""
+    lines, inside = [], False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            inside = entry in ln
+        elif inside and any(w in ln for w in ("registers", "spill", "stack")):
+            lines.append(ln.replace("ptxas info    :", "").strip())
+    return lines
 
 
 def _phase(name: str, t0: float, msg: str) -> None:
@@ -379,6 +401,8 @@ def main() -> int:
     ]
     for ln in report:
         print(f"    ptxas: {ln}")
+    for label, entry in INCIDENCE_KERNELS:
+        print(f"    ptxas {label}: " + (" | ".join(_ptxas_report(_build.build_log, entry)) or "not built in this run"))
     _phase("build", t0, f"built and loaded {_build.build().name} from {len(_build.SOURCES)} sources")
 
     # 3. graph -------------------------------------------------------------
@@ -410,6 +434,7 @@ def main() -> int:
     # 4. kernels -----------------------------------------------------------
     t0 = time.perf_counter()
     gen = torch.Generator().manual_seed(0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def pick(tier_names):
         cands = [et for et, t in tiers.items() if t in tier_names]
@@ -486,6 +511,7 @@ def main() -> int:
         lambda: torch.sparse.mm(csr3, x3),
         span_args[:4],
     )
+    print(f"      (K3 launch: {sk.incidence_launch(es3.span_local.shape[0] // TILE_E, es3.span_rows, 1, d, sms, span=True)})")
     rows_pad = max(-(-es3.num_src // WINDOW) * WINDOW, es3.span_rows)
     if rows_pad == es3.num_src:
         rows_pad += es3.span_rows  # keep NaN rows past the table for the check
@@ -600,7 +626,9 @@ def main() -> int:
         f"tiles run: GNN head {float(masks['gnn'].float().mean()):.4f}, "
         f"tabular head {float(masks['tab'].float().mean()):.4f}"
     )
-    # K2b on the three fused-table relations; the largest one is timed
+    # K2b on the three fused-table relations (all six launches of a step),
+    # each timed; the largest (lab -> patient) heads the kernel's JSON entry
+    k2b = {}
     for et in sorted((et for et, t in tiers.items() if t == "fused_table"),
                      key=lambda et: -graph.edges[et].num_valid):
         es = graph.edges[et]
@@ -614,16 +642,20 @@ def main() -> int:
             f"fused_table_segment_sum_bwd on {'/'.join(et)} (per-source means)",
             got / per_src, want / per_src, KERNEL_ATOL, KERNEL_RTOL,
         )
-        if "fused_table_segment_sum_bwd" not in results:
-            mirror = graph.edges[mirror_edge_type(et)]
-            csr_t = _csr(mirror.row_ptr, mirror.src, mirror.num_dst, mirror.num_src, dev)
-            timed(
-                "fused_table_segment_sum_bwd",
-                lambda g=g, args=args: sk.fused_table_segment_sum_bwd(g, *args),
-                lambda g=g, args=args: sk.fused_table_segment_sum_bwd_plain(g, *args),
-                lambda g=g, csr_t=csr_t: torch.sparse.mm(csr_t, g),
-                _nbytes(g, *args[:3]) + es.num_src * d * 4, es.num_valid * d, max_abs,
-            )
+        mirror = graph.edges[mirror_edge_type(et)]
+        csr_t = _csr(mirror.row_ptr, mirror.src, mirror.num_dst, mirror.num_src, dev)
+        timed(
+            "fused_table_segment_sum_bwd",
+            lambda g=g, args=args: sk.fused_table_segment_sum_bwd(g, *args),
+            lambda g=g, args=args: sk.fused_table_segment_sum_bwd_plain(g, *args),
+            lambda g=g, csr_t=csr_t: torch.sparse.mm(csr_t, g),
+            _nbytes(g, *args[:3]) + es.num_src * d * 4, es.num_valid * d, max_abs,
+        )
+        k2b["/".join(et)] = results.pop("fused_table_segment_sum_bwd")
+        launch = sk.incidence_launch(es.win_local.shape[0] // TILE_E, WINDOW, -(-es.num_src // WINDOW), d, sms)
+        print(f"      (K2b on {'/'.join(et)}, {es.num_valid} edges; launch: {launch})")
+    largest = next(iter(k2b))
+    results["fused_table_segment_sum_bwd"] = {**k2b[largest], "relation": largest, "relations": k2b}
 
     # K1 as the span tier's backward: the mirror plan over the lab gradient
     rev3 = graph.edges[mirror_edge_type(et3)]
@@ -1258,28 +1290,41 @@ def main() -> int:
     # 17. dual-train -------------------------------------------------------
     t0 = time.perf_counter()
 
-    def train_epochs(cfg, m):
-        model = build_model(cfg, graph_cpu, generator=torch.Generator().manual_seed(1))
-        trainer = Trainer(model, graph, m, cfg)
-        trainer.train_epoch()  # warm-up
-        trainer.epoch += 1
-        torch.cuda.synchronize()
-        reset_counts()
-        times, losses = [], []
-        for _ in range(TRAIN_EPOCHS):
+    off_config = dataclasses.replace(
+        dual_config, model=dataclasses.replace(dual_config.model, extras={"dual_head_fusion": "off"})
+    )
+    runs = {  # label: (config, masker); their epochs run in turns, one each a round
+        "on, lab_tile_rows 0": (dual_config, masker0),
+        "off, lab_tile_rows 0": (off_config, masker0),
+        "default, span@256": (config, masker),
+    }
+    trainers, epoch_ms, losses, launches = {}, {}, {}, {}
+    for label, (cfg, m) in runs.items():
+        trainers[label] = Trainer(build_model(cfg, graph_cpu, generator=torch.Generator().manual_seed(1)), graph, m, cfg)
+        trainers[label].train_epoch()  # warm-up
+        trainers[label].epoch += 1
+        epoch_ms[label], losses[label], launches[label] = [], [], dict.fromkeys(HEAD_PATH_KERNELS, 0)
+    torch.cuda.synchronize()
+    order = list(runs)
+    for r in range(TRAIN_EPOCHS):
+        for label in order if r % 2 == 0 else order[::-1]:  # ABC CBA ...
+            reset_counts()
             t_ep = time.perf_counter()
-            losses.append(trainer.train_epoch())
+            losses[label].append(trainers[label].train_epoch())
             torch.cuda.synchronize()
-            times.append((time.perf_counter() - t_ep) * 1e3)
-            trainer.epoch += 1
-        launches = read_counts(HEAD_PATH_KERNELS)
-        if not all(np.isfinite(losses)):
-            raise AssertionError(f"non-finite training loss: {losses}")
-        return trainer, times, losses, launches
-
-    trainer, dual_epoch_ms, dual_losses, dual_launches = train_epochs(dual_config, masker0)
+            epoch_ms[label].append((time.perf_counter() - t_ep) * 1e3)
+            trainers[label].epoch += 1
+            for k, v in read_counts(HEAD_PATH_KERNELS).items():
+                launches[label][k] += v
+    if not all(np.isfinite(v).all() for v in losses.values()):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    dual_label = order[0]
+    dual_launches, dual_epoch_ms, trainer = launches[dual_label], epoch_ms[dual_label], trainers[dual_label]
     if not all(dual_launches[k] for k in DUAL_KERNELS) or dual_launches["pair_head_fwd"] or dual_launches["pair_head_bwd"]:
         raise AssertionError(f"the dual training path's launches: {dual_launches}")
+    for label in order[1:]:
+        if not all(launches[label][k] for k in RGCN_KERNELS) or launches[label]["pair_head_dual_fwd"]:
+            raise AssertionError(f"{label}: launches {launches[label]}")
     dual_val = trainer.validate("val")
     reset_counts()
     dual_train_eval = trainer.validate("train")  # the eval step over the slot-major batch
@@ -1287,9 +1332,10 @@ def main() -> int:
     if eval_launches != {"pair_head_dual_fwd": 1, "pair_head_fwd": 0} or not np.isfinite([dual_val, dual_train_eval]).all():
         raise AssertionError(f"eval step: launches {eval_launches}, losses {dual_val}, {dual_train_eval}")
     dual_edges_per_s = n_train * TRAIN_EPOCHS / (sum(dual_epoch_ms) / 1e3)
-    print(f"    on: losses {['%.6f' % x for x in dual_losses]}  val loss {dual_val:.6f}  "
+    print(f"    on: losses {['%.6f' % x for x in losses[dual_label]]}  val loss {dual_val:.6f}  "
           f"eval loss over the train batch {dual_train_eval:.6f} (launches {eval_launches})")
-    print(f"    on: epoch ms {['%.2f' % x for x in dual_epoch_ms]}  launches in {TRAIN_EPOCHS} epochs {dual_launches}")
+    for label in order:
+        print(f"    {label}: epoch ms {['%.2f' % x for x in epoch_ms[label]]}  launches in {TRAIN_EPOCHS} epochs {launches[label]}")
     wall_ms, busy_ms, top = _device_profile(trainer.train_epoch)
     print(
         f"    on, profiled epoch: wall {wall_ms:.2f} ms  device busy {busy_ms:.2f} ms  "
@@ -1297,21 +1343,11 @@ def main() -> int:
     )
     for name, ms in top[:12]:
         print(f"      {ms:9.3f} ms  {100 * ms / max(busy_ms, 1e-9):5.1f} %  {name[:130]}")
-    del trainer
-    off_config = dataclasses.replace(
-        dual_config, model=dataclasses.replace(dual_config.model, extras={"dual_head_fusion": "off"})
-    )
-    epoch_medians = {"on, lab_tile_rows 0": statistics.median(dual_epoch_ms)}
-    for label, cfg, m in (("off, lab_tile_rows 0", off_config, masker0), ("default, span@256", config, masker)):
-        trainer, times, losses, launches = train_epochs(cfg, m)
-        if not all(launches[k] for k in RGCN_KERNELS) or launches["pair_head_dual_fwd"]:
-            raise AssertionError(f"{label}: launches {launches}")
-        epoch_medians[label] = statistics.median(times)
-        print(f"    {label}: epoch ms {['%.2f' % x for x in times]}  launches {launches}")
-        del trainer
+    del trainer, trainers
+    epoch_medians = {label: statistics.median(v) for label, v in epoch_ms.items()}
     _phase(
         "dual-train", t0,
-        f"{TRAIN_EPOCHS} epochs each, dropout {config.model.dropout}; median epoch: "
+        f"{TRAIN_EPOCHS} epochs each in turns, dropout {config.model.dropout}; median epoch: "
         + ", ".join(f"{k} {v:.2f} ms" for k, v in epoch_medians.items())
         + f"; on: train_patient_lab_edges_per_sec {dual_edges_per_s:.1f} ({n_train} train rows)",
     )

@@ -8,24 +8,24 @@
 //   K2f _fused_table_segment_sum_fwd / _fused_table_kernel_take
 //         -> mmgnn_fused_table_segment_sum
 //   K2b _fused_table_segment_sum_bwd / _fused_table_bwd_kernel_take
-//         -> mmgnn_fused_table_segment_sum_bwd (notes at the kernel)
+//         -> mmgnn_fused_table_segment_sum_bwd (incidence_kernel<false>)
 //   K3  _span_dma_segment_sum_fwd / _span_dma_kernel
-//         -> mmgnn_span_segment_sum
+//         -> mmgnn_span_segment_sum (incidence_kernel<true>)
 //
 // K1 also serves as the backward of the span and paired tiers (the reverse
 // relation's windowed sum of the scaled upstream gradient), and of a row
 // gather with a GatherPlan (ops/segment.py).
 //
-// All three compute, for a windowed plan (graph/hetero.py),
+// K1, K2f and K3 compute, for a windowed plan (graph/hetero.py),
 //   out[tile_map[t] * 128 + local[e]] += row(e)       for every slot e of tile t
 // with f32 accumulation; slots with local == 128 are padding and add nothing.
 // row(e) is a pre-gathered row G[e] (K1 without idx), a table row x[src[e]]
-// (K1 with idx, K2f), or a row of the tile's staged span block (K3).
+// (K1 with idx, K2f), or a row of the tile's span block (K3).  K2b is K2f's
+// transpose: dT[src[e]] += g[tile_map[t] * 128 + local[e]].
 //
-// What bounds them on the H100: bytes.  There is one add per gathered
-// element, so the work is reading about E * D * 4 bytes of gathered rows
-// (K1, K2f; K3 reads tiles * span_rows * D * 4 of contiguous blocks instead)
-// against writing num_dst * D * 4 bytes of output.  The design:
+// K1 and K2f (gathers).  What bounds them on the H100: bytes.  There is one
+// add per gathered element, so the work is reading about E * D * 4 bytes of
+// gathered rows against writing num_dst * D * 4 bytes of output.  The design:
 //   * One block per group of consecutive tiles, not one per window: a
 //     relation into labs has 4 windows but thousands of tiles, and the 132
 //     SMs need hundreds of blocks.  The block accumulates its window's
@@ -34,24 +34,70 @@
 //     changes and at the end.  The summation order therefore changes from run
 //     to run; callers compare within a tolerance.
 //   * A warp walks 64 consecutive slots; each lane owns 4 columns (one
-//     16-byte load per row).  Runs of equal `local` are summed in registers
-//     and merged into shared memory with one atomicAdd per run, which is
-//     exact for any slot order: K1/K2f slots are dst-sorted within a tile,
-//     K3 slots are sorted by source and are not.
+//     16-byte load per row).  Runs of equal `local` (the slots are
+//     dst-sorted within a tile) are summed in registers and merged into
+//     shared memory with one atomicAdd per run.
 //   * Four rows are loaded before they are summed, so each lane has four
 //     loads in flight (eight spilled registers and ran 4-11 % slower).
 //   * K2f reads its small table (at most 2048 rows) from global memory with
 //     read-only loads: at D = 128 a 500-row table is 256 KB, more than the
 //     227 KB of shared memory a block may use, and it stays resident in the
 //     50 MB L2.
-//   * K3 stages the tile's span block into dynamic shared memory (room for
-//     span_rows rows: 128 KB at 256 x 128) with 16-byte cp.async copies, then
-//     gathers from it.  Only the rows up to the tile's largest real source
-//     are copied (a block max over its slots first), and never rows past the
-//     table's end; a real slot whose source falls outside the span (never,
-//     for a plan from build_src_span_plan) reads global memory.  Padding
-//     slots are tested (local < 128) before any index is used.  Shared
-//     memory: 64 KB accumulator + 128 KB block + 8 KB sorted slots.
+//
+// K2b and K3 (incidence products).  Both sum a contiguous block of rows
+// through a sparse patient x lab incidence: K3's tile reads its sources from
+// table[span_base[t] : + span_rows], K2b's window reads g[w * 128 : + 128].
+// The function is bound by bytes (E * 8 bytes of indices and each row block
+// once: ~0.03 ms at scale_100k), but a gather-and-scatter design stays far
+// from that on this card: K2b's slots are dst-sorted, so consecutive slots
+// hit different sources and nothing merges in registers (D shared-memory
+// float atomics a slot, each a compare-and-swap loop in SASS), and K3's
+// source-sorted tiles need a sort by row before their runs merge.  The
+// design makes the scatter a dense product on the tensor cores,
+// acc[128, N] += C[128, K] * B[K, N], which does ~40x (lab <-> patient) to
+// ~500x (diagnosis -> patient) the function's adds, so what bounds it is the
+// mma.sync work (26 GFLOP for a 128-column relation of 500 sources into
+// 100k patients: 0.05 ms at the H100's 495 TFLOP/s TF32 peak, which
+// mma.sync does not reach) and the latency of each unit's chain of loads,
+// atomics and barriers (PERF.md has the times):
+//   * C holds the unit's edge counts (a unit is one K3 tile, or a run of up
+//     to 63 tiles of one K2b window), built in shared memory with 16-bit
+//     integer shared atomics (two counts per word; a K3 tile adds at most
+//     1024, a K2b unit at most 64512, so no count carries).  K3: C[local,
+//     src - span_base]; K2b: C[src - chunk_base, local] for the block's
+//     128-source chunk (blockIdx.y).  Duplicate edges add to their count.
+//   * B, the unit's row block, is staged in 32-row slices with 16-byte
+//     cp.async, double-buffered so the next slice's copy runs under the
+//     current slice's products.  Only slices that hold a slot are copied,
+//     only rows below the unit's largest used row, and never rows past the
+//     table's end; the rest of a slice is zero-filled.
+//   * mma.sync m16n8k8 in TF32 with f32 accumulation.  Counts up to 2048 are
+//     exact in TF32; B is split into hi (its top 11 significand bits) and
+//     lo = b - hi rounded to TF32, two products whose sum is within 2^-21
+//     of b (f32 rounds to 2^-24; one TF32 product would keep 2^-11).  A unit
+//     with a count above 2048 (a K2b window with that many copies of one
+//     edge) also splits C into its high bits and its low five bits.
+//   * k8 steps and slices without a slot are skipped (a 64-bit mask of the
+//     unit's k8 steps), and a unit without a slot costs its index reads only.
+//   * The accumulator stays in registers (8 warps: 4 over rows x 2 over
+//     columns, 64 floats a thread) across a block's units and goes out with
+//     global f32 atomics once per block (K2b) or per window change (K3); the
+//     summation order changes from run to run.
+//   * 256 threads and about 109 KB (K3, span 256) or 68 KB (K2b) of shared
+//     memory a block, so two blocks share an SM and hide each other's
+//     latencies; K3's 8 KB more hold the next tile's slots, copied in under
+//     the current tile's products.  One wave of persistent blocks takes
+//     tiles from a counter, a few at a time: K3's tiles differ in the rows
+//     of their span they use and K2b's tile ranges in the windows they hold,
+//     so static ranges leave some blocks far behind the rest.  The blocks of
+//     all chunks (K2b) advance together and read the same row blocks from
+//     L2.  Columns past 128 take another block (blockIdx.z); a column tail
+//     that is not a multiple of 8 is zero in shared memory.
+//   * Rows of a staged block that no slot reads take part in the product with
+//     a count of 0: a non-finite value there would poison the sum, where a
+//     gather would skip it.  Rows past the table are never read.
+//   * A real K3 slot whose source falls outside its tile's span (never, for a
+//     plan from build_src_span_plan) adds its row with global atomics.
 
 #include <cuda_runtime.h>
 
@@ -95,22 +141,6 @@ struct TableRows {
   const float* __restrict__ table;
   int d;
   __device__ __forceinline__ float4 load(long long /*slot*/, int src, int c) const {
-    return __ldg(reinterpret_cast<const float4*>(table + (long long)src * d + c));
-  }
-};
-
-// Span rows: row(e) = block[src[e] - base], the tile's staged span.
-struct SpanRows {
-  const float* block;
-  const float* __restrict__ table;
-  int base;
-  int span_rows;
-  int d;
-  __device__ __forceinline__ float4 load(long long /*slot*/, int src, int c) const {
-    const int rel = src - base;
-    if (static_cast<unsigned>(rel) < static_cast<unsigned>(span_rows)) {
-      return *reinterpret_cast<const float4*>(block + rel * d + c);
-    }
     return __ldg(reinterpret_cast<const float4*>(table + (long long)src * d + c));
   }
 };
@@ -194,191 +224,445 @@ windowed_sum_kernel(Rows rows, const int* __restrict__ src, const int* __restric
   flush_window(acc, out, window, d);
 }
 
-// 16-byte asynchronous copy global -> shared (sm_80+), and its completion.
+// 16- and 4-byte asynchronous copies global -> shared (sm_80+).
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
 }
 
-// Rows of tile t's span block that its real slots read: 1 + the largest
-// in-span offset (0 for an all-padding tile).  Ends with a barrier.
-__device__ int span_rows_needed(const int* __restrict__ span_src, const int* __restrict__ span_local,
-                                long long t, int base, int span_rows, int* shared_max) {
-  if (threadIdx.x == 0) *shared_max = 0;
-  __syncthreads();
-  int need = 0;
-  for (int i = threadIdx.x; i < TILE_E; i += THREADS) {
-    const long long e = t * TILE_E + i;
-    if (span_local[e] < WINDOW) {
-      const int rel = span_src[e] - base;
-      if (rel >= 0 && rel < span_rows) need = max(need, rel + 1);
-    }
-  }
+// ---------------------------------------------------------------------------
+// K2b and K3: incidence products on the tensor cores (notes in the header)
+// ---------------------------------------------------------------------------
+
+constexpr int MMA_THREADS = 256;
+constexpr int MMA_ROWS = 128;       // accumulator rows: a window (K3), a source chunk (K2b)
+constexpr int MMA_COLS = 128;       // columns of one column block (blockIdx.z)
+constexpr int SLICE = 32;           // rows of B staged at a time
+constexpr int MAX_K = 512;          // rows of B a unit may use: 64 k8 steps in a mask
+constexpr int ROUND_TILES = 63;     // K2b tiles per count matrix: counts stay below 2^16
+constexpr unsigned TF32_EXACT = 2048;  // integers up to 2^11 are exact in TF32
+
+struct Incidence {
+  const float* __restrict__ rows;  // B's source rows: the table (K3) or g (K2b)
+  int num_rows;                    // rows of `rows`; no row past them is read
+  const int* __restrict__ src;
+  const int* __restrict__ local;
+  const int* __restrict__ tile_map;
+  const int* __restrict__ span_base;  // K3 only
+  int num_tiles;
+  int* work;  // a tile counter per (chunk, column block), zeroed by the caller
+  int grab;   // tiles a block takes at a time
+  int k_rows;       // K3: span_rows; K2b: WINDOW
+  int num_src;      // K2b: rows of dT
+  int d;
+  int count_words;  // 32-bit words per row of C (two 16-bit counts each)
+  int b_stride;     // floats per row of a staged slice of B
+  float* __restrict__ out;
+};
+
+// What the block's threads found while building one unit's C.
+struct UnitState {
+  unsigned kmask[2];  // k8 steps that hold a slot (two halves: 32-bit atomics are native)
+  int need;           // 1 + the largest row of B a slot uses; 0 = no slot
+  int big;            // a count exceeds TF32_EXACT
+};
+
+// b = hi + lo in TF32: hi keeps b's top 11 significand bits (truncated, so a
+// non-finite b gives a non-finite hi), lo = b - hi (exact) rounded to nearest
+// on its 11th bit; |b - hi - lo| <= 2^-21 |b|.  The integer rounding needs no
+// test for non-finite values: lo is finite whenever b is, and hi alone
+// carries a non-finite b into the product.
+__device__ __forceinline__ void split_tf32(float b, unsigned& hi, unsigned& lo) {
+  hi = __float_as_uint(b) & 0xffffe000u;
+  lo = (__float_as_uint(b - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+}
+
+// c += a * b for one 16x8x8 TF32 tile (fragments as in the PTX ISA's
+// "mma.m16n8k8" .tf32 layout: a = A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4];
+// b = B[t][g], B[t+4][g]; c = C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1];
+// g = lane / 4, t = lane % 4).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The thread's four consecutive slots of tile `tile` (16-byte loads of
+// their local rows and sources).
+__device__ __forceinline__ void load_slots(const Incidence& p, long long tile, int* ls, int* ss) {
+  static_assert(TILE_E == 4 * MMA_THREADS, "a thread owns four slots of a tile");
+  const long long e = tile * TILE_E + 4 * threadIdx.x;
+  const int4 l = __ldg(reinterpret_cast<const int4*>(p.local + e));
+  const int4 s = __ldg(reinterpret_cast<const int4*>(p.src + e));
+  ls[0] = l.x, ls[1] = l.y, ls[2] = l.z, ls[3] = l.w;
+  ss[0] = s.x, ss[1] = s.y, ss[2] = s.z, ss[3] = s.w;
+}
+
+// C[m][k] += 1 (16-bit counts, two to a word), and what the unit needs.
+__device__ __forceinline__ void add_count(unsigned* counts, int cw, int m, int k, int& need,
+                                          unsigned long long& kbits, bool& big) {
+  const unsigned shift = (k & 1) * 16;
+  const unsigned old = atomicAdd(counts + m * cw + (k >> 1), 1u << shift);
+  big |= ((old >> shift) & 0xffffu) >= TF32_EXACT;
+  need = max(need, k + 1);
+  kbits |= 1ull << (k >> 3);
+}
+
+// Merge every thread's findings into `st` (all threads call it).
+__device__ __forceinline__ void publish(int need, unsigned long long kbits, bool big,
+                                        UnitState& st) {
   need = __reduce_max_sync(FULL, need);
-  if (threadIdx.x % 32 == 0 && need > 0) atomicMax(shared_max, need);
-  __syncthreads();
-  return *shared_max;
+  const unsigned lo = __reduce_or_sync(FULL, static_cast<unsigned>(kbits));
+  const unsigned hi = __reduce_or_sync(FULL, static_cast<unsigned>(kbits >> 32));
+  const bool any_big = __any_sync(FULL, big);
+  if (threadIdx.x % 32 == 0) {
+    if (need > 0) atomicMax(&st.need, need);
+    if (lo) atomicOr(&st.kmask[0], lo);
+    if (hi) atomicOr(&st.kmask[1], hi);
+    if (any_big) st.big = 1;
+  }
 }
 
-// Counting sort of tile t's slots by local row into shared arrays (pad slots,
-// local == WINDOW, sort last), so that accumulate_tile sees runs of equal
-// rows and merges each run into the accumulator once, as for dst-sorted
-// tiles.  `count` holds WINDOW + 1 ints.  Ends with a barrier.
-__device__ void sort_tile_by_local(const int* __restrict__ src, const int* __restrict__ local,
-                                   long long t, int* count, int* sorted_src, int* sorted_local) {
-  for (int i = threadIdx.x; i <= WINDOW; i += THREADS) count[i] = 0;
-  __syncthreads();
-  for (int i = threadIdx.x; i < TILE_E; i += THREADS) atomicAdd(&count[local[t * TILE_E + i]], 1);
-  __syncthreads();
-  if (threadIdx.x < 32) {  // exclusive scan of the WINDOW + 1 counts, one warp
-    const int lane = threadIdx.x;
-    constexpr int PER_LANE = (WINDOW + 1 + 31) / 32;  // 5
-    int v[PER_LANE];
-    int sum = 0;
-#pragma unroll
-    for (int k = 0; k < PER_LANE; ++k) {
-      const int i = lane * PER_LANE + k;
-      v[k] = i <= WINDOW ? count[i] : 0;
-      sum += v[k];
-    }
-    int incl = sum;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int n = __shfl_up_sync(FULL, incl, off);
-      if (lane >= off) incl += n;
-    }
-    int run = incl - sum;
-#pragma unroll
-    for (int k = 0; k < PER_LANE; ++k) {
-      const int i = lane * PER_LANE + k;
-      if (i <= WINDOW) count[i] = run;
-      run += v[k];
+// Slice `s` of the unit's B (rows row0 + 32 s ...) into `buf`: rows below
+// `limit` by cp.async, the others zero.  Columns past ncols stay zero.
+__device__ __forceinline__ void stage_slice(const Incidence& p, float* buf, long long row0,
+                                            int s, int limit, int c0, int ncols) {
+  const int valid = min(max(limit - s * SLICE, 0), SLICE);
+  const int cpr = ncols / 4;  // 16-byte chunks per row
+  for (int i = threadIdx.x; i < SLICE * cpr; i += MMA_THREADS) {
+    const int r = i / cpr;
+    const int q = (i - r * cpr) * 4;
+    float* dst = buf + r * p.b_stride + q;
+    if (r < valid) {
+      cp_async16(dst, p.rows + (row0 + s * SLICE + r) * p.d + c0 + q);
+    } else {
+      *reinterpret_cast<float4*>(dst) = zero4();
     }
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < TILE_E; i += THREADS) {
-    const int l = local[t * TILE_E + i];
-    const int pos = atomicAdd(&count[l], 1);
-    sorted_local[pos] = l;
-    sorted_src[pos] = src[t * TILE_E + i];
-  }
-  __syncthreads();
+  cp_async_commit();
 }
 
-__global__ void __launch_bounds__(THREADS)
-span_sum_kernel(const float* __restrict__ table, int num_rows, const int* __restrict__ span_src,
-                const int* __restrict__ span_local, const int* __restrict__ tile_map,
-                const int* __restrict__ span_base, int num_tiles, int tiles_per_block,
-                int span_rows, int d, float* __restrict__ out) {
-  extern __shared__ float4 smem4[];
-  __shared__ int rows_needed;
-  __shared__ int count[WINDOW + 1];
-  __shared__ int sorted_src[TILE_E];
-  __shared__ int sorted_local[TILE_E];
-  float* acc = reinterpret_cast<float*>(smem4);
-  float* block = acc + WINDOW * d;  // [span_rows, d]
-  zero_acc(acc, d);
-  __syncthreads();
-  const int t0 = blockIdx.x * tiles_per_block;
-  const int t1 = min(t0 + tiles_per_block, num_tiles);
-  int window = tile_map[t0];
-  for (int t = t0; t < t1; ++t) {
-    const int w = tile_map[t];
-    if (w != window) {
-      flush_window(acc, out, window, d);
-      __syncthreads();
-      window = w;
-    }
-    // stage only the rows the tile reads, never past the table's end
-    const int base = span_base[t];
-    const int need = span_rows_needed(span_src, span_local, t, base, span_rows, &rows_needed);
-    const int rows = max(0, min(need, num_rows - base));
-    const float4* from = reinterpret_cast<const float4*>(table + (long long)base * d);
-    float4* to = reinterpret_cast<float4*>(block);
-    for (int i = threadIdx.x; i < rows * d / 4; i += THREADS) cp_async16(to + i, from + i);
-    sort_tile_by_local(span_src, span_local, t, count, sorted_src, sorted_local);
-    cp_async_wait_all();
-    __syncthreads();
-    accumulate_tile(SpanRows{block, table, base, span_rows, d}, sorted_src, sorted_local, 0, d,
-                    acc);
-    __syncthreads();  // the next tile overwrites the block and the sorted slots
-  }
-  flush_window(acc, out, window, d);
-}
-
-// K2b, the transpose of K2f: dT[src[e], :] += g[tile_map[t] * 128 + local[e], :]
-// over the real slots e of every tile t, into a small table dT [num_src, d].
-//
-// What bounds it on the H100: bytes.  One add per gathered element, against
-// reading the E slots' indices and the [num_dst, d] gradient once.  The TPU
-// kept the whole dT resident in VMEM; here a 512 x 128 f32 dT is 256 KB, more
-// than the 227 KB of shared memory a block may use.  So each block owns one
-// slice of `cols` columns (blockIdx.y) of the whole table, sized by the
-// wrapper to fit (32 columns of a 500-row table: 66 KB with the +1 row pad
-// that spreads rows over banks), and a group of consecutive tiles
-// (blockIdx.x).  Slots are dst-sorted within a window, so runs of equal src
-// are short and there is nothing to merge in registers: every slot adds
-// its row slice into the shared table with shared-memory atomics (cols/4
-// lanes per slot, 4 columns each, four rows loaded before they are added).
-// The block flushes its non-zero entries to the zeroed dT with global f32
-// atomics once, at the end; the summation order changes from run to run.
-__global__ void __launch_bounds__(THREADS)
-fused_table_bwd_kernel(const float* __restrict__ g, const int* __restrict__ src,
-                       const int* __restrict__ local, const int* __restrict__ tile_map,
-                       int num_tiles, int tiles_per_block, int num_src, int d, int cols,
-                       float* __restrict__ out) {
-  extern __shared__ float4 smem4[];
-  float* acc = reinterpret_cast<float*>(smem4);  // [num_src, cols + 1]
-  const int stride = cols + 1;
-  for (int i = threadIdx.x; i < num_src * stride; i += THREADS) acc[i] = 0.f;
-  __syncthreads();
-  const int c0 = blockIdx.y * cols;
-  const int lanes_per_slot = cols / 4;
-  const int slots_per_pass = THREADS / lanes_per_slot;
-  const int sub = threadIdx.x / lanes_per_slot;
-  const int c = (threadIdx.x % lanes_per_slot) * 4;
-  const int t0 = blockIdx.x * tiles_per_block;
-  const int t1 = min(t0 + tiles_per_block, num_tiles);
-  for (int t = t0; t < t1; ++t) {
-    const long long row0 = (long long)tile_map[t] * WINDOW;
-    for (int i0 = sub; i0 < TILE_E; i0 += BATCH * slots_per_pass) {
-      int ss[BATCH];
-      float4 v[BATCH];
+// acc += C[:, 32 s : 32 s + 32] * buf over the k8 steps in kmask.  Warp
+// (wm, wn) owns rows 32 wm .. + 32 (two m16 tiles) and the n8 tiles wn,
+// wn + 2, ... below nt.  kBig: C is split into its 11 high and 5 low bits.
+// kFull: all 16 n8 tiles (128 columns), so no test cuts the unrolled loop
+// into blocks and the compiler interleaves the tiles' loads and products.
+template <bool kBig, bool kFull>
+__device__ __forceinline__ void mma_slice(const unsigned* counts, int cw, const float* buf, int sb,
+                                          int s, unsigned long long kmask, int nt,
+                                          float (&acc)[2][8][4]) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp % 4, wn = warp / 4;
+  const unsigned shift = (t & 1) * 16;
+#pragma unroll 1
+  for (int kk = 0; kk < SLICE / 8; ++kk) {
+    const int step = s * (SLICE / 8) + kk;
+    if (!((kmask >> step) & 1ull)) continue;
+    const int word = (step * 8 + t) >> 1;  // column k0 + t; k0 + t + 4 is word + 2
+    unsigned a_hi[2][4], a_lo[2][4];
 #pragma unroll
-      for (int u = 0; u < BATCH; ++u) {
-        const int i = i0 + u * slots_per_pass;
-        ss[u] = -1;
-        v[u] = zero4();
-        if (i < TILE_E) {
-          const long long e = (long long)t * TILE_E + i;
-          const int l = local[e];
-          if (l < WINDOW) {
-            ss[u] = src[e];
-            v[u] = __ldg(reinterpret_cast<const float4*>(g + (row0 + l) * d + c0 + c));
+    for (int mi = 0; mi < 2; ++mi) {
+      const unsigned* row = counts + (wm * 32 + mi * 16 + g) * cw + word;
+      const unsigned c[4] = {row[0], row[8 * cw], row[2], row[8 * cw + 2]};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const unsigned n = (c[e] >> shift) & 0xffffu;
+        a_hi[mi][e] = __float_as_uint(__uint2float_rn(kBig ? n & 0xffe0u : n));
+        if (kBig) a_lo[mi][e] = __float_as_uint(__uint2float_rn(n & 0x1fu));
+      }
+    }
+    const float* b0 = buf + (kk * 8 + t) * sb + g;
+    const float* b1 = b0 + 4 * sb;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int j = wn + 2 * i;
+      if (kFull || j < nt) {
+        unsigned h0, l0, h1, l1;
+        split_tf32(b0[j * 8], h0, l0);
+        split_tf32(b1[j * 8], h1, l1);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma_tf32(acc[mi][i], a_hi[mi], l0, l1);
+          mma_tf32(acc[mi][i], a_hi[mi], h0, h1);
+          if (kBig) {
+            mma_tf32(acc[mi][i], a_lo[mi], l0, l1);
+            mma_tf32(acc[mi][i], a_lo[mi], h0, h1);
           }
         }
       }
+    }
+  }
+}
+
+// out[row0 + m, c0 + n] += acc (m < row_limit, n < ncols), and zero acc.
+__device__ __forceinline__ void flush_acc(float (&acc)[2][8][4], float* __restrict__ out,
+                                          long long row0, int row_limit, int d, int c0,
+                                          int ncols) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp % 4, wn = warp / 4;
 #pragma unroll
-      for (int u = 0; u < BATCH; ++u) {
-        if (ss[u] < 0) continue;
-        float* a = acc + ss[u] * stride + c;
-        atomicAdd(a + 0, v[u].x);
-        atomicAdd(a + 1, v[u].y);
-        atomicAdd(a + 2, v[u].z);
-        atomicAdd(a + 3, v[u].w);
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = wm * 32 + mi * 16 + g + (e / 2) * 8;
+        const int n = (wn + 2 * i) * 8 + 2 * t + (e % 2);
+        const float v = acc[mi][i][e];
+        if (v != 0.f && m < row_limit && n < ncols) atomicAdd(out + (row0 + m) * d + c0 + n, v);
+        acc[mi][i][e] = 0.f;
       }
     }
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < num_src * cols; i += THREADS) {
-    const int r = i / cols, cc = i % cols;
-    const float v = acc[r * stride + cc];
-    if (v != 0.f) atomicAdd(out + (long long)r * d + c0 + cc, v);
+}
+
+// K3: the tile a block takes next, its window and span base (copied in
+// while the current tile's products run).
+struct NextTile {
+  int tile, window, base;
+};
+
+// Shared memory of one block: C, two slices of B, what the unit found, and
+// (K3) the next tile's slots and place.
+struct Staging {
+  unsigned* counts;  // [MMA_ROWS, cw]
+  float* bufs;       // 2 x [SLICE, sb]
+  int* slots;        // K3: [2, TILE_E], the next tile's local rows, then sources
+  UnitState* st;
+  NextTile* next;
+  int c0, ncols, nt;
+};
+
+// K3: copy tile t's slots and place into shared memory (one commit group).
+__device__ __forceinline__ void prefetch_tile(const Incidence& p, const Staging& sm, int t) {
+  const long long e = (long long)t * TILE_E + 4 * threadIdx.x;
+  cp_async16(sm.slots + 4 * threadIdx.x, p.local + e);
+  cp_async16(sm.slots + TILE_E + 4 * threadIdx.x, p.src + e);
+  if (threadIdx.x == 0) {
+    cp_async4(&sm.next->window, p.tile_map + t);
+    cp_async4(&sm.next->base, p.span_base + t);
   }
+  cp_async_commit();
+}
+
+// One unit: count tiles [t, te) into C, then acc += C * B over the slices of
+// B (rows row0 ...) that hold a slot.  K3: C[local, src - row0] from the
+// tile's staged slots (window w), and once they are counted the slots and
+// place of sm.next->tile, which thread 0 set, are copied in under the
+// products; returns that tile.  K2b: C[src - chunk0, local].  All threads
+// call it; it ends with C clear and the copies landed.
+template <bool kSpan>
+__device__ int incidence_unit(const Incidence& p, const Staging& sm, int t, int te, int w,
+                              long long row0, int chunk0, float (&acc)[2][8][4]) {
+  const int cw = p.count_words, sb = p.b_stride;
+  int need = 0;
+  unsigned long long kbits = 0ull;
+  bool big = false;
+  if (kSpan) {
+    const int4 l4 = reinterpret_cast<const int4*>(sm.slots)[threadIdx.x];
+    const int4 s4 = reinterpret_cast<const int4*>(sm.slots + TILE_E)[threadIdx.x];
+    const int ls[4] = {l4.x, l4.y, l4.z, l4.w}, ss[4] = {s4.x, s4.y, s4.z, s4.w};
+    const long long out_row = (long long)w * WINDOW;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (ls[u] >= WINDOW) continue;  // padding: its index is never used
+      const int rel = ss[u] - static_cast<int>(row0);
+      if (static_cast<unsigned>(rel) < static_cast<unsigned>(p.k_rows)) {
+        add_count(sm.counts, cw, ls[u], rel, need, kbits, big);
+      } else if (static_cast<unsigned>(ss[u]) < static_cast<unsigned>(p.num_rows)) {
+        const float* from = p.rows + (long long)ss[u] * p.d + sm.c0;
+        float* to = p.out + (out_row + ls[u]) * p.d + sm.c0;
+        for (int c = 0; c < sm.ncols; ++c) atomicAdd(to + c, __ldg(from + c));
+      }
+    }
+  } else {
+    for (int tt = t; tt < te; tt += 2) {  // two tiles' loads in flight
+      int ls[8], ss[8];
+      const bool two = tt + 1 < te;
+      load_slots(p, tt, ls, ss);
+      if (two) load_slots(p, tt + 1, ls + 4, ss + 4);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        if ((u >= 4 && !two) || ls[u] >= WINDOW) continue;
+        const int m = ss[u] - chunk0;
+        if (static_cast<unsigned>(m) < static_cast<unsigned>(MMA_ROWS)) {
+          add_count(sm.counts, cw, m, ls[u], need, kbits, big);
+        }
+      }
+    }
+  }
+  publish(need, kbits, big, *sm.st);
+  __syncthreads();
+  need = sm.st->need;
+  kbits = (static_cast<unsigned long long>(sm.st->kmask[1]) << 32) | sm.st->kmask[0];
+  big = sm.st->big != 0;
+  const int next = kSpan ? sm.next->tile : 0;
+  if (kSpan && next < p.num_tiles) prefetch_tile(p, sm, next);
+  if (need > 0) {
+    const int limit = static_cast<int>(min((long long)need, p.num_rows - row0));
+    unsigned slices = 0;  // slices of 4 k8 steps that hold a slot
+    for (int s = 0; s < MAX_K / SLICE; ++s) {
+      if ((kbits >> (4 * s)) & 0xfull) slices |= 1u << s;
+    }
+    int s = __ffs(slices) - 1;
+    slices &= slices - 1;
+    int b = 0;
+    stage_slice(p, sm.bufs, row0, s, limit, sm.c0, sm.ncols);
+    while (true) {
+      const int next = slices ? __ffs(slices) - 1 : -1;
+      if (next >= 0) {
+        slices &= slices - 1;
+        stage_slice(p, sm.bufs + (b ^ 1) * SLICE * sb, row0, next, limit, sm.c0, sm.ncols);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const float* buf = sm.bufs + b * SLICE * sb;
+      if (big) {
+        mma_slice<true, false>(sm.counts, cw, buf, sb, s, kbits, sm.nt, acc);
+      } else if (sm.nt == MMA_COLS / 8) {
+        mma_slice<false, true>(sm.counts, cw, buf, sb, s, kbits, sm.nt, acc);
+      } else {
+        mma_slice<false, false>(sm.counts, cw, buf, sb, s, kbits, sm.nt, acc);
+      }
+      if (next < 0) break;
+      __syncthreads();  // the next stage overwrites this buffer
+      s = next;
+      b ^= 1;
+    }
+  }
+  cp_async_wait<0>();  // the next tile's slots (K3) have landed
+  __syncthreads();     // every thread has read st, C and B
+  if (need > 0) {  // clear the words the unit used, two at a time
+    const int pairs = (need + 3) / 4;
+    for (int r = threadIdx.x / 32; r < MMA_ROWS; r += MMA_THREADS / 32) {
+      uint2* row = reinterpret_cast<uint2*>(sm.counts + r * cw);
+      for (int i = threadIdx.x % 32; i < pairs; i += 32) row[i] = make_uint2(0u, 0u);
+    }
+  }
+  if (threadIdx.x == 0) *sm.st = UnitState{{0u, 0u}, 0, 0};
+  __syncthreads();
+  return next;
+}
+
+// Persistent blocks, grid (blocks, K2b source chunks, column blocks), take
+// `grab` tiles at a time from their (chunk, column block)'s counter in
+// `work`, so blocks whose tiles hold more rows or more windows do not hold up
+// the rest.  K3 (kSpan): each tile is a unit; thread 0 keeps the next grab
+// taken ahead, and each tile's slots and place are copied in under the
+// previous tile's products; acc goes out when the window changes (a block's
+// tiles only increase).  K2b: a unit is a run of up to ROUND_TILES tiles of
+// one window; the block that takes a window's first tile takes all of it,
+// and acc (one source chunk) goes out at the end.
+template <bool kSpan>
+__global__ void __launch_bounds__(MMA_THREADS, 2) incidence_kernel(Incidence p) {
+  extern __shared__ float4 smem4[];
+  __shared__ UnitState st;
+  __shared__ NextTile next;
+  const int cw = p.count_words, sb = p.b_stride;
+  Staging sm;
+  sm.counts = reinterpret_cast<unsigned*>(smem4);
+  sm.bufs = reinterpret_cast<float*>(sm.counts + MMA_ROWS * cw);
+  sm.slots = reinterpret_cast<int*>(sm.bufs + 2 * SLICE * sb);
+  sm.st = &st;
+  sm.next = &next;
+  sm.c0 = blockIdx.z * MMA_COLS;
+  sm.ncols = min(MMA_COLS, p.d - sm.c0);
+  sm.nt = (sm.ncols + 7) / 8;
+  const int chunk0 = blockIdx.y * MMA_ROWS;  // K2b: the chunk's first source row
+  int* work = p.work + blockIdx.y + gridDim.y * blockIdx.z;
+  for (int i = threadIdx.x; i < MMA_ROWS * cw; i += MMA_THREADS) sm.counts[i] = 0u;
+  for (int i = threadIdx.x; i < 2 * SLICE * sb; i += MMA_THREADS) sm.bufs[i] = 0.f;
+  float acc[2][8][4] = {};
+  int pending = 0;  // thread 0: the grab taken ahead
+  if (threadIdx.x == 0) {
+    st = UnitState{{0u, 0u}, 0, 0};
+    next.tile = atomicAdd(work, p.grab);
+    pending = atomicAdd(work, p.grab);
+  }
+  __syncthreads();
+  int t = next.tile;
+  int g1 = min(t + p.grab, p.num_tiles);  // the end of the current grab
+  if constexpr (kSpan) {
+    if (t < p.num_tiles) prefetch_tile(p, sm, t);
+    cp_async_wait<0>();
+    __syncthreads();
+    int window = -1;  // the window acc holds
+    while (t < p.num_tiles) {
+      const int w = next.window;
+      const long long base = next.base;
+      if (w != window) {
+        if (window >= 0) flush_acc(acc, p.out, (long long)window * WINDOW, WINDOW, p.d, sm.c0, sm.ncols);
+        window = w;
+      }
+      if (threadIdx.x == 0) {  // the tile after t, read by all once its slots are counted
+        int n = t + 1;
+        if (n >= g1) {
+          n = pending;
+          g1 = min(n + p.grab, p.num_tiles);
+          if (n < p.num_tiles) pending = atomicAdd(work, p.grab);
+        }
+        next.tile = n;
+      }
+      t = incidence_unit<true>(p, sm, t, t + 1, w, base, 0, acc);
+    }
+    if (window >= 0) flush_acc(acc, p.out, (long long)window * WINDOW, WINDOW, p.d, sm.c0, sm.ncols);
+  } else {
+    __shared__ int grabbed;
+    for (int g0 = t;;) {
+      for (int tt = g0; tt < g1; ++tt) {
+        const int w = p.tile_map[tt];
+        if (tt > 0 && p.tile_map[tt - 1] == w) continue;  // its run's first tile's block takes it
+        for (int ts = tt; ts < p.num_tiles && p.tile_map[ts] == w;) {
+          int te = ts + 1;
+          while (te < p.num_tiles && te - ts < ROUND_TILES && p.tile_map[te] == w) ++te;
+          incidence_unit<false>(p, sm, ts, te, w, (long long)w * WINDOW, chunk0, acc);
+          ts = te;
+        }
+      }
+      if (threadIdx.x == 0) {
+        grabbed = pending;
+        if (pending < p.num_tiles) pending = atomicAdd(work, p.grab);
+      }
+      __syncthreads();
+      g0 = grabbed;
+      __syncthreads();  // read before thread 0 publishes the next grab
+      if (g0 >= p.num_tiles) break;
+      g1 = min(g0 + p.grab, p.num_tiles);
+    }
+    flush_acc(acc, p.out, chunk0, p.num_src - chunk0, p.d, sm.c0, sm.ncols);
+  }
+}
+
+template <bool kSpan>
+int launch_incidence(const Incidence& p, int blocks, int chunks, int col_blocks, void* stream) {
+  const size_t smem = sizeof(unsigned) * MMA_ROWS * p.count_words +
+                      sizeof(float) * 2 * SLICE * p.b_stride + (kSpan ? sizeof(int) * 2 * TILE_E : 0);
+  cudaError_t err = cudaFuncSetAttribute(incidence_kernel<kSpan>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  incidence_kernel<kSpan><<<dim3(blocks, chunks, col_blocks), MMA_THREADS, smem,
+                            static_cast<cudaStream_t>(stream)>>>(p);
+  return cudaGetLastError();
 }
 
 template <class Rows>
@@ -420,35 +704,30 @@ int mmgnn_fused_table_segment_sum(const float* table, const int* win_src, const 
 }
 
 // K2b.  dT[win_src[e]] += g[tile_map[t] * 128 + local[e]]; g holds the
-// destination rows [num_dst, d], dT [num_src, d] is zeroed by the caller.
-int mmgnn_fused_table_segment_sum_bwd(const float* g, const int* win_src, const int* local,
-                                      const int* tile_map, int num_tiles, int tiles_per_block,
-                                      int num_src, int d, int cols, float* out, void* stream) {
-  const size_t smem = sizeof(float) * (size_t)num_src * (cols + 1);
-  cudaError_t err = cudaFuncSetAttribute(fused_table_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((num_tiles + tiles_per_block - 1) / tiles_per_block, d / cols);
-  fused_table_bwd_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      g, win_src, local, tile_map, num_tiles, tiles_per_block, num_src, d, cols, out);
-  return cudaGetLastError();
+// destination rows [num_g_rows, d], dT [num_src, d] is zeroed by the caller.
+// The launch shape and the shared layout come from the wrapper
+// (ops/segment_kernels.py incidence_launch).
+int mmgnn_fused_table_segment_sum_bwd(const float* g, int num_g_rows, const int* win_src,
+                                      const int* local, const int* tile_map, int num_tiles,
+                                      int* work, int grab, int blocks, int chunks, int col_blocks,
+                                      int count_words, int b_stride, int num_src, int d,
+                                      float* out, void* stream) {
+  const Incidence p{g, num_g_rows, win_src, local, tile_map, nullptr, num_tiles, work, grab,
+                    WINDOW, num_src, d, count_words, b_stride, out};
+  return launch_incidence<false>(p, blocks, chunks, col_blocks, stream);
 }
 
-// K3.  row(e) = table[span_src[e]], read from the tile's staged block
+// K3.  row(e) = table[span_src[e]], read from the tile's row block
 // table[span_base[t] : span_base[t] + span_rows] (bounded by num_rows).
 int mmgnn_span_segment_sum(const float* table, int num_rows, const int* span_src,
                            const int* span_local, const int* tile_map, const int* span_base,
-                           int num_tiles, int tiles_per_block, int span_rows, int d, float* out,
+                           int num_tiles, int span_rows, int* work, int grab, int blocks,
+                           int col_blocks, int count_words, int b_stride, int d, float* out,
                            void* stream) {
-  const size_t smem = sizeof(float) * (WINDOW + (size_t)span_rows) * d;
-  cudaError_t err = cudaFuncSetAttribute(span_sum_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int blocks = (num_tiles + tiles_per_block - 1) / tiles_per_block;
-  span_sum_kernel<<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      table, num_rows, span_src, span_local, tile_map, span_base, num_tiles, tiles_per_block,
-      span_rows, d, out);
-  return cudaGetLastError();
+  if (span_rows > MAX_K) return cudaErrorInvalidValue;
+  const Incidence p{table, num_rows, span_src, span_local, tile_map, span_base, num_tiles, work,
+                    grab, span_rows, 0, d, count_words, b_stride, out};
+  return launch_incidence<true>(p, blocks, 1, col_blocks, stream);
 }
 
 }  // extern "C"

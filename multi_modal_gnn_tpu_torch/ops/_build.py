@@ -107,8 +107,8 @@ def load() -> ctypes.CDLL:
     signatures = {
         "mmgnn_segment_sum_windowed": [p, p, p, p, i, i, i, p, p],
         "mmgnn_fused_table_segment_sum": [p, p, p, p, i, i, i, p, p],
-        "mmgnn_fused_table_segment_sum_bwd": [p, p, p, p, i, i, i, i, i, p, p],
-        "mmgnn_span_segment_sum": [p, i, p, p, p, p, i, i, i, i, p, p],
+        "mmgnn_fused_table_segment_sum_bwd": [p, i, p, p, p, i, p, *[i] * 8, p, p],
+        "mmgnn_span_segment_sum": [p, i, p, p, p, p, i, i, p, *[i] * 6, p, p],
         "mmgnn_pair_head_fwd": [*head, p, p],
         "mmgnn_pair_head_bwd": [*head, p, i, p, p, p, p, p, p, p],
         "mmgnn_pair_head_bwd_shared_bytes": [i],

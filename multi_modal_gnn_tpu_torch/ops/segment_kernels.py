@@ -23,6 +23,7 @@ gather (``ops/segment.py``).
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Dict, Optional
 
 import torch
@@ -38,11 +39,20 @@ launch_counts: Dict[str, int] = {
 }
 
 _MAX_SHARED_BYTES = 232_448  # dynamic shared memory one H100 block may use
+_SM_SHARED_BYTES = 233_472  # shared memory of one H100 SM
 _BLOCKS_PER_SM_TARGET = 8
-# K2b: shared bytes of one block's column slice of dT (at most 100 KB, so
-# two or more blocks share an SM), and the blocks per SM the grid aims at
-_K2B_SHARED_BUDGET = 100 * 1024
-_K2B_BLOCKS_PER_SM = 4
+# K2b and K3, the incidence products (csrc/segment.cu incidence_kernel):
+# accumulator rows and columns of a block, rows of a staged slice, the most
+# rows of a row block a unit may use, the resident blocks per SM the grid
+# aims at (the kernel's registers allow two), and the tiles a block takes at
+# a time
+_MMA_ROWS = 128
+_MMA_COLS = 128
+_MMA_SLICE = 32
+_MMA_MAX_K = 512
+_MMA_BLOCKS_PER_SM = 2
+_MMA_GRABS_PER_BLOCK = 16
+_MMA_MAX_GRAB = 32
 
 
 def reset_launch_counts() -> None:
@@ -133,19 +143,69 @@ def _check_plan(name: str, device, slots: int, *pairs) -> int:
     return slots // TILE_E
 
 
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _tiles_per_block(num_tiles: int, device) -> int:
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, -(-num_tiles // (sms * _BLOCKS_PER_SM_TARGET)))
+    return max(1, -(-num_tiles // (_sms(device) * _BLOCKS_PER_SM_TARGET)))
 
 
-# K3's static shared memory: the tile's slots sorted by row, and the counts
-_SPAN_STATIC_SHARED_BYTES = 4 * (2 * TILE_E + WINDOW + 2)
+def _check_slot_alignment(name: str, *plan: torch.Tensor) -> None:
+    """K2b / K3 read each thread's four slots with one 16-byte load."""
+    if any(t.data_ptr() % 16 for t in plan):
+        raise ValueError(f"{name}: slot arrays must be 16-byte aligned")
 
 
-def _check_shared(name: str, rows: int, d: int, static_bytes: int = 0) -> None:
-    need = 4 * rows * d + static_bytes
+def _check_shared(name: str, need: int) -> None:
     if need > _MAX_SHARED_BYTES:
         raise ValueError(f"{name}: needs {need} B of shared memory, the block limit is {_MAX_SHARED_BYTES}")
+
+
+@dataclass(frozen=True)
+class IncidenceLaunch:
+    """Launch shape and shared layout of K2b / K3 (``incidence_kernel``):
+    grid ``(blocks, chunks, col_blocks)`` of persistent blocks that take
+    ``grab`` tiles at a time from a counter per (chunk, column block);
+    ``count_words`` 32-bit words per row of the ``[128, k]`` 16-bit count
+    matrix, ``b_stride`` floats per row of a staged 32-row slice (two
+    buffers)."""
+
+    blocks: int
+    grab: int
+    chunks: int
+    col_blocks: int
+    count_words: int
+    b_stride: int
+    shared_bytes: int
+
+
+def incidence_launch(
+    num_tiles: int, k_rows: int, chunks: int, d: int, sms: int, span: bool = False
+) -> IncidenceLaunch:
+    """Plan K2b (``k_rows = 128``, ``chunks`` 128-source chunks) or K3
+    (``span``: ``k_rows = span_rows``, one chunk, and 8 KB more shared memory
+    for the next tile's slots) over ``num_tiles`` tiles of width
+    ``d`` on ``sms`` SMs: one wave of blocks, each taking about a sixteenth of
+    its share of tiles at a time (1 to 32), so the tiles' unequal work
+    spreads over the blocks.
+
+    A count row holds ``round8(k_rows) / 2 + 2`` words (2 mod 4, so the
+    eight rows of an A fragment fall in distinct bank pairs); a slice row
+    holds the block's columns rounded up to 8 and padded to 8 mod 32 floats
+    (the four rows of a B fragment fall in distinct banks)."""
+    col_blocks = -(-d // _MMA_COLS)
+    cols = -(-min(d, _MMA_COLS) // 8) * 8
+    count_words = -(-k_rows // 8) * 4 + 2
+    b_stride = cols + (8 - cols) % 32
+    shared = 4 * (_MMA_ROWS * count_words + 2 * _MMA_SLICE * b_stride + (2 * TILE_E if span else 0))
+    per_sm = max(1, min(_MMA_BLOCKS_PER_SM, _SM_SHARED_BYTES // (shared + 1024)))
+    blocks = max(1, min(num_tiles, sms * per_sm // (chunks * col_blocks)))
+    grab = max(1, min(_MMA_MAX_GRAB, num_tiles // (blocks * _MMA_GRABS_PER_BLOCK)))
+    return IncidenceLaunch(
+        blocks=blocks, grab=grab, chunks=chunks, col_blocks=col_blocks, count_words=count_words,
+        b_stride=b_stride, shared_bytes=shared,
+    )
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -172,7 +232,7 @@ def segment_sum_windowed(x, idx, win_local, win_tile_map, num_windows: int) -> t
         raise ValueError(f"{name}: {x.shape[0]} pre-gathered rows for {slots} slots")
     num_tiles = _check_plan(name, x.device, slots, *pairs)
     d = x.shape[1]
-    _check_shared(name, WINDOW, d)
+    _check_shared(name, 4 * WINDOW * d)
     out = torch.zeros(num_windows * WINDOW, d, dtype=torch.float32, device=x.device)
     from multi_modal_gnn_tpu_torch.ops import _build
 
@@ -199,7 +259,7 @@ def fused_table_segment_sum(table, win_src, win_local, win_tile_map, num_windows
         (win_tile_map, slots // TILE_E),
     )
     d = table.shape[1]
-    _check_shared(name, WINDOW, d)
+    _check_shared(name, 4 * WINDOW * d)
     out = torch.zeros(num_windows * WINDOW, d, dtype=torch.float32, device=table.device)
     from multi_modal_gnn_tpu_torch.ops import _build
 
@@ -211,17 +271,6 @@ def fused_table_segment_sum(table, win_src, win_local, win_tile_map, num_windows
     _raise_on(rc, name)
     launch_counts[name] += 1
     return out
-
-
-def _k2b_columns(num_src: int, d: int) -> int:
-    """Widest column slice (a power of two, 4..128, dividing d) whose
-    ``[num_src, cols + 1]`` shared table fits the budget."""
-    for cols in (128, 64, 32, 16, 8, 4):
-        if d % cols == 0 and 4 * num_src * (cols + 1) <= _K2B_SHARED_BUDGET:
-            return cols
-    raise ValueError(
-        f"fused_table_segment_sum_bwd: a {num_src}-row table does not fit a block's shared memory"
-    )
 
 
 def fused_table_segment_sum_bwd(g, win_src, win_local, win_tile_map, num_src: int) -> torch.Tensor:
@@ -237,17 +286,19 @@ def fused_table_segment_sum_bwd(g, win_src, win_local, win_tile_map, num_src: in
         name, g.device, slots, (win_src, slots), (win_local, slots),
         (win_tile_map, slots // TILE_E),
     )
+    _check_slot_alignment(name, win_src, win_local)
     d = g.shape[1]
-    cols = _k2b_columns(num_src, d)
-    col_blocks = d // cols
-    sms = torch.cuda.get_device_properties(g.device).multi_processor_count
-    tiles_per_block = max(1, -(-num_tiles * col_blocks // (sms * _K2B_BLOCKS_PER_SM)))
+    chunks = max(1, -(-num_src // _MMA_ROWS))
+    launch = incidence_launch(num_tiles, WINDOW, chunks, d, _sms(g.device))
+    _check_shared(name, launch.shared_bytes)
     out = torch.zeros(num_src, d, dtype=torch.float32, device=g.device)
+    work = torch.zeros(launch.chunks * launch.col_blocks, dtype=torch.int32, device=g.device)
     from multi_modal_gnn_tpu_torch.ops import _build
 
     rc = _build.load().mmgnn_fused_table_segment_sum_bwd(
-        _ptr(g), _ptr(win_src), _ptr(win_local), _ptr(win_tile_map), num_tiles,
-        tiles_per_block, num_src, d, cols, _ptr(out),
+        _ptr(g), g.shape[0], _ptr(win_src), _ptr(win_local), _ptr(win_tile_map), num_tiles,
+        _ptr(work), launch.grab, launch.blocks, launch.chunks, launch.col_blocks,
+        launch.count_words, launch.b_stride, num_src, d, _ptr(out),
         ctypes.c_void_p(torch.cuda.current_stream(g.device).cuda_stream),
     )
     _raise_on(rc, name)
@@ -273,17 +324,21 @@ def span_segment_sum(
         name, table.device, slots, (span_src, slots), (span_local, slots),
         (span_tile_map, slots // TILE_E), (span_base, slots // TILE_E),
     )
+    _check_slot_alignment(name, span_src, span_local)
     d = table.shape[1]
-    if span_rows <= 0:
-        raise ValueError(f"{name}: span_rows must be positive, got {span_rows}")
-    _check_shared(name, WINDOW + span_rows, d, _SPAN_STATIC_SHARED_BYTES)
+    if not 0 < span_rows <= _MMA_MAX_K:
+        raise ValueError(f"{name}: span_rows must be in 1..{_MMA_MAX_K}, got {span_rows}")
+    launch = incidence_launch(num_tiles, span_rows, 1, d, _sms(table.device), span=True)
+    _check_shared(name, launch.shared_bytes)
     out = torch.zeros(num_windows * WINDOW, d, dtype=torch.float32, device=table.device)
+    work = torch.zeros(launch.col_blocks, dtype=torch.int32, device=table.device)
     from multi_modal_gnn_tpu_torch.ops import _build
 
     rc = _build.load().mmgnn_span_segment_sum(
         _ptr(table), table.shape[0], _ptr(span_src), _ptr(span_local), _ptr(span_tile_map),
-        _ptr(span_base), num_tiles, _tiles_per_block(num_tiles, table.device), span_rows, d,
-        _ptr(out), ctypes.c_void_p(torch.cuda.current_stream(table.device).cuda_stream),
+        _ptr(span_base), num_tiles, span_rows, _ptr(work), launch.grab, launch.blocks,
+        launch.col_blocks, launch.count_words, launch.b_stride, d, _ptr(out),
+        ctypes.c_void_p(torch.cuda.current_stream(table.device).cuda_stream),
     )
     _raise_on(rc, name)
     launch_counts[name] += 1

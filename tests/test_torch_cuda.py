@@ -123,7 +123,8 @@ def test_span_kernel_matches_plain_and_skips_rows_past_the_table(gpu, plans):
 @pytest.mark.cuda
 @pytest.mark.parametrize("width", [4, 36, 256])
 def test_kernels_at_other_widths(gpu, plans, width):
-    # the column loop: lanes past D idle (36), several 128-column passes (256)
+    # K1 / K2f: lanes past D idle (36), several 128-column passes (256); K3:
+    # a column tail zero in shared memory (4, 36), two column blocks (256)
     fwd, rev = plans[0].to(gpu), plans[1].to(gpu)
     gen = torch.Generator().manual_seed(width)
     x = torch.randn(NUM_SRC, width, generator=gen).to(gpu)
@@ -140,10 +141,6 @@ def test_kernels_at_other_widths(gpu, plans, width):
     )
     span = (fwd.span_src, fwd.span_local, fwd.span_tile_map, fwd.span_base, fwd.num_windows,
             fwd.span_rows)
-    if width > 128:  # accumulator + span block exceed a block's shared memory
-        with pytest.raises(ValueError):
-            sk.span_segment_sum(x, *span)
-        return
     np.testing.assert_allclose(
         _means(sk.span_segment_sum(x, *span), fwd),
         _means(sk.span_segment_sum_plain(x, *span), fwd), **TOL,
@@ -164,6 +161,66 @@ def test_fused_table_backward_kernel_matches_plain(gpu, plans, width):
     real = es.win_local < hetero.WINDOW
     count = torch.bincount(es.win_src[real].long(), minlength=es.num_src).clamp_min(1)[:, None]
     np.testing.assert_allclose((got / count).cpu().numpy(), (want / count).cpu().numpy(), **TOL)
+
+
+def _incidence_case(case):
+    """An edge set whose plans reach a corner of K2b (a small source table)
+    or K3 (a span plan over NUM_SRC sources)."""
+    rng = np.random.default_rng(7)
+    if case == "partial_chunk":  # 500 sources: chunks of 128, 128, 128, 116
+        num_src, num_dst = 500, 700
+        src, dst = rng.integers(0, num_src, 30_000), rng.integers(0, num_dst, 30_000)
+    elif case == "empty_windows_and_chunks":  # windows 1, 3 and chunks 1, 3 hold no slot
+        num_src, num_dst = 500, 512
+        src = np.concatenate([rng.integers(0, 128, 6_000), rng.integers(256, 384, 6_000)])
+        dst = np.concatenate([rng.integers(0, 128, 6_000), rng.integers(256, 384, 6_000)])
+    elif case == "counts_above_2048":  # one edge 3,000 times in one window
+        num_src, num_dst = 300, 300
+        src = np.concatenate([np.full(3_000, 257), rng.integers(0, num_src, 20_000)])
+        dst = np.concatenate([np.full(3_000, 5), rng.integers(0, num_dst, 20_000)])
+    else:  # "wide_spans": ~8 slots per source row and window, each edge twice,
+        # so span tiles read up to all 256 rows of their span
+        src, dst = rng.integers(0, NUM_SRC, 40_000), rng.integers(0, 200, 40_000)
+        src, dst = np.repeat(src, 2), np.repeat(dst, 2)
+        return hetero.pad_edge_set(src, dst, NUM_SRC, 200, src_span_rows=256)
+    return hetero.pad_edge_set(src, dst, num_src, num_dst)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [36, 128, 256])
+@pytest.mark.parametrize("case", ["partial_chunk", "empty_windows_and_chunks", "counts_above_2048"])
+def test_fused_table_backward_kernel_on_chunks_windows_and_counts(gpu, case, width):
+    # held to the sum in float64: the plain version's own f32 sum of one
+    # value added 3,000 times drifts by ~1e-4 of it
+    es = _incidence_case(case).to(gpu)
+    g = torch.randn(es.num_dst, width, generator=torch.Generator().manual_seed(width)).to(gpu)
+    args = (es.win_src, es.win_local, es.win_tile_map, es.num_src)
+    got = sk.fused_table_segment_sum_bwd(g, *args)
+    real = es.win_local < hetero.WINDOW
+    rows = (torch.repeat_interleave(es.win_tile_map.long(), hetero.TILE_E) * hetero.WINDOW + es.win_local)[real]
+    want = torch.zeros(es.num_src, width, dtype=torch.float64, device=gpu)
+    want.index_add_(0, es.win_src[real].long(), g.double()[rows])
+    count = torch.bincount(es.win_src[real].long(), minlength=es.num_src).clamp_min(1)[:, None]
+    np.testing.assert_allclose((got / count).cpu().numpy(), (want / count).cpu().numpy(), **TOL)
+    if case == "empty_windows_and_chunks":
+        assert not got[128:256].any() and not got[384:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [4, 36, 128, 256])
+def test_span_kernel_on_tiles_wider_than_a_slice(gpu, width):
+    es = _incidence_case("wide_spans").to(gpu)
+    assert es.span_rows == 256
+    real = es.span_local < hetero.WINDOW
+    rel = (es.span_src - torch.repeat_interleave(es.span_base, hetero.TILE_E))[real]
+    assert int(rel.max()) >= 192  # a tile reads past its sixth 32-row slice
+    x = torch.randn(NUM_SRC, width, generator=torch.Generator().manual_seed(width)).to(gpu)
+    args = (es.span_src, es.span_local, es.span_tile_map, es.span_base, es.num_windows, es.span_rows)
+    want = _means(sk.span_segment_sum_plain(x, *args), es)
+    np.testing.assert_allclose(_means(sk.span_segment_sum(x, *args), es), want, **TOL)
+    x_nan = torch.full((NUM_SRC + 300, width), float("nan"), device=gpu)
+    x_nan[:NUM_SRC] = x
+    np.testing.assert_allclose(_means(sk.span_segment_sum(x_nan, *args), es), want, **TOL)
 
 
 @pytest.mark.cuda
@@ -588,6 +645,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gpu, plans):
         sk.fused_table_segment_sum(torch.zeros(es.num_src, D, device=gpu), es.win_src.long(), *args[1:])
     with pytest.raises(ValueError):
         sk.fused_table_segment_sum(torch.zeros(es.num_src, D), *args)  # rows on the CPU
+    fwd = plans[0].to(gpu)
+    span = (fwd.span_src, fwd.span_local, fwd.span_tile_map, fwd.span_base, fwd.num_windows)
+    with pytest.raises(ValueError):  # more span rows than the kernel's k8-step mask covers
+        sk.span_segment_sum(torch.zeros(NUM_SRC, D, device=gpu), *span, 1024)
 
 
 @pytest.mark.cuda
@@ -845,18 +906,37 @@ def test_hgt_train_step_on_gpu_matches_plain_on_cpu(gpu):
         np.testing.assert_allclose(results[0][1][key].numpy(), value.numpy(), atol=4e-4, err_msg=key)
 
 
-def test_attention_cpu_tensors_take_the_plain_version_and_launch_nothing():
+def test_attention_cpu_tensors_take_the_plain_version_and_launch_nothing(monkeypatch):
+    # The route is checked with a spy on each plain version: the wrapper
+    # passes its own arguments and returns the plain version's tensors.  Two
+    # calls of a plain version are then held to the kernel tests' tolerance,
+    # not to bit equality, which PyTorch does not promise for the CPU
+    # index_add_ / scatter_reduce these sums run on.
     plan = _attn_group("resident")
     q, k, v, dout = _attn_inputs(plan)
+    names = ("flash_attention_fwd_plain", "flash_attention_dq_plain", "flash_attention_dkv_plain")
+    calls = []
+    for name in names:
+        def spy(*args, _plain=getattr(ak, name), _name=name):
+            out = _plain(*args)
+            calls.append((_name, args, out))
+            return out
+
+        monkeypatch.setattr(ak, name, spy)
     ak.reset_launch_counts()
     got = _attn_all(plan, q, k, v, dout, ak.flash_attention_fwd, ak.flash_attention_dq, ak.flash_attention_dkv)
-    want = _attn_all(
+    assert not any(ak.launch_counts.values())
+    assert [c[0] for c in calls] == list(names)
+    (_, fwd_args, fwd_out), (_, dq_args, dq_out), (_, dkv_args, dkv_out) = calls
+    assert all(a is b for a, b in zip(fwd_args, (q, k, v, *plan.fwd.arrays())))
+    assert all(a is b for a, b in zip(dq_args, (q, k, v, dout)))
+    assert all(a is b for a, b in zip(dkv_args, (q, k, v, dout)))
+    assert all(a is b for a, b in zip(got, (*fwd_out, dq_out, *dkv_out)))
+    monkeypatch.undo()
+    _attn_compare(got, _attn_all(
         plan, q, k, v, dout, ak.flash_attention_fwd_plain, ak.flash_attention_dq_plain,
         ak.flash_attention_dkv_plain,
-    )
-    for a, b in zip(got, want):
-        torch.testing.assert_close(a, b, rtol=0, atol=0)
-    assert not any(ak.launch_counts.values())
+    ))
 
 
 @pytest.mark.cuda
