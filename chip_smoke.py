@@ -7,15 +7,20 @@ the RGCN's dual-head training path and the gather probe on one CUDA GPU.
 Phases, each printing one line with its seconds:
   1. device        the card's name and power limit (nvidia-smi); TF32 off
   2. build         compile csrc/*.cu for sm_90a, one nvcc per source; the
-                   -Xptxas -v lines of every kernel, and of K2b and K3 (the
-                   two instances of incidence_kernel) by name
+                   -Xptxas -v lines of every kernel, and by name those of
+                   K2b and K3 (the two instances of incidence_kernel), K2f,
+                   K4b and K5b
   3. graph         the scale_100k synthetic graph (seed 0, 100k patients, ~5M
                    patient-lab edges, numbered as the JAX package numbers
                    nodes), dense budget 0, span rows 256; per relation its
                    aggregation tier, edges, windows and tiles
   4. kernels       K1, K2f, K3 against their plain PyTorch versions at the
                    graph's relation shapes: errors, tolerance, median times;
-                   K3's launch shape and dynamic shared memory (K2b's in 7)
+                   K1 on every relation it aggregates; K2f on the three
+                   fused-table relations, also with NaN rows past the table,
+                   timed in turns with torch.sparse.mm (library, kernel,
+                   kernel, library); the launch shapes and dynamic shared
+                   memory of K2f and K3 (K2b's in 7)
   5. slice         the RGCN at full width (hidden 128, 2 layers, heads (64,
                    32), float32, seeded weights): compute_node_state with the
                    kernels on the GPU against the plain versions on the CPU
@@ -25,8 +30,10 @@ Phases, each printing one line with its seconds:
   7. train-kernels the slot-major span@256 train batch (split seed 42); K2b on
                    the three fused-table relations (each timed), K1 as the
                    span tier's backward, K4f and K4b (dropout 0 and 0.2, both
-                   heads' tile masks) against their plain versions at these
-                   shapes
+                   heads' tile masks; each head timed and bounded) against
+                   their plain versions at these shapes; K4b's launch shape;
+                   K4b at 720 and 2048 labs (the batch's patients, labs from
+                   a seed) with lab_tile_rows 256 and 0
   8. train-step    one Adam step with dropout 0 on the card against the same
                    step with the plain versions on the CPU: loss, every
                    gradient, the parameters and the BatchNorm statistics;
@@ -39,7 +46,7 @@ Phases, each printing one line with its seconds:
                    group its edges, windows, resident or span layouts, tiles
  11. hgt-kernels   K6, K7, K8 against their plain versions on every group's
                    plans (both layouts), also with NaN rows past every table;
-                   the patient and lab groups' median times and bounds
+                   every group's median times and bounds
  12. hgt-slice     the HGT at full width (hidden 128, 2 layers, 4 heads, head
                    (64, 32), seeded weights): compute_node_state on the flash
                    tier against the same weights on the segment tier (plain
@@ -54,8 +61,9 @@ Phases, each printing one line with its seconds:
                    slots, tiles, each head's share of tiles); K5f and K5b
                    against their plain versions at dropout 0 and 0.2, with
                    both heads' tile masks and without, and with NaN rows past
-                   proj_l and past the window-padded proj_p; K5f / K5b timed
-                   against K4f / K4b of both heads on the same batch
+                   proj_l and past the window-padded proj_p; K5b at 720 and
+                   2048 labs; K5b's launch shape; K5f / K5b timed against
+                   K4f / K4b of both heads on the same batch
  16. dual-train-step one Adam step with dropout 0, dual_head_fusion on
                    against off, both on the card from the same weights and
                    masks: loss, every gradient, the parameters; K5 launched
@@ -120,6 +128,9 @@ STEP_PARAM_ATOL = 2e-3
 STEP_BN_ATOL, STEP_BN_RTOL = 1e-4, 1e-4
 STEP_LOSS_RTOL = 1e-5
 TIMING_REPS = 20
+# lab counts beside scale_100k's 500 at which K4b and K5b are checked:
+# mimic_scale's 720 and the fused-table tier's largest table
+LAB_COUNTS = (720, 2048)
 TRAIN_EPOCHS = 5
 # the H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores; TF32 is off
@@ -127,10 +138,14 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 
 SEGMENT_SOURCE = "multi_modal_gnn_tpu_torch/csrc/segment.cu"
-# K2b and K3 are the two instances of one kernel template in SEGMENT_SOURCE
-INCIDENCE_KERNELS = (
+# the -Xptxas -v lines printed by name: K2b and K3 (the two instances of one
+# kernel template in SEGMENT_SOURCE), K2f, K4b and K5b
+NAMED_KERNELS = (
     ("K2b incidence_kernel<false>", "incidence_kernelILb0E"),
     ("K3 incidence_kernel<true>", "incidence_kernelILb1E"),
+    ("K2f fused_table_kernel", "fused_table_kernel"),
+    ("K4b pair_head_bwd_kernel", "20pair_head_bwd_kernel"),
+    ("K5b pair_head_dual_bwd_kernel", "25pair_head_dual_bwd_kernel"),
 )
 PAIRHEAD_SOURCE = "multi_modal_gnn_tpu_torch/csrc/pairhead.cu"
 ATTENTION_SOURCE = "multi_modal_gnn_tpu_torch/csrc/attention.cu"
@@ -368,6 +383,7 @@ def main() -> int:
     )
     from multi_modal_gnn_tpu_torch.tools import bench_gather
     from multi_modal_gnn_tpu_torch.training import Trainer, masker_from_config
+    from multi_modal_gnn_tpu_torch.training.masker import _pad_batch
     from multi_modal_gnn_tpu_torch.utils.device import disable_tf32, gpu_identity, require_cuda
 
     def reset_counts():
@@ -401,7 +417,7 @@ def main() -> int:
     ]
     for ln in report:
         print(f"    ptxas: {ln}")
-    for label, entry in INCIDENCE_KERNELS:
+    for label, entry in NAMED_KERNELS:
         print(f"    ptxas {label}: " + (" | ".join(_ptxas_report(_build.build_log, entry)) or "not built in this run"))
     _phase("build", t0, f"built and loaded {_build.build().name} from {len(_build.SOURCES)} sources")
 
@@ -487,17 +503,65 @@ def main() -> int:
         KERNEL_ATOL, KERNEL_RTOL,
     )
 
-    et2 = pick(("fused_table",))
-    es2 = graph.edges[et2]
-    x2 = torch.randn(es2.num_src, d, generator=gen).to(dev)
-    csr2 = _csr(es2.row_ptr, es2.src, es2.num_dst, es2.num_src, dev)
-    check(
-        "fused_table_segment_sum", et2, x2,
-        lambda: sk.fused_table_segment_sum(x2, es2.win_src, es2.win_local, es2.win_tile_map, es2.num_windows),
-        lambda: sk.fused_table_segment_sum_plain(x2, es2.win_src, es2.win_local, es2.win_tile_map, es2.num_windows),
-        lambda: torch.sparse.mm(csr2, x2),
-        (es2.win_src, es2.win_local, es2.win_tile_map),
-    )
+    # K1 on the other relations it aggregates (the paired tier's forward),
+    # each against torch.sparse.mm; the largest above heads the JSON entry
+    k1_rel = {}
+    for et in sorted((et for et, t in tiers.items() if t in ("paired", "windowed") and et != et1),
+                     key=lambda et: -graph.edges[et].num_valid):
+        es = graph.edges[et]
+        x = torch.randn(es.num_src, d, generator=gen).to(dev)
+        csr = _csr(es.row_ptr, es.src, es.num_dst, es.num_src, dev)
+        saved = results.pop("segment_sum_windowed")
+        check(
+            "segment_sum_windowed", et, x,
+            lambda es=es, x=x: sk.segment_sum_windowed(x, es.win_src, es.win_local, es.win_tile_map, es.num_windows),
+            lambda es=es, x=x: sk.segment_sum_windowed_plain(x, es.win_src, es.win_local, es.win_tile_map, es.num_windows),
+            lambda csr=csr, x=x: torch.sparse.mm(csr, x),
+            (es.win_src, es.win_local, es.win_tile_map),
+        )
+        k1_rel["/".join(et)] = results.pop("segment_sum_windowed")
+        results["segment_sum_windowed"] = saved
+    results["segment_sum_windowed"]["relations"] = {"/".join(et1): dict(results["segment_sum_windowed"]), **k1_rel}
+
+    # K2f on the three fused-table relations, also with NaN rows past the
+    # table (staged in shared memory, never read), timed in turns with
+    # torch.sparse.mm (library, kernel, kernel, library); lab -> patient,
+    # the largest, heads the kernel's JSON entry
+    k2f = {}
+    for et in sorted((et for et, t in tiers.items() if t == "fused_table"), key=lambda et: -graph.edges[et].num_valid):
+        es = graph.edges[et]
+        x = torch.randn(es.num_src, d, generator=gen).to(dev)
+        csr = _csr(es.row_ptr, es.src, es.num_dst, es.num_src, dev)
+        plan_t = (es.win_src, es.win_local, es.win_tile_map)
+        kernel = lambda x=x, p=plan_t, es=es: sk.fused_table_segment_sum(x, *p, es.num_windows)  # noqa: E731
+        plain = lambda x=x, p=plan_t, es=es: sk.fused_table_segment_sum_plain(x, *p, es.num_windows)  # noqa: E731
+        library = lambda csr=csr, x=x: torch.sparse.mm(csr, x)  # noqa: E731
+        name = f"fused_table_segment_sum on {'/'.join(et)}"
+        want = mean_of(plain(), es)
+        max_abs, _ = _compare(name, mean_of(kernel(), es), want, KERNEL_ATOL, KERNEL_RTOL)
+        x_nan = torch.full((es.num_src + 37, d), float("nan"), device=dev)
+        x_nan[: es.num_src] = x
+        _compare(f"{name}, 37 NaN rows past the table",
+                 mean_of(sk.fused_table_segment_sum(x_nan, *plan_t, es.num_windows), es), want,
+                 KERNEL_ATOL, KERNEL_RTOL)
+        del x_nan
+        turns = [_median_ms(library), _median_ms(kernel), _median_ms(kernel), _median_ms(library)]
+        ms, lib_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        bound = _bound(_nbytes(x, *plan_t) + es.num_windows * WINDOW * d * 4, es.num_valid * d)
+        launch = sk.fused_table_launch(es.win_local.shape[0] // TILE_E, es.num_src, d, sms)
+        plain_ms = _median_ms(plain)
+        print(
+            f"    {name}: turns library, kernel, kernel, library {', '.join('%.4f' % t for t in turns)} ms "
+            f"(medians of {TIMING_REPS}); plain {plain_ms:.4f} ms; bound {bound['bound_ms']:.4f} ms "
+            f"({bound['bound_by']}); {es.num_valid} edges\n      (K2f launch: {launch}; "
+            f"{launch.shared_bytes} B of dynamic shared memory a block)"
+        )
+        k2f["/".join(et)] = {
+            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": lib_ms,
+            "turns_ms": turns, "launch": dataclasses.asdict(launch),
+        }
+    largest = next(iter(k2f))
+    results["fused_table_segment_sum"] = {**k2f[largest], "relation": largest, "relations": k2f}
 
     et3 = pick(("span",))
     es3 = graph.edges[et3]
@@ -524,7 +588,7 @@ def main() -> int:
         KERNEL_ATOL, KERNEL_RTOL,
     )
     del x3_nan
-    _phase("kernels", t0, "K1, K2f, K3 match their plain versions")
+    _phase("kernels", t0, "K1, K2f (NaN rows past the tables too), K3 match their plain versions")
 
     # 5. slice -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -731,13 +795,57 @@ def main() -> int:
                     head_bytes + _nbytes(g_out) + _nbytes(*head), active[mname] * HEAD_BWD_FLOPS,
                     bwd_err,
                 )
-            elif rate > 0:
-                print(
-                    f"    pair head, tabular head tiles: kernel fwd "
-                    f"{_median_ms(lambda m=mask: head_call(pk.pair_head_fwd, 0.2, m)):.4f} ms  bwd "
-                    f"{_median_ms(lambda m=mask: head_call(pk.pair_head_bwd, 0.2, m, plan.num_windows, g_out)):.4f} ms"
-                )
-    _phase("train-kernels", t0, "K2b, K1 as a backward, K4f and K4b match their plain versions")
+            elif rate > 0:  # the tabular head's tiles: times and bounds beside the GNN head's entry
+                tab_bytes = _nbytes(*head, batch.lab_idx, plan.win_local, plan.win_tile_map, mask,
+                                    plan.lab_block_map)
+                for name, fn, extra, nbytes, flops in (
+                    ("pair_head_fwd", pk.pair_head_fwd, (), tab_bytes + plan.win_local.shape[0] * 4, HEAD_FWD_FLOPS),
+                    ("pair_head_bwd", pk.pair_head_bwd, (plan.num_windows, g_out),
+                     tab_bytes + _nbytes(g_out) + _nbytes(*head), HEAD_BWD_FLOPS),
+                ):
+                    ms = _median_ms(lambda m=mask, fn=fn, extra=extra: head_call(fn, 0.2, m, *extra))
+                    bound = _bound(nbytes, active[mname] * flops)
+                    print(f"    {name}, tabular head tiles: kernel {ms:.4f} ms  bound {bound['bound_ms']:.4f} ms "
+                          f"({bound['bound_by']}, {active[mname]} active slots)")
+                    results[name]["tabular"] = {"ms": ms, **bound, "active_slots": active[mname]}
+    print(f"      (K4b launch: {pk.bwd_launch(num_tiles, sms)})")
+
+    # K4b at other lab counts (mimic_scale's 720, and 2048), over span@256
+    # lab tiles and the full table: the train batch's patients with labs
+    # drawn from a seed, laid out by the masker's own slot-major layout
+    rows_p = batch_cpu.patient_idx[batch_cpu.valid > 0].numpy()
+    lab_rng = np.random.default_rng(720)
+    lab_batches, lab_counts = {}, {}
+    for num_l_x in LAB_COUNTS:
+        labs_x = lab_rng.integers(0, num_l_x, rows_p.shape[0]).astype(np.int32)
+        for rows_x in (256, 0):
+            t_b = time.perf_counter()
+            bx, _ = _pad_batch(rows_p, labs_x, np.zeros(rows_p.shape[0], np.float32), 256, num_p, num_l_x,
+                               slot_major=True, lab_block_rows=rows_x)
+            bx = bx.to(dev)
+            lab_batches[(num_l_x, rows_x)] = bx
+            px = bx.patient_plan
+            lowx = (graph.patient_lab_degree[bx.patient_idx.long()] < config.model.degree_threshold).reshape(-1, TILE_E)
+            gmask = (~lowx).any(dim=1).to(torch.int32)
+            hx = [torch.randn(num_p, 64, generator=hg), torch.randn(num_l_x, 64, generator=hg)] + [
+                t.cpu() for t in head[2:]]
+            hx = [t.to(dev) for t in hx]
+            realx = px.win_local < WINDOW
+            gx = (torch.randn(px.win_local.shape[0], generator=hg).to(dev) * realx).contiguous()
+            args_x = (bx.lab_idx, px.win_local, px.win_tile_map, seed, gmask, px.lab_block_map, 0.2, px.lab_block_rows)
+            margin = pk.relu_margin_plain(*hx[:4], *args_x)
+            g_safe = torch.where(margin > KINK_MARGIN, gx, torch.zeros_like(gx))
+            tag = f"{num_l_x} labs, lab_tile_rows {rows_x}, rate 0.2, GNN head tiles"
+            got = pk.pair_head_bwd(*hx, *args_x, px.num_windows, g_safe)
+            want = pk.pair_head_bwd_plain(*hx, *args_x, g_safe)
+            err = max(_compare_scaled(f"pair_head_bwd d{n} ({tag})", a, b, GRAD_REL) for n, a, b in zip(names, got, want))
+            del got, want
+            ms = _median_ms(lambda hx=hx, args_x=args_x, px=px, gx=gx: pk.pair_head_bwd(*hx, *args_x, px.num_windows, gx))
+            print(f"    pair_head_bwd ({tag}): kernel {ms:.4f} ms; {px.win_local.shape[0] // TILE_E} tiles "
+                  f"(batch laid out in {time.perf_counter() - t_b:.1f} s)")
+            lab_counts[f"{num_l_x} labs, lab_tile_rows {rows_x}"] = {"max_abs_err": err, "ms": ms}
+    results["pair_head_bwd"]["lab_counts"] = lab_counts
+    _phase("train-kernels", t0, "K2b, K1 as a backward, K4f and K4b (500, 720 and 2048 labs) match their plain versions")
 
     # 8. train-step --------------------------------------------------------
     t0 = time.perf_counter()
@@ -927,8 +1035,6 @@ def main() -> int:
                 _compare_scaled(f"K8 dv, {tag}{label}", dv[:ns], dv_p[:ns], GRAD_REL),
             ])
             del out, lse, dq, dk, dv
-        if dst_t not in (PATIENT, LAB):
-            continue
         # times and bounds at this group's shapes
         e = plan.num_edges
         fwd_plan, rev_plan = _nbytes(*plan.fwd.arrays()), _nbytes(*plan.rev.arrays())
@@ -1195,6 +1301,35 @@ def main() -> int:
             a = a[: b.shape[0]]
         _compare_scaled(f"pair_head_dual_bwd d{n}, NaN rows past the tables", a, b, GRAD_REL)
     del got, want, nan_params
+    # K5b at 720 and 2048 labs (phase 7's full-table batches), both heads'
+    # masks, dropout 0.2
+    dual_lab_counts = {}
+    for num_l_x in LAB_COUNTS:
+        bx = lab_batches[(num_l_x, 0)]
+        px = bx.patient_plan
+        lowx = (graph.patient_lab_degree[bx.patient_idx.long()] < config.model.degree_threshold).reshape(-1, TILE_E)
+        mx = (lowx.any(dim=1).to(torch.int32), (~lowx).any(dim=1).to(torch.int32))
+        px_params = []
+        for h in (0, 6):
+            px_params += [torch.randn(num_p, 64, generator=hg).to(dev), torch.randn(num_l_x, 64, generator=hg).to(dev)]
+            px_params += dual_params[h + 2 : h + 6]
+        realx = px.win_local < WINDOW
+        gx = [(torch.randn(px.win_local.shape[0], generator=hg).to(dev) * realx).contiguous() for _ in range(2)]
+        xcall = lambda fn, params, *extra, bx=bx, px=px, mx=mx: fn(  # noqa: E731
+            *params, bx.lab_idx, px.win_local, px.win_tile_map, seed4, *mx, 0.2, *extra)
+        margins = xcall(pk.relu_margin_dual_plain, px_params[0:4] + px_params[6:10])
+        g_safe = [torch.where(m > KINK_MARGIN, g, torch.zeros_like(g)) for m, g in zip(margins, gx)]
+        tag = f"{num_l_x} labs, rate 0.2, both heads' masks"
+        got = xcall(pk.pair_head_dual_bwd, px_params, px.num_windows, *g_safe)
+        want = xcall(pk.pair_head_dual_bwd_plain, px_params, *g_safe)
+        err = max(_compare_scaled(f"pair_head_dual_bwd d{n} ({tag})", a, b, GRAD_REL)
+                  for n, a, b in zip(dual_names, got, want))
+        del got, want
+        ms = _median_ms(lambda xcall=xcall, p=px_params, px=px, gx=gx: xcall(pk.pair_head_dual_bwd, p, px.num_windows, *gx))
+        print(f"    pair_head_dual_bwd ({tag}): kernel {ms:.4f} ms; {px.win_local.shape[0] // TILE_E} tiles")
+        dual_lab_counts[f"{num_l_x} labs"] = {"max_abs_err": err, "ms": ms}
+    del lab_batches
+    print(f"      (K5b launch: {pk.bwd_launch(slots0 // TILE_E, sms, heads=2)})")
     # times: K5f / K5b against K4f / K4b of both heads, same batch, dropout 0.2, masks
     k4_heads = (
         (dual_params[:6], seed4[:2], masks0["tab"], g_dual[0]),
@@ -1227,6 +1362,7 @@ def main() -> int:
     k4_bwd_ms = _median_ms(lambda: k4_both(True))
     results["pair_head_dual_fwd"]["k4_both_heads_ms"] = k4_fwd_ms
     results["pair_head_dual_bwd"]["k4_both_heads_ms"] = k4_bwd_ms
+    results["pair_head_dual_bwd"]["lab_counts"] = dual_lab_counts
     print(
         f"    same batch, same call: K5f {results['pair_head_dual_fwd']['ms']:.4f} ms vs K4f tabular + GNN "
         f"{k4_fwd_ms:.4f} ms; K5b {results['pair_head_dual_bwd']['ms']:.4f} ms vs K4b tabular + GNN "
@@ -1234,7 +1370,7 @@ def main() -> int:
     )
     del dual_params, g_dual, g_safe
     torch.cuda.empty_cache()
-    _phase("dual-kernels", t0, "K5f and K5b match their plain versions, NaN rows past the tables too")
+    _phase("dual-kernels", t0, "K5f and K5b (500, 720 and 2048 labs) match their plain versions, NaN rows past the tables too")
 
     # 16. dual-train-step --------------------------------------------------
     t0 = time.perf_counter()

@@ -43,29 +43,53 @@
 //
 // What bounds them on the H100: operations.  64 x 32 FMAs per slot and head
 // forward (h0 @ W1), three times that backward (recomputed h0 @ W1, dpre1 @
-// W1^T and the dW1 outer products), in float32 (TF32 would keep ~3 digits)
-// against the ~0.5 KB of Pp/Pl rows a slot reads per head, mostly from L2.
-//   * K4f / K5f: one thread per slot.  h0 and the 32 accumulators live in
-//     registers; W1 sits in shared memory and is read as float4 broadcasts
-//     (every lane reads the same address).  K5f decodes a slot (window row,
-//     lab, dropout key) once and runs the heads its tile needs in turn.
-//   * K4b: a warp handles 32 slots at a time, first one slot per lane
-//     (recompute, dpre1, dpre0), then one column per lane for the
-//     reductions over slots, through per-warp shared staging rows (padded to
-//     65 / 33 floats so both access patterns are free of bank conflicts):
-//     dW1 and db1 / dw2 accumulate in registers of the lane owning the
-//     column; dPp accumulates in a shared [128, 64] window block flushed
-//     with global atomics when the window changes; dPl accumulates in a
-//     shared [num_labs, 64] table (128 KB at 500 labs) flushed once per
-//     block.  Four warps per block, one block per SM (~215 KB of shared
-//     memory at 500 labs); the shared-memory budget, not the registers,
-//     sets that.
+// W1^T and the dW1 outer products), against the ~0.5 KB of Pp/Pl rows a
+// slot reads per head, mostly from L2.
+//   * K4f / K5f: one thread per slot, in float32 on the CUDA cores.  h0 and
+//     the 32 accumulators live in registers; W1 sits in shared memory and is
+//     read as float4 broadcasts (every lane reads the same address).  K5f
+//     decodes a slot (window row, lab, dropout key) once and runs the heads
+//     its tile needs in turn.
+//   * K4b (redesigned for Hopper).  Its first version kept the [num_labs,
+//     64] dPl table in shared memory (one 4-warp block an SM, and no lab
+//     table above 551 rows), walked static tile ranges while the degree
+//     gate's masked tiles cluster, ran its three products per slot on the
+//     CUDA cores with a shared-memory load per FMA, and scattered dPp / dPl
+//     with f32 shared atomics (compare-and-swap loops).  Now:
+//     - Persistent blocks of 8 warps, one an SM; each warp takes units of
+//       128 slots (an eighth of a tile) from a counter, so a masked tile
+//       costs its mask read and no warp waits for a slow neighbour.
+//     - A warp runs 16 slots at a time through the three products on the
+//       tensor cores (mma.sync m16n8k8 TF32): pre1 = h0 W1 ([16 x 64] x
+//       [64 x 32]), dh0 = dpre1 W1^T and dW1 += h0^T dpre1.  Each product is
+//       three TF32 products of operands split into hi + lo (a_lo b_hi +
+//       a_hi b_lo + a_hi b_hi, within ~2^-21 where one TF32 product keeps
+//       2^-11).  The k order of the first two products is permuted so that
+//       a lane's h0 elements are its own A fragment, and pre1's accumulator
+//       is dh0's A fragment, with no shuffle; dW1 reads h0 and dpre1
+//       transposed from per-warp staging rows (strides 8 mod 32 floats: no
+//       bank conflict).  W1's fragments sit in shared memory, split once.
+//     - dW1, db1, dw2 and db2 stay in registers across a warp's units, are
+//       summed over the block's warps in shared memory at the end and go
+//       out with one atomic per element and block.
+//     - dPp and dPl need no shared table and no shared atomics: a lane owns
+//       two columns of dpre0 and walks the group's slots in order, merging
+//       runs of equal rows in registers, and adds each run to its global row
+//       with one float2 red.add.f32 a lane (a whole row a warp
+//       instruction).  Slots are sorted by patient within a tile (full lab
+//       table) or by lab (span tiles, training/masker.py), so one of the two
+//       scatters merges runs of ~10 to ~35 slots and the other adds one row
+//       per slot.
+//     - A warp stages its unit's metadata (dPp row, Pl row, upstream
+//       gradient) in shared memory and copies each group's Pp and Pl rows in
+//       with cp.async while the group before it computes: the row loads'
+//       latency, exposed once a group, held the first tensor-core version
+//       back most.
+//     - 172 KB of shared memory a block, the same for any lab table; about
+//       200 registers a thread, so one block of 8 warps an SM.
 //   * K5b: K4b's blocks, one head per block: blockIdx.y = 0 takes the GNN
 //     head, which runs on most tiles, so its blocks are dispatched first;
-//     blockIdx.y = 1 the tabular head.  Both heads' dPl (2 x 128 KB at 500
-//     labs) cannot share one block's 227 KB, so each block keeps its own
-//     head's half resident and decodes its tiles' slots itself (8 bytes of
-//     indices per slot, from L2).
+//     blockIdx.y = 1 the tabular head; each head has its own unit counter.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,10 +101,6 @@ constexpr int TILE_E = 1024;
 constexpr int H0 = 64;
 constexpr int H1 = 32;
 constexpr int FWD_THREADS = 256;
-constexpr int BWD_WARPS = 4;
-constexpr int BWD_THREADS = BWD_WARPS * 32;
-constexpr int STAGE_A = H0 + 1;  // staging row strides: bank-conflict-free
-constexpr int STAGE_B = H1 + 1;  // both as rows and as columns
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Head {
@@ -272,170 +292,436 @@ pair_head_dual_fwd_kernel(Head ht, Head hg, int num_tiles, float* __restrict__ o
   out_g[e] = res_g;
 }
 
-// Add the shared window block into rows [window * 128, +128) of dpp, and zero it.
-__device__ void flush_dpp(float* dpp_s, float* __restrict__ dpp, int window) {
-  float* dst = dpp + (long long)window * WINDOW * H0;
-  for (int i = threadIdx.x; i < WINDOW * H0; i += BWD_THREADS) {
-    const float v = dpp_s[i];
-    if (v != 0.f) atomicAdd(dst + i, v);
-    dpp_s[i] = 0.f;
+// ---------------------------------------------------------------------------
+// K4b / K5b: the backward on the tensor cores (notes in the header)
+// ---------------------------------------------------------------------------
+
+constexpr int BWD_WARPS = 8;
+constexpr int BWD_THREADS = BWD_WARPS * 32;
+constexpr int BWD_UNIT = 128;               // slots a warp takes at a time: 8 groups of 16
+constexpr int UNITS_PER_TILE = TILE_E / BWD_UNIT;
+constexpr int H0_STRIDE = H0 + 8;           // staging row strides, 8 mod 32 floats: the
+constexpr int H1_STRIDE = H1 + 8;           // fragment reads and float2 writes miss no bank
+constexpr int RED_FLOATS = H0 * H1 + 2 * H1 + 1;  // a block's dW1, db1, dw2, db2
+
+// b = hi + lo in TF32: hi keeps b's top 11 significand bits (truncated),
+// lo = b - hi (exact) rounded to nearest on its 11th bit; |b - hi - lo| <=
+// 2^-21 |b|, and hi alone carries a non-finite b.
+__device__ __forceinline__ void split_tf32(float b, unsigned& hi, unsigned& lo) {
+  hi = __float_as_uint(b) & 0xffffe000u;
+  lo = (__float_as_uint(b - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+}
+
+// c += a * b for one 16x8x8 TF32 tile (the PTX ISA's "mma.m16n8k8" .tf32
+// fragments: a = A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]; b = B[t][g],
+// B[t+4][g]; c = C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1]; g = lane / 4,
+// t = lane % 4).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An A fragment split into TF32 hi and lo parts (once for all its products).
+struct SplitA {
+  unsigned hi[4], lo[4];
+};
+
+__device__ __forceinline__ SplitA split_a(float a0, float a1, float a2, float a3) {
+  SplitA s;
+  split_tf32(a0, s.hi[0], s.lo[0]);
+  split_tf32(a1, s.hi[1], s.lo[1]);
+  split_tf32(a2, s.hi[2], s.lo[2]);
+  split_tf32(a3, s.hi[3], s.lo[3]);
+  return s;
+}
+
+// c += a * b in three TF32 products (a_lo b_hi + a_hi b_lo + a_hi b_hi):
+// within ~2^-21 of the f32 product's operands, where one product keeps 2^-11.
+__device__ __forceinline__ void mma3(float (&c)[4], const SplitA& a, uint2 bh, uint2 bl) {
+  mma_tf32(c, a.lo, bh.x, bh.y);
+  mma_tf32(c, a.hi, bl.x, bl.y);
+  mma_tf32(c, a.hi, bh.x, bh.y);
+}
+
+// B fragments of W1 (split hi / lo, laid out so a lane reads its pair with
+// one 8-byte load), b1 and w2, and per warp the staging of one 16-slot group.
+struct BwdShared {
+  uint2 fw_hi[H0 / 8][H1 / 8][32], fw_lo[H0 / 8][H1 / 8][32];  // h0 @ W1: k8 step x n8 tile
+  uint2 bw_hi[H1 / 8][H0 / 8][32], bw_lo[H1 / 8][H0 / 8][32];  // dpre1 @ W1^T
+  float b1[H1], w2[H1];
+  float h0s[BWD_WARPS][16][H0_STRIDE];  // h0 after dropout, then dpre0; at the end dW1 ...
+  float d1s[BWD_WARPS][16][H1_STRIDE];  // dpre1
+  float rows[BWD_WARPS][2][16][H0_STRIDE];  // the group's Pp and Pl rows, copied in ahead
+  int meta_p[BWD_WARPS][BWD_UNIT];    // per slot of the unit: its dPp row (-1: padding)
+  int meta_l[BWD_WARPS][BWD_UNIT];    // its Pl / dPl row (-1: a zero row)
+  float meta_go[BWD_WARPS][BWD_UNIT];  // its upstream gradient (0: padding)
+};
+static_assert(sizeof(float) * BWD_WARPS * 16 * H0_STRIDE >= sizeof(float) * RED_FLOATS,
+              "the block's reduction reuses h0s");
+
+__device__ void load_bwd_weights(const Head& a, BwdShared& sm) {
+  // forward: k8 step kk's column t <-> feature 8 kk + 2t, column t + 4 <->
+  // 8 kk + 2t + 1; so a lane's A fragment is its own h0 elements, which sit
+  // where dh0's accumulator puts the same features.  Backward: k8 step s's
+  // columns t, t + 4 <-> j = 8 s + 2t, 8 s + 2t + 1, pre1's own C layout.
+  for (int i = threadIdx.x; i < (H0 / 8) * (H1 / 8) * 32; i += BWD_THREADS) {
+    const int kk = i / ((H1 / 8) * 32), nt = (i / 32) % (H1 / 8), ln = i % 32;
+    const int g = ln / 4, t = ln % 4;
+    unsigned h0, l0, h1, l1;
+    split_tf32(a.w1[(8 * kk + 2 * t) * H1 + 8 * nt + g], h0, l0);
+    split_tf32(a.w1[(8 * kk + 2 * t + 1) * H1 + 8 * nt + g], h1, l1);
+    sm.fw_hi[kk][nt][ln] = make_uint2(h0, h1);
+    sm.fw_lo[kk][nt][ln] = make_uint2(l0, l1);
+  }
+  for (int i = threadIdx.x; i < (H1 / 8) * (H0 / 8) * 32; i += BWD_THREADS) {
+    const int s = i / ((H0 / 8) * 32), nt = (i / 32) % (H0 / 8), ln = i % 32;
+    const int g = ln / 4, t = ln % 4;
+    unsigned h0, l0, h1, l1;
+    split_tf32(a.w1[(8 * nt + g) * H1 + 8 * s + 2 * t], h0, l0);
+    split_tf32(a.w1[(8 * nt + g) * H1 + 8 * s + 2 * t + 1], h1, l1);
+    sm.bw_hi[s][nt][ln] = make_uint2(h0, h1);
+    sm.bw_lo[s][nt][ln] = make_uint2(l0, l1);
+  }
+  if (threadIdx.x < H1) {
+    sm.b1[threadIdx.x] = a.b1[threadIdx.x];
+    sm.w2[threadIdx.x] = a.w2[threadIdx.x];
   }
 }
 
-// The backward of one head over the tiles [blockIdx.x * tiles_per_block, +tiles_per_block).
+// 16-byte asynchronous copy global -> shared; src_bytes 0 writes zeros.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+// The unit's slots (units u * 128 ...) of tile t, window w, into the warp's
+// metadata: dPp row, Pl row, upstream gradient.  All lanes call it.
+__device__ __forceinline__ void load_unit_meta(const Head& a, const float* __restrict__ g_out,
+                                               BwdShared& sm, int u, int t, int w) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int i = 0; i < BWD_UNIT / 32; ++i) {
+    const long long e = (long long)u * BWD_UNIT + 32 * i + lane;
+    const int loc = a.local[e];
+    const bool valid = loc < WINDOW;
+    sm.meta_p[warp][32 * i + lane] = valid ? w * WINDOW + loc : -1;
+    sm.meta_l[warp][32 * i + lane] = valid ? lab_row(a, t, a.lab[e]) : -1;
+    sm.meta_go[warp][32 * i + lane] = valid ? g_out[e] : 0.f;
+  }
+  __syncwarp();
+}
+
+// Copy group grp's Pp and Pl rows into the warp's row buffer (zero rows for
+// padding, patients >= num_p and labs outside the tile's slice): lane
+// (table, chunk) = (lane / 16, lane % 16) copies one 16-byte chunk a slot.
+__device__ __forceinline__ void copy_group_rows(const Head& a, BwdShared& sm, int grp) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int table = lane / 16, chunk = lane % 16;
+#pragma unroll 4
+  for (int s = 0; s < 16; ++s) {
+    const int i = grp * 16 + s;
+    const int row = table == 0 ? sm.meta_p[warp][i] : sm.meta_l[warp][i];
+    const bool ok = row >= 0 && (table != 0 || row < a.num_p);
+    const float* src = (table == 0 ? a.pp : a.pl) + (ok ? (long long)row * H0 + 4 * chunk : 0);
+    cp_async16(&sm.rows[warp][table][s][4 * chunk], src, ok ? 16 : 0);
+  }
+  cp_async_commit();
+}
+
+// One row of a running merge: its table row (-1 = none) and the lane's two
+// columns (2 lane, 2 lane + 1) summed over the run's slots.
+struct Run {
+  int row;
+  float2 acc;
+};
+
+__device__ __forceinline__ void flush_run(Run& r, float* __restrict__ table, int lane) {
+  if (r.row >= 0) {  // warp-uniform: every lane holds the same row
+    atomicAdd(reinterpret_cast<float2*>(table + (long long)r.row * H0) + lane, r.acc);
+  }
+  r.row = -1;
+  r.acc = make_float2(0.f, 0.f);
+}
+
+__device__ __forceinline__ void merge_run(Run& r, int row, float2 v, float* __restrict__ table,
+                                          int lane) {
+  if (row < 0) return;
+  if (row != r.row) {
+    flush_run(r, table, lane);
+    r.row = row;
+  }
+  r.acc.x += v.x;
+  r.acc.y += v.y;
+}
+
+// What a warp carries across its units: the weight gradients (dW1 in mma C
+// fragments: m16 tile of features x n8 tile of j), the lane's db1 / dw2
+// columns j = 8 i + 2t + q over its rows, and db2.
+struct WarpGrads {
+  float dw1[H0 / 16][H1 / 8][4];
+  float dw2[H1 / 8][2], db1[H1 / 8][2];
+  float db2;
+};
+
+// Group grp (slots e0 .. e0 + 15) of the warp's unit, whose rows have been
+// copied in: recompute the forward on the tensor cores, then dpre1, dW1 +=
+// h0^T dpre1 and dpre0 = dpre1 W1^T through the masks; dpre0 goes into the
+// runs of dPp and dPl.  The next group's rows are copied in meanwhile.
+template <class C>
+__device__ __forceinline__ void bwd_group(const Head& a, BwdShared& sm, int grp, long long e0,
+                                          WarpGrads& wg, Run& run_p, Run& run_l,
+                                          const Grads& d) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  float(*h0s)[H0_STRIDE] = sm.h0s[warp];
+  float(*d1s)[H1_STRIDE] = sm.d1s[warp];
+  const float scale = a.dropout ? a.scale : 1.f;
+
+  // ---- the lane's two slots (rows g and g + 8 of the group) ----
+  float go[2];
+  uint32_t key[2], pass0[2];  // pass0 bit 2 kk + q: feature 8 kk + 2 tq + q kept and > 0
+  float h[2][H0 / 4];         // h0 at those features
+  cp_async_wait_all();
+  __syncwarp();  // the group's rows have landed
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int sl = g + 8 * r;
+    go[r] = sm.meta_go[warp][grp * 16 + sl];
+    key[r] = a.dropout ? slot_key(a, (uint32_t)(e0 + sl)) : 0u;
+    uint32_t bits = 0u;
+#pragma unroll
+    for (int kk = 0; kk < H0 / 8; ++kk) {
+      const float2 x = *reinterpret_cast<const float2*>(&sm.rows[warp][0][sl][8 * kk + 2 * tq]);
+      const float2 y = *reinterpret_cast<const float2*>(&sm.rows[warp][1][sl][8 * kk + 2 * tq]);
+      const float v[2] = {x.x + y.x, x.y + y.y};
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const bool on = v[q] > 0.f && (!a.dropout || keep<C>(a, key[r], 0, 8 * kk + 2 * tq + q));
+        bits |= (on ? 1u : 0u) << (2 * kk + q);
+        h[r][2 * kk + q] = on ? (a.dropout ? v[q] * scale : v[q]) : 0.f;
+      }
+      *reinterpret_cast<float2*>(&h0s[sl][8 * kk + 2 * tq]) = make_float2(h[r][2 * kk], h[r][2 * kk + 1]);
+    }
+    pass0[r] = bits;
+  }
+  __syncwarp();  // the row buffer is read: the next group's rows go in
+  if (grp + 1 < BWD_UNIT / 16) copy_group_rows(a, sm, grp + 1);
+
+  // ---- pre1 = h0 W1 + b1 (M = slot, N = j, K = feature) ----
+  float acc1[H1 / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < H1 / 8; ++nt) {
+    const float b0 = sm.b1[8 * nt + 2 * tq], b1 = sm.b1[8 * nt + 2 * tq + 1];
+    acc1[nt][0] = b0, acc1[nt][1] = b1, acc1[nt][2] = b0, acc1[nt][3] = b1;
+  }
+#pragma unroll
+  for (int kk = 0; kk < H0 / 8; ++kk) {
+    const SplitA af = split_a(h[0][2 * kk], h[1][2 * kk], h[0][2 * kk + 1], h[1][2 * kk + 1]);
+#pragma unroll
+    for (int nt = 0; nt < H1 / 8; ++nt) mma3(acc1[nt], af, sm.fw_hi[kk][nt][lane], sm.fw_lo[kk][nt][lane]);
+  }
+
+  // ---- layer 1's backward: dw2, db1, db2 and dpre1 (into acc1) ----
+#pragma unroll
+  for (int nt = 0; nt < H1 / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e / 2, q = e % 2, j = 8 * nt + 2 * tq + q;
+      const float pre = acc1[nt][e];
+      const bool kept = !a.dropout || keep<C>(a, key[r], 1, j);
+      const float h1 = kept ? (a.dropout ? fmaxf(pre, 0.f) * scale : fmaxf(pre, 0.f)) : 0.f;
+      wg.dw2[nt][q] = fmaf(go[r], h1, wg.dw2[nt][q]);
+      const float dpre1 = (kept && pre > 0.f) ? go[r] * sm.w2[j] * scale : 0.f;
+      wg.db1[nt][q] += dpre1;
+      acc1[nt][e] = dpre1;
+    }
+    *reinterpret_cast<float2*>(&d1s[g][8 * nt + 2 * tq]) = make_float2(acc1[nt][0], acc1[nt][1]);
+    *reinterpret_cast<float2*>(&d1s[g + 8][8 * nt + 2 * tq]) = make_float2(acc1[nt][2], acc1[nt][3]);
+  }
+  if (tq == 0) wg.db2 += go[0] + go[1];
+
+  // ---- dh0 = dpre1 W1^T (M = slot, N = feature, K = j) ----
+  float acc0[H0 / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < H0 / 8; ++nt) acc0[nt][0] = acc0[nt][1] = acc0[nt][2] = acc0[nt][3] = 0.f;
+#pragma unroll
+  for (int s = 0; s < H1 / 8; ++s) {
+    const SplitA af = split_a(acc1[s][0], acc1[s][2], acc1[s][1], acc1[s][3]);
+#pragma unroll
+    for (int nt = 0; nt < H0 / 8; ++nt) mma3(acc0[nt], af, sm.bw_hi[s][nt][lane], sm.bw_lo[s][nt][lane]);
+  }
+  __syncwarp();  // h0s and d1s are written
+
+  // ---- dW1 += h0^T dpre1 (M = feature, N = j, K = slot), from the staging ----
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+    uint2 bh[H1 / 8], bl[H1 / 8];
+#pragma unroll
+    for (int nj = 0; nj < H1 / 8; ++nj) {
+      split_tf32(d1s[8 * ks + tq][8 * nj + g], bh[nj].x, bl[nj].x);
+      split_tf32(d1s[8 * ks + tq + 4][8 * nj + g], bh[nj].y, bl[nj].y);
+    }
+#pragma unroll
+    for (int mt = 0; mt < H0 / 16; ++mt) {
+      const SplitA af = split_a(h0s[8 * ks + tq][16 * mt + g], h0s[8 * ks + tq][16 * mt + g + 8],
+                                h0s[8 * ks + tq + 4][16 * mt + g], h0s[8 * ks + tq + 4][16 * mt + g + 8]);
+#pragma unroll
+      for (int nj = 0; nj < H1 / 8; ++nj) mma3(wg.dw1[mt][nj], af, bh[nj], bl[nj]);
+    }
+  }
+  __syncwarp();  // h0s is read: dpre0 takes its place
+
+  // ---- dpre0 = dh0 through layer 0's ReLU and dropout ----
+#pragma unroll
+  for (int nt = 0; nt < H0 / 8; ++nt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float v[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const float x = acc0[nt][2 * r + q];
+        v[q] = ((pass0[r] >> (2 * nt + q)) & 1u) ? (a.dropout ? x * scale : x) : 0.f;
+      }
+      *reinterpret_cast<float2*>(&h0s[g + 8 * r][8 * nt + 2 * tq]) = make_float2(v[0], v[1]);
+    }
+  }
+  __syncwarp();
+
+  // ---- one column pair per lane: runs of equal rows into dPp and dPl ----
+#pragma unroll 4
+  for (int s = 0; s < 16; ++s) {
+    const int rp = sm.meta_p[warp][grp * 16 + s], rl = sm.meta_l[warp][grp * 16 + s];
+    const float2 v = *reinterpret_cast<const float2*>(&h0s[s][2 * lane]);
+    merge_run(run_p, rp, v, d.dpp, lane);
+    merge_run(run_l, rl, v, d.dpl, lane);
+  }
+  __syncwarp();  // the staging is read before the next group writes it
+}
+
+// The backward of one head: the block's warps take units of 128 slots (an
+// eighth of a tile) from the head's counter `work` until none is left; a
+// masked tile's units cost a mask read.  At the end the block sums its
+// warps' weight gradients in shared memory and adds them to d with one
+// atomic per element.
 template <class C>
 __device__ __forceinline__ void pair_head_bwd_body(const Head& a, const float* __restrict__ g_out,
-                                                   int num_tiles, int tiles_per_block,
-                                                   const Grads& d) {
-  float* __restrict__ dpp = d.dpp;
-  float* __restrict__ dpl = d.dpl;
+                                                   int num_tiles, int* work, const Grads& d) {
   extern __shared__ float4 smem4[];
-  float4* w1s = smem4;                                               // [64 * 32]
-  float* b1s = reinterpret_cast<float*>(w1s + H0 * H1 / 4);          // [32]
-  float* w2s = b1s + H1;                                             // [32]
-  float* dpp_s = w2s + H1;                                           // [128, 64]
-  float* dpl_s = dpp_s + WINDOW * H0;                                // [num_l, 64]
+  BwdShared& sm = *reinterpret_cast<BwdShared*>(smem4);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* stage_a = dpl_s + a.num_l * H0 + warp * (32 * STAGE_A + 32 * STAGE_B);
-  float* stage_b = stage_a + 32 * STAGE_A;
-
-  load_weights(a, w1s, b1s, w2s, BWD_THREADS);
-  for (int i = threadIdx.x; i < WINDOW * H0; i += BWD_THREADS) dpp_s[i] = 0.f;
-  for (int i = threadIdx.x; i < a.num_l * H0; i += BWD_THREADS) dpl_s[i] = 0.f;
+  load_bwd_weights(a, sm);
   __syncthreads();
 
-  float dw1_acc[H0];  // lane owns column j = lane of dW1
+  WarpGrads wg;
 #pragma unroll
-  for (int k = 0; k < H0; ++k) dw1_acc[k] = 0.f;
-  float db1_acc = 0.f, dw2_acc = 0.f, db2_acc = 0.f;
+  for (int mt = 0; mt < H0 / 16; ++mt)
+#pragma unroll
+    for (int nj = 0; nj < H1 / 8; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) wg.dw1[mt][nj][e] = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < H1 / 8; ++nt) wg.dw2[nt][0] = wg.dw2[nt][1] = wg.db1[nt][0] = wg.db1[nt][1] = 0.f;
+  wg.db2 = 0.f;
 
-  const int t0 = blockIdx.x * tiles_per_block;
-  const int t1 = min(t0 + tiles_per_block, num_tiles);
-  int window = t0 < t1 ? a.tile_map[t0] : 0;
-  for (int t = t0; t < t1; ++t) {
-    const int w = a.tile_map[t];
-    if (w != window) {  // block-uniform
-      __syncthreads();
-      flush_dpp(dpp_s, dpp, window);
-      __syncthreads();
-      window = w;
+  const int num_units = num_tiles * UNITS_PER_TILE;
+  int next = lane == 0 ? atomicAdd(work, 1) : 0;
+  for (;;) {
+    const int u = __shfl_sync(FULL, next, 0);
+    if (u >= num_units) break;
+    if (lane == 0) next = atomicAdd(work, 1);  // the next unit, fetched under this one
+    const int t = u / UNITS_PER_TILE;
+    if (!tile_on(a, t)) continue;  // warp-uniform
+    __syncwarp();  // the last unit's metadata is read
+    load_unit_meta(a, g_out, sm, u, t, a.tile_map[t]);
+    copy_group_rows(a, sm, 0);
+    Run run_p{-1, make_float2(0.f, 0.f)}, run_l{-1, make_float2(0.f, 0.f)};
+#pragma unroll 1
+    for (int grp = 0; grp < BWD_UNIT / 16; ++grp) {
+      bwd_group<C>(a, sm, grp, (long long)u * BWD_UNIT + grp * 16, wg, run_p, run_l, d);
     }
-    if (!tile_on(a, t)) continue;  // block-uniform
-    for (int chunk = warp; chunk < TILE_E / 32; chunk += BWD_WARPS) {
-      // ---- one slot per lane: recompute the forward, then dpre1 ----
-      const long long e = (long long)t * TILE_E + chunk * 32 + lane;
-      const int loc = a.local[e];
-      const bool valid = loc < WINDOW;
-      const int lr = valid ? lab_row(a, t, a.lab[e]) : -1;
-      const float go = valid ? g_out[e] : 0.f;
-      db2_acc += go;
-      const uint32_t key = a.dropout ? slot_key(a, (uint32_t)e) : 0u;
-      uint32_t relu0[2] = {0u, 0u};
-      float h0[H0];
-      if (valid) {
-        load_pre0(a, w * WINDOW + loc, lr, h0);
-      } else {
-#pragma unroll
-        for (int k = 0; k < H0; ++k) h0[k] = 0.f;
-      }
-#pragma unroll
-      for (int k = 0; k < H0; ++k) {
-        if (h0[k] > 0.f) relu0[k / 32] |= 1u << (k % 32);
-        float h = fmaxf(h0[k], 0.f);
-        if (a.dropout) h = keep<C>(a, key, 0, k) ? h * a.scale : 0.f;
-        h0[k] = h;
-        stage_a[lane * STAGE_A + k] = h;  // h0 after dropout, for dW1
-      }
-      float acc[H1];
-      layer1(w1s, b1s, h0, acc);
-#pragma unroll
-      for (int j = 0; j < H1; ++j) {
-        const bool kept = !a.dropout || keep<C>(a, key, 1, j);
-        const float h1d = kept ? fmaxf(acc[j], 0.f) * (a.dropout ? a.scale : 1.f) : 0.f;
-        stage_b[lane * STAGE_B + j] = go * h1d;  // dw2 terms
-        const float dh1 = kept ? go * w2s[j] * (a.dropout ? a.scale : 1.f) : 0.f;
-        acc[j] = acc[j] > 0.f ? dh1 : 0.f;  // dpre1
-      }
-      __syncwarp();
-      // ---- one column per lane: dw2 ----
-#pragma unroll 8
-      for (int s = 0; s < 32; ++s) dw2_acc += stage_b[s * STAGE_B + lane];
-      __syncwarp();
-#pragma unroll
-      for (int j = 0; j < H1; ++j) stage_b[lane * STAGE_B + j] = acc[j];
-      __syncwarp();
-      // ---- one column per lane: db1, dW1[:, lane] += sum_s h0[s, :] dpre1[s, lane] ----
-      for (int s = 0; s < 32; ++s) {
-        const float d = stage_b[s * STAGE_B + lane];
-        db1_acc += d;
-#pragma unroll
-        for (int k = 0; k < H0; ++k) dw1_acc[k] = fmaf(stage_a[s * STAGE_A + k], d, dw1_acc[k]);
-      }
-      __syncwarp();
-      // ---- one slot per lane: dpre0 = relu0' * drop0'(dpre1 @ W1^T) ----
-#pragma unroll
-      for (int k = 0; k < H0; ++k) {
-        float dh = 0.f;
-#pragma unroll
-        for (int q = 0; q < H1 / 4; ++q) {
-          const float4 wv = w1s[k * (H1 / 4) + q];
-          dh = fmaf(acc[4 * q + 0], wv.x, dh);
-          dh = fmaf(acc[4 * q + 1], wv.y, dh);
-          dh = fmaf(acc[4 * q + 2], wv.z, dh);
-          dh = fmaf(acc[4 * q + 3], wv.w, dh);
-        }
-        if (a.dropout) dh = keep<C>(a, key, 0, k) ? dh * a.scale : 0.f;
-        if (!((relu0[k / 32] >> (k % 32)) & 1u)) dh = 0.f;
-        stage_a[lane * STAGE_A + k] = dh;
-      }
-      __syncwarp();
-      // ---- one column pair per lane: scatter dpre0 into dPp and dPl ----
-      for (int s = 0; s < 32; ++s) {
-        const int sl = __shfl_sync(FULL, loc, s);
-        const int slr = __shfl_sync(FULL, lr, s);
-        if (sl >= WINDOW) continue;  // warp-uniform
-        const float v0 = stage_a[s * STAGE_A + lane], v1 = stage_a[s * STAGE_A + lane + 32];
-        atomicAdd(dpp_s + sl * H0 + lane, v0);
-        atomicAdd(dpp_s + sl * H0 + lane + 32, v1);
-        if (slr >= 0) {
-          atomicAdd(dpl_s + slr * H0 + lane, v0);
-          atomicAdd(dpl_s + slr * H0 + lane + 32, v1);
-        }
-      }
-      __syncwarp();
-    }
+    flush_run(run_p, d.dpp, lane);
+    flush_run(run_l, d.dpl, lane);
   }
+
+  // db1 / dw2 over the lanes of one column (same tq), db2 over the warp
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1) {
+#pragma unroll
+    for (int nt = 0; nt < H1 / 8; ++nt)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        wg.dw2[nt][q] += __shfl_xor_sync(FULL, wg.dw2[nt][q], off);
+        wg.db1[nt][q] += __shfl_xor_sync(FULL, wg.db1[nt][q], off);
+      }
+  }
+  for (int off = 1; off < 32; off <<= 1) wg.db2 += __shfl_xor_sync(FULL, wg.db2, off);
+
+  // the block's sum, one warp after another, in the staging (free now)
+  float* red = &sm.h0s[0][0][0];  // [dW1 64 x 32 | db1 32 | dw2 32 | db2]
+  const int g = lane / 4, tq = lane % 4;
   __syncthreads();
-  if (t0 < t1) flush_dpp(dpp_s, dpp, window);
-  for (int i = threadIdx.x; i < a.num_l * H0; i += BWD_THREADS) {
-    const float v = dpl_s[i];
-    if (v != 0.f) atomicAdd(dpl + i, v);
-  }
+  for (int ww = 0; ww < BWD_WARPS; ++ww) {
+    if (warp == ww) {
 #pragma unroll
-  for (int k = 0; k < H0; ++k) {
-    if (dw1_acc[k] != 0.f) atomicAdd(d.dw1 + k * H1 + lane, dw1_acc[k]);
+      for (int mt = 0; mt < H0 / 16; ++mt)
+#pragma unroll
+        for (int nj = 0; nj < H1 / 8; ++nj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = (16 * mt + g + 8 * (e / 2)) * H1 + 8 * nj + 2 * tq + e % 2;
+            red[i] = ww ? red[i] + wg.dw1[mt][nj][e] : wg.dw1[mt][nj][e];
+          }
+      if (g == 0) {
+#pragma unroll
+        for (int nt = 0; nt < H1 / 8; ++nt)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int j = 8 * nt + 2 * tq + q;
+            red[H0 * H1 + j] = ww ? red[H0 * H1 + j] + wg.db1[nt][q] : wg.db1[nt][q];
+            red[H0 * H1 + H1 + j] = ww ? red[H0 * H1 + H1 + j] + wg.dw2[nt][q] : wg.dw2[nt][q];
+          }
+      }
+      if (lane == 0) red[RED_FLOATS - 1] = ww ? red[RED_FLOATS - 1] + wg.db2 : wg.db2;
+    }
+    __syncthreads();
   }
-  atomicAdd(d.db1 + lane, db1_acc);
-  atomicAdd(d.dw2 + lane, dw2_acc);
-  for (int off = 16; off > 0; off >>= 1) db2_acc += __shfl_xor_sync(FULL, db2_acc, off);
-  if (lane == 0) atomicAdd(d.db2, db2_acc);
+  for (int i = threadIdx.x; i < RED_FLOATS; i += BWD_THREADS) {
+    const float v = red[i];
+    if (v == 0.f) continue;
+    if (i < H0 * H1) {
+      atomicAdd(d.dw1 + i, v);
+    } else if (i < H0 * H1 + H1) {
+      atomicAdd(d.db1 + i - H0 * H1, v);
+    } else if (i < H0 * H1 + 2 * H1) {
+      atomicAdd(d.dw2 + i - H0 * H1 - H1, v);
+    } else {
+      atomicAdd(d.db2, v);
+    }
+  }
 }
 
 __global__ void __launch_bounds__(BWD_THREADS, 1)
-pair_head_bwd_kernel(Head a, const float* __restrict__ g_out, int num_tiles, int tiles_per_block,
-                     Grads d) {
-  pair_head_bwd_body<SingleCols>(a, g_out, num_tiles, tiles_per_block, d);
+pair_head_bwd_kernel(Head a, const float* __restrict__ g_out, int num_tiles, int* work, Grads d) {
+  pair_head_bwd_body<SingleCols>(a, g_out, num_tiles, work, d);
 }
 
-// K5b: blockIdx.y = 0 runs the GNN head, 1 the tabular head.
+// K5b: blockIdx.y = 0 runs the GNN head, 1 the tabular head, each from its
+// own counter (work[0], work[1]).
 __global__ void __launch_bounds__(BWD_THREADS, 1)
 pair_head_dual_bwd_kernel(Head hg, Head ht, const float* __restrict__ g_out_g,
-                          const float* __restrict__ g_out_t, int num_tiles, int tiles_per_block,
-                          Grads dg, Grads dt) {
+                          const float* __restrict__ g_out_t, int num_tiles, int* work, Grads dg,
+                          Grads dt) {
   if (blockIdx.y == 0) {
-    pair_head_bwd_body<GnnCols>(hg, g_out_g, num_tiles, tiles_per_block, dg);
+    pair_head_bwd_body<GnnCols>(hg, g_out_g, num_tiles, work, dg);
   } else {
-    pair_head_bwd_body<TabCols>(ht, g_out_t, num_tiles, tiles_per_block, dt);
+    pair_head_bwd_body<TabCols>(ht, g_out_t, num_tiles, work + 1, dt);
   }
 }
 
@@ -495,11 +781,8 @@ Grads make_grads(float* dpp, float* dpl, float* dw1, float* db1, float* dw2, flo
 
 extern "C" {
 
-// Shared memory K4b needs for a lab table of num_l rows.
-int mmgnn_pair_head_bwd_shared_bytes(int num_l) {
-  return (int)(sizeof(float) * ((size_t)H0 * H1 + 2 * H1 + (size_t)WINDOW * H0 +
-                                (size_t)num_l * H0 + (size_t)BWD_WARPS * 32 * (STAGE_A + STAGE_B)));
-}
+// Shared memory of a K4b / K5b block (the same for any lab table).
+int mmgnn_pair_head_bwd_shared_bytes() { return (int)sizeof(BwdShared); }
 
 // K4f.  out [num_tiles * 1024] is written in full (0 for padding and masked tiles).
 int mmgnn_pair_head_fwd(const float* pp, int num_p, const float* pl, int num_l, const float* w1,
@@ -518,25 +801,26 @@ int mmgnn_pair_head_fwd(const float* pp, int num_p, const float* pl, int num_l, 
 }
 
 // K4b.  dpp [num_windows * 128, 64], dpl [num_l, 64], dw1 [64, 32], db1, dw2
-// [32] and db2 [1] are zeroed by the caller and accumulated with atomics.
+// [32] and db2 [1] are zeroed by the caller and accumulated with atomics;
+// `work` is a zeroed unit counter; `blocks` persistent blocks (the wrapper's
+// launch plan, ops/pairhead_kernels.py bwd_launch).
 int mmgnn_pair_head_bwd(const float* pp, int num_p, const float* pl, int num_l, const float* w1,
                         const float* b1, const float* w2, const float* b2, const int* lab,
                         const int* local, const int* tile_map, const int* tile_mask,
                         const int* lab_base, int lab_rows, int lab_base_max, int num_tiles,
                         unsigned seed0, unsigned seed1, unsigned threshold, float scale,
-                        int dropout, const float* g_out, int tiles_per_block, float* dpp,
+                        int dropout, const float* g_out, int* work, int blocks, float* dpp,
                         float* dpl, float* dw1, float* db1, float* dw2, float* db2,
                         void* stream) {
   const Head a = make_head(pp, num_p, pl, num_l, w1, b1, w2, b2, lab, local, tile_map, tile_mask,
                            lab_base, lab_rows, lab_base_max, seed0, seed1, threshold, scale,
                            dropout);
-  const int smem = mmgnn_pair_head_bwd_shared_bytes(num_l);
+  const int smem = mmgnn_pair_head_bwd_shared_bytes();
   cudaError_t err = cudaFuncSetAttribute(pair_head_bwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const int blocks = (num_tiles + tiles_per_block - 1) / tiles_per_block;
   pair_head_bwd_kernel<<<blocks, BWD_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      a, g_out, num_tiles, tiles_per_block, make_grads(dpp, dpl, dw1, db1, dw2, db2));
+      a, g_out, num_tiles, work, make_grads(dpp, dpl, dw1, db1, dw2, db2));
   return cudaGetLastError();
 }
 
@@ -562,7 +846,8 @@ int mmgnn_pair_head_dual_fwd(const float* pp_t, const float* pl_t, const float* 
 }
 
 // K5b.  Each head's dpp [num_windows * 128, 64], dpl [num_l, 64], dw1
-// [64, 32], db1, dw2 [32] and db2 [1] are zeroed by the caller.
+// [64, 32], db1, dw2 [32] and db2 [1] are zeroed by the caller; work[2]
+// (the GNN head's counter, then the tabular head's) too; `blocks` blocks a head.
 int mmgnn_pair_head_dual_bwd(const float* pp_t, const float* pl_t, const float* w1_t,
                              const float* b1_t, const float* w2_t, const float* b2_t,
                              const float* pp_g, const float* pl_g, const float* w1_g,
@@ -571,7 +856,7 @@ int mmgnn_pair_head_dual_bwd(const float* pp_t, const float* pl_t, const float* 
                              const int* tab_mask, const int* gnn_mask, int num_tiles,
                              unsigned seed0, unsigned seed1, unsigned threshold, float scale,
                              int dropout, const float* g_out_t, const float* g_out_g,
-                             int tiles_per_block, float* dpp_t, float* dpl_t, float* dw1_t,
+                             int* work, int blocks, float* dpp_t, float* dpl_t, float* dw1_t,
                              float* db1_t, float* dw2_t, float* db2_t, float* dpp_g,
                              float* dpl_g, float* dw1_g, float* db1_g, float* dw2_g,
                              float* db2_g, void* stream) {
@@ -580,13 +865,12 @@ int mmgnn_pair_head_dual_bwd(const float* pp_t, const float* pl_t, const float* 
   Head ht, hg;
   make_dual(tab, gnn, num_p, num_l, lab, local, tile_map, tab_mask, gnn_mask, seed0, seed1,
             threshold, scale, dropout, &ht, &hg);
-  const int smem = mmgnn_pair_head_bwd_shared_bytes(num_l);
+  const int smem = mmgnn_pair_head_bwd_shared_bytes();
   cudaError_t err = cudaFuncSetAttribute(pair_head_dual_bwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 blocks((num_tiles + tiles_per_block - 1) / tiles_per_block, 2);
-  pair_head_dual_bwd_kernel<<<blocks, BWD_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      hg, ht, g_out_g, g_out_t, num_tiles, tiles_per_block,
+  pair_head_dual_bwd_kernel<<<dim3(blocks, 2), BWD_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      hg, ht, g_out_g, g_out_t, num_tiles, work,
       make_grads(dpp_g, dpl_g, dw1_g, db1_g, dw2_g, db2_g),
       make_grads(dpp_t, dpl_t, dw1_t, db1_t, dw2_t, db2_t));
   return cudaGetLastError();

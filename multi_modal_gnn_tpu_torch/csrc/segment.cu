@@ -6,7 +6,7 @@
 //   K1  _windowed_segment_sum_fwd / _segment_kernel
 //         -> mmgnn_segment_sum_windowed
 //   K2f _fused_table_segment_sum_fwd / _fused_table_kernel_take
-//         -> mmgnn_fused_table_segment_sum
+//         -> mmgnn_fused_table_segment_sum (fused_table_kernel)
 //   K2b _fused_table_segment_sum_bwd / _fused_table_bwd_kernel_take
 //         -> mmgnn_fused_table_segment_sum_bwd (incidence_kernel<false>)
 //   K3  _span_dma_segment_sum_fwd / _span_dma_kernel
@@ -25,7 +25,8 @@
 //
 // K1 and K2f (gathers).  What bounds them on the H100: bytes.  There is one
 // add per gathered element, so the work is reading about E * D * 4 bytes of
-// gathered rows against writing num_dst * D * 4 bytes of output.  The design:
+// gathered rows against writing num_dst * D * 4 bytes of output.
+// K1's design:
 //   * One block per group of consecutive tiles, not one per window: a
 //     relation into labs has 4 windows but thousands of tiles, and the 132
 //     SMs need hundreds of blocks.  The block accumulates its window's
@@ -39,11 +40,33 @@
 //     shared memory with one atomicAdd per run.
 //   * Four rows are loaded before they are summed, so each lane has four
 //     loads in flight (eight spilled registers and ran 4-11 % slower).
-//   * K2f reads its small table (at most 2048 rows) from global memory with
-//     read-only loads: at D = 128 a 500-row table is 256 KB, more than the
-//     227 KB of shared memory a block may use, and it stays resident in the
-//     50 MB L2.
-//
+// K2f (redesigned for Hopper).  Its first version was K1's kernel reading
+// the small table (at most 2048 rows) through L1 / L2: 5M slots x 512 B on
+// lab -> patient, 2.56 GB through the cache hierarchy, ~90x the bytes of
+// its bound, as torch.sparse.mm reads them, and no faster than that call.
+// Now the table stays in shared memory and the gathers read it there:
+//   * A block keeps a column slice of every table row resident (the widest
+//     of 128, 64, 32, ... columns that fits a block's 227 KB: 64 columns of
+//     a 500-row table, 128 KB; 16 columns of 2048 rows); column slices are
+//     the grid's second dimension.  One block of 16 warps an SM.
+//   * Each warp takes units of 64 slots, a few at a time: its first grab
+//     by its index, the rest from the slice's counter (the counter's atomics
+//     are serial at its L2 slice: a grab a unit held the first version at
+//     that slice's pace, so a warp grabs about four times).  A unit of
+//     padding only costs its index read.
+//   * A warp's lanes split into row groups of slice / 4 lanes, one float4 of
+//     the row each; each group walks its own run of consecutive slots (its
+//     indices from the warp's staged copy, fetched from device memory under
+//     the previous unit's work), eight rows loaded before they are summed,
+//     sums runs of equal `local` in registers and adds each run to its
+//     output row with global float4 atomics (sm_90): no window partial in
+//     shared memory, no shared atomics.  The summation order changes from
+//     run to run.
+//   * A slot reads its row from shared memory only: about E * D * 4 bytes of
+//     shared-memory traffic (~0.09 ms of the SMs' bandwidth on lab ->
+//     patient) against the indices' E * 8 bytes from device memory, read
+//     once per column slice.
+
 // K2b and K3 (incidence products).  Both sum a contiguous block of rows
 // through a sparse patient x lab incidence: K3's tile reads its sources from
 // table[span_base[t] : + span_rows], K2b's window reads g[w * 128 : + 128].
@@ -678,6 +701,128 @@ int launch_windowed(Rows rows, const int* src, const int* local, const int* tile
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K2f: the gather from a column slice of the table held in shared memory
+// ---------------------------------------------------------------------------
+
+constexpr int FT_THREADS = 512;
+constexpr int FT_WARPS = FT_THREADS / 32;
+constexpr int FT_UNIT = 64;  // slots a warp takes at a time (a sixteenth of a tile)
+constexpr int FT_COUNTER_STRIDE = 32;  // a slice's counter on its own 128-byte line
+constexpr int FT_BATCH = 8;  // rows a row group loads before it sums them
+
+struct FusedTable {
+  const float* __restrict__ table;  // [num_src, d]
+  int num_src, d;
+  const int* __restrict__ src;
+  const int* __restrict__ local;
+  const int* __restrict__ tile_map;
+  int num_units;
+  int* work;    // a unit counter per column slice (every 32nd int), zeroed by the caller
+  int grab;     // units a warp takes at a time
+  int slice;    // columns of a slice (a multiple of 4)
+  int stride;   // floats per staged row
+  float* __restrict__ out;
+};
+
+// Grid (blocks, column slices).  A block copies columns [c0, c0 + slice) of
+// every table row into shared memory once, then each warp takes `grab`
+// units of 64 slots at a time (notes in the header).  The warp's lanes split
+// into `groups` row groups of q = slice / 4 lanes (one float4 of the row
+// each); group i walks the i-th run of consecutive slots of the unit, reads
+// each slot's row from shared memory, sums runs of equal `local` (slots are
+// dst-sorted within a tile) in registers and adds each run to its output
+// row with global atomics.
+__global__ void __launch_bounds__(FT_THREADS, 1) fused_table_kernel(FusedTable p) {
+  extern __shared__ float4 smem4[];
+  float* tab = reinterpret_cast<float*>(smem4);
+  int* idx = reinterpret_cast<int*>(tab + (size_t)p.num_src * p.stride);  // per warp: locals, sources
+  const int c0 = blockIdx.y * p.slice;
+  const int ncols = min(p.slice, p.d - c0);
+  const int q = ncols / 4;
+  for (int i = threadIdx.x; i < p.num_src * q; i += FT_THREADS) {
+    const int r = i / q, c = (i - r * q) * 4;
+    cp_async16(tab + (size_t)r * p.stride + c, p.table + (long long)r * p.d + c0 + c);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int groups = 32 / q;
+  const int gi = lane / q, ci = lane - gi * q;
+  const bool active = gi < groups;
+  const int seg = (FT_UNIT + FT_BATCH * groups - 1) / (FT_BATCH * groups) * FT_BATCH;  // whole batches
+  const int s0 = min(gi * seg, FT_UNIT), s1 = min(s0 + seg, FT_UNIT);
+  int* my_idx = idx + warp * 2 * FT_UNIT;
+  int* work = p.work + blockIdx.y * FT_COUNTER_STRIDE;
+  float* out = p.out + c0 + 4 * ci;
+  // The first grab is the warp's own, the counter hands out the rest; the
+  // next grab and the next unit's indices are fetched under this unit's work.
+  const int dealt = gridDim.x * FT_WARPS * p.grab;
+  int u = (blockIdx.x * FT_WARPS + warp) * p.grab;
+  int u_end = min(u + p.grab, p.num_units);
+  int next_grab = 0;  // lane 0
+  if (lane == 0) next_grab = dealt + atomicAdd(work, p.grab);
+  int l0 = WINDOW, l1 = WINDOW, r0 = 0, r1 = 0, w = 0;  // the unit's slots (lane, lane + 32)
+  auto fetch = [&](int uu) {
+    const long long e0 = (long long)uu * FT_UNIT;
+    l0 = p.local[e0 + lane];
+    l1 = p.local[e0 + lane + 32];
+    r0 = p.src[e0 + lane];
+    r1 = p.src[e0 + lane + 32];
+    w = p.tile_map[uu / (TILE_E / FT_UNIT)];
+  };
+  if (u < p.num_units) fetch(u);
+  while (u < p.num_units) {
+    int un = u + 1;
+    if (un >= u_end) {  // warp-uniform
+      un = __shfl_sync(FULL, next_grab, 0);
+      u_end = min(un + p.grab, p.num_units);
+      if (lane == 0 && un < p.num_units) next_grab = dealt + atomicAdd(work, p.grab);
+    }
+    const int cl0 = l0, cl1 = l1, cr0 = r0, cr1 = r1;
+    const long long row0 = (long long)w * WINDOW;
+    if (un < p.num_units) fetch(un);
+    u = un;
+    if (!__any_sync(FULL, cl0 < WINDOW || cl1 < WINDOW)) continue;  // padding only
+    __syncwarp();  // the last unit's indices are read
+    my_idx[lane] = cl0;
+    my_idx[lane + 32] = cl1;
+    my_idx[FT_UNIT + lane] = cr0;
+    my_idx[FT_UNIT + lane + 32] = cr1;
+    __syncwarp();
+    float4 run = zero4();
+    int cur = WINDOW;  // local row of the open run; WINDOW = none
+    for (int s = s0; active && s < s1; s += FT_BATCH) {
+      int ls[FT_BATCH], ss[FT_BATCH];
+#pragma unroll
+      for (int k = 0; k < FT_BATCH; k += 4) {  // s and s1 are multiples of FT_BATCH
+        const int4 l4 = *reinterpret_cast<const int4*>(my_idx + s + k);
+        const int4 s4 = *reinterpret_cast<const int4*>(my_idx + FT_UNIT + s + k);
+        ls[k] = l4.x, ls[k + 1] = l4.y, ls[k + 2] = l4.z, ls[k + 3] = l4.w;
+        ss[k] = s4.x, ss[k + 1] = s4.y, ss[k + 2] = s4.z, ss[k + 3] = s4.w;
+      }
+      float4 v[FT_BATCH];
+#pragma unroll
+      for (int k = 0; k < FT_BATCH; ++k) {
+        const bool ok = ls[k] < WINDOW && static_cast<unsigned>(ss[k]) < static_cast<unsigned>(p.num_src);
+        v[k] = ok ? *reinterpret_cast<const float4*>(tab + (size_t)ss[k] * p.stride + 4 * ci) : zero4();
+      }
+#pragma unroll
+      for (int k = 0; k < FT_BATCH; ++k) {
+        if (ls[k] != cur) {
+          if (cur < WINDOW) atomicAdd(reinterpret_cast<float4*>(out + (row0 + cur) * p.d), run);
+          run = zero4();
+          cur = ls[k];
+        }
+        add_into(run, v[k]);
+      }
+    }
+    if (active && cur < WINDOW) atomicAdd(reinterpret_cast<float4*>(out + (row0 + cur) * p.d), run);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -695,12 +840,22 @@ int mmgnn_segment_sum_windowed(const float* x, const int* idx, const int* local,
                          out, stream);
 }
 
-// K2f.  row(e) = table[win_src[e]] for a small source table.
-int mmgnn_fused_table_segment_sum(const float* table, const int* win_src, const int* local,
-                                  const int* tile_map, int num_tiles, int tiles_per_block,
-                                  int d, float* out, void* stream) {
-  return launch_windowed(TableRows{table, d}, win_src, local, tile_map, num_tiles,
-                         tiles_per_block, d, out, stream);
+// K2f.  row(e) = table[win_src[e]] for a small source table of num_src
+// rows; out [num_windows * 128, d] is zeroed by the caller, work [32 *
+// slices] too.  The launch shape and the shared layout come from the wrapper
+// (ops/segment_kernels.py fused_table_launch).
+int mmgnn_fused_table_segment_sum(const float* table, int num_src, const int* win_src,
+                                  const int* local, const int* tile_map, int num_tiles, int* work,
+                                  int grab, int blocks, int slices, int slice, int stride, int d,
+                                  float* out, void* stream) {
+  const FusedTable p{table, num_src, d, win_src, local, tile_map, num_tiles * (TILE_E / FT_UNIT),
+                     work, grab, slice, stride, out};
+  const size_t smem = sizeof(float) * (size_t)num_src * stride + sizeof(int) * FT_WARPS * 2 * FT_UNIT;
+  cudaError_t err = cudaFuncSetAttribute(fused_table_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  fused_table_kernel<<<dim3(blocks, slices), FT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return cudaGetLastError();
 }
 
 // K2b.  dT[win_src[e]] += g[tile_map[t] * 128 + local[e]]; g holds the

@@ -14,8 +14,10 @@ Three interchangeable tiers per destination group, as in the JAX layer:
   joint logits fit ``dense_attn_max_bytes``: one masked softmax over the
   concatenated source spaces, with duplicate edges weighted by their
   multiplicity;
-* ``flash`` — ``impl="pallas"`` and the graph carries an attention plan for
-  the group (``graph/attn_plan.py``): the K6 / K7 / K8 kernels
+* ``flash`` — ``impl="pallas"``, the graph carries an attention plan for
+  the group (``graph/attn_plan.py``) and the kernels take the layer's head
+  widths (:func:`~multi_modal_gnn_tpu_torch.ops.attention_kernels.heads_supported`):
+  the K6 / K7 / K8 kernels
   (``ops/attention.py``) over the relations' projections stacked in
   ``plan.rel_keys`` order;
 * ``segment`` — per-edge gathers and :func:`segment_softmax`, plain PyTorch.
@@ -34,6 +36,7 @@ from multi_modal_gnn_tpu_torch.graph.hetero import HeteroGraph
 from multi_modal_gnn_tpu_torch.graph.schema import LAB, PATIENT, EdgeTypeKey
 from multi_modal_gnn_tpu_torch.models.layers import EdgeRegressionHead, make_dense
 from multi_modal_gnn_tpu_torch.ops.attention import flash_attention_group
+from multi_modal_gnn_tpu_torch.ops.attention_kernels import heads_supported
 from multi_modal_gnn_tpu_torch.ops.segment import segment_softmax, segment_sum
 
 # the node types whose final states the heads read
@@ -86,14 +89,22 @@ class HGTLayer(nn.Module):
         return incoming
 
     def tier(self, graph: HeteroGraph, dst_t: str) -> str:
-        """``dense``, ``flash`` or ``segment``: the tier of ``dst_t``'s group."""
+        """``dense``, ``flash`` or ``segment``: the tier of ``dst_t``'s group.
+        Widths K6-K8 do not take (``hidden_dim`` above 128, or a head width
+        that is not 4 * 2^n) take the segment tier, where the JAX package's
+        flash kernels take any width."""
         ets = self.groups()[dst_t]
         if self.dense_attn_max_bytes > 0 and all(graph.edges[et].dense_adj is not None for et in ets):
             total_src = sum(graph.edges[et].dense_adj.shape[1] for et in ets)
             num_dst = graph.num_nodes(dst_t)
             if num_dst * total_src * self.num_heads * 4 <= self.dense_attn_max_bytes:
                 return "dense"
-        if self.impl == "pallas" and graph.attn_plans is not None and dst_t in graph.attn_plans:
+        if (
+            self.impl == "pallas"
+            and graph.attn_plans is not None
+            and dst_t in graph.attn_plans
+            and heads_supported(self.hidden_dim, self.num_heads)
+        ):
             return "flash"
         return "segment"
 

@@ -22,6 +22,7 @@ from torch.nn import functional as F
 
 from multi_modal_gnn_tpu_torch.graph.hetero import GatherPlan
 from multi_modal_gnn_tpu_torch.ops.pairhead import fused_pair_head
+from multi_modal_gnn_tpu_torch.ops.pairhead_kernels import head_widths_supported
 from multi_modal_gnn_tpu_torch.ops.segment import take_with_plan
 
 
@@ -115,10 +116,12 @@ class FactoredEdgeHead(nn.Module):
     """:class:`EdgeRegressionHead` on ``concat([x_p[p], x_l[l]])`` with its
     first layer split into per-node projections, gathered per pair.
 
-    With a slot-major batch (an identity ``patient_plan``) and the 2-layer
-    head, the MLP after the projections runs in the fused pair-head kernels
+    With a slot-major batch (an identity ``patient_plan``) and the widths the
+    kernels take (:meth:`fused_widths`: the (64, 32) head with one output),
+    the MLP after the projections runs in the fused pair-head kernels
     (``ops/pairhead.py``), tile-masked by ``tile_mask`` and with dropout drawn
-    from ``seed``.  Otherwise the projections are gathered per pair
+    from ``seed``; other widths take the unfused head, where the JAX kernel
+    takes any widths.  Otherwise the projections are gathered per pair
     (through :func:`take_with_plan` where plans are given) and the MLP runs
     as torch layers.  ``project_only`` hands the caller the node projections
     and the MLP's pieces instead (``HeteroRGCN``'s dual-head fusion), read
@@ -147,6 +150,12 @@ class FactoredEdgeHead(nn.Module):
         self.dense_out = make_dense(output_dim, hidden_dims[-1], generator=generator)
         self.dropout = float(dropout)
 
+    def fused_widths(self) -> bool:
+        """Whether the fused pair-head kernels take this head's widths."""
+        return len(self.hidden_names) == 1 and head_widths_supported(
+            (self.proj_patient.out_features, self.dense_1.out_features), self.dense_out.out_features
+        )
+
     def forward(
         self,
         x_p_nodes: torch.Tensor,
@@ -170,12 +179,7 @@ class FactoredEdgeHead(nn.Module):
                 self.dense_1.bias, self.dense_out.weight[0], self.dense_out.bias, tuple(seed),
             )
         rate = self.dropout if train else 0.0
-        if (
-            patient_plan is not None
-            and patient_plan.identity
-            and len(self.hidden_names) == 1
-            and self.dense_out.out_features == 1
-        ):
+        if patient_plan is not None and patient_plan.identity and self.fused_widths():
             out = fused_pair_head(
                 proj_p.contiguous(), proj_l.contiguous(),
                 self.dense_1.weight.t().contiguous(), self.dense_1.bias,

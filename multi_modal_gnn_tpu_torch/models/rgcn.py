@@ -184,7 +184,9 @@ class HeteroRGCN(nn.Module):
 
     def _use_dual(self, patient_plan: Optional[GatherPlan], tab_mask) -> bool:
         """JAX's rule (``rgcn.py:419-436``): ``on``, or ``auto`` without tile
-        masks, on a slot-major batch with no lab tiles and two-layer heads.
+        masks, on a slot-major batch with no lab tiles and two-layer heads;
+        here also only at the (64, 32) widths K5 is compiled for (other
+        widths take the unfused heads).
         JAX also asks for eval mode, dropout 0 or a TPU there, because its
         in-kernel dropout lowers only on the TPU; K5 draws its bits in the
         kernel as the TPU kernel does, and its plain version draws the same
@@ -195,7 +197,8 @@ class HeteroRGCN(nn.Module):
             and patient_plan is not None
             and patient_plan.identity
             and not patient_plan.lab_block_rows
-            and len(self.tabular_mlp.hidden_names) == 1
+            and self.tabular_mlp.fused_widths()
+            and self.edge_predictor.fused_widths()
         )
 
     def _heads(

@@ -106,14 +106,14 @@ def load() -> ctypes.CDLL:
     dual = [p] * 12 + [i, i, p, p, p, p, p, i, u, u, u, f, i]
     signatures = {
         "mmgnn_segment_sum_windowed": [p, p, p, p, i, i, i, p, p],
-        "mmgnn_fused_table_segment_sum": [p, p, p, p, i, i, i, p, p],
+        "mmgnn_fused_table_segment_sum": [p, i, p, p, p, i, p, *[i] * 6, p, p],
         "mmgnn_fused_table_segment_sum_bwd": [p, i, p, p, p, i, p, *[i] * 8, p, p],
         "mmgnn_span_segment_sum": [p, i, p, p, p, p, i, i, p, *[i] * 6, p, p],
         "mmgnn_pair_head_fwd": [*head, p, p],
-        "mmgnn_pair_head_bwd": [*head, p, i, p, p, p, p, p, p, p],
-        "mmgnn_pair_head_bwd_shared_bytes": [i],
+        "mmgnn_pair_head_bwd": [*head, p, p, i, p, p, p, p, p, p, p],
+        "mmgnn_pair_head_bwd_shared_bytes": [],
         "mmgnn_pair_head_dual_fwd": [*dual, p, p, p],
-        "mmgnn_pair_head_dual_bwd": [*dual, p, p, i, *[p] * 12, p],
+        "mmgnn_pair_head_dual_bwd": [*dual, p, p, p, i, *[p] * 12, p],
         "mmgnn_gather_indicator": [p, p, i, i, i, p, p],
         "mmgnn_gather_direct": [p, p, i, i, i, i, i, i, p, p],
         "mmgnn_gather_direct_staged_bytes": [i, i],

@@ -132,12 +132,20 @@ def _check_tables(name: str, h: int, *tensors) -> None:
             raise ValueError(f"{name}: rows {t.shape[1]} wide, expected {h}")
 
 
-def _check_heads(name: str, h: int, num_heads: int) -> None:
-    """A lane owns 4 columns and a head's lanes reduce by xor shuffles:
-    h <= 128 and dh / 4 a power of two."""
-    dh = h // num_heads if num_heads > 0 else 0
+def heads_supported(h: int, num_heads: int) -> bool:
+    """Whether K6-K8 take ``h`` columns in ``num_heads`` heads: a lane owns 4
+    columns and a head's lanes reduce by xor shuffles, so h <= 128 and dh / 4
+    a power of two.  The HGT's tier choice asks this before it picks the
+    flash tier (``models/hgt.py``)."""
+    if num_heads <= 0 or h % num_heads:
+        return False
+    dh = h // num_heads
     lanes = dh // 4
-    if h > 128 or h % num_heads or dh < 4 or dh % 4 or lanes & (lanes - 1):
+    return h <= 128 and dh >= 4 and dh % 4 == 0 and lanes & (lanes - 1) == 0
+
+
+def _check_heads(name: str, h: int, num_heads: int) -> None:
+    if not heads_supported(h, num_heads):
         raise ValueError(f"{name}: h={h} with {num_heads} heads is not supported (h <= 128, dh = 4 * 2^n)")
 
 

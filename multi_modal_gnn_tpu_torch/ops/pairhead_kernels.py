@@ -21,6 +21,7 @@ agree with dropout on.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -44,9 +45,24 @@ SINGLE_COLS = (H0, 0, 0)
 DUAL_COLS = ((DUAL_LAYER_STRIDE, 0, 0), (DUAL_LAYER_STRIDE, H0, H1))  # tabular, GNN
 _LAB_PAD = 128
 _MAX_SHARED_BYTES = 232_448
-_BWD_BLOCKS_PER_SM = 2
+# K4b / K5b (csrc/pairhead.cu): blocks of 8 warps, one an SM (a thread holds
+# ~200 registers); warps take units of 128 slots from a counter; the block's
+# shared memory: W1's B fragments split hi / lo for both products (4 x 8 KB),
+# b1 and w2, and per warp 16 staging rows of 72 and of 40 floats, the group's
+# Pp and Pl rows (2 x 16 of 72 floats) and the unit's metadata (3 x 128)
+BWD_WARPS = 8
+BWD_UNIT = 128
+_BWD_BLOCKS_PER_SM = 1
+BWD_SHARED_BYTES = 4 * 8192 + 4 * 2 * H1 + 4 * BWD_WARPS * (16 * (3 * (H0 + 8) + (H1 + 8)) + 3 * BWD_UNIT)
 _M32 = 0xFFFFFFFF
 _BITS_CHUNK = 1 << 18  # slots per chunk of the plain version's bit draws
+
+
+def head_widths_supported(hidden_dims: Sequence[int], output_dim: int = 1) -> bool:
+    """Whether K4 / K5 run a head of these widths: they are compiled for the
+    (64, 32) head with one output.  The heads ask this before they route to
+    the fused kernels (``models/layers.py``, ``models/rgcn.py``)."""
+    return tuple(int(x) for x in hidden_dims) == (H0, H1) and int(output_dim) == 1
 
 
 def reset_launch_counts() -> None:
@@ -300,6 +316,39 @@ def _head_args(proj_p, proj_l, w1, b1, w2, b2, lab_idx, win_local, win_tile_map,
     )
 
 
+@dataclass(frozen=True)
+class BwdLaunch:
+    """Launch shape of K4b / K5b: ``blocks`` persistent blocks a head of
+    ``threads`` threads, whose warps take ``units`` units of 128 slots from
+    one counter a head; ``shared_bytes`` of dynamic shared memory a block,
+    whatever the lab table's size."""
+
+    blocks: int
+    threads: int
+    units: int
+    heads: int
+    shared_bytes: int
+
+
+def bwd_launch(num_tiles: int, sms: int, heads: int = 1) -> BwdLaunch:
+    """Plan K4b (``heads=1``) or K5b (``heads=2``, grid ``(blocks, 2)``)
+    over ``num_tiles`` tiles on ``sms`` SMs: one wave of one block an SM,
+    no more blocks than the units keep busy."""
+    units = num_tiles * (TILE_E // BWD_UNIT)
+    blocks = max(1, min(sms * _BWD_BLOCKS_PER_SM, -(-units // BWD_WARPS)))
+    return BwdLaunch(
+        blocks=blocks, threads=32 * BWD_WARPS, units=units, heads=heads,
+        shared_bytes=BWD_SHARED_BYTES,
+    )
+
+
+def _check_bwd_shared(lib, name: str) -> None:
+    """The kernel's shared layout is the one the plan counts (and fits)."""
+    need = lib.mmgnn_pair_head_bwd_shared_bytes()
+    if need != BWD_SHARED_BYTES or need > _MAX_SHARED_BYTES:
+        raise RuntimeError(f"{name}: the kernel's shared layout ({need} B) is not the planned {BWD_SHARED_BYTES} B")
+
+
 def pair_head_fwd(
     proj_p, proj_l, w1, b1, w2, b2, lab_idx, win_local, win_tile_map, seed,
     tile_mask: Optional[torch.Tensor], lab_block_map: Optional[torch.Tensor],
@@ -344,21 +393,16 @@ def pair_head_bwd(
     from multi_modal_gnn_tpu_torch.ops import _build
 
     lib = _build.load()
+    _check_bwd_shared(lib, name)
     num_l = proj_l.shape[0]
-    need = lib.mmgnn_pair_head_bwd_shared_bytes(num_l)
-    if need > _MAX_SHARED_BYTES:
-        raise ValueError(
-            f"{name}: a {num_l}-row lab table needs {need} B of shared memory, "
-            f"the block limit is {_MAX_SHARED_BYTES}"
-        )
     dev = proj_p.device
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    tiles_per_block = max(1, -(-num_tiles // (sms * _BWD_BLOCKS_PER_SM)))
+    launch = bwd_launch(num_tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
     zeros = lambda *shape: torch.zeros(*shape, dtype=torch.float32, device=dev)  # noqa: E731
     dpp, dpl = zeros(max(num_windows * WINDOW, proj_p.shape[0]), H0), zeros(num_l, H0)
     dw1, db1, dw2, db2 = zeros(H0, H1), zeros(H1), zeros(H1), zeros(1)
+    work = torch.zeros(1, dtype=torch.int32, device=dev)
     rc = lib.mmgnn_pair_head_bwd(
-        *_head_args(*args, num_tiles), _ptr(g_out), tiles_per_block, _ptr(dpp), _ptr(dpl),
+        *_head_args(*args, num_tiles), _ptr(g_out), _ptr(work), launch.blocks, _ptr(dpp), _ptr(dpl),
         _ptr(dw1), _ptr(db1), _ptr(dw2), _ptr(db2),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
@@ -437,25 +481,20 @@ def pair_head_dual_bwd(
     from multi_modal_gnn_tpu_torch.ops import _build
 
     lib = _build.load()
+    _check_bwd_shared(lib, name)
     num_p, num_l = proj_p_t.shape[0], proj_l_t.shape[0]
-    need = lib.mmgnn_pair_head_bwd_shared_bytes(num_l)
-    if need > _MAX_SHARED_BYTES:
-        raise ValueError(
-            f"{name}: a {num_l}-row lab table needs {need} B of shared memory, "
-            f"the block limit is {_MAX_SHARED_BYTES}"
-        )
     dev = proj_p_t.device
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    tiles_per_block = max(1, -(-num_tiles // (sms * _BWD_BLOCKS_PER_SM)))
+    launch = bwd_launch(num_tiles, torch.cuda.get_device_properties(dev).multi_processor_count, heads=2)
     zeros = lambda *shape: torch.zeros(*shape, dtype=torch.float32, device=dev)  # noqa: E731
     grads = [
         [zeros(max(num_windows * WINDOW, num_p), H0), zeros(num_l, H0), zeros(H0, H1), zeros(H1),
          zeros(H1), zeros(1)]
         for _ in heads
     ]
+    work = torch.zeros(2, dtype=torch.int32, device=dev)
     rc = lib.mmgnn_pair_head_dual_bwd(
-        *_dual_args(heads, *plan, rate, num_tiles), _ptr(g_out_t), _ptr(g_out_g), tiles_per_block,
-        *(_ptr(x) for head_grads in grads for x in head_grads),
+        *_dual_args(heads, *plan, rate, num_tiles), _ptr(g_out_t), _ptr(g_out_g), _ptr(work),
+        launch.blocks, *(_ptr(x) for head_grads in grads for x in head_grads),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     _raise_on(rc, name)

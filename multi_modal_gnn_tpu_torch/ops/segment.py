@@ -8,8 +8,8 @@ that applies, in this order:
   ``torch.matmul``;
 * ``fused_table``: a small source table (:func:`fused_table_applicable`) —
   kernel K2f;
-* ``span``: a span plan and the mirror relation's windowed plan
-  (:func:`span_dma_applicable`) — kernel K3;
+* ``span``: a span plan of at most ``SPAN_MAX_ROWS`` rows and the mirror
+  relation's windowed plan (:func:`span_dma_applicable`) — kernel K3;
 * ``paired`` (mirror relation present) or ``windowed`` — kernel K1.
 
 ``impl="xla"`` and ``max`` aggregation take the segment path
@@ -33,6 +33,7 @@ import torch
 
 from multi_modal_gnn_tpu_torch.graph.hetero import TILE_E, WINDOW, EdgeSet, GatherPlan
 from multi_modal_gnn_tpu_torch.ops.segment_kernels import (
+    SPAN_MAX_ROWS,
     fused_table_segment_sum,
     fused_table_segment_sum_bwd,
     segment_sum_windowed,
@@ -82,10 +83,12 @@ def fused_table_applicable(edges: EdgeSet, feature_dim: Optional[int] = None, it
 
 
 def span_dma_applicable(edges: EdgeSet, edges_rev: Optional[EdgeSet]) -> bool:
-    """The span tier needs the span plan and the mirror relation's windowed
-    plan (its backward, in training, is the reverse aggregation)."""
+    """The span tier needs the span plan, no more span rows than K3 stages
+    (``SPAN_MAX_ROWS``; taller spans take the paired tier, where the JAX
+    kernel stages any height), and the mirror relation's windowed plan (its
+    backward, in training, is the reverse aggregation)."""
     return (
-        edges.span_rows > 0
+        0 < edges.span_rows <= SPAN_MAX_ROWS
         and edges.span_src is not None
         and edges_rev is not None
         and edges_rev.win_src is not None

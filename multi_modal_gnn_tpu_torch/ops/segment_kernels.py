@@ -23,6 +23,7 @@ gather (``ops/segment.py``).
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -50,9 +51,20 @@ _MMA_ROWS = 128
 _MMA_COLS = 128
 _MMA_SLICE = 32
 _MMA_MAX_K = 512
+# the most span rows K3 takes; the span tier's dispatch routes taller spans
+# to the paired tier (ops/segment.py span_dma_applicable)
+SPAN_MAX_ROWS = _MMA_MAX_K
 _MMA_BLOCKS_PER_SM = 2
 _MMA_GRABS_PER_BLOCK = 16
 _MMA_MAX_GRAB = 32
+# K2f (csrc/segment.cu fused_table_kernel): 16 warps a block, one block an
+# SM; warps take units of 64 slots; per warp 2 x 64 staged indices
+_FT_WARPS = 16
+_FT_UNIT = 64
+_FT_INDEX_BYTES = _FT_WARPS * 2 * _FT_UNIT * 4
+_FT_SLICES = (128, 64, 32, 16, 8, 4)
+_FT_GRABS_PER_WARP = 4  # the first by the warp's index, the rest from the counter
+_FT_COUNTER_STRIDE = 32  # ints between two slices' counters: one 128-byte line each
 
 
 def reset_launch_counts() -> None:
@@ -143,8 +155,14 @@ def _check_plan(name: str, device, slots: int, *pairs) -> int:
     return slots // TILE_E
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _sms(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    device = torch.device(device)
+    return _sm_count(torch.cuda.current_device() if device.index is None else device.index)
 
 
 def _tiles_per_block(num_tiles: int, device) -> int:
@@ -208,6 +226,49 @@ def incidence_launch(
     )
 
 
+@dataclass(frozen=True)
+class FusedTableLaunch:
+    """Launch shape and shared layout of K2f (``fused_table_kernel``): grid
+    ``(blocks, slices)``; a block keeps columns ``[c0, c0 + slice)`` of every
+    table row in shared memory at ``stride`` floats a row, and its warps
+    take ``grab`` units of 64 slots at a time, the first by their index and
+    the rest from the slice's counter."""
+
+    blocks: int
+    slices: int
+    slice: int
+    stride: int
+    grab: int
+    units: int
+    shared_bytes: int
+
+
+@functools.lru_cache(maxsize=256)
+def fused_table_launch(num_tiles: int, num_src: int, d: int, sms: int) -> FusedTableLaunch:
+    """Plan K2f over ``num_tiles`` tiles of a ``[num_src, d]`` table on
+    ``sms`` SMs.  The slice is the widest of 128, 64, ..., 4 columns (at most
+    ``d``) whose rows fit a block's shared memory beside the staged
+    indices; rows of a slice narrower than 32 columns are padded by 4 floats,
+    so the row groups of a quarter-warp read other banks.  The slices share
+    the SMs, one block each, and a warp takes about a quarter of its share
+    of units at a time: the counter's atomics serialize at one L2 slice, so
+    a warp grabs a few times, not once a unit."""
+    for s in _FT_SLICES:
+        width = min(s, d)
+        stride = width + (4 if width < 32 else 0)
+        shared = 4 * num_src * stride + _FT_INDEX_BYTES
+        if shared <= _MAX_SHARED_BYTES or s == _FT_SLICES[-1]:
+            break
+    slices = -(-d // width)
+    units = num_tiles * (TILE_E // _FT_UNIT)
+    blocks = max(1, min(-(-units // _FT_WARPS), sms // slices))
+    grab = max(1, -(-units // (blocks * _FT_WARPS * _FT_GRABS_PER_WARP)))
+    return FusedTableLaunch(
+        blocks=blocks, slices=slices, slice=width, stride=stride, grab=grab, units=units,
+        shared_bytes=shared,
+    )
+
+
 def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
@@ -259,14 +320,19 @@ def fused_table_segment_sum(table, win_src, win_local, win_tile_map, num_windows
         (win_tile_map, slots // TILE_E),
     )
     d = table.shape[1]
-    _check_shared(name, 4 * WINDOW * d)
-    out = torch.zeros(num_windows * WINDOW, d, dtype=torch.float32, device=table.device)
+    launch = fused_table_launch(num_tiles, table.shape[0], d, _sms(table.device))
+    _check_shared(name, launch.shared_bytes)
+    # one zeroed allocation: the output, then the slices' counters (int32 0
+    # has float32 0's bits)
+    rows = num_windows * WINDOW * d
+    buf = torch.zeros(rows + launch.slices * _FT_COUNTER_STRIDE, dtype=torch.float32, device=table.device)
+    out, work = buf[:rows].view(num_windows * WINDOW, d), buf[rows:].view(torch.int32)
     from multi_modal_gnn_tpu_torch.ops import _build
 
     rc = _build.load().mmgnn_fused_table_segment_sum(
-        _ptr(table), _ptr(win_src), _ptr(win_local), _ptr(win_tile_map), num_tiles,
-        _tiles_per_block(num_tiles, table.device), d, _ptr(out),
-        ctypes.c_void_p(torch.cuda.current_stream(table.device).cuda_stream),
+        _ptr(table), table.shape[0], _ptr(win_src), _ptr(win_local), _ptr(win_tile_map), num_tiles,
+        _ptr(work), launch.grab, launch.blocks, launch.slices, launch.slice, launch.stride, d,
+        _ptr(out), ctypes.c_void_p(torch.cuda.current_stream(table.device).cuda_stream),
     )
     _raise_on(rc, name)
     launch_counts[name] += 1

@@ -2,7 +2,11 @@
 
 For a frozen model and graph the node state is constant: it is computed
 once by one eval-mode forward over the full graph, and each request runs
-only the pair heads on its (patient, lab) batch.
+only the pair heads on its (patient, lab) batch.  The ``trainer`` entry
+points serve the trainer's best validation state once ``fit`` has recorded
+one, and its live parameters before that, as the JAX package does;
+:func:`compute_node_state` and :func:`build_serving_fn` serve the model
+they are given.
 """
 
 from __future__ import annotations
@@ -57,6 +61,26 @@ def build_serving_fn(
             return model.predict_pairs_cached(state, p, l)
 
     return fn, state
+
+
+def serving_model(trainer) -> Model:
+    """The model a trainer serves, in eval mode: its best validation state
+    once ``fit`` has recorded one, else the live parameters (JAX
+    ``serving._serving_variables``)."""
+    return trainer.eval_model(trainer.best_state)
+
+
+def compute_trainer_state(trainer) -> Dict[str, torch.Tensor]:
+    """:func:`compute_node_state` of the model the trainer serves."""
+    return compute_node_state(serving_model(trainer), trainer.graph)
+
+
+def build_trainer_serving_fn(
+    trainer, state: Optional[Dict[str, torch.Tensor]] = None
+) -> Tuple[Callable, Dict[str, torch.Tensor]]:
+    """:func:`build_serving_fn` over the model the trainer serves (its best
+    state once ``fit`` has recorded one), as JAX ``build_serving_fn(trainer)``."""
+    return build_serving_fn(serving_model(trainer), trainer.graph, state)
 
 
 def predict_patient(fn: Callable, patient: int, num_labs: int) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""Time RGCN training epochs, and the K2b / K3 wrappers, of two checkouts of
-this repository in turns on one card, so that a change can be read against
-host noise and the card's state.
+"""Time RGCN training epochs, and the segment and pair-head kernels, of two
+checkouts of this repository in turns on one card, so that a change can be
+read against host noise and the card's state.
 
     python -m multi_modal_gnn_tpu_torch.tools.epoch_turns --other PATH [--rounds 5]
 
@@ -10,9 +10,11 @@ its own kernels, the ``scale_100k`` graph (seed 0, dense budget 0, span rows
 256, ``use_pallas``) and an RGCN trainer with seeded weights (dropout 0.2,
 the default span@256 train batch), and runs one warm-up epoch.  Asked for an
 epoch, it times one to ``torch.cuda.synchronize``; asked for kernels, it
-times K2b (``fused_table_segment_sum_bwd``) on each fused-table relation and
-K3 (``span_segment_sum``) on the span relation, each the median of 20
-CUDA-event-timed calls on seeded random rows.  Each round asks this, other,
+times K2f and K2b (``fused_table_segment_sum`` and its backward) on each
+fused-table relation, K3 (``span_segment_sum``) on the span relation and K4b
+(``pair_head_bwd``, dropout 0.2) of each head on the train batch, each the
+median of 20 CUDA-event-timed calls on seeded random inputs, and
+``compute_node_state`` (the median of 5, host clock to synchronize).  Each round asks this, other,
 other, this for an epoch; the kernels are asked for in the same order once,
 after the rounds.  Prints the milliseconds and their medians; both workers
 stop with it.  Needs one CUDA device.
@@ -70,10 +72,15 @@ def kernels():
     from multi_modal_gnn_tpu_torch.ops import aggregation_tier
     from multi_modal_gnn_tpu_torch.ops import segment_kernels as sk
     from multi_modal_gnn_tpu_torch.graph.schema import mirror_edge_type
+    from multi_modal_gnn_tpu_torch.ops import pairhead_kernels as pk
+    from multi_modal_gnn_tpu_torch.serving import compute_node_state
     gen, d, out = torch.Generator().manual_seed(0), config.model.hidden_dim, {}
     for et, es in sorted(graph.edges.items()):
         tier = aggregation_tier(es, graph.edges.get(mirror_edge_type(et)), d)
         if tier == "fused_table":
+            x = torch.randn(es.num_src, d, generator=gen).to(graph_device)
+            fwd = (es.win_src, es.win_local, es.win_tile_map, es.num_windows)
+            out["K2f " + "/".join(et)] = median_ms(lambda: sk.fused_table_segment_sum(x, *fwd))
             g = torch.randn(es.num_dst, d, generator=gen).to(graph_device)
             args = (es.win_src, es.win_local, es.win_tile_map, es.num_src)
             out["K2b " + "/".join(et)] = median_ms(lambda: sk.fused_table_segment_sum_bwd(g, *args))
@@ -82,6 +89,30 @@ def kernels():
             args = (es.span_src, es.span_local, es.span_tile_map, es.span_base, es.num_windows,
                     es.span_rows)
             out["K3 " + "/".join(et)] = median_ms(lambda: sk.span_segment_sum(x, *args))
+    batch = trainer.get_batch("train")
+    plan = batch.patient_plan
+    low = (batch.degrees < config.model.degree_threshold).reshape(-1, 1024)
+    num_p, num_l = graph.num_nodes("patient"), graph.num_nodes("lab")
+    head = [torch.randn(num_p, 64, generator=gen), torch.randn(num_l, 64, generator=gen),
+            torch.randn(64, 32, generator=gen) * 0.1, torch.randn(32, generator=gen) * 0.1,
+            torch.randn(32, generator=gen) * 0.1, torch.tensor([0.3])]
+    head = [h.to(graph_device) for h in head]
+    g_out = (torch.randn(plan.win_local.shape[0], generator=gen).to(graph_device)
+             * (plan.win_local < 128)).contiguous()
+    for name, mask in (("GNN", (~low).any(dim=1)), ("tabular", low.any(dim=1))):
+        mask = mask.to(torch.int32)
+        out[f"K4b {name} head"] = median_ms(lambda: pk.pair_head_bwd(
+            *head, batch.lab_idx, plan.win_local, plan.win_tile_map, (1, 2), mask, plan.lab_block_map,
+            0.2, plan.lab_block_rows, plan.num_windows, g_out))
+    model = trainer.model
+    state_ms = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        compute_node_state(model, graph)
+        torch.cuda.synchronize()
+        state_ms.append((time.perf_counter() - t0) * 1e3)
+    out["compute_node_state"] = statistics.median(state_ms[1:])
+    model.train()
     return out
 
 

@@ -143,24 +143,39 @@ class Trainer:
         seed = stream_seed(self.config.train.seed, "dropout", self.epoch)
         return self.train_step(batch, sup_mask, seed)
 
-    def _eval_preds(self, batch: SplitBatch) -> torch.Tensor:
-        self.model.eval()
+    def eval_model(self, state: Optional[dict] = None) -> torch.nn.Module:
+        """The model in eval mode with the parameters and buffers of
+        ``state`` (a ``state_dict``), or the live model when ``state`` is
+        None.  A state gets its own copy of the model, so the live
+        parameters and the optimizer's state stay as they are."""
+        if state is None:
+            model = self.model
+        else:
+            model = copy.deepcopy(self.model)
+            model.load_state_dict(state)
+        return model.eval()
+
+    def _eval_preds(self, batch: SplitBatch, state: Optional[dict] = None) -> torch.Tensor:
+        model = self.eval_model(state)
         with torch.no_grad():
-            return self.model.predict_lab_values(
+            return model.predict_lab_values(
                 self.graph, batch.patient_idx, batch.lab_idx, train=False,
                 patient_plan=batch.patient_plan, lab_plan=batch.lab_plan, degrees=batch.degrees,
             )
 
-    def validate(self, split: str = "val") -> float:
+    def validate(self, split: str = "val", state: Optional[dict] = None) -> float:
+        """The masked loss on ``split`` of the live model, or of ``state``
+        (``best_state`` for the test loss, as JAX ``train_pipeline`` reports)."""
         batch = self.get_batch(split)
-        preds = self._eval_preds(batch)
+        preds = self._eval_preds(batch, state)
         return float(masked_mean_loss(preds, batch.values, batch.valid, self._loss_type))
 
-    def predict(self, split: str) -> np.ndarray:
+    def predict(self, split: str, state: Optional[dict] = None) -> np.ndarray:
         """Unpadded predictions for a split, in split order (slot-major
-        batches are inverted back to row order)."""
+        batches are inverted back to row order), of the live model or of
+        ``state``."""
         batch = self.get_batch(split)
-        preds = self._eval_preds(batch).cpu().numpy()
+        preds = self._eval_preds(batch, state).cpu().numpy()
         slots = self.masker.slot_map(split)
         if slots is not None:
             preds = preds[slots]

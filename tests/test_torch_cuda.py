@@ -148,6 +148,29 @@ def test_kernels_at_other_widths(gpu, plans, width):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("width", [4, 36, 128, 256])
+@pytest.mark.parametrize("num_src", [37, 2048])
+def test_fused_table_kernel_on_any_table_the_tier_admits(gpu, num_src, width):
+    # K2f keeps a column slice of every row in shared memory: 37 rows fit
+    # whole, 2048 rows at 128 columns take eight 16-column slices; rows of
+    # NaN past the table are staged but never read
+    rng = np.random.default_rng(num_src + width)
+    src, dst = rng.integers(0, num_src, 60_000), rng.integers(0, 700, 60_000)
+    es = hetero.pad_edge_set(src, dst, num_src, 700).to(gpu)
+    x = torch.randn(num_src, width, generator=torch.Generator().manual_seed(width)).to(gpu)
+    args = (es.win_src, es.win_local, es.win_tile_map, es.num_windows)
+    launch = sk.fused_table_launch(es.win_local.shape[0] // hetero.TILE_E, num_src + 5, width, 132)
+    assert launch.shared_bytes <= sk._MAX_SHARED_BYTES and launch.slices * launch.slice >= width
+    x_nan = torch.full((num_src + 5, width), float("nan"), device=gpu)
+    x_nan[:num_src] = x
+    before = sk.launch_counts["fused_table_segment_sum"]
+    got = _means(sk.fused_table_segment_sum(x_nan, *args), es)
+    assert sk.launch_counts["fused_table_segment_sum"] == before + 1
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, _means(sk.fused_table_segment_sum_plain(x, *args), es), **TOL)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("width", [36, 128, 256])
 def test_fused_table_backward_kernel_matches_plain(gpu, plans, width):
     es = plans[1].to(gpu)  # the small-source relation: dT [num_src, width]
@@ -381,6 +404,24 @@ def test_fused_pair_head_autograd_on_gpu(gpu):
         _assert_close_scaled(a, b, 1e-4, name)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("lab_rows", [0, 256])
+@pytest.mark.parametrize("num_l", [37, 500, 720, 2048])
+def test_pair_head_backward_at_any_lab_count(gpu, num_l, lab_rows):
+    # K4b keeps no lab table in shared memory: any lab count, span tiles or
+    # the full table, with dropout and both kinds of masked tile
+    params, plan_args, num_windows, lab_rows, g = _head_problem(num_l, lab_rows, seed=num_l)
+    seed = (31, 41)
+    pg, ag = [p.to(gpu) for p in params], _to(plan_args, gpu)
+    g = _away_from_kinks(g.to(gpu), pg, ag, lab_rows, seed, 0.2, True)
+    before = pk.launch_counts["pair_head_bwd"]
+    got = _head_call(pk.pair_head_bwd, pg, ag, lab_rows, seed, 0.2, True, num_windows, g)
+    want = _head_call(pk.pair_head_bwd_plain, pg, ag, lab_rows, seed, 0.2, True, g)
+    assert pk.launch_counts["pair_head_bwd"] == before + 1
+    for name, a, b in zip(("proj_p", "proj_l", "w1", "b1", "w2", "b2"), got, want):
+        _assert_close_scaled(a.cpu().numpy(), b.cpu().numpy(), 1e-4, name)
+
+
 # -- the dual pair head (K5f, K5b) --------------------------------------------
 
 
@@ -436,6 +477,19 @@ def test_dual_pair_head_kernels_match_plain(gpu, num_l, masked, rate):
     assert pk.launch_counts["pair_head_dual_fwd"] == before["pair_head_dual_fwd"] + 1
     assert pk.launch_counts["pair_head_dual_bwd"] == before["pair_head_dual_bwd"] + 1
     assert pk.launch_counts["pair_head_fwd"] == before["pair_head_fwd"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_l", [720, 2048])
+def test_dual_pair_head_backward_at_any_lab_count(gpu, num_l):
+    params, plan_args, num_windows, g = _dual_problem(num_l, seed=num_l)
+    seed4 = (3, 1, 4, 1)
+    pg, ag = [p.to(gpu) for p in params], _to(plan_args, gpu)
+    g = _dual_away_from_kinks([x.to(gpu) for x in g], pg, ag, seed4, 0.2, True)
+    got = _dual_call(pk.pair_head_dual_bwd, pg, ag, seed4, 0.2, True, num_windows, *g)
+    want = _dual_call(pk.pair_head_dual_bwd_plain, pg, ag, seed4, 0.2, True, *g)
+    for name, a, b in zip(DUAL_NAMES, got, want):
+        _assert_close_scaled(a.cpu().numpy(), b.cpu().numpy(), 1e-4, name)
 
 
 @pytest.mark.cuda
@@ -595,6 +649,53 @@ def test_dual_train_step_on_gpu_matches_plain_on_cpu(gpu):
     if bad:
         pytest.fail("\n".join(bad))
     assert noisy <= DUAL_STEP_NOISY_SHARE * total
+
+
+# chip_smoke.py phase 8's tolerances for a whole step, card against CPU
+STEP_GRAD_NORM_REL, STEP_GRAD_ZERO_FLOOR, STEP_PARAM_ATOL = 3e-2, 1e-6, 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dual", ["off", "on"])
+def test_train_step_with_720_labs_on_gpu_matches_plain_on_cpu(gpu, dual):
+    """``mimic_scale``'s 720 labs: one step launches K4b over span@256 lab
+    tiles (dual off) or K5b over the full lab table (dual on) and matches
+    the plain versions on the CPU at phase 8's tolerances."""
+    spec = SyntheticSpec(
+        num_patients=4500, num_labs=720, num_diagnoses=100, num_medications=80,
+        mean_labs_per_patient=30.0, mean_diagnoses_per_patient=2.0,
+        mean_medications_per_patient=3.0, latent_dim=4, seed=3,
+    )
+    config = Config(
+        graph=GraphConfig(dense_adjacency_max_bytes=0),
+        model=ModelConfig(
+            use_pallas=True, dropout=0.0, extras={"head_style": "factored", "dual_head_fusion": dual},
+        ),
+    )
+    graph = make_synthetic_graph(spec, config, device="cpu")
+    lab_rows = 0 if dual == "on" else 256
+    results = []
+    for dev in (gpu, torch.device("cpu")):
+        model = build_model(config, graph, device="cpu", generator=torch.Generator().manual_seed(0))
+        masker = EdgeMasker(graph, slot_major_train=True, slot_major_min_rows=0, lab_block_rows=lab_rows)
+        trainer = Trainer(model, graph, masker, config, device=dev)
+        batch = trainer.get_batch("train")
+        sup = masker.supervision_mask(0, masker.get_split("train")).to(dev)
+        pk.reset_launch_counts()
+        loss = trainer.train_step(batch, sup, 0)
+        if dev == gpu:
+            # one K5b for both heads, or one K4b a head
+            bwd, launches = ("pair_head_dual_bwd", 1) if dual == "on" else ("pair_head_bwd", 2)
+            assert pk.launch_counts[bwd] == launches, pk.launch_counts
+        grads = {n: p.grad.cpu().double() for n, p in model.named_parameters()}
+        results.append((loss, grads, {n: p.detach().cpu().double() for n, p in model.named_parameters()}))
+    (loss_gpu, grads_gpu, params_gpu), (loss_cpu, grads_cpu, params_cpu) = results
+    assert loss_gpu == pytest.approx(loss_cpu, rel=1e-5)
+    floor = STEP_GRAD_ZERO_FLOOR * max(float(g.norm()) for g in grads_cpu.values())
+    for name, want in grads_cpu.items():
+        err = float((grads_gpu[name] - want).norm())
+        assert err <= STEP_GRAD_NORM_REL * float(want.norm()) + floor, name
+        assert float((params_gpu[name] - params_cpu[name]).abs().max()) <= STEP_PARAM_ATOL, name
 
 
 # -- the gather probe (P1) -----------------------------------------------------
