@@ -8,8 +8,9 @@ Phases, each printing one line with its seconds:
   1. device        the card's name and power limit (nvidia-smi); TF32 off
   2. build         compile csrc/*.cu for sm_90a, one nvcc per source; the
                    -Xptxas -v lines of every kernel, and by name those of
-                   K2b and K3 (the two instances of incidence_kernel), K2f,
-                   K4b and K5b
+                   K2b and K3 (the two instances of incidence_kernel), K2f
+                   and K1 (gather_runs_kernel, gather_tile_kernel's two
+                   instances), K8's two routes, K4b and K5b
   3. graph         the scale_100k synthetic graph (seed 0, 100k patients, ~5M
                    patient-lab edges, numbered as the JAX package numbers
                    nodes), dense budget 0, span rows 256; per relation its
@@ -37,7 +38,11 @@ Phases, each printing one line with its seconds:
   8. train-step    one Adam step with dropout 0 on the card against the same
                    step with the plain versions on the CPU: loss, every
                    gradient, the parameters and the BatchNorm statistics;
-                   every kernel of the path launched
+                   every kernel of the path launched; K1 at each of the
+                   step's call sites (by plan and role, recorded in the
+                   step) against its plain version, NaN rows past the table
+                   too, timed in turns with torch.sparse.mm with its bound,
+                   and the step's sum
   9. train         5 epochs with dropout 0.2 on the card (the training path's
                    launch counts), the median epoch time, the bench's
                    train_patient_lab_edges_per_sec, a validation loss, and
@@ -46,7 +51,8 @@ Phases, each printing one line with its seconds:
                    group its edges, windows, resident or span layouts, tiles
  11. hgt-kernels   K6, K7, K8 against their plain versions on every group's
                    plans (both layouts), also with NaN rows past every table;
-                   every group's median times and bounds
+                   every group's median times and bounds; K8's launch (route,
+                   column slices) per group
  12. hgt-slice     the HGT at full width (hidden 128, 2 layers, 4 heads, head
                    (64, 32), seeded weights): compute_node_state on the flash
                    tier against the same weights on the segment tier (plain
@@ -139,11 +145,16 @@ FP32_FLOPS = 67e12
 
 SEGMENT_SOURCE = "multi_modal_gnn_tpu_torch/csrc/segment.cu"
 # the -Xptxas -v lines printed by name: K2b and K3 (the two instances of one
-# kernel template in SEGMENT_SOURCE), K2f, K4b and K5b
+# kernel template in SEGMENT_SOURCE), K2f and K1 (K2f's kernel and the two
+# instances of gather_tile_kernel), K8's two routes, K4b and K5b
 NAMED_KERNELS = (
     ("K2b incidence_kernel<false>", "incidence_kernelILb0E"),
     ("K3 incidence_kernel<true>", "incidence_kernelILb1E"),
-    ("K2f fused_table_kernel", "fused_table_kernel"),
+    ("K2f and K1 on a small table gather_runs_kernel", "18gather_runs_kernel"),
+    ("K1 on a large table gather_tile_kernel<false>", "gather_tile_kernelILb0E"),
+    ("K1 on pre-gathered rows gather_tile_kernel<true>", "gather_tile_kernelILb1E"),
+    ("K8 sort route flash_dkv_kernel", "16flash_dkv_kernel"),
+    ("K8 table route flash_dkv_table_kernel", "22flash_dkv_table_kernel"),
     ("K4b pair_head_bwd_kernel", "20pair_head_bwd_kernel"),
     ("K5b pair_head_dual_bwd_kernel", "25pair_head_dual_bwd_kernel"),
 )
@@ -372,6 +383,7 @@ def main() -> int:
     from multi_modal_gnn_tpu_torch.graph.schema import LAB, PATIENT, mirror_edge_type
     from multi_modal_gnn_tpu_torch.models import build_model
     from multi_modal_gnn_tpu_torch.ops import _build, aggregation_tier
+    from multi_modal_gnn_tpu_torch.ops import segment as seg_ops
     from multi_modal_gnn_tpu_torch.ops import attention_kernels as ak
     from multi_modal_gnn_tpu_torch.ops import gather_probe as gp
     from multi_modal_gnn_tpu_torch.ops import pairhead_kernels as pk
@@ -865,10 +877,24 @@ def main() -> int:
     torch.cuda.synchronize()
     forward_launches = read_counts()
     reset_counts()
-    t_step = time.perf_counter()
-    loss = trainer.train_step(b_gpu, sup.to(dev), 0)
-    torch.cuda.synchronize()
-    step_s = time.perf_counter() - t_step
+    # K1's call sites in this step, by the plan it runs on (ops/segment.py
+    # calls it by that module's name)
+    plan_of = {es.win_local.data_ptr(): et for et, es in graph.edges.items() if es.win_local is not None}
+    k1_calls = []
+    k1_real = seg_ops.segment_sum_windowed
+
+    def k1_recorded(x, idx, win_local, win_tile_map, num_windows):
+        k1_calls.append((plan_of.get(win_local.data_ptr()), idx is None))
+        return k1_real(x, idx, win_local, win_tile_map, num_windows)
+
+    seg_ops.segment_sum_windowed = k1_recorded
+    try:
+        t_step = time.perf_counter()
+        loss = trainer.train_step(b_gpu, sup.to(dev), 0)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t_step
+    finally:
+        seg_ops.segment_sum_windowed = k1_real
     step_launches = read_counts()
     if not all(step_launches.values()):
         raise AssertionError(f"a kernel of the training path did not launch: {step_launches}")
@@ -903,6 +929,48 @@ def main() -> int:
     print(
         f"    launches in one step {step_launches}; of them in the forward {forward_launches} "
         f"(K1 as a backward: {step_launches['segment_sum_windowed'] - k1_fwd})"
+    )
+    # K1 at each of the step's call sites, against its plain version (NaN rows
+    # past the table too) and in turns with torch.sparse.mm (library,
+    # kernel, kernel, library), each with its bound; the step's sum
+    if len(k1_calls) != step_launches["segment_sum_windowed"] or any(et is None or g for et, g in k1_calls):
+        raise AssertionError(f"K1 ran outside the graph's windowed plans: {k1_calls}")
+    k1_sites, k1_step, k1_step_lib = {}, 0.0, 0.0
+    for et in sorted(set(et for et, _ in k1_calls), key=lambda et: -graph.edges[et].num_valid):
+        es, calls = graph.edges[et], sum(1 for e, _ in k1_calls if e == et)
+        role = "forward" if tiers[et] in ("paired", "windowed") else f"backward of {'/'.join(mirror_edge_type(et))}"
+        x = torch.randn(es.num_src, d, generator=gen).to(dev)
+        args = (es.win_src, es.win_local, es.win_tile_map, es.num_windows)
+        kernel = lambda x=x, args=args: sk.segment_sum_windowed(x, *args)  # noqa: E731
+        want = mean_of(sk.segment_sum_windowed_plain(x, *args), es)
+        name = f"K1 on the {'/'.join(et)} plan ({role}, {calls} a step)"
+        max_abs, _ = _compare(name, mean_of(kernel(), es), want, KERNEL_ATOL, KERNEL_RTOL)
+        x_nan = torch.full((es.num_src + 37, d), float("nan"), device=dev)
+        x_nan[: es.num_src] = x
+        _compare(f"{name}, 37 NaN rows past the table", mean_of(sk.segment_sum_windowed(x_nan, *args), es),
+                 want, KERNEL_ATOL, KERNEL_RTOL)
+        del x_nan
+        csr = _csr(es.row_ptr, es.src, es.num_dst, es.num_src, dev)
+        library = lambda csr=csr, x=x: torch.sparse.mm(csr, x)  # noqa: E731
+        turns = [_median_ms(library), _median_ms(kernel), _median_ms(kernel), _median_ms(library)]
+        ms, lib_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        bound = _bound(_nbytes(x, *args[:3]) + es.num_windows * WINDOW * d * 4, es.num_valid * d)
+        route = sk.windowed_route(es.num_src, d)
+        launch = sk.windowed_launch(es.win_local.shape[0] // TILE_E, es.num_src, d, sms, route)
+        print(
+            f"    {name}: route {route}; turns library, kernel, kernel, library "
+            f"{', '.join('%.4f' % t for t in turns)} ms; bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}); "
+            f"{es.num_valid} edges; launch {launch}"
+        )
+        k1_sites["/".join(et)] = {
+            "role": role, "calls_per_step": calls, "route": route, "max_abs_err": max_abs, "ms": ms,
+            **bound, "library_ms": lib_ms, "turns_ms": turns,
+        }
+        k1_step += calls * ms
+        k1_step_lib += calls * lib_ms
+    print(f"    K1 per step ({len(k1_calls)} launches): {k1_step:.4f} ms; torch.sparse.mm at the same sites {k1_step_lib:.4f} ms")
+    results["segment_sum_windowed"].update(
+        call_sites=k1_sites, per_step_ms=k1_step, per_step_library_ms=k1_step_lib,
     )
     _phase(
         "train-step", t0,
@@ -1068,6 +1136,10 @@ def main() -> int:
                 "max_abs_err": max(errs[name]), "ms": ms, "plain_ms": plain_ms, **bound,
                 "library_ms": None,
             }
+            if name == "flash_attention_dkv":
+                launch = ak.dkv_launch(plan.rev.arrays()[1].shape[0] // TILE_E, n, d, nh, sms)
+                attn_results[name][dst_t]["launch"] = dataclasses.asdict(launch)
+                print(f"      (K8 launch: {launch})")
         del q, k, v, dout, out_p, lse_p, dq_p, dk_p, dv_p, stats, work
     torch.cuda.empty_cache()
     _phase("hgt-kernels", t0, "K6, K7, K8 match their plain versions on every group, NaN rows past the tables too")

@@ -4,9 +4,9 @@
 //
 // Replaces four Pallas TPU kernels of multi_modal_gnn_tpu/ops/pallas_segment.py:
 //   K1  _windowed_segment_sum_fwd / _segment_kernel
-//         -> mmgnn_segment_sum_windowed
+//         -> mmgnn_segment_sum_windowed (gather_runs_kernel, gather_tile_kernel)
 //   K2f _fused_table_segment_sum_fwd / _fused_table_kernel_take
-//         -> mmgnn_fused_table_segment_sum (fused_table_kernel)
+//         -> mmgnn_fused_table_segment_sum (gather_runs_kernel)
 //   K2b _fused_table_segment_sum_bwd / _fused_table_bwd_kernel_take
 //         -> mmgnn_fused_table_segment_sum_bwd (incidence_kernel<false>)
 //   K3  _span_dma_segment_sum_fwd / _span_dma_kernel
@@ -26,20 +26,6 @@
 // K1 and K2f (gathers).  What bounds them on the H100: bytes.  There is one
 // add per gathered element, so the work is reading about E * D * 4 bytes of
 // gathered rows against writing num_dst * D * 4 bytes of output.
-// K1's design:
-//   * One block per group of consecutive tiles, not one per window: a
-//     relation into labs has 4 windows but thousands of tiles, and the 132
-//     SMs need hundreds of blocks.  The block accumulates its window's
-//     [128, D] partial in shared memory (64 KB at D = 128) and flushes it to
-//     the zero-initialised output with global f32 atomicAdd when the window
-//     changes and at the end.  The summation order therefore changes from run
-//     to run; callers compare within a tolerance.
-//   * A warp walks 64 consecutive slots; each lane owns 4 columns (one
-//     16-byte load per row).  Runs of equal `local` (the slots are
-//     dst-sorted within a tile) are summed in registers and merged into
-//     shared memory with one atomicAdd per run.
-//   * Four rows are loaded before they are summed, so each lane has four
-//     loads in flight (eight spilled registers and ran 4-11 % slower).
 // K2f (redesigned for Hopper).  Its first version was K1's kernel reading
 // the small table (at most 2048 rows) through L1 / L2: 5M slots x 512 B on
 // lab -> patient, 2.56 GB through the cache hierarchy, ~90x the bytes of
@@ -66,6 +52,28 @@
 //     shared-memory traffic (~0.09 ms of the SMs' bandwidth on lab ->
 //     patient) against the indices' E * 8 bytes from device memory, read
 //     once per column slice.
+// K1 (redesigned for Hopper).  Its first version kept a [128, D] window
+// partial in shared memory per block of a few tiles: each block zeroed 64
+// KB, merged runs into it with shared f32 atomics (compare-and-swap loops in
+// SASS) and flushed all 16,384 entries with scalar global atomics, for as
+// little as one tile's 1,024 slots.  Now no window partial exists: runs
+// merge in registers and go out with float4 global atomics.  The wrapper
+// picks the route from the shapes (windowed_route):
+//   * a table of at most 2048 rows and 4 MB (the span and paired tiers'
+//     backward, which gathers the gradient of labs, diagnoses or
+//     medications into patient windows) runs K2f's kernel, the table's
+//     column slice staged in shared memory;
+//   * a larger table (the paired tier's forward from the 100,000-row patient
+//     table) or pre-gathered rows run gather_tile_kernel: a block a tile,
+//     three 16-warp blocks an SM (40 registers a thread), four rows in
+//     flight a row group; a run cut at a chunk boundary is merged through
+//     shared memory (no float atomics there) and added once a tile, since
+//     on a relation into few rows (diagnoses, medications) every chunk of a
+//     tile adds to the same row.  A persistent grid with a unit counter (as
+//     K2f's) and eight or sixteen rows in flight, and one warp a unit with
+//     an atomic a unit, were no faster (PERF.md).
+//   * A slot whose source lies past the table adds nothing, so no row past a
+//     table is read.
 
 // K2b and K3 (incidence products).  Both sum a contiguous block of rows
 // through a sparse patient x lab incidence: K3's tile reads its sources from
@@ -124,14 +132,58 @@
 
 #include <cuda_runtime.h>
 
+// Gives the blocks of `threads` threads and `smem` bytes of dynamic shared
+// memory that the current device holds resident at once (the occupancy
+// times the SMs), with `fn`'s dynamic shared-memory limit raised to the
+// device's.  The runtime is asked once for each (device, kernel, threads,
+// size) and the answer cached: a launch of these kernels takes ~0.1 ms and
+// the host's time before it counts.
+cudaError_t mmgnn_one_wave(const void* fn, int threads, size_t smem, int* wave) {
+  struct Entry {
+    int device;
+    const void* fn;
+    int threads;
+    size_t smem;
+    int wave;
+  };
+  static Entry cache[64];
+  static int used = 0;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  bool raised = false;  // fn's limit is the device's already
+  for (int i = 0; i < used; ++i) {
+    const Entry& e = cache[i];
+    if (e.device != device || e.fn != fn) continue;
+    if (e.threads == threads && e.smem == smem) {
+      *wave = e.wave;
+      return cudaSuccess;
+    }
+    raised = true;
+  }
+  int sms = 0, optin = 0, resident = 0;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return err;
+  if (!raised) {  // the device's limit less the kernel's static shared memory
+    cudaFuncAttributes attr;
+    if ((err = cudaFuncGetAttributes(&attr, fn)) != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin - static_cast<int>(attr.sharedSizeBytes));
+    if (err != cudaSuccess) return err;
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, fn, threads, smem);
+  if (err != cudaSuccess) return err;
+  if (resident < 1) return cudaErrorInvalidConfiguration;
+  *wave = sms * resident;
+  if (used < 64) cache[used++] = Entry{device, fn, threads, smem, *wave};
+  return cudaSuccess;
+}
+
 namespace {
 
 constexpr int WINDOW = 128;
 constexpr int TILE_E = 1024;
-constexpr int THREADS = 512;
-constexpr int WARPS = THREADS / 32;
-constexpr int SLOTS_PER_WARP = TILE_E / WARPS;  // 64
-constexpr int BATCH = 4;  // rows loaded before they are summed
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }
@@ -141,110 +193,6 @@ __device__ __forceinline__ void add_into(float4& a, const float4& b) {
   a.y += b.y;
   a.z += b.z;
   a.w += b.w;
-}
-
-__device__ __forceinline__ void atomic_add4(float* p, const float4& v) {
-  atomicAdd(p + 0, v.x);
-  atomicAdd(p + 1, v.y);
-  atomicAdd(p + 2, v.z);
-  atomicAdd(p + 3, v.w);
-}
-
-// Pre-gathered rows: row(e) = g[e].
-struct GatheredRows {
-  const float* __restrict__ g;
-  int d;
-  __device__ __forceinline__ float4 load(long long slot, int /*src*/, int c) const {
-    return *reinterpret_cast<const float4*>(g + slot * d + c);
-  }
-};
-
-// Table rows: row(e) = table[src[e]].
-struct TableRows {
-  const float* __restrict__ table;
-  int d;
-  __device__ __forceinline__ float4 load(long long /*slot*/, int src, int c) const {
-    return __ldg(reinterpret_cast<const float4*>(table + (long long)src * d + c));
-  }
-};
-
-// Add tile `tile`'s real slots into the shared [WINDOW, d] accumulator.
-template <class Rows>
-__device__ void accumulate_tile(const Rows& rows, const int* __restrict__ src,
-                                const int* __restrict__ local, long long tile, int d,
-                                float* acc) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const long long first = tile * TILE_E + (long long)warp * SLOTS_PER_WARP;
-  for (int cbase = 0; cbase < d; cbase += 128) {
-    const int c = cbase + lane * 4;
-    const bool active = c < d;  // every lane still joins the shuffles
-    float4 run = zero4();
-    int cur = WINDOW;  // local row of the open run; WINDOW = none
-    for (int j = 0; j < SLOTS_PER_WARP; j += 32) {
-      const int my_local = local[first + j + lane];
-      const int my_src = src != nullptr ? src[first + j + lane] : 0;
-      for (int s0 = 0; s0 < 32; s0 += BATCH) {
-        int ls[BATCH];
-        float4 v[BATCH];
-#pragma unroll
-        for (int u = 0; u < BATCH; ++u) {
-          ls[u] = __shfl_sync(FULL, my_local, s0 + u);
-          const int sr = __shfl_sync(FULL, my_src, s0 + u);
-          v[u] = (active && ls[u] < WINDOW) ? rows.load(first + j + s0 + u, sr, c) : zero4();
-        }
-#pragma unroll
-        for (int u = 0; u < BATCH; ++u) {
-          if (ls[u] != cur) {  // warp-uniform: ls[u] came from one lane
-            if (active && cur < WINDOW) atomic_add4(acc + cur * d + c, run);
-            run = zero4();
-            cur = ls[u];
-          }
-          add_into(run, v[u]);
-        }
-      }
-    }
-    if (active && cur < WINDOW) atomic_add4(acc + cur * d + c, run);
-  }
-}
-
-__device__ void zero_acc(float* acc, int d) {
-  for (int i = threadIdx.x; i < WINDOW * d; i += THREADS) acc[i] = 0.f;
-}
-
-// Add the accumulator into window `window` of `out`, and zero it.
-__device__ void flush_window(float* acc, float* __restrict__ out, int window, int d) {
-  float* dst = out + (long long)window * WINDOW * d;
-  for (int i = threadIdx.x; i < WINDOW * d; i += THREADS) {
-    const float v = acc[i];
-    if (v != 0.f) atomicAdd(dst + i, v);
-    acc[i] = 0.f;
-  }
-}
-
-template <class Rows>
-__global__ void __launch_bounds__(THREADS)
-windowed_sum_kernel(Rows rows, const int* __restrict__ src, const int* __restrict__ local,
-                    const int* __restrict__ tile_map, int num_tiles, int tiles_per_block,
-                    int d, float* __restrict__ out) {
-  extern __shared__ float4 smem4[];
-  float* acc = reinterpret_cast<float*>(smem4);
-  zero_acc(acc, d);
-  __syncthreads();
-  const int t0 = blockIdx.x * tiles_per_block;
-  const int t1 = min(t0 + tiles_per_block, num_tiles);
-  int window = tile_map[t0];
-  for (int t = t0; t < t1; ++t) {
-    const int w = tile_map[t];
-    if (w != window) {
-      flush_window(acc, out, window, d);
-      __syncthreads();
-      window = w;
-    }
-    accumulate_tile(rows, src, local, t, d, acc);
-    __syncthreads();
-  }
-  flush_window(acc, out, window, d);
 }
 
 // 16- and 4-byte asynchronous copies global -> shared (sm_80+).
@@ -688,21 +636,8 @@ int launch_incidence(const Incidence& p, int blocks, int chunks, int col_blocks,
   return cudaGetLastError();
 }
 
-template <class Rows>
-int launch_windowed(Rows rows, const int* src, const int* local, const int* tile_map,
-                    int num_tiles, int tiles_per_block, int d, float* out, void* stream) {
-  const size_t smem = sizeof(float) * WINDOW * d;
-  cudaError_t err = cudaFuncSetAttribute(windowed_sum_kernel<Rows>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int blocks = (num_tiles + tiles_per_block - 1) / tiles_per_block;
-  windowed_sum_kernel<Rows><<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      rows, src, local, tile_map, num_tiles, tiles_per_block, d, out);
-  return cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
-// K2f: the gather from a column slice of the table held in shared memory
+// K1 and K2f: runs of equal `local` merged in registers (notes in the header)
 // ---------------------------------------------------------------------------
 
 constexpr int FT_THREADS = 512;
@@ -712,7 +647,7 @@ constexpr int FT_COUNTER_STRIDE = 32;  // a slice's counter on its own 128-byte 
 constexpr int FT_BATCH = 8;  // rows a row group loads before it sums them
 
 struct FusedTable {
-  const float* __restrict__ table;  // [num_src, d]
+  const float* __restrict__ table;  // [num_src, d]; pre-gathered rows (K1, src null): [units * 64, d]
   int num_src, d;
   const int* __restrict__ src;
   const int* __restrict__ local;
@@ -725,15 +660,16 @@ struct FusedTable {
   float* __restrict__ out;
 };
 
-// Grid (blocks, column slices).  A block copies columns [c0, c0 + slice) of
-// every table row into shared memory once, then each warp takes `grab`
-// units of 64 slots at a time (notes in the header).  The warp's lanes split
-// into `groups` row groups of q = slice / 4 lanes (one float4 of the row
-// each); group i walks the i-th run of consecutive slots of the unit, reads
-// each slot's row from shared memory, sums runs of equal `local` (slots are
-// dst-sorted within a tile) in registers and adds each run to its output
-// row with global atomics.
-__global__ void __launch_bounds__(FT_THREADS, 1) fused_table_kernel(FusedTable p) {
+// Grid (blocks, column slices).  A block first copies columns [c0, c0 +
+// slice) of every table row into shared memory.  Then each warp takes
+// `grab` units of 64 slots at a time (notes in the header).  The warp's
+// lanes split into `groups` row groups of q = slice / 4 lanes (one float4
+// of the row each); group i walks the i-th run of consecutive slots of the
+// unit, loads FT_BATCH rows before it sums them, sums runs of equal `local`
+// (slots are dst-sorted within a tile) in registers and adds each run to
+// its output row with float4 global atomics.  A slot whose source lies past
+// the table adds nothing.
+__global__ void __launch_bounds__(FT_THREADS, 1) gather_runs_kernel(FusedTable p) {
   extern __shared__ float4 smem4[];
   float* tab = reinterpret_cast<float*>(smem4);
   int* idx = reinterpret_cast<int*>(tab + (size_t)p.num_src * p.stride);  // per warp: locals, sources
@@ -823,21 +759,137 @@ __global__ void __launch_bounds__(FT_THREADS, 1) fused_table_kernel(FusedTable p
   }
 }
 
+// K1 from device memory (a large table, or pre-gathered rows): the gathers
+// are what costs, so many warps an SM keep rows in flight, each with a short
+// chain of loads.  One block takes one tile (no counter, no persistent
+// loop); its lanes split into row groups of slice / 4 lanes (a power of two,
+// else one group a warp), and the groups take equal chunks of the tile's
+// slots, GU_BATCH rows loaded before they are summed.  Runs of equal `local`
+// are summed in registers: a run inside a chunk is added to its output row
+// with float4 global atomics; a run cut at a chunk boundary goes through
+// the groups' edge buffers in shared memory and is added once, after a
+// barrier, by the group where it starts (on a relation into few rows every
+// chunk of a tile holds the same row, and a global atomic per chunk would
+// queue at that row's L2 slice).
+constexpr int GU_BATCH = 4;       // rows a row group loads before it sums them
+constexpr int GU_MIN_BLOCKS = 3;  // resident blocks an SM (40 registers a thread)
+constexpr int GU_THREADS = 512;
+constexpr int GU_WARPS = GU_THREADS / 32;
+
+template <bool kGathered>
+__global__ void __launch_bounds__(GU_THREADS, GU_MIN_BLOCKS) gather_tile_kernel(FusedTable p) {
+  __shared__ int sloc[TILE_E];
+  __shared__ int ssrc[kGathered ? 1 : TILE_E];
+  __shared__ float4 edge[GU_WARPS * 32];  // a run cut at a chunk's start, per group: [groups, q]
+  const long long t = blockIdx.x;
+  const long long e0 = t * TILE_E;
+  for (int i = threadIdx.x; i < TILE_E; i += GU_THREADS) {
+    sloc[i] = p.local[e0 + i];
+    if constexpr (!kGathered) ssrc[i] = p.src[e0 + i];
+  }
+  const long long row0 = (long long)p.tile_map[t] * WINDOW;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int c0 = blockIdx.y * p.slice;
+  const int q = min(p.slice, p.d - c0) / 4;
+  const int groups = (q & (q - 1)) == 0 ? 32 / q : 1;
+  const int gi = lane / q, ci = lane - gi * q;
+  const bool active = gi < groups;
+  const int gid = warp * groups + gi, chunk = TILE_E / (GU_WARPS * groups);
+  const int i0 = active ? gid * chunk : 0, i1 = active ? i0 + chunk : 0;
+  const float* rows = p.table + c0 + 4 * ci;
+  float* out = p.out + c0 + 4 * ci;
+  __syncthreads();
+  const bool head_cut = active && i0 > 0 && sloc[i0] < WINDOW && sloc[i0 - 1] == sloc[i0];
+  const bool tail_cut = active && i1 < TILE_E && sloc[i1 - 1] < WINDOW && sloc[i1] == sloc[i1 - 1];
+  float4 run = zero4();
+  int cur = WINDOW;  // local row of the open run; WINDOW = none
+  bool first = true;
+  for (int i = i0; i < i1; i += GU_BATCH) {
+    int ls[GU_BATCH];
+    float4 v[GU_BATCH];
+#pragma unroll
+    for (int k = 0; k < GU_BATCH; ++k) {
+      const bool in = i + k < i1;  // a chunk may be shorter than a batch (narrow rows)
+      const int l = in ? sloc[i + k] : WINDOW;
+      const long long r = kGathered ? e0 + i + k : (in ? ssrc[i + k] : 0);
+      const bool ok = l < WINDOW && (kGathered || static_cast<unsigned long long>(r) < static_cast<unsigned>(p.num_src));
+      ls[k] = l;
+      v[k] = ok ? __ldg(reinterpret_cast<const float4*>(rows + r * p.d)) : zero4();
+    }
+#pragma unroll
+    for (int k = 0; k < GU_BATCH; ++k) {
+      if (ls[k] < WINDOW && ls[k] != cur) {
+        if (cur < WINDOW) {  // a run that ends inside the chunk
+          if (first && head_cut) {
+            edge[gid * q + ci] = run;
+          } else {
+            atomicAdd(reinterpret_cast<float4*>(out + (row0 + cur) * p.d), run);
+          }
+          first = false;
+        }
+        run = zero4();
+        cur = ls[k];
+      }
+      add_into(run, v[k]);
+    }
+  }
+  if (cur < WINDOW) {  // the chunk's last run
+    if (first && head_cut) {
+      edge[gid * q + ci] = run;
+    } else if (!tail_cut) {
+      atomicAdd(reinterpret_cast<float4*>(out + (row0 + cur) * p.d), run);
+    }
+  }
+  __syncthreads();  // every group's cut head is written
+  if (tail_cut && !(first && head_cut)) {  // this group holds the start of a cut run
+    for (int o = gid + 1; o < GU_WARPS * groups && sloc[o * chunk] == cur; ++o) add_into(run, edge[o * q + ci]);
+    atomicAdd(reinterpret_cast<float4*>(out + (row0 + cur) * p.d), run);
+  }
+}
+
+template <bool kGathered>
+int launch_gather_tiles(const FusedTable& p, int slices, void* stream) {
+  int wave = 0;
+  const cudaError_t err = mmgnn_one_wave(reinterpret_cast<const void*>(gather_tile_kernel<kGathered>),
+                                         GU_THREADS, 0, &wave);
+  if (err != cudaSuccess) return err;
+  const int tiles = p.num_units / (TILE_E / FT_UNIT);
+  gather_tile_kernel<kGathered><<<dim3(tiles, slices), GU_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return cudaGetLastError();
+}
+
+// Launch K2f's body on (blocks, slices), blocks at most one wave of the
+// blocks that are resident at once.
+int launch_gather_runs(const FusedTable& p, int blocks, int slices, void* stream) {
+  const size_t smem = sizeof(float) * (size_t)p.num_src * p.stride + sizeof(int) * FT_WARPS * 2 * FT_UNIT;
+  int wave = 0;
+  const cudaError_t err = mmgnn_one_wave(reinterpret_cast<const void*>(gather_runs_kernel), FT_THREADS, smem, &wave);
+  if (err != cudaSuccess) return err;
+  blocks = min(blocks, wave / slices > 0 ? wave / slices : 1);  // any grid is right: the counter deals past gridDim.x
+  gather_runs_kernel<<<dim3(blocks, slices), FT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // K1.  idx == nullptr: x holds pre-gathered rows [num_tiles * 1024, d];
-// otherwise row(e) = x[idx[e]].
-int mmgnn_segment_sum_windowed(const float* x, const int* idx, const int* local,
-                               const int* tile_map, int num_tiles, int tiles_per_block, int d,
-                               float* out, void* stream) {
-  if (idx == nullptr) {
-    return launch_windowed(GatheredRows{x, d}, nullptr, local, tile_map, num_tiles,
-                           tiles_per_block, d, out, stream);
-  }
-  return launch_windowed(TableRows{x, d}, idx, local, tile_map, num_tiles, tiles_per_block, d,
-                         out, stream);
+// otherwise row(e) = x[idx[e]] for a table of num_rows rows, staged in
+// shared memory (staged != 0, column slices of `slice` columns at `stride`
+// floats a row) or read from device memory.  out [num_windows * 128, d] and
+// work [32 * slices] are zeroed by the caller.  The route and the launch
+// shape come from the wrapper (ops/segment_kernels.py windowed_route,
+// windowed_launch, fused_table_launch).
+int mmgnn_segment_sum_windowed(const float* x, int num_rows, const int* idx, const int* local,
+                               const int* tile_map, int num_tiles, int* work, int grab, int blocks,
+                               int slices, int slice, int stride, int staged, int d, float* out,
+                               void* stream) {
+  const FusedTable p{x, num_rows, d, idx, local, tile_map, num_tiles * (TILE_E / FT_UNIT),
+                     work, grab, slice, stride, out};
+  if (idx == nullptr) return launch_gather_tiles<true>(p, slices, stream);
+  if (!staged) return launch_gather_tiles<false>(p, slices, stream);
+  return launch_gather_runs(p, blocks, slices, stream);
 }
 
 // K2f.  row(e) = table[win_src[e]] for a small source table of num_src
@@ -850,12 +902,7 @@ int mmgnn_fused_table_segment_sum(const float* table, int num_src, const int* wi
                                   float* out, void* stream) {
   const FusedTable p{table, num_src, d, win_src, local, tile_map, num_tiles * (TILE_E / FT_UNIT),
                      work, grab, slice, stride, out};
-  const size_t smem = sizeof(float) * (size_t)num_src * stride + sizeof(int) * FT_WARPS * 2 * FT_UNIT;
-  cudaError_t err = cudaFuncSetAttribute(fused_table_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  fused_table_kernel<<<dim3(blocks, slices), FT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return cudaGetLastError();
+  return launch_gather_runs(p, blocks, slices, stream);
 }
 
 // K2b.  dT[win_src[e]] += g[tile_map[t] * 128 + local[e]]; g holds the

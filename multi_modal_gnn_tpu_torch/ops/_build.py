@@ -105,7 +105,7 @@ def load() -> ctypes.CDLL:
     head = [p, i, p, i, p, p, p, p, p, p, p, p, p, i, i, i, u, u, u, f, i]
     dual = [p] * 12 + [i, i, p, p, p, p, p, i, u, u, u, f, i]
     signatures = {
-        "mmgnn_segment_sum_windowed": [p, p, p, p, i, i, i, p, p],
+        "mmgnn_segment_sum_windowed": [p, i, p, p, p, i, p, *[i] * 7, p, p],
         "mmgnn_fused_table_segment_sum": [p, i, p, p, p, i, p, *[i] * 6, p, p],
         "mmgnn_fused_table_segment_sum_bwd": [p, i, p, p, p, i, p, *[i] * 8, p, p],
         "mmgnn_span_segment_sum": [p, i, p, p, p, p, i, i, p, *[i] * 6, p, p],
@@ -119,7 +119,7 @@ def load() -> ctypes.CDLL:
         "mmgnn_gather_direct_staged_bytes": [i, i],
         "mmgnn_flash_attention_fwd": [p, p, p, p, p, p, i, i, i, i, i, p, p, p, p, p, p],
         "mmgnn_flash_attention_dq": [p, p, p, p, p, p, p, p, p, i, i, i, i, p, p],
-        "mmgnn_flash_attention_dkv": [p, p, p, p, p, p, p, p, p, i, i, i, i, p, p, p],
+        "mmgnn_flash_attention_dkv": [*[p] * 9, i, i, i, p, *[i] * 8, p, p, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -24,17 +24,23 @@ launch per call.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Dict, Tuple
 
 import torch
 
 from multi_modal_gnn_tpu_torch.graph.hetero import TILE_E, WINDOW
 from multi_modal_gnn_tpu_torch.ops.segment_kernels import (
+    _MAX_SHARED_BYTES,
     _check_plan,
     _check_rows,
+    _check_shared,
+    _check_slot_alignment,
     _on_cpu,
     _ptr,
     _raise_on,
+    _sms,
 )
 
 # launches per wrapper: each adds one where it launches its kernel
@@ -46,8 +52,22 @@ launch_counts: Dict[str, int] = {
 
 EMPTY_LSE = 1e30  # the log-sum-exp of a row with no edges
 EXP_CLAMP = 60.0  # the backward's bound on exp arguments
-_BLOCKS_PER_SM_TARGET = 4
-
+_BLOCKS_PER_SM_TARGET = 4  # K6 and K7: blocks of a few consecutive tiles
+# K8 (csrc/attention.cu): the table route (flash_dkv_table_kernel) for a
+# gathered side (q, dO) of at most as many rows as the attention plans keep
+# in the resident, dst-sorted layout (graph/attn_plan.py
+# ATTN_RESIDENT_MAX_ROWS), a column slice of whole heads of it staged in
+# shared memory; otherwise the sort route (flash_dkv_kernel): persistent
+# blocks over column slices that take tiles from a counter.  Both run 32
+# warps a block, one block an SM.
+DKV_TABLE_MAX_ROWS = 512
+_DKV_WARPS = 32
+_DKV_GRABS_PER_BLOCK = 16
+_DKV_MAX_GRAB = 8
+_DKT_UNIT = 64
+_DKT_INDEX_BYTES = _DKV_WARPS * 2 * _DKT_UNIT * 4
+_DKT_GRABS_PER_WARP = 4
+_DKT_COUNTER_STRIDE = 32  # ints between two slices' counters: one 128-byte line each
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
@@ -160,9 +180,89 @@ def _launch_args(name: str, device, src, local, tile_map):
     num_tiles = _check_plan(
         name, device, slots, (src, slots), (local, slots), (tile_map, slots // TILE_E)
     )
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles_per_block = max(1, -(-num_tiles // (sms * _BLOCKS_PER_SM_TARGET)))
+    tiles_per_block = max(1, -(-num_tiles // (_sms(device) * _BLOCKS_PER_SM_TARGET)))
     return num_tiles, tiles_per_block
+
+
+@dataclass(frozen=True)
+class DkvLaunch:
+    """Launch shape of K8: grid ``(blocks, slices)``, each block on columns
+    ``[c0, c0 + slice)`` (2^m whole heads), ``shared_bytes`` of dynamic
+    shared memory a block.  ``route`` ``"table"``:
+    a block stages that slice of q and dO at ``stride`` floats a row (and
+    those heads' LSE and delta), its warps take ``grab`` units of 64 slots
+    at a time.  ``"sort"``: persistent blocks take ``grab`` tiles at a time;
+    a block holds the slice of the window's k | v rows and of its dk | dv
+    partial, a cut run per row group, two staged tiles' slots and one sorted
+    tile, the window's k | v rows of the slice too where ``stage_kv``."""
+
+    route: str
+    blocks: int
+    grab: int
+    slices: int
+    slice: int
+    stride: int
+    shared_bytes: int
+    stage_kv: bool = False
+
+    @property
+    def mode(self) -> int:
+        """The kernel's mode argument: 0 table, 1 sort with k | v staged, 2 sort."""
+        return 0 if self.route == "table" else 1 if self.stage_kv else 2
+
+
+def _sort_shared_bytes(slice_: int, stage_kv: bool) -> int:
+    groups = _DKV_WARPS * 32 // (slice_ // 4)
+    return 4 * ((2 if stage_kv else 1) * WINDOW * 2 * slice_ + groups * 2 * slice_) + 4 * 6 * TILE_E
+
+
+def _head_slices(h: int, num_heads: int):
+    """Widths of 2^m whole heads, widest first, at most 128 columns."""
+    dh = h // num_heads
+    heads = num_heads & -num_heads  # the largest power of two dividing num_heads
+    while heads >= 1:
+        if heads * dh <= 128:
+            yield heads * dh
+        heads //= 2
+
+
+@functools.lru_cache(maxsize=256)
+def dkv_launch(num_tiles: int, num_rows: int, h: int, num_heads: int, sms: int) -> DkvLaunch:
+    """Plan K8 over ``num_tiles`` tiles, gathering from ``num_rows`` rows of
+    q / dO of width ``h`` in ``num_heads`` heads, on ``sms`` SMs, one block
+    an SM for each column slice.  The table route when ``num_rows <=
+    DKV_TABLE_MAX_ROWS`` and a slice of whole heads fits a block's shared
+    memory (the widest that does; a slice narrower than 32 columns pads its
+    rows by 4 floats, as K2f's), with K2f's grab size.  Otherwise the sort
+    route at the widest slice whose window k | v rows fit beside its
+    partial, else the narrowest slice with k and v read from device memory;
+    each block takes about a sixteenth of its share of tiles at a time (1 to
+    8)."""
+    dh = h // num_heads
+    widths = list(_head_slices(h, num_heads))
+    if num_rows <= DKV_TABLE_MAX_ROWS:
+        for width in widths:
+            stride = width + (4 if width < 32 else 0)
+            shared = 4 * (2 * num_rows * stride + 2 * num_rows * (width // dh)) + _DKT_INDEX_BYTES
+            if shared <= _MAX_SHARED_BYTES:
+                slices = h // width
+                units = num_tiles * (TILE_E // _DKT_UNIT)
+                blocks = max(1, min(-(-units // _DKV_WARPS), sms // slices))
+                grab = max(1, -(-units // (blocks * _DKV_WARPS * _DKT_GRABS_PER_WARP)))
+                return DkvLaunch(
+                    route="table", blocks=blocks, grab=grab, slices=slices, slice=width,
+                    stride=stride, shared_bytes=shared,
+                )
+    width = next((w for w in widths if _sort_shared_bytes(w, True) <= _MAX_SHARED_BYTES), None)
+    stage_kv = width is not None
+    width = width or widths[-1]
+    slices = h // width
+    blocks = max(1, min(num_tiles, sms // slices))
+    grab = max(1, min(_DKV_MAX_GRAB, num_tiles // (blocks * _DKV_GRABS_PER_BLOCK)))
+    return DkvLaunch(
+        route="sort", blocks=blocks, grab=grab, slices=slices, slice=width, stride=0,
+        shared_bytes=_sort_shared_bytes(width, stage_kv), stage_kv=stage_kv,
+    )
 
 
 def _stream(device):
@@ -241,15 +341,22 @@ def flash_attention_dkv(
     _check_heads(name, h, num_heads)
     _check_tables(name, h, q, k, v, dout)
     _check_stats(name, num_heads, lse, delta)
-    num_tiles, tiles_per_block = _launch_args(name, q.device, src, local, tile_map)
-    dk = torch.zeros(num_windows * WINDOW, h, dtype=torch.float32, device=q.device)
-    dv = torch.zeros_like(dk)
+    num_tiles, _ = _launch_args(name, q.device, src, local, tile_map)
+    _check_slot_alignment(name, src, local)
+    launch = dkv_launch(num_tiles, q.shape[0], h, num_heads, _sms(q.device))
+    _check_shared(name, launch.shared_bytes)
+    # one zeroed allocation: dk, dv, then the counters (int32 0 has float32
+    # 0's bits)
+    n = num_windows * WINDOW * h
+    buf = torch.zeros(2 * n + _DKT_COUNTER_STRIDE * launch.slices, dtype=torch.float32, device=q.device)
+    dk, dv = buf[:n].view(-1, h), buf[n : 2 * n].view(-1, h)
     from multi_modal_gnn_tpu_torch.ops import _build
 
     rc = _build.load().mmgnn_flash_attention_dkv(
         _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(lse), _ptr(delta), _ptr(src), _ptr(local),
-        _ptr(tile_map), num_tiles, tiles_per_block, h, num_heads, _ptr(dk), _ptr(dv),
-        _stream(q.device),
+        _ptr(tile_map), num_tiles, q.shape[0], k.shape[0], _ptr(buf[2 * n :].view(torch.int32)),
+        launch.grab, launch.blocks, launch.mode, launch.slices, launch.slice,
+        launch.stride, h, num_heads, _ptr(dk), _ptr(dv), _stream(q.device),
     )
     _raise_on(rc, name)
     launch_counts[name] += 1

@@ -41,7 +41,6 @@ launch_counts: Dict[str, int] = {
 
 _MAX_SHARED_BYTES = 232_448  # dynamic shared memory one H100 block may use
 _SM_SHARED_BYTES = 233_472  # shared memory of one H100 SM
-_BLOCKS_PER_SM_TARGET = 8
 # K2b and K3, the incidence products (csrc/segment.cu incidence_kernel):
 # accumulator rows and columns of a block, rows of a staged slice, the most
 # rows of a row block a unit may use, the resident blocks per SM the grid
@@ -65,6 +64,13 @@ _FT_INDEX_BYTES = _FT_WARPS * 2 * _FT_UNIT * 4
 _FT_SLICES = (128, 64, 32, 16, 8, 4)
 _FT_GRABS_PER_WARP = 4  # the first by the warp's index, the rest from the counter
 _FT_COUNTER_STRIDE = 32  # ints between two slices' counters: one 128-byte line each
+# K1 (csrc/segment.cu): on a table of at most these rows and bytes (the
+# fused-table tier's gates, ops/segment.py FUSED_TABLE_MAX_ROWS / _BYTES)
+# K2f's kernel, the table staged in shared memory; otherwise
+# gather_tile_kernel, a block a tile in 128-column slices
+WINDOWED_TABLE_MAX_ROWS = 2048
+WINDOWED_TABLE_MAX_BYTES = 4 * 1024 * 1024
+_K1_SLICE = 128
 
 
 def reset_launch_counts() -> None:
@@ -163,10 +169,6 @@ def _sm_count(index: int) -> int:
 def _sms(device) -> int:
     device = torch.device(device)
     return _sm_count(torch.cuda.current_device() if device.index is None else device.index)
-
-
-def _tiles_per_block(num_tiles: int, device) -> int:
-    return max(1, -(-num_tiles // (_sms(device) * _BLOCKS_PER_SM_TARGET)))
 
 
 def _check_slot_alignment(name: str, *plan: torch.Tensor) -> None:
@@ -269,6 +271,44 @@ def fused_table_launch(num_tiles: int, num_src: int, d: int, sms: int) -> FusedT
     )
 
 
+def windowed_route(num_rows: int, d: int, gathered: bool = False) -> str:
+    """K1's row source for ``x [num_rows, d]``: ``"gathered"`` (rows already
+    in slot order, ``idx=None``), ``"shared"`` (a table within the
+    fused-table tier's gates, staged in shared memory as K2f stages it) or
+    ``"global"`` (a larger table, read from device memory)."""
+    if gathered:
+        return "gathered"
+    small = num_rows <= WINDOWED_TABLE_MAX_ROWS and num_rows * d * 4 <= WINDOWED_TABLE_MAX_BYTES
+    return "shared" if small else "global"
+
+
+@functools.lru_cache(maxsize=256)
+def windowed_launch(num_tiles: int, num_rows: int, d: int, sms: int, route: str) -> FusedTableLaunch:
+    """Plan K1 over ``num_tiles`` tiles of rows ``[num_rows, d]`` on ``sms``
+    SMs by its :func:`windowed_route`: the ``"shared"`` route is K2f's plan
+    (:func:`fused_table_launch`); the others run a block a tile for each
+    128-column slice (the grid's second dimension), with no shared memory
+    of their own beyond the kernel's static 12-16 KB (``shared_bytes`` 0) and
+    no counter (``grab`` 1, ``blocks`` the tiles)."""
+    if route == "shared":
+        return fused_table_launch(num_tiles, num_rows, d, sms)
+    if route not in ("global", "gathered"):
+        raise ValueError(f"unknown K1 route {route!r}")
+    width = min(_K1_SLICE, d)
+    return FusedTableLaunch(
+        blocks=num_tiles, slices=-(-d // width), slice=width, stride=width, grab=1,
+        units=num_tiles * (TILE_E // _FT_UNIT), shared_bytes=0,
+    )
+
+
+def _zeroed_out_and_counters(rows: int, d: int, slices: int, device):
+    """One zeroed allocation: the ``[rows, d]`` output, then the slices'
+    unit counters (int32 0 has float32 0's bits)."""
+    n = rows * d
+    buf = torch.zeros(n + slices * _FT_COUNTER_STRIDE, dtype=torch.float32, device=device)
+    return buf[:n].view(rows, d), buf[n:].view(torch.int32)
+
+
 def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
@@ -280,7 +320,8 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def segment_sum_windowed(x, idx, win_local, win_tile_map, num_windows: int) -> torch.Tensor:
     """K1: ``out[tile_map[t]*128 + local[e]] += x[idx[e]]`` (or ``x[e]``
-    with ``idx=None``, for rows already in slot order)."""
+    with ``idx=None``, for rows already in slot order); a source past
+    ``x``'s rows adds nothing."""
     name = "segment_sum_windowed"
     if _on_cpu(x, idx, win_local, win_tile_map):
         return segment_sum_windowed_plain(x, idx, win_local, win_tile_map, num_windows)
@@ -293,14 +334,16 @@ def segment_sum_windowed(x, idx, win_local, win_tile_map, num_windows: int) -> t
         raise ValueError(f"{name}: {x.shape[0]} pre-gathered rows for {slots} slots")
     num_tiles = _check_plan(name, x.device, slots, *pairs)
     d = x.shape[1]
-    _check_shared(name, 4 * WINDOW * d)
-    out = torch.zeros(num_windows * WINDOW, d, dtype=torch.float32, device=x.device)
+    route = windowed_route(x.shape[0], d, gathered=idx is None)
+    launch = windowed_launch(num_tiles, x.shape[0], d, _sms(x.device), route)
+    _check_shared(name, launch.shared_bytes)
+    out, work = _zeroed_out_and_counters(num_windows * WINDOW, d, launch.slices, x.device)
     from multi_modal_gnn_tpu_torch.ops import _build
 
     rc = _build.load().mmgnn_segment_sum_windowed(
-        _ptr(x), _ptr(idx), _ptr(win_local), _ptr(win_tile_map), num_tiles,
-        _tiles_per_block(num_tiles, x.device), d, _ptr(out),
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
+        _ptr(x), x.shape[0], _ptr(idx), _ptr(win_local), _ptr(win_tile_map), num_tiles, _ptr(work),
+        launch.grab, launch.blocks, launch.slices, launch.slice, launch.stride, int(route == "shared"),
+        d, _ptr(out), ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
     )
     _raise_on(rc, name)
     launch_counts[name] += 1
@@ -322,11 +365,7 @@ def fused_table_segment_sum(table, win_src, win_local, win_tile_map, num_windows
     d = table.shape[1]
     launch = fused_table_launch(num_tiles, table.shape[0], d, _sms(table.device))
     _check_shared(name, launch.shared_bytes)
-    # one zeroed allocation: the output, then the slices' counters (int32 0
-    # has float32 0's bits)
-    rows = num_windows * WINDOW * d
-    buf = torch.zeros(rows + launch.slices * _FT_COUNTER_STRIDE, dtype=torch.float32, device=table.device)
-    out, work = buf[:rows].view(num_windows * WINDOW, d), buf[rows:].view(torch.int32)
+    out, work = _zeroed_out_and_counters(num_windows * WINDOW, d, launch.slices, table.device)
     from multi_modal_gnn_tpu_torch.ops import _build
 
     rc = _build.load().mmgnn_fused_table_segment_sum(

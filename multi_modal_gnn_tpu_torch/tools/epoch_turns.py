@@ -1,23 +1,26 @@
-"""Time RGCN training epochs, and the segment and pair-head kernels, of two
+"""Time training epochs of the RGCN or the HGT, and their kernels, of two
 checkouts of this repository in turns on one card, so that a change can be
 read against host noise and the card's state.
 
-    python -m multi_modal_gnn_tpu_torch.tools.epoch_turns --other PATH [--rounds 5]
+    python -m multi_modal_gnn_tpu_torch.tools.epoch_turns --other PATH [--arch rgcn|hgt] [--rounds 5]
 
 Starts one worker process in this checkout and one in ``PATH`` (another
 checkout, e.g. a parent commit unpacked with ``git archive``).  Each builds
 its own kernels, the ``scale_100k`` graph (seed 0, dense budget 0, span rows
-256, ``use_pallas``) and an RGCN trainer with seeded weights (dropout 0.2,
-the default span@256 train batch), and runs one warm-up epoch.  Asked for an
-epoch, it times one to ``torch.cuda.synchronize``; asked for kernels, it
-times K2f and K2b (``fused_table_segment_sum`` and its backward) on each
-fused-table relation, K3 (``span_segment_sum``) on the span relation and K4b
-(``pair_head_bwd``, dropout 0.2) of each head on the train batch, each the
-median of 20 CUDA-event-timed calls on seeded random inputs, and
-``compute_node_state`` (the median of 5, host clock to synchronize).  Each round asks this, other,
-other, this for an epoch; the kernels are asked for in the same order once,
-after the rounds.  Prints the milliseconds and their medians; both workers
-stop with it.  Needs one CUDA device.
+256, ``use_pallas``) and a trainer with seeded weights (dropout 0.2): the
+RGCN with the default span@256 train batch, or (``--arch hgt``) the HGT
+with 4 heads of 32 on the graph's attention plans; then it runs one warm-up
+epoch.  Asked for an epoch, it times one to ``torch.cuda.synchronize``;
+asked for kernels, it times, each the median of 20 CUDA-event-timed calls on
+seeded random inputs: for the RGCN, K1 (``segment_sum_windowed``) on every
+plan a train step runs it on (the paired tier's forward and the span and
+paired tiers' backward), K2f and K2b on each fused-table relation, K3 on
+the span relation and K4b (dropout 0.2) of each head on the train batch;
+for the HGT, K6, K7 and K8 on every attention group.  Then
+``compute_node_state`` (the median of 5, host clock to synchronize).  Each
+round asks this, other, other, this for an epoch; the kernels are asked for
+in the same order once, after the rounds.  Prints the milliseconds and
+their medians; both workers stop with it.  Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -34,18 +37,24 @@ ROOT = Path(__file__).resolve().parents[2]
 
 # runs in each checkout: only entry points that every checkout of the port has
 _WORKER = """
-import json, statistics, sys, time, torch
+import dataclasses, json, math, statistics, sys, time, torch
 from multi_modal_gnn_tpu_torch.config import Config, GraphConfig, ModelConfig
 from multi_modal_gnn_tpu_torch.data import SyntheticSpec, make_synthetic_graph
+from multi_modal_gnn_tpu_torch.graph.attn_plan import ensure_attn_plans
 from multi_modal_gnn_tpu_torch.models import build_model
 from multi_modal_gnn_tpu_torch.training import Trainer, masker_from_config
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+arch = sys.argv[1]
 config = Config(graph=GraphConfig(dense_adjacency_max_bytes=0, src_span_rows=256),
                 model=ModelConfig(use_pallas=True))
 graph_cpu = make_synthetic_graph(SyntheticSpec.scale_100k(seed=0), config, device="cpu")
-graph = graph_cpu.to(torch.device("cuda", 0))
 masker = masker_from_config(config, graph_cpu)
+if arch == "hgt":
+    config = dataclasses.replace(config, model=dataclasses.replace(config.model, architecture="HGT", num_heads=4))
+    graph = ensure_attn_plans(graph_cpu, config).to(torch.device("cuda", 0))
+else:
+    graph = graph_cpu.to(torch.device("cuda", 0))
 trainer = Trainer(build_model(config, graph_cpu, generator=torch.Generator().manual_seed(1)),
                   graph, masker, config)
 trainer.train_epoch()
@@ -68,15 +77,22 @@ def median_ms(fn, reps=20):
     return statistics.median(times)
 
 
-def kernels():
+def rgcn_kernels(gen, d, out):
     from multi_modal_gnn_tpu_torch.ops import aggregation_tier
     from multi_modal_gnn_tpu_torch.ops import segment_kernels as sk
     from multi_modal_gnn_tpu_torch.graph.schema import mirror_edge_type
     from multi_modal_gnn_tpu_torch.ops import pairhead_kernels as pk
-    from multi_modal_gnn_tpu_torch.serving import compute_node_state
-    gen, d, out = torch.Generator().manual_seed(0), config.model.hidden_dim, {}
     for et, es in sorted(graph.edges.items()):
-        tier = aggregation_tier(es, graph.edges.get(mirror_edge_type(et)), d)
+        mirror = graph.edges.get(mirror_edge_type(et))
+        tier = aggregation_tier(es, mirror, d)
+        if tier in ("paired", "windowed"):
+            x = torch.randn(es.num_src, d, generator=gen).to(graph_device)
+            args = (es.win_src, es.win_local, es.win_tile_map, es.num_windows)
+            out["K1 forward " + "/".join(et)] = median_ms(lambda: sk.segment_sum_windowed(x, *args))
+        if tier in ("span", "paired"):
+            g = torch.randn(mirror.num_src, d, generator=gen).to(graph_device)
+            args = (mirror.win_src, mirror.win_local, mirror.win_tile_map, mirror.num_windows)
+            out["K1 backward of " + "/".join(et)] = median_ms(lambda: sk.segment_sum_windowed(g, *args))
         if tier == "fused_table":
             x = torch.randn(es.num_src, d, generator=gen).to(graph_device)
             fwd = (es.win_src, es.win_local, es.win_tile_map, es.num_windows)
@@ -104,6 +120,31 @@ def kernels():
         out[f"K4b {name} head"] = median_ms(lambda: pk.pair_head_bwd(
             *head, batch.lab_idx, plan.win_local, plan.win_tile_map, (1, 2), mask, plan.lab_block_map,
             0.2, plan.lab_block_rows, plan.num_windows, g_out))
+
+
+def hgt_kernels(gen, d, out):
+    from multi_modal_gnn_tpu_torch.ops import attention_kernels as ak
+    nh = config.model.num_heads
+    for dst_t, plan in sorted(graph.attn_plans.items()):
+        q = (torch.randn(plan.num_dst, d, generator=gen) / math.sqrt(d // nh)).to(graph_device)
+        k, v = (torch.randn(plan.num_src_total, d, generator=gen).to(graph_device) for _ in range(2))
+        dout = torch.randn(plan.num_dst, d, generator=gen).to(graph_device)
+        fwd = (*plan.fwd.arrays(), plan.fwd.num_windows, nh)
+        rev = (*plan.rev.arrays(), plan.rev.num_windows, nh)
+        o, lse = ak.flash_attention_fwd(q, k, v, *fwd)
+        n = plan.num_dst
+        lse = lse[:n].contiguous()
+        delta = (dout * o[:n]).reshape(n, nh, -1).sum(-1).contiguous()
+        stats = (q, k, v, dout, lse, delta)
+        out["K6 " + dst_t] = median_ms(lambda: ak.flash_attention_fwd(q, k, v, *fwd))
+        out["K7 " + dst_t] = median_ms(lambda: ak.flash_attention_dq(*stats, *fwd))
+        out["K8 " + dst_t] = median_ms(lambda: ak.flash_attention_dkv(*stats, *rev))
+
+
+def kernels():
+    from multi_modal_gnn_tpu_torch.serving import compute_node_state
+    gen, d, out = torch.Generator().manual_seed(0), config.model.hidden_dim, {}
+    (hgt_kernels if arch == "hgt" else rgcn_kernels)(gen, d, out)
     model = trainer.model
     state_ms = []
     for _ in range(6):
@@ -131,9 +172,9 @@ for line in sys.stdin:
 """
 
 
-def _start(root: Path) -> subprocess.Popen:
+def _start(root: Path, arch: str) -> subprocess.Popen:
     return subprocess.Popen(
-        [sys.executable, "-c", _WORKER], cwd=root, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        [sys.executable, "-c", _WORKER, arch], cwd=root, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
         text=True,
     )
 
@@ -147,9 +188,10 @@ def _ask(worker: subprocess.Popen, what: str) -> str:
 def main(argv: Optional[List[str]] = None) -> Dict[str, dict]:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--other", required=True, type=Path, help="root of the other checkout")
+    parser.add_argument("--arch", choices=("rgcn", "hgt"), default="rgcn")
     parser.add_argument("--rounds", type=int, default=5)
     args = parser.parse_args(argv)
-    workers = {"this": _start(ROOT), "other": _start(args.other.resolve())}
+    workers = {"this": _start(ROOT, args.arch), "other": _start(args.other.resolve(), args.arch)}
     try:
         for name, worker in workers.items():
             if worker.stdout.readline().strip() != "ready":
@@ -169,7 +211,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, dict]:
     for name in order[:2]:
         where = ROOT if name == "this" else args.other
         ms = epochs[name]
-        print(f"epoch ms, {name} ({where}): {['%.2f' % x for x in ms]}  median {statistics.median(ms):.2f}")
+        print(f"{args.arch} epoch ms, {name} ({where}): {['%.4f' % x for x in ms]}  median {statistics.median(ms):.4f}")
         for kernel in kernels[name][0]:
             print(f"  {kernel}, {name}: " + ", ".join(f"{k[kernel]:.4f}" for k in kernels[name]) + " ms")
     return {"epochs": epochs, "kernels": kernels}

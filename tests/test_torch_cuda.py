@@ -852,6 +852,109 @@ def test_wrappers_reject_other_devices(plans):
 # rtol=atol=1e-5; the backward's sums (up to a few hundred terms per row
 # here) are held per tensor to 1e-4 of their largest magnitude.
 
+
+def _k1_plan(num_src, seed=5):
+    """A windowed plan over 1,000 destinations (8 windows) with windows 2
+    and 5 empty (a tile of padding only) and destination 3 taking 300 extra
+    edges (a run across several 64-slot units and the warps of a tile); its
+    ~200 tiles outnumber the warps' first units, so warps take units of
+    other windows from the counter."""
+    rng = np.random.default_rng(seed)
+    dst = rng.integers(0, 1000, 200_000)
+    dst = dst[(dst // 128 != 2) & (dst // 128 != 5)]
+    dst = np.concatenate([dst, np.full(300, 3)])
+    src = rng.integers(0, num_src, dst.shape[0])
+    order = np.argsort(dst, kind="stable")
+    src, dst = src[order], dst[order]
+    win_src, win_local, win_tile_map, num_windows = hetero.build_window_plan(src, dst, 1000)
+    count = np.bincount(dst, minlength=1000).astype(np.float32)
+    return win_src, win_local, win_tile_map, num_windows, count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [36, 128, 256])
+@pytest.mark.parametrize("route,num_src", [("shared", 700), ("global", 5000), ("gathered", 5000)])
+def test_k1_routes_match_plain(gpu, route, num_src, width):
+    win_src, win_local, win_tile_map, num_windows, count = _k1_plan(num_src)
+    plan = [torch.from_numpy(a).to(gpu) for a in (win_src, win_local, win_tile_map)]
+    gen = torch.Generator().manual_seed(width)
+    x = torch.randn(num_src, width, generator=gen).to(gpu)
+    if route == "gathered":
+        x = x.index_select(0, plan[0].long()).contiguous()
+        idx = None
+    else:  # the table has NaN rows right past it: never read
+        x_nan = torch.full((num_src + 37, width), float("nan"), device=gpu)
+        x_nan[:num_src] = x
+        x, idx = x_nan, plan[0]
+    assert sk.windowed_route(x.shape[0], width, idx is None) == route
+    args = (idx, plan[1], plan[2], num_windows)
+    before = sk.launch_counts["segment_sum_windowed"]
+    got = sk.segment_sum_windowed(x, *args)[:1000]
+    want = sk.segment_sum_windowed_plain(x[:num_src] if idx is not None else x, *args)[:1000]
+    assert sk.launch_counts["segment_sum_windowed"] == before + 1
+    per = torch.from_numpy(count).clamp_min(1.0)[:, None].to(gpu)
+    got, want = (got / per).cpu().numpy(), (want / per).cpu().numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, **TOL)
+    empty = (count == 0)
+    assert float(np.abs(got[empty]).max()) == 0.0  # zero rows for empty destinations
+
+
+K8_WIDTHS = [(h, nh) for h in (32, 64, 128) for nh in (1, 2, 4, 8, 16, 32) if ak.heads_supported(h, nh)]
+
+
+def _k8_group(num_dst):
+    """An attention group over 512 virtual sources (4 reverse windows, the
+    third empty) whose source 5 takes 2,500 extra edges (a run across several
+    reverse tiles); its ~150 reverse tiles outnumber the blocks, so a block
+    changes window.  With more than 512 destinations the reverse side takes
+    the span layout (the sort route), else the resident one (the table
+    route)."""
+    rng = np.random.default_rng(7)
+    src = rng.integers(0, 512, 150_000)
+    src = src[src // 128 != 2]
+    src = np.concatenate([src, np.full(2_500, 5)])
+    dst = rng.integers(0, num_dst, src.shape[0])
+    fwd = _build_side(src, dst, num_dst, 512, 128, 512)
+    rev = _build_side(dst, src, 512, num_dst, 128, 512)
+    return AttnGroupPlan(fwd=fwd, rev=rev, src_offsets=(0,), num_src_total=512, num_dst=num_dst,
+                         num_edges=len(src))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,num_heads", K8_WIDTHS)
+@pytest.mark.parametrize("route,num_dst", [("table", 300), ("sort", 3000)])
+def test_k8_routes_match_plain(gpu, route, num_dst, h, num_heads):
+    plan = _k8_group(num_dst).to(gpu)
+    assert plan.rev.use_span == (route == "sort")
+    gen = torch.Generator().manual_seed(h + num_heads)
+    q = (torch.randn(num_dst, h, generator=gen) / (h // num_heads) ** 0.5).to(gpu)
+    k, v = (torch.randn(512, h, generator=gen).to(gpu) for _ in range(2))
+    dout = torch.randn(num_dst, h, generator=gen).to(gpu)
+    out, lse = ak.flash_attention_fwd_plain(q, k, v, *plan.fwd.arrays(), plan.fwd.num_windows, num_heads)
+    lse = lse[:num_dst].contiguous()
+    delta = (dout * out[:num_dst]).reshape(num_dst, num_heads, -1).sum(-1).contiguous()
+    rev = (*plan.rev.arrays(), plan.rev.num_windows, num_heads)
+    tiles = plan.rev.arrays()[1].shape[0] // 1024
+    launch = ak.dkv_launch(tiles, num_dst, h, num_heads, torch.cuda.get_device_properties(gpu).multi_processor_count)
+    # a single head of 128 columns of a 300-row table does not fit a block: the sort route takes it
+    assert launch.route == (route if (route, h // num_heads) != ("table", 128) else "sort")
+    want = ak.flash_attention_dkv_plain(q, k, v, dout, lse, delta, *rev)
+
+    def nan_rows(x, extra=300):
+        out = torch.full((x.shape[0] + extra, x.shape[1]), float("nan"), device=gpu)
+        out[: x.shape[0]] = x
+        return out
+
+    # q and dO are views whose storage holds NaN rows right past them
+    got = ak.flash_attention_dkv(nan_rows(q)[:num_dst], nan_rows(k), nan_rows(v), nan_rows(dout)[:num_dst],
+                                 lse, delta, *rev)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dk", "dv"), got, want):
+        assert bool(torch.isfinite(a).all()), name
+        _assert_close_scaled(a[:512].cpu().numpy(), b[:512].cpu().numpy(), 1e-4, name)
+        assert float(a[256:384].abs().max()) == 0.0  # the empty window
+
 ATTN_H, ATTN_HEADS = 128, 4
 
 

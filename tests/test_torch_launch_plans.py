@@ -1,6 +1,7 @@
 """PyTorch port: the launch plans of the kernels redesigned for the H100,
-K2f (``ops/segment_kernels.fused_table_launch``) and K4b / K5b
-(``ops/pairhead_kernels.bwd_launch``).
+K2f (``ops/segment_kernels.fused_table_launch``), K4b / K5b
+(``ops/pairhead_kernels.bwd_launch``), K1 (``windowed_route``,
+``windowed_launch``) and K8 (``ops/attention_kernels.dkv_launch``).
 
 The wrappers derive them on the host before they launch, so they are checked
 here without a card: every table the fused-table tier admits fits a block's
@@ -11,7 +12,10 @@ The kernels themselves are compared with their plain versions on the card
 """
 
 import pytest
+import torch
 
+from multi_modal_gnn_tpu_torch.graph.attn_plan import ATTN_RESIDENT_MAX_ROWS
+from multi_modal_gnn_tpu_torch.ops import attention_kernels as ak
 from multi_modal_gnn_tpu_torch.ops import pairhead_kernels as pk
 from multi_modal_gnn_tpu_torch.ops import segment_kernels as sk
 from multi_modal_gnn_tpu_torch.ops.segment import FUSED_TABLE_MAX_BYTES, FUSED_TABLE_MAX_ROWS
@@ -100,3 +104,128 @@ def test_pair_head_backward_shared_memory_is_the_same_for_any_lab_table():
         for half in (range(0, 4), range(4, 8)):
             banks = [(g * stride + 2 * t + q) % 32 for g in half for t in range(4) for q in range(2)]
             assert len(set(banks)) == 32
+
+
+def _dealt_once(units: int, warps: int, grab: int) -> bool:
+    """Each warp's first grab by its index, then each counter grab of
+    ``grab`` units: every unit exactly once."""
+    starts = list(range(0, warps * grab, grab)) + list(range(warps * grab, units, grab))
+    got = [u for u0 in starts if u0 < units for u in range(u0, min(u0 + grab, units))]
+    return got == list(range(units))
+
+
+# K1 at its call sites (scale_100k, hidden 128) and at the tier's edges:
+# name: (rows of x, width, pre-gathered, the route)
+K1_ROUTES = {
+    "paired_forward_from_patients": (100_000, 128, False, "global"),
+    "span_backward_lab_gradient": (500, 128, False, "shared"),
+    "paired_backward_diagnosis_gradient": (500, 128, False, "shared"),
+    "paired_backward_medication_gradient": (300, 128, False, "shared"),
+    "planned_gather_backward": (409_600, 128, True, "gathered"),
+    "largest_table_the_tier_admits": (FUSED_TABLE_MAX_ROWS, 128, False, "shared"),
+    "one_row_too_many": (FUSED_TABLE_MAX_ROWS + 1, 128, False, "global"),
+    "too_many_bytes": (FUSED_TABLE_MAX_ROWS, 1024, False, "global"),
+    "width_36": (37, 36, False, "shared"),
+    "width_256": (37, 256, False, "shared"),
+    "gathered_width_4": (1024, 4, True, "gathered"),
+}
+
+
+def test_k1_table_gates_are_the_fused_table_tiers():
+    # K1 stages in shared memory exactly the tables the fused-table tier would
+    assert (sk.WINDOWED_TABLE_MAX_ROWS, sk.WINDOWED_TABLE_MAX_BYTES) == (FUSED_TABLE_MAX_ROWS, FUSED_TABLE_MAX_BYTES)
+
+
+@pytest.mark.parametrize("name", sorted(K1_ROUTES))
+def test_k1_route_and_plan(name):
+    rows, d, gathered, route = K1_ROUTES[name]
+    assert sk.windowed_route(rows, d, gathered) == route
+    num_tiles = max(1, rows // 1024) if gathered else 402
+    launch = sk.windowed_launch(num_tiles, rows, d, H100_SMS, route)
+    assert launch.shared_bytes <= sk._MAX_SHARED_BYTES
+    assert launch.units == num_tiles * 1024 // 64
+    assert (launch.slices - 1) * launch.slice < d <= launch.slices * launch.slice
+    assert launch.slice % 4 == 0
+    if route == "shared":  # K2f's own plan: the table's slice fits beside the indices
+        assert launch == sk.fused_table_launch(num_tiles, rows, d, H100_SMS)
+        assert launch.shared_bytes == 4 * rows * launch.stride + sk._FT_INDEX_BYTES
+        assert _dealt_once(launch.units, launch.blocks * 16, launch.grab)
+    else:  # a block a tile for each 128-column slice, no dynamic shared memory, no counter
+        assert launch.shared_bytes == 0 and launch.grab == 1
+        assert launch.slice == min(d, 128) and launch.blocks == num_tiles
+
+
+def test_k1_rejects_an_unknown_route():
+    with pytest.raises(ValueError):
+        sk.windowed_launch(10, 100, 128, H100_SMS, "dense")
+
+
+# K8 on scale_100k's HGT groups (4 heads of 32): name: (reverse tiles, rows
+# of q / dO gathered, route, slice, slices)
+K8_GROUPS = {
+    "patient": (7828, 100_000, "sort", 64, 2),
+    "lab": (5239, 500, "table", 32, 4),
+    "diagnosis": (782, 500, "table", 32, 4),
+    "medication": (1563, 300, "table", 64, 2),
+}
+
+
+def _k8_shared(launch, rows, h, num_heads):
+    """The dynamic shared memory csrc/attention.cu sizes for the launch."""
+    dh = h // num_heads
+    if launch.route == "table":  # q, dO slices; LSE, delta of its heads; staged indices
+        return 4 * (2 * rows * launch.stride + 2 * rows * (launch.slice // dh)) + 32 * 2 * 64 * 4
+    groups = 32 * 32 // (launch.slice // 4)  # row groups of 32 warps
+    kv = 2 if launch.stage_kv else 1  # the partial, and the window's k | v slice
+    return 4 * (kv * 128 * 2 * launch.slice + groups * 2 * launch.slice) + 4 * 6 * 1024
+
+
+@pytest.mark.parametrize("group", sorted(K8_GROUPS))
+def test_k8_route_of_each_hgt_group(group):
+    tiles, rows, route, width, slices = K8_GROUPS[group]
+    launch = ak.dkv_launch(tiles, rows, 128, 4, H100_SMS)
+    assert (launch.route, launch.slice, launch.slices) == (route, width, slices)
+    assert launch.shared_bytes == _k8_shared(launch, rows, 128, 4) <= sk._MAX_SHARED_BYTES
+    assert launch.blocks * launch.slices <= H100_SMS  # one block an SM
+    if route == "table":
+        units = tiles * 1024 // 64
+        assert _dealt_once(units, launch.blocks * 32, launch.grab)
+        assert -(-units // (launch.blocks * 32 * launch.grab)) <= 4  # about four grabs a warp
+    else:  # the patient group keeps its window's k | v slice beside the partial
+        assert launch.stage_kv and 1 <= launch.grab <= 8
+
+
+HEADS = [(h, nh) for h in (4, 8, 32, 36, 64, 96, 128) for nh in (1, 2, 3, 4, 8, 16, 32) if ak.heads_supported(h, nh)]
+
+
+@pytest.mark.parametrize("h,num_heads", HEADS)
+@pytest.mark.parametrize("rows", [1, 37, ATTN_RESIDENT_MAX_ROWS, ATTN_RESIDENT_MAX_ROWS + 1, 100_000])
+def test_k8_plan_fits_every_width_it_takes(h, num_heads, rows):
+    launch = ak.dkv_launch(100, rows, h, num_heads, H100_SMS)
+    dh = h // num_heads
+    heads = launch.slice // dh
+    assert launch.slice % dh == 0 and heads & (heads - 1) == 0 and num_heads % heads == 0
+    assert launch.slices * launch.slice == h
+    assert launch.shared_bytes == _k8_shared(launch, rows, h, num_heads) <= sk._MAX_SHARED_BYTES
+    # the table route stages the gathered side only where the plans keep it resident
+    assert (launch.route == "table") <= (rows <= ak.DKV_TABLE_MAX_ROWS == ATTN_RESIDENT_MAX_ROWS)
+    assert launch.mode == (0 if launch.route == "table" else 1 if launch.stage_kv else 2)
+    assert 1 <= launch.blocks and launch.grab >= 1
+
+
+def test_k8_sort_route_reads_k_and_v_from_memory_only_when_a_head_is_too_wide():
+    # one head of 128 columns: its k | v slice does not fit beside the partial
+    wide = ak.dkv_launch(100, 100_000, 128, 1, H100_SMS)
+    assert (wide.route, wide.slice, wide.stage_kv) == ("sort", 128, False)
+    assert ak.dkv_launch(100, 100_000, 128, 2, H100_SMS).stage_kv
+
+
+def test_attention_launches_use_the_cached_sm_count(monkeypatch):
+    def no_query(*args):
+        raise AssertionError("the SM count is asked of the device at every launch")
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", no_query)
+    monkeypatch.setattr(ak, "_sms", lambda device: H100_SMS)
+    plan = torch.zeros(4 * 1024, dtype=torch.int32)
+    tiles = torch.zeros(4, dtype=torch.int32)
+    assert ak._launch_args("k", torch.device("cpu"), plan, plan, tiles) == (4, 1)
