@@ -10,7 +10,8 @@ Phases, each printing one line with its seconds:
                    -Xptxas -v lines of every kernel, and by name those of
                    K2b and K3 (the two instances of incidence_kernel), K2f
                    and K1 (gather_runs_kernel, gather_tile_kernel's two
-                   instances), K8's two routes, K4b and K5b
+                   instances), K6 and its merge, K7, K8's two routes, K4b
+                   and K5b
   3. graph         the scale_100k synthetic graph (seed 0, 100k patients, ~5M
                    patient-lab edges, numbered as the JAX package numbers
                    nodes), dense budget 0, span rows 256; per relation its
@@ -51,8 +52,14 @@ Phases, each printing one line with its seconds:
                    group its edges, windows, resident or span layouts, tiles
  11. hgt-kernels   K6, K7, K8 against their plain versions on every group's
                    plans (both layouts), also with NaN rows past every table;
-                   every group's median times and bounds; K8's launch (route,
-                   column slices) per group
+                   each kernel's launch (K8's route, column slices) per
+                   group; the library yardstick, one
+                   scaled_dot_product_attention over the group's dense
+                   additive mask (log edge count, -inf), its backend, its
+                   out against K6's plain version on rows with edges; every
+                   group's K6 timed in turns with SDPA's forward and K7, K8
+                   with its backward (library, kernel, kernel, library),
+                   plain times and bounds
  12. hgt-slice     the HGT at full width (hidden 128, 2 layers, 4 heads, head
                    (64, 32), seeded weights): compute_node_state on the flash
                    tier against the same weights on the segment tier (plain
@@ -153,6 +160,9 @@ NAMED_KERNELS = (
     ("K2f and K1 on a small table gather_runs_kernel", "18gather_runs_kernel"),
     ("K1 on a large table gather_tile_kernel<false>", "gather_tile_kernelILb0E"),
     ("K1 on pre-gathered rows gather_tile_kernel<true>", "gather_tile_kernelILb1E"),
+    ("K6 flash_rows_kernel<FWD>", "17flash_rows_kernelILi0E"),
+    ("K6 merge flash_fwd_merge_kernel", "22flash_fwd_merge_kernel"),
+    ("K7 flash_rows_kernel<DQ>", "17flash_rows_kernelILi1E"),
     ("K8 sort route flash_dkv_kernel", "16flash_dkv_kernel"),
     ("K8 table route flash_dkv_table_kernel", "22flash_dkv_table_kernel"),
     ("K4b pair_head_bwd_kernel", "20pair_head_bwd_kernel"),
@@ -332,6 +342,52 @@ def _library_ms(name: str, fn):
         return None
     print(f"    {name}: library call {ms:.4f} ms")
     return ms
+
+
+def _sdpa_yardstick(q, k, v, dout, src, local, tile_map, num_windows, num_heads, n, ns) -> dict:
+    """One ``scaled_dot_product_attention`` call computing K6's function on
+    the group (and, by its backward, K7's and K8's): q ``[1, nh, n, dh]``,
+    k and v ``[1, nh, ns, dh]``, the dense additive mask ``[n, ns]`` from
+    the plan's forward arrays (log of each pair's edge count, -inf without
+    an edge), scale 1 (q arrives scaled).  The memory-efficient backend
+    where it takes f32 and this mask, else the math backend.  Returns the
+    backend's name, ``out`` ``[n, h]`` and the timed calls; the port never
+    calls it."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from multi_modal_gnn_tpu_torch.ops import attention_kernels as ak
+
+    row, s = ak._slots(src, local, tile_map)
+    bias = torch.zeros(n, ns, dtype=torch.float32, device=q.device)
+    bias.index_put_((row, s), torch.ones_like(row, dtype=torch.float32), accumulate=True)
+    bias.log_()  # log(count); log(0) = -inf
+    heads = lambda x: x.reshape(x.shape[0], num_heads, -1).transpose(0, 1).unsqueeze(0).contiguous()  # noqa: E731
+    qh, kh, vh = (heads(x).requires_grad_() for x in (q, k, v))
+    gh = heads(dout)
+    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend):
+                out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias, scale=1.0)
+                torch.cuda.synchronize()
+            break
+        except RuntimeError as exc:
+            print(f"    SDPA {backend.name} refused ({type(exc).__name__}: {str(exc)[:160]}); trying the next")
+    else:
+        raise AssertionError("no SDPA backend takes the f32 inputs and the mask")
+
+    def fwd():
+        with torch.no_grad(), sdpa_kernel(backend):
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias, scale=1.0)
+
+    def bwd():
+        return torch.autograd.grad(out, (qh, kh, vh), gh, retain_graph=True)
+
+    return {
+        "backend": backend.name, "fwd": fwd, "bwd": bwd,
+        "out": out.detach()[0].transpose(0, 1).reshape(n, -1),
+    }
 
 
 def _csr(row_ptr, cols, num_rows, num_cols, device):
@@ -1070,10 +1126,20 @@ def main() -> int:
     for seed, (dst_t, plan) in enumerate(sorted(plans.items(), key=lambda kv: -kv[1].num_edges)):
         q, k, v, dout = attn_problem(plan, 10 + seed)
         n, ns = plan.num_dst, plan.num_src_total
+        # the forward side's tiles hold their slots in row order, as
+        # ensure_attn_plans makes them for the model
         fwd_args = (*plan.fwd.arrays(), plan.fwd.num_windows, nh)
         rev_args = (*plan.rev.arrays(), plan.rev.num_windows, nh)
         tag = (f"{dst_t} group (fwd {'span' if plan.fwd.use_span else 'resident'}, "
                f"rev {'span' if plan.rev.use_span else 'resident'})")
+        fwd_tiles = plan.fwd.arrays()[1].shape[0] // TILE_E
+        launches = {
+            "flash_attention_fwd": ak.fwd_launch(fwd_tiles, d, nh, sms),
+            "flash_attention_dq": ak.dq_launch(fwd_tiles, d, nh, sms),
+            "flash_attention_dkv": ak.dkv_launch(plan.rev.arrays()[1].shape[0] // TILE_E, n, d, nh, sms),
+        }
+        for name, launch in launches.items():
+            print(f"      ({name} launch on the {dst_t} group: {launch})")
         out_p, lse_p = ak.flash_attention_fwd_plain(q, k, v, *fwd_args)
         lse_d = lse_p[:n].contiguous()
         delta = (dout * out_p[:n]).reshape(n, nh, -1).sum(-1).contiguous()
@@ -1103,44 +1169,61 @@ def main() -> int:
                 _compare_scaled(f"K8 dv, {tag}{label}", dv[:ns], dv_p[:ns], GRAD_REL),
             ])
             del out, lse, dq, dk, dv
-        # times and bounds at this group's shapes
+        # the library yardstick: one scaled_dot_product_attention over the
+        # group's dense additive mask, log(edge count) where a pair has edges,
+        # -inf elsewhere (q arrives scaled: scale 1); its backward computes
+        # K7's and K8's function together.  Built outside the timings.
+        lib = _sdpa_yardstick(q, k, v, dout, *fwd_args, n, ns)
+        real_rows = lse_p[:n, 0] < ak.EMPTY_LSE  # SDPA gives NaN on a row without edges
+        _compare(f"SDPA ({lib['backend']}) out against K6's plain version, {tag}, rows with edges",
+                 lib["out"][real_rows], out_p[:n][real_rows], SLICE_ATOL, SLICE_RTOL)
+        # times in turns with the library (library, kernel, kernel, library) and bounds
         e = plan.num_edges
         fwd_plan, rev_plan = _nbytes(*plan.fwd.arrays()), _nbytes(*plan.rev.arrays())
         stats_bytes = _nbytes(q, k, v, dout, lse_d, delta)
+        k6 = lambda: ak.flash_attention_fwd(q, k, v, *fwd_args)  # noqa: E731
+        k7 = lambda: ak.flash_attention_dq(*stats, *fwd_args)  # noqa: E731
+        k8 = lambda: ak.flash_attention_dkv(*stats, *rev_args)  # noqa: E731
+        fwd_turns = [_median_ms(lib["fwd"]), _median_ms(k6), _median_ms(k6), _median_ms(lib["fwd"])]
+        bwd_turns = [_median_ms(lib["bwd"]), _median_ms(k7), _median_ms(k8), _median_ms(k7), _median_ms(k8),
+                     _median_ms(lib["bwd"])]
+        lib_fwd, lib_bwd = (fwd_turns[0] + fwd_turns[3]) / 2, (bwd_turns[0] + bwd_turns[5]) / 2
+        print(f"    {dst_t} group: turns SDPA forward, K6, K6, SDPA forward "
+              f"{', '.join('%.4f' % t for t in fwd_turns)} ms; SDPA backward, K7, K8, K7, K8, SDPA backward "
+              f"{', '.join('%.4f' % t for t in bwd_turns)} ms")
         work = {
             "flash_attention_fwd": (
-                lambda: ak.flash_attention_fwd(q, k, v, *fwd_args),
+                (fwd_turns[1] + fwd_turns[2]) / 2, fwd_turns,
                 lambda: ak.flash_attention_fwd_plain(q, k, v, *fwd_args),
-                _nbytes(q, k, v) + fwd_plan + _nbytes(out_p, lse_p), e * HGT_FWD_FLOPS_PER_COL * d,
+                _nbytes(q, k, v) + fwd_plan + _nbytes(out_p, lse_p), e * HGT_FWD_FLOPS_PER_COL * d, lib_fwd,
             ),
             "flash_attention_dq": (
-                lambda: ak.flash_attention_dq(*stats, *fwd_args),
+                (bwd_turns[1] + bwd_turns[3]) / 2, bwd_turns,
                 lambda: ak.flash_attention_dq_plain(*stats, *fwd_args),
-                stats_bytes + fwd_plan + _nbytes(dq_p), e * HGT_BWD_FLOPS_PER_COL * d,
+                stats_bytes + fwd_plan + _nbytes(dq_p), e * HGT_BWD_FLOPS_PER_COL * d, lib_bwd,
             ),
             "flash_attention_dkv": (
-                lambda: ak.flash_attention_dkv(*stats, *rev_args),
+                (bwd_turns[2] + bwd_turns[4]) / 2, bwd_turns,
                 lambda: ak.flash_attention_dkv_plain(*stats, *rev_args),
-                stats_bytes + rev_plan + _nbytes(dk_p, dv_p), e * HGT_BWD_FLOPS_PER_COL * d,
+                stats_bytes + rev_plan + _nbytes(dk_p, dv_p), e * HGT_BWD_FLOPS_PER_COL * d, lib_bwd,
             ),
         }
-        for name, (kernel, plain, nbytes, flops) in work.items():
-            ms, plain_ms = _median_ms(kernel), _median_ms(plain, HGT_PLAIN_REPS)
+        for name, (ms, turns, plain, nbytes, flops, lib_ms) in work.items():
+            plain_ms = _median_ms(plain, HGT_PLAIN_REPS)
             bound = _bound(nbytes, flops)
+            covers = "K6" if name == "flash_attention_fwd" else "K7 + K8 together"
             print(
-                f"    {name} on the {dst_t} group: kernel {ms:.4f} ms (median of {TIMING_REPS})  "
+                f"    {name} on the {dst_t} group: kernel {ms:.4f} ms (mean of two medians of {TIMING_REPS})  "
                 f"plain {plain_ms:.4f} ms (median of {HGT_PLAIN_REPS})  bound {bound['bound_ms']:.4f} ms "
-                f"({bound['bound_by']})  library none"
+                f"({bound['bound_by']})  library {lib_ms:.4f} ms (SDPA {lib['backend']}, {covers})"
             )
             attn_results.setdefault(name, {})[dst_t] = {
                 "max_abs_err": max(errs[name]), "ms": ms, "plain_ms": plain_ms, **bound,
-                "library_ms": None,
+                "library_ms": lib_ms, "library_backend": lib["backend"], "library_covers": covers,
+                "turns_ms": turns, "launch": dataclasses.asdict(launches[name]),
             }
-            if name == "flash_attention_dkv":
-                launch = ak.dkv_launch(plan.rev.arrays()[1].shape[0] // TILE_E, n, d, nh, sms)
-                attn_results[name][dst_t]["launch"] = dataclasses.asdict(launch)
-                print(f"      (K8 launch: {launch})")
-        del q, k, v, dout, out_p, lse_p, dq_p, dk_p, dv_p, stats, work
+        del lib, q, k, v, dout, out_p, lse_p, dq_p, dk_p, dv_p, stats, work, k6, k7, k8
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     _phase("hgt-kernels", t0, "K6, K7, K8 match their plain versions on every group, NaN rows past the tables too")
 

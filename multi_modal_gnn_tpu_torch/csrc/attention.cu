@@ -12,53 +12,73 @@
 //
 // A plan (graph/attn_plan.py) lays one destination type's combined edge list
 // out in TILE_E-slot tiles; every tile's output rows lie in one WINDOW-row
-// window (tile_map[t]), local[e] is the slot's row in it (WINDOW = padding)
-// and src[e] the row it gathers.  The forward layout has windows over
-// destinations and gathers from the virtual source table (k, v); the
-// reverse layout has windows over virtual sources and gathers from the
-// destinations (q, dO, LSE, delta).  Per head (h = nh * dh columns, q scaled
-// by 1/sqrt(dh) by the caller):
+// window (tile_map[t], non-decreasing), local[e] is the slot's row in it
+// (WINDOW = padding) and src[e] the row it gathers.  The forward layout has
+// windows over destinations and gathers from the virtual source table (k,
+// v); the reverse layout has windows over virtual sources and gathers from
+// the destinations (q, dO, LSE, delta).  Per head (h = nh * dh columns, q
+// scaled by 1/sqrt(dh) by the caller):
 //   K6  out[d] = sum_e softmax_e(q[d] . k[s_e]) v[s_e],  lse[d] = m + log(sum exp)
 //       (an empty destination: out 0, lse 1e30)
 //   K7  dq[d]  = sum_e p_e (dO[d] . v[s_e] - delta[d]) k[s_e]
 //   K8  dk[s]  = sum_e p_e (dO[d_e] . v[s] - delta[d_e]) q[d_e]
 //       dv[s]  = sum_e p_e dO[d_e]
 //   with p_e = exp(min(q[d] . k[s] - lse[d], 60)) and delta = sum_dh(dO * out),
-// all in f32.  Both layouts run through the same code: the span layout's
-// promise (a tile's sources lie in span_rows rows from span_base[t]) was what
-// let the TPU copy one block per tile into VMEM; here rows are gathered by
-// index through L1 / L2 (at the 2048 / 4096-row rungs a span is 2-4 MB of
-// k|v, more than any block's shared memory), and the span layout's locality
-// shows as L2 hits.  A padding slot's index is never read, so nothing past a
-// table is ever touched.
+// all in f32.  A padding slot's index is never read, so nothing past a table
+// is ever touched.
 //
-// What bounds them on the H100: gathered bytes and per-slot latency.  Each
-// real slot reads one or two 4*h-byte rows (k and v; q and dO in K8) and
-// does ~4*h (K6) to ~8*h (K7, K8) FLOPs, so the FLOP count is far below the
-// card's f32 rate and the gathered traffic is served mostly by L2.  The
-// design of K6 and K7:
-//   * One block per group of consecutive tiles (not per window): the lab,
-//     diagnosis and medication groups have 3-4 forward windows for up to 5M
-//     edges, the patient group 11 reverse windows for 6.4M.  A block sorts
-//     each tile's slots by output row in shared memory (a counting sort, as
-//     K3 does), so every warp walks runs of one output row: the row's own
-//     operands (q / dO / LSE / delta in K6, K7) load once per
-//     run, the run's sums stay in registers, and one shared-memory atomic per
-//     column merges the run into the block's window accumulator, which is
-//     flushed to the zeroed output with global f32 atomics when the window
-//     changes and at the end.  Sums change order from run to run.
-//   * A lane owns 4 columns (one 16-byte load per row); the dh / 4 lanes of a
-//     head reduce the per-head dot products with xor shuffles.  h <= 128.
-//   * K6 cannot carry a running max across blocks, so it runs in two passes
-//     and a finish: the first computes every slot's logits (stored, [slots,
-//     nh]) and the exact row max per head (float atomicMax), the second sums
-//     exp(logit - max) and the exp-weighted v rows, and the finish divides by
-//     max(sum, 1e-20) and writes LSE.  K7 and K8 need no max: with LSE and
-//     delta known their sums are plain, and f32 atomics across blocks do.
+// What bounds them on the H100: each real slot reads one or two 4*h-byte
+// rows and does ~4*h (K6) to ~8*h (K7, K8) FLOPs, far below the card's f32
+// rate; what the first versions lost time to was per-tile fixed work, the
+// latency of each slot's chain of head-sum shuffles, float atomics in shared
+// memory (compare-and-swap loops in SASS) and scalar global atomics flushing
+// whole window partials.
+//
+// K6 and K7 (redesigned for Hopper; flash_rows_kernel).  Their first version
+// was a block of a few consecutive tiles with a [128, h] window accumulator
+// merged into by shared float atomics, and K6 ran in two passes (an exact
+// row max, then the sums) and a finish.  Now, as K8's sort route:
+//   * Persistent blocks over column slices of 2^m whole heads take `grab`
+//     tiles at a time from a counter per slice; grids are one wave.  The
+//     launch plan (ops/attention_kernels.py rows_launch) takes the widest
+//     slice that fits (all 128 columns at the HGT's widths): a tile's slots
+//     are staged, ordered and walked once a slice.
+//   * A tile's slots are copied in with cp.async under the previous tile's
+//     work; a tile not in local-row order is counting-sorted in shared
+//     memory (padding left out).  The model's plans hold tiles already in
+//     row order (AttnSidePlan.row_ordered), so the sort is skipped.
+//   * Each slot reads its k | v row through L1 / L2.  Staging each tile's
+//     span block (the TPU kernels' VMEM copy) or a small table whole in
+//     shared memory lost to these gathers on every group and width
+//     measured on the H100 (PERF.md section 6, PR 8).  A run's row operands
+//     (q; K7: dO, LSE, delta) are loaded once a run, beside its first
+//     slot's k | v.
+//   * Row groups of slice / 4 lanes take equal chunks of the ordered slots;
+//     a lane owns 4 columns and the head's lanes sum dot products by xor
+//     shuffles.  Runs of one row are summed in registers: K7 as plain sums,
+//     K6 with the online softmax (running max m, normaliser l, exp-weighted
+//     v sum o, rescaled by exp(m_old - m_new) when m rises).  A run wholly
+//     inside a chunk merges into the block's window partial by its group
+//     alone; a run cut at a chunk boundary through the groups' edge buffers
+//     after a barrier, by the group where it starts.  No float atomics in
+//     shared memory.
+//   * The partial leaves when the window changes and at the end: K7's with
+//     float4 global atomics.  K6's blocks cannot merge a softmax across
+//     blocks with atomics: a block's stint in window w (its tiles of w, from
+//     the grab g where it met w first; windows only grow along a block's
+//     grabs) writes its partial (m, l per head; o for the rows it touched)
+//     to entry g + w of a scratch array.  Grabs are consecutive tiles and
+//     windows non-decreasing, so entries are distinct; unwritten ones keep
+//     l = 0.  K6's blocks take their share of tiles in two grabs, so a
+//     window has few entries.  A merge kernel (flash_fwd_merge_kernel)
+//     combines a row's entries and writes out / max(l, 1e-20) and LSE.
 //   * The backward clamps the exp argument at 60, as the TPU kernels do.
+//   What bounds them now: the gathered k | v rows, 1 KB a slot at h = 128,
+//   read through L2 at about 4 TB/s on the patient and lab groups, and the
+//   instructions of each slot's head sums.
 //
-// K8 (redesigned for Hopper).  Its first version was K6 / K7's block of
-// consecutive tiles with a [128, 2h] window partial (128 KB at h = 128, so
+// K8 (redesigned for Hopper).  Its first version was a block of consecutive
+// tiles with a [128, 2h] window partial (128 KB at h = 128, so
 // one 16-warp block an SM), merged runs into it with shared f32 atomics
 // (compare-and-swap loops in SASS) and flushed all 32,768 entries with
 // scalar global atomics per block and window.  Now two routes, picked in
@@ -72,16 +92,10 @@
 //     one row (k and v loaded once a run) are summed in registers and added
 //     with float4 global atomics.  No window partial, no shared atomics.
 //   * Sort route (the patient group, gathering from 100,000 rows in the
-//     span layout, sorted by source): persistent blocks over column slices
-//     of whole heads take tiles from a counter; a tile's slots are copied in
-//     with cp.async under the previous tile's work and counting-sorted by
-//     local row in shared memory (integer atomics; padding left out).  A
-//     block keeps its slice of the window's k | v rows and of the window's
-//     dk | dv partial in shared memory.  Row groups take equal chunks of the
-//     sorted slots; a run wholly inside a chunk is added to the partial by
-//     its group alone (no atomics), a run cut at a chunk boundary is summed
-//     after a barrier by the group where it starts.  The partial goes out
-//     with float4 global atomics when the window changes and at the end.
+//     span layout, sorted by source): the persistent blocks, staged tile
+//     slots, counting sort and run merging of K6 / K7 above.  A block keeps
+//     its slice of the window's k | v rows and of the window's dk | dv
+//     partial in shared memory; q and dO are gathered per slot.
 //   * 32 warps a block, one block an SM, both routes.  What bounds them now
 //     is the per-slot gathers (q and dO through L2 on the sort route) and
 //     the latency of each slot's head sums; PERF.md has the measurements.
@@ -96,18 +110,24 @@ namespace {
 
 constexpr int WINDOW = 128;
 constexpr int TILE_E = 1024;
-constexpr int THREADS = 512;
-constexpr int WARPS = THREADS / 32;
-constexpr int SLOTS_PER_WARP = TILE_E / WARPS;  // 64
-constexpr int BATCH = 4;                        // slots whose rows load before they are used
 constexpr unsigned FULL = 0xffffffffu;
-constexpr float NEG_BIG = -1e30f;  // the masked logit and the max of an empty row
+constexpr float NEG_BIG = -1e30f;  // the max of a row with nothing summed yet
+constexpr float EMPTY_LSE = 1e30f;
 constexpr float EXP_CLAMP = 60.f;
+constexpr int COUNTER_STRIDE = 32;  // a slice's tile counter on its own 128-byte line
 
 __device__ __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }
 
 __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void sts4(float* p, const float4& x) {
+  *reinterpret_cast<float4*>(p) = x;
 }
 
 __device__ __forceinline__ float dot4(const float4& a, const float4& b) {
@@ -128,22 +148,8 @@ __device__ __forceinline__ void add4(float4& acc, const float4& x) {
   acc.w += x.w;
 }
 
-__device__ __forceinline__ void atomic_add4(float* p, const float4& v) {
-  atomicAdd(p + 0, v.x);
-  atomicAdd(p + 1, v.y);
-  atomicAdd(p + 2, v.z);
-  atomicAdd(p + 3, v.w);
-}
-
-// Float max through the integer atomics: non-negative floats order as
-// signed ints, negative ones in reverse as unsigned ints.  -0 becomes +0.
-__device__ __forceinline__ void atomic_max_float(float* addr, float v) {
-  if (__float_as_uint(v) == 0x80000000u) v = 0.f;
-  if (v >= 0.f) {
-    atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
-  } else {
-    atomicMin(reinterpret_cast<unsigned*>(addr), __float_as_uint(v));
-  }
+__device__ __forceinline__ float4 scale4(const float4& x, float a) {
+  return make_float4(x.x * a, x.y * a, x.z * a, x.w * a);
 }
 
 // The sum of v over the lanes of this lane's head (lph lanes, aligned).
@@ -152,327 +158,430 @@ __device__ __forceinline__ float head_sum(float v, int lph) {
   return v;
 }
 
-// A lane's place: 4 columns from c, in head `head` of lph lanes.
-struct Lane {
-  int c;
-  int head;
-  int lph;
-  bool active;  // c < h
-  bool leader;  // the first lane of its head
-};
-
-__device__ __forceinline__ Lane lane_of(int h, int nh) {
-  const int lane = threadIdx.x & 31;
-  Lane L;
-  L.lph = h / nh / 4;
-  L.c = lane * 4;
-  L.head = lane / L.lph;
-  L.active = L.c < h;
-  L.leader = L.active && lane % L.lph == 0;
-  return L;
+// A slot's local row with anything outside [0, WINDOW) read as padding.
+__device__ __forceinline__ int pad_local(int l) {
+  return static_cast<unsigned>(l) < static_cast<unsigned>(WINDOW) ? l : WINDOW;
 }
 
-// One tile's slots sorted by output row (padding last), in shared memory.
-struct SortedTile {
-  int local[TILE_E];
-  int src[TILE_E];
-  int slot[TILE_E];  // the slot's position in the tile before sorting
-  int count[WINDOW + 1];
-  int real;  // real slots: they fill [0, real)
-};
+// 16-byte asynchronous copy global -> shared.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
 
-// Counting sort of tile t's slots by local row.  Starts and ends with a
-// barrier.
-__device__ void sort_tile(const int* __restrict__ src, const int* __restrict__ local, long long t,
-                          SortedTile& s) {
-  const long long e0 = t * TILE_E;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Tile t's local rows, then its sources, into `buf` ([2, TILE_E]) by
+// cp.async; the caller commits.
+template <int THREADS>
+__device__ __forceinline__ void stage_slots(const int* local, const int* src, int* buf, int t) {
+  static_assert(2 * TILE_E <= 4 * THREADS, "a thread copies 16 bytes of a tile's slots");
+  const long long e0 = (long long)t * TILE_E;
+  const int i = 4 * threadIdx.x;
+  if (i < 2 * TILE_E) cp_async16(buf + i, i < TILE_E ? local + e0 + i : src + e0 + i - TILE_E);
+}
+
+// A staged tile's real slots in local-row order: `cur` ([2, TILE_E]: locals,
+// sources) as it is when already in order (padding last), else
+// counting-sorted into `sorted` ([2, TILE_E]) with padding left out.  On
+// entry `count` ([WINDOW + 1]) is 0 and the block has passed a barrier
+// since; every thread calls it.  Returns the real slots' count (counted by
+// the barrier, not by atomics on one word); (sl, ss) are their rows and
+// sources.
+template <int THREADS>
+__device__ int order_tile(const int* cur, int* sorted, int* count, const int*& sl, const int*& ss) {
+  static_assert(THREADS == TILE_E, "a thread a slot");
+  const int i = threadIdx.x;
+  const int l = pad_local(cur[i]);
+  const int n = __syncthreads_count(l < WINDOW);
+  const bool sort = __syncthreads_or(i + 1 < TILE_E && pad_local(cur[i + 1]) < l) != 0;  // block-uniform
+  sl = cur;
+  ss = cur + TILE_E;
+  if (!sort) return n;
+  if (l < WINDOW) atomicAdd(&count[l], 1);
   __syncthreads();
-  for (int i = threadIdx.x; i <= WINDOW; i += THREADS) s.count[i] = 0;
-  __syncthreads();
-  for (int i = threadIdx.x; i < TILE_E; i += THREADS) {
-    atomicAdd(&s.count[min(max(local[e0 + i], 0), WINDOW)], 1);
-  }
-  __syncthreads();
-  if (threadIdx.x < 32) {  // exclusive scan of the WINDOW + 1 counts, one warp
-    const int lane = threadIdx.x;
-    constexpr int PER_LANE = (WINDOW + 1 + 31) / 32;  // 5
-    int v[PER_LANE];
+  if (i < 32) {  // exclusive scan of the WINDOW + 1 counts, one warp
+    const int lane = i;
+    constexpr int PER_LANE = (WINDOW + 1 + 31) / 32;
+    int vals[PER_LANE];
     int sum = 0;
 #pragma unroll
     for (int k = 0; k < PER_LANE; ++k) {
-      const int i = lane * PER_LANE + k;
-      v[k] = i <= WINDOW ? s.count[i] : 0;
-      sum += v[k];
+      const int r = lane * PER_LANE + k;
+      vals[k] = r <= WINDOW ? count[r] : 0;
+      sum += vals[k];
     }
     int incl = sum;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      const int n = __shfl_up_sync(FULL, incl, off);
-      if (lane >= off) incl += n;
+      const int v = __shfl_up_sync(FULL, incl, off);
+      if (lane >= off) incl += v;
     }
     int run = incl - sum;
 #pragma unroll
     for (int k = 0; k < PER_LANE; ++k) {
-      const int i = lane * PER_LANE + k;
-      if (i == WINDOW) s.real = run;
-      if (i <= WINDOW) s.count[i] = run;
-      run += v[k];
+      const int r = lane * PER_LANE + k;
+      if (r <= WINDOW) count[r] = run;
+      run += vals[k];
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < TILE_E; i += THREADS) {
-    const int l = min(max(local[e0 + i], 0), WINDOW);
-    const int pos = atomicAdd(&s.count[l], 1);
-    s.local[pos] = l;
-    s.src[pos] = src[e0 + i];
-    s.slot[pos] = i;
+  if (l < WINDOW) {
+    const int pos = atomicAdd(&count[l], 1);
+    sorted[pos] = l;
+    sorted[TILE_E + pos] = cur[TILE_E + i];
   }
   __syncthreads();
+  sl = sorted;
+  ss = sorted + TILE_E;
+  return n;
 }
 
-// The sorted positions a warp walks: [begin, end).
-__device__ __forceinline__ void warp_range(const SortedTile& s, int& begin, int& end) {
-  begin = (threadIdx.x / 32) * SLOTS_PER_WARP;
-  end = min(begin + SLOTS_PER_WARP, s.real);
-}
+// Thread 0's tile dealing from a slice's counter, `grab` tiles at a time,
+// the next grab taken one ahead.
+struct Dealer {
+  int pending = 0, end = 0;
 
-// Add a [WINDOW, width] shared accumulator into rows of `out` (row stride
-// `stride`, first column `col0`) for window `window`, and zero it.
-__device__ void flush_sum(float* acc, int width, float* __restrict__ out, int window, int stride,
-                          int col0) {
-  for (int i = threadIdx.x; i < WINDOW * width; i += THREADS) {
-    const float v = acc[i];
-    if (v != 0.f) {
-      const long long row = (long long)window * WINDOW + i / width;
-      atomicAdd(out + row * stride + col0 + i % width, v);
-    }
-    acc[i] = 0.f;
+  __device__ int first(int* work, int grab, int num_tiles) {
+    const int t = atomicAdd(work, grab);
+    pending = atomicAdd(work, grab);
+    end = min(t + grab, num_tiles);
+    return t;
   }
+
+  __device__ int after(int t, int* work, int grab, int num_tiles) {
+    int n = t + 1;
+    if (n >= end) {
+      n = pending;
+      end = min(n + grab, num_tiles);
+      if (n < num_tiles) pending = atomicAdd(work, grab);
+    }
+    return n;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// K6 and K7: the forward and dq over the forward layout (notes in the header)
+// ---------------------------------------------------------------------------
+
+constexpr int ROW_THREADS = 1024;
+constexpr int ROW_WARPS = ROW_THREADS / 32;
+constexpr int ROW_BATCH = 2;  // slots whose rows load before they are used
+enum RowKind { FWD = 0, DQ = 1 };
+
+struct RowArgs {
+  const float* __restrict__ q;
+  const float* __restrict__ k;
+  const float* __restrict__ v;
+  const float* __restrict__ dout;   // K7
+  const float* __restrict__ lse;    // K7
+  const float* __restrict__ delta;  // K7
+  const int* __restrict__ src;
+  const int* __restrict__ local;
+  const int* __restrict__ tile_map;
+  int num_tiles, h, nh;
+  int slice;        // columns of a block's slice: 2^m whole heads
+  int* work;        // a tile counter per slice (every COUNTER_STRIDE-th int), zeroed by the caller
+  int grab;         // tiles a block takes at a time
+  float* __restrict__ dq;  // K7 [rows, h], zeroed by the caller
+  float* __restrict__ pm;  // K6 partials: [entries, WINDOW, nh] max,
+  float* __restrict__ pl;  //   [entries, WINDOW, nh] normaliser (zeroed by the caller),
+  float* __restrict__ po;  //   [entries, WINDOW, h] exp-weighted v sums
+};
+
+// Floats of a row group's cut run: o (K6: then m and l a lane), a multiple
+// of 4 so that each group's o is 16-byte aligned.
+__host__ __device__ inline int rows_edge_floats(int kind, int slice) {
+  return kind == FWD ? slice + ((slice / 2 + 3) & ~3) : slice;
 }
 
-// ---------------------------------------------------------------------------
-// K6, pass 1: logits of every real slot, and each row's max per head
-// ---------------------------------------------------------------------------
+// Dynamic shared memory of flash_rows_kernel<kind> (mirrored by
+// ops/attention_kernels.py _rows_shared_bytes).
 
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_max_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const int* __restrict__ src, const int* __restrict__ local,
-                     const int* __restrict__ tile_map, int num_tiles, int tiles_per_block, int h,
-                     int nh, float* __restrict__ logits, float* __restrict__ row_max) {
-  __shared__ SortedTile st;
+__host__ __device__ inline size_t rows_shared_floats(int kind, int slice) {
+  const int quads = slice / 4, groups = ROW_WARPS * 32 / quads;
+  size_t n = (size_t)WINDOW * slice;                        // the window partial
+  n += kind == FWD ? 2 * WINDOW * quads : 0;                // its max, normaliser (a copy a lane)
+  n += (size_t)groups * rows_edge_floats(kind, slice);      // a cut run per row group
+  return n;
+}
+
+size_t rows_shared_bytes(int kind, const RowArgs& a) {
+  return sizeof(float) * rows_shared_floats(kind, a.slice) +
+         sizeof(int) * 6 * TILE_E;  // two tiles' staged slots, one sorted
+}
+
+// Grid (blocks, column slices).  Notes in the header.
+template <int KIND>
+__global__ void __launch_bounds__(ROW_THREADS, 1) flash_rows_kernel(RowArgs a) {
+  constexpr bool kFwd = KIND == FWD;
   extern __shared__ float4 smem4[];
-  float* smax = reinterpret_cast<float*>(smem4);  // [WINDOW, nh]
-  const Lane L = lane_of(h, nh);
-  for (int i = threadIdx.x; i < WINDOW * nh; i += THREADS) smax[i] = NEG_BIG;
-  const int t0 = blockIdx.x * tiles_per_block;
-  const int t1 = min(t0 + tiles_per_block, num_tiles);
-  int window = tile_map[t0];
-  for (int t = t0; t < t1; ++t) {
-    const int w = tile_map[t];
-    if (w != window) {
-      __syncthreads();
-      float* dst = row_max + (long long)window * WINDOW * nh;
-      for (int i = threadIdx.x; i < WINDOW * nh; i += THREADS) {
-        if (smax[i] > NEG_BIG) atomic_max_float(dst + i, smax[i]);
-        smax[i] = NEG_BIG;
-      }
-      window = w;
-    }
-    sort_tile(src, local, t, st);
-    const long long row0 = (long long)window * WINDOW;
-    int begin, end;
-    warp_range(st, begin, end);
-    int cur = WINDOW;
-    float4 q4 = zero4();
-    float run_max = NEG_BIG;
-    for (int j0 = begin; j0 < end; j0 += BATCH) {
-      float4 kr[BATCH];
-#pragma unroll
-      for (int u = 0; u < BATCH; ++u) {
-        const int j = j0 + u;
-        kr[u] = (L.active && j < end) ? ldg4(k + (long long)st.src[j] * h + L.c) : zero4();
-      }
-#pragma unroll
-      for (int u = 0; u < BATCH; ++u) {
-        const int j = j0 + u;
-        if (j >= end) break;  // warp-uniform
-        const int l = st.local[j];
-        if (l != cur) {  // warp-uniform
-          if (L.leader && cur < WINDOW) atomic_max_float(&smax[cur * nh + L.head], run_max);
-          cur = l;
-          run_max = NEG_BIG;
-          q4 = L.active ? ldg4(q + (row0 + l) * h + L.c) : zero4();
+  __shared__ int count[WINDOW + 1];
+  __shared__ int next_tile;
+  const int h = a.h, dh = h / a.nh, slice = a.slice, quads = slice / 4;
+  const int c0 = blockIdx.y * slice, head0 = c0 / dh;
+  const int groups = 32 / quads, ngroups = ROW_WARPS * groups, chunk = TILE_E / ngroups;
+  const int ew = rows_edge_floats(KIND, slice);
+  float* acc = reinterpret_cast<float*>(smem4);      // [WINDOW, slice]: dq or o
+  float* am = acc + WINDOW * slice;                   // K6: [WINDOW, quads] max
+  float* al = am + (kFwd ? WINDOW * quads : 0);       // K6: [WINDOW, quads] normaliser
+  float* edge = al + (kFwd ? WINDOW * quads : 0);     // [ngroups, ew]: a run cut at the chunk's start
+  int* raw = reinterpret_cast<int*>(edge + ngroups * ew);  // 2 x [2, TILE_E]
+  int* sorted = raw + 4 * TILE_E;                     // [2, TILE_E]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gi = lane / quads, ci = lane - gi * quads;
+  const int gid = warp * groups + gi;  // the group's place in the block
+  const int lph = dh / 4, hh = ci / lph;  // lanes a head; the lane's head in the slice
+  const int col = c0 + 4 * ci;
+  int* work = a.work + blockIdx.y * COUNTER_STRIDE;
+  for (int i = threadIdx.x; i < WINDOW * slice; i += ROW_THREADS) acc[i] = 0.f;
+  for (int i = threadIdx.x; kFwd && i < WINDOW * quads; i += ROW_THREADS) {
+    am[i] = NEG_BIG;
+    al[i] = 0.f;
+  }
+  Dealer deal;
+  if (threadIdx.x == 0) next_tile = deal.first(work, a.grab, a.num_tiles);
+  __syncthreads();
+  int t = next_tile;
+  if (t < a.num_tiles) stage_slots<ROW_THREADS>(a.local, a.src, raw, t);
+  cp_async_commit();
+  int buf = 0, window = -1, part = -1;
+  bool dirty = false;  // the partial holds something
+
+  // The window partial out: K7's into dq with float4 global atomics
+  // (skipping zero quads), K6's into scratch entry `part`; then reset.
+  auto flush = [&]() {
+    for (int i = threadIdx.x; i < WINDOW * quads; i += ROW_THREADS) {
+      const int r = i / quads, c = i - r * quads;
+      const float4 x = lds4(acc + 4 * i);
+      if (kFwd) {
+        const long long prow = (long long)part * WINDOW + r;
+        const float l = al[i];
+        if (l > 0.f) *reinterpret_cast<float4*>(a.po + prow * h + c0 + 4 * c) = x;
+        if (c % lph == 0) {
+          a.pm[prow * a.nh + head0 + c / lph] = am[i];
+          a.pl[prow * a.nh + head0 + c / lph] = l;
         }
-        const float logit = head_sum(dot4(q4, kr[u]), L.lph);
-        run_max = fmaxf(run_max, logit);
-        if (L.leader) logits[((long long)t * TILE_E + st.slot[j]) * nh + L.head] = logit;
+        am[i] = NEG_BIG;
+        al[i] = 0.f;
+      } else if (x.x != 0.f || x.y != 0.f || x.z != 0.f || x.w != 0.f) {
+        const long long row = (long long)window * WINDOW + r;
+        atomicAdd(reinterpret_cast<float4*>(a.dq + row * h + c0 + 4 * c), x);
       }
+      sts4(acc + 4 * i, zero4());
     }
-    if (L.leader && cur < WINDOW) atomic_max_float(&smax[cur * nh + L.head], run_max);
-  }
-  __syncthreads();
-  float* dst = row_max + (long long)window * WINDOW * nh;
-  for (int i = threadIdx.x; i < WINDOW * nh; i += THREADS) {
-    if (smax[i] > NEG_BIG) atomic_max_float(dst + i, smax[i]);
-  }
-}
+  };
 
-// ---------------------------------------------------------------------------
-// K6, pass 2: sum of exp(logit - max) and of the exp-weighted v rows
-// ---------------------------------------------------------------------------
+  // Merge a run (o, m, l) of row r into the window partial (this group's
+  // alone).
+  auto merge = [&](int r, const float4& o, float m, float l) {
+    float* p = acc + r * slice + 4 * ci;
+    float4 x = lds4(p);
+    if (kFwd) {
+      const int i = r * quads + ci;
+      const float ma = am[i], mn = fmaxf(ma, m);
+      const float sa = expf(ma - mn), sr = expf(m - mn);
+      x = scale4(x, sa);
+      axpy4(x, sr, o);
+      al[i] = al[i] * sa + l * sr;
+      am[i] = mn;
+    } else {
+      add4(x, o);
+    }
+    sts4(p, x);
+  };
 
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_sum_kernel(const float* __restrict__ v, const int* __restrict__ src,
-                     const int* __restrict__ local, const int* __restrict__ tile_map,
-                     int num_tiles, int tiles_per_block, int h, int nh,
-                     const float* __restrict__ logits, const float* __restrict__ row_max,
-                     float* __restrict__ out, float* __restrict__ den) {
-  __shared__ SortedTile st;
-  extern __shared__ float4 smem4[];
-  float* acc = reinterpret_cast<float*>(smem4);  // [WINDOW, h]
-  float* sden = acc + WINDOW * h;                 // [WINDOW, nh]
-  const Lane L = lane_of(h, nh);
-  for (int i = threadIdx.x; i < WINDOW * (h + nh); i += THREADS) acc[i] = 0.f;
-  const int t0 = blockIdx.x * tiles_per_block;
-  const int t1 = min(t0 + tiles_per_block, num_tiles);
-  int window = tile_map[t0];
-  for (int t = t0; t < t1; ++t) {
-    const int w = tile_map[t];
-    if (w != window) {
-      __syncthreads();
-      flush_sum(acc, h, out, window, h, 0);
-      flush_sum(sden, nh, den, window, nh, 0);
+  while (t < a.num_tiles) {
+    if (threadIdx.x == 0) next_tile = deal.after(t, work, a.grab, a.num_tiles);
+    for (int i = threadIdx.x; i <= WINDOW; i += ROW_THREADS) count[i] = 0;
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // tile t's slots landed; the last tile's runs are in
+    const int tn = next_tile;
+    const int* cur = raw + buf * 2 * TILE_E;
+    if (tn < a.num_tiles) stage_slots<ROW_THREADS>(a.local, a.src, raw + (buf ^ 1) * 2 * TILE_E, tn);
+    cp_async_commit();
+    const int w = __ldg(a.tile_map + t);
+    if (w != window) {  // flush the partial
+      if (dirty) flush();
+      dirty = false;
       window = w;
+      part = t / a.grab + w;  // K6: this stint's scratch entry
     }
-    sort_tile(src, local, t, st);
-    const long long row0 = (long long)window * WINDOW;
-    int begin, end;
-    warp_range(st, begin, end);
-    int cur = WINDOW;
-    float m = 0.f;
-    float4 run = zero4();
-    float run_den = 0.f;
-    for (int j0 = begin; j0 < end; j0 += BATCH) {
-      float4 vr[BATCH];
-      float lg[BATCH];
+    const int* sl;
+    const int* ss;
+    const int real = order_tile<ROW_THREADS>(cur, sorted, count, sl, ss);
+    dirty = true;
+    // this group's slots [g0, g1e); the partial's runs cut at g0 (head) and g1e (tail)
+    const int g0 = gid * chunk, g1e = min(g0 + chunk, real);
+    const bool mine = g0 < g1e;
+    const bool head_cut = mine && g0 > 0 && sl[g0 - 1] == sl[g0];
+    const bool tail_cut = mine && g1e < real && sl[g1e] == sl[g1e - 1];
+    float* my_edge = edge + gid * ew;
+    int cur_l = WINDOW, row_l = WINDOW;  // the open run's row; the row whose operands are loaded
+    bool first = true;
+    float4 run = zero4(), qc = zero4(), dc = zero4();
+    float rm = NEG_BIG, rl = 0.f, lse_c = 0.f, delta_c = 0.f;
+    // add the open run of row cur_l; `last`: it ends at g1e.  A run cut at
+    // the chunk's end stays in registers for the fix-up below.
+    auto close = [&](bool last) {
+      if (cur_l >= WINDOW) return;
+      if (first && head_cut) {
+        sts4(my_edge + 4 * ci, run);
+        if (kFwd) {
+          my_edge[slice + ci] = rm;
+          my_edge[slice + quads + ci] = rl;
+        }
+      } else if (!(last && tail_cut)) {  // the whole run is this group's
+        merge(cur_l, run, rm, rl);
+      }
+    };
+    // every lane runs every batch of the chunk (the head sums shuffle)
+    for (int j0 = 0; j0 < chunk; j0 += ROW_BATCH) {
+      int ls[ROW_BATCH];
+      float4 kr[ROW_BATCH], vr[ROW_BATCH], qr[ROW_BATCH], dr[ROW_BATCH];
+      float x[ROW_BATCH], y[ROW_BATCH];
 #pragma unroll
-      for (int u = 0; u < BATCH; ++u) {
-        const int j = j0 + u;
-        const bool on = L.active && j < end;
-        vr[u] = on ? ldg4(v + (long long)st.src[j] * h + L.c) : zero4();
-        lg[u] = on ? logits[((long long)t * TILE_E + st.slot[j]) * nh + L.head] : 0.f;
+      for (int u = 0; u < ROW_BATCH; ++u) {
+        const int j = g0 + j0 + u;
+        const bool on = j < g1e;
+        ls[u] = on ? sl[j] : WINDOW;
+        if (on) {  // the slot's k | v row through L1 / L2
+          const long long s = ss[j];
+          kr[u] = ldg4(a.k + s * h + col);
+          vr[u] = ldg4(a.v + s * h + col);
+        } else {
+          kr[u] = vr[u] = zero4();
+        }
+        if (on && ls[u] != row_l) {  // a new row: its operands, loaded beside the slot's k | v
+          row_l = ls[u];
+          const long long row = (long long)window * WINDOW + row_l;
+          qc = ldg4(a.q + row * h + col);
+          if (!kFwd) {
+            dc = ldg4(a.dout + row * h + col);
+            lse_c = __ldg(a.lse + row * a.nh + head0 + hh);
+            delta_c = __ldg(a.delta + row * a.nh + head0 + hh);
+          }
+        }
+        qr[u] = qc;
+        dr[u] = dc;
+        x[u] = lse_c;
+        y[u] = delta_c;
       }
 #pragma unroll
-      for (int u = 0; u < BATCH; ++u) {
-        const int j = j0 + u;
-        if (j >= end) break;
-        const int l = st.local[j];
-        if (l != cur) {
-          if (L.active && cur < WINDOW) atomic_add4(acc + cur * h + L.c, run);
-          if (L.leader && cur < WINDOW) atomicAdd(&sden[cur * nh + L.head], run_den);
-          cur = l;
+      for (int u = 0; u < ROW_BATCH; ++u) {  // independent of the runs
+        const float logit = head_sum(dot4(qr[u], kr[u]), lph);
+        if (kFwd) {
+          x[u] = logit;
+        } else {
+          const float dattn = head_sum(dot4(dr[u], vr[u]), lph);
+          const float pe = ls[u] < WINDOW ? expf(fminf(logit - x[u], EXP_CLAMP)) : 0.f;
+          x[u] = pe * (dattn - y[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < ROW_BATCH; ++u) {
+        if (ls[u] == WINDOW) break;  // past g1e (uniform in the group)
+        if (ls[u] != cur_l) {
+          close(false);
+          if (cur_l < WINDOW) first = false;
+          cur_l = ls[u];
           run = zero4();
-          run_den = 0.f;
-          m = L.active ? row_max[(row0 + l) * nh + L.head] : 0.f;
+          rm = NEG_BIG;
+          rl = 0.f;
         }
-        const float p = expf(lg[u] - m);  // <= 0: m is the row's max
-        axpy4(run, p, vr[u]);
-        run_den += p;
+        if (kFwd) {  // the online softmax, rescaled only when the run's max rises
+          if (x[u] > rm) {
+            const float corr = expf(rm - x[u]);
+            rl *= corr;
+            run = scale4(run, corr);
+            rm = x[u];
+          }
+          const float pe = expf(x[u] - rm);
+          rl += pe;
+          axpy4(run, pe, vr[u]);
+        } else {
+          axpy4(run, x[u], kr[u]);
+        }
       }
     }
-    if (L.active && cur < WINDOW) atomic_add4(acc + cur * h + L.c, run);
-    if (L.leader && cur < WINDOW) atomicAdd(&sden[cur * nh + L.head], run_den);
+    close(true);
+    __syncthreads();  // every group's cut heads are written
+    // the group where a cut run starts adds it and the heads of the groups it reaches
+    const int r = mine ? sl[g1e - 1] : WINDOW;
+    if (tail_cut && !(head_cut && sl[g0] == r)) {
+      float4 so = run;
+      float sm = rm, sn = rl;
+      for (int o = gid + 1; o < ngroups; ++o) {
+        const int oc = o * chunk;
+        if (oc >= real || sl[oc] != r) break;
+        const float* oe = edge + o * ew;
+        if (kFwd) {
+          const float m2 = oe[slice + ci], mn = fmaxf(sm, m2);
+          const float s1 = expf(sm - mn), s2 = expf(m2 - mn);
+          so = scale4(so, s1);
+          axpy4(so, s2, lds4(oe + 4 * ci));
+          sn = sn * s1 + oe[slice + quads + ci] * s2;
+          sm = mn;
+        } else {
+          add4(so, lds4(oe + 4 * ci));
+        }
+      }
+      merge(r, so, sm, sn);
+    }
+    t = tn;
+    buf ^= 1;
   }
   __syncthreads();
-  flush_sum(acc, h, out, window, h, 0);
-  flush_sum(sden, nh, den, window, nh, 0);
+  if (dirty) flush();
 }
 
-// K6, finish: normalise, and LSE = max + log(sum) (1e30 for an empty row).
-__global__ void flash_fwd_finish_kernel(long long rows, int h, int nh,
-                                        const float* __restrict__ row_max,
-                                        const float* __restrict__ den, float* __restrict__ out,
-                                        float* __restrict__ lse) {
-  const int dh = h / nh;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < rows * h;
-       i += (long long)gridDim.x * blockDim.x) {
-    const long long r = i / h;
-    const int c = static_cast<int>(i % h);
-    const long long rh = r * nh + c / dh;
-    const float d = den[rh];
-    out[i] = out[i] / fmaxf(d, 1e-20f);
-    if (c % dh == 0) lse[rh] = d > 0.f ? row_max[rh] + logf(fmaxf(d, 1e-30f)) : 1e30f;
-  }
-}
+// K6's merge: blocks (window, part of its rows); each (row, column quad)
+// combines, in one online pass, the partials of the grabs that hold the
+// window's tiles (entries g + w), then writes out = o / max(l, 1e-20) and
+// lse = m + log(l) (1e30 for a row no slot reached: out 0).
+constexpr int MERGE_THREADS = 256;
 
-// ---------------------------------------------------------------------------
-// K7: dq over the forward layout
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(THREADS)
-flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                const int* __restrict__ src, const int* __restrict__ local,
-                const int* __restrict__ tile_map, int num_tiles, int tiles_per_block, int h, int nh,
-                float* __restrict__ dq) {
-  __shared__ SortedTile st;
-  extern __shared__ float4 smem4[];
-  float* acc = reinterpret_cast<float*>(smem4);  // [WINDOW, h]
-  const Lane L = lane_of(h, nh);
-  for (int i = threadIdx.x; i < WINDOW * h; i += THREADS) acc[i] = 0.f;
-  const int t0 = blockIdx.x * tiles_per_block;
-  const int t1 = min(t0 + tiles_per_block, num_tiles);
-  int window = tile_map[t0];
-  for (int t = t0; t < t1; ++t) {
-    const int w = tile_map[t];
-    if (w != window) {
-      __syncthreads();
-      flush_sum(acc, h, dq, window, h, 0);
-      window = w;
+__global__ void __launch_bounds__(MERGE_THREADS) flash_fwd_merge_kernel(
+    const int* __restrict__ tile_map, int num_tiles, int grab, int h, int nh,
+    const float* __restrict__ pm, const float* __restrict__ pl, const float* __restrict__ po,
+    float* __restrict__ out, float* __restrict__ lse) {
+  __shared__ int range[2];  // the window's tiles [range[0], range[1])
+  const int w = blockIdx.x;
+  if (threadIdx.x < 2) {  // lower bounds of w and w + 1 in the non-decreasing tile_map
+    const int key = w + threadIdx.x;
+    int lo = 0, hi = num_tiles;
+    while (lo < hi) {
+      const int mid = (lo + hi) / 2;
+      if (__ldg(tile_map + mid) < key) lo = mid + 1; else hi = mid;
     }
-    sort_tile(src, local, t, st);
-    const long long row0 = (long long)window * WINDOW;
-    int begin, end;
-    warp_range(st, begin, end);
-    int cur = WINDOW;
-    float4 q4 = zero4(), do4 = zero4(), run = zero4();
-    float lse_r = 0.f, delta_r = 0.f;
-    for (int j0 = begin; j0 < end; j0 += BATCH) {
-      float4 kr[BATCH], vr[BATCH];
-#pragma unroll
-      for (int u = 0; u < BATCH; ++u) {
-        const int j = j0 + u;
-        const bool on = L.active && j < end;
-        const long long s = on ? (long long)st.src[j] * h + L.c : 0;
-        kr[u] = on ? ldg4(k + s) : zero4();
-        vr[u] = on ? ldg4(v + s) : zero4();
-      }
-#pragma unroll
-      for (int u = 0; u < BATCH; ++u) {
-        const int j = j0 + u;
-        if (j >= end) break;
-        const int l = st.local[j];
-        if (l != cur) {
-          if (L.active && cur < WINDOW) atomic_add4(acc + cur * h + L.c, run);
-          cur = l;
-          run = zero4();
-          const long long r = row0 + l;
-          q4 = L.active ? ldg4(q + r * h + L.c) : zero4();
-          do4 = L.active ? ldg4(dout + r * h + L.c) : zero4();
-          lse_r = L.active ? lse[r * nh + L.head] : 0.f;
-          delta_r = L.active ? delta[r * nh + L.head] : 0.f;
-        }
-        const float logit = head_sum(dot4(q4, kr[u]), L.lph);
-        const float dattn = head_sum(dot4(do4, vr[u]), L.lph);
-        const float p = expf(fminf(logit - lse_r, EXP_CLAMP));
-        axpy4(run, p * (dattn - delta_r), kr[u]);
-      }
-    }
-    if (L.active && cur < WINDOW) atomic_add4(acc + cur * h + L.c, run);
+    range[threadIdx.x] = lo;
   }
   __syncthreads();
-  flush_sum(acc, h, dq, window, h, 0);
+  const int g0 = range[0] / grab;
+  const int g1 = range[1] > range[0] ? (range[1] - 1) / grab : g0 - 1;
+  const int quads = h / 4, lph = h / nh / 4;
+  for (int i = blockIdx.y * MERGE_THREADS + threadIdx.x; i < WINDOW * quads; i += gridDim.y * MERGE_THREADS) {
+    const int r = i / quads, c = i - r * quads, head = c / lph;
+    float m = NEG_BIG, l = 0.f;
+    float4 o = zero4();
+    for (int g = g0; g <= g1; ++g) {
+      const long long e = (long long)(g + w) * WINDOW + r;
+      const float le = __ldg(pl + e * nh + head);
+      if (le > 0.f) {
+        const float me = __ldg(pm + e * nh + head), mn = fmaxf(m, me);
+        const float s1 = expf(m - mn), s2 = expf(me - mn);
+        l = l * s1 + le * s2;
+        o = scale4(o, s1);
+        axpy4(o, s2, ldg4(po + e * h + 4 * c));
+        m = mn;
+      }
+    }
+    const long long row = (long long)w * WINDOW + r;
+    sts4(out + row * h + 4 * c, scale4(o, 1.f / fmaxf(l, 1e-20f)));
+    if (c % lph == 0) lse[row * nh + head] = l > 0.f ? m + logf(fmaxf(l, 1e-30f)) : EMPTY_LSE;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -481,7 +590,6 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 constexpr int DKV_THREADS = 1024;
 constexpr int DKV_WARPS = DKV_THREADS / 32;
-constexpr int DKV_COUNTER_STRIDE = 32;  // a slice's counter on its own 128-byte line
 constexpr int DKV_BATCH = 2;  // slots whose rows load before they are used (4 spilled)
 
 struct DkvArgs {
@@ -503,27 +611,6 @@ struct DkvArgs {
   float* __restrict__ dk;
   float* __restrict__ dv;
 };
-
-// A slot's local row with anything outside [0, WINDOW) read as padding.
-__device__ __forceinline__ int pad_local(int l) {
-  return static_cast<unsigned>(l) < static_cast<unsigned>(WINDOW) ? l : WINDOW;
-}
-
-// 16-byte asynchronous copy global -> shared.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-// Tile t's local rows, then its sources, into `buf` ([2, TILE_E]); one
-// commit group.
-__device__ __forceinline__ void stage_dkv_tile(const DkvArgs& a, int* buf, int t) {
-  static_assert(2 * TILE_E <= 4 * DKV_THREADS, "a thread copies 16 bytes of a tile's slots");
-  const long long e0 = (long long)t * TILE_E;
-  const int i = 4 * threadIdx.x;
-  if (i < 2 * TILE_E) cp_async16(buf + i, i < TILE_E ? a.local + e0 + i : a.src + e0 + i - TILE_E);
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
 
 // The window partial [WINDOW, 2 * slice] (dk | dv of columns [c0, c0 +
 // slice)) into dk, dv [rows, h] of window `window` with float4 global
@@ -564,7 +651,7 @@ __device__ void flush_dkv_slice(float* acc, int slice, int c0, int h, float* __r
 __global__ void __launch_bounds__(DKV_THREADS, 1) flash_dkv_kernel(DkvArgs a) {
   extern __shared__ float4 smem4[];
   __shared__ int count[WINDOW + 1];
-  __shared__ int next_tile, real_slots[2];  // real slots of the tile, by the parity of its turn
+  __shared__ int next_tile;
   const int h = a.h, dh = h / a.nh, slice = a.slice, width = 2 * slice;
   const int c0 = blockIdx.y * slice;
   const int quads = slice / 4, groups = 32 / quads;
@@ -580,37 +667,25 @@ __global__ void __launch_bounds__(DKV_THREADS, 1) flash_dkv_kernel(DkvArgs a) {
   const int gid = warp * groups + gi;  // the group's place in the block
   const int lph = dh / 4;
   const int head = (c0 + 4 * ci) / dh;
-  int* work = a.work + blockIdx.y * DKV_COUNTER_STRIDE;
+  int* work = a.work + blockIdx.y * COUNTER_STRIDE;
   for (int i = threadIdx.x; i < WINDOW * width; i += DKV_THREADS) acc[i] = 0.f;
-  int pending = 0, g1 = 0;  // thread 0: the grab taken ahead, the end of the current grab
-  if (threadIdx.x == 0) {
-    real_slots[0] = real_slots[1] = 0;
-    next_tile = atomicAdd(work, a.grab);
-    pending = atomicAdd(work, a.grab);
-    g1 = min(next_tile + a.grab, a.num_tiles);
-  }
+  Dealer deal;
+  if (threadIdx.x == 0) next_tile = deal.first(work, a.grab, a.num_tiles);
   __syncthreads();
   int t = next_tile;
-  if (t < a.num_tiles) stage_dkv_tile(a, raw, t);
+  if (t < a.num_tiles) stage_slots<DKV_THREADS>(a.local, a.src, raw, t);
+  cp_async_commit();
   int buf = 0, window = -1;
   bool dirty = false;  // the partial holds something
   while (t < a.num_tiles) {
-    if (threadIdx.x == 0) {  // the tile after t
-      int n = t + 1;
-      if (n >= g1) {
-        n = pending;
-        g1 = min(n + a.grab, a.num_tiles);
-        if (n < a.num_tiles) pending = atomicAdd(work, a.grab);
-      }
-      next_tile = n;
-    }
+    if (threadIdx.x == 0) next_tile = deal.after(t, work, a.grab, a.num_tiles);
     for (int i = threadIdx.x; i <= WINDOW; i += DKV_THREADS) count[i] = 0;
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();  // tile t's slots landed; the last tile's runs are in
     const int tn = next_tile;
-    if (threadIdx.x == 0) real_slots[buf ^ 1] = 0;  // the next turn's, read last a turn ago
     int* cur = raw + buf * 2 * TILE_E;
-    if (tn < a.num_tiles) stage_dkv_tile(a, raw + (buf ^ 1) * 2 * TILE_E, tn);
+    if (tn < a.num_tiles) stage_slots<DKV_THREADS>(a.local, a.src, raw + (buf ^ 1) * 2 * TILE_E, tn);
+    cp_async_commit();
     const int w = __ldg(a.tile_map + t);
     if (w != window) {  // flush the partial; the new window's k | v slice
       if (dirty) flush_dkv_slice(acc, slice, c0, h, a.dk, a.dv, window);
@@ -625,59 +700,9 @@ __global__ void __launch_bounds__(DKV_THREADS, 1) flash_dkv_kernel(DkvArgs a) {
         *reinterpret_cast<float4*>(kv + r * width + slice + c) = in ? ldg4(a.v + row * h + c0 + c) : zero4();
       }
     }
-    int unsorted = 0, nreal = 0;
-    for (int i = threadIdx.x; i < TILE_E; i += DKV_THREADS) {
-      const int l = pad_local(cur[i]);
-      nreal += l < WINDOW;
-      if (i + 1 < TILE_E && pad_local(cur[i + 1]) < l) unsorted = 1;
-    }
-    if (nreal) atomicAdd(&real_slots[buf], nreal);
-    const bool sort = __syncthreads_or(unsorted) != 0;  // block-uniform
-    const int real = real_slots[buf];
-    const int* sl = cur;  // the tile's real slots in local-row order
-    const int* ss = cur + TILE_E;
-    if (sort) {  // counting sort of the real slots by local row (padding is left out)
-      for (int i = threadIdx.x; i < TILE_E; i += DKV_THREADS) {
-        const int l = pad_local(cur[i]);
-        if (l < WINDOW) atomicAdd(&count[l], 1);
-      }
-      __syncthreads();
-      if (threadIdx.x < 32) {  // exclusive scan of the WINDOW + 1 counts, one warp
-        constexpr int PER_LANE = (WINDOW + 1 + 31) / 32;
-        int vals[PER_LANE];
-        int sum = 0;
-#pragma unroll
-        for (int k = 0; k < PER_LANE; ++k) {
-          const int i = lane * PER_LANE + k;
-          vals[k] = i <= WINDOW ? count[i] : 0;
-          sum += vals[k];
-        }
-        int incl = sum;
-#pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-          const int n = __shfl_up_sync(FULL, incl, off);
-          if (lane >= off) incl += n;
-        }
-        int run = incl - sum;
-#pragma unroll
-        for (int k = 0; k < PER_LANE; ++k) {
-          const int i = lane * PER_LANE + k;
-          if (i <= WINDOW) count[i] = run;
-          run += vals[k];
-        }
-      }
-      __syncthreads();
-      for (int i = threadIdx.x; i < TILE_E; i += DKV_THREADS) {
-        const int l = pad_local(cur[i]);
-        if (l == WINDOW) continue;
-        const int pos = atomicAdd(&count[l], 1);
-        sorted[pos] = l;
-        sorted[TILE_E + pos] = cur[TILE_E + i];
-      }
-      __syncthreads();
-      sl = sorted;
-      ss = sorted + TILE_E;
-    }
+    const int* sl;  // the tile's real slots in local-row order
+    const int* ss;
+    const int real = order_tile<DKV_THREADS>(cur, sorted, count, sl, ss);
     dirty = true;
     // this group's slots [g0, g1e); the partial's runs cut at g0 (head) and g1e (tail)
     const int g0 = gid * chunk, g1e = active ? min(g0 + chunk, real) : g0;
@@ -787,7 +812,6 @@ __global__ void __launch_bounds__(DKV_THREADS, 1) flash_dkv_kernel(DkvArgs a) {
 constexpr int DKT_THREADS = 1024;
 constexpr int DKT_WARPS = DKT_THREADS / 32;
 constexpr int DKT_UNIT = 64;           // slots a warp takes at a time
-constexpr int DKT_COUNTER_STRIDE = 32; // a slice's counter on its own 128-byte line
 
 struct DkvTable {
   const float* __restrict__ q;
@@ -851,7 +875,7 @@ __global__ void __launch_bounds__(DKT_THREADS, 1) flash_dkv_table_kernel(DkvTabl
   const int seg = (DKT_UNIT + groups - 1) / groups;  // every group runs seg steps (the head sums shuffle)
   const int s0 = min(gi * seg, DKT_UNIT), s1 = min(s0 + seg, DKT_UNIT);
   int* my_idx = idx + warp * 2 * DKT_UNIT;
-  int* work = a.work + blockIdx.y * DKT_COUNTER_STRIDE;
+  int* work = a.work + blockIdx.y * COUNTER_STRIDE;
   const int col = c0 + 4 * ci;
   const int dealt = gridDim.x * DKT_WARPS * a.grab;
   int u = (blockIdx.x * DKT_WARPS + warp) * a.grab;
@@ -921,62 +945,66 @@ __global__ void __launch_bounds__(DKT_THREADS, 1) flash_dkv_table_kernel(DkvTabl
   }
 }
 
-int grid_of(int num_tiles, int tiles_per_block) {
-  return (num_tiles + tiles_per_block - 1) / tiles_per_block;
-}
-
-template <class Kernel>
-cudaError_t allow_shared(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+// K6 and K7 launch flash_rows_kernel<kind> on (blocks, slices), blocks at
+// most one wave of the blocks resident at once (any grid is right: tiles
+// come from the counters).
+int launch_rows(int kind, const RowArgs& a, int blocks, int slices, cudaStream_t st) {
+  const void* fn = kind == FWD ? reinterpret_cast<const void*>(flash_rows_kernel<FWD>)
+                                : reinterpret_cast<const void*>(flash_rows_kernel<DQ>);
+  const size_t smem = rows_shared_bytes(kind, a);
+  int wave = 0;
+  const cudaError_t err = mmgnn_one_wave(fn, ROW_THREADS, smem, &wave);
+  if (err != cudaSuccess) return err;
+  blocks = blocks < wave / slices ? blocks : wave / slices;
+  if (blocks < 1) blocks = 1;
+  const dim3 grid(blocks, slices);
+  if (kind == FWD) {
+    flash_rows_kernel<FWD><<<grid, ROW_THREADS, smem, st>>>(a);
+  } else {
+    flash_rows_kernel<DQ><<<grid, ROW_THREADS, smem, st>>>(a);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// K6.  q [num_dst, h], k and v [num_src, h]; the caller fills row_max with
-// -1e30 and zeroes den and out (both [rows, nh] / [rows, h], rows = the
-// plan's windows * 128); logits [num_tiles * 1024, nh] is scratch.  Writes
-// out (normalised) and lse [rows, nh].
+// K6.  q [rows of the destinations, h], k and v [num_rows_kv, h]; out [num_windows * 128,
+// h] and lse [num_windows * 128, nh] are written whole.  work (zeroed by the
+// caller) holds a tile counter per column slice, every 32nd int; pm, pl
+// ([entries, 128, nh]) and po ([entries, 128, h]) are scratch of
+// ceil(num_tiles / grab) + num_windows entries; pl zeroed by the caller
+// (an entry no block wrote is skipped), pm and po written before they are
+// read.  The plan arrays must be
+// 16-byte aligned; the launch shape comes from the wrapper
+// (ops/attention_kernels.py fwd_launch).
 int mmgnn_flash_attention_fwd(const float* q, const float* k, const float* v, const int* src,
-                              const int* local, const int* tile_map, int num_tiles,
-                              int tiles_per_block, int rows, int h, int nh, float* logits,
-                              float* row_max, float* den, float* out, float* lse, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = grid_of(num_tiles, tiles_per_block);
-  const size_t max_smem = sizeof(float) * WINDOW * nh;
-  cudaError_t err = allow_shared(flash_fwd_max_kernel, max_smem);
+                              const int* local, const int* tile_map, int num_tiles, int* work,
+                              int grab, int blocks, int slices, int slice, int num_windows, int h,
+                              int nh, float* pm, float* pl, float* po, float* out, float* lse,
+                              void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const RowArgs a{q, k, v, nullptr, nullptr, nullptr, src, local, tile_map, num_tiles, h, nh,
+                  slice, work, grab, nullptr, pm, pl, po};
+  const int err = launch_rows(FWD, a, blocks, slices, st);
   if (err != cudaSuccess) return err;
-  flash_fwd_max_kernel<<<blocks, THREADS, max_smem, st>>>(q, k, src, local, tile_map, num_tiles,
-                                                           tiles_per_block, h, nh, logits, row_max);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const size_t sum_smem = sizeof(float) * WINDOW * (h + nh);
-  if ((err = allow_shared(flash_fwd_sum_kernel, sum_smem)) != cudaSuccess) return err;
-  flash_fwd_sum_kernel<<<blocks, THREADS, sum_smem, st>>>(v, src, local, tile_map, num_tiles,
-                                                           tiles_per_block, h, nh, logits, row_max,
-                                                           out, den);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const long long n = (long long)rows * h;
-  const int finish_blocks = static_cast<int>(n / 256 + 1 < 4096 ? n / 256 + 1 : 4096);
-  flash_fwd_finish_kernel<<<finish_blocks, 256, 0, st>>>(rows, h, nh, row_max, den, out, lse);
+  const dim3 grid(num_windows, (WINDOW * h / 4 + MERGE_THREADS - 1) / MERGE_THREADS);
+  flash_fwd_merge_kernel<<<grid, MERGE_THREADS, 0, st>>>(tile_map, num_tiles, grab, h, nh, pm, pl, po, out, lse);
   return cudaGetLastError();
 }
 
-// K7.  dq [rows, h] (zeroed by the caller) from q, dO [num_dst, h] and LSE,
-// delta [num_dst, nh] over the forward layout.
+// K7.  dq [num_windows * 128, h] (zeroed by the caller) from q, dO [rows of
+// the destinations, h] and LSE, delta [the same rows, nh] over the forward
+// layout; the rest as K6.
 int mmgnn_flash_attention_dq(const float* q, const float* k, const float* v, const float* dout,
                              const float* lse, const float* delta, const int* src,
-                             const int* local, const int* tile_map, int num_tiles,
-                             int tiles_per_block, int h, int nh, float* dq, void* stream) {
-  const size_t smem = sizeof(float) * WINDOW * h;
-  cudaError_t err = allow_shared(flash_dq_kernel, smem);
-  if (err != cudaSuccess) return err;
-  flash_dq_kernel<<<grid_of(num_tiles, tiles_per_block), THREADS, smem,
-                    static_cast<cudaStream_t>(stream)>>>(q, k, v, dout, lse, delta, src, local,
-                                                         tile_map, num_tiles, tiles_per_block, h,
-                                                         nh, dq);
-  return cudaGetLastError();
+                             const int* local, const int* tile_map, int num_tiles, int* work,
+                             int grab, int blocks, int slices, int slice, int h, int nh, float* dq,
+                             void* stream) {
+  const RowArgs a{q, k, v, dout, lse, delta, src, local, tile_map, num_tiles, h, nh,
+                  slice, work, grab, dq, nullptr, nullptr, nullptr};
+  return launch_rows(DQ, a, blocks, slices, static_cast<cudaStream_t>(stream));
 }
 
 // K8.  dk, dv [rows, h] (zeroed by the caller, rows = the reverse plan's

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from multi_modal_gnn_tpu_torch.graph.hetero import (
+    TILE_E,
     HeteroGraph,
     _tensor,
     build_src_span_plan,
@@ -73,6 +74,21 @@ class AttnSidePlan:
         if self.use_span:
             return self.span_src, self.span_local, self.span_tile_map
         return self.win_src, self.win_local, self.win_tile_map
+
+    def row_ordered(self) -> "AttnSidePlan":
+        """This side with each tile's slots in local-row order (padding
+        last) in the layout the kernels run on: K6 and K7 walk a tile's
+        slots by row, and a tile already in that order skips their per-tile
+        sort.  A tile's slots keep their tile, window and span."""
+        src, local, _ = self.arrays()
+        tiles = local.shape[0] // TILE_E
+        order = torch.sort(local.view(tiles, TILE_E), dim=1, stable=True).indices
+        ordered = {
+            name: t.view(tiles, TILE_E).gather(1, order).reshape(-1).contiguous()
+            for name, t in zip(("src", "local"), (src, local))
+        }
+        prefix = "span_" if self.use_span else "win_"
+        return dataclasses.replace(self, **{prefix + name: t for name, t in ordered.items()})
 
     def to(self, device) -> "AttnSidePlan":
         return dataclasses.replace(
@@ -198,7 +214,9 @@ def build_attn_plans(
 def ensure_attn_plans(graph: HeteroGraph, config) -> HeteroGraph:
     """``graph`` with flash-attention plans attached when the configured
     model runs them (HGT, ``model.use_pallas``, ``model.extras.hgt_flash``
-    not off), on the graph's device; otherwise ``graph`` unchanged."""
+    not off), on the graph's device, each forward side in row order
+    (:meth:`AttnSidePlan.row_ordered`, as K6 and K7 take it); otherwise
+    ``graph`` unchanged."""
     mc = config.model
     if mc.architecture != "HGT" or not mc.use_pallas or mc.hgt_flash == "off":
         return graph
@@ -209,5 +227,9 @@ def ensure_attn_plans(graph: HeteroGraph, config) -> HeteroGraph:
         return graph
     device = graph.patient_lab_degree.device
     return dataclasses.replace(
-        graph, attn_plans={dst_t: plan.to(device) for dst_t, plan in plans.items()}
+        graph,
+        attn_plans={
+            dst_t: dataclasses.replace(plan, fwd=plan.fwd.row_ordered()).to(device)
+            for dst_t, plan in plans.items()
+        },
     )

@@ -117,8 +117,8 @@ def load() -> ctypes.CDLL:
         "mmgnn_gather_indicator": [p, p, i, i, i, p, p],
         "mmgnn_gather_direct": [p, p, i, i, i, i, i, i, p, p],
         "mmgnn_gather_direct_staged_bytes": [i, i],
-        "mmgnn_flash_attention_fwd": [p, p, p, p, p, p, i, i, i, i, i, p, p, p, p, p, p],
-        "mmgnn_flash_attention_dq": [p, p, p, p, p, p, p, p, p, i, i, i, i, p, p],
+        "mmgnn_flash_attention_fwd": [*[p] * 6, i, p, *[i] * 7, *[p] * 6],
+        "mmgnn_flash_attention_dq": [*[p] * 9, i, p, *[i] * 6, p, p],
         "mmgnn_flash_attention_dkv": [*[p] * 9, i, i, i, p, *[i] * 8, p, p, p],
     }
     for name, argtypes in signatures.items():

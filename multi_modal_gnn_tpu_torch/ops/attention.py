@@ -6,6 +6,8 @@ and ``flash_attention_ref``).
 is K6 over the plan's forward layout and whose backward computes
 ``delta = sum_dh(dO * out)`` per head, then K7 (``dq``, forward layout) and
 K8 (``dk``, ``dv``, reverse layout): no scatter runs in either direction.
+The model's plans hold the forward side with each tile's slots in row
+order (``ensure_attn_plans``), so K6 and K7 skip their per-tile sort.
 On CPU tensors the kernels' plain versions run instead.
 """
 

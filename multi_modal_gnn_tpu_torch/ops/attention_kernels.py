@@ -17,8 +17,8 @@ flash_attention_dq     K7  ``_flash_dq_call`` (``_dq_kernel_resident`` / ``_span
 flash_attention_dkv    K8  ``_flash_dkv_call`` (``_dkv_kernel_resident`` / ``_span``)
 =====================  ===========================================================
 
-K6 runs as three CUDA kernels (row max, sums, finish) and counts as one
-launch per call.
+K6 runs as two CUDA kernels (the one pass over the tiles, then the merge of
+its per-grab partials) and counts as one launch per call.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -52,7 +52,6 @@ launch_counts: Dict[str, int] = {
 
 EMPTY_LSE = 1e30  # the log-sum-exp of a row with no edges
 EXP_CLAMP = 60.0  # the backward's bound on exp arguments
-_BLOCKS_PER_SM_TARGET = 4  # K6 and K7: blocks of a few consecutive tiles
 # K8 (csrc/attention.cu): the table route (flash_dkv_table_kernel) for a
 # gathered side (q, dO) of at most as many rows as the attention plans keep
 # in the resident, dst-sorted layout (graph/attn_plan.py
@@ -68,6 +67,17 @@ _DKT_UNIT = 64
 _DKT_INDEX_BYTES = _DKV_WARPS * 2 * _DKT_UNIT * 4
 _DKT_GRABS_PER_WARP = 4
 _DKT_COUNTER_STRIDE = 32  # ints between two slices' counters: one 128-byte line each
+# K6 and K7 (csrc/attention.cu flash_rows_kernel): persistent 32-warp blocks,
+# one an SM, over column slices of whole heads take tiles from a counter per
+# slice (K8's sort-route scheme), the widest slice that fits first; each
+# slot reads its k | v row through L2.
+_ROW_WARPS = 32
+_ROW_GRABS_PER_BLOCK = 16
+_ROW_MAX_GRAB = 8
+# K6 writes a partial per block and window its grabs reach, which its merge
+# reads back: a block's share in two grabs
+_ROW_FWD_GRABS_PER_BLOCK = 2
+_ROW_KINDS = ("fwd", "dq")
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
@@ -175,13 +185,10 @@ def _check_stats(name: str, num_heads: int, *tensors) -> None:
             raise ValueError(f"{name}: expected contiguous float32 [rows, {num_heads}] statistics")
 
 
-def _launch_args(name: str, device, src, local, tile_map):
+def _launch_args(name: str, device, src, local, tile_map) -> int:
+    """The plan's tile count, its arrays checked."""
     slots = local.shape[0]
-    num_tiles = _check_plan(
-        name, device, slots, (src, slots), (local, slots), (tile_map, slots // TILE_E)
-    )
-    tiles_per_block = max(1, -(-num_tiles // (_sms(device) * _BLOCKS_PER_SM_TARGET)))
-    return num_tiles, tiles_per_block
+    return _check_plan(name, device, slots, (src, slots), (local, slots), (tile_map, slots // TILE_E))
 
 
 @dataclass(frozen=True)
@@ -265,6 +272,103 @@ def dkv_launch(num_tiles: int, num_rows: int, h: int, num_heads: int, sms: int) 
     )
 
 
+@dataclass(frozen=True)
+class RowsLaunch:
+    """Launch shape of K6 or K7: grid ``(blocks, slices)``, each block on
+    columns ``[c0, c0 + slice)`` (2^m whole heads), taking ``grab`` tiles at
+    a time; ``shared_bytes`` of dynamic shared memory a block."""
+
+    blocks: int
+    grab: int
+    slices: int
+    slice: int
+    shared_bytes: int
+
+
+def _rows_edge_floats(kind: str, slice_: int) -> int:
+    """Floats of a row group's cut run in ``flash_rows_kernel``
+    (``csrc/attention.cu`` ``rows_edge_floats``): o (K6: then m and l a
+    lane), a multiple of 4 so that each group's o is 16-byte aligned."""
+    return slice_ + (slice_ // 2 + 3) // 4 * 4 if kind == "fwd" else slice_
+
+
+def _rows_shared_bytes(kind: str, slice_: int) -> int:
+    """Dynamic shared memory of ``flash_rows_kernel`` (``csrc/attention.cu``
+    ``rows_shared_floats``): the window partial (K6: with a max and
+    normaliser a lane), a cut run per row group, and two tiles' staged
+    slots and one sorted."""
+    quads = slice_ // 4
+    groups = _ROW_WARPS * 32 // quads
+    fwd = kind == "fwd"
+    n = WINDOW * slice_
+    n += 2 * WINDOW * quads if fwd else 0
+    n += groups * _rows_edge_floats(kind, slice_)
+    return 4 * n + 4 * 6 * TILE_E
+
+
+def rows_launch_at(kind: str, num_tiles: int, h: int, sms: int, width: int) -> Optional[RowsLaunch]:
+    """``kind``'s launch at column slices of ``width``, or None where that
+    does not fit a block (:func:`rows_launch` picks among these; probes time
+    them).  One block an SM for each slice; K7's blocks take about a
+    sixteenth of their share of tiles at a time (1 to 8), K6's half (a
+    block's stint in a window writes one partial, which the merge reads
+    back)."""
+    if kind not in _ROW_KINDS:
+        raise ValueError(f"rows_launch: kind {kind!r} is not one of {_ROW_KINDS}")
+    shared = _rows_shared_bytes(kind, width)
+    if shared > _MAX_SHARED_BYTES:
+        return None
+    slices = h // width
+    blocks = max(1, min(num_tiles, sms // slices))
+    if kind == "fwd":
+        grab = -(-num_tiles // (blocks * _ROW_FWD_GRABS_PER_BLOCK))
+    else:
+        grab = max(1, min(_ROW_MAX_GRAB, num_tiles // (blocks * _ROW_GRABS_PER_BLOCK)))
+    return RowsLaunch(blocks=blocks, grab=grab, slices=slices, slice=width, shared_bytes=shared)
+
+
+@functools.lru_cache(maxsize=256)
+def rows_launch(kind: str, num_tiles: int, h: int, num_heads: int, sms: int) -> RowsLaunch:
+    """Plan K6 (``kind`` ``"fwd"``) or K7 (``"dq"``) over ``num_tiles``
+    tiles of width ``h`` in ``num_heads`` heads on ``sms`` SMs: the widest
+    slice of whole heads that fits a block's shared memory
+    (:func:`rows_launch_at`).  Width comes first: a tile's slots are staged
+    and walked once a slice (``tools/attention_probe.py``, ``PERF.md`` §6)."""
+    for width in _head_slices(h, num_heads):
+        launch = rows_launch_at(kind, num_tiles, h, sms, width)
+        if launch is not None:
+            return launch
+    raise ValueError(f"rows_launch: no slice of h={h} in {num_heads} heads fits a block")
+
+
+def fwd_launch(num_tiles: int, h: int, num_heads: int, sms: int) -> RowsLaunch:
+    """K6's plan (:func:`rows_launch`)."""
+    return rows_launch("fwd", num_tiles, h, num_heads, sms)
+
+
+def dq_launch(num_tiles: int, h: int, num_heads: int, sms: int) -> RowsLaunch:
+    """K7's plan (:func:`rows_launch`)."""
+    return rows_launch("dq", num_tiles, h, num_heads, sms)
+
+
+def fwd_partial_entries(num_tiles: int, grab: int, num_windows: int) -> int:
+    """Entries of K6's partial scratch, numbered ``grab index + window``: a
+    block's stint in a window writes the entry of the grab where it met the
+    window first, so every (grab, window) pair a grab's tiles reach has one
+    at most."""
+    return -(-num_tiles // grab) + num_windows
+
+
+def _rows_plan(name: str, kind: str, q, src, local, tile_map, num_heads: int) -> RowsLaunch:
+    """The plan's launch of a K6 / K7 call on CUDA tensors, its plan arrays
+    checked."""
+    num_tiles = _launch_args(name, q.device, src, local, tile_map)
+    _check_slot_alignment(name, src, local)
+    launch = rows_launch(kind, num_tiles, q.shape[1], num_heads, _sms(q.device))
+    _check_shared(name, launch.shared_bytes)
+    return launch
+
+
 def _stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
@@ -280,20 +384,35 @@ def flash_attention_fwd(
     h = q.shape[1]
     _check_heads(name, h, num_heads)
     _check_tables(name, h, q, k, v)
-    num_tiles, tiles_per_block = _launch_args(name, q.device, src, local, tile_map)
+    launch = _rows_plan(name, "fwd", q, src, local, tile_map, num_heads)
+    return _fwd_on(launch, q, k, v, src, local, tile_map, num_windows, num_heads)
+
+
+def _fwd_on(launch: RowsLaunch, q, k, v, src, local, tile_map, num_windows: int,
+            num_heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6 on checked CUDA tensors at ``launch`` (:func:`flash_attention_fwd`
+    gives the plan's; probes and tests any of :func:`rows_launch_at`)."""
+    name = "flash_attention_fwd"
+    h, num_tiles = q.shape[1], local.shape[0] // TILE_E
     rows = num_windows * WINDOW
+    entries = fwd_partial_entries(num_tiles, launch.grab, num_windows)
     f32 = dict(dtype=torch.float32, device=q.device)
-    logits = torch.empty(local.shape[0], num_heads, **f32)
-    row_max = torch.full((rows, num_heads), -1e30, **f32)
-    den = torch.zeros(rows, num_heads, **f32)
-    out = torch.zeros(rows, h, **f32)
+    # the partials' maxima and sums (written before they are read), out and
+    # lse (written whole); one zeroed allocation for the normalisers (an entry
+    # no block writes keeps 0) and the counters (int32 0 has float32 0's bits)
+    n = entries * WINDOW * num_heads
+    scratch = torch.empty(n + entries * WINDOW * h, **f32)
+    pm, po = scratch[:n], scratch[n:]
+    zeroed = torch.zeros(n + _DKT_COUNTER_STRIDE * launch.slices, **f32)
+    pl, work = zeroed[:n], zeroed[n:].view(torch.int32)
+    out = torch.empty(rows, h, **f32)
     lse = torch.empty(rows, num_heads, **f32)
     from multi_modal_gnn_tpu_torch.ops import _build
 
     rc = _build.load().mmgnn_flash_attention_fwd(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(src), _ptr(local), _ptr(tile_map), num_tiles,
-        tiles_per_block, rows, h, num_heads, _ptr(logits), _ptr(row_max), _ptr(den), _ptr(out),
-        _ptr(lse), _stream(q.device),
+        _ptr(q), _ptr(k), _ptr(v), _ptr(src), _ptr(local), _ptr(tile_map), num_tiles, _ptr(work),
+        launch.grab, launch.blocks, launch.slices, launch.slice, num_windows, h, num_heads, _ptr(pm),
+        _ptr(pl), _ptr(po), _ptr(out), _ptr(lse), _stream(q.device),
     )
     _raise_on(rc, name)
     launch_counts[name] += 1
@@ -314,13 +433,25 @@ def flash_attention_dq(
     _check_heads(name, h, num_heads)
     _check_tables(name, h, q, k, v, dout)
     _check_stats(name, num_heads, lse, delta)
-    num_tiles, tiles_per_block = _launch_args(name, q.device, src, local, tile_map)
-    dq = torch.zeros(num_windows * WINDOW, h, dtype=torch.float32, device=q.device)
+    launch = _rows_plan(name, "dq", q, src, local, tile_map, num_heads)
+    return _dq_on(launch, q, k, v, dout, lse, delta, src, local, tile_map, num_windows, num_heads)
+
+
+def _dq_on(launch: RowsLaunch, q, k, v, dout, lse, delta, src, local, tile_map, num_windows: int,
+           num_heads: int) -> torch.Tensor:
+    """K7 on checked CUDA tensors at ``launch``, as :func:`_fwd_on`."""
+    name = "flash_attention_dq"
+    h = q.shape[1]
+    # one zeroed allocation: dq, then the counters (int32 0 has float32 0's bits)
+    n = num_windows * WINDOW * h
+    buf = torch.zeros(n + _DKT_COUNTER_STRIDE * launch.slices, dtype=torch.float32, device=q.device)
+    dq = buf[:n].view(-1, h)
     from multi_modal_gnn_tpu_torch.ops import _build
 
     rc = _build.load().mmgnn_flash_attention_dq(
         _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(lse), _ptr(delta), _ptr(src), _ptr(local),
-        _ptr(tile_map), num_tiles, tiles_per_block, h, num_heads, _ptr(dq), _stream(q.device),
+        _ptr(tile_map), local.shape[0] // TILE_E, _ptr(buf[n:].view(torch.int32)), launch.grab,
+        launch.blocks, launch.slices, launch.slice, h, num_heads, _ptr(dq), _stream(q.device),
     )
     _raise_on(rc, name)
     launch_counts[name] += 1
@@ -341,7 +472,7 @@ def flash_attention_dkv(
     _check_heads(name, h, num_heads)
     _check_tables(name, h, q, k, v, dout)
     _check_stats(name, num_heads, lse, delta)
-    num_tiles, _ = _launch_args(name, q.device, src, local, tile_map)
+    num_tiles = _launch_args(name, q.device, src, local, tile_map)
     _check_slot_alignment(name, src, local)
     launch = dkv_launch(num_tiles, q.shape[0], h, num_heads, _sms(q.device))
     _check_shared(name, launch.shared_bytes)

@@ -13,6 +13,8 @@ against the JAX package.
 * ``segment_softmax`` against the JAX one, values and gradients.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -114,6 +116,39 @@ def test_ensure_attn_plans_follows_the_config():
         assert attn_plan.ensure_attn_plans(graph, cfg).attn_plans is None
 
 
+@pytest.mark.parametrize("name", ["resident", "span_both_sides", "high_rung", "empty_destinations"])
+def test_row_ordered_sorts_each_tiles_slots_and_keeps_its_slots(name):
+    src, dst, num_dst, num_src, span_rows, resident_max = _side_case(name)
+    side = attn_plan._build_side(src, dst, num_dst, num_src, span_rows, resident_max)
+    ordered = side.row_ordered()
+    s0, l0, m0 = (t.numpy() for t in side.arrays())
+    s1, l1, m1 = (t.numpy() for t in ordered.arrays())
+    np.testing.assert_array_equal(m1, m0)
+    tiles = len(l0) // 1024
+    for t in range(tiles):
+        cut = slice(t * 1024, (t + 1) * 1024)
+        assert (np.diff(l1[cut]) >= 0).all()  # row order, padding (128) last
+        assert sorted(zip(l1[cut], s1[cut])) == sorted(zip(l0[cut], s0[cut]))
+    # the other layout, the span base and the counts are the side's own
+    other = "win_" if side.use_span else "span_"
+    for field in ("num_windows", "span_rows", "span_base", other + "src", other + "local", other + "tile_map"):
+        a, b = getattr(ordered, field), getattr(side, field)
+        assert a is b or a == b, field
+
+
+def test_ensure_attn_plans_holds_the_forward_side_in_row_order_only():
+    graph = make_synthetic_graph(SyntheticSpec.tiny(), Config(), device="cpu")
+    cfg = Config.from_dict({"model": dict(architecture="HGT", use_pallas=True)})
+    got = attn_plan.ensure_attn_plans(graph, cfg).attn_plans
+    want = attn_plan.build_attn_plans(graph)
+    assert set(got) == set(want)
+    for dst_t, plan in want.items():
+        ordered = plan.fwd.row_ordered()
+        for name, a in zip(("src", "local", "tile_map"), got[dst_t].fwd.arrays()):
+            np.testing.assert_array_equal(a.numpy(), getattr(ordered, ("span_" if plan.fwd.use_span else "win_") + name).numpy())
+        assert_sides_equal(got[dst_t].rev, plan.rev)
+
+
 # -- attention ------------------------------------------------------------------
 
 
@@ -195,6 +230,20 @@ def test_flash_attention_matches_jax_reference(name, nh, h):
     # the port's own oracle agrees too
     ref = flash_attention_ref(*[torch.from_numpy(a) for a in arrays], plan, nh).numpy()
     np.testing.assert_allclose(out, ref, **FWD_TOL)
+
+
+@pytest.mark.parametrize("name", ["resident", "span_both_sides", "high_rung", "empty_destinations"])
+def test_flash_attention_on_row_ordered_plans_matches_jax_reference(name):
+    # the forward side as the model's plans hold it (ensure_attn_plans)
+    plan, jax_group = _groups(name)
+    plan = dataclasses.replace(plan, fwd=plan.fwd.row_ordered())
+    arrays = _qkv(plan, 64, seed=5)
+    w = np.random.default_rng(9).normal(size=(plan.num_dst, 64)).astype(np.float32)
+    out, grads = _port_value_and_grads(plan, arrays, w, 4)
+    want, want_grads = _jax_value_and_grads(jax_attn.flash_attention_ref, jax_group, arrays, w, 4)
+    np.testing.assert_allclose(out, want, **FWD_TOL)
+    for got_g, want_g, gname in zip(grads, want_grads, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(got_g, want_g, **GRAD_TOL, err_msg=gname)
 
 
 def test_flash_attention_matches_the_jax_kernel_in_interpret_mode():

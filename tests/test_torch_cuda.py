@@ -1163,3 +1163,124 @@ def test_attention_wrappers_reject_other_devices():
     q = torch.empty(plan.num_dst, ATTN_H, device="meta")
     with pytest.raises(ValueError):
         ak.flash_attention_fwd(q, q, q, *plan.fwd.arrays(), plan.fwd.num_windows, ATTN_HEADS)
+
+
+# K6 and K7 at every slice width of their launch plan (ops/attention_kernels.py
+# rows_launch_at), h: heads of 4, 8, 16 and 32 columns; one head of 4 (a
+# 4-column slice, the narrowest)
+K67_WIDTHS = [(4, 1), (16, 4), (32, 4), (64, 4), (128, 4)]
+
+
+def _k67_group(layout):
+    """A group of 600 destinations (5 forward windows) whose window 0 takes
+    60,000 edges (its tiles spread over many blocks), whose row 200 alone
+    fills window 1 with 2,100 edges from 100 sources (whole tiles of one
+    row), whose window 2 has no edge (an all-padding tile, empty rows), and
+    whose last windows gather from the table's last rows.  ``"resident"``:
+    300 sources, the resident layout; ``"span"``: 5,000 sources in 128-row
+    spans (the last span, based at row 4,992, runs past the table's end)."""
+    rng = np.random.default_rng(23)
+    num_dst, num_src = 600, 300 if layout == "resident" else 5000
+    src = [rng.integers(0, num_src, 60_000), rng.integers(0, 100, 2_100), rng.integers(0, num_src, 8_000),
+           np.full(50, num_src - 1), np.arange(num_src - 40, num_src)]
+    dst = [rng.integers(0, 128, 60_000), np.full(2_100, 200), rng.integers(384, 600, 8_000),
+           rng.integers(384, 600, 50), rng.integers(384, 600, 40)]
+    src, dst = np.concatenate(src), np.concatenate(dst)
+    fwd = _build_side(src, dst, num_dst, num_src, 128, 512)
+    rev = _build_side(dst, src, num_src, num_dst, 128, 512)
+    assert fwd.use_span == (layout == "span") and fwd.num_windows == 5
+    return AttnGroupPlan(fwd=fwd, rev=rev, src_offsets=(0,), num_src_total=num_src, num_dst=num_dst,
+                         num_edges=len(src))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,num_heads", K67_WIDTHS)
+@pytest.mark.parametrize("layout", ["resident", "span"])
+def test_k6_k7_slices_match_plain(gpu, layout, h, num_heads):
+    # every slice width that fits, on the plan's slot order (each tile sorted
+    # in the kernel), NaN rows past every table
+    plan = _k67_group(layout).to(gpu)
+    side, n, ns = plan.fwd, plan.num_dst, plan.num_src_total
+    gen = torch.Generator().manual_seed(h)
+    q = (torch.randn(n, h, generator=gen) / (h // num_heads) ** 0.5).to(gpu)
+    k, v = (torch.randn(ns, h, generator=gen).to(gpu) for _ in range(2))
+    dout = torch.randn(n, h, generator=gen).to(gpu)
+    args = (*side.arrays(), side.num_windows, num_heads)
+    tiles = side.arrays()[1].shape[0] // 1024
+    sms = torch.cuda.get_device_properties(gpu).multi_processor_count
+    out_p, lse_p = ak.flash_attention_fwd_plain(q, k, v, *args)
+    lse_d = lse_p[:n].contiguous()
+    delta = (dout * out_p[:n]).reshape(n, num_heads, -1).sum(-1).contiguous()
+    dq_p = ak.flash_attention_dq_plain(q, k, v, dout, lse_d, delta, *args)
+
+    def nan_rows(x, extra=300):
+        out = torch.full((x.shape[0] + extra, x.shape[1]), float("nan"), device=gpu)
+        out[: x.shape[0]] = x
+        return out[: x.shape[0]]  # a view whose storage holds NaN rows right past it
+
+    qx, kx, vx, dx = (nan_rows(t) for t in (q, k, v, dout))
+    widths = [w for w in ak._head_slices(h, num_heads) if ak.rows_launch_at("fwd", tiles, h, sms, w)]
+    assert widths[0] == ak.fwd_launch(tiles, h, num_heads, sms).slice
+    for width in widths:
+        fwd_launch, dq_launch = (ak.rows_launch_at(kind, tiles, h, sms, width) for kind in ("fwd", "dq"))
+        before = dict(ak.launch_counts)
+        out, lse = ak._fwd_on(fwd_launch, qx, kx, vx, *args)
+        dq = ak._dq_on(dq_launch, qx, kx, vx, dx, lse_d, delta, *args)
+        torch.cuda.synchronize()
+        assert ak.launch_counts["flash_attention_fwd"] == before["flash_attention_fwd"] + 1
+        assert ak.launch_counts["flash_attention_dq"] == before["flash_attention_dq"] + 1
+        for got in (out, lse, dq):
+            assert bool(torch.isfinite(got).all())
+        tag = f" at slice {width}"
+        np.testing.assert_allclose(out.cpu().numpy(), out_p.cpu().numpy(), rtol=1e-5, atol=1e-5, err_msg="out" + tag)
+        np.testing.assert_allclose(lse.cpu().numpy(), lse_p.cpu().numpy(), rtol=1e-5, atol=1e-5, err_msg="lse" + tag)
+        _assert_close_scaled(dq[:n].cpu().numpy(), dq_p[:n].cpu().numpy(), 1e-4, "dq" + tag)
+        empty = slice(256, 384)  # window 2 and rows past the destinations: out 0, LSE 1e30, dq 0
+        for rows in (empty, slice(n, side.num_windows * 128)):
+            assert float(out[rows].abs().max()) == 0.0 and float(dq[rows].abs().max()) == 0.0
+            assert bool((lse[rows] == ak.EMPTY_LSE).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["plan_order", "row_ordered"])
+@pytest.mark.parametrize("layout", ["resident", "span"])
+def test_k6_k7_layouts_match_plain(gpu, layout, order):
+    # the plan's slot order (each tile sorted in the kernel) and the model's
+    # (each tile's slots in row order, ensure_attn_plans), through the wrappers
+    plan = _k67_group(layout)
+    side = (plan.fwd.row_ordered() if order == "row_ordered" else plan.fwd).to(gpu)
+    n = plan.num_dst
+    q, k, v, dout = [t.to(gpu) for t in _attn_inputs(plan, seed=4)]
+    args = (*side.arrays(), side.num_windows, ATTN_HEADS)
+    out_p, lse_p = ak.flash_attention_fwd_plain(q, k, v, *args)
+    lse, delta = lse_p[:n].contiguous(), (dout * out_p[:n]).reshape(n, ATTN_HEADS, -1).sum(-1).contiguous()
+    want = ak.flash_attention_dq_plain(q, k, v, dout, lse, delta, *args)
+    out, lse_k = ak.flash_attention_fwd(q, k, v, *args)
+    got = ak.flash_attention_dq(q, k, v, dout, lse, delta, *args)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out.cpu().numpy(), out_p.cpu().numpy(), rtol=1e-5, atol=1e-5, err_msg="out")
+    np.testing.assert_allclose(lse_k.cpu().numpy(), lse_p.cpu().numpy(), rtol=1e-5, atol=1e-5, err_msg="lse")
+    _assert_close_scaled(got[:n].cpu().numpy(), want[:n].cpu().numpy(), 1e-4, "dq")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [16, 128])
+@pytest.mark.parametrize("layout", ["resident", "span"])
+def test_k6_k7_autograd_step_matches_plain(gpu, layout, h):
+    plan = _k67_group(layout)
+    plan = dataclasses.replace(plan, fwd=plan.fwd.row_ordered())  # as ensure_attn_plans holds it
+    gen = torch.Generator().manual_seed(5)
+    q = torch.randn(plan.num_dst, h, generator=gen)
+    k, v = (torch.randn(plan.num_src_total, h, generator=gen) for _ in range(2))
+    dout = torch.randn(plan.num_dst, h, generator=gen)
+    results = []
+    for dev, p in ((gpu, plan.to(gpu)), (torch.device("cpu"), plan)):
+        leaves = [t.to(dev).requires_grad_() for t in (q, k, v)]
+        ak.reset_launch_counts()
+        out = flash_attention_group(*leaves, p, 4)
+        (out * dout.to(dev)).sum().backward()
+        assert all(ak.launch_counts.values()) == (dev == gpu), ak.launch_counts
+        results.append([out.detach().cpu().numpy()] + [t.grad.cpu().numpy() for t in leaves])
+    np.testing.assert_allclose(results[0][0], results[1][0], rtol=1e-5, atol=1e-5, err_msg="out")
+    for name, a, b in zip(("dq", "dk", "dv"), results[0][1:], results[1][1:]):
+        _assert_close_scaled(a, b, 1e-4, name)

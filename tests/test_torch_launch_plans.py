@@ -1,7 +1,8 @@
 """PyTorch port: the launch plans of the kernels redesigned for the H100,
 K2f (``ops/segment_kernels.fused_table_launch``), K4b / K5b
 (``ops/pairhead_kernels.bwd_launch``), K1 (``windowed_route``,
-``windowed_launch``) and K8 (``ops/attention_kernels.dkv_launch``).
+``windowed_launch``), K8 (``ops/attention_kernels.dkv_launch``) and K6 /
+K7 (``rows_launch``).
 
 The wrappers derive them on the host before they launch, so they are checked
 here without a card: every table the fused-table tier admits fits a block's
@@ -228,4 +229,61 @@ def test_attention_launches_use_the_cached_sm_count(monkeypatch):
     monkeypatch.setattr(ak, "_sms", lambda device: H100_SMS)
     plan = torch.zeros(4 * 1024, dtype=torch.int32)
     tiles = torch.zeros(4, dtype=torch.int32)
-    assert ak._launch_args("k", torch.device("cpu"), plan, plan, tiles) == (4, 1)
+    assert ak._launch_args("k", torch.device("cpu"), plan, plan, tiles) == 4
+    # K6 / K7 plan their launch on the cached count too
+    table = torch.zeros(300, 128)
+    for kind in ("fwd", "dq"):
+        assert ak._rows_plan("k", kind, table, plan, plan, tiles, 4) == ak.rows_launch(kind, 4, 128, 4, H100_SMS)
+
+
+# K6 / K7 on scale_100k's HGT forward sides (4 heads of 32): name: tiles
+K67_GROUPS = {"patient": 7866, "lab": 5545, "medication": 1101, "diagnosis": 417}
+
+
+@pytest.mark.parametrize("kind", ["fwd", "dq"])
+@pytest.mark.parametrize("group", sorted(K67_GROUPS))
+def test_k6_k7_plan_of_each_hgt_group(group, kind):
+    tiles = K67_GROUPS[group]
+    plan = ak.fwd_launch if kind == "fwd" else ak.dq_launch
+    launch = plan(tiles, 128, 4, H100_SMS)
+    # the widest slice first: every head in one block
+    assert (launch.slice, launch.slices) == (128, 1)
+    assert launch.shared_bytes == ak._rows_shared_bytes(kind, 128) <= sk._MAX_SHARED_BYTES
+    assert launch.blocks * launch.slices <= H100_SMS  # one wave: a block an SM
+    # K6: a block's share in two grabs; K7: about a sixteenth, at most 8 tiles
+    assert launch.grab == (-(-tiles // (launch.blocks * 2)) if kind == "fwd" else max(1, min(8, tiles // (launch.blocks * 16))))
+
+
+@pytest.mark.parametrize("kind", ["fwd", "dq"])
+@pytest.mark.parametrize("h,num_heads", HEADS)
+def test_k6_k7_plan_fits_every_width_it_takes(h, num_heads, kind):
+    launch = ak.rows_launch(kind, 100, h, num_heads, H100_SMS)
+    dh = h // num_heads
+    heads = launch.slice // dh
+    assert launch.slice % dh == 0 and heads & (heads - 1) == 0 and num_heads % heads == 0
+    assert launch.slices * launch.slice == h
+    # the widest slice of whole heads that fits
+    assert launch.slice == next(w for w in ak._head_slices(h, num_heads) if ak._rows_shared_bytes(kind, w) <= sk._MAX_SHARED_BYTES)
+    assert launch.shared_bytes == ak._rows_shared_bytes(kind, launch.slice) <= sk._MAX_SHARED_BYTES
+    assert launch.blocks * launch.slices <= H100_SMS and launch.grab >= 1
+    # at every slice a row group's cut run (o; K6: and m, l a lane) starts 16-byte aligned
+    for width in ak._head_slices(h, num_heads):
+        edge = ak._rows_edge_floats(kind, width)
+        assert edge % 4 == 0 and edge >= width + (width // 2 if kind == "fwd" else 0)
+
+
+def test_k6_partial_entries_are_distinct_for_every_grab_and_window():
+    # grab g's tiles of window w write entry g + w: distinct, and below the count the wrapper allocates
+    gen = torch.Generator().manual_seed(0)
+    for grab in (1, 3, 8):
+        tile_map = torch.sort(torch.randint(0, 40, (500,), generator=gen)).values
+        num_windows = int(tile_map.max()) + 3
+        pairs = {(t // grab, int(w)) for t, w in enumerate(tile_map)}
+        entries = {g + w for g, w in pairs}
+        assert len(entries) == len(pairs)
+        assert max(entries) < ak.fwd_partial_entries(500, grab, num_windows)
+
+
+def test_k6_k7_plans_refuse_an_unknown_kind():
+    with pytest.raises(ValueError):
+        ak.rows_launch("dkv", 10, 128, 4, H100_SMS)
