@@ -10,8 +10,8 @@ Phases, each printing one line with its seconds:
                    -Xptxas -v lines of every kernel, and by name those of
                    K2b and K3 (the two instances of incidence_kernel), K2f
                    and K1 (gather_runs_kernel, gather_tile_kernel's two
-                   instances), K6 and its merge, K7, K8's two routes, K4b
-                   and K5b
+                   instances), K6 and its merge, K7, K8's two routes, K4f,
+                   K4b, K5f and K5b
   3. graph         the scale_100k synthetic graph (seed 0, 100k patients, ~5M
                    patient-lab edges, numbered as the JAX package numbers
                    nodes), dense budget 0, span rows 256; per relation its
@@ -32,10 +32,14 @@ Phases, each printing one line with its seconds:
   7. train-kernels the slot-major span@256 train batch (split seed 42); K2b on
                    the three fused-table relations (each timed), K1 as the
                    span tier's backward, K4f and K4b (dropout 0 and 0.2, both
-                   heads' tile masks; each head timed and bounded) against
-                   their plain versions at these shapes; K4b's launch shape;
-                   K4b at 720 and 2048 labs (the batch's patients, labs from
-                   a seed) with lab_tile_rows 256 and 0
+                   heads' tile masks; each head timed and bounded, each
+                   forward beside the time of its dropout hashes and of its
+                   gathered rows) against their plain versions at these
+                   shapes; K4f also without a tile mask and with NaN rows
+                   past proj_l and past the window-padded proj_p; K4f's and
+                   K4b's launch shapes; K4f and K4b at 720 and 2048 labs (the
+                   batch's patients, labs from a seed) with lab_tile_rows 256
+                   and 0
   8. train-step    one Adam step with dropout 0 on the card against the same
                    step with the plain versions on the CPU: loss, every
                    gradient, the parameters and the BatchNorm statistics;
@@ -74,9 +78,11 @@ Phases, each printing one line with its seconds:
                    slots, tiles, each head's share of tiles); K5f and K5b
                    against their plain versions at dropout 0 and 0.2, with
                    both heads' tile masks and without, and with NaN rows past
-                   proj_l and past the window-padded proj_p; K5b at 720 and
-                   2048 labs; K5b's launch shape; K5f / K5b timed against
-                   K4f / K4b of both heads on the same batch
+                   proj_l and past the window-padded proj_p; K5f with the
+                   tabular head masked on every tile; K5f and K5b at 720 and
+                   2048 labs; K5f's and K5b's launch shapes; K5f / K5b timed
+                   against K4f / K4b of both heads on the same batch, K5f
+                   beside the time of its dropout hashes and gathered rows
  16. dual-train-step one Adam step with dropout 0, dual_head_fusion on
                    against off, both on the card from the same weights and
                    masks: loss, every gradient, the parameters; K5 launched
@@ -141,7 +147,7 @@ STEP_PARAM_ATOL = 2e-3
 STEP_BN_ATOL, STEP_BN_RTOL = 1e-4, 1e-4
 STEP_LOSS_RTOL = 1e-5
 TIMING_REPS = 20
-# lab counts beside scale_100k's 500 at which K4b and K5b are checked:
+# lab counts beside scale_100k's 500 at which K4f, K4b, K5f and K5b are checked:
 # mimic_scale's 720 and the fused-table tier's largest table
 LAB_COUNTS = (720, 2048)
 TRAIN_EPOCHS = 5
@@ -149,11 +155,20 @@ TRAIN_EPOCHS = 5
 # float32 FLOP/s outside the tensor cores; TF32 is off
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+# Printed beside a pair-head forward's bound (which stays bytes or f32
+# FLOPs, comparable across PRs): its dropout hashes, 96 an active slot (64
+# on layer 0, 32 on layer 1), each 10 int32 operations (murmur3's finalizer:
+# 2 multiplies, 3 shifts, 3 xors; the counter's xor; the compare), at the
+# int32 rate of 64 lanes an SM, a quarter of FP32_FLOPS (128 f32 lanes an
+# SM, an FMA counting 2); and its gathered Pp / Pl rows, 2 x 256 B an active
+# slot, at the HBM rate (an upper bound: most come from L2 or L1)
+HEAD_HASHES, HASH_INT_OPS = 96, 10
+INT32_OPS = FP32_FLOPS / 4
 
 SEGMENT_SOURCE = "multi_modal_gnn_tpu_torch/csrc/segment.cu"
 # the -Xptxas -v lines printed by name: K2b and K3 (the two instances of one
 # kernel template in SEGMENT_SOURCE), K2f and K1 (K2f's kernel and the two
-# instances of gather_tile_kernel), K8's two routes, K4b and K5b
+# instances of gather_tile_kernel), K8's two routes, K4f, K4b, K5f and K5b
 NAMED_KERNELS = (
     ("K2b incidence_kernel<false>", "incidence_kernelILb0E"),
     ("K3 incidence_kernel<true>", "incidence_kernelILb1E"),
@@ -165,7 +180,9 @@ NAMED_KERNELS = (
     ("K7 flash_rows_kernel<DQ>", "17flash_rows_kernelILi1E"),
     ("K8 sort route flash_dkv_kernel", "16flash_dkv_kernel"),
     ("K8 table route flash_dkv_table_kernel", "22flash_dkv_table_kernel"),
+    ("K4f pair_head_fwd_kernel", "20pair_head_fwd_kernel"),
     ("K4b pair_head_bwd_kernel", "20pair_head_bwd_kernel"),
+    ("K5f pair_head_dual_fwd_kernel", "25pair_head_dual_fwd_kernel"),
     ("K5b pair_head_dual_bwd_kernel", "25pair_head_dual_bwd_kernel"),
 )
 PAIRHEAD_SOURCE = "multi_modal_gnn_tpu_torch/csrc/pairhead.cu"
@@ -330,6 +347,14 @@ def _bound(nbytes: int, flops: float) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _head_fwd_floors(active: int) -> dict:
+    """The times printed beside a pair-head forward's bound (dropout on):
+    its dropout hashes at the int32 rate and its gathered rows at the HBM
+    rate.  Derived, not measured: printed only, never in the kernels line."""
+    return {"hash_ms": active * HEAD_HASHES * HASH_INT_OPS / INT32_OPS * 1e3,
+            "gather_ms": active * 2 * 64 * 4 / HBM_BYTES_PER_S * 1e3}
 
 
 def _library_ms(name: str, fn):
@@ -819,10 +844,10 @@ def main() -> int:
     g_out = (torch.randn(plan.win_local.shape[0], generator=hg).to(dev) * real).contiguous()
     seed = (2024, 7)
 
-    def head_call(fn, rate, mask, *extra):
+    def head_call(fn, rate, mask, *extra, params=None):
         return fn(
-            *head, batch.lab_idx, plan.win_local, plan.win_tile_map, seed, mask, plan.lab_block_map,
-            rate, plan.lab_block_rows, *extra,
+            *(head if params is None else params), batch.lab_idx, plan.win_local, plan.win_tile_map, seed,
+            mask, plan.lab_block_map, rate, plan.lab_block_rows, *extra,
         )
 
     names = ("proj_p", "proj_l", "w1", "b1", "w2", "b2")
@@ -856,6 +881,9 @@ def main() -> int:
                     lambda m=mask: head_call(pk.pair_head_fwd_plain, 0.2, m), None,
                     head_bytes + plan.win_local.shape[0] * 4, active[mname] * HEAD_FWD_FLOPS, fwd_err,
                 )
+                floors = _head_fwd_floors(active[mname])
+                print(f"      beside its bound: dropout hashes {floors['hash_ms']:.4f} ms, gathered rows "
+                      f"{floors['gather_ms']:.4f} ms ({active[mname]} active slots)")
                 timed(
                     "pair_head_bwd",
                     lambda m=mask: head_call(pk.pair_head_bwd, 0.2, m, plan.num_windows, g_out),
@@ -873,9 +901,26 @@ def main() -> int:
                 ):
                     ms = _median_ms(lambda m=mask, fn=fn, extra=extra: head_call(fn, 0.2, m, *extra))
                     bound = _bound(nbytes, active[mname] * flops)
+                    floors = _head_fwd_floors(active[mname]) if name == "pair_head_fwd" else {}
                     print(f"    {name}, tabular head tiles: kernel {ms:.4f} ms  bound {bound['bound_ms']:.4f} ms "
-                          f"({bound['bound_by']}, {active[mname]} active slots)")
+                          f"({bound['bound_by']}, {active[mname]} active slots)"
+                          + "".join(f"  {k} {v:.4f}" for k, v in floors.items()))
                     results[name]["tabular"] = {"ms": ms, **bound, "active_slots": active[mname]}
+    # K4f without a tile mask, and with NaN rows past proj_l and past the
+    # window-padded proj_p (never read)
+    for rate in (0.0, 0.2):
+        _compare(f"pair_head_fwd (rate {rate}, no tile mask)", head_call(pk.pair_head_fwd, rate, None),
+                 head_call(pk.pair_head_fwd_plain, rate, None), HEAD_ATOL, HEAD_RTOL)
+    nan_head = list(head)
+    for i, rows in ((0, plan.num_windows * WINDOW + WINDOW), (1, num_l + 12)):
+        nan_head[i] = torch.full((rows, 64), float("nan"), device=dev)
+        nan_head[i][: head[i].shape[0]] = head[i]
+    for mname, mask in masks.items():
+        _compare(f"pair_head_fwd (rate 0.2, {mname} head tiles, NaN rows past the tables)",
+                 head_call(pk.pair_head_fwd, 0.2, mask, params=nan_head),
+                 head_call(pk.pair_head_fwd_plain, 0.2, mask), HEAD_ATOL, HEAD_RTOL)
+    del nan_head
+    print(f"      (K4f launch: {pk.fwd_launch(num_tiles, sms)})")
     print(f"      (K4b launch: {pk.bwd_launch(num_tiles, sms)})")
 
     # K4b at other lab counts (mimic_scale's 720, and 2048), over span@256
@@ -883,7 +928,7 @@ def main() -> int:
     # drawn from a seed, laid out by the masker's own slot-major layout
     rows_p = batch_cpu.patient_idx[batch_cpu.valid > 0].numpy()
     lab_rng = np.random.default_rng(720)
-    lab_batches, lab_counts = {}, {}
+    lab_batches, lab_counts, fwd_lab_counts = {}, {}, {}
     for num_l_x in LAB_COUNTS:
         labs_x = lab_rng.integers(0, num_l_x, rows_p.shape[0]).astype(np.int32)
         for rows_x in (256, 0):
@@ -904,6 +949,11 @@ def main() -> int:
             margin = pk.relu_margin_plain(*hx[:4], *args_x)
             g_safe = torch.where(margin > KINK_MARGIN, gx, torch.zeros_like(gx))
             tag = f"{num_l_x} labs, lab_tile_rows {rows_x}, rate 0.2, GNN head tiles"
+            ferr, _ = _compare(f"pair_head_fwd ({tag})", pk.pair_head_fwd(*hx, *args_x),
+                               pk.pair_head_fwd_plain(*hx, *args_x), HEAD_ATOL, HEAD_RTOL)
+            fms = _median_ms(lambda hx=hx, args_x=args_x: pk.pair_head_fwd(*hx, *args_x))
+            print(f"    pair_head_fwd ({tag}): kernel {fms:.4f} ms")
+            fwd_lab_counts[f"{num_l_x} labs, lab_tile_rows {rows_x}"] = {"max_abs_err": ferr, "ms": fms}
             got = pk.pair_head_bwd(*hx, *args_x, px.num_windows, g_safe)
             want = pk.pair_head_bwd_plain(*hx, *args_x, g_safe)
             err = max(_compare_scaled(f"pair_head_bwd d{n} ({tag})", a, b, GRAD_REL) for n, a, b in zip(names, got, want))
@@ -913,6 +963,7 @@ def main() -> int:
                   f"(batch laid out in {time.perf_counter() - t_b:.1f} s)")
             lab_counts[f"{num_l_x} labs, lab_tile_rows {rows_x}"] = {"max_abs_err": err, "ms": ms}
     results["pair_head_bwd"]["lab_counts"] = lab_counts
+    results["pair_head_fwd"]["lab_counts"] = fwd_lab_counts
     _phase("train-kernels", t0, "K2b, K1 as a backward, K4f and K4b (500, 720 and 2048 labs) match their plain versions")
 
     # 8. train-step --------------------------------------------------------
@@ -1456,9 +1507,18 @@ def main() -> int:
             a = a[: b.shape[0]]
         _compare_scaled(f"pair_head_dual_bwd d{n}, NaN rows past the tables", a, b, GRAD_REL)
     del got, want, nan_params
-    # K5b at 720 and 2048 labs (phase 7's full-table batches), both heads'
-    # masks, dropout 0.2
-    dual_lab_counts = {}
+    # K5f with the tabular head masked on every tile: its output is 0
+    no_tab = (torch.zeros_like(masks0["tab"]), masks0["gnn"])
+    got = dual_call(pk.pair_head_dual_fwd, dual_params, 0.2, no_tab)
+    want = dual_call(pk.pair_head_dual_fwd_plain, dual_params, 0.2, no_tab)
+    if float(got[0].abs().sum()) != 0.0:
+        raise AssertionError("pair_head_dual_fwd: a head masked on every tile output non-zeros")
+    for h, a, b in zip(("tab", "gnn"), got, want):
+        _compare(f"pair_head_dual_fwd {h}, tabular head masked on every tile", a, b, HEAD_ATOL, HEAD_RTOL)
+    del got, want
+    # K5f and K5b at 720 and 2048 labs (phase 7's full-table batches), both
+    # heads' masks, dropout 0.2
+    dual_lab_counts, dual_fwd_lab_counts = {}, {}
     for num_l_x in LAB_COUNTS:
         bx = lab_batches[(num_l_x, 0)]
         px = bx.patient_plan
@@ -1475,6 +1535,11 @@ def main() -> int:
         margins = xcall(pk.relu_margin_dual_plain, px_params[0:4] + px_params[6:10])
         g_safe = [torch.where(m > KINK_MARGIN, g, torch.zeros_like(g)) for m, g in zip(margins, gx)]
         tag = f"{num_l_x} labs, rate 0.2, both heads' masks"
+        ferr = max(_compare(f"pair_head_dual_fwd {h} ({tag})", a, b, HEAD_ATOL, HEAD_RTOL)[0] for h, a, b in
+                   zip(("tab", "gnn"), xcall(pk.pair_head_dual_fwd, px_params), xcall(pk.pair_head_dual_fwd_plain, px_params)))
+        fms = _median_ms(lambda xcall=xcall, p=px_params: xcall(pk.pair_head_dual_fwd, p))
+        print(f"    pair_head_dual_fwd ({tag}): kernel {fms:.4f} ms")
+        dual_fwd_lab_counts[f"{num_l_x} labs"] = {"max_abs_err": ferr, "ms": fms}
         got = xcall(pk.pair_head_dual_bwd, px_params, px.num_windows, *g_safe)
         want = xcall(pk.pair_head_dual_bwd_plain, px_params, *g_safe)
         err = max(_compare_scaled(f"pair_head_dual_bwd d{n} ({tag})", a, b, GRAD_REL)
@@ -1484,6 +1549,7 @@ def main() -> int:
         print(f"    pair_head_dual_bwd ({tag}): kernel {ms:.4f} ms; {px.win_local.shape[0] // TILE_E} tiles")
         dual_lab_counts[f"{num_l_x} labs"] = {"max_abs_err": err, "ms": ms}
     del lab_batches
+    print(f"      (K5f launch: {pk.fwd_launch(slots0 // TILE_E, sms, heads=2)})")
     print(f"      (K5b launch: {pk.bwd_launch(slots0 // TILE_E, sms, heads=2)})")
     # times: K5f / K5b against K4f / K4b of both heads, same batch, dropout 0.2, masks
     k4_heads = (
@@ -1506,6 +1572,10 @@ def main() -> int:
         lambda: dual_call(pk.pair_head_dual_fwd_plain, dual_params, 0.2, both_masks), None,
         dual_bytes + 2 * slots0 * 4, dual_active * HEAD_FWD_FLOPS, max(dual_errs["pair_head_dual_fwd"]),
     )
+    floors = _head_fwd_floors(dual_active)
+    results["pair_head_dual_fwd"].update(lab_counts=dual_fwd_lab_counts)
+    print(f"      beside its bound: dropout hashes {floors['hash_ms']:.4f} ms, gathered rows "
+          f"{floors['gather_ms']:.4f} ms ({dual_active} active slots of both heads)")
     timed(
         "pair_head_dual_bwd",
         lambda: dual_call(pk.pair_head_dual_bwd, dual_params, 0.2, both_masks, plan0.num_windows, *g_dual),
@@ -1525,7 +1595,7 @@ def main() -> int:
     )
     del dual_params, g_dual, g_safe
     torch.cuda.empty_cache()
-    _phase("dual-kernels", t0, "K5f and K5b (500, 720 and 2048 labs) match their plain versions, NaN rows past the tables too")
+    _phase("dual-kernels", t0, "K5f and K5b (500, 720 and 2048 labs) match their plain versions, NaN rows past the tables and a head masked on every tile too")
 
     # 16. dual-train-step --------------------------------------------------
     t0 = time.perf_counter()

@@ -26,7 +26,7 @@
 // tables, weights and tile mask.  The TPU kernel packed the two heads side
 // by side (128 lanes) under a block-diagonal W1 to fill its MXU passes; here
 // each head's [64] -> [32] product runs on its own, and a head's zero
-// blocks cost nothing.  A tile masked for both heads skips its body.
+// blocks cost nothing.  A head's masked tiles cost it their mask read.
 //
 // Dropout: a counter-based generator, the same function as dropout_bits in
 // ops/pairhead_kernels.py, so the plain version draws the same masks:
@@ -45,11 +45,40 @@
 // forward (h0 @ W1), three times that backward (recomputed h0 @ W1, dpre1 @
 // W1^T and the dW1 outer products), against the ~0.5 KB of Pp/Pl rows a
 // slot reads per head, mostly from L2.
-//   * K4f / K5f: one thread per slot, in float32 on the CUDA cores.  h0 and
-//     the 32 accumulators live in registers; W1 sits in shared memory and is
-//     read as float4 broadcasts (every lane reads the same address).  K5f
-//     decodes a slot (window row, lab, dropout key) once and runs the heads
-//     its tile needs in turn.
+//   * K4f / K5f (redesigned for Hopper).  Their first version ran one
+//     thread per slot on the CUDA cores: a shared-memory load of W1 for
+//     every 4 FMAs (the load pipe, not the FMA pipe, set the pace), each
+//     thread gathering its own two 256-byte rows, 96 dropout hashes in
+//     series with the FMAs, and a block per 256 slots.  Now K4b's scheme:
+//     - Persistent blocks of 8 warps, two an SM (<= 128 registers a thread,
+//       96 KB of shared memory a block), one wave a head; each warp takes units of
+//       128 slots, the first by its index and the rest from a counter, so a
+//       masked tile costs its mask read and a float4 of zeros a lane.  The
+//       launch's last block zeroes the counters again, so the wrapper keeps
+//       one zeroed buffer a stream and fills nothing per launch.
+//     - A warp runs 16 slots at a time: their Pp and Pl rows come in by
+//       cp.async (16-byte chunks, a whole row per 16 lanes, each lane's
+//       source, destination and bound fixed once) while the group before
+//       computes; the next unit's metadata and first rows while the unit's
+//       last group computes; a group of 16 padding slots (a tile's tail)
+//       stores zeros and skips the rest.  pre1 = h0 W1 ([16 x 64] x [64 x
+//       32]) runs on mma.sync m16n8k8 TF32 in three hi / lo terms over
+//       K4b's pre-split W1 fragments, with K4b's k order, so a lane's h0
+//       elements are its A fragment.  ReLU, layer 1's dropout and the dot
+//       with w2 act on the accumulator fragment; a quad sums its 8 columns
+//       each with two shuffles and stores 16 outputs in one instruction.
+//     - Each lane hashes only the (slot, column) pairs of its own fragment
+//       elements: 96 hashes a slot as before, spread over the lanes, each
+//       hashed whatever the sign of its unit (a branch on the sign, taken by
+//       some lane of every warp, cost more than the hash).  The hashes are
+//       the largest share of the instructions; the tensor cores are not the
+//       limit (one TF32 term in place of three left the time unchanged).
+//     - K5f: K5b's layout, blockIdx.y = 0 the GNN head, 1 the tabular head,
+//       each head with its own counter; each decodes the slot itself.  So
+//       two waves back to back: the tabular head's blocks become resident
+//       as the GNN head's retire.  One wave whose blocks drain the GNN head,
+//       meet at a barrier and drain the tabular head was ~11 % slower in
+//       turns (PERF.md section 6).
 //   * K4b (redesigned for Hopper).  Its first version kept the [num_labs,
 //     64] dPl table in shared memory (one 4-warp block an SM, and no lab
 //     table above 551 rows), walked static tile ranges while the degree
@@ -90,6 +119,7 @@
 //   * K5b: K4b's blocks, one head per block: blockIdx.y = 0 takes the GNN
 //     head, which runs on most tiles, so its blocks are dispatched first;
 //     blockIdx.y = 1 the tabular head; each head has its own unit counter.
+//   Neither direction uses shared-memory float atomics.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -100,7 +130,6 @@ constexpr int WINDOW = 128;
 constexpr int TILE_E = 1024;
 constexpr int H0 = 64;
 constexpr int H1 = 32;
-constexpr int FWD_THREADS = 256;
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Head {
@@ -176,122 +205,6 @@ __device__ __forceinline__ int lab_row(const Head& a, int t, int l) {
   return l;
 }
 
-// pre0 = Pp[p] + Pl[lr] with zero rows for p >= num_p or lr < 0.
-__device__ __forceinline__ void load_pre0(const Head& a, int p, int lr, float* pre0) {
-  const float4* prow = reinterpret_cast<const float4*>(a.pp + (long long)p * H0);
-  const float4* lrow = reinterpret_cast<const float4*>(a.pl + (long long)max(lr, 0) * H0);
-  const bool pok = p < a.num_p, lok = lr >= 0;
-#pragma unroll
-  for (int q = 0; q < H0 / 4; ++q) {
-    float4 x = pok ? __ldg(prow + q) : make_float4(0.f, 0.f, 0.f, 0.f);
-    const float4 y = lok ? __ldg(lrow + q) : make_float4(0.f, 0.f, 0.f, 0.f);
-    pre0[4 * q + 0] = x.x + y.x;
-    pre0[4 * q + 1] = x.y + y.y;
-    pre0[4 * q + 2] = x.z + y.z;
-    pre0[4 * q + 3] = x.w + y.w;
-  }
-}
-
-// acc[j] = b1[j] + sum_k h0[k] * W1[k][j], W1 from shared memory.
-__device__ __forceinline__ void layer1(const float4* w1s, const float* b1s, const float* h0,
-                                       float* acc) {
-#pragma unroll
-  for (int j = 0; j < H1; ++j) acc[j] = b1s[j];
-#pragma unroll
-  for (int k = 0; k < H0; ++k) {
-    const float h = h0[k];
-#pragma unroll
-    for (int q = 0; q < H1 / 4; ++q) {
-      const float4 w = w1s[k * (H1 / 4) + q];
-      acc[4 * q + 0] = fmaf(h, w.x, acc[4 * q + 0]);
-      acc[4 * q + 1] = fmaf(h, w.y, acc[4 * q + 1]);
-      acc[4 * q + 2] = fmaf(h, w.z, acc[4 * q + 2]);
-      acc[4 * q + 3] = fmaf(h, w.w, acc[4 * q + 3]);
-    }
-  }
-}
-
-__device__ void load_weights(const Head& a, float4* w1s, float* b1s, float* w2s, int nthreads) {
-  for (int i = threadIdx.x; i < H0 * H1 / 4; i += nthreads) {
-    w1s[i] = __ldg(reinterpret_cast<const float4*>(a.w1) + i);
-  }
-  if (threadIdx.x < H1) {
-    b1s[threadIdx.x] = a.b1[threadIdx.x];
-    w2s[threadIdx.x] = a.w2[threadIdx.x];
-  }
-}
-
-// One slot's output: the head MLP on Pp[p] + Pl[lr] (p a real patient row).
-template <class C>
-__device__ __forceinline__ float head_forward(const Head& a, int p, int lr, uint32_t key,
-                                              const float4* w1s, const float* b1s,
-                                              const float* w2s) {
-  float h0[H0];
-  load_pre0(a, p, lr, h0);
-#pragma unroll
-  for (int k = 0; k < H0; ++k) {
-    float h = fmaxf(h0[k], 0.f);
-    if (a.dropout) h = keep<C>(a, key, 0, k) ? h * a.scale : 0.f;
-    h0[k] = h;
-  }
-  float acc[H1];
-  layer1(w1s, b1s, h0, acc);
-  float result = a.b2[0];
-#pragma unroll
-  for (int j = 0; j < H1; ++j) {
-    float h = fmaxf(acc[j], 0.f);
-    if (a.dropout) h = keep<C>(a, key, 1, j) ? h * a.scale : 0.f;
-    result = fmaf(h, w2s[j], result);
-  }
-  return result;
-}
-
-__global__ void __launch_bounds__(FWD_THREADS)
-pair_head_fwd_kernel(Head a, int num_tiles, float* __restrict__ out) {
-  __shared__ float4 w1s[H0 * H1 / 4];
-  __shared__ float b1s[H1], w2s[H1];
-  load_weights(a, w1s, b1s, w2s, FWD_THREADS);
-  __syncthreads();
-  const long long e = (long long)blockIdx.x * FWD_THREADS + threadIdx.x;
-  const int t = (int)(e / TILE_E);
-  if (t >= num_tiles) return;
-  const int loc = a.local[e];
-  float result = 0.f;
-  if (tile_on(a, t) && loc < WINDOW) {
-    const uint32_t key = a.dropout ? slot_key(a, (uint32_t)e) : 0u;
-    result = head_forward<SingleCols>(a, a.tile_map[t] * WINDOW + loc, lab_row(a, t, a.lab[e]), key, w1s,
-                          b1s, w2s);
-  }
-  out[e] = result;
-}
-
-// K5f: ht and hg share lab, local, tile_map and the dropout seed; each
-// carries its own tables, weights, tile mask and dropout column offsets.
-__global__ void __launch_bounds__(FWD_THREADS)
-pair_head_dual_fwd_kernel(Head ht, Head hg, int num_tiles, float* __restrict__ out_t,
-                          float* __restrict__ out_g) {
-  __shared__ float4 w1s_t[H0 * H1 / 4], w1s_g[H0 * H1 / 4];
-  __shared__ float b1s_t[H1], w2s_t[H1], b1s_g[H1], w2s_g[H1];
-  load_weights(ht, w1s_t, b1s_t, w2s_t, FWD_THREADS);
-  load_weights(hg, w1s_g, b1s_g, w2s_g, FWD_THREADS);
-  __syncthreads();
-  const long long e = (long long)blockIdx.x * FWD_THREADS + threadIdx.x;
-  const int t = (int)(e / TILE_E);
-  if (t >= num_tiles) return;
-  const bool on_t = tile_on(ht, t), on_g = tile_on(hg, t);  // block-uniform
-  float res_t = 0.f, res_g = 0.f;
-  const int loc = (on_t || on_g) ? ht.local[e] : WINDOW;
-  if (loc < WINDOW) {
-    const int p = ht.tile_map[t] * WINDOW + loc;
-    const int lr = lab_row(ht, t, ht.lab[e]);
-    const uint32_t key = ht.dropout ? slot_key(ht, (uint32_t)e) : 0u;
-    if (on_t) res_t = head_forward<TabCols>(ht, p, lr, key, w1s_t, b1s_t, w2s_t);
-    if (on_g) res_g = head_forward<GnnCols>(hg, p, lr, key, w1s_g, b1s_g, w2s_g);
-  }
-  out_t[e] = res_t;
-  out_g[e] = res_g;
-}
-
 // ---------------------------------------------------------------------------
 // K4b / K5b: the backward on the tensor cores (notes in the header)
 // ---------------------------------------------------------------------------
@@ -362,20 +275,27 @@ struct BwdShared {
 static_assert(sizeof(float) * BWD_WARPS * 16 * H0_STRIDE >= sizeof(float) * RED_FLOATS,
               "the block's reduction reuses h0s");
 
-__device__ void load_bwd_weights(const Head& a, BwdShared& sm) {
-  // forward: k8 step kk's column t <-> feature 8 kk + 2t, column t + 4 <->
-  // 8 kk + 2t + 1; so a lane's A fragment is its own h0 elements, which sit
-  // where dh0's accumulator puts the same features.  Backward: k8 step s's
-  // columns t, t + 4 <-> j = 8 s + 2t, 8 s + 2t + 1, pre1's own C layout.
-  for (int i = threadIdx.x; i < (H0 / 8) * (H1 / 8) * 32; i += BWD_THREADS) {
+// W1's B fragments for pre1 = h0 W1, split hi / lo: k8 step kk's column t
+// <-> feature 8 kk + 2t, column t + 4 <-> 8 kk + 2t + 1; so a lane's A
+// fragment is its own h0 elements, which sit where dh0's accumulator puts
+// the same features.
+__device__ void load_w1_fragments(const float* __restrict__ w1, uint2 (*hi)[H1 / 8][32],
+                                  uint2 (*lo)[H1 / 8][32], int nthreads) {
+  for (int i = threadIdx.x; i < (H0 / 8) * (H1 / 8) * 32; i += nthreads) {
     const int kk = i / ((H1 / 8) * 32), nt = (i / 32) % (H1 / 8), ln = i % 32;
     const int g = ln / 4, t = ln % 4;
     unsigned h0, l0, h1, l1;
-    split_tf32(a.w1[(8 * kk + 2 * t) * H1 + 8 * nt + g], h0, l0);
-    split_tf32(a.w1[(8 * kk + 2 * t + 1) * H1 + 8 * nt + g], h1, l1);
-    sm.fw_hi[kk][nt][ln] = make_uint2(h0, h1);
-    sm.fw_lo[kk][nt][ln] = make_uint2(l0, l1);
+    split_tf32(w1[(8 * kk + 2 * t) * H1 + 8 * nt + g], h0, l0);
+    split_tf32(w1[(8 * kk + 2 * t + 1) * H1 + 8 * nt + g], h1, l1);
+    hi[kk][nt][ln] = make_uint2(h0, h1);
+    lo[kk][nt][ln] = make_uint2(l0, l1);
   }
+}
+
+__device__ void load_bwd_weights(const Head& a, BwdShared& sm) {
+  load_w1_fragments(a.w1, sm.fw_hi, sm.fw_lo, BWD_THREADS);
+  // dpre1 @ W1^T: k8 step s's columns t, t + 4 <-> j = 8 s + 2t, 8 s + 2t + 1,
+  // pre1's own C layout
   for (int i = threadIdx.x; i < (H1 / 8) * (H0 / 8) * 32; i += BWD_THREADS) {
     const int s = i / ((H0 / 8) * 32), nt = (i / 32) % (H0 / 8), ln = i % 32;
     const int g = ln / 4, t = ln % 4;
@@ -401,39 +321,60 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
 
-// The unit's slots (units u * 128 ...) of tile t, window w, into the warp's
-// metadata: dPp row, Pl row, upstream gradient.  All lanes call it.
+// The unit's slots (units u * 128 ...) of tile t, window w, into a warp's
+// metadata: each slot's Pp row mp (-1: padding), Pl row ml (-1: a zero row)
+// and, for the backward, its upstream gradient go (0: padding).  All lanes
+// call it.
 __device__ __forceinline__ void load_unit_meta(const Head& a, const float* __restrict__ g_out,
-                                               BwdShared& sm, int u, int t, int w) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+                                               int* mp, int* ml, float* go, int u, int t, int w) {
+  const int lane = threadIdx.x % 32;
 #pragma unroll
   for (int i = 0; i < BWD_UNIT / 32; ++i) {
     const long long e = (long long)u * BWD_UNIT + 32 * i + lane;
     const int loc = a.local[e];
     const bool valid = loc < WINDOW;
-    sm.meta_p[warp][32 * i + lane] = valid ? w * WINDOW + loc : -1;
-    sm.meta_l[warp][32 * i + lane] = valid ? lab_row(a, t, a.lab[e]) : -1;
-    sm.meta_go[warp][32 * i + lane] = valid ? g_out[e] : 0.f;
+    mp[32 * i + lane] = valid ? w * WINDOW + loc : -1;
+    ml[32 * i + lane] = valid ? lab_row(a, t, a.lab[e]) : -1;
+    if (go != nullptr) go[32 * i + lane] = valid ? g_out[e] : 0.f;
   }
   __syncwarp();
 }
 
-// Copy group grp's Pp and Pl rows into the warp's row buffer (zero rows for
-// padding, patients >= num_p and labs outside the tile's slice): lane
-// (table, chunk) = (lane / 16, lane % 16) copies one 16-byte chunk a slot.
-__device__ __forceinline__ void copy_group_rows(const Head& a, BwdShared& sm, int grp) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int table = lane / 16, chunk = lane % 16;
-#pragma unroll 4
-  for (int s = 0; s < 16; ++s) {
-    const int i = grp * 16 + s;
-    const int row = table == 0 ? sm.meta_p[warp][i] : sm.meta_l[warp][i];
-    const bool ok = row >= 0 && (table != 0 || row < a.num_p);
-    const float* src = (table == 0 ? a.pp : a.pl) + (ok ? (long long)row * H0 + 4 * chunk : 0);
-    cp_async16(&sm.rows[warp][table][s][4 * chunk], src, ok ? 16 : 0);
+// A lane's part of copying a group's 16 Pp and Pl rows into its warp's row
+// buffer: lanes 0-15 copy 16 bytes (their chunk) of each Pp row, lanes 16-31
+// of each Pl row.  Source, bound and destination are fixed once; a row id
+// not below the bound (-1: padding or a lab outside the tile's slice, or a
+// patient >= num_p) reads zeros.
+struct RowCopy {
+  const float* src;  // the lane's table at its chunk
+  const int* meta;   // the unit's row ids of that table (mp or ml)
+  unsigned limit;
+  float* dst;        // the lane's chunk of slot 0's row
+
+  __device__ __forceinline__ RowCopy(const Head& a, const int* mp, const int* ml,
+                                     float (*rows)[16][H0_STRIDE]) {
+    const int lane = threadIdx.x % 32, table = lane / 16;
+    src = (table == 0 ? a.pp : a.pl) + 4 * (lane % 16);
+    meta = table == 0 ? mp : ml;
+    limit = table == 0 ? (unsigned)a.num_p : 0x7fffffffu;
+    dst = &rows[table][0][4 * (lane % 16)];
   }
-  cp_async_commit();
-}
+
+  // Group grp's rows (slots 16 grp ... of the unit), one commit group.
+  __device__ __forceinline__ void operator()(int grp) const {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int4 r4 = *reinterpret_cast<const int4*>(meta + 16 * grp + 4 * q);
+      const int rows4[4] = {r4.x, r4.y, r4.z, r4.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const bool ok = (unsigned)rows4[k] < limit;
+        cp_async16(dst + (4 * q + k) * H0_STRIDE, src + (long long)(ok ? rows4[k] : 0) * H0, ok ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  }
+};
 
 // One row of a running merge: its table row (-1 = none) and the lane's two
 // columns (2 lane, 2 lane + 1) summed over the run's slots.
@@ -475,9 +416,9 @@ struct WarpGrads {
 // h0^T dpre1 and dpre0 = dpre1 W1^T through the masks; dpre0 goes into the
 // runs of dPp and dPl.  The next group's rows are copied in meanwhile.
 template <class C>
-__device__ __forceinline__ void bwd_group(const Head& a, BwdShared& sm, int grp, long long e0,
-                                          WarpGrads& wg, Run& run_p, Run& run_l,
-                                          const Grads& d) {
+__device__ __forceinline__ void bwd_group(const Head& a, BwdShared& sm, const RowCopy& copy_rows,
+                                          int grp, long long e0, WarpGrads& wg, Run& run_p,
+                                          Run& run_l, const Grads& d) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, tq = lane % 4;
   float(*h0s)[H0_STRIDE] = sm.h0s[warp];
@@ -512,7 +453,7 @@ __device__ __forceinline__ void bwd_group(const Head& a, BwdShared& sm, int grp,
     pass0[r] = bits;
   }
   __syncwarp();  // the row buffer is read: the next group's rows go in
-  if (grp + 1 < BWD_UNIT / 16) copy_group_rows(a, sm, grp + 1);
+  if (grp + 1 < BWD_UNIT / 16) copy_rows(grp + 1);
 
   // ---- pre1 = h0 W1 + b1 (M = slot, N = j, K = feature) ----
   float acc1[H1 / 8][4];
@@ -630,6 +571,7 @@ __device__ __forceinline__ void pair_head_bwd_body(const Head& a, const float* _
   for (int nt = 0; nt < H1 / 8; ++nt) wg.dw2[nt][0] = wg.dw2[nt][1] = wg.db1[nt][0] = wg.db1[nt][1] = 0.f;
   wg.db2 = 0.f;
 
+  const RowCopy copy_rows(a, sm.meta_p[warp], sm.meta_l[warp], sm.rows[warp]);
   const int num_units = num_tiles * UNITS_PER_TILE;
   int next = lane == 0 ? atomicAdd(work, 1) : 0;
   for (;;) {
@@ -639,12 +581,12 @@ __device__ __forceinline__ void pair_head_bwd_body(const Head& a, const float* _
     const int t = u / UNITS_PER_TILE;
     if (!tile_on(a, t)) continue;  // warp-uniform
     __syncwarp();  // the last unit's metadata is read
-    load_unit_meta(a, g_out, sm, u, t, a.tile_map[t]);
-    copy_group_rows(a, sm, 0);
+    load_unit_meta(a, g_out, sm.meta_p[warp], sm.meta_l[warp], sm.meta_go[warp], u, t, a.tile_map[t]);
+    copy_rows(0);
     Run run_p{-1, make_float2(0.f, 0.f)}, run_l{-1, make_float2(0.f, 0.f)};
 #pragma unroll 1
     for (int grp = 0; grp < BWD_UNIT / 16; ++grp) {
-      bwd_group<C>(a, sm, grp, (long long)u * BWD_UNIT + grp * 16, wg, run_p, run_l, d);
+      bwd_group<C>(a, sm, copy_rows, grp, (long long)u * BWD_UNIT + grp * 16, wg, run_p, run_l, d);
     }
     flush_run(run_p, d.dpp, lane);
     flush_run(run_l, d.dpl, lane);
@@ -725,6 +667,200 @@ pair_head_dual_bwd_kernel(Head hg, Head ht, const float* __restrict__ g_out_g,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K4f / K5f: the forward on the tensor cores (notes in the header)
+// ---------------------------------------------------------------------------
+
+constexpr int FWD_WARPS = 8;
+constexpr int FWD_THREADS = FWD_WARPS * 32;
+constexpr int FWD_BLOCKS_PER_SM = 2;  // <= 128 registers a thread; 2 x ~96 KB of shared memory
+constexpr int FWD_UNIT = BWD_UNIT;    // 128 slots: 8 groups of 16 (load_unit_meta's unit)
+
+// W1's B fragments (as K4b's forward product), b1 and w2, and per warp the
+// group's Pp and Pl rows and the unit's metadata.
+struct FwdShared {
+  uint2 fw_hi[H0 / 8][H1 / 8][32], fw_lo[H0 / 8][H1 / 8][32];
+  float b1[H1], w2[H1];
+  float rows[FWD_WARPS][2][16][H0_STRIDE];
+  int meta_p[FWD_WARPS][FWD_UNIT];  // per slot of the unit: its Pp row (-1: padding)
+  int meta_l[FWD_WARPS][FWD_UNIT];  // its Pl row (-1: a zero row)
+};
+
+// The head's next unit from its counter; lane 0 fetches the one after it.
+__device__ __forceinline__ int next_unit(int& next, int* work, int first) {
+  const int u = __shfl_sync(FULL, next, 0);
+  if (threadIdx.x % 32 == 0) next = first + atomicAdd(work, 1);
+  return u;
+}
+
+// From unit u on, the first unit of a tile the head runs (or num_units);
+// each masked unit on the way outputs 0, a float4 a lane.  Warp-uniform.
+__device__ __forceinline__ int active_unit(const Head& a, int u, int& next, int* work, int first,
+                                           int num_units, float* __restrict__ out) {
+  while (u < num_units && !tile_on(a, u / UNITS_PER_TILE)) {
+    reinterpret_cast<float4*>(out + (long long)u * FWD_UNIT)[threadIdx.x % 32] =
+        make_float4(0.f, 0.f, 0.f, 0.f);
+    u = next_unit(next, work, first);
+  }
+  return u;
+}
+
+// The forward of one head: each warp takes units of 128 slots, the first by
+// its index, the rest from the head's counter `work` (zero), and runs each
+// unit as 8 groups of 16 slots.  A group's rows are copied in (cp.async)
+// while the group before it computes; the next unit's metadata and first
+// rows while its last group computes.
+template <class C>
+__device__ __forceinline__ void pair_head_fwd_body(const Head& a, int num_tiles, int* work,
+                                                   float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  FwdShared& sm = *reinterpret_cast<FwdShared*>(smem4);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  load_w1_fragments(a.w1, sm.fw_hi, sm.fw_lo, FWD_THREADS);
+  if (threadIdx.x < H1) {
+    sm.b1[threadIdx.x] = a.b1[threadIdx.x];
+    sm.w2[threadIdx.x] = a.w2[threadIdx.x];
+  }
+  const float b2 = a.b2[0];
+  const float scale = a.dropout ? a.scale : 1.f;
+  __syncthreads();
+
+  int* mp = sm.meta_p[warp];
+  int* ml = sm.meta_l[warp];
+  float(*rows)[16][H0_STRIDE] = sm.rows[warp];
+  const RowCopy copy_rows(a, mp, ml, rows);
+  const int num_units = num_tiles * UNITS_PER_TILE;
+  const int first = gridDim.x * FWD_WARPS;  // units taken by index
+  int next = lane == 0 ? first + atomicAdd(work, 1) : 0;
+  int u = active_unit(a, blockIdx.x * FWD_WARPS + warp, next, work, first, num_units, out);
+  if (u < num_units) {
+    load_unit_meta(a, nullptr, mp, ml, nullptr, u, u / UNITS_PER_TILE, a.tile_map[u / UNITS_PER_TILE]);
+    copy_rows(0);
+  }
+  while (u < num_units) {
+    int u_next = num_units;
+#pragma unroll 1
+    for (int grp = 0; grp < FWD_UNIT / 16; ++grp) {
+      const long long e0 = (long long)u * FWD_UNIT + grp * 16;
+      // ---- the lane's two slots (rows g and g + 8): pre0 at features 8 kk + 2 tq + q ----
+      float h[2][H0 / 4];
+      bool valid[2];
+      cp_async_wait_all();
+      __syncwarp();  // the group's rows have landed
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int sl = g + 8 * r;
+        valid[r] = mp[grp * 16 + sl] >= 0;
+#pragma unroll
+        for (int kk = 0; kk < H0 / 8; ++kk) {
+          const float2 x = *reinterpret_cast<const float2*>(&rows[0][sl][8 * kk + 2 * tq]);
+          const float2 y = *reinterpret_cast<const float2*>(&rows[1][sl][8 * kk + 2 * tq]);
+          h[r][2 * kk] = x.x + y.x;
+          h[r][2 * kk + 1] = x.y + y.y;
+        }
+      }
+      __syncwarp();  // the row buffer and the group's metadata are read
+      if (grp + 1 < FWD_UNIT / 16) {
+        copy_rows(grp + 1);
+      } else {
+        u_next = active_unit(a, next_unit(next, work, first), next, work, first, num_units, out);
+        if (u_next < num_units) {
+          const int t = u_next / UNITS_PER_TILE;
+          load_unit_meta(a, nullptr, mp, ml, nullptr, u_next, t, a.tile_map[t]);
+          copy_rows(0);
+        }
+      }
+      if (!__any_sync(FULL, valid[0] || valid[1])) {  // 16 padding slots (a tile's tail): zeros
+        if (tq < 2) out[e0 + g + 8 * tq] = 0.f;
+        continue;
+      }
+
+      // ---- h0 = drop0(relu(pre0)): each lane hashes its own 32 (slot, feature) pairs ----
+      uint32_t key[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        key[r] = a.dropout ? slot_key(a, (uint32_t)(e0 + g + 8 * r)) : 0u;
+#pragma unroll
+        for (int i = 0; i < H0 / 4; ++i) {
+          const float v = h[r][i];  // hashed whatever its sign: a branch would cost more
+          const bool kept = !a.dropout || keep<C>(a, key[r], 0, 8 * (i / 2) + 2 * tq + i % 2);
+          h[r][i] = (v > 0.f) & kept ? v * scale : 0.f;
+        }
+      }
+
+      // ---- pre1 = h0 W1 + b1 (M = slot, N = j, K = feature) ----
+      float acc[H1 / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < H1 / 8; ++nt) {
+        const float2 b = *reinterpret_cast<const float2*>(&sm.b1[8 * nt + 2 * tq]);
+        acc[nt][0] = acc[nt][2] = b.x;
+        acc[nt][1] = acc[nt][3] = b.y;
+      }
+#pragma unroll
+      for (int kk = 0; kk < H0 / 8; ++kk) {
+        const SplitA af = split_a(h[0][2 * kk], h[1][2 * kk], h[0][2 * kk + 1], h[1][2 * kk + 1]);
+#pragma unroll
+        for (int nt = 0; nt < H1 / 8; ++nt) mma3(acc[nt], af, sm.fw_hi[kk][nt][lane], sm.fw_lo[kk][nt][lane]);
+      }
+
+      // ---- out = drop1(relu(pre1)) . w2 + b2: the lane's 8 columns, then the quad ----
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int nt = 0; nt < H1 / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e / 2, q = e % 2;
+          const bool kept = !a.dropout || keep<C>(a, key[r], 1, 8 * nt + 2 * tq + q);
+          const float h1 = kept ? fmaxf(acc[nt][e], 0.f) * scale : 0.f;
+          sum[r] = fmaf(h1, sm.w2[8 * nt + 2 * tq + q], sum[r]);
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(FULL, sum[r], 1);
+        sum[r] += __shfl_xor_sync(FULL, sum[r], 2);
+      }
+      // lane tq = r of each quad stores slot g + 8 r: 16 floats in one instruction
+      if (tq < 2) {
+        const bool v = tq == 0 ? valid[0] : valid[1];
+        out[e0 + g + 8 * tq] = v ? (tq == 0 ? sum[0] : sum[1]) + b2 : 0.f;
+      }
+    }
+    u = u_next;
+  }
+}
+
+// The launch's last block zeroes the counters for the next launch on the
+// stream: work[0] and work[1] the heads' unit counters, work[2] the blocks
+// that are done.
+__device__ __forceinline__ void reset_counters(int* work) {
+  __threadfence();  // this thread's counter fetches come before its block is counted
+  __syncthreads();
+  if (threadIdx.x == 0 && atomicAdd(&work[2], 1) == (int)(gridDim.x * gridDim.y) - 1) {
+    work[0] = work[1] = work[2] = 0;
+  }
+}
+
+__global__ void __launch_bounds__(FWD_THREADS, FWD_BLOCKS_PER_SM)
+pair_head_fwd_kernel(Head a, int num_tiles, int* work, float* __restrict__ out) {
+  pair_head_fwd_body<SingleCols>(a, num_tiles, work, out);
+  reset_counters(work);
+}
+
+// K5f: blockIdx.y = 0 runs the GNN head from work[0], 1 the tabular head
+// from work[1], as K5b: the tabular head's blocks follow as the GNN head's
+// retire.
+__global__ void __launch_bounds__(FWD_THREADS, FWD_BLOCKS_PER_SM)
+pair_head_dual_fwd_kernel(Head hg, Head ht, int num_tiles, int* work, float* __restrict__ out_g,
+                          float* __restrict__ out_t) {
+  if (blockIdx.y == 0) {
+    pair_head_fwd_body<GnnCols>(hg, num_tiles, work, out_g);
+  } else {
+    pair_head_fwd_body<TabCols>(ht, num_tiles, work + 1, out_t);
+  }
+  reset_counters(work);
+}
+
 Head make_head(const float* pp, int num_p, const float* pl, int num_l, const float* w1,
                const float* b1, const float* w2, const float* b2, const int* lab,
                const int* local, const int* tile_map, const int* tile_mask,
@@ -784,19 +920,28 @@ extern "C" {
 // Shared memory of a K4b / K5b block (the same for any lab table).
 int mmgnn_pair_head_bwd_shared_bytes() { return (int)sizeof(BwdShared); }
 
-// K4f.  out [num_tiles * 1024] is written in full (0 for padding and masked tiles).
+// Shared memory of a K4f / K5f block.
+int mmgnn_pair_head_fwd_shared_bytes() { return (int)sizeof(FwdShared); }
+
+// K4f.  out [num_tiles * 1024] is written in full (0 for padding and masked
+// tiles); work[3] (reset_counters) is zero and is left zero; `blocks`
+// persistent blocks (the wrapper's launch plan, ops/pairhead_kernels.py
+// fwd_launch).
 int mmgnn_pair_head_fwd(const float* pp, int num_p, const float* pl, int num_l, const float* w1,
                         const float* b1, const float* w2, const float* b2, const int* lab,
                         const int* local, const int* tile_map, const int* tile_mask,
                         const int* lab_base, int lab_rows, int lab_base_max, int num_tiles,
                         unsigned seed0, unsigned seed1, unsigned threshold, float scale,
-                        int dropout, float* out, void* stream) {
+                        int dropout, int* work, int blocks, float* out, void* stream) {
   const Head a = make_head(pp, num_p, pl, num_l, w1, b1, w2, b2, lab, local, tile_map, tile_mask,
                            lab_base, lab_rows, lab_base_max, seed0, seed1, threshold, scale,
                            dropout);
-  const int blocks = num_tiles * (TILE_E / FWD_THREADS);
-  pair_head_fwd_kernel<<<blocks, FWD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, num_tiles, out);
+  const int smem = mmgnn_pair_head_fwd_shared_bytes();
+  cudaError_t err = cudaFuncSetAttribute(pair_head_fwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  pair_head_fwd_kernel<<<blocks, FWD_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      a, num_tiles, work, out);
   return cudaGetLastError();
 }
 
@@ -825,7 +970,8 @@ int mmgnn_pair_head_bwd(const float* pp, int num_p, const float* pl, int num_l, 
 }
 
 // K5f.  out_t and out_g [num_tiles * 1024] are written in full (0 for
-// padding slots and for each head's masked tiles).
+// padding slots and for each head's masked tiles); work[3] (reset_counters)
+// is zero and is left zero; `blocks` blocks a head.
 int mmgnn_pair_head_dual_fwd(const float* pp_t, const float* pl_t, const float* w1_t,
                              const float* b1_t, const float* w2_t, const float* b2_t,
                              const float* pp_g, const float* pl_g, const float* w1_g,
@@ -833,15 +979,19 @@ int mmgnn_pair_head_dual_fwd(const float* pp_t, const float* pl_t, const float* 
                              int num_l, const int* lab, const int* local, const int* tile_map,
                              const int* tab_mask, const int* gnn_mask, int num_tiles,
                              unsigned seed0, unsigned seed1, unsigned threshold, float scale,
-                             int dropout, float* out_t, float* out_g, void* stream) {
+                             int dropout, int* work, int blocks, float* out_t, float* out_g,
+                             void* stream) {
   const float* tab[6] = {pp_t, pl_t, w1_t, b1_t, w2_t, b2_t};
   const float* gnn[6] = {pp_g, pl_g, w1_g, b1_g, w2_g, b2_g};
   Head ht, hg;
   make_dual(tab, gnn, num_p, num_l, lab, local, tile_map, tab_mask, gnn_mask, seed0, seed1,
             threshold, scale, dropout, &ht, &hg);
-  const int blocks = num_tiles * (TILE_E / FWD_THREADS);
-  pair_head_dual_fwd_kernel<<<blocks, FWD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      ht, hg, num_tiles, out_t, out_g);
+  const int smem = mmgnn_pair_head_fwd_shared_bytes();
+  cudaError_t err = cudaFuncSetAttribute(pair_head_dual_fwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  pair_head_dual_fwd_kernel<<<dim3(blocks, 2), FWD_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      hg, ht, num_tiles, work, out_g, out_t);
   return cudaGetLastError();
 }
 

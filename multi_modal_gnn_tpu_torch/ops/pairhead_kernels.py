@@ -21,6 +21,7 @@ agree with dropout on.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from multi_modal_gnn_tpu_torch.graph.hetero import TILE_E, WINDOW
-from multi_modal_gnn_tpu_torch.ops.segment_kernels import _check_plan, _on_cpu, _ptr, _raise_on
+from multi_modal_gnn_tpu_torch.ops.segment_kernels import _check_plan, _on_cpu, _ptr, _raise_on, _sms
 
 launch_counts: Dict[str, int] = {
     "pair_head_fwd": 0, "pair_head_bwd": 0, "pair_head_dual_fwd": 0, "pair_head_dual_bwd": 0,
@@ -54,8 +55,19 @@ BWD_WARPS = 8
 BWD_UNIT = 128
 _BWD_BLOCKS_PER_SM = 1
 BWD_SHARED_BYTES = 4 * 8192 + 4 * 2 * H1 + 4 * BWD_WARPS * (16 * (3 * (H0 + 8) + (H1 + 8)) + 3 * BWD_UNIT)
+# K4f / K5f (csrc/pairhead.cu): blocks of 8 warps, two an SM (<= 128
+# registers a thread); warps take units of 128 slots, the first by index and
+# the rest from a counter a head, which the launch's last block zeroes again
+# (one buffer a stream, `_fwd_counters`); the block's shared memory: W1's B
+# fragments split hi / lo for h0 @ W1 (2 x 8 KB), b1 and w2, and per warp the
+# group's Pp and Pl rows (2 x 16 of 72 floats) and the unit's metadata (2 x 128)
+FWD_WARPS = 8
+FWD_UNIT = BWD_UNIT
+_FWD_BLOCKS_PER_SM = 2
+FWD_SHARED_BYTES = 2 * 8192 + 4 * 2 * H1 + 4 * FWD_WARPS * (2 * 16 * (H0 + 8) + 2 * FWD_UNIT)
 _M32 = 0xFFFFFFFF
 _BITS_CHUNK = 1 << 18  # slots per chunk of the plain version's bit draws
+_FWD_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def head_widths_supported(hidden_dims: Sequence[int], output_dim: int = 1) -> bool:
@@ -317,11 +329,12 @@ def _head_args(proj_p, proj_l, w1, b1, w2, b2, lab_idx, win_local, win_tile_map,
 
 
 @dataclass(frozen=True)
-class BwdLaunch:
-    """Launch shape of K4b / K5b: ``blocks`` persistent blocks a head of
-    ``threads`` threads, whose warps take ``units`` units of 128 slots from
-    one counter a head; ``shared_bytes`` of dynamic shared memory a block,
-    whatever the lab table's size."""
+class HeadLaunch:
+    """Launch shape of a pair-head kernel: ``blocks`` persistent blocks a
+    head of ``threads`` threads, whose warps take ``units`` units of 128
+    slots, the backward's all from one counter a head, the forward's first by
+    index; ``shared_bytes`` of dynamic shared memory a block, whatever the
+    lab table's size."""
 
     blocks: int
     threads: int
@@ -330,23 +343,53 @@ class BwdLaunch:
     shared_bytes: int
 
 
-def bwd_launch(num_tiles: int, sms: int, heads: int = 1) -> BwdLaunch:
+def _head_launch(num_tiles: int, sms: int, heads: int, warps: int, unit: int, per_sm: int,
+                 shared_bytes: int) -> HeadLaunch:
+    units = num_tiles * (TILE_E // unit)
+    blocks = max(1, min(sms * per_sm, -(-units // warps)))
+    return HeadLaunch(blocks=blocks, threads=32 * warps, units=units, heads=heads, shared_bytes=shared_bytes)
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_launch(num_tiles: int, sms: int, heads: int = 1) -> HeadLaunch:
     """Plan K4b (``heads=1``) or K5b (``heads=2``, grid ``(blocks, 2)``)
     over ``num_tiles`` tiles on ``sms`` SMs: one wave of one block an SM,
     no more blocks than the units keep busy."""
-    units = num_tiles * (TILE_E // BWD_UNIT)
-    blocks = max(1, min(sms * _BWD_BLOCKS_PER_SM, -(-units // BWD_WARPS)))
-    return BwdLaunch(
-        blocks=blocks, threads=32 * BWD_WARPS, units=units, heads=heads,
-        shared_bytes=BWD_SHARED_BYTES,
-    )
+    return _head_launch(num_tiles, sms, heads, BWD_WARPS, BWD_UNIT, _BWD_BLOCKS_PER_SM, BWD_SHARED_BYTES)
 
 
-def _check_bwd_shared(lib, name: str) -> None:
-    """The kernel's shared layout is the one the plan counts (and fits)."""
-    need = lib.mmgnn_pair_head_bwd_shared_bytes()
-    if need != BWD_SHARED_BYTES or need > _MAX_SHARED_BYTES:
-        raise RuntimeError(f"{name}: the kernel's shared layout ({need} B) is not the planned {BWD_SHARED_BYTES} B")
+@functools.lru_cache(maxsize=None)
+def fwd_launch(num_tiles: int, sms: int, heads: int = 1) -> HeadLaunch:
+    """Plan K4f (``heads=1``) or K5f (``heads=2``, grid ``(blocks, 2)``,
+    the GNN head's blocks first, the tabular head's resident as they
+    retire): two blocks an SM a head, no more blocks than the units keep
+    busy."""
+    return _head_launch(num_tiles, sms, heads, FWD_WARPS, FWD_UNIT, _FWD_BLOCKS_PER_SM, FWD_SHARED_BYTES)
+
+
+@functools.lru_cache(maxsize=None)
+def _head_lib(direction: str) -> ctypes.CDLL:
+    """The kernel library, once its pair-head ``direction`` kernels' shared
+    layout is checked to be the one the plan counts (and to fit)."""
+    from multi_modal_gnn_tpu_torch.ops import _build
+
+    lib = _build.load()
+    need = getattr(lib, f"mmgnn_pair_head_{direction}_shared_bytes")()
+    planned = FWD_SHARED_BYTES if direction == "fwd" else BWD_SHARED_BYTES
+    if need != planned or need > _MAX_SHARED_BYTES:
+        raise RuntimeError(
+            f"pair head {direction}: the kernel's shared layout ({need} B) is not the planned {planned} B"
+        )
+    return lib
+
+
+def _fwd_counters(dev: torch.device, stream: torch.cuda.Stream) -> torch.Tensor:
+    """K4f / K5f's counters on ``stream`` (two heads' units, the blocks
+    done): zeroed once here, and again by each launch's last block."""
+    key = (dev.index, stream.cuda_stream)
+    if key not in _FWD_COUNTERS:
+        _FWD_COUNTERS[key] = torch.zeros(3, dtype=torch.int32, device=dev)
+    return _FWD_COUNTERS[key]
 
 
 def pair_head_fwd(
@@ -362,12 +405,14 @@ def pair_head_fwd(
         return pair_head_fwd_plain(*args)
     num_tiles = _check_head(name, proj_p, proj_l, w1, b1, w2, b2, lab_idx, win_local,
                             win_tile_map, tile_mask, lab_block_map, lab_block_rows)
-    out = torch.empty(win_local.shape[0], dtype=torch.float32, device=proj_p.device)
-    from multi_modal_gnn_tpu_torch.ops import _build
-
-    rc = _build.load().mmgnn_pair_head_fwd(
-        *_head_args(*args, num_tiles), _ptr(out),
-        ctypes.c_void_p(torch.cuda.current_stream(proj_p.device).cuda_stream),
+    lib = _head_lib("fwd")
+    dev = proj_p.device
+    launch = fwd_launch(num_tiles, _sms(dev))
+    out = torch.empty(win_local.shape[0], dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev)
+    rc = lib.mmgnn_pair_head_fwd(
+        *_head_args(*args, num_tiles), _ptr(_fwd_counters(dev, stream)), launch.blocks, _ptr(out),
+        ctypes.c_void_p(stream.cuda_stream),
     )
     _raise_on(rc, name)
     launch_counts[name] += 1
@@ -390,13 +435,10 @@ def pair_head_bwd(
                             win_tile_map, tile_mask, lab_block_map, lab_block_rows)
     if g_out.dtype != torch.float32 or not g_out.is_contiguous() or g_out.shape != win_local.shape:
         raise ValueError(f"{name}: g_out must be contiguous float32 [E_win]")
-    from multi_modal_gnn_tpu_torch.ops import _build
-
-    lib = _build.load()
-    _check_bwd_shared(lib, name)
+    lib = _head_lib("bwd")
     num_l = proj_l.shape[0]
     dev = proj_p.device
-    launch = bwd_launch(num_tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
+    launch = bwd_launch(num_tiles, _sms(dev))
     zeros = lambda *shape: torch.zeros(*shape, dtype=torch.float32, device=dev)  # noqa: E731
     dpp, dpl = zeros(max(num_windows * WINDOW, proj_p.shape[0]), H0), zeros(num_l, H0)
     dw1, db1, dw2, db2 = zeros(H0, H1), zeros(H1), zeros(H1), zeros(1)
@@ -445,14 +487,14 @@ def pair_head_dual_fwd(
                tab_mask, gnn_mask):
         return pair_head_dual_fwd_plain(*heads[0], *heads[1], *plan, rate)
     num_tiles = _check_dual(name, heads, lab_idx, win_local, win_tile_map, tab_mask, gnn_mask)
-    out_t, out_g = (
-        torch.empty(win_local.shape[0], dtype=torch.float32, device=proj_p_t.device) for _ in range(2)
-    )
-    from multi_modal_gnn_tpu_torch.ops import _build
-
-    rc = _build.load().mmgnn_pair_head_dual_fwd(
-        *_dual_args(heads, *plan, rate, num_tiles), _ptr(out_t), _ptr(out_g),
-        ctypes.c_void_p(torch.cuda.current_stream(proj_p_t.device).cuda_stream),
+    lib = _head_lib("fwd")
+    dev = proj_p_t.device
+    launch = fwd_launch(num_tiles, _sms(dev), heads=2)
+    out_t, out_g = (torch.empty(win_local.shape[0], dtype=torch.float32, device=dev) for _ in range(2))
+    stream = torch.cuda.current_stream(dev)
+    rc = lib.mmgnn_pair_head_dual_fwd(
+        *_dual_args(heads, *plan, rate, num_tiles), _ptr(_fwd_counters(dev, stream)), launch.blocks,
+        _ptr(out_t), _ptr(out_g), ctypes.c_void_p(stream.cuda_stream),
     )
     _raise_on(rc, name)
     launch_counts[name] += 1
@@ -478,13 +520,10 @@ def pair_head_dual_bwd(
     for g in (g_out_t, g_out_g):
         if g.dtype != torch.float32 or not g.is_contiguous() or g.shape != win_local.shape:
             raise ValueError(f"{name}: g_out must be contiguous float32 [E_win]")
-    from multi_modal_gnn_tpu_torch.ops import _build
-
-    lib = _build.load()
-    _check_bwd_shared(lib, name)
+    lib = _head_lib("bwd")
     num_p, num_l = proj_p_t.shape[0], proj_l_t.shape[0]
     dev = proj_p_t.device
-    launch = bwd_launch(num_tiles, torch.cuda.get_device_properties(dev).multi_processor_count, heads=2)
+    launch = bwd_launch(num_tiles, _sms(dev), heads=2)
     zeros = lambda *shape: torch.zeros(*shape, dtype=torch.float32, device=dev)  # noqa: E731
     grads = [
         [zeros(max(num_windows * WINDOW, num_p), H0), zeros(num_l, H0), zeros(H0, H1), zeros(H1),

@@ -15,8 +15,10 @@ asked for kernels, it times, each the median of 20 CUDA-event-timed calls on
 seeded random inputs: for the RGCN, K1 (``segment_sum_windowed``) on every
 plan a train step runs it on (the paired tier's forward and the span and
 paired tiers' backward), K2f and K2b on each fused-table relation, K3 on
-the span relation and K4b (dropout 0.2) of each head on the train batch;
-for the HGT, K6, K7 and K8 on every attention group.  Then
+the span relation, K4f and K4b (dropout 0.2) of each head on the train
+batch, and K5f (both heads, dropout 0.2) on the train batch laid out over the
+full lab table (``lab_tile_rows: 0``, the dual-head path's batch); for the
+HGT, K6, K7 and K8 on every attention group.  Then
 ``compute_node_state`` (the median of 5, host clock to synchronize).  Each
 round asks this, other, other, this for an epoch; the kernels are asked for
 in the same order once, after the rounds.  Prints the milliseconds and
@@ -117,9 +119,18 @@ def rgcn_kernels(gen, d, out):
              * (plan.win_local < 128)).contiguous()
     for name, mask in (("GNN", (~low).any(dim=1)), ("tabular", low.any(dim=1))):
         mask = mask.to(torch.int32)
-        out[f"K4b {name} head"] = median_ms(lambda: pk.pair_head_bwd(
-            *head, batch.lab_idx, plan.win_local, plan.win_tile_map, (1, 2), mask, plan.lab_block_map,
-            0.2, plan.lab_block_rows, plan.num_windows, g_out))
+        plan_args = (batch.lab_idx, plan.win_local, plan.win_tile_map, (1, 2), mask, plan.lab_block_map,
+                     0.2, plan.lab_block_rows)
+        out[f"K4f {name} head"] = median_ms(lambda: pk.pair_head_fwd(*head, *plan_args))
+        out[f"K4b {name} head"] = median_ms(lambda: pk.pair_head_bwd(*head, *plan_args, plan.num_windows, g_out))
+    full_config = dataclasses.replace(config, train=dataclasses.replace(config.train, extras={"lab_tile_rows": 0}))
+    batch0 = masker_from_config(full_config, graph_cpu).get_split("train").to(graph_device)
+    plan0 = batch0.patient_plan
+    low0 = (graph.patient_lab_degree[batch0.patient_idx.long()] < config.model.degree_threshold).reshape(-1, 1024)
+    masks0 = (low0.any(dim=1).to(torch.int32), (~low0).any(dim=1).to(torch.int32))
+    dual = head + [torch.randn(x.shape, generator=gen).to(graph_device) for x in head]
+    out["K5f both heads, full lab table"] = median_ms(lambda: pk.pair_head_dual_fwd(
+        *dual, batch0.lab_idx, plan0.win_local, plan0.win_tile_map, (1, 2, 3, 4), *masks0, 0.2))
 
 
 def hgt_kernels(gen, d, out):

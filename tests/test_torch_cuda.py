@@ -456,6 +456,158 @@ def _dual_away_from_kinks(g, params, a, seed4, rate, masked):
 DUAL_NAMES = [f"{h}.{n}" for h in ("tab", "gnn") for n in ("proj_p", "proj_l", "w1", "b1", "w2", "b2")]
 
 
+# -- K4f and K5f, the tensor-core forwards: lab counts, the span slice and
+# the full table, units past the first wave (taken from the counter), small
+# batches, a head masked on every tile, rows past num_p / num_l ------------
+
+
+def _short_tables(params, plan_args, cut_p=200, cut_l=3):
+    """The head's tables ``cut_p`` patients and ``cut_l`` labs short, and
+    every 7th slot's lab id past the table: those slots read zero rows."""
+    params = list(params)
+    params[0], params[1] = params[0][:-cut_p].contiguous(), params[1][:-cut_l].contiguous()
+    lab = plan_args["lab_idx"].clone()
+    lab[::7] = params[1].shape[0] + 5
+    return params, {**plan_args, "lab_idx": lab}
+
+
+def _fwd_close(got, want):
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("lab_rows", [0, 256], ids=["full_table", "span256"])
+@pytest.mark.parametrize("num_l", [37, 500, 720, 2048])
+def test_pair_head_fwd_matches_plain_at_any_lab_count(gpu, num_l, lab_rows, masked, rate):
+    params, plan_args, _, lab_rows, _ = _head_problem(num_l, lab_rows, seed=num_l + 1)
+    pg, ag = [p.to(gpu) for p in params], _to(plan_args, gpu)
+    before = dict(pk.launch_counts)
+    got = _head_call(pk.pair_head_fwd, pg, ag, lab_rows, (27, 18), rate, masked)
+    assert pk.launch_counts["pair_head_fwd"] == before["pair_head_fwd"] + 1
+    assert pk.launch_counts["pair_head_dual_fwd"] == before["pair_head_dual_fwd"]
+    _fwd_close([got], [_head_call(pk.pair_head_fwd_plain, pg, ag, lab_rows, (27, 18), rate, masked)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("lab_rows", [0, 256], ids=["full_table", "span256"])
+def test_pair_head_fwd_takes_units_from_the_counter(gpu, lab_rows, masked):
+    # ~7,000 units: more than the 2 x 132 blocks' 2,112 warps take by index
+    params, plan_args, _, lab_rows, _ = _head_problem(500, lab_rows, seed=3, batch=700_000, num_p=20_000)
+    units = plan_args["win_local"].shape[0] // pk.FWD_UNIT
+    assert units > pk.fwd_launch(units // 8, 132).blocks * pk.FWD_WARPS
+    pg, ag = [p.to(gpu) for p in params], _to(plan_args, gpu)
+    got = _head_call(pk.pair_head_fwd, pg, ag, lab_rows, (4, 5), 0.2, masked)
+    _fwd_close([got], [_head_call(pk.pair_head_fwd_plain, pg, ag, lab_rows, (4, 5), 0.2, masked)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 300, 5_000])
+def test_pair_head_fwd_on_small_batches(gpu, batch):
+    # one tile (mostly padding slots) to a few: fewer units than one block's warps
+    params, plan_args, _, lab_rows, _ = _head_problem(500, 256, seed=batch, batch=batch, num_p=400)
+    pg, ag = [p.to(gpu) for p in params], _to(plan_args, gpu)
+    for masked in (False, True):
+        got = _head_call(pk.pair_head_fwd, pg, ag, lab_rows, (8, 9), 0.2, masked)
+        _fwd_close([got], [_head_call(pk.pair_head_fwd_plain, pg, ag, lab_rows, (8, 9), 0.2, masked)])
+        assert float(got[ag["win_local"] >= 128].abs().sum()) == 0.0  # padding slots output 0
+
+
+@pytest.mark.cuda
+def test_pair_head_fwd_masked_on_every_tile_outputs_zeros(gpu):
+    params, plan_args, _, lab_rows, _ = _head_problem(500, 256, seed=11)
+    plan_args["tile_mask"] = torch.zeros_like(plan_args["tile_mask"])
+    out = _head_call(pk.pair_head_fwd, [p.to(gpu) for p in params], _to(plan_args, gpu), lab_rows, (1, 1),
+                     0.2, True)
+    assert out.shape == plan_args["win_local"].shape and float(out.abs().sum()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lab_rows", [0, 256], ids=["full_table", "span256"])
+def test_pair_head_fwd_reads_zero_rows_past_num_p_and_num_l(gpu, lab_rows):
+    params, plan_args, _, lab_rows, _ = _head_problem(500, lab_rows, seed=12)
+    params, plan_args = _short_tables(params, plan_args)
+    pg, ag = [p.to(gpu) for p in params], _to(plan_args, gpu)
+    for rate in (0.0, 0.2):
+        got = _head_call(pk.pair_head_fwd, pg, ag, lab_rows, (2, 3), rate, True)
+        _fwd_close([got], [_head_call(pk.pair_head_fwd_plain, pg, ag, lab_rows, (2, 3), rate, True)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("num_l", [37, 500, 720, 2048])
+def test_dual_fwd_matches_plain_at_any_lab_count(gpu, num_l, masked, rate):
+    params, plan_args, _, _ = _dual_problem(num_l, seed=num_l + 2)
+    pg, ag = [p.to(gpu) for p in params], _to(plan_args, gpu)
+    before = dict(pk.launch_counts)
+    got = _dual_call(pk.pair_head_dual_fwd, pg, ag, (6, 7, 8, 9), rate, masked)
+    assert pk.launch_counts["pair_head_dual_fwd"] == before["pair_head_dual_fwd"] + 1
+    assert pk.launch_counts["pair_head_fwd"] == before["pair_head_fwd"]
+    _fwd_close(got, _dual_call(pk.pair_head_dual_fwd_plain, pg, ag, (6, 7, 8, 9), rate, masked))
+
+
+@pytest.mark.cuda
+def test_dual_fwd_takes_units_from_both_counters(gpu):
+    params, plan_args, _, _ = _dual_problem(500, seed=5)
+    big, big_args, _, _, _ = _head_problem(500, 0, seed=5, batch=700_000, num_p=20_000)
+    gen = torch.Generator().manual_seed(5)
+    params = big + [torch.randn(big[0].shape, generator=gen), torch.randn(big[1].shape, generator=gen)] + params[8:]
+    num_tiles = big_args["win_local"].shape[0] // 1024
+    big_args["gnn_mask"] = torch.from_numpy(np.random.default_rng(5).integers(0, 2, num_tiles).astype(np.int32))
+    pg, ag = [p.to(gpu) for p in params], _to(big_args, gpu)
+    for masked in (False, True):
+        got = _dual_call(pk.pair_head_dual_fwd, pg, ag, (1, 2, 3, 4), 0.2, masked)
+        _fwd_close(got, _dual_call(pk.pair_head_dual_fwd_plain, pg, ag, (1, 2, 3, 4), 0.2, masked))
+
+
+@pytest.mark.cuda
+def test_dual_fwd_with_a_head_masked_on_every_tile(gpu):
+    params, plan_args, _, _ = _dual_problem(500, seed=13)
+    plan_args["tile_mask"] = torch.zeros_like(plan_args["tile_mask"])  # the tabular head's
+    pg, ag = [p.to(gpu) for p in params], _to(plan_args, gpu)
+    got = _dual_call(pk.pair_head_dual_fwd, pg, ag, (1, 2, 3, 4), 0.2, True)
+    assert float(got[0].abs().sum()) == 0.0
+    _fwd_close(got, _dual_call(pk.pair_head_dual_fwd_plain, pg, ag, (1, 2, 3, 4), 0.2, True))
+
+
+@pytest.mark.cuda
+def test_dual_fwd_reads_zero_rows_past_num_p_and_num_l(gpu):
+    params, plan_args, _, _ = _dual_problem(500, seed=14)
+    tab, plan_args = _short_tables(params[:6], plan_args)
+    gnn, _ = _short_tables(params[6:], plan_args)
+    pg, ag = [p.to(gpu) for p in tab + gnn], _to(plan_args, gpu)
+    for rate in (0.0, 0.2):
+        got = _dual_call(pk.pair_head_dual_fwd, pg, ag, (5, 6, 7, 8), rate, True)
+        _fwd_close(got, _dual_call(pk.pair_head_dual_fwd_plain, pg, ag, (5, 6, 7, 8), rate, True))
+
+
+@pytest.mark.cuda
+def test_forward_launches_leave_their_counters_zero(gpu):
+    # K4f and K5f share one counter buffer a stream, which each launch's last
+    # block zeroes: launches in a row, on two streams, each match the plain version
+    params, plan_args, _, lab_rows, _ = _head_problem(500, 256, seed=15, batch=200_000, num_p=8_000)
+    dual, dual_args, _, _ = _dual_problem(500, seed=16)
+    pg, ag = [p.to(gpu) for p in params], _to(plan_args, gpu)
+    dg, dag = [p.to(gpu) for p in dual], _to(dual_args, gpu)
+    want = _head_call(pk.pair_head_fwd_plain, pg, ag, lab_rows, (3, 4), 0.2, True)
+    want_dual = _dual_call(pk.pair_head_dual_fwd_plain, dg, dag, (1, 2, 3, 4), 0.2, True)
+    side = torch.cuda.Stream(gpu)
+    side.wait_stream(torch.cuda.current_stream(gpu))  # the inputs are ready
+    for stream in (torch.cuda.current_stream(gpu), side):
+        with torch.cuda.stream(stream):
+            for _ in range(3):
+                _fwd_close([_head_call(pk.pair_head_fwd, pg, ag, lab_rows, (3, 4), 0.2, True)], [want])
+                _fwd_close(_dual_call(pk.pair_head_dual_fwd, dg, dag, (1, 2, 3, 4), 0.2, True), want_dual)
+            work = pk._fwd_counters(torch.device(gpu), stream)
+            assert work.tolist() == [0, 0, 0]
+    torch.cuda.synchronize(gpu)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 @pytest.mark.parametrize("masked", [False, True])

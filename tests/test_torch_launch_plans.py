@@ -1,15 +1,15 @@
 """PyTorch port: the launch plans of the kernels redesigned for the H100,
 K2f (``ops/segment_kernels.fused_table_launch``), K4b / K5b
-(``ops/pairhead_kernels.bwd_launch``), K1 (``windowed_route``,
-``windowed_launch``), K8 (``ops/attention_kernels.dkv_launch``) and K6 /
-K7 (``rows_launch``).
+(``ops/pairhead_kernels.bwd_launch``), K4f / K5f (``fwd_launch``), K1
+(``windowed_route``, ``windowed_launch``), K8
+(``ops/attention_kernels.dkv_launch``) and K6 / K7 (``rows_launch``).
 
 The wrappers derive them on the host before they launch, so they are checked
 here without a card: every table the fused-table tier admits fits a block's
 shared memory, the column slices cover the width, the unit counters hand out
-every unit once, and K4b's shared memory does not depend on the lab table.
-The kernels themselves are compared with their plain versions on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+every unit once, and the pair heads' shared memory does not depend on the
+lab table.  The kernels themselves are compared with their plain versions on
+the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
 
 import pytest
@@ -105,6 +105,34 @@ def test_pair_head_backward_shared_memory_is_the_same_for_any_lab_table():
         for half in (range(0, 4), range(4, 8)):
             banks = [(g * stride + 2 * t + q) % 32 for g in half for t in range(4) for q in range(2)]
             assert len(set(banks)) == 32
+
+
+@pytest.mark.parametrize("heads", [1, 2])
+@pytest.mark.parametrize("num_tiles", [1, 7, 300, 3821, 3974, 6502])
+def test_pair_head_forward_plan(num_tiles, heads):
+    launch = pk.fwd_launch(num_tiles, H100_SMS, heads)
+    assert launch.units == num_tiles * 1024 // pk.FWD_UNIT == num_tiles * 8 and launch.heads == heads
+    assert launch.threads == 32 * pk.FWD_WARPS == 256
+    # two blocks an SM a head (K5f: the tabular head's blocks follow the
+    # GNN head's), and no block whose warps all start past the last unit
+    assert 1 <= launch.blocks <= 2 * H100_SMS and (launch.blocks - 1) * pk.FWD_WARPS < launch.units
+    if num_tiles >= 300:  # more units than warps: the counter hands out the rest
+        assert launch.blocks == 2 * H100_SMS and launch.units > launch.blocks * pk.FWD_WARPS
+    # each head's warps take a unit by index, then units from the head's
+    # own counter (K5f: one counter a head): every unit of a head once
+    assert _dealt_once(launch.units, launch.blocks * pk.FWD_WARPS, 1)
+
+
+def test_pair_head_forward_shared_memory_fits_two_blocks_an_sm():
+    # W1's split fragments for h0 @ W1 (2 x 8 KB), b1 and w2, and per warp
+    # 2 x 16 staging rows of 72 floats and 2 x 128 words of unit metadata:
+    # 96 KB, whatever num_l is; two blocks an SM, each with the 1 KB a block
+    # reserves, fit the SM's 228 KB
+    assert pk.FWD_SHARED_BYTES == 16_384 + 256 + 8 * (2 * 16 * 72 + 2 * 128) * 4 == 98_560
+    assert 2 * (pk.FWD_SHARED_BYTES + 1024) <= 228 * 1024
+    assert pk.FWD_SHARED_BYTES <= sk._MAX_SHARED_BYTES
+    for heads in (1, 2):
+        assert pk.fwd_launch(10, H100_SMS, heads).shared_bytes == pk.FWD_SHARED_BYTES
 
 
 def _dealt_once(units: int, warps: int, grab: int) -> bool:
