@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's RGCN and HGT serving and training paths,
-the RGCN's dual-head training path and the gather probe on one CUDA GPU.
+the RGCN's dual-head training path, the gather probe, the bench and the
+trainer's lifecycle (checkpoints, resume, evaluation) on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -97,6 +98,20 @@ Phases, each printing one line with its seconds:
                    at the script's defaults (3840 tiles, 512 rows, H 64),
                    then A / B / C against their plain versions at H 64 and
                    128: errors, median times, bounds, library times
+ 19. bench         python -m multi_modal_gnn_tpu_torch.tools.bench --scale
+                   --no-dense --quick through run_bench: its JSON line, a
+                   finite positive value, the card named in its device, and
+                   K1-K4 launched in its timed chunks
+ 20. lifecycle     on phase 3's graph at full width (dropout 0.2):
+                   train_pipeline for 4 epochs (checkpoints every 2) twice,
+                   whose relative drift over the losses of epochs 3-4 sets
+                   the tolerance (twice it); a fresh trainer's
+                   fit(resume_from="auto") from the first run's
+                   checkpoint_epoch_2.ckpt to epoch 4, held to that run
+                   within it; load_best_model, evaluate_model (baselines
+                   global_mean, per_lab_mean; conformal alpha 0.1) and its
+                   artifacts; predict_pairs on 4096 test pairs against
+                   predict("test") within 1e-5
 Then a JSON line of per-kernel results, the nvidia-smi line, and the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero before the last line; without a CUDA device it fails in phase 1.
@@ -108,9 +123,12 @@ import copy
 import dataclasses
 import json
 import math
+import shutil
 import statistics
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 # mean aggregations of f32 sums whose order differs (atomics vs index_add_)
 KERNEL_ATOL, KERNEL_RTOL = 1e-5, 1e-5
@@ -151,6 +169,15 @@ TIMING_REPS = 20
 # mimic_scale's 720 and the fused-table tier's largest table
 LAB_COUNTS = (720, 2048)
 TRAIN_EPOCHS = 5
+# phase 20: train_pipeline's epochs and the test pairs predict_pairs answers.
+# Two runs from scratch differ most through their first Adam steps, where a
+# near-zero gradient whose sign the reordered sums flip moves a parameter by
+# up to 2 * lr: 1.0e-6 to 5.2e-6 (relative, losses of epochs 3-4) over 28
+# pairs of runs, while runs resumed from one epoch-2 checkpoint and the run
+# that wrote it agreed to the bit (tools/resume_drift.py; NVIDIA H100 80GB
+# HBM3, 700.00 W)
+LIFECYCLE_EPOCHS = 4
+PAIRS_CHECKED = 4096
 # the H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores; TF32 is off
 HBM_BYTES_PER_S = 3.35e12
@@ -474,8 +501,9 @@ def main() -> int:
         compute_node_state,
         predict_patient,
     )
-    from multi_modal_gnn_tpu_torch.tools import bench_gather
-    from multi_modal_gnn_tpu_torch.training import Trainer, masker_from_config
+    from multi_modal_gnn_tpu_torch.evaluation import evaluate_model
+    from multi_modal_gnn_tpu_torch.tools import bench, bench_gather
+    from multi_modal_gnn_tpu_torch.training import Trainer, masker_from_config, train_pipeline
     from multi_modal_gnn_tpu_torch.training.masker import _pad_batch
     from multi_modal_gnn_tpu_torch.utils.device import disable_tf32, gpu_identity, require_cuda
 
@@ -1768,6 +1796,122 @@ def main() -> int:
         + f"; launches {probe_launches}",
     )
 
+    # 19. bench ------------------------------------------------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    reset_counts()
+    bench_line = bench.run_bench(scale=True, dense=False, quick=True)
+    bench_launches = read_counts()  # the bench's path ends here
+    print(json.dumps(bench_line), flush=True)
+    timed = bench_line["kernel_launches"]
+    if not (math.isfinite(bench_line["value"]) and bench_line["value"] > 0):
+        raise AssertionError(f"bench value {bench_line['value']!r} is not finite and positive")
+    if torch.cuda.get_device_name(0) not in bench_line["device"]:
+        raise AssertionError(f"bench device {bench_line['device']!r} does not name the card")
+    if not all(timed.get(name, 0) > 0 for name in RGCN_KERNELS):
+        raise AssertionError(f"a kernel of the RGCN path did not launch in the timed chunks: {timed}")
+    _phase(
+        "bench", t0,
+        f"train_patient_lab_edges_per_sec {bench_line['value']:.1f}, epoch {bench_line['epoch_time_ms']:.3f} ms, "
+        f"warm-up {bench_line['warmup_s']:.2f} s, graph build {bench_line['graph_build_s']:.2f} s; "
+        f"launches in the timed chunks {timed}",
+    )
+
+    # 20. lifecycle --------------------------------------------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    life_config = dataclasses.replace(
+        config,
+        train=dataclasses.replace(config.train, epochs=LIFECYCLE_EPOCHS),
+        logging=dataclasses.replace(config.logging, checkpoint_interval=2),
+        evaluation=dataclasses.replace(
+            config.evaluation, baselines=("global_mean", "per_lab_mean"), extras={"conformal_alpha": 0.1},
+        ),
+    )
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        runs = {}
+        for label in ("unbroken", "unbroken again"):
+            run_t = time.perf_counter()
+            trainer, pipeline_results = train_pipeline(life_config, graph, tmp / label)
+            runs[label] = (list(trainer.history["train_loss"]), list(trainer.history["val_loss"]))
+            print(
+                f"    {label}: {time.perf_counter() - run_t:.1f} s  train {runs[label][0]}  "
+                f"val {runs[label][1]}  test loss of the best state {pipeline_results['test_loss']:.6f}"
+            )
+            if label == "unbroken":
+                unbroken = trainer
+            del trainer
+        # a fresh trainer resumes from the unbroken run's own epoch-2 checkpoint
+        (tmp / "resumed").mkdir()
+        for name in ("checkpoint_epoch_2.ckpt", "checkpoint_epoch_2.ckpt.json"):
+            shutil.copy(tmp / "unbroken" / name, tmp / "resumed" / name)
+        model = build_model(life_config, graph_cpu, generator=torch.Generator().manual_seed(5))
+        resumed = Trainer(model, graph, masker_from_config(life_config, graph), life_config)
+        resumed.fit(output_dir=tmp / "resumed", resume_from="auto")
+        runs["resumed"] = (list(resumed.history["train_loss"]), list(resumed.history["val_loss"]))
+        print(f"    resumed from checkpoint_epoch_2.ckpt: train {runs['resumed'][0]}  val {runs['resumed'][1]}")
+        del resumed, model
+
+        def rel_drift(a, b):  # over epochs 3 on, train and val losses
+            return max(abs(x - y) / abs(y) for la, lb in zip(a, b) for x, y in zip(la[2:], lb[2:]))
+
+        drift = rel_drift(runs["unbroken again"], runs["unbroken"])
+        tolerance = 2 * drift
+        resume_drift = rel_drift(runs["resumed"], runs["unbroken"])
+        if len(runs["resumed"][0]) != LIFECYCLE_EPOCHS or not resume_drift <= tolerance:
+            raise AssertionError(
+                f"resumed epochs 3-{LIFECYCLE_EPOCHS} differ from the unbroken run by {resume_drift:.3e} "
+                f"(relative), over the tolerance {tolerance:.3e} (twice the unbroken runs' drift {drift:.3e})"
+            )
+        tmp_unbroken = tmp / "unbroken"
+        unbroken.load_best_model(tmp_unbroken)
+        evaluation = evaluate_model(unbroken, graph, life_config, output_dir=tmp_unbroken)
+        artifacts = (
+            "best_model.ckpt", "best_model.ckpt.json", "checkpoint_epoch_2.ckpt", "checkpoint_epoch_4.ckpt",
+            "metrics.jsonl", "training_history.json", "test_results.json", "evaluation_results.json",
+            "per_lab_metrics.csv", "conformal.json",
+        )
+        missing = [name for name in artifacts if not (tmp_unbroken / name).exists()]
+        if missing:
+            raise AssertionError(f"artifacts missing after the lifecycle: {missing}")
+        metrics = [
+            *evaluation["overall_metrics"].values(), *evaluation["raw_metrics"].values(),
+            *(v for m in evaluation["baselines"].values() for v in m.values()),
+            evaluation["conformal"]["coverage"], evaluation["conformal"]["mean_width"],
+        ]
+        if not all(math.isfinite(v) for v in metrics):
+            raise AssertionError(f"non-finite evaluation metrics: {evaluation}")
+        test_p, test_l, _ = unbroken.masker.split_arrays("test")
+        pick = np.random.default_rng(0).choice(len(test_p), PAIRS_CHECKED, replace=False)
+        pairs = unbroken.predict_pairs(test_p[pick], test_l[pick], state=unbroken.best_state)
+        pairs_err, _ = _compare(
+            "predict_pairs against predict('test')", torch.from_numpy(pairs),
+            torch.from_numpy(unbroken.predict("test", unbroken.best_state)[pick]), 1e-5, 0.0,
+        )
+        del unbroken
+    lifecycle_launches = read_counts()  # the lifecycle's path ends here
+    if not all(lifecycle_launches.values()):
+        raise AssertionError(f"a kernel of the RGCN path did not launch in the lifecycle: {lifecycle_launches}")
+    conf = evaluation["conformal"]
+    print(
+        f"    evaluation of the best state: MAE {evaluation['overall_metrics']['mae']:.6f}  "
+        f"R2 {evaluation['overall_metrics']['r2']:.6f}  baselines "
+        + ", ".join(f"{k} MAE {v['mae']:.6f}" for k, v in evaluation["baselines"].items())
+        + f"  conformal coverage {conf['coverage']:.4f} (target {conf['target_coverage']:.2f}), "
+        f"mean width {conf['mean_width']:.4f}"
+    )
+    torch.cuda.empty_cache()
+    _phase(
+        "lifecycle", t0,
+        f"train_pipeline {LIFECYCLE_EPOCHS} epochs x 2 and a resume from the first's epoch 2: the two differ "
+        f"by {drift:.3e} (relative, train and val losses of epochs 3-{LIFECYCLE_EPOCHS}), so the tolerance is "
+        f"{tolerance:.3e}; the resumed "
+        f"epochs 3-{LIFECYCLE_EPOCHS} differ by {resume_drift:.3e}; {len(artifacts)} artifacts; "
+        f"predict_pairs on {PAIRS_CHECKED} test pairs within {pairs_err:.2e} of predict; launches {lifecycle_launches}",
+    )
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces}
@@ -1792,6 +1936,9 @@ def main() -> int:
             )
             if name in serving_launches:
                 entry["launches_serving"] = serving_launches[name]
+        if name in bench_launches:
+            entry["launches_bench"] = bench_launches[name]
+            entry["launches_lifecycle"] = lifecycle_launches[name]
         if name == "segment_sum_windowed":
             entry["as_span_backward"] = k1_backward
         kernels.append(entry)

@@ -1,5 +1,5 @@
-"""The ``model``, ``graph`` and ``train`` config sections, as frozen
-dataclasses.
+"""The ``model``, ``graph``, ``train``, ``evaluation`` and ``logging``
+config sections, as frozen dataclasses.
 
 Field names and defaults follow ``multi_modal_gnn_tpu/config.py``.
 :meth:`Config.from_dict` accepts the JAX ``Config.to_dict()`` output (where
@@ -15,6 +15,8 @@ with no effect on results, are accepted and dropped.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
@@ -153,6 +155,9 @@ class TrainConfig:
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     lr_scheduler: LRSchedulerConfig = field(default_factory=LRSchedulerConfig)
     seed: int = 42
+    # epochs per Trainer.train_epochs call in fit(): 1 acts on every epoch;
+    # k > 1 runs k epochs back to back and acts on chunk boundaries
+    scan_chunk: int = 1
     # extras.lab_tile_rows (None/"auto" | int), extras.lab_tile_mode ("span"),
     # extras.lab_reweighting (bool)
     extras: Dict[str, Any] = field(default_factory=dict)
@@ -165,6 +170,8 @@ class TrainConfig:
             raise ConfigError(f"train.loss invalid: {self.loss!r}")
         if self.task != "edge_regression":
             raise ConfigError(f"train.task invalid: {self.task!r}")
+        if self.scan_chunk < 1:
+            raise ConfigError(f"train.scan_chunk must be >= 1, got {self.scan_chunk}")
         if self.batch_size is not None:
             raise ConfigError(
                 "train.batch_size: the PyTorch port trains full-batch only (batch_size: null)"
@@ -182,20 +189,94 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class EvaluationConfig:
+    regression_metrics: Tuple[str, ...] = ("mae", "rmse", "r2", "mape")
+    per_lab_metrics: bool = True
+    baselines: Tuple[str, ...] = ("global_mean", "per_lab_mean", "nearest_neighbor")
+    stratify_by: Tuple[str, ...] = ("num_labs", "lab_frequency")
+    winsorize_sigma: float = 3.0  # post-hoc per-lab residual cap of the reported metrics
+    # extras.conformal_alpha (0.1; falsy: no intervals),
+    # extras.conformal_split_fraction (share of val carved into "cal"),
+    # extras.huber_delta (robust ALS baselines)
+    extras: Dict[str, Any] = field(default_factory=dict)
+
+    def __post_init__(self):
+        for name in ("regression_metrics", "baselines", "stratify_by"):
+            object.__setattr__(self, name, tuple(getattr(self, name)))
+        unknown = set(self.baselines) - _BASELINES
+        if unknown:
+            raise ConfigError(f"evaluation.baselines: unknown {sorted(unknown)}")
+        unknown = set(self.extras) - _EVALUATION_EXTRAS
+        if unknown:
+            raise ConfigError(f"unsupported evaluation extras: {sorted(unknown)}")
+
+
+@dataclass(frozen=True)
+class LoggingConfig:
+    log_interval: int = 1
+    save_checkpoints: bool = True
+    checkpoint_interval: int = 10
+
+
+@dataclass(frozen=True)
 class Config:
     graph: GraphConfig = field(default_factory=GraphConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    evaluation: EvaluationConfig = field(default_factory=EvaluationConfig)
+    logging: LoggingConfig = field(default_factory=LoggingConfig)
 
     @staticmethod
     def from_dict(d: Dict[str, Any]) -> "Config":
-        """Build from a dict shaped like the JAX ``Config.to_dict()``; only
-        its ``model``, ``graph`` and ``train`` sections are read."""
+        """Build from a dict shaped like the JAX ``Config.to_dict()``; its
+        ``model``, ``graph``, ``train``, ``evaluation`` and ``logging``
+        sections are read."""
         return Config(
             graph=_graph_from_dict(dict(d.get("graph") or {})),
             model=_model_from_dict(dict(d.get("model") or {})),
             train=_train_from_dict(dict(d.get("train") or {})),
+            evaluation=_evaluation_from_dict(dict(d.get("evaluation") or {})),
+            logging=_logging_from_dict(dict(d.get("logging") or {})),
         )
+
+    def to_dict(self) -> Dict[str, Any]:
+        """Nested dicts and lists, each section's ``extras`` flattened into
+        it, as the JAX ``Config.to_dict()`` writes them; ``from_dict`` reads
+        it back."""
+
+        def convert(obj):
+            if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+                out = {}
+                for f in dataclasses.fields(obj):
+                    value = convert(getattr(obj, f.name))
+                    if f.name == "extras":
+                        out.update(value)
+                    else:
+                        out[f.name] = value
+                return out
+            if isinstance(obj, dict):
+                return {k: convert(v) for k, v in obj.items()}
+            if isinstance(obj, (list, tuple)):
+                return [convert(v) for v in obj]
+            return obj
+
+        return convert(self)
+
+    def content_hash(self) -> str:
+        """Hash of the whole config, written into artifacts for provenance."""
+        return _hash(self.to_dict())
+
+    def model_hash(self) -> str:
+        """Hash of the sections a checkpoint must agree on to be restored
+        (``model``, ``graph``): run-length and optimizer settings may differ
+        at resume, as JAX ``Config.model_hash`` allows."""
+        d = self.to_dict()
+        return _hash({k: d.get(k) for k in ("model", "graph", "feature_space")})
+
+
+def _hash(d: Dict[str, Any]) -> str:
+    blob = json.dumps(d, sort_keys=True, default=str).encode()
+    return hashlib.sha256(blob).hexdigest()[:16]
 
 
 # accepted and dropped: they change TPU layout or TPU kernel choice only
@@ -205,6 +286,12 @@ _MODEL_EXTRAS = {"head_style", "dual_head_fusion", "hgt_flash", "hgt_dense_attn_
 # accepted and dropped: TPU device placement and dispatch
 _TRAIN_IGNORED = {"device", "num_devices", "donate_state"}
 _TRAIN_EXTRAS = {"lab_tile_rows", "lab_tile_mode", "lab_reweighting"}
+_BASELINES = {"global_mean", "per_lab_mean", "nearest_neighbor", "als", "sideinfo_als"}
+_EVALUATION_EXTRAS = {"conformal_alpha", "conformal_split_fraction", "huber_delta"}
+# accepted and dropped: log files and experiment trackers
+_LOGGING_IGNORED = {
+    "level", "save_to_file", "log_file", "use_wandb", "wandb_project", "wandb_entity",
+}
 
 
 def _fields(cls) -> set:
@@ -264,9 +351,7 @@ def _section(d: Dict[str, Any], cls, name: str):
 
 
 def _train_from_dict(d: Dict[str, Any]) -> TrainConfig:
-    scan_chunk = int(d.pop("scan_chunk", 1) or 1)
-    if scan_chunk != 1:
-        raise ConfigError("train.scan_chunk > 1 is a TPU dispatch mode; the port runs 1")
+    d["scan_chunk"] = int(d.get("scan_chunk", 1) or 1)
     for name in _TRAIN_IGNORED:
         d.pop(name, None)
     optimizer = _section(dict(d.pop("optimizer", None) or {}), OptimizerConfig, "train.optimizer")
@@ -278,3 +363,16 @@ def _train_from_dict(d: Dict[str, Any]) -> TrainConfig:
     known = _fields(TrainConfig) - {"optimizer", "lr_scheduler", "extras"}
     extras.update({k: d.pop(k) for k in list(d) if k not in known})
     return TrainConfig(**d, optimizer=optimizer, lr_scheduler=scheduler, extras=extras)
+
+
+def _evaluation_from_dict(d: Dict[str, Any]) -> EvaluationConfig:
+    extras = dict(d.pop("extras", None) or {})
+    known = _fields(EvaluationConfig) - {"extras"}
+    extras.update({k: d.pop(k) for k in list(d) if k not in known})
+    return EvaluationConfig(**d, extras=extras)
+
+
+def _logging_from_dict(d: Dict[str, Any]) -> LoggingConfig:
+    for name in _LOGGING_IGNORED:
+        d.pop(name, None)
+    return _section(d, LoggingConfig, "logging")

@@ -49,6 +49,12 @@ class SyntheticSpec:
     seed: int = 0
 
     @staticmethod
+    def eicu_demo() -> "SyntheticSpec":
+        """Sized as the eICU demo cohort: 1,834 patients, 50 labs, ~61k
+        patient-lab edges (the defaults)."""
+        return SyntheticSpec()
+
+    @staticmethod
     def scale_100k(seed: int = 0) -> "SyntheticSpec":
         """100k patients / 500 labs / about 5M patient-lab edges."""
         return SyntheticSpec(
@@ -60,6 +66,19 @@ class SyntheticSpec:
             mean_diagnoses_per_patient=4.0,
             mean_medications_per_patient=10.0,
             seed=seed,
+        )
+
+    @staticmethod
+    def mimic_scale() -> "SyntheticSpec":
+        """MIMIC-III-shaped: 46k patients, 720 labs, ~5.5M patient-lab edges."""
+        return SyntheticSpec(
+            num_patients=46_000,
+            num_labs=720,
+            num_diagnoses=800,
+            num_medications=400,
+            mean_labs_per_patient=120.0,
+            mean_diagnoses_per_patient=6.0,
+            mean_medications_per_patient=15.0,
         )
 
     @staticmethod

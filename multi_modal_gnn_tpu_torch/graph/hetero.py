@@ -95,6 +95,9 @@ class HeteroGraph:
     node_counts: Tuple[Tuple[str, int], ...] = ()
     # HGT flash-attention plans per destination type (graph/attn_plan.py)
     attn_plans: Optional[Dict[str, Any]] = None
+    # lab index -> name, where the graph artifact records them (graph.npz's
+    # sidecar); evaluation names the others Lab_<i>
+    lab_names: Optional[Dict[int, str]] = None
 
     @property
     def node_count_map(self) -> Dict[str, int]:

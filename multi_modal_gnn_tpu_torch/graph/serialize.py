@@ -5,7 +5,8 @@
 The artifact stores each relation's padded COO + CSR arrays; the windowed,
 dense and span plans are derived, so they are re-derived here under the
 budgets recorded in the artifact's config, exactly as the JAX ``load_graph``
-does.  A graph built by the JAX package thus loads into the port."""
+does.  A graph built by the JAX package thus loads into the port, with the
+lab names its sidecar records."""
 
 from __future__ import annotations
 
@@ -87,4 +88,5 @@ def load_graph(path, device=None) -> HeteroGraph:
         edges=edges,
         patient_lab_degree=degree,
         node_counts=tuple(sorted(sidecar["node_counts"].items())),
+        lab_names={int(k): v for k, v in (sidecar.get("meta", {}).get("lab_names") or {}).items()},
     ).to(device)

@@ -186,11 +186,16 @@ class EdgeMasker:
         slot_major_train: bool = False,
         slot_major_min_rows: int = SLOT_MAJOR_MIN_ROWS,
         lab_block_rows: int = 0,
+        calibration_split: float = 0.0,
     ):
         """``slot_major_train``: lay the train batch out slot-major (see
         :func:`_pad_batch`) when it has at least ``slot_major_min_rows``
         rows.  ``lab_block_rows`` (0 = off, else a multiple of 16):
-        span-bounded lab tiles for the slot-major layout."""
+        span-bounded lab tiles for the slot-major layout.
+        ``calibration_split``: the share of the val edges carved into a
+        "cal" split for strict conformal calibration, drawn from the same
+        generator after the permutation, so train and test are those of
+        ``calibration_split=0`` (the JAX masker's draw)."""
         total = train_split + val_split + test_split
         if abs(total - 1.0) > 1e-6:
             raise ValueError(f"Splits must sum to 1.0, got {total}")
@@ -226,11 +231,26 @@ class EdgeMasker:
             "val": np.sort(perm[n_train : n_train + n_val]),
             "test": np.sort(perm[n_train + n_val :]),
         }
+        self.calibration_split = float(calibration_split)
+        if not 0.0 <= self.calibration_split < 1.0:
+            raise ValueError(f"calibration_split must be in [0, 1), got {calibration_split}")
+        if self.calibration_split > 0:
+            val_idx = self._split_indices["val"]
+            n_cal = int(round(self.calibration_split * len(val_idx)))
+            pick = rng.permutation(len(val_idx))[:n_cal]
+            cal_mask = np.zeros(len(val_idx), dtype=bool)
+            cal_mask[pick] = True
+            self._split_indices["cal"] = val_idx[cal_mask]
+            self._split_indices["val"] = val_idx[~cal_mask]
         self._batches: Dict[str, SplitBatch] = {}
         self._row_slots: Dict[str, Optional[np.ndarray]] = {}
 
     def split_sizes(self) -> Dict[str, int]:
         return {k: len(v) for k, v in self._split_indices.items()}
+
+    @property
+    def has_calibration_split(self) -> bool:
+        return "cal" in self._split_indices
 
     def split_indices(self, split: str) -> np.ndarray:
         """Positions (into the valid patient-lab edge list) of this split."""
@@ -290,7 +310,9 @@ class EdgeMasker:
 
 def masker_from_config(config, graph: HeteroGraph) -> EdgeMasker:
     """The config -> masker factory: slot-major train batches on the kernel
-    path (``model.use_pallas``), lab tiles from ``train.extras``."""
+    path (``model.use_pallas``), lab tiles from ``train.extras``, the strict
+    conformal "cal" split from ``evaluation.extras.conformal_split_fraction``.
+    Every entry point that must agree on the splits builds its masker here."""
     tc = config.train
     return EdgeMasker(
         graph,
@@ -303,4 +325,5 @@ def masker_from_config(config, graph: HeteroGraph) -> EdgeMasker:
         lab_block_rows=resolve_lab_tile_rows(
             tc.extras.get("lab_tile_rows"), graph.num_nodes(LAB), config.model.use_pallas
         ),
+        calibration_split=float(config.evaluation.extras.get("conformal_split_fraction", 0) or 0),
     )

@@ -1,16 +1,23 @@
-"""Full-batch training with early stopping and a plateau learning rate
-(``multi_modal_gnn_tpu/training/trainer.py``).
+"""Full-batch training with early stopping, a plateau learning rate,
+checkpoints and resume (``multi_modal_gnn_tpu/training/trainer.py``).
 
 Each epoch is one step: draw the epoch's supervision mask, run the whole
 graph forward with ``train=True`` through the dual degree-gated heads,
 take the lab-weighted masked loss, backpropagate through the kernels'
 backward passes, and take one Adam step.  The JAX package jits that step;
-here it runs eagerly on the card.
+here it runs eagerly on the card.  :meth:`Trainer.train_epochs` runs k
+epochs back to back with no host readback between them, the counterpart
+of the JAX ``train_epochs_scanned``.
 
 Optimizer: ``torch.optim.Adam`` with ``weight_decay``, which adds
 ``weight_decay * param`` to the gradient before the moments: the coupled L2
 of the JAX chain ``add_decayed_weights -> adam``.  ``embedding_weight_decay``
 adds to it on the ``embed_*`` tables, as the JAX masked decay does.
+
+Every draw of an epoch (supervision mask, dropout) is keyed by (seed,
+epoch), so a run restored from a checkpoint (:meth:`Trainer.restore`) continues as the unbroken run would:
+bit for bit on the CPU; on the card within the order of the kernels' float
+atomics.
 """
 
 from __future__ import annotations
@@ -18,7 +25,8 @@ from __future__ import annotations
 import copy
 import logging
 import time
-from typing import Dict, Optional, Union
+from pathlib import Path
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -27,6 +35,7 @@ from multi_modal_gnn_tpu_torch.config import Config
 from multi_modal_gnn_tpu_torch.graph.attn_plan import ensure_attn_plans
 from multi_modal_gnn_tpu_torch.graph.hetero import HeteroGraph
 from multi_modal_gnn_tpu_torch.graph.schema import LAB
+from multi_modal_gnn_tpu_torch.models.factory import build_model
 from multi_modal_gnn_tpu_torch.models.losses import (
     compute_lab_weights,
     masked_mean_loss,
@@ -34,9 +43,22 @@ from multi_modal_gnn_tpu_torch.models.losses import (
 )
 from multi_modal_gnn_tpu_torch.models.hgt import HeteroGT
 from multi_modal_gnn_tpu_torch.models.rgcn import HeteroRGCN
-from multi_modal_gnn_tpu_torch.training.masker import EdgeMasker, SplitBatch
+from multi_modal_gnn_tpu_torch.training.checkpoint import (
+    adam_state_by_name,
+    load_adam_state,
+    load_checkpoint,
+    save_checkpoint,
+)
+from multi_modal_gnn_tpu_torch.training.masker import (
+    EdgeMasker,
+    SplitBatch,
+    _pad_batch,
+    masker_from_config,
+)
 from multi_modal_gnn_tpu_torch.training.schedulers import build_scheduler
 from multi_modal_gnn_tpu_torch.utils.device import resolve_device
+from multi_modal_gnn_tpu_torch.utils.io import save_json
+from multi_modal_gnn_tpu_torch.utils.profiling import MetricsWriter
 from multi_modal_gnn_tpu_torch.utils.rng import stream_seed
 
 logger = logging.getLogger(__name__)
@@ -117,9 +139,9 @@ class Trainer:
 
     # -- steps -------------------------------------------------------------
 
-    def train_step(self, batch: SplitBatch, sup_mask: torch.Tensor, dropout_seed: int) -> float:
-        """One forward, weighted masked loss, backward and Adam step;
-        returns the loss."""
+    def _train_step(self, batch: SplitBatch, sup_mask: torch.Tensor, dropout_seed: int) -> torch.Tensor:
+        """One forward, weighted masked loss, backward and Adam step; the
+        loss stays on the device."""
         self.model.train()
         preds = self.model.predict_lab_values(
             self.graph, batch.patient_idx, batch.lab_idx, train=True,
@@ -135,13 +157,52 @@ class Trainer:
         self.optimizer.zero_grad(set_to_none=False)
         loss.backward()
         self.optimizer.step()
-        return float(loss.detach())
+        return loss.detach()
+
+    def train_step(self, batch: SplitBatch, sup_mask: torch.Tensor, dropout_seed: int) -> float:
+        """:meth:`_train_step`, the loss read back."""
+        return float(self._train_step(batch, sup_mask, dropout_seed))
+
+    def _epoch_step(self, epoch: int) -> torch.Tensor:
+        """Epoch ``epoch``'s step with its (seed, epoch) supervision mask and
+        dropout stream: the fused heads' counter-based dropout and torch's
+        generator (every other dropout) are both seeded from it, the
+        caller's generator state restored after.  The loss stays on the
+        device."""
+        batch = self.get_batch("train")
+        sup_mask = self.masker.supervision_mask(epoch, batch)
+        seed = stream_seed(self.config.train.seed, "dropout", epoch)
+        devices = [self.device] if self.device.type == "cuda" else []
+        with torch.random.fork_rng(devices=devices):
+            torch.manual_seed(seed)
+            return self._train_step(batch, sup_mask, seed)
 
     def train_epoch(self) -> float:
-        batch = self.get_batch("train")
-        sup_mask = self.masker.supervision_mask(self.epoch, batch)
-        seed = stream_seed(self.config.train.seed, "dropout", self.epoch)
-        return self.train_step(batch, sup_mask, seed)
+        return float(self._epoch_step(self.epoch))
+
+    def train_epochs(
+        self, k: int, with_val: bool = False, as_numpy: bool = True
+    ) -> Tuple[Union[np.ndarray, torch.Tensor], Optional[Union[np.ndarray, torch.Tensor]]]:
+        """Run ``k`` epochs back to back, with the validation loss after each
+        when ``with_val``; nothing is read back to the host until the end.
+
+        Epoch ``self.epoch + i`` draws the same supervision mask and dropout
+        stream as :meth:`train_epoch` would, so the losses equal ``k`` calls
+        of it.  The scheduler and early stopping do not act inside the
+        chunk.  Advances ``self.epoch`` by ``k``.  Returns ``(train_losses[k],
+        val_losses[k] or None)``, as numpy arrays, or as device tensors when
+        ``as_numpy`` is false."""
+        train_losses, val_losses = [], []
+        for i in range(k):
+            train_losses.append(self._epoch_step(self.epoch + i))
+            if with_val:
+                val_losses.append(self._eval_loss("val"))
+        self.epoch += k
+        tl = torch.stack(train_losses)
+        vl = torch.stack(val_losses) if with_val else None
+        if not as_numpy:
+            return tl, vl
+        return tl.cpu().numpy(), (vl.cpu().numpy() if with_val else None)
 
     def eval_model(self, state: Optional[dict] = None) -> torch.nn.Module:
         """The model in eval mode with the parameters and buffers of
@@ -163,12 +224,15 @@ class Trainer:
                 patient_plan=batch.patient_plan, lab_plan=batch.lab_plan, degrees=batch.degrees,
             )
 
+    def _eval_loss(self, split: str, state: Optional[dict] = None) -> torch.Tensor:
+        batch = self.get_batch(split)
+        preds = self._eval_preds(batch, state)
+        return masked_mean_loss(preds, batch.values, batch.valid, self._loss_type)
+
     def validate(self, split: str = "val", state: Optional[dict] = None) -> float:
         """The masked loss on ``split`` of the live model, or of ``state``
         (``best_state`` for the test loss, as JAX ``train_pipeline`` reports)."""
-        batch = self.get_batch(split)
-        preds = self._eval_preds(batch, state)
-        return float(masked_mean_loss(preds, batch.values, batch.valid, self._loss_type))
+        return float(self._eval_loss(split, state))
 
     def predict(self, split: str, state: Optional[dict] = None) -> np.ndarray:
         """Unpadded predictions for a split, in split order (slot-major
@@ -181,42 +245,115 @@ class Trainer:
             preds = preds[slots]
         return preds[: batch.num_valid]
 
+    def predict_pairs(
+        self,
+        patient_idx: np.ndarray,
+        lab_idx: np.ndarray,
+        state: Optional[dict] = None,
+        pad_multiple: int = 256,
+    ) -> np.ndarray:
+        """Predictions for any (patient, lab) pairs, in their order, from one
+        eval forward over a row-major batch padded to ``pad_multiple``."""
+        patient_idx = np.asarray(patient_idx, dtype=np.int32)
+        lab_idx = np.asarray(lab_idx, dtype=np.int32)
+        n = len(patient_idx)
+        batch, _ = _pad_batch(patient_idx, lab_idx, np.zeros(n, np.float32), pad_multiple)
+        batch = batch.to(self.device)
+        batch.degrees = self.graph.patient_lab_degree[batch.patient_idx.long()]
+        return self._eval_preds(batch, state).cpu().numpy()[:n]
+
     # -- the loop ----------------------------------------------------------
 
-    def fit(self) -> Dict:
-        """Train for ``train.epochs`` epochs with the plateau scheduler and
-        early stopping; keeps the best validation state in ``best_state``."""
+    def fit(self, output_dir=None, resume_from=None, scan_chunk: int = 1) -> Dict:
+        """Train to ``train.epochs`` with the plateau scheduler and early
+        stopping; keeps the best validation state in ``best_state``.
+
+        With ``output_dir``: ``best_model.ckpt`` whenever validation
+        improves, ``checkpoint_epoch_N.ckpt`` every
+        ``logging.checkpoint_interval`` epochs, ``metrics.jsonl`` and
+        ``training_history.json``.  ``resume_from``: a checkpoint to
+        :meth:`restore` first, or ``"auto"`` for the newest periodic one in
+        ``output_dir`` (none: a fresh start).
+
+        ``scan_chunk > 1`` runs that many epochs per :meth:`train_epochs`
+        call, validation inside the chunk; the scheduler's learning rate and
+        the early stop then take effect on chunk boundaries, and the best
+        state is the state at the end of the chunk, as in JAX ``fit``."""
         tc = self.config.train
+        lc = self.config.logging
+        output_dir = Path(output_dir) if output_dir is not None else None
+        if output_dir is not None:
+            output_dir.mkdir(parents=True, exist_ok=True)
+        if resume_from == "auto":
+            resume_from = self.latest_checkpoint(output_dir) if output_dir is not None else None
+            if resume_from is not None:
+                logger.info("Auto-resume from %s", resume_from)
+        if resume_from is not None:
+            self.restore(resume_from)
+        metrics = MetricsWriter(output_dir / "metrics.jsonl") if output_dir is not None else None
+
+        logger.info("Starting training: %d epochs (from epoch %d)", tc.epochs, self.epoch)
         t_start = time.perf_counter()
         epoch_times = []
-        while self.epoch < tc.epochs:
+        stop = False
+        while self.epoch < tc.epochs and not stop:
             t0 = time.perf_counter()
-            train_loss = self.train_epoch()
-            val_loss = self.validate("val")
-            self.epoch += 1
-            epoch_times.append(time.perf_counter() - t0)
+            if scan_chunk > 1:
+                k = min(scan_chunk, tc.epochs - self.epoch)
+                train_losses, val_losses = self.train_epochs(k, with_val=True)
+                chunk = list(zip(train_losses.tolist(), val_losses.tolist()))
+            else:
+                train_loss = self.train_epoch()
+                val_loss = self.validate("val")
+                self.epoch += 1
+                chunk = [(train_loss, val_loss)]
+            chunk_time = time.perf_counter() - t0
+            epoch_times.extend([chunk_time / len(chunk)] * len(chunk))
 
-            new_lr = self.scheduler.step(val_loss)
-            self.history["train_loss"].append(train_loss)
-            self.history["val_loss"].append(val_loss)
-            self.history["learning_rates"].append(new_lr)
+            for train_loss, val_loss in chunk:
+                new_lr = self.scheduler.step(val_loss)
+                self.history["train_loss"].append(train_loss)
+                self.history["val_loss"].append(val_loss)
+                self.history["learning_rates"].append(new_lr)
             if abs(new_lr - self.optimizer.param_groups[0]["lr"]) > 1e-12:
                 logger.info("Epoch %d: reducing lr to %.2e", self.epoch, new_lr)
-                for group in self.optimizer.param_groups:
-                    group["lr"] = new_lr
-            logger.info(
-                "Epoch %3d | train %.4f | val %.4f | lr %.2e | %.3fs",
-                self.epoch, train_loss, val_loss, new_lr, epoch_times[-1],
-            )
-            if val_loss < self.best_val_loss:
-                self.best_val_loss = val_loss
-                self.patience_counter = 0
+                self._set_lr(new_lr)
+            if self.epoch % max(lc.log_interval, 1) == 0 or len(chunk) > 1:
+                logger.info(
+                    "Epoch %3d | train %.4f | val %.4f | lr %.2e | %.3fs",
+                    self.epoch, train_loss, val_loss, new_lr, epoch_times[-1],
+                )
+            if metrics is not None:
+                base = self.epoch - len(chunk)
+                for i, (tl, vl) in enumerate(chunk):
+                    metrics.write(
+                        base + i + 1, train_loss=tl, val_loss=vl, lr=new_lr,
+                        epoch_time_s=epoch_times[-1],
+                    )
+
+            improved = False
+            for train_loss, val_loss in chunk:
+                if val_loss < self.best_val_loss:
+                    self.best_val_loss = val_loss
+                    self.patience_counter = 0
+                    improved = True
+                else:
+                    self.patience_counter += 1
+                    if self.patience_counter >= tc.early_stopping_patience:
+                        logger.info("Early stopping at epoch %d", self.epoch)
+                        stop = True
+                        break
+            if improved:
                 self.best_state = copy.deepcopy(self.model.state_dict())
-            else:
-                self.patience_counter += 1
-                if self.patience_counter >= tc.early_stopping_patience:
-                    logger.info("Early stopping at epoch %d", self.epoch)
-                    break
+                if output_dir is not None:
+                    self._save(output_dir / "best_model.ckpt")
+            if (
+                output_dir is not None
+                and lc.save_checkpoints
+                and not stop
+                and self.epoch % max(lc.checkpoint_interval, 1) == 0
+            ):
+                self._save(output_dir / f"checkpoint_epoch_{self.epoch}.ckpt")
 
         total_time = time.perf_counter() - t_start
         n_train = self.masker.split_sizes()["train"]
@@ -225,4 +362,116 @@ class Trainer:
         self.history["train_edges_per_sec"] = (
             n_train * len(epoch_times) / total_time if total_time > 0 else 0.0
         )
+        if metrics is not None:
+            metrics.close()
+        if output_dir is not None:
+            save_json(
+                {k: self.history[k] for k in ("train_loss", "val_loss", "learning_rates")},
+                output_dir / "training_history.json",
+            )
         return self.history
+
+    # -- checkpoint / resume -------------------------------------------------
+
+    def _set_lr(self, lr: float) -> None:
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+
+    def _checkpoint_payload(self) -> dict:
+        live = self.model.state_dict()
+        return {
+            "model": live,
+            "best_model": self.best_state if self.best_state is not None else live,
+            "adam": adam_state_by_name(self.model, self.optimizer),
+        }
+
+    def _host_metadata(self) -> dict:
+        return {
+            "epoch": self.epoch,
+            "best_val_loss": self.best_val_loss,
+            "patience_counter": self.patience_counter,
+            "scheduler": dict(self.scheduler.__dict__),
+            "history": {k: v for k, v in self.history.items() if isinstance(v, list)},
+            "config_hash": self.config.content_hash(),
+            "model_hash": self.config.model_hash(),
+            "config": self.config.to_dict(),
+        }
+
+    def _save(self, path: Path) -> None:
+        save_checkpoint(path, self._checkpoint_payload(), self._host_metadata())
+
+    @staticmethod
+    def latest_checkpoint(output_dir) -> Optional[Path]:
+        """The ``checkpoint_epoch_N.ckpt`` of ``output_dir`` with the largest
+        N, or None."""
+        candidates = {}
+        for p in Path(output_dir).glob("checkpoint_epoch_*.ckpt"):
+            try:
+                candidates[int(p.stem.rsplit("_", 1)[1])] = p
+            except ValueError:
+                continue
+        return candidates[max(candidates)] if candidates else None
+
+    def load_best_model(self, output_dir, force: bool = False) -> None:
+        """Restore ``<output_dir>/best_model.ckpt`` and make it the live and
+        the best state."""
+        self.restore(Path(output_dir) / "best_model.ckpt", force=force)
+        self.best_state = copy.deepcopy(self.model.state_dict())
+
+    def restore(self, path, force: bool = False) -> None:
+        """Resume from a checkpoint of the port or of the JAX package: the
+        live and best states, Adam's state, the epoch, the early-stopping
+        counters, the scheduler and the history.  Refuses a checkpoint whose
+        ``model_hash`` (the ``model`` and ``graph`` sections) differs from
+        the live config's unless ``force``; run-length settings such as
+        ``train.epochs`` may differ."""
+        payload, meta = load_checkpoint(path)
+        ckpt_hash = meta.get("model_hash")
+        live_hash = self.config.model_hash()
+        if ckpt_hash and ckpt_hash != live_hash and not force:
+            raise ValueError(
+                f"Checkpoint {path} was trained with an incompatible config "
+                f"(checkpoint model hash {ckpt_hash[:12]}.. != live {live_hash[:12]}..). "
+                "Pass force=True to restore anyway."
+            )
+        self.model.load_state_dict(payload["model"])
+        load_adam_state(self.model, self.optimizer, payload["adam"])
+        self.best_state = {k: v.to(self.device) for k, v in payload["best_model"].items()}
+        self.epoch = int(meta.get("epoch", 0))
+        self.best_val_loss = float(meta.get("best_val_loss", float("inf")))
+        self.patience_counter = int(meta.get("patience_counter", 0))
+        for k, v in (meta.get("scheduler") or {}).items():
+            if hasattr(self.scheduler, k):
+                setattr(self.scheduler, k, v)
+        self._set_lr(float(self.scheduler.lr))
+        for k, v in (meta.get("history") or {}).items():
+            self.history[k] = list(v)
+        logger.info("Resumed training at epoch %d (best val %.4f)", self.epoch, self.best_val_loss)
+
+
+def train_pipeline(
+    config: Config, graph: HeteroGraph, output_dir, resume_from=None, device=None
+) -> Tuple[Trainer, Dict]:
+    """The training stage: the model from ``config`` (weights drawn from
+    ``train.seed``), the masker from the config, :meth:`Trainer.fit` into
+    ``output_dir`` (``scan_chunk`` from ``train.scan_chunk``), then the best
+    state's test loss in ``test_results.json``.  Runs on ``device``
+    (default: the card; raises without one)."""
+    output_dir = Path(output_dir)
+    output_dir.mkdir(parents=True, exist_ok=True)
+    tc = config.train
+    masker = masker_from_config(config, graph)
+    logger.info("Edge splits: %s", masker.split_sizes())
+    generator = torch.Generator().manual_seed(stream_seed(tc.seed, "init"))
+    model = build_model(config, graph, device=device, generator=generator)
+    trainer = Trainer(model, graph, masker, config, device=device)
+    trainer.fit(output_dir=output_dir, resume_from=resume_from, scan_chunk=tc.scan_chunk)
+    test_loss = trainer.validate("test", state=trainer.best_state)
+    results = {
+        "test_loss": test_loss,
+        "best_val_loss": trainer.best_val_loss,
+        "num_epochs": len(trainer.history["train_loss"]),
+    }
+    save_json(results, output_dir / "test_results.json")
+    logger.info("Test loss (%s): %.4f", tc.loss, test_loss)
+    return trainer, results

@@ -1436,3 +1436,91 @@ def test_k6_k7_autograd_step_matches_plain(gpu, layout, h):
     np.testing.assert_allclose(results[0][0], results[1][0], rtol=1e-5, atol=1e-5, err_msg="out")
     for name, a, b in zip(("dq", "dk", "dv"), results[0][1:], results[1][1:]):
         _assert_close_scaled(a, b, 1e-4, name)
+
+
+# -- back-to-back epochs and checkpoints on the card ---------------------------
+
+# train_epochs' losses, card against CPU from the same weights and masks:
+# the first epoch's loss as one step's (1e-5); later ones after Adam steps
+# whose parameters differ by up to 2 * lr where a near-zero gradient's sign
+# flips (see the dual step above): 3e-6 apart at the third epoch on an
+# NVIDIA H100 80GB HBM3, 700.00 W, held to 1e-4
+EPOCHS_LOSS_RTOL = (1e-5, 1e-4)
+LIFECYCLE_SPEC = SyntheticSpec(
+    num_patients=4500, num_labs=300, num_diagnoses=100, num_medications=80,
+    mean_labs_per_patient=30.0, mean_diagnoses_per_patient=2.0,
+    mean_medications_per_patient=3.0, latent_dim=4, seed=3,
+)
+
+
+def _lifecycle_trainer(config, graph, device, dual=False, mask_fraction=0.2):
+    model = build_model(config, graph, device="cpu", generator=torch.Generator().manual_seed(0))
+    masker = EdgeMasker(
+        graph, mask_fraction=mask_fraction, slot_major_train=True, slot_major_min_rows=0,
+        lab_block_rows=0 if dual else 32,
+    )
+    return Trainer(model, graph, masker, config, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dual", [False, True], ids=["single_heads", "dual_heads"])
+def test_train_epochs_on_the_card_match_the_plain_versions(gpu, dual):
+    """``train_epochs(3, with_val=True)`` runs the path's kernels with no
+    readback and its losses follow the plain versions' on the CPU (dropout 0
+    and every train row supervised: torch's CPU and CUDA generators draw
+    other numbers from one seed)."""
+    extras = {"head_style": "factored", "dual_head_fusion": "on" if dual else "off"}
+    config = Config(
+        graph=GraphConfig(dense_adjacency_max_bytes=0),
+        model=ModelConfig(use_pallas=True, dropout=0.0, extras=extras),
+    )
+    graph = make_synthetic_graph(LIFECYCLE_SPEC, config, device="cpu")
+    losses = {}
+    for dev in (gpu, torch.device("cpu")):
+        trainer = _lifecycle_trainer(config, graph, dev, dual, mask_fraction=0.0)
+        sk.reset_launch_counts()
+        pk.reset_launch_counts()
+        tl, vl = trainer.train_epochs(3, with_val=True, as_numpy=False)
+        if dev == gpu:
+            assert tl.device == vl.device == gpu
+            heads = ("pair_head_dual_fwd", "pair_head_dual_bwd") if dual else ("pair_head_fwd", "pair_head_bwd")
+            assert all(pk.launch_counts[name] >= 3 for name in heads), pk.launch_counts
+            assert all(n >= 3 for n in sk.launch_counts.values()), sk.launch_counts
+        losses[dev.type] = (tl.cpu().numpy(), vl.cpu().numpy())
+    print({k: (v[0].tolist(), v[1].tolist()) for k, v in losses.items()})
+    for got, want in zip(losses["cuda"], losses["cpu"]):
+        np.testing.assert_allclose(got[:1], want[:1], rtol=EPOCHS_LOSS_RTOL[0])
+        np.testing.assert_allclose(got, want, rtol=EPOCHS_LOSS_RTOL[1])
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_the_card(gpu, tmp_path):
+    """A fit on the card saves checkpoints that restore exactly, into a
+    trainer on the card and into one on the CPU."""
+    config = Config(
+        graph=GraphConfig(dense_adjacency_max_bytes=0),
+        model=ModelConfig(use_pallas=True, extras={"head_style": "factored"}),
+    )
+    config = dataclasses.replace(
+        config, train=dataclasses.replace(config.train, epochs=3),
+        logging=dataclasses.replace(config.logging, checkpoint_interval=1),
+    )
+    graph = make_synthetic_graph(LIFECYCLE_SPEC, config, device="cpu")
+    trainer = _lifecycle_trainer(config, graph, gpu)
+    trainer.fit(output_dir=tmp_path)
+    assert Trainer.latest_checkpoint(tmp_path).name == "checkpoint_epoch_3.ckpt"
+    for dev in (gpu, torch.device("cpu")):
+        twin = _lifecycle_trainer(config, graph, dev)
+        twin.model.load_state_dict({k: torch.zeros_like(v) for k, v in twin.model.state_dict().items()})
+        twin.restore(tmp_path / "checkpoint_epoch_3.ckpt")
+        assert (twin.epoch, twin.best_val_loss, twin.history) == (3, trainer.best_val_loss, {
+            k: v for k, v in trainer.history.items() if isinstance(v, list)
+        })
+        for (name, x), (_, y) in zip(twin.model.state_dict().items(), trainer.model.state_dict().items()):
+            assert x.device.type == dev.type and torch.equal(x.cpu(), y.cpu()), name
+        for name, value in trainer.best_state.items():
+            assert torch.equal(twin.best_state[name].cpu(), value.cpu()), name
+        for pa, pb in zip(twin.model.parameters(), trainer.model.parameters()):
+            for key in ("step", "exp_avg", "exp_avg_sq"):
+                assert torch.equal(twin.optimizer.state[pa][key].cpu(), trainer.optimizer.state[pb][key].cpu()), key
+        assert np.isfinite(twin.train_epoch())

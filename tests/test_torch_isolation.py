@@ -4,8 +4,10 @@ The card's machine has no jax, flax, pandas or yaml.  A subprocess makes
 them (and the JAX package) unimportable, then imports every module of the
 port, builds a tiny graph from the port's generator and serves a request on
 the CPU with the RGCN and with the HGT on its flash-attention tier, runs the
-RGCN's dual heads (``dual_head_fusion: on``) on a slot-major batch, and the
-gather probe's plain versions and command line.
+RGCN's dual heads (``dual_head_fusion: on``) on a slot-major batch, the
+gather probe's plain versions and command line, and the trainer's lifecycle:
+``train_pipeline`` for 2 epochs into a temporary directory (checkpoints,
+resume from them) and ``evaluate_model`` on its best state.
 """
 
 import subprocess
@@ -19,7 +21,7 @@ SCRIPT = textwrap.dedent(
     """
     import importlib, pkgutil, sys
 
-    BLOCKED = ("jax", "jaxlib", "flax", "optax", "pandas", "yaml", "multi_modal_gnn_tpu")
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "pandas", "yaml", "msgpack", "multi_modal_gnn_tpu")
 
     def blocked(name):
         return any(name == b or name.startswith(b + ".") for b in BLOCKED)
@@ -33,6 +35,10 @@ SCRIPT = textwrap.dedent(
     for name in list(sys.modules):
         if blocked(name):
             del sys.modules[name]
+    # as where they are not installed: imports fail, importlib.util.find_spec
+    # (which torch._dynamo calls on them) returns None
+    for name in BLOCKED:
+        sys.modules[name] = None
     sys.meta_path.insert(0, Block())
 
     import multi_modal_gnn_tpu_torch as pkg
@@ -86,7 +92,28 @@ SCRIPT = textwrap.dedent(
             gather_probe.gather_probe_direct(idx, table)]
     assert all(torch.allclose(s, sums[0], atol=1e-5) for s in sums)
     assert not any(gather_probe.launch_counts.values()) and not any(pairhead_kernels.launch_counts.values())
-    assert not any(blocked(name) for name in sys.modules), sorted(sys.modules)
+
+    import json, tempfile
+    from pathlib import Path
+    from multi_modal_gnn_tpu_torch.evaluation import evaluate_model
+    from multi_modal_gnn_tpu_torch.training import Trainer, train_pipeline
+    life = Config.from_dict({
+        "model": {"hidden_dim": 16, "use_pallas": True}, "train": {"epochs": 2},
+        "logging": {"checkpoint_interval": 1},
+        "evaluation": {"baselines": ["global_mean", "per_lab_mean", "als"]},
+    })
+    graph = make_synthetic_graph(SyntheticSpec.tiny(), life, device="cpu")
+    with tempfile.TemporaryDirectory() as out:
+        trainer, results = train_pipeline(life, graph, out, device="cpu")
+        assert results["num_epochs"] == 2 and Trainer.latest_checkpoint(out).name == "checkpoint_epoch_2.ckpt"
+        trainer.restore(Path(out) / "checkpoint_epoch_1.ckpt")
+        assert trainer.epoch == 1
+        res = evaluate_model(trainer, graph, life, output_dir=out)
+        saved = json.loads((Path(out) / "evaluation_results.json").read_text())
+        assert set(saved["baselines"]) == {"global_mean", "per_lab_mean", "als_matrix_factorization"}
+        assert (Path(out) / "per_lab_metrics.csv").exists() and (Path(out) / "conformal.json").exists()
+        assert res["overall_metrics"]["mae"] > 0
+    assert not any(blocked(name) and sys.modules[name] is not None for name in sys.modules), sorted(sys.modules)
     print("ISOLATED-OK")
     """
 )
@@ -103,7 +130,7 @@ def test_port_runs_without_the_jax_stack():
 def test_no_source_file_names_the_jax_stack():
     import ast
 
-    blocked = ("jax", "jaxlib", "flax", "optax", "pandas", "yaml", "multi_modal_gnn_tpu")
+    blocked = ("jax", "jaxlib", "flax", "optax", "pandas", "yaml", "msgpack", "multi_modal_gnn_tpu")
     files = sorted((REPO / "multi_modal_gnn_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):

@@ -108,7 +108,7 @@ def test_train_config_reads_the_jax_section():
     [
         {"batch_size": 1024},
         {"optimizer": {"type": "sgd"}},
-        {"scan_chunk": 4},
+        {"parallel": "dp"},
         {"num_clusters": 8},
         {"warm_start": True},
         {"lab_tile_mode": "block"},
