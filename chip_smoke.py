@@ -172,10 +172,11 @@ TRAIN_EPOCHS = 5
 # phase 20: train_pipeline's epochs and the test pairs predict_pairs answers.
 # Two runs from scratch differ most through their first Adam steps, where a
 # near-zero gradient whose sign the reordered sums flip moves a parameter by
-# up to 2 * lr: 1.0e-6 to 5.2e-6 (relative, losses of epochs 3-4) over 28
-# pairs of runs, while runs resumed from one epoch-2 checkpoint and the run
-# that wrote it agreed to the bit (tools/resume_drift.py; NVIDIA H100 80GB
-# HBM3, 700.00 W)
+# up to 2 * lr: 1.0e-6 to 8.7e-6 (relative, losses of epochs 3-4) between
+# pairs of runs, while runs resumed from one epoch-2 checkpoint stayed within
+# 7.5e-8 of the run that wrote it, and agreed with it to the bit in most runs
+# (NVIDIA H100 80GB HBM3, 700.00 W).  A resume that drops the Adam state must
+# fall outside the tolerance, or the phase fails.
 LIFECYCLE_EPOCHS = 4
 PAIRS_CHECKED = 4096
 # the H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s and
@@ -1852,7 +1853,15 @@ def main() -> int:
         resumed.fit(output_dir=tmp / "resumed", resume_from="auto")
         runs["resumed"] = (list(resumed.history["train_loss"]), list(resumed.history["val_loss"]))
         print(f"    resumed from checkpoint_epoch_2.ckpt: train {runs['resumed'][0]}  val {runs['resumed'][1]}")
-        del resumed, model
+        # a planted fault the tolerance must catch: a resume that loses the
+        # Adam state (moments and step count) after the restore
+        faulty = Trainer(model, graph, masker_from_config(life_config, graph), life_config)
+        faulty.restore(tmp / "resumed" / "checkpoint_epoch_2.ckpt")
+        faulty.optimizer.state.clear()
+        faulty.fit(output_dir=tmp / "faulty")
+        runs["faulty"] = (list(faulty.history["train_loss"]), list(faulty.history["val_loss"]))
+        print(f"    resumed with the Adam state dropped: train {runs['faulty'][0]}  val {runs['faulty'][1]}")
+        del resumed, faulty, model
 
         def rel_drift(a, b):  # over epochs 3 on, train and val losses
             return max(abs(x - y) / abs(y) for la, lb in zip(a, b) for x, y in zip(la[2:], lb[2:]))
@@ -1864,6 +1873,12 @@ def main() -> int:
             raise AssertionError(
                 f"resumed epochs 3-{LIFECYCLE_EPOCHS} differ from the unbroken run by {resume_drift:.3e} "
                 f"(relative), over the tolerance {tolerance:.3e} (twice the unbroken runs' drift {drift:.3e})"
+            )
+        fault_drift = rel_drift(runs["faulty"], runs["unbroken"])
+        if not fault_drift > tolerance:
+            raise AssertionError(
+                f"a resume that drops the Adam state differs from the unbroken run by {fault_drift:.3e}, "
+                f"within the tolerance {tolerance:.3e}: the check cannot tell a faulty resume"
             )
         tmp_unbroken = tmp / "unbroken"
         unbroken.load_best_model(tmp_unbroken)
@@ -1908,7 +1923,8 @@ def main() -> int:
         f"train_pipeline {LIFECYCLE_EPOCHS} epochs x 2 and a resume from the first's epoch 2: the two differ "
         f"by {drift:.3e} (relative, train and val losses of epochs 3-{LIFECYCLE_EPOCHS}), so the tolerance is "
         f"{tolerance:.3e}; the resumed "
-        f"epochs 3-{LIFECYCLE_EPOCHS} differ by {resume_drift:.3e}; {len(artifacts)} artifacts; "
+        f"epochs 3-{LIFECYCLE_EPOCHS} differ by {resume_drift:.3e}, a resume that drops the Adam state by "
+        f"{fault_drift:.3e}; {len(artifacts)} artifacts; "
         f"predict_pairs on {PAIRS_CHECKED} test pairs within {pairs_err:.2e} of predict; launches {lifecycle_launches}",
     )
 

@@ -275,8 +275,8 @@ class Trainer:
         :meth:`restore` first, or ``"auto"`` for the newest periodic one in
         ``output_dir`` (none: a fresh start).
 
-        ``scan_chunk > 1`` runs that many epochs per :meth:`train_epochs`
-        call, validation inside the chunk; the scheduler's learning rate and
+        Each chunk of ``scan_chunk`` epochs is one :meth:`train_epochs`
+        call, validation inside the chunk.  With ``scan_chunk > 1`` the scheduler's learning rate and
         the early stop then take effect on chunk boundaries, and the best
         state is the state at the end of the chunk, as in JAX ``fit``."""
         tc = self.config.train
@@ -298,15 +298,9 @@ class Trainer:
         stop = False
         while self.epoch < tc.epochs and not stop:
             t0 = time.perf_counter()
-            if scan_chunk > 1:
-                k = min(scan_chunk, tc.epochs - self.epoch)
-                train_losses, val_losses = self.train_epochs(k, with_val=True)
-                chunk = list(zip(train_losses.tolist(), val_losses.tolist()))
-            else:
-                train_loss = self.train_epoch()
-                val_loss = self.validate("val")
-                self.epoch += 1
-                chunk = [(train_loss, val_loss)]
+            k = min(max(scan_chunk, 1), tc.epochs - self.epoch)
+            train_losses, val_losses = self.train_epochs(k, with_val=True)
+            chunk = list(zip(train_losses.tolist(), val_losses.tolist()))
             chunk_time = time.perf_counter() - t0
             epoch_times.extend([chunk_time / len(chunk)] * len(chunk))
 

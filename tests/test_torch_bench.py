@@ -56,6 +56,16 @@ def test_help_lists_the_jax_flags(capsys):
     assert (args.scale, args.dense, args.arch, args.lab_tile_rows) == (True, False, "hgt", 0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    # the suite runs in several worker processes at once: torch's intra-op
+    # threads in each would oversubscribe the cores
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def eicu_bundle():
     return make_synthetic_bundle(JaxSpec.eicu_demo(), JaxConfig())
