@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's RGCN and HGT serving and training paths,
-the RGCN's dual-head training path, the gather probe, the bench and the
-trainer's lifecycle (checkpoints, resume, evaluation) on one CUDA GPU.
+the RGCN's dual-head training path, the gather probe, the bench, the
+trainer's lifecycle (checkpoints, resume, evaluation) and the pipeline
+command line on the flagship config on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -179,6 +180,18 @@ TRAIN_EPOCHS = 5
 # fall outside the tolerance, or the phase fails.
 LIFECYCLE_EPOCHS = 4
 PAIRS_CHECKED = 4096
+# phase 21: conf/eicu_real.yaml (data seed 0) at these train seeds, held to
+# the band of the JAX package's guarded (±3σ-winsorized) test metrics at
+# the same seeds, widened by the margins: the port's init, dropout and
+# supervision draws come from other generators, so it is held to the band,
+# not to bits.  The JAX values are `python scripts/flagship_band_jax.py`
+# (run_pipeline.py on the CPU), seeds 42, 43, 44 in order
+FLAGSHIP_SEEDS = (42, 43, 44)
+JAX_CPU_BAND = {
+    "r2": (0.2762996202366431, 0.2935480948964422, 0.28611317018904725),
+    "mae": (0.5670451351436947, 0.5818913650723917, 0.5776210355387869),
+}
+FLAGSHIP_R2_MARGIN, FLAGSHIP_MAE_MARGIN = 0.02, 0.015
 # the H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores; TF32 is off
 HBM_BYTES_PER_S = 3.35e12
@@ -277,6 +290,13 @@ def _ptxas_report(log: str, entry: str) -> list:
         elif inside and any(w in ln for w in ("registers", "spill", "stack")):
             lines.append(ln.replace("ptxas info    :", "").strip())
     return lines
+
+
+def _tree_state(path: Path) -> list:
+    """Every file under ``path`` with its size and modification time."""
+    if not path.exists():
+        return []
+    return sorted((str(p), p.stat().st_size, p.stat().st_mtime_ns) for p in path.rglob("*") if p.is_file())
 
 
 def _phase(name: str, t0: float, msg: str) -> None:
@@ -479,6 +499,82 @@ def _device_profile(fn) -> tuple:
             by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     return wall_ms, sum(by_name.values()), top
+
+
+def _trained_head_check(trainer, dropout_seed: int = 0) -> dict:
+    """K4f and K4b against their plain versions on what a trained model's
+    factored heads get from its own train batch: one train-mode forward
+    captures each head's node states, batch plan, tile mask and dropout
+    seed, and each head's trained projections and MLP weights go through
+    the kernels and the plain versions, the backward with a seeded upstream
+    gradient, held to phase 7's tolerances.  {head: (fwd err, bwd err)}."""
+    import inspect
+
+    import torch
+
+    from multi_modal_gnn_tpu_torch.graph.hetero import WINDOW
+    from multi_modal_gnn_tpu_torch.models.layers import FactoredEdgeHead
+    from multi_modal_gnn_tpu_torch.ops import pairhead_kernels as pk
+
+    batch = trainer.get_batch("train")
+    plan = batch.patient_plan
+    if not plan.identity:
+        raise AssertionError("the trained model's train batch is not slot-major")
+    calls = []
+
+    def capture(module, args, kwargs, name):
+        bound = inspect.signature(module.forward).bind(*args, **kwargs)
+        bound.apply_defaults()
+        calls.append((name, module, dict(bound.arguments)))
+
+    heads = [(n, m) for n, m in trainer.model.named_modules() if isinstance(m, FactoredEdgeHead)]
+    hooks = [
+        m.register_forward_pre_hook(lambda mod, a, kw, n=n: capture(mod, a, kw, n), with_kwargs=True)
+        for n, m in heads
+    ]
+    try:
+        with torch.no_grad():
+            trainer.model.train()
+            trainer.model.predict_lab_values(
+                trainer.graph, batch.patient_idx, batch.lab_idx, train=True, patient_plan=plan,
+                lab_plan=batch.lab_plan, degrees=batch.degrees, dropout_seed=dropout_seed,
+            )
+    finally:
+        for hook in hooks:
+            hook.remove()
+        trainer.model.eval()
+    if not calls or not all(module.fused_widths() for _, module, _ in calls):
+        raise AssertionError(f"the trained model has no fused factored head: {[n for n, _, _ in calls]}")
+    names = ("proj_p", "proj_l", "w1", "b1", "w2", "b2")
+    gen = torch.Generator().manual_seed(dropout_seed + 1)
+    errs = {}
+    for name, mod, a in calls:
+        with torch.no_grad():
+            head = [
+                mod.proj_patient(a["x_p_nodes"]), mod.proj_lab(a["x_l_nodes"]), mod.dense_1.weight.t(),
+                mod.dense_1.bias, mod.dense_out.weight[0], mod.dense_out.bias,
+            ]
+        head = [t.detach().float().contiguous() for t in head]
+        rate = mod.dropout if a["train"] else 0.0
+        args = (
+            a["l_idx"], plan.win_local, plan.win_tile_map, tuple(int(s) for s in a["seed"]), a["tile_mask"],
+            plan.lab_block_map, rate, plan.lab_block_rows,
+        )
+        tag = (f"{name}, trained, {head[0].shape[0]} patients x {head[1].shape[0]} labs, "
+               f"{plan.win_local.shape[0]} slots, rate {rate}")
+        fwd_err, _ = _compare(f"pair_head_fwd ({tag})", pk.pair_head_fwd(*head, *args),
+                              pk.pair_head_fwd_plain(*head, *args), HEAD_ATOL, HEAD_RTOL)
+        real = plan.win_local < WINDOW
+        g_out = (torch.randn(plan.win_local.shape[0], generator=gen).to(real.device) * real).contiguous()
+        margin = pk.relu_margin_plain(*head[:4], *args)
+        g_safe = torch.where(margin > KINK_MARGIN, g_out, torch.zeros_like(g_out))
+        got = pk.pair_head_bwd(*head, *args, plan.num_windows, g_safe)
+        want = pk.pair_head_bwd_plain(*head, *args, g_safe)
+        bwd_err = max(
+            _compare_scaled(f"pair_head_bwd d{n} ({tag})", x, y, GRAD_REL) for n, x, y in zip(names, got, want)
+        )
+        errs[name] = (fwd_err, bwd_err)
+    return errs
 
 
 def main() -> int:
@@ -1926,6 +2022,105 @@ def main() -> int:
         f"epochs 3-{LIFECYCLE_EPOCHS} differ by {resume_drift:.3e}, a resume that drops the Adam state by "
         f"{fault_drift:.3e}; {len(artifacts)} artifacts; "
         f"predict_pairs on {PAIRS_CHECKED} test pairs within {pairs_err:.2e} of predict; launches {lifecycle_launches}",
+    )
+
+    # 21. pipeline ---------------------------------------------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    from multi_modal_gnn_tpu_torch import pipeline
+    from multi_modal_gnn_tpu_torch.tools import flagship_band
+    import multi_modal_gnn_tpu_torch.training.masker as masker_mod
+
+    repo = Path(__file__).resolve().parent
+    flagship = repo / "conf" / "eicu_real.yaml"
+    guarded = {name: _tree_state(repo / name) for name in ("outputs", "data")}
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for seed in FLAGSHIP_SEEDS:
+            runs[seed] = flagship_band.run_seed(flagship, seed, tmp / f"seed{seed}", device="cuda")
+            run = runs[seed]
+            print(
+                f"    seed {seed}: steps "
+                + ", ".join(f"{k} {v:.2f} s" for k, v in run["step_seconds"].items())
+                + f"; {run['epochs']} epochs, best val loss {run['best_val_loss']:.6f}; guarded R2 {run['r2']:.6f}, "
+                f"MAE {run['mae']:.6f}; per_lab_mean R2 {run['per_lab_mean_r2']:.6f}",
+                flush=True,
+            )
+        # the kernel path in this process: factored heads over a slot-major
+        # train batch (K4f / K4b); the aggregations take the dense tier.  At
+        # 1,834 patients the flagship's train batch (42,315 rows) lies below
+        # SLOT_MAJOR_MIN_ROWS, so with use_pallas: true as written it stays
+        # row-major and the heads run as torch layers: the run lowers the
+        # threshold to 0 for its masker
+        kernel_cfg = flagship_band.seed_config(
+            flagship, FLAGSHIP_SEEDS[0], tmp / "kernels",
+            model={"use_pallas": True, "extras": {"head_style": "factored"}},
+        )
+        opts = pipeline.RunOptions(device=dev)
+        kernel_seconds = {}
+        min_rows = masker_mod.SLOT_MAJOR_MIN_ROWS
+        masker_mod.SLOT_MAJOR_MIN_ROWS = 0
+        try:
+            reset_counts()
+            for index in (0, 1, 2, 3, 4, 6):
+                name, _, fn, _ = pipeline.STEPS[index]
+                step_t = time.perf_counter()
+                fn(kernel_cfg, opts)
+                torch.cuda.synchronize()
+                kernel_seconds[name] = time.perf_counter() - step_t
+            pipeline_launches = read_counts(HEAD_PATH_KERNELS)
+            # K4f / K4b on the run's own train batch and trained heads
+            trainer = pipeline._load_trainer(
+                kernel_cfg, pipeline._load_bundle(kernel_cfg, opts), opts, require_checkpoint=True
+            )
+            head_errs = _trained_head_check(trainer)
+            del trainer
+        finally:
+            masker_mod.SLOT_MAJOR_MIN_ROWS = min_rows
+        runs["kernels"] = flagship_band.read_result(tmp / "kernels" / "out")
+        print(
+            "    seed 42, use_pallas: true, factored heads: steps "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in kernel_seconds.items())
+            + f"; {runs['kernels']['epochs']} epochs, best val loss {runs['kernels']['best_val_loss']:.6f}; "
+            f"guarded R2 {runs['kernels']['r2']:.6f}, MAE {runs['kernels']['mae']:.6f}; "
+            f"per_lab_mean R2 {runs['kernels']['per_lab_mean_r2']:.6f}; launch_counts {pipeline_launches}; "
+            "K4f / K4b on its train batch and trained heads against the plain versions (max abs err fwd, bwd): "
+            + ", ".join(f"{k} {f:.3e}, {b:.3e}" for k, (f, b) in head_errs.items()),
+            flush=True,
+        )
+    for label, run in runs.items():
+        if run["missing"]:
+            raise AssertionError(f"pipeline run {label}: artifacts missing: {run['missing']}")
+        if run["leak"]:
+            raise AssertionError(f"pipeline run {label}: the audit reports a leak")
+        if not run["r2"] > run["per_lab_mean_r2"]:
+            raise AssertionError(
+                f"pipeline run {label}: guarded R2 {run['r2']:.6f} does not beat its per_lab_mean "
+                f"baseline's {run['per_lab_mean_r2']:.6f}"
+            )
+    if not (pipeline_launches["pair_head_fwd"] > 0 and pipeline_launches["pair_head_bwd"] > 0):
+        raise AssertionError(f"the use_pallas run did not launch K4f and K4b: {pipeline_launches}")
+    r2_band = (min(JAX_CPU_BAND["r2"]) - FLAGSHIP_R2_MARGIN, max(JAX_CPU_BAND["r2"]) + FLAGSHIP_R2_MARGIN)
+    mae_band = (min(JAX_CPU_BAND["mae"]) - FLAGSHIP_MAE_MARGIN, max(JAX_CPU_BAND["mae"]) + FLAGSHIP_MAE_MARGIN)
+    mean_r2 = statistics.fmean(runs[seed]["r2"] for seed in FLAGSHIP_SEEDS)
+    mean_mae = statistics.fmean(runs[seed]["mae"] for seed in FLAGSHIP_SEEDS)
+    for label, r2, mae in (("3-seed mean", mean_r2, mean_mae), ("use_pallas run", runs["kernels"]["r2"], runs["kernels"]["mae"])):
+        if not (r2_band[0] <= r2 <= r2_band[1] and mae_band[0] <= mae <= mae_band[1]):
+            raise AssertionError(
+                f"{label}: guarded R2 {r2:.6f} / MAE {mae:.6f} outside the band R2 [{r2_band[0]:.4f}, "
+                f"{r2_band[1]:.4f}], MAE [{mae_band[0]:.4f}, {mae_band[1]:.4f}] (the JAX package's, CPU)"
+            )
+    changed = [name for name, state in guarded.items() if _tree_state(repo / name) != state]
+    if changed:
+        raise AssertionError(f"the pipeline runs wrote into the repo: {changed}")
+    torch.cuda.empty_cache()
+    _phase(
+        "pipeline", t0,
+        f"conf/eicu_real.yaml through python -m multi_modal_gnn_tpu_torch.pipeline (steps 1-5, 7), train seeds "
+        f"{list(FLAGSHIP_SEEDS)}: guarded R2 mean {mean_r2:.6f} in [{r2_band[0]:.4f}, {r2_band[1]:.4f}], MAE mean "
+        f"{mean_mae:.6f} in [{mae_band[0]:.4f}, {mae_band[1]:.4f}]; the use_pallas run launched {pipeline_launches}, "
+        f"and K4f / K4b match their plain versions on its train batch and trained heads",
     )
 
     kernels = []

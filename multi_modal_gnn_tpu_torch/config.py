@@ -1,15 +1,19 @@
-"""The ``model``, ``graph``, ``train``, ``evaluation`` and ``logging``
-config sections, as frozen dataclasses.
+"""The pipeline's configuration, as frozen dataclasses, read from the YAML
+files in ``conf/`` (:func:`load_config`) or from a dict.
 
-Field names and defaults follow ``multi_modal_gnn_tpu/config.py``.
+The sections and fields are those of ``multi_modal_gnn_tpu/config.py``:
+``data``, ``cohort``, ``feature_space``, ``graph``, ``model``, ``train``,
+``evaluation``, ``visualization``, ``logging`` and ``reproducibility``.
 :meth:`Config.from_dict` accepts the JAX ``Config.to_dict()`` output (where
-``extras`` are flattened into their section), so both packages can be fed
-the same settings.  There is no YAML loader: the card's machine has no
-``yaml``.
+``extras`` are flattened into their section), and :meth:`Config.to_dict`
+writes the same dict as the JAX package for the same file, so
+:meth:`Config.content_hash` and :meth:`Config.model_hash` are the JAX
+package's.  YAML is read by ``utils/yaml_subset.py``: the card's machine
+has no ``yaml``.
 
 Settings this port does not implement raise :class:`ConfigError` instead of
-being ignored; settings that only steer TPU layout or TPU kernel choice,
-with no effect on results, are accepted and dropped.
+being ignored; settings that only steer TPU layout, TPU device placement or
+logging services, with no effect on results, are accepted and dropped.
 """
 
 from __future__ import annotations
@@ -18,7 +22,10 @@ import dataclasses
 import hashlib
 import json
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
+
+from multi_modal_gnn_tpu_torch.utils import yaml_subset
 
 
 class ConfigError(ValueError):
@@ -26,25 +33,145 @@ class ConfigError(ValueError):
 
 
 @dataclass(frozen=True)
+class DataConfig:
+    # synthetic is generated in the port; eicu and mimic3 parse, and the
+    # preprocess step refuses them (their raw loaders are not ported)
+    dataset: str = "eicu"  # eicu | mimic3 | synthetic
+    raw_dir: str = "data/raw"
+    interim_dir: str = "data/interim"
+    output_dir: str = "outputs"
+    labevents_chunksize: Optional[int] = None
+    # extras.synthetic: {preset, seed, SyntheticSpec field overrides}
+    extras: Dict[str, Any] = field(default_factory=dict)
+
+    def __post_init__(self):
+        if self.dataset not in ("eicu", "mimic3", "synthetic"):
+            raise ConfigError(f"data.dataset must be eicu|mimic3|synthetic, got {self.dataset!r}")
+        _only(self.extras, {"synthetic"}, "data")
+        if not isinstance(self.extras.get("synthetic") or {}, dict):
+            raise ConfigError("data.synthetic must be a mapping")
+
+
+@dataclass(frozen=True)
+class CohortConfig:
+    # act on the raw eICU / MIMIC-III loaders only
+    age_min: int = 18
+    age_max: Optional[int] = None
+    use_first_icu_only: bool = True
+    subject_limit: Optional[int] = None
+    min_los_hours: Optional[float] = None
+    exclude_deaths: bool = False
+
+
+@dataclass(frozen=True)
+class LabsConfig:
+    top_k: int = 50
+    aggregate: str = "last"  # last | mean | median | min | max
+    normalize: str = "zscore"  # zscore | minmax | robust | none
+    outlier_std_threshold: Optional[float] = 5.0
+    min_patient_count: int = 10
+
+    def __post_init__(self):
+        if self.aggregate not in ("last", "mean", "median", "min", "max"):
+            raise ConfigError(f"labs.aggregate invalid: {self.aggregate!r}")
+        if self.normalize not in ("zscore", "minmax", "robust", "none"):
+            raise ConfigError(f"labs.normalize invalid: {self.normalize!r}")
+
+
+@dataclass(frozen=True)
+class DiagnosesConfig:
+    collapse_to_3digit: bool = True
+    top_k: int = 200
+    min_patient_count: int = 5
+
+
+@dataclass(frozen=True)
+class MedicationsConfig:
+    top_k: int = 100
+    normalize_names: bool = True
+    min_patient_count: int = 5
+
+
+@dataclass(frozen=True)
+class DemographicsConfig:
+    include_age: bool = True
+    include_gender: bool = True
+    include_ethnicity: bool = False
+
+
+@dataclass(frozen=True)
+class FeatureSpaceConfig:
+    """How the raw loaders engineer features.  The synthetic route ignores
+    it, but :meth:`Config.model_hash` covers it, as in JAX: a checkpoint
+    trained on other features does not restore unforced."""
+
+    labs: LabsConfig = field(default_factory=LabsConfig)
+    diagnoses: DiagnosesConfig = field(default_factory=DiagnosesConfig)
+    medications: MedicationsConfig = field(default_factory=MedicationsConfig)
+    demographics: DemographicsConfig = field(default_factory=DemographicsConfig)
+
+
+@dataclass(frozen=True)
+class EdgeTypeConfig:
+    enabled: bool = True
+    bidirectional: bool = True
+
+
+@dataclass(frozen=True)
 class GraphConfig:
+    node_types: Tuple[str, ...] = ("patient", "lab", "diagnosis", "medication")
+    edge_types: Dict[str, EdgeTypeConfig] = field(
+        default_factory=lambda: {
+            name: EdgeTypeConfig()
+            for name in ("patient_lab", "patient_diagnosis", "patient_medication")
+        }
+    )
+    add_self_loops: bool = True  # read by no layer, as in JAX
     edge_pad_multiple: int = 1024
     # per-relation byte budget of the dense mean-normalized adjacency; 0 off
     dense_adjacency_max_bytes: int = 268_435_456
-    # span-plan block height for big-source relations; 0 builds no span plan
-    src_span_rows: int = 256
-    # node numbering of synthetic graphs (data/synthetic.py): patients by
-    # ascending lab degree, labs by descending frequency, as the JAX graph
-    # build numbers them; both off keeps the generator's own order
+    # node numbering: patients by ascending lab degree, labs by descending
+    # frequency, as the JAX graph build numbers them; off keeps first-seen
+    # order.  Layout only, never results
     cluster_patients_by_degree: bool = True
     cluster_labs_by_frequency: bool = True
+    # span-plan block height for big-source relations; 0 builds no span plan
+    src_span_rows: int = 256
+    # extras.num_shards (> 1 raises at the graph build: sharded artifacts are
+    # not ported), extras.shard_kernel_plans
+    extras: Dict[str, Any] = field(default_factory=dict)
+
+    def __post_init__(self):
+        object.__setattr__(self, "node_types", tuple(self.node_types))
+        if set(self.node_types) != {"patient", "lab", "diagnosis", "medication"}:
+            raise ConfigError(f"graph.node_types: the port builds all four types, got {self.node_types}")
+        for name, et in self.edge_types.items():
+            if not et.enabled or not et.bidirectional:
+                raise ConfigError(
+                    f"graph.edge_types.{name}: disabled or one-way relations are not "
+                    "supported by the PyTorch port yet"
+                )
+        _only(self.extras, {"num_shards", "shard_kernel_plans"}, "graph")
 
 
 @dataclass(frozen=True)
 class EdgeHeadConfig:
     hidden_dims: Tuple[int, ...] = (64, 32)
+    final_activation: Optional[str] = None
+    # extras.bilinear_rank (0 only), extras.bilinear_source; a literal
+    # ``extras:`` mapping stays nested, as the JAX config keeps it
+    extras: Dict[str, Any] = field(default_factory=dict)
 
     def __post_init__(self):
         object.__setattr__(self, "hidden_dims", tuple(int(h) for h in self.hidden_dims))
+        if self.final_activation is not None:
+            raise ConfigError("model.edge_head.final_activation is not supported")
+        for extras in (self.extras, self.extras.get("extras") or {}):
+            _only(extras, {"bilinear_rank", "bilinear_source", "extras"}, "model.edge_head")
+            if int(extras.get("bilinear_rank", 0) or 0) > 0:
+                raise ConfigError(
+                    "model.edge_head.extras.bilinear_rank > 0 is not supported by the PyTorch port yet"
+                )
 
 
 @dataclass(frozen=True)
@@ -64,7 +191,7 @@ class ModelConfig:
     use_pallas: bool = False
     # extras.head_style: auto | concat | factored and extras.dual_head_fusion:
     # auto | on | off (RGCN); extras.hgt_flash: auto | off and
-    # extras.hgt_dense_attn_bytes (HGT)
+    # extras.hgt_dense_attn_bytes (HGT); extras.value_context (false only)
     extras: Dict[str, Any] = field(default_factory=dict)
 
     def __post_init__(self):
@@ -74,6 +201,9 @@ class ModelConfig:
             raise ConfigError(
                 f"model.num_heads={self.num_heads} must divide hidden_dim={self.hidden_dim}"
             )
+        _only(self.extras, _MODEL_EXTRAS, "model")
+        if self.extras.get("value_context"):
+            raise ConfigError("model.extras.value_context is not supported by the PyTorch port yet")
         if self.hgt_flash not in ("auto", "off"):
             raise ConfigError(f"model.extras.hgt_flash invalid: {self.hgt_flash!r}")
         if self.activation not in ("relu", "elu", "leaky_relu"):
@@ -155,11 +285,17 @@ class TrainConfig:
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     lr_scheduler: LRSchedulerConfig = field(default_factory=LRSchedulerConfig)
     seed: int = 42
+    # TPU device placement, accepted and dropped: the port runs where its
+    # entry point's ``device`` says (the pipeline's --device)
+    device: str = "auto"
+    num_devices: int = 0
+    donate_state: bool = True
     # epochs per Trainer.train_epochs call in fit(): 1 acts on every epoch;
     # k > 1 runs k epochs back to back and acts on chunk boundaries
     scan_chunk: int = 1
     # extras.lab_tile_rows (None/"auto" | int), extras.lab_tile_mode ("span"),
-    # extras.lab_reweighting (bool)
+    # extras.lab_reweighting (bool), extras.auto_resume (bool: the pipeline's
+    # train step resumes from the newest periodic checkpoint)
     extras: Dict[str, Any] = field(default_factory=dict)
 
     def __post_init__(self):
@@ -206,38 +342,99 @@ class EvaluationConfig:
         unknown = set(self.baselines) - _BASELINES
         if unknown:
             raise ConfigError(f"evaluation.baselines: unknown {sorted(unknown)}")
-        unknown = set(self.extras) - _EVALUATION_EXTRAS
-        if unknown:
-            raise ConfigError(f"unsupported evaluation extras: {sorted(unknown)}")
+        _only(self.extras, _EVALUATION_EXTRAS, "evaluation")
+
+
+@dataclass(frozen=True)
+class VisualizationConfig:
+    """The visualize step's settings; that step is not ported (ROADMAP.md
+    queue 1), so nothing reads them and any extras are kept as given."""
+
+    generate_embeddings: bool = True
+    dim_reduction: str = "pca"
+    embedding_color_by: Tuple[str, ...] = ("node_type",)
+    generate_parity_plots: bool = True
+    top_labs_to_plot: int = 10
+    generate_subgraphs: bool = True
+    num_example_subgraphs: int = 5
+    missingness_heatmap: bool = True
+    plot_degree_distribution: bool = True
+    plot_edge_weight_distribution: bool = True
+    extras: Dict[str, Any] = field(default_factory=dict)
+
+    def __post_init__(self):
+        object.__setattr__(self, "embedding_color_by", tuple(self.embedding_color_by))
 
 
 @dataclass(frozen=True)
 class LoggingConfig:
+    level: str = "INFO"
+    save_to_file: bool = True
+    log_file: str = "outputs/training.log"
+    # accepted and dropped: the port logs to no tracking service
+    use_wandb: bool = False
+    wandb_project: str = "ehr-graph-impute"
+    wandb_entity: Optional[str] = None
     log_interval: int = 1
     save_checkpoints: bool = True
     checkpoint_interval: int = 10
 
 
 @dataclass(frozen=True)
+class ReproducibilityConfig:
+    """``set_seeds`` seeds Python's and numpy's global generators from
+    ``random_seed`` / ``numpy_seed`` (every draw of the port is keyed by
+    ``train.seed`` anyway); ``debug_nans`` runs training under autograd's
+    anomaly mode with its NaN check; ``deterministic: true`` is refused
+    (see :data:`ATOMIC_TIERS`)."""
+
+    set_seeds: bool = True
+    numpy_seed: int = 42
+    torch_seed: int = 42  # accepted for config compatibility; unused, as in JAX
+    random_seed: int = 42
+    deterministic: bool = False
+    debug_nans: bool = False
+
+    def __post_init__(self):
+        if self.deterministic:
+            raise ConfigError(
+                "reproducibility.deterministic: true is refused: the port has no "
+                f"order-fixed route; these tiers sum with float atomics: {ATOMIC_TIERS}"
+            )
+
+
+# The tiers whose sums change order from run to run (float atomics), named
+# by reproducibility.deterministic's refusal.
+ATOMIC_TIERS = (
+    "the xla tier's index_add_ segment sums and row-gather backwards on the card "
+    "(model.use_pallas: false), kernels K1 (windowed segment sum), K2f (fused-table "
+    "mean), K2b (its backward, split counts), K4b / K5b (pair-head backward: dPp, "
+    "dPl), K7 / K8 (flash attention dq, dk / dv) and the plain versions' index_add_ "
+    "on several CPU threads"
+)
+
+
+@dataclass(frozen=True)
 class Config:
+    data: DataConfig = field(default_factory=DataConfig)
+    cohort: CohortConfig = field(default_factory=CohortConfig)
+    feature_space: FeatureSpaceConfig = field(default_factory=FeatureSpaceConfig)
     graph: GraphConfig = field(default_factory=GraphConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     evaluation: EvaluationConfig = field(default_factory=EvaluationConfig)
+    visualization: VisualizationConfig = field(default_factory=VisualizationConfig)
     logging: LoggingConfig = field(default_factory=LoggingConfig)
+    reproducibility: ReproducibilityConfig = field(default_factory=ReproducibilityConfig)
 
     @staticmethod
     def from_dict(d: Dict[str, Any]) -> "Config":
-        """Build from a dict shaped like the JAX ``Config.to_dict()``; its
-        ``model``, ``graph``, ``train``, ``evaluation`` and ``logging``
-        sections are read."""
-        return Config(
-            graph=_graph_from_dict(dict(d.get("graph") or {})),
-            model=_model_from_dict(dict(d.get("model") or {})),
-            train=_train_from_dict(dict(d.get("train") or {})),
-            evaluation=_evaluation_from_dict(dict(d.get("evaluation") or {})),
-            logging=_logging_from_dict(dict(d.get("logging") or {})),
-        )
+        """Build from a dict shaped like the JAX ``Config.to_dict()`` or a
+        YAML file of ``conf/``; a missing section takes its defaults."""
+        unknown = set(d) - set(_SECTIONS)
+        if unknown:
+            raise ConfigError(f"unknown config section(s): {sorted(unknown)}")
+        return Config(**{name: build(dict(d.get(name) or {})) for name, build in _SECTIONS.items()})
 
     def to_dict(self) -> Dict[str, Any]:
         """Nested dicts and lists, each section's ``extras`` flattened into
@@ -268,10 +465,14 @@ class Config:
 
     def model_hash(self) -> str:
         """Hash of the sections a checkpoint must agree on to be restored
-        (``model``, ``graph``): run-length and optimizer settings may differ
-        at resume, as JAX ``Config.model_hash`` allows."""
+        (``model``, ``graph``, ``feature_space``), equal to JAX
+        ``Config.model_hash``: run-length and optimizer settings may differ
+        at resume."""
         d = self.to_dict()
         return _hash({k: d.get(k) for k in ("model", "graph", "feature_space")})
+
+    def replace(self, **kwargs) -> "Config":
+        return dataclasses.replace(self, **kwargs)
 
 
 def _hash(d: Dict[str, Any]) -> str:
@@ -279,100 +480,109 @@ def _hash(d: Dict[str, Any]) -> str:
     return hashlib.sha256(blob).hexdigest()[:16]
 
 
-# accepted and dropped: they change TPU layout or TPU kernel choice only
-_GRAPH_IGNORED = {"node_types", "add_self_loops", "num_shards", "shard_kernel_plans"}
-# model keys that the JAX ``to_dict`` flattens out of ``extras``
-_MODEL_EXTRAS = {"head_style", "dual_head_fusion", "hgt_flash", "hgt_dense_attn_bytes"}
-# accepted and dropped: TPU device placement and dispatch
-_TRAIN_IGNORED = {"device", "num_devices", "donate_state"}
-_TRAIN_EXTRAS = {"lab_tile_rows", "lab_tile_mode", "lab_reweighting"}
+def _only(extras: Dict[str, Any], allowed: set, section: str) -> None:
+    unknown = set(extras) - allowed
+    if unknown:
+        raise ConfigError(f"unsupported {section} setting(s): {sorted(unknown)}")
+
+
+_MODEL_EXTRAS = {"head_style", "dual_head_fusion", "hgt_flash", "hgt_dense_attn_bytes", "value_context"}
+_TRAIN_EXTRAS = {
+    "lab_tile_rows", "lab_tile_mode", "lab_reweighting", "auto_resume",
+}
 _BASELINES = {"global_mean", "per_lab_mean", "nearest_neighbor", "als", "sideinfo_als"}
 _EVALUATION_EXTRAS = {"conformal_alpha", "conformal_split_fraction", "huber_delta"}
-# accepted and dropped: log files and experiment trackers
-_LOGGING_IGNORED = {
-    "level", "save_to_file", "log_file", "use_wandb", "wandb_project", "wandb_entity",
-}
 
 
 def _fields(cls) -> set:
     return {f.name for f in dataclasses.fields(cls)}
 
 
-def _graph_from_dict(d: Dict[str, Any]) -> GraphConfig:
-    for name, et in (d.pop("edge_types", None) or {}).items():
-        et = et or {}
-        if not et.get("enabled", True) or not et.get("bidirectional", True):
-            raise ConfigError(
-                f"graph.edge_types.{name}: disabled or one-way relations are not "
-                "supported by the PyTorch port yet"
-            )
-    known = _fields(GraphConfig)
-    unknown = set(d) - known - _GRAPH_IGNORED
-    if unknown:
-        raise ConfigError(f"unsupported graph setting(s): {sorted(unknown)}")
-    return GraphConfig(**{k: v for k, v in d.items() if k in known})
+def _take(d: Dict[str, Any], cls, name: str, merge_extras: bool = False, **built):
+    """``cls`` from a section dict: keys that are fields set them (``built``
+    replaces the nested sections), the rest become ``extras`` as the JAX
+    config keeps them, or raise for a class without ``extras``.  With
+    ``merge_extras`` a literal ``extras:`` mapping is merged into them (the
+    port's sections that always read it so)."""
+    names = _fields(cls) - {"extras"}
+    kwargs = {k: v for k, v in d.items() if k in names}
+    kwargs.update(built)
+    extras = {k: v for k, v in d.items() if k not in names}
+    if merge_extras and isinstance(extras.get("extras"), dict):
+        extras = {**extras.pop("extras"), **extras}
+    if "extras" in _fields(cls):
+        return cls(**kwargs, extras=extras)
+    if extras:
+        raise ConfigError(f"unsupported {name} setting(s): {sorted(extras)}")
+    return cls(**kwargs)
 
 
-def _model_from_dict(d: Dict[str, Any]) -> ModelConfig:
-    if d.pop("value_context", False):
-        raise ConfigError("model.extras.value_context is not supported by the PyTorch port yet")
-    head = dict(d.pop("edge_head", None) or {})
-    if int(head.pop("bilinear_rank", 0) or 0) > 0:
-        raise ConfigError(
-            "model.edge_head.extras.bilinear_rank > 0 is not supported by the PyTorch port yet"
-        )
-    head.pop("bilinear_source", None)
-    if head.pop("final_activation", None) is not None:
-        raise ConfigError("model.edge_head.final_activation is not supported")
-    unknown_head = set(head) - _fields(EdgeHeadConfig)
-    if unknown_head:
-        raise ConfigError(f"unsupported edge_head setting(s): {sorted(unknown_head)}")
-    extras = dict(d.pop("extras", None) or {})
-    extras.update({k: d.pop(k) for k in _MODEL_EXTRAS & set(d)})
-    known = _fields(ModelConfig) - {"edge_head", "extras"}
-    unknown = set(d) - known
-    if unknown:
-        raise ConfigError(f"unsupported model setting(s): {sorted(unknown)}")
-    return ModelConfig(
-        **{k: v for k, v in d.items() if k in known},
-        edge_head=EdgeHeadConfig(**head),
-        extras=extras,
-    )
+def _sub(d: Dict[str, Any], key: str) -> Dict[str, Any]:
+    value = d.get(key) or {}
+    if not isinstance(value, dict):
+        raise ConfigError(f"{key} must be a mapping, got {value!r}")
+    return dict(value)
 
 
-def _section(d: Dict[str, Any], cls, name: str):
-    """``cls`` from a JAX-shaped section dict; keys that are not fields are
-    the JAX ``extras``, which these sections do not take."""
-    known = _fields(cls) - {"extras"}
-    unknown = set(d) - known
-    if unknown:
-        raise ConfigError(f"unsupported {name} setting(s): {sorted(unknown)}")
-    return cls(**d)
+def _feature_space(d):
+    parts = {
+        "labs": LabsConfig, "diagnoses": DiagnosesConfig,
+        "medications": MedicationsConfig, "demographics": DemographicsConfig,
+    }
+    built = {k: _take(_sub(d, k), cls, f"feature_space.{k}") for k, cls in parts.items()}
+    return _take(d, FeatureSpaceConfig, "feature_space", **built)
 
 
-def _train_from_dict(d: Dict[str, Any]) -> TrainConfig:
+def _graph(d):
+    built = {}
+    if "edge_types" in d:
+        built["edge_types"] = {
+            name: _take(dict(et or {}), EdgeTypeConfig, f"graph.edge_types.{name}")
+            for name, et in (d["edge_types"] or {}).items()
+        }
+    return _take(d, GraphConfig, "graph", **built)
+
+
+def _model(d):
+    head = _take(_sub(d, "edge_head"), EdgeHeadConfig, "model.edge_head")
+    return _take(d, ModelConfig, "model", merge_extras=True, edge_head=head)
+
+
+def _train(d):
     d["scan_chunk"] = int(d.get("scan_chunk", 1) or 1)
-    for name in _TRAIN_IGNORED:
-        d.pop(name, None)
-    optimizer = _section(dict(d.pop("optimizer", None) or {}), OptimizerConfig, "train.optimizer")
-    scheduler = _section(
-        dict(d.pop("lr_scheduler", None) or {}), LRSchedulerConfig, "train.lr_scheduler"
+    return _take(
+        d, TrainConfig, "train", merge_extras=True,
+        optimizer=_take(_sub(d, "optimizer"), OptimizerConfig, "train.optimizer"),
+        lr_scheduler=_take(_sub(d, "lr_scheduler"), LRSchedulerConfig, "train.lr_scheduler"),
     )
-    # JAX to_dict flattens extras into the section
-    extras = dict(d.pop("extras", None) or {})
-    known = _fields(TrainConfig) - {"optimizer", "lr_scheduler", "extras"}
-    extras.update({k: d.pop(k) for k in list(d) if k not in known})
-    return TrainConfig(**d, optimizer=optimizer, lr_scheduler=scheduler, extras=extras)
 
 
-def _evaluation_from_dict(d: Dict[str, Any]) -> EvaluationConfig:
-    extras = dict(d.pop("extras", None) or {})
-    known = _fields(EvaluationConfig) - {"extras"}
-    extras.update({k: d.pop(k) for k in list(d) if k not in known})
-    return EvaluationConfig(**d, extras=extras)
+_SECTIONS = {
+    "data": lambda d: _take(d, DataConfig, "data"),
+    "cohort": lambda d: _take(d, CohortConfig, "cohort"),
+    "feature_space": _feature_space,
+    "graph": _graph,
+    "model": _model,
+    "train": _train,
+    "evaluation": lambda d: _take(d, EvaluationConfig, "evaluation", merge_extras=True),
+    "visualization": lambda d: _take(d, VisualizationConfig, "visualization"),
+    "logging": lambda d: _take(d, LoggingConfig, "logging"),
+    "reproducibility": lambda d: _take(d, ReproducibilityConfig, "reproducibility"),
+}
 
 
-def _logging_from_dict(d: Dict[str, Any]) -> LoggingConfig:
-    for name in _LOGGING_IGNORED:
-        d.pop(name, None)
-    return _section(d, LoggingConfig, "logging")
+def load_config(path="conf/config.yaml") -> Config:
+    """Read and validate a YAML config file (JAX ``config.load_config``)."""
+    path = Path(path)
+    if not path.exists():
+        raise FileNotFoundError(f"Config file not found: {path}")
+    return Config.from_dict(yaml_subset.load_file(path) or {})
+
+
+def save_config(config: Config, path) -> Path:
+    """Write ``config`` as block YAML that :func:`load_config` and
+    ``yaml.safe_load`` read back (JAX ``config.save_config``)."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(yaml_subset.dump(config.to_dict()))
+    return path

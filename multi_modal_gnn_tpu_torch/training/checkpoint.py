@@ -27,7 +27,6 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-from multi_modal_gnn_tpu_torch.config import Config, ConfigError
 from multi_modal_gnn_tpu_torch.models.convert import state_dict_from_flax
 from multi_modal_gnn_tpu_torch.utils.io import load_json, save_json
 from multi_modal_gnn_tpu_torch.utils.msgpack import flax_restore
@@ -116,8 +115,9 @@ def load_flax_checkpoint(path) -> Tuple[Dict, Dict]:
     ``(payload, metadata)``.  Parameters and BatchNorm statistics go
     through the weight bridge (``models/convert.py``); Adam's ``mu`` /
     ``nu`` take the same names and the same transposes, and its ``count``
-    becomes each parameter's ``step``.  The sidecar's ``model_hash`` and
-    ``config_hash`` are recomputed by the port from its ``config``."""
+    becomes each parameter's ``step``.  The sidecar is returned as JAX wrote
+    it: the port's ``Config.model_hash`` equals JAX's for the same config,
+    so ``Trainer.restore`` compares the recorded hash itself."""
     path = Path(path)
     tree = flax_restore(path.read_bytes())
     state = tree["state"]
@@ -139,12 +139,5 @@ def load_flax_checkpoint(path) -> Tuple[Dict, Dict]:
         },
     }
     meta = load_json(_sidecar(path)) if _sidecar(path).exists() else {}
-    if meta.get("config"):
-        try:
-            config = Config.from_dict(meta["config"])
-        except ConfigError:
-            logger.warning("%s: its config holds settings the port does not run", path)
-        else:
-            meta.update(config_hash=config.content_hash(), model_hash=config.model_hash())
     logger.info("Loaded JAX checkpoint from %s", path)
     return payload, meta

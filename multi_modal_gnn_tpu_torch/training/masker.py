@@ -310,7 +310,8 @@ class EdgeMasker:
 
 def masker_from_config(config, graph: HeteroGraph) -> EdgeMasker:
     """The config -> masker factory: slot-major train batches on the kernel
-    path (``model.use_pallas``), lab tiles from ``train.extras``, the strict
+    path (``model.use_pallas``) from :data:`SLOT_MAJOR_MIN_ROWS` rows (read
+    at the call), lab tiles from ``train.extras``, the strict
     conformal "cal" split from ``evaluation.extras.conformal_split_fraction``.
     Every entry point that must agree on the splits builds its masker here."""
     tc = config.train
@@ -322,6 +323,7 @@ def masker_from_config(config, graph: HeteroGraph) -> EdgeMasker:
         mask_fraction=tc.mask_fraction,
         seed=tc.seed,
         slot_major_train=config.model.use_pallas,
+        slot_major_min_rows=SLOT_MAJOR_MIN_ROWS,
         lab_block_rows=resolve_lab_tile_rows(
             tc.extras.get("lab_tile_rows"), graph.num_nodes(LAB), config.model.use_pallas
         ),

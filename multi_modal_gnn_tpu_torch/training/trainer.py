@@ -59,7 +59,7 @@ from multi_modal_gnn_tpu_torch.training.schedulers import build_scheduler
 from multi_modal_gnn_tpu_torch.utils.device import resolve_device
 from multi_modal_gnn_tpu_torch.utils.io import save_json
 from multi_modal_gnn_tpu_torch.utils.profiling import MetricsWriter
-from multi_modal_gnn_tpu_torch.utils.rng import stream_seed
+from multi_modal_gnn_tpu_torch.utils.rng import apply_reproducibility, stream_seed
 
 logger = logging.getLogger(__name__)
 
@@ -416,9 +416,9 @@ class Trainer:
         """Resume from a checkpoint of the port or of the JAX package: the
         live and best states, Adam's state, the epoch, the early-stopping
         counters, the scheduler and the history.  Refuses a checkpoint whose
-        ``model_hash`` (the ``model`` and ``graph`` sections) differs from
-        the live config's unless ``force``; run-length settings such as
-        ``train.epochs`` may differ."""
+        ``model_hash`` (the ``model``, ``graph`` and ``feature_space``
+        sections) differs from the live config's unless ``force``;
+        run-length settings such as ``train.epochs`` may differ."""
         payload, meta = load_checkpoint(path)
         ckpt_hash = meta.get("model_hash")
         live_hash = self.config.model_hash()
@@ -450,7 +450,9 @@ def train_pipeline(
     ``train.seed``), the masker from the config, :meth:`Trainer.fit` into
     ``output_dir`` (``scan_chunk`` from ``train.scan_chunk``), then the best
     state's test loss in ``test_results.json``.  Runs on ``device``
-    (default: the card; raises without one)."""
+    (default: the card; raises without one), under
+    ``config.reproducibility`` (:func:`apply_reproducibility`)."""
+    debug_context = apply_reproducibility(config)
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
     tc = config.train
@@ -459,7 +461,8 @@ def train_pipeline(
     generator = torch.Generator().manual_seed(stream_seed(tc.seed, "init"))
     model = build_model(config, graph, device=device, generator=generator)
     trainer = Trainer(model, graph, masker, config, device=device)
-    trainer.fit(output_dir=output_dir, resume_from=resume_from, scan_chunk=tc.scan_chunk)
+    with debug_context:
+        trainer.fit(output_dir=output_dir, resume_from=resume_from, scan_chunk=tc.scan_chunk)
     test_loss = trainer.validate("test", state=trainer.best_state)
     results = {
         "test_loss": test_loss,

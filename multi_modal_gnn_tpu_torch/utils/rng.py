@@ -9,9 +9,12 @@ packages draw different numbers from the same seed.
 
 from __future__ import annotations
 
+import contextlib
+import random
 import zlib
 
 import numpy as np
+import torch
 
 
 def stream_seed(seed: int, name: str, index: int = 0) -> int:
@@ -25,3 +28,18 @@ def stream_seed_pair(seed: int, name: str, index: int = 0) -> tuple:
     state = np.random.SeedSequence([int(seed), zlib.crc32(name.encode()), int(index)])
     words = state.generate_state(2, np.uint32)
     return int(words[0]), int(words[1])
+
+
+def apply_reproducibility(config):
+    """Apply ``config.reproducibility``: with ``set_seeds``, seed Python's
+    and numpy's global generators (JAX ``set_global_seeds``); returns the
+    context to train in: autograd's anomaly mode with its NaN check when
+    ``debug_nans`` (JAX ``jax_debug_nans``), else a no-op.
+    ``deterministic: true`` never gets here: the config refuses it."""
+    rc = config.reproducibility
+    if rc.set_seeds:
+        random.seed(rc.random_seed)
+        np.random.seed(rc.numpy_seed)
+    if rc.debug_nans:
+        return torch.autograd.detect_anomaly(check_nan=True)
+    return contextlib.nullcontext()

@@ -7,9 +7,13 @@ the CPU with the RGCN and with the HGT on its flash-attention tier, runs the
 RGCN's dual heads (``dual_head_fusion: on``) on a slot-major batch, the
 gather probe's plain versions and command line, and the trainer's lifecycle:
 ``train_pipeline`` for 2 epochs into a temporary directory (checkpoints,
-resume from them) and ``evaluate_model`` on its best state.
+resume from them) and ``evaluate_model`` on its best state; and the
+pipeline command line (``python -m multi_modal_gnn_tpu_torch.pipeline
+--device cpu``) on a tiny synthetic config written by ``save_config``:
+preprocess, graph build, train, evaluate, audit and inference.
 """
 
+import os
 import subprocess
 import sys
 import textwrap
@@ -113,6 +117,22 @@ SCRIPT = textwrap.dedent(
         assert set(saved["baselines"]) == {"global_mean", "per_lab_mean", "als_matrix_factorization"}
         assert (Path(out) / "per_lab_metrics.csv").exists() and (Path(out) / "conformal.json").exists()
         assert res["overall_metrics"]["mae"] > 0
+    from multi_modal_gnn_tpu_torch import pipeline
+    from multi_modal_gnn_tpu_torch.config import load_config, save_config
+    with tempfile.TemporaryDirectory() as out:
+        cli = Config.from_dict({
+            "data": {"dataset": "synthetic", "interim_dir": f"{out}/interim", "output_dir": f"{out}/out",
+                     "synthetic": {"preset": "tiny", "seed": 2}},
+            "model": {"hidden_dim": 16}, "train": {"epochs": 2},
+            "evaluation": {"baselines": ["global_mean"]},
+            "logging": {"log_file": f"{out}/out/training.log"},
+        })
+        path = save_config(cli, Path(out) / "config.yaml")
+        assert load_config(path) == cli
+        assert pipeline.main(["--config", str(path), "--no-confirm", "--device", "cpu"]) == 0
+        names = {p.name for p in (Path(out) / "out").iterdir()}
+        assert {"graph.npz", "best_model.ckpt", "evaluation_results.json", "audit_report.json",
+                "inference_examples.json"} <= names, names
     assert not any(blocked(name) and sys.modules[name] is not None for name in sys.modules), sorted(sys.modules)
     print("ISOLATED-OK")
     """
@@ -120,8 +140,11 @@ SCRIPT = textwrap.dedent(
 
 
 def test_port_runs_without_the_jax_stack():
+    # one CPU thread, as the suite's other CPU training tests pin theirs: the
+    # suite runs several workers at once, and tiny models gain nothing from more
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1")
     proc = subprocess.run(
-        [sys.executable, "-c", SCRIPT], cwd=REPO, capture_output=True, text=True, timeout=300
+        [sys.executable, "-c", SCRIPT], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "ISOLATED-OK" in proc.stdout
