@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's RGCN and HGT serving and training paths,
 the RGCN's dual-head training path, the gather probe, the bench, the
-trainer's lifecycle (checkpoints, resume, evaluation) and the pipeline
-command line on the flagship config on one CUDA GPU.
+trainer's lifecycle (checkpoints, resume, evaluation), the pipeline
+command line on the flagship config and the serving artifact on one CUDA
+GPU.
 
     python3 chip_smoke.py
 
@@ -113,6 +114,27 @@ Phases, each printing one line with its seconds:
                    global_mean, per_lab_mean; conformal alpha 0.1) and its
                    artifacts; predict_pairs on 4096 test pairs against
                    predict("test") within 1e-5
+ 21. pipeline      conf/eicu_real.yaml through python -m
+                   multi_modal_gnn_tpu_torch.pipeline (steps 1-5, 7, 8) at
+                   train seeds 42-44, held to the JAX package's CPU band;
+                   seed 42's serving artifact loaded on the card: its test
+                   pairs against the trainer, predict_patient(denormalize=
+                   True), intervals (their coverage of the test split
+                   printed), cold start with and without an interval
+                   against ALSBaseline on the artifact's factors; one
+                   use_pallas run (factored heads) with K4f / K4b held to
+                   their plain versions on its train batch
+ 22. serving-export export_serving with phase 5's RGCN (K1, K2f, K3 launch in
+                   its compute_node_state) and phase 12's HGT (K6): file
+                   sizes (the programs under 1 % of weights.npz), load with
+                   the CUDA graph captures; ServingModel's answers to three
+                   500-lab patients, batches of 256 and 4,096 and a
+                   10,000-pair request (chunked) (the HGT: the patients)
+                   against build_serving_fn within 1e-5 + 1e-5 |ref|, then
+                   p50 / p95 of each request type in turns with it, and
+                   each bucket's CUDA graph replayed alone (CUDA events); the
+                   card's RGCN artifact loaded on the CPU, and a tiny CPU
+                   artifact on the card, against the other side
 Then a JSON line of per-kernel results, the nvidia-smi line, and the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero before the last line; without a CUDA device it fails in phase 1.
@@ -192,6 +214,13 @@ JAX_CPU_BAND = {
     "mae": (0.5670451351436947, 0.5818913650723917, 0.5776210355387869),
 }
 FLAGSHIP_R2_MARGIN, FLAGSHIP_MAE_MARGIN = 0.02, 0.015
+# phases 21-22: served answers against the eager serving path and the
+# trainer, both on the card (f32 sums of the state's atomics in another order)
+SERVE_ATOL, SERVE_RTOL = 1e-5, 1e-5
+# phase 22: the request types, and pairs past the largest bucket (chunked)
+SERVE_PATIENTS = 3
+SERVE_BATCHES = (256, 4096)
+SERVE_CHUNKED = 10_000
 # the H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores; TF32 is off
 HBM_BYTES_PER_S = 3.35e12
@@ -575,6 +604,113 @@ def _trained_head_check(trainer, dropout_seed: int = 0) -> dict:
         )
         errs[name] = (fwd_err, bwd_err)
     return errs
+
+
+def _served_vs_eager(served, fn, requests, num_l, label: str) -> dict:
+    """Hold the artifact's answers to each request against the eager
+    serving path's, then time both in turns (eager, artifact, artifact,
+    eager; ``TIMING_REPS`` requests each, host clock, each ending in its
+    readback).  ``{request type: {p50 / p95 of each}}``."""
+    import numpy as np
+    import torch
+
+    def artifact(req):
+        kind, arg = req
+        return served.predict(np.full(num_l, arg), np.arange(num_l)) if kind == "patient" else served.predict(*arg)
+
+    def eager(req):
+        kind, arg = req
+        return (fn(np.full(num_l, arg), np.arange(num_l)) if kind == "patient" else fn(*arg)).cpu()
+
+    for req in requests:
+        got = artifact(req)
+        _compare(f"{label} artifact, {req[0]} request ({got.shape[0]} pairs)", torch.from_numpy(got), eager(req),
+                 SERVE_ATOL, SERVE_RTOL)
+    times = {}
+    for req in requests:
+        kind = req[0] if req[0] == "patient" else f"pairs {req[1][0].shape[0]}"
+        if kind in times:
+            continue
+        lat = {"eager": [], "artifact": []}
+        for who in ("eager", "artifact", "artifact", "eager"):
+            call = eager if who == "eager" else artifact
+            call(req)
+            for _ in range(TIMING_REPS):
+                t = time.perf_counter()
+                call(req)
+                lat[who].append((time.perf_counter() - t) * 1e3)
+        times[kind] = {
+            f"{who}_{q}_ms": float(np.percentile(v, pct)) for who, v in lat.items() for q, pct in (("p50", 50), ("p95", 95))
+        }
+        print(
+            f"    {label} {kind}: artifact p50 {times[kind]['artifact_p50_ms']:.4f} ms, p95 "
+            f"{times[kind]['artifact_p95_ms']:.4f} ms; eager build_serving_fn p50 {times[kind]['eager_p50_ms']:.4f} ms, "
+            f"p95 {times[kind]['eager_p95_ms']:.4f} ms (host clock, readback included, {2 * TIMING_REPS} each, in turns)",
+            flush=True,
+        )
+    return times
+
+
+def _flagship_serving_check(run_dir: Path, dev) -> str:
+    """Phase 21: the flagship run's step-8 artifact on the card against its
+    trainer (test pairs), its denormalized patient report, its intervals'
+    empirical coverage on the test split and its cold start against the
+    port's ALSBaseline on the artifact's factors."""
+    import numpy as np
+    import torch
+
+    from multi_modal_gnn_tpu_torch import pipeline
+    from multi_modal_gnn_tpu_torch.config import load_config
+    from multi_modal_gnn_tpu_torch.evaluation import ALSBaseline
+    from multi_modal_gnn_tpu_torch.serving import ServingModel
+
+    cfg = load_config(run_dir / "config.yaml")
+    opts = pipeline.RunOptions(device=dev)
+    trainer = pipeline._load_trainer(cfg, pipeline._load_bundle(cfg, opts), opts, require_checkpoint=True)
+    path = Path(cfg.data.output_dir) / "serving"
+    t = time.perf_counter()
+    served = ServingModel.load(path, device=dev)
+    load_s = time.perf_counter() - t
+    test_p, test_l, test_v = trainer.masker.split_arrays("test")
+    want = trainer.predict_pairs(test_p, test_l)
+    err, _ = _compare(f"flagship artifact on {len(test_p)} test pairs against the trainer",
+                      torch.from_numpy(served.predict(test_p, test_l)), torch.from_numpy(want), SERVE_ATOL, SERVE_RTOL)
+    num_l = served.manifest["num_labs"]
+    patient = int(test_p[0])
+    report = served.predict_patient(patient, denormalize=True)
+    raw = served.predict(np.full(num_l, patient), np.arange(num_l))
+    stats = served.manifest["lab_stats"]
+    mean = np.asarray([stats[str(i)]["mean"] if str(i) in stats else 0.0 for i in range(num_l)])
+    std = np.asarray([stats[str(i)]["std"] if str(i) in stats else 1.0 for i in range(num_l)])
+    _compare(f"flagship predict_patient({patient}, denormalize=True) against z * std + mean",
+             torch.tensor(list(report.values()), dtype=torch.float64), torch.from_numpy(raw * std + mean), 1e-9, 1e-9)
+    preds, lo, hi = served.predict(test_p, test_l, return_interval=True)
+    if not (np.all(lo <= preds) and np.all(preds <= hi) and np.all(np.isfinite(hi - lo))):
+        raise AssertionError("flagship intervals do not hold their point predictions")
+    coverage = float(np.mean((test_v >= lo) & (test_v <= hi)))
+    alpha = served._conformal.alpha
+    tr_p, tr_l, tr_v = trainer.masker.split_arrays("train")
+    observed = {int(lab): float(v) for lab, v in zip(tr_l[tr_p == patient], tr_v[tr_p == patient])}
+    with np.load(path / "coldstart.npz") as z:
+        als = ALSBaseline(1, num_l, rank=z["C"].shape[1], reg=float(z["reg"]))
+        als.C, als.lab_bias = z["C"], z["lab_bias"]
+    obs_l = np.asarray(sorted(observed))
+    want_cold = als.predict_cold_start(obs_l, np.asarray([observed[i] for i in obs_l]), np.arange(num_l))
+    cold = served.predict_cold_start(observed)
+    cold_iv = served.predict_cold_start(observed, return_interval=True)
+    _compare(f"flagship predict_cold_start ({len(observed)} observed labs) against ALSBaseline",
+             torch.tensor(list(cold.values()), dtype=torch.float64), torch.from_numpy(want_cold), 1e-12, 0.0)
+    _compare("flagship predict_cold_start(return_interval=True) predictions",
+             torch.tensor([v["predicted"] for v in cold_iv.values()], dtype=torch.float64),
+             torch.from_numpy(want_cold), 1e-12, 0.0)
+    if not all(v["interval"][0] <= v["predicted"] <= v["interval"][1] for v in cold_iv.values()):
+        raise AssertionError("flagship cold-start intervals do not hold their predictions")
+    sizes = {f.name: f.stat().st_size for f in sorted(path.iterdir())}
+    return (
+        f"seed 42's artifact ({sizes}) loaded on {dev} in {load_s:.3f} s: test pairs within {err:.2e} of the "
+        f"trainer; intervals at alpha {alpha} cover {coverage:.4f} of {len(test_v)} test values (target "
+        f"{1 - alpha:.2f}); cold start from {len(observed)} labs equals ALSBaseline on the artifact's factors"
+    )
 
 
 def main() -> int:
@@ -2047,6 +2183,7 @@ def main() -> int:
                 f"MAE {run['mae']:.6f}; per_lab_mean R2 {run['per_lab_mean_r2']:.6f}",
                 flush=True,
             )
+        print(f"    {_flagship_serving_check(tmp / f'seed{FLAGSHIP_SEEDS[0]}', dev)}", flush=True)
         # the kernel path in this process: factored heads over a slot-major
         # train batch (K4f / K4b); the aggregations take the dense tier.  At
         # 1,834 patients the flagship's train batch (42,315 rows) lies below
@@ -2063,7 +2200,7 @@ def main() -> int:
         masker_mod.SLOT_MAJOR_MIN_ROWS = 0
         try:
             reset_counts()
-            for index in (0, 1, 2, 3, 4, 6):
+            for index in (0, 1, 2, 3, 4, 6, 7):
                 name, _, fn, _ = pipeline.STEPS[index]
                 step_t = time.perf_counter()
                 fn(kernel_cfg, opts)
@@ -2117,10 +2254,103 @@ def main() -> int:
     torch.cuda.empty_cache()
     _phase(
         "pipeline", t0,
-        f"conf/eicu_real.yaml through python -m multi_modal_gnn_tpu_torch.pipeline (steps 1-5, 7), train seeds "
+        f"conf/eicu_real.yaml through python -m multi_modal_gnn_tpu_torch.pipeline (steps 1-5, 7, 8), train seeds "
         f"{list(FLAGSHIP_SEEDS)}: guarded R2 mean {mean_r2:.6f} in [{r2_band[0]:.4f}, {r2_band[1]:.4f}], MAE mean "
         f"{mean_mae:.6f} in [{mae_band[0]:.4f}, {mae_band[1]:.4f}]; the use_pallas run launched {pipeline_launches}, "
         f"and K4f / K4b match their plain versions on its train batch and trained heads",
+    )
+
+    # 22. serving-export ---------------------------------------------------
+    t0 = time.perf_counter()
+    from multi_modal_gnn_tpu_torch.graph.build import GraphBundle, GraphMeta
+    from multi_modal_gnn_tpu_torch.serving import ServingModel, export_serving
+
+    rng = np.random.default_rng(22)
+    serve_requests = [("patient", int(p)) for p in rng.integers(0, num_p, SERVE_PATIENTS)] + [
+        ("pairs", (rng.integers(0, num_p, n), rng.integers(0, num_l, n))) for n in (*SERVE_BATCHES, SERVE_CHUNKED)
+    ]
+    export_launches, serving_times = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # phase 5's seeded RGCN on phase 3's graph, phase 12's HGT on its plans
+        for arch, cfg, g, must_launch in (
+            ("RGCN", config, graph, ("segment_sum_windowed", "fused_table_segment_sum", "span_segment_sum")),
+            ("HGT", hgt_config, graph_hgt, ("flash_attention_fwd",)),
+        ):
+            if arch == "RGCN":
+                model = build_model(cfg, graph_cpu, device="cpu", generator=torch.Generator().manual_seed(0)).to(dev)
+            else:
+                model = build_model(cfg, graph_cpu, generator=torch.Generator().manual_seed(0))
+            trainer = Trainer(model, g, masker, cfg)
+            reset_counts()
+            t = time.perf_counter()
+            export_serving(trainer, GraphBundle(graph=g, meta=GraphMeta()), tmp / arch)
+            torch.cuda.synchronize()
+            export_s = time.perf_counter() - t
+            launched = {k: v for k, v in {**sk.launch_counts, **ak.launch_counts}.items() if v}
+            if not all(launched.get(k) for k in must_launch):
+                raise AssertionError(f"{arch} export: a kernel of compute_node_state did not launch: {launched}")
+            export_launches.update(launched)
+            sizes = {f.name: f.stat().st_size for f in sorted((tmp / arch).iterdir())}
+            programs = sum(n for name, n in sizes.items() if name.endswith(".pt2"))
+            if not programs < 0.01 * sizes["weights.npz"]:
+                raise AssertionError(f"{arch} artifact: the programs ({programs} B) are not under 1 % of weights.npz")
+            t = time.perf_counter()
+            served = ServingModel.load(tmp / arch)
+            load_s = time.perf_counter() - t
+            print(
+                f"    {arch}: export {export_s:.3f} s (launches {launched}); files {sizes}: programs {programs} B, "
+                f"{100 * programs / sizes['weights.npz']:.4f} % of weights.npz; load with {len(served.buckets)} "
+                f"CUDA graph captures {load_s:.3f} s",
+                flush=True,
+            )
+            fn, _ = build_serving_fn(model, g)
+            serving_times[arch] = {
+                "export_s": export_s, "load_s": load_s, "bytes": sizes,
+                **_served_vs_eager(served, fn, serve_requests if arch == "RGCN" else serve_requests[:SERVE_PATIENTS],
+                                   num_l, arch),
+            }
+            # the device time of a request: each bucket's graph replayed alone
+            serving_times[arch]["replay_ms"] = {b: _median_ms(served._buckets[b].graph.replay) for b in served.buckets}
+            print(
+                f"    {arch} CUDA graph replay alone (CUDA events, median of {TIMING_REPS}): " + ", ".join(
+                    f"bucket {b} {ms:.4f} ms" for b, ms in serving_times[arch]["replay_ms"].items()
+                ),
+                flush=True,
+            )
+            if arch == "RGCN":  # the card's artifact on the CPU
+                t = time.perf_counter()
+                on_cpu = ServingModel.load(tmp / arch, device="cpu")
+                p_req, l_req = serve_requests[SERVE_PATIENTS][1]
+                _compare("RGCN artifact exported on the card, loaded on the CPU: 256 pairs",
+                         torch.from_numpy(on_cpu.predict(p_req, l_req)), torch.from_numpy(served.predict(p_req, l_req)),
+                         SERVE_ATOL, SERVE_RTOL)
+                print(f"    the card's artifact on the CPU: load and one request {time.perf_counter() - t:.3f} s")
+                del on_cpu
+            del model, trainer, served, fn
+            torch.cuda.empty_cache()
+        # a CPU artifact on the card
+        cfg_cpu = Config(model=ModelConfig(hidden_dim=32))
+        g_tiny = make_synthetic_graph(SyntheticSpec.tiny(), cfg_cpu, device="cpu")
+        model = build_model(cfg_cpu, g_tiny, device="cpu", generator=torch.Generator().manual_seed(0))
+        trainer = Trainer(model, g_tiny, masker_from_config(cfg_cpu, g_tiny), cfg_cpu, device="cpu")
+        export_serving(trainer, GraphBundle(graph=g_tiny, meta=GraphMeta()), tmp / "cpu", buckets=(64,))
+        fn, _ = build_serving_fn(model, g_tiny)
+        p_req = rng.integers(0, g_tiny.num_nodes(PATIENT), 100)
+        l_req = rng.integers(0, g_tiny.num_nodes(LAB), 100)
+        _compare("tiny RGCN artifact exported on the CPU, loaded on the card: 100 pairs",
+                 torch.from_numpy(ServingModel.load(tmp / "cpu").predict(p_req, l_req)), fn(p_req, l_req),
+                 SERVE_ATOL, SERVE_RTOL)
+        del model, trainer, fn
+    torch.cuda.empty_cache()
+    _phase(
+        "serving-export", t0,
+        "export_serving / ServingModel on the card for the RGCN (K1, K2f, K3 in its export) and the HGT (K6): "
+        "answers within the eager serving path's, the programs under 1 % of weights.npz, the card's artifact "
+        "on the CPU and a CPU artifact on the card; p50 artifact / eager: " + "; ".join(
+            f"{arch} {kind} {t['artifact_p50_ms']:.4f} / {t['eager_p50_ms']:.4f} ms"
+            for arch, times in serving_times.items() for kind, t in times.items() if isinstance(t, dict) and "eager_p50_ms" in t
+        ),
     )
 
     kernels = []
@@ -2150,6 +2380,8 @@ def main() -> int:
         if name in bench_launches:
             entry["launches_bench"] = bench_launches[name]
             entry["launches_lifecycle"] = lifecycle_launches[name]
+        if name in export_launches:
+            entry["launches_serving_export"] = export_launches[name]
         if name == "segment_sum_windowed":
             entry["as_span_backward"] = k1_backward
         kernels.append(entry)

@@ -13,6 +13,7 @@ from multi_modal_gnn_tpu_torch.evaluation.baselines import (
 )
 from multi_modal_gnn_tpu_torch.evaluation.conformal import (
     ConformalCalibrator,
+    calibrate_cold_start,
     calibrate_from_trainer,
     conformal_quantile,
 )
@@ -27,7 +28,7 @@ from multi_modal_gnn_tpu_torch.evaluation.metrics import (
 
 __all__ = [
     "ALSBaseline", "ConformalCalibrator", "GlobalMeanBaseline", "NearestNeighborBaseline",
-    "PerLabMeanBaseline", "SideInfoALSBaseline", "calibrate_from_trainer",
+    "PerLabMeanBaseline", "SideInfoALSBaseline", "calibrate_cold_start", "calibrate_from_trainer",
     "compute_per_lab_metrics", "compute_regression_metrics", "conformal_quantile",
     "evaluate_baselines", "evaluate_model", "evaluation_pipeline", "graph_membership_matrix",
     "membership_matrix", "stratify_by_lab_frequency", "stratify_by_patient_degree",

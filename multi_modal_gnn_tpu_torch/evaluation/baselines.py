@@ -1,6 +1,8 @@
 """Baseline predictors (``multi_modal_gnn_tpu/evaluation/baselines.py``),
 in numpy, fitted on the train split: global mean, per-lab mean, nearest
 neighbour, ALS matrix factorization and ALS with dx / rx side information.
+Both ALS classes fold in an unseen patient from their observed labs (and
+memberships) for the served cold-start channel.
 
 :class:`NearestNeighborBaseline` scores its queries in row blocks of at most
 :data:`NN_BLOCK_BYTES` of similarities, where the JAX package forms one
@@ -221,6 +223,30 @@ class ALSBaseline:
         l = np.asarray(lab_indices)
         return self.lab_bias[l] + np.einsum("ek,ek->e", self.U[p], self.C[l])
 
+    def fold_in(self, obs_lab_indices: np.ndarray, obs_values: np.ndarray) -> np.ndarray:
+        """Latent factor of an unseen patient from their observed labs: one
+        closed-form ridge solve against the trained lab factors, the U
+        half-step of :meth:`fit` (exact least squares: ``huber_delta`` plays
+        no part, as in JAX).  The cold-start path: the transductive graph
+        model cannot predict for patients outside its graph."""
+        l = np.asarray(obs_lab_indices)
+        v = np.asarray(obs_values, dtype=np.float64)
+        if len(l) == 0:
+            return np.zeros(self.rank)
+        c = self.C[l]  # [n_obs, k]
+        gram = self.reg * np.eye(self.rank) + c.T @ c
+        rhs = c.T @ (v - self.lab_bias[l])
+        return np.linalg.solve(gram, rhs)
+
+    def predict_cold_start(
+        self, obs_lab_indices: np.ndarray, obs_values: np.ndarray, query_lab_indices: np.ndarray
+    ) -> np.ndarray:
+        """Predict ``query_lab_indices`` for a new patient given their
+        observed (lab, value) pairs."""
+        u = self.fold_in(obs_lab_indices, obs_values)
+        q = np.asarray(query_lab_indices)
+        return self.lab_bias[q] + self.C[q] @ u
+
 
 def membership_matrix(
     num_patients: int,
@@ -419,6 +445,41 @@ class SideInfoALSBaseline:
             + np.einsum("ek,ek->e", self.U[p], self.C[l])
             + np.einsum("er,er->e", self.G[p], self.H[l])
         )
+
+    def fold_in(
+        self, obs_lab_indices: np.ndarray, obs_values: np.ndarray, memberships_row: np.ndarray
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """``(u, g)`` of an unseen patient: ``g`` from the membership
+        projection, ``u`` from one ridge solve against the lab factors on the
+        membership-adjusted residuals.  With no observed labs ``u`` is 0 and
+        the prediction rests on the dx / rx memberships alone."""
+        m = np.asarray(memberships_row, dtype=np.float64).reshape(-1)
+        if m.shape[0] != self.mem_proj.shape[0]:
+            raise ValueError(
+                f"membership width {m.shape[0]} != fitted {self.mem_proj.shape[0]}"
+            )
+        g = m @ self.mem_proj
+        l = np.asarray(obs_lab_indices)
+        if len(l) == 0:
+            return np.zeros(self.rank), g
+        v = np.asarray(obs_values, dtype=np.float64)
+        c = self.C[l]
+        resid = v - self.lab_bias[l] - self.H[l] @ g
+        gram = self.reg * np.eye(self.rank) + c.T @ c
+        return np.linalg.solve(gram, c.T @ resid), g
+
+    def predict_cold_start(
+        self,
+        obs_lab_indices: np.ndarray,
+        obs_values: np.ndarray,
+        query_lab_indices: np.ndarray,
+        memberships_row: np.ndarray,
+    ) -> np.ndarray:
+        """Predict ``query_lab_indices`` for a new patient given observed
+        (lab, value) pairs and their dx / rx membership row."""
+        u, g = self.fold_in(obs_lab_indices, obs_values, memberships_row)
+        q = np.asarray(query_lab_indices)
+        return self.lab_bias[q] + self.C[q] @ u + self.H[q] @ g
 
 
 def evaluate_baselines(

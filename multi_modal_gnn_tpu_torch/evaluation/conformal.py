@@ -16,7 +16,7 @@ import json
 import logging
 import math
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -288,6 +288,46 @@ class ConformalCalibrator:
     @classmethod
     def load(cls, path: str | Path) -> "ConformalCalibrator":
         return cls.from_dict(json.loads(Path(path).read_text()))
+
+
+def calibrate_cold_start(
+    als,
+    masker,
+    num_labs: int,
+    alpha: float = 0.1,
+    min_per_lab: int = 30,
+    memberships: Optional[np.ndarray] = None,
+) -> ConformalCalibrator:
+    """Calibrator for the ALS fold-in (cold-start) serving channel, whose
+    residuals differ from the graph model's.  Each patient of the "cal"
+    split (when the masker carved one, else "val") is folded in from only
+    their train-split labs, as ``ServingModel.predict_cold_start`` folds in
+    an unseen patient, and their held-out labs are the queries.
+    ``memberships`` (the full ``[num_patients, F]`` matrix) routes through
+    the side-information fold-in of a :class:`SideInfoALSBaseline`.
+
+    Those patients' train labs also fitted the lab factors, so the radii are
+    mildly optimistic for a truly unseen patient: the coverage holds under
+    an exchangeability approximation (JAX ``calibrate_cold_start``)."""
+    cal_split = "cal" if getattr(masker, "has_calibration_split", False) else "val"
+    tr_p, tr_l, tr_v = masker.split_arrays("train")
+    va_p, va_l, va_v = masker.split_arrays(cal_split)
+    order = np.argsort(tr_p, kind="stable")
+    tr_p_s, tr_l_s, tr_v_s = tr_p[order], tr_l[order], tr_v[order]
+
+    preds = np.empty(len(va_v), dtype=np.float64)
+    for pid in np.unique(va_p):
+        q = va_p == pid
+        lo = np.searchsorted(tr_p_s, pid, side="left")
+        hi = np.searchsorted(tr_p_s, pid, side="right")
+        obs_l, obs_v = tr_l_s[lo:hi], tr_v_s[lo:hi]
+        if memberships is not None:
+            preds[q] = als.predict_cold_start(obs_l, obs_v, va_l[q], memberships[pid])
+        else:
+            preds[q] = als.predict_cold_start(obs_l, obs_v, va_l[q])
+    return ConformalCalibrator.fit(
+        preds, va_v, va_l, num_labs, alpha=alpha, min_per_lab=min_per_lab
+    )
 
 
 def calibrate_from_trainer(

@@ -16,10 +16,11 @@ against existing artifacts:
   5 audit           split hygiene + robust metrics -> audit_report.json
   6 visualize       not ported yet (ROADMAP.md queue 1 item 10)
   7 inference       per-patient reports -> inference_examples.json
-  8 export-serving  not ported yet (ROADMAP.md queue 1 item 2)
+  8 export-serving  best_model.ckpt -> serving/ (weights.npz, pairs_b{256,4096}.pt2,
+                    serving.json, coldstart.npz, conformal.json, conformal_cold.json)
 
-Without ``--step`` the ported steps run (1-5 and 7).  A ``--step`` range that
-takes in step 6 or 8 exits with code 2 before any step runs.  The steps run
+Without ``--step`` the ported steps run (1-5, 7 and 8).  A ``--step`` range
+that takes in step 6 exits with code 2 before any step runs.  The steps run
 on the card and the command raises without one, unless ``--device cpu`` is
 given.  A failed step ends the run with exit code 1.  The last line of
 standard output is a JSON object with each step's wall seconds.
@@ -132,6 +133,39 @@ def step_inference(config, opts: RunOptions):
     )
 
 
+def step_export_serving(config, opts: RunOptions):
+    from multi_modal_gnn_tpu_torch.evaluation.baselines import ALSBaseline
+    from multi_modal_gnn_tpu_torch.evaluation.conformal import calibrate_cold_start, calibrate_from_trainer
+    from multi_modal_gnn_tpu_torch.graph.schema import LAB, PATIENT
+    from multi_modal_gnn_tpu_torch.serving import export_serving
+
+    bundle = _load_bundle(config, opts)
+    trainer = _load_trainer(config, bundle, opts, require_checkpoint=True)
+    # cold-start factors: ALS on the train split, so the artifact can fold in
+    # patients outside the graph (ServingModel.predict_cold_start)
+    p_idx, l_idx, values = trainer.masker.split_arrays("train")
+    num_labs = bundle.graph.num_nodes(LAB)
+    als = ALSBaseline(bundle.graph.num_nodes(PATIENT), num_labs).fit(values, p_idx, l_idx)
+    # conformal radii for predict(return_interval=True), and the fold-in
+    # channel's own; skipped when the calibration split is too small
+    conformal = conformal_cold = None
+    alpha = config.evaluation.extras.get("conformal_alpha", 0.1)
+    if alpha:
+        try:
+            conformal = calibrate_from_trainer(trainer, alpha=float(alpha))
+            conformal_cold = calibrate_cold_start(als, trainer.masker, num_labs, alpha=float(alpha))
+        except ValueError as e:
+            # the point-prediction artifact is still valid: say loudly what it lacks
+            logger.warning(
+                "Conformal calibration FAILED — serving artifact will have "
+                "no prediction intervals (predict(return_interval=True) "
+                "will raise): %s", e,
+            )
+    out = Path(config.data.output_dir) / "serving"
+    export_serving(trainer, bundle, out, cold_start=als, conformal=conformal, conformal_cold=conformal_cold)
+    print(f"serving artifact: {out} ({sorted(p.name for p in out.iterdir())})")
+
+
 # (name, description, function or None, the ROADMAP.md item of an unported step)
 STEPS = [
     ("preprocess", "Generate the cohort, write the interim tables", step_preprocess, None),
@@ -141,7 +175,7 @@ STEPS = [
     ("audit", "Leakage audit + robust metrics", step_audit, None),
     ("visualize", "All plot families", None, "queue 1 item 10"),
     ("inference", "Per-patient imputation reports", step_inference, None),
-    ("export-serving", "Serving artifact (cached node state)", None, "queue 1 item 2"),
+    ("export-serving", "Serving artifact (cached node state)", step_export_serving, None),
 ]
 
 

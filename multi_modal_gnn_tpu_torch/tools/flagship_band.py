@@ -9,7 +9,7 @@ Each seed gets a copy of the config (written by ``save_config``) with
 ``train.seed`` set and ``data.interim_dir``, ``data.output_dir`` and
 ``logging.log_file`` inside a temporary directory, so nothing is written to
 the repo.  Each run is ``python -m multi_modal_gnn_tpu_torch.pipeline``
-(steps 1-5 and 7) on ``--device``.  The data seed stays the config's.
+(steps 1-5, 7 and 8) on ``--device``.  The data seed stays the config's.
 Prints one JSON line.  The JAX package's band at the same seeds comes from
 ``scripts/flagship_band_jax.py``.
 """
@@ -30,7 +30,8 @@ REPO = Path(__file__).resolve().parents[2]
 ARTIFACTS = (
     "graph.npz", "graph.meta.json", "best_model.ckpt", "training_history.json", "test_results.json",
     "evaluation_results.json", "per_lab_metrics.csv", "conformal.json", "audit_report.json",
-    "inference_examples.json",
+    "inference_examples.json", "serving/serving.json", "serving/weights.npz", "serving/pairs_b256.pt2",
+    "serving/pairs_b4096.pt2", "serving/coldstart.npz", "serving/conformal.json", "serving/conformal_cold.json",
 )
 
 

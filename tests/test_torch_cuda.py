@@ -1524,3 +1524,42 @@ def test_checkpoint_round_trip_on_the_card(gpu, tmp_path):
             for key in ("step", "exp_avg", "exp_avg_sq"):
                 assert torch.equal(twin.optimizer.state[pa][key].cpu(), trainer.optimizer.state[pb][key].cpu()), key
         assert np.isfinite(twin.train_epoch())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["RGCN", "HGT"])
+def test_serving_artifact_on_the_card(gpu, arch, tmp_path):
+    """An artifact exported on the card answers through its CUDA graphs like
+    the eager serving path, request after request, and on the CPU; one
+    exported on the CPU answers on the card."""
+    from multi_modal_gnn_tpu_torch.graph.build import GraphBundle, GraphMeta
+    from multi_modal_gnn_tpu_torch.serving import ServingModel, build_serving_fn, export_serving
+
+    config = Config(
+        graph=GraphConfig(dense_adjacency_max_bytes=0),
+        model=ModelConfig(architecture=arch, use_pallas=True, extras={"hgt_dense_attn_bytes": 0}),
+    )
+    graph_cpu = ensure_attn_plans(make_synthetic_graph(LIFECYCLE_SPEC, config, device="cpu"), config)
+    rng = np.random.default_rng(0)
+    requests = [
+        (rng.integers(0, graph_cpu.num_nodes("patient"), n), rng.integers(0, graph_cpu.num_nodes("lab"), n))
+        for n in (1, 64, 256, 700)
+    ]
+    models = {}
+    for dev in (gpu, torch.device("cpu")):
+        graph = graph_cpu.to(dev)
+        model = build_model(config, graph_cpu, device="cpu", generator=torch.Generator().manual_seed(0)).to(dev)
+        trainer = Trainer(model, graph, EdgeMasker(graph, seed=0), config, device=dev)
+        export_serving(trainer, GraphBundle(graph=graph, meta=GraphMeta()), tmp_path / dev.type, buckets=(64, 256))
+        models[dev.type] = build_serving_fn(model, graph)[0]
+    for exported_on in ("cuda", "cpu"):
+        for dev in (gpu, torch.device("cpu")):
+            served = ServingModel.load(tmp_path / exported_on, device=dev)
+            assert served.manifest["export_platform"] == exported_on
+            # NaN blocks of the leaves' sizes: were a captured graph reading
+            # memory the artifact had let go, the allocator would hand it here
+            with np.load(tmp_path / exported_on / "weights.npz") as z:
+                junk = [torch.full(z[k].shape, float("nan"), device=gpu) for k in z.files]  # noqa: F841
+            for p, l in requests:  # the 700 pairs run as 256, 256 and 188
+                want = models[exported_on](p, l).cpu().numpy()  # the exported state's answers
+                np.testing.assert_allclose(served.predict(p, l), want, **TOL)

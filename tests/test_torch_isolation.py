@@ -10,7 +10,8 @@ gather probe's plain versions and command line, and the trainer's lifecycle:
 resume from them) and ``evaluate_model`` on its best state; and the
 pipeline command line (``python -m multi_modal_gnn_tpu_torch.pipeline
 --device cpu``) on a tiny synthetic config written by ``save_config``:
-preprocess, graph build, train, evaluate, audit and inference.
+preprocess, graph build, train, evaluate, audit, inference and the serving
+export, whose artifact ``ServingModel`` then loads and serves.
 """
 
 import os
@@ -132,7 +133,11 @@ SCRIPT = textwrap.dedent(
         assert pipeline.main(["--config", str(path), "--no-confirm", "--device", "cpu"]) == 0
         names = {p.name for p in (Path(out) / "out").iterdir()}
         assert {"graph.npz", "best_model.ckpt", "evaluation_results.json", "audit_report.json",
-                "inference_examples.json"} <= names, names
+                "inference_examples.json", "serving"} <= names, names
+        from multi_modal_gnn_tpu_torch.serving import ServingModel
+        served = ServingModel.load(Path(out) / "out" / "serving", device="cpu")
+        report = served.predict_patient(0, denormalize=True)
+        assert len(report) == served.manifest["num_labs"] and len(served.predict_cold_start({0: 0.5})) == len(report)
     assert not any(blocked(name) and sys.modules[name] is not None for name in sys.modules), sorted(sys.modules)
     print("ISOLATED-OK")
     """

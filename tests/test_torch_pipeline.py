@@ -18,15 +18,20 @@ held to the JAX package on the CPU.
   restores that checkpoint and writes ``audit_report.json`` and
   ``inference_examples.json`` equal to JAX's (ints, names and picks exact,
   floats within ``1e-5 + 1e-5 |ref|``: f32 sums in another order).
-* The command line, ``--device cpu``: steps 1-5 and 7 end to end on the
-  same config; ranges with the unported steps 6 and 8 exit 2 before any
-  step runs; ``--list``.
+* Serving (step 8): ``--step 8`` on JAX's checkpoint writes the artifact;
+  ``ServingModel`` answers the test pairs like the trainer and like JAX's
+  own step-8 artifact, and its cold-start factors and radii equal JAX's;
+  without a checkpoint the step raises ``FileNotFoundError``, as JAX's does.
+* The command line, ``--device cpu``: steps 1-5, 7 and 8 end to end on the
+  same config; ranges with the unported step 6 exit 2 before any step
+  runs; ``--list``.
 """
 
 import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -463,6 +468,88 @@ def test_denormalizer_equals_jax_with_a_fitted_normalizer(built):
     assert Denormalizer(meta)(3, 0.5) == JaxDenormalizer(theirs.meta)(3, 0.5)
 
 
+# -- step 8: the serving artifact on JAX's checkpoint ------------------------------------
+
+SERVING_FILES = {
+    "weights.npz", "pairs_b256.pt2", "pairs_b4096.pt2", "serving.json", "coldstart.npz",
+    "conformal.json", "conformal_cold.json",
+}
+
+
+def _copy_run(jax_ci_run, tmp_path, names):
+    """The JAX run's config pointed at ``tmp_path`` with ``names`` of its
+    output directory copied there."""
+    out, jcfg = jax_ci_run
+    cfg = Config.from_dict(jcfg.to_dict())
+    cfg = cfg.replace(
+        data=dataclasses.replace(cfg.data, interim_dir=str(tmp_path / "interim"), output_dir=str(tmp_path / "out")),
+        logging=dataclasses.replace(cfg.logging, log_file=str(tmp_path / "out" / "training.log")),
+    )
+    (tmp_path / "out").mkdir()
+    for name in names:
+        shutil.copy(out / "out" / name, tmp_path / "out" / name)
+    return cfg
+
+
+def test_step_8_serves_the_trained_checkpoint_as_jax(jax_ci_run, tmp_path):
+    from multi_modal_gnn_tpu.serving import ServingModel as JaxServingModel
+    from multi_modal_gnn_tpu_torch.serving import ServingModel
+
+    out, jcfg = jax_ci_run
+    cfg = _copy_run(jax_ci_run, tmp_path, ("graph.npz", "graph.meta.json", "best_model.ckpt", "best_model.ckpt.json"))
+    path = save_config(cfg, tmp_path / "config.yaml")
+    assert pipeline.main(["--config", str(path), "--no-confirm", "--device", "cpu", "--step", "8"]) == 0
+    served_dir = tmp_path / "out" / "serving"
+    assert {p.name for p in served_dir.iterdir()} == SERVING_FILES
+    served = ServingModel.load(served_dir, device="cpu")
+
+    opts = pipeline.RunOptions(device=CPU)
+    trainer = pipeline._load_trainer(cfg, pipeline._load_bundle(cfg, opts), opts)
+    test_p, test_l, _ = trainer.masker.split_arrays("test")
+    want = trainer.predict_pairs(test_p, test_l)
+    np.testing.assert_allclose(served.predict(test_p, test_l), want, rtol=1e-5, atol=1e-5)
+
+    run_pipeline.step_export_serving(jcfg)  # JAX's step 8 on its own run
+    theirs = JaxServingModel.load(out / "out" / "serving")
+    np.testing.assert_allclose(served.predict(test_p, test_l), theirs.predict(test_p, test_l), rtol=1e-5, atol=1e-5)
+    report = served.predict_patient(3, denormalize=True)
+    want_report = theirs.predict_patient(3, denormalize=True)
+    assert list(report) == list(want_report)
+    np.testing.assert_allclose(list(report.values()), list(want_report.values()), rtol=1e-5, atol=1e-5)
+    with np.load(served_dir / "coldstart.npz") as ours, np.load(out / "out" / "serving" / "coldstart.npz") as jax_z:
+        assert ours.files == jax_z.files
+        for key in jax_z.files:
+            np.testing.assert_allclose(ours[key], jax_z[key], rtol=1e-10, atol=1e-10, err_msg=key)
+    cold_ours = json.loads((served_dir / "conformal_cold.json").read_text())
+    cold_theirs = json.loads((out / "out" / "serving" / "conformal_cold.json").read_text())
+    assert cold_ours.pop("coverage_bounds") == cold_theirs.pop("coverage_bounds")
+    assert cold_ours == pytest.approx(cold_theirs, rel=1e-10)
+    # the graph model's radii: quantiles of its residuals, f32 predictions
+    graph_ours = json.loads((served_dir / "conformal.json").read_text())
+    graph_theirs = json.loads((out / "out" / "serving" / "conformal.json").read_text())
+    assert graph_ours["cal_counts"] == graph_theirs["cal_counts"]
+    np.testing.assert_allclose(graph_ours["q_lab"], graph_theirs["q_lab"], rtol=1e-5, atol=1e-5)
+    lo_hi = served.predict(test_p, test_l, return_interval=True)
+    np.testing.assert_allclose(lo_hi[1:], theirs.predict(test_p, test_l, return_interval=True)[1:], rtol=1e-5,
+                               atol=1e-5)
+    observed = {0: 0.4, 5: -1.2}
+    cold, cold_jax = (m.predict_cold_start(observed, return_interval=True) for m in (served, theirs))
+    assert list(cold) == list(cold_jax)
+    for lab, want_lab in cold_jax.items():
+        assert cold[lab]["predicted"] == pytest.approx(want_lab["predicted"], rel=1e-10)
+        assert cold[lab]["interval"] == pytest.approx(want_lab["interval"], rel=1e-10)
+
+
+def test_step_8_without_a_checkpoint_raises_as_jax(jax_ci_run, tmp_path):
+    cfg = _copy_run(jax_ci_run, tmp_path, ("graph.npz", "graph.meta.json"))
+    with pytest.raises(FileNotFoundError, match="No trained checkpoint at"):
+        pipeline.step_export_serving(cfg, pipeline.RunOptions(device=CPU))
+    jcfg = jax_ci_run[1]
+    jcfg = jcfg.replace(data=dataclasses.replace(jcfg.data, output_dir=str(tmp_path / "out")))
+    with pytest.raises(FileNotFoundError, match="No trained checkpoint at"):
+        run_pipeline.step_export_serving(jcfg)
+
+
 # -- the command line ------------------------------------------------------------------
 
 
@@ -477,13 +564,16 @@ def test_cli_runs_the_ported_steps_on_the_cpu(tmp_path):
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     assert "not ported yet, not run: steps 6 (visualize" in proc.stdout
     seconds = json.loads(proc.stdout.strip().splitlines()[-1])["step_seconds"]
-    assert list(seconds) == ["preprocess", "build-graph", "train", "evaluate", "audit", "inference"]
+    assert list(seconds) == [
+        "preprocess", "build-graph", "train", "evaluate", "audit", "inference", "export-serving",
+    ]
     names = {p.name for p in (tmp_path / "out").iterdir()}
     assert {
         "graph.npz", "graph.meta.json", "best_model.ckpt", "training_history.json",
         "test_results.json", "evaluation_results.json", "per_lab_metrics.csv", "conformal.json",
-        "audit_report.json", "inference_examples.json", "training.log",
+        "audit_report.json", "inference_examples.json", "training.log", "serving",
     } <= names
+    assert SERVING_FILES <= {p.name for p in (tmp_path / "out" / "serving").iterdir()}
     results = json.loads((tmp_path / "out" / "evaluation_results.json").read_text())
     assert math.isfinite(results["overall_metrics"]["r2"])
     assert len(json.loads((tmp_path / "out" / "inference_examples.json").read_text())["examples"]) == 5
@@ -492,7 +582,7 @@ def test_cli_runs_the_ported_steps_on_the_cpu(tmp_path):
     assert (tmp_path / "interim" / "cohort.npz").exists()
 
 
-@pytest.mark.parametrize("steps", ["6", "8", "5-6", "7-8", "1-8", "6-7"])
+@pytest.mark.parametrize("steps", ["6", "6-8", "5-6", "4-6", "1-8", "6-7"])
 def test_cli_refuses_unported_steps_before_any_runs(steps, tmp_path, capsys):
     cfg = _ci_config(load_config, _data, tmp_path)
     path = save_config(cfg, tmp_path / "config.yaml")
@@ -507,7 +597,8 @@ def test_cli_lists_the_steps(capsys):
     assert pipeline.main(["--list"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert [line.split()[1] for line in lines] == [step[0] for step in run_pipeline.STEPS]
-    assert "item 10" in lines[5] and "item 2" in lines[7]
+    assert "item 10" in lines[5]
+    assert [i for i, line in enumerate(lines) if "not ported" in line] == [5]
 
 
 def test_cli_fails_when_a_step_fails(tmp_path):
