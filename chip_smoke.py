@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch port's RGCN and HGT serving and training paths,
 the RGCN's dual-head training path, the gather probe, the bench, the
 trainer's lifecycle (checkpoints, resume, evaluation), the pipeline
-command line on the flagship config and the serving artifact on one CUDA
-GPU.
+command line on the flagship config, the serving artifact, and the quality
+channels (value context, the bilinear channel, the side-information warm
+start) on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -135,6 +136,30 @@ Phases, each printing one line with its seconds:
                    each bucket's CUDA graph replayed alone (CUDA events); the
                    card's RGCN artifact loaded on the CPU, and a tiny CPU
                    artifact on the card, against the other side
+ 23. value-context the quality channels on phase 3's graph at full width:
+                   (a) the RGCN with model.extras.value_context and the
+                   context bilinear source (rank 8), one Adam step with
+                   dropout 0 on the card against the CPU plain step (phase
+                   8's tolerances), K1-K4 launched; (b) the step's
+                   predictions with every supervised train, val and test
+                   value perturbed (2 runs; the closest to an unperturbed
+                   run) against the drift of four unperturbed runs (the
+                   largest), and with the visible train values perturbed
+                   (the channel is live); (c) 5 epochs with dropout 0.2 beside
+                   phase 9's, a profiled epoch, the context sums timed
+                   alone; (d) the head source with dual_head_fusion on:
+                   K4, no K5; (e) the HGT with value context and the
+                   embedding source (rank 9), flash tier against segment
+                   tier, peak memory, K6-K8 launched
+ 24. warm-start    conf/eicu_real.yaml with train.extras.warm_start:
+                   sideinfo and its channel written out
+                   (flagship_band.warm_start_config) through the command
+                   line at train seeds 42-44, held to the JAX package's CPU
+                   band of that file (JAX_CPU_BAND_SIDEINFO); seed 42's plant
+                   on the card equals SideInfoALSBaseline on the val pairs
+                   within 1e-4, its best val loss is not above the plant's,
+                   and its step-8 artifact carries bl_u / bl_l and answers
+                   like the trainer
 Then a JSON line of per-kernel results, the nvidia-smi line, and the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero before the last line; without a CUDA device it fails in phase 1.
@@ -214,6 +239,21 @@ JAX_CPU_BAND = {
     "mae": (0.5670451351436947, 0.5818913650723917, 0.5776210355387869),
 }
 FLAGSHIP_R2_MARGIN, FLAGSHIP_MAE_MARGIN = 0.02, 0.015
+# phase 24: the same flagship with train.extras.warm_start: sideinfo and its
+# channel written out (tools/flagship_band.warm_start_config), held to the
+# JAX package's band of that derived file with phase 21's margins: `python
+# scripts/flagship_band_jax.py --config <derived file>` on the CPU, seeds
+# 42, 43, 44 in order
+JAX_CPU_BAND_SIDEINFO = {
+    "r2": (0.27537223719962145, 0.2878246991449701, 0.2853947600452612),
+    "mae": (0.5681749143247993, 0.5810189486826384, 0.5760004550891525),
+}
+# phase 24: the val predictions right after the plant against the baseline
+# (float64 numpy) on the card
+WARM_START_ATOL = 1e-4
+# phase 23: the bilinear ranks of the RGCN (context and head sources) and of
+# the HGT (embedding source)
+VC_RANK, VC_HGT_RANK = 8, 9
 # phases 21-22: served answers against the eager serving path and the
 # trainer, both on the card (f32 sums of the state's atomics in another order)
 SERVE_ATOL, SERVE_RTOL = 1e-5, 1e-5
@@ -1372,6 +1412,7 @@ def main() -> int:
         raise AssertionError(f"non-finite validation loss {val_loss}")
     n_train = masker.split_sizes()["train"]
     edges_per_s = n_train * TRAIN_EPOCHS / (sum(epoch_ms) / 1e3)
+    rgcn_train = (statistics.median(epoch_ms), edges_per_s)  # phase 23 prints them beside its own
     print(f"    losses {['%.6f' % x for x in losses]}  val loss {val_loss:.6f}")
     print(f"    epoch ms {['%.2f' % x for x in epoch_ms]}  launches in {TRAIN_EPOCHS} epochs {train_launches}")
 
@@ -2353,6 +2394,376 @@ def main() -> int:
         ),
     )
 
+    # 23. value-context ----------------------------------------------------
+    t0 = time.perf_counter()
+    from multi_modal_gnn_tpu_torch.graph.schema import PATIENT_LAB
+    from multi_modal_gnn_tpu_torch.models import context as context_mod
+    from multi_modal_gnn_tpu_torch.models.context import inject_value_context, patient_value_context
+
+    def channel_config(base, source, rank, value_context=True, dropout=0.0, **model_extras):
+        mc = base.model
+        head = dataclasses.replace(mc.edge_head, extras={"bilinear_rank": rank, "bilinear_source": source})
+        extras = {**mc.extras, "value_context": value_context, **model_extras}
+        return dataclasses.replace(
+            base, model=dataclasses.replace(mc, dropout=dropout, extras=extras, edge_head=head)
+        )
+
+    def with_values(g, val):
+        es = g.edges[PATIENT_LAB]
+        return dataclasses.replace(g, edges={**g.edges, PATIENT_LAB: dataclasses.replace(es, val=val)})
+
+    # (a) one Adam step, dropout 0, the card's kernels against the CPU's plain versions
+    vc0 = channel_config(config, "context", VC_RANK)
+    model_gpu = build_model(vc0, graph_cpu, generator=torch.Generator().manual_seed(0))
+    model_ref = build_model(vc0, graph_cpu, device="cpu", generator=torch.Generator().manual_seed(0))
+    trainer = Trainer(model_gpu, graph, masker, vc0)
+    trainer_ref = Trainer(model_ref, graph_cpu, masker, vc0, device="cpu")
+    sup = masker.supervision_mask(0, batch_cpu)
+    b_gpu, b_ref = trainer.get_batch("train"), trainer_ref.get_batch("train")
+    reset_counts()
+    t_step = time.perf_counter()
+    loss = trainer.train_step(b_gpu, sup.to(dev), 0)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t_step) * 1e3
+    vc_launches = read_counts()
+    if not all(vc_launches.values()):
+        raise AssertionError(f"a kernel of the value-context training path did not launch: {vc_launches}")
+    t_ref = time.perf_counter()
+    loss_ref = trainer_ref.train_step(b_ref, sup, 0)
+    ref_s = time.perf_counter() - t_ref
+    _compare("value-context train step loss", torch.tensor(loss), torch.tensor(loss_ref), 0.0, STEP_LOSS_RTOL)
+    params = dict(model_gpu.named_parameters())
+    floor = STEP_GRAD_ZERO_FLOOR * max(float(p.grad.norm()) for p in model_ref.parameters())
+    failed_grads = [
+        name for name, p_ref in model_ref.named_parameters()
+        if not _compare_norm(f"value-context grad {name}", params[name].grad, p_ref.grad, STEP_GRAD_NORM_REL, floor)
+    ]
+    for name, p_ref in model_ref.named_parameters():
+        diff = float((params[name].detach().cpu() - p_ref.detach()).abs().max())
+        if diff > STEP_PARAM_ATOL:
+            raise AssertionError(f"value-context param {name}: max |d| {diff:.3e} > {STEP_PARAM_ATOL}")
+    if failed_grads:
+        raise AssertionError(f"value-context train-step gradients outside tolerance: {failed_grads}")
+    print(
+        f"    (a) context source, rank {VC_RANK}: loss {loss:.6f} (CPU plain {loss_ref:.6f}); first step on the "
+        f"card {step_ms:.1f} ms, CPU plain step {ref_s:.1f} s; parameters within {STEP_PARAM_ATOL:g}; "
+        f"launches {vc_launches}",
+        flush=True,
+    )
+    del model_ref, trainer_ref
+
+    # (b) leakage: the step's predictions with the supervised train edges',
+    # val and test values perturbed, against the drift of unperturbed runs
+    sup_dev = sup.to(dev)
+    g_vis = trainer._visible_graph(sup_dev)
+
+    def step_preds(g):
+        with torch.no_grad():
+            model_gpu.train()
+            out = model_gpu.predict_lab_values(
+                g, b_gpu.patient_idx, b_gpu.lab_idx, train=True, patient_plan=b_gpu.patient_plan,
+                lab_plan=b_gpu.lab_plan, degrees=b_gpu.degrees,
+            )
+        return out[b_gpu.valid > 0]
+
+    def perturbed(positions, seed):
+        val = g_vis.edges[PATIENT_LAB].val.clone()
+        pos = torch.from_numpy(np.asarray(positions)).long().to(dev)
+        noise = torch.randn(len(positions), generator=torch.Generator().manual_seed(seed)) * 3.0 + 5.0
+        val[pos] = noise.to(dev)
+        return with_values(g_vis, val)
+
+    hidden = np.concatenate([
+        masker.train_positions()[sup.numpy() > 0], masker.split_edge_positions("val"),
+        masker.split_edge_positions("test"),
+    ])
+    plain_runs = [step_preds(g_vis) for _ in range(4)]
+    drift = max(float((a - b).abs().max()) for i, a in enumerate(plain_runs) for b in plain_runs[i + 1:])
+    # a hidden value read by the forward would move every perturbed run: the
+    # leak is the closest any perturbed run comes to an unperturbed one
+    leak_runs = [step_preds(perturbed(hidden, 1)) for _ in range(2)]
+    leak = min(float((p - a).abs().max()) for p in leak_runs for a in plain_runs)
+    visible = masker.train_positions()[(sup.numpy() == 0) & (b_ref.valid.numpy() > 0)]
+    live = float((step_preds(perturbed(visible, 2)) - plain_runs[0]).abs().max())
+    print(
+        f"    (b) leakage: {len(hidden)} supervised, val and test values perturbed move the step's predictions "
+        f"by {leak:.3e} (the closest of 2 perturbed runs to 4 unperturbed ones); the unperturbed runs differ "
+        f"by up to {drift:.3e}; the "
+        f"{len(visible)} visible train values perturbed move them by {live:.3e}",
+        flush=True,
+    )
+    if not leak <= drift:
+        raise AssertionError(f"value leak: hidden values move the step's predictions by {leak:.3e} > drift {drift:.3e}")
+    if not live > 1e3 * max(drift, 1e-7):
+        raise AssertionError(f"the value channel reads no visible value: {live:.3e}")
+    del model_gpu, trainer, g_vis, plain_runs, leak_runs
+    torch.cuda.empty_cache()
+
+    # (c) five epochs, dropout 0.2; the context sums timed alone
+    vc_train = channel_config(config, "context", VC_RANK, dropout=config.model.dropout)
+    model = build_model(vc_train, graph_cpu, generator=torch.Generator().manual_seed(1))
+    trainer = Trainer(model, graph, masker, vc_train)
+    trainer.train_epoch()
+    trainer.epoch += 1
+    torch.cuda.synchronize()
+    vc_epoch_ms, vc_losses = [], []
+    for _ in range(TRAIN_EPOCHS):
+        t_ep = time.perf_counter()
+        vc_losses.append(trainer.train_epoch())
+        torch.cuda.synchronize()
+        vc_epoch_ms.append((time.perf_counter() - t_ep) * 1e3)
+        trainer.epoch += 1
+    if not all(np.isfinite(vc_losses)):
+        raise AssertionError(f"non-finite value-context training loss: {vc_losses}")
+    vc_val = trainer.validate("val")
+    if not np.isfinite(vc_val):
+        raise AssertionError(f"non-finite value-context validation loss {vc_val}")
+    vc_edges_per_s = n_train * TRAIN_EPOCHS / (sum(vc_epoch_ms) / 1e3)
+    print(f"    (c) losses {['%.6f' % x for x in vc_losses]}  val loss {vc_val:.6f}")
+    print(f"    (c) epoch ms {['%.2f' % x for x in vc_epoch_ms]}")
+    wall_ms, busy_ms, top = _device_profile(trainer.train_epoch)
+    print(
+        f"    (c) profiled epoch: wall {wall_ms:.2f} ms  device busy {busy_ms:.2f} ms  "
+        f"idle share {max(0.0, 1 - busy_ms / wall_ms):.4f}"
+    )
+    for name, ms in top[:12]:
+        print(f"      {ms:9.3f} ms  {100 * ms / max(busy_ms, 1e-9):5.1f} %  {name[:130]}")
+    g_vis = trainer._visible_graph(masker.supervision_mask(0, b_gpu))
+    es = g_vis.edges[PATIENT_LAB]
+    x_p = torch.randn(num_p, d, device=dev, requires_grad=True)
+    x_l = torch.randn(num_l, d, device=dev, requires_grad=True)
+    g_p, g_l = torch.randn(num_p, d, device=dev), torch.randn(num_l, d, device=dev)
+
+    def inject():
+        return inject_value_context({PATIENT: x_p, LAB: x_l}, g_vis, model.vctx_patient, model.vctx_lab)
+
+    def inject_bwd():
+        out = inject()
+        torch.autograd.backward([out[PATIENT], out[LAB]], [g_p, g_l])
+
+    def context_bwd():
+        ctx, _ = patient_value_context(x_l, es)
+        ctx.backward(g_p)
+
+    def time_context_sums():
+        with torch.no_grad():
+            times = {"inject forward": _median_ms(inject), "context term forward": _median_ms(
+                lambda: patient_value_context(x_l, es))}
+        times["inject forward + backward"] = _median_ms(inject_bwd)
+        times["context term forward + backward"] = _median_ms(context_bwd)
+        return times
+
+    # the route the path takes (sparse products over the ValuePlan), then the
+    # plain index_add_ route (JAX's form) on the same inputs
+    ctx_ms = time_context_sums()
+    csr_route = context_mod.csr_route
+    context_mod.csr_route = lambda es, device: False
+    try:
+        ctx_plain_ms = time_context_sums()
+    finally:
+        context_mod.csr_route = csr_route
+    # the context term's narrow row gathers, at its rank and at one more
+    # (PyTorch takes another gather kernel for rows that are not 16-byte
+    # multiples)
+    gather_ms = {}
+    for rank in (VC_RANK, VC_RANK + 1):
+        for side, rows, idx in (("patient", num_p, b_gpu.patient_idx), ("lab", num_l, b_gpu.lab_idx)):
+            table, index = torch.randn(rows, rank, device=dev), idx.long()
+            gather_ms[(side, rank)] = _median_ms(lambda table=table, index=index: table.index_select(0, index))
+    print(
+        f"    (c) the bilinear term's row gathers (index_select of {b_gpu.patient_idx.shape[0]} slots, CUDA "
+        "events): " + ", ".join(f"{side} table at rank {rank} {ms:.4f} ms" for (side, rank), ms in gather_ms.items()),
+        flush=True,
+    )
+    # each side reads E values, E column indices and its table once and
+    # writes its sums once
+    ctx_bytes = 2 * es.num_valid * 8 + 2 * (num_p + num_l) * d * 4
+    print(
+        "    (c) the context sums alone (CUDA events, median of "
+        f"{TIMING_REPS}; E {es.num_valid}, D {d}), sparse-product route / index_add_ route: "
+        + ", ".join(f"{k} {v:.4f} / {ctx_plain_ms[k]:.4f} ms" for k, v in ctx_ms.items())
+        + f"; both sides' bytes at the HBM rate {ctx_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms",
+        flush=True,
+    )
+    del model, trainer, g_vis, es, x_p, x_l, g_p, g_l
+    torch.cuda.empty_cache()
+
+    # (d) the head source with dual_head_fusion on: single heads (K4), no K5
+    head_cfg = channel_config(dual_config, "head", VC_RANK, dual_head_fusion="on")
+    model = build_model(head_cfg, graph_cpu, generator=torch.Generator().manual_seed(0))
+    trainer = Trainer(model, graph, masker0, head_cfg)
+    b0 = trainer.get_batch("train")
+    reset_counts()
+    head_loss = trainer.train_step(b0, masker0.supervision_mask(0, b0), 0)
+    torch.cuda.synchronize()
+    head_launches = read_counts(HEAD_PATH_KERNELS)
+    if not (head_launches["pair_head_fwd"] and head_launches["pair_head_bwd"]) or (
+        head_launches["pair_head_dual_fwd"] or head_launches["pair_head_dual_bwd"]
+    ):
+        raise AssertionError(f"the head source with dual_head_fusion on must run K4 and not K5: {head_launches}")
+    if not np.isfinite(head_loss):
+        raise AssertionError(f"non-finite head-source loss {head_loss}")
+    print(f"    (d) head source, rank {VC_RANK}, dual_head_fusion on, lab_tile_rows 0: loss {head_loss:.6f}; "
+          f"launches {head_launches}", flush=True)
+    del model, trainer, b0
+    torch.cuda.empty_cache()
+
+    # (e) the HGT on phase 3's graph, flash tier against the segment tier,
+    # value context and the embedding source at rank VC_HGT_RANK
+    def hgt_vc_steps(g_flash, g_seg, g_cpu, hgt_masker):
+        cfg = channel_config(hgt_config, "embedding", VC_HGT_RANK)
+        cfg_seg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, extras={**cfg.model.extras, "hgt_flash": "off"}))
+        sup_h = hgt_masker.supervision_mask(0, hgt_masker.get_split("train")).to(dev)
+        out = {}
+        for tier, c, g in (("flash", cfg, g_flash), ("segment", cfg_seg, g_seg)):
+            model_h = build_model(c, g_cpu, generator=torch.Generator().manual_seed(0))
+            trainer_h = Trainer(model_h, g, hgt_masker, c)
+            b = trainer_h.get_batch("train")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t_step = time.perf_counter()
+            loss_h = trainer_h.train_step(b, sup_h, 0)
+            torch.cuda.synchronize()
+            out[tier] = dict(
+                loss=loss_h, ms=(time.perf_counter() - t_step) * 1e3,
+                peak_gb=torch.cuda.max_memory_allocated() / 2**30, launches=dict(ak.launch_counts),
+                grads={n: p.grad.detach().cpu() for n, p in model_h.named_parameters()},
+                params={n: p.detach().cpu() for n, p in model_h.named_parameters()},
+            )
+            del model_h, trainer_h, b
+            torch.cuda.empty_cache()
+        return out
+
+    steps = hgt_vc_steps(graph_hgt, graph_seg, graph_cpu, masker)
+    flash, seg = steps["flash"], steps["segment"]
+    if not all(flash["launches"].values()) or any(seg["launches"].values()):
+        raise AssertionError(f"launches: flash tier {flash['launches']}, segment tier {seg['launches']}")
+    _compare("HGT value-context step loss, flash vs segment tier", torch.tensor(flash["loss"]),
+             torch.tensor(seg["loss"]), 0.0, STEP_LOSS_RTOL)
+    floor = STEP_GRAD_ZERO_FLOOR * max(float(g.norm()) for g in seg["grads"].values())
+    failed_hgt = [
+        name for name, g in seg["grads"].items()
+        if not _compare_norm(f"HGT value-context grad {name}", flash["grads"][name], g, HGT_STEP_GRAD_NORM_REL, floor)
+    ]
+    for name, p_seg in seg["params"].items():
+        diff = float((flash["params"][name] - p_seg).abs().max())
+        if diff > STEP_PARAM_ATOL:
+            raise AssertionError(f"HGT value-context param {name}: max |d| {diff:.3e} > {STEP_PARAM_ATOL}")
+    if failed_hgt:
+        raise AssertionError(f"HGT value-context gradients outside tolerance: {failed_hgt}")
+    vc_hgt_launches = flash["launches"]
+    print(
+        f"    (e) HGT on phase 3's scale_100k graph, embedding source rank {VC_HGT_RANK}: loss {flash['loss']:.6f} "
+        f"(segment tier {seg['loss']:.6f}); first step flash {flash['ms']:.1f} ms, peak {flash['peak_gb']:.2f} GiB; "
+        f"segment {seg['ms']:.1f} ms, peak {seg['peak_gb']:.2f} GiB (torch.cuda.max_memory_allocated); "
+        f"launches {vc_hgt_launches}",
+        flush=True,
+    )
+    del steps, flash, seg
+    torch.cuda.empty_cache()
+    _phase(
+        "value-context", t0,
+        f"(a) the step on the card matches the CPU plain step; (b) leak {leak:.3e} <= drift {drift:.3e}; "
+        f"(c) {TRAIN_EPOCHS} epochs, dropout {vc_train.model.dropout}: median epoch "
+        f"{statistics.median(vc_epoch_ms):.2f} ms  train_patient_lab_edges_per_sec {vc_edges_per_s:.1f} "
+        f"(phase 9 without the channels: {rgcn_train[0]:.2f} ms, {rgcn_train[1]:.1f}); context sums "
+        f"forward {ctx_ms['inject forward']:.4f} + {ctx_ms['context term forward']:.4f} ms (index_add_: "
+        f"{ctx_plain_ms['inject forward']:.4f} + {ctx_plain_ms['context term forward']:.4f}); (d) K4 without K5; "
+        f"(e) HGT flash matches segment",
+    )
+
+    # 24. warm-start -------------------------------------------------------
+    t0 = time.perf_counter()
+    from multi_modal_gnn_tpu_torch.config import load_config
+    from multi_modal_gnn_tpu_torch.serving import ServingModel
+    from multi_modal_gnn_tpu_torch.evaluation.baselines import SideInfoALSBaseline
+    from multi_modal_gnn_tpu_torch.training import warm_start_from_config
+    from multi_modal_gnn_tpu_torch.utils.rng import stream_seed
+
+    ws_runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        derived = flagship_band.warm_start_config(flagship, tmp / "eicu_real_sideinfo.yaml", "sideinfo")
+        for seed in FLAGSHIP_SEEDS:
+            ws_runs[seed] = flagship_band.run_seed(derived, seed, tmp / f"seed{seed}", device="cuda")
+            run = ws_runs[seed]
+            print(
+                f"    seed {seed}: steps "
+                + ", ".join(f"{k} {v:.2f} s" for k, v in run["step_seconds"].items())
+                + f"; {run['epochs']} epochs, best val loss {run['best_val_loss']:.6f}; guarded R2 {run['r2']:.6f}, "
+                f"MAE {run['mae']:.6f}; per_lab_mean R2 {run['per_lab_mean_r2']:.6f}",
+                flush=True,
+            )
+        # seed 42's plant on the card, from its own graph and split
+        run_dir = tmp / f"seed{FLAGSHIP_SEEDS[0]}"
+        cfg = load_config(run_dir / "config.yaml")
+        opts = pipeline.RunOptions(device=dev)
+        bundle = pipeline._load_bundle(cfg, opts)
+        ws_cfg = cfg
+        ws_masker = masker_from_config(ws_cfg, bundle.graph)
+        ws_model = build_model(
+            ws_cfg, bundle.graph, generator=torch.Generator().manual_seed(stream_seed(cfg.train.seed, "init"))
+        )
+        ws_trainer = Trainer(ws_model, bundle.graph, ws_masker, ws_cfg)
+        baseline = warm_start_from_config(ws_trainer, ws_cfg)
+        if not isinstance(baseline, SideInfoALSBaseline):
+            raise AssertionError(f"the derived config planted {type(baseline).__name__}, not SideInfoALSBaseline")
+        val_p, val_l, _ = ws_masker.split_arrays("val")
+        plant_err, _ = _compare(
+            f"seed {FLAGSHIP_SEEDS[0]}: val predictions right after the plant against SideInfoALSBaseline.predict",
+            torch.from_numpy(ws_trainer.predict("val")).double(), torch.from_numpy(baseline.predict(val_p, val_l)),
+            WARM_START_ATOL, 0.0,
+        )
+        plant_loss = ws_trainer.best_val_loss
+        if not ws_runs[FLAGSHIP_SEEDS[0]]["best_val_loss"] <= plant_loss * (1 + 1e-6):
+            raise AssertionError(
+                f"best val loss {ws_runs[FLAGSHIP_SEEDS[0]]['best_val_loss']:.6f} is above the plant's {plant_loss:.6f}"
+            )
+        served = ServingModel.load(run_dir / "out" / "serving", device=dev)
+        if not {"state.bl_u", "state.bl_l"} <= set(served.manifest["leaves"]):
+            raise AssertionError(f"the warm-started artifact carries no bl_u / bl_l: {served.manifest['leaves']}")
+        trainer = pipeline._load_trainer(cfg, bundle, opts, require_checkpoint=True)
+        test_p, test_l, _ = trainer.masker.split_arrays("test")
+        served_err, _ = _compare(
+            f"seed {FLAGSHIP_SEEDS[0]}: the warm-started artifact on {len(test_p)} test pairs against the trainer",
+            torch.from_numpy(served.predict(test_p, test_l)), torch.from_numpy(trainer.predict_pairs(test_p, test_l)),
+            SERVE_ATOL, SERVE_RTOL,
+        )
+        derived_text = derived.read_text()
+        del ws_model, ws_trainer, trainer, served, bundle
+    for label, run in ws_runs.items():
+        if run["missing"]:
+            raise AssertionError(f"warm-start run {label}: artifacts missing: {run['missing']}")
+        if run["leak"]:
+            raise AssertionError(f"warm-start run {label}: the audit reports a leak")
+    ws_r2_band = (min(JAX_CPU_BAND_SIDEINFO["r2"]) - FLAGSHIP_R2_MARGIN,
+                  max(JAX_CPU_BAND_SIDEINFO["r2"]) + FLAGSHIP_R2_MARGIN)
+    ws_mae_band = (min(JAX_CPU_BAND_SIDEINFO["mae"]) - FLAGSHIP_MAE_MARGIN,
+                   max(JAX_CPU_BAND_SIDEINFO["mae"]) + FLAGSHIP_MAE_MARGIN)
+    ws_r2 = statistics.fmean(r["r2"] for r in ws_runs.values())
+    ws_mae = statistics.fmean(r["mae"] for r in ws_runs.values())
+    if not (ws_r2_band[0] <= ws_r2 <= ws_r2_band[1] and ws_mae_band[0] <= ws_mae <= ws_mae_band[1]):
+        raise AssertionError(
+            f"warm start: 3-seed mean guarded R2 {ws_r2:.6f} / MAE {ws_mae:.6f} outside the band R2 "
+            f"[{ws_r2_band[0]:.4f}, {ws_r2_band[1]:.4f}], MAE [{ws_mae_band[0]:.4f}, {ws_mae_band[1]:.4f}]"
+        )
+    changed = [name for name, state in guarded.items() if _tree_state(repo / name) != state]
+    if changed:
+        raise AssertionError(f"the warm-start runs wrote into the repo: {changed}")
+    print("    the derived config's warm-start lines: " + "; ".join(
+        ln.strip() for ln in derived_text.splitlines() if "warm_start" in ln or "bilinear" in ln))
+    _phase(
+        "warm-start", t0,
+        f"conf/eicu_real.yaml with train.extras.warm_start: sideinfo (channel wired: bilinear_rank 17, "
+        f"embedding) through the command line, seeds {list(FLAGSHIP_SEEDS)}: guarded R2 mean {ws_r2:.6f} in "
+        f"[{ws_r2_band[0]:.4f}, {ws_r2_band[1]:.4f}], MAE mean {ws_mae:.6f} in [{ws_mae_band[0]:.4f}, "
+        f"{ws_mae_band[1]:.4f}] (the JAX package's, CPU); the plant equals SideInfoALSBaseline within "
+        f"{plant_err:.2e}, best val loss {ws_runs[FLAGSHIP_SEEDS[0]]['best_val_loss']:.6f} <= the plant's "
+        f"{plant_loss:.6f}; the artifact (bl_u / bl_l) within {served_err:.2e} of the trainer",
+    )
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces}
@@ -2384,6 +2795,10 @@ def main() -> int:
             entry["launches_serving_export"] = export_launches[name]
         if name == "segment_sum_windowed":
             entry["as_span_backward"] = k1_backward
+        if name in vc_launches:
+            entry["launches_value_context_step"] = vc_launches[name]
+        if name in vc_hgt_launches:
+            entry["launches_value_context_hgt_step"] = vc_hgt_launches[name]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(identity)

@@ -154,24 +154,46 @@ class GraphConfig:
         _only(self.extras, {"num_shards", "shard_kernel_plans"}, "graph")
 
 
+BILINEAR_SOURCES = ("head", "embedding", "context")
+
+
 @dataclass(frozen=True)
 class EdgeHeadConfig:
     hidden_dims: Tuple[int, ...] = (64, 32)
     final_activation: Optional[str] = None
-    # extras.bilinear_rank (0 only), extras.bilinear_source; a literal
-    # ``extras:`` mapping stays nested, as the JAX config keeps it
+    # extras.bilinear_rank (>= 0) and extras.bilinear_source (head |
+    # embedding | context), written directly under edge_head as the JAX
+    # factory reads them; a literal ``extras:`` mapping stays nested, as the
+    # JAX config keeps it, and must not set a rank (JAX would ignore it)
     extras: Dict[str, Any] = field(default_factory=dict)
 
     def __post_init__(self):
         object.__setattr__(self, "hidden_dims", tuple(int(h) for h in self.hidden_dims))
         if self.final_activation is not None:
             raise ConfigError("model.edge_head.final_activation is not supported")
-        for extras in (self.extras, self.extras.get("extras") or {}):
+        nested = self.extras.get("extras") or {}
+        for extras in (self.extras, nested):
             _only(extras, {"bilinear_rank", "bilinear_source", "extras"}, "model.edge_head")
-            if int(extras.get("bilinear_rank", 0) or 0) > 0:
-                raise ConfigError(
-                    "model.edge_head.extras.bilinear_rank > 0 is not supported by the PyTorch port yet"
-                )
+        if int(nested.get("bilinear_rank", 0) or 0) > 0:
+            raise ConfigError(
+                "model.edge_head.extras.extras.bilinear_rank: the JAX factory reads the rank "
+                "directly under model.edge_head and would ignore this one; move it there"
+            )
+        if self.bilinear_rank < 0:
+            raise ConfigError(f"model.edge_head.bilinear_rank must be >= 0, got {self.bilinear_rank}")
+        if self.bilinear_source not in BILINEAR_SOURCES:
+            raise ConfigError(
+                f"model.edge_head.bilinear_source must be one of {BILINEAR_SOURCES}, "
+                f"got {self.bilinear_source!r}"
+            )
+
+    @property
+    def bilinear_rank(self) -> int:
+        return int(self.extras.get("bilinear_rank", 0) or 0)
+
+    @property
+    def bilinear_source(self) -> str:
+        return str(self.extras.get("bilinear_source", "head"))
 
 
 @dataclass(frozen=True)
@@ -191,7 +213,7 @@ class ModelConfig:
     use_pallas: bool = False
     # extras.head_style: auto | concat | factored and extras.dual_head_fusion:
     # auto | on | off (RGCN); extras.hgt_flash: auto | off and
-    # extras.hgt_dense_attn_bytes (HGT); extras.value_context (false only)
+    # extras.hgt_dense_attn_bytes (HGT); extras.value_context (both)
     extras: Dict[str, Any] = field(default_factory=dict)
 
     def __post_init__(self):
@@ -202,8 +224,12 @@ class ModelConfig:
                 f"model.num_heads={self.num_heads} must divide hidden_dim={self.hidden_dim}"
             )
         _only(self.extras, _MODEL_EXTRAS, "model")
-        if self.extras.get("value_context"):
-            raise ConfigError("model.extras.value_context is not supported by the PyTorch port yet")
+        if self.edge_head.bilinear_source == "context" and not self.value_context:
+            raise ConfigError(
+                "model.edge_head.bilinear_source='context' requires model.extras.value_context=true: "
+                "without the trainer's value visibility the context channel would read val / test "
+                "values (the JAX factory refuses it too)"
+            )
         if self.hgt_flash not in ("auto", "off"):
             raise ConfigError(f"model.extras.hgt_flash invalid: {self.hgt_flash!r}")
         if self.activation not in ("relu", "elu", "leaky_relu"):
@@ -221,6 +247,10 @@ class ModelConfig:
     @property
     def head_style(self) -> str:
         return str(self.extras.get("head_style", "auto"))
+
+    @property
+    def value_context(self) -> bool:
+        return bool(self.extras.get("value_context", False))
 
     @property
     def dual_head_fusion(self) -> str:
@@ -295,7 +325,9 @@ class TrainConfig:
     scan_chunk: int = 1
     # extras.lab_tile_rows (None/"auto" | int), extras.lab_tile_mode ("span"),
     # extras.lab_reweighting (bool), extras.auto_resume (bool: the pipeline's
-    # train step resumes from the newest periodic checkpoint)
+    # train step resumes from the newest periodic checkpoint),
+    # extras.warm_start (als | sideinfo | none | off | "") with
+    # warm_start_rank / _mem_rank / _reg / _ridge_reg / _huber_delta
     extras: Dict[str, Any] = field(default_factory=dict)
 
     def __post_init__(self):
@@ -310,18 +342,39 @@ class TrainConfig:
             raise ConfigError(f"train.scan_chunk must be >= 1, got {self.scan_chunk}")
         if self.batch_size is not None:
             raise ConfigError(
-                "train.batch_size: the PyTorch port trains full-batch only (batch_size: null)"
+                "train.batch_size: the PyTorch port trains full-batch only (batch_size: null); "
+                "Cluster-GCN mini-batch is ROADMAP.md queue 1 item 6"
             )
+        refused = sorted(set(self.extras) & set(_TRAIN_EXTRAS_NOT_PORTED))
+        if refused:
+            raise ConfigError(f"train.extras.{refused[0]}: {_TRAIN_EXTRAS_NOT_PORTED[refused[0]]}")
         unknown = set(self.extras) - _TRAIN_EXTRAS
         if unknown:
+            raise ConfigError(f"unsupported train extras: {sorted(unknown)}")
+        ws = self.extras.get("warm_start")
+        # JAX reads str(value or "").lower(): None and false are off, true is refused
+        if not (ws is None or ws is False or (isinstance(ws, str) and ws.lower() in _WARM_STARTS)):
             raise ConfigError(
-                f"unsupported train extras: {sorted(unknown)} (mini-batch, warm start, "
-                "multi-device and optimizer layouts are not ported yet)"
+                f"train.extras.warm_start must be one of als | sideinfo | none | off | '', got {ws!r}"
             )
         if str(self.extras.get("lab_tile_mode", "span")) != "span":
             raise ConfigError(
                 "train.extras.lab_tile_mode: the PyTorch port runs span-mode lab tiles only"
             )
+
+    @property
+    def warm_start(self) -> str:
+        """"als", "sideinfo", or "" for none (JAX ``train_pipeline``'s reading)."""
+        ws = str(self.extras.get("warm_start", "") or "").lower()
+        return "" if ws in ("none", "off") else ws
+
+    @property
+    def warm_start_rank(self) -> int:
+        return int(self.extras.get("warm_start_rank", 8) or 8)
+
+    @property
+    def warm_start_mem_rank(self) -> int:
+        return int(self.extras.get("warm_start_mem_rank", self.warm_start_rank) or self.warm_start_rank)
 
 
 @dataclass(frozen=True)
@@ -488,7 +541,18 @@ def _only(extras: Dict[str, Any], allowed: set, section: str) -> None:
 
 _MODEL_EXTRAS = {"head_style", "dual_head_fusion", "hgt_flash", "hgt_dense_attn_bytes", "value_context"}
 _TRAIN_EXTRAS = {
-    "lab_tile_rows", "lab_tile_mode", "lab_reweighting", "auto_resume",
+    "lab_tile_rows", "lab_tile_mode", "lab_reweighting", "auto_resume", "warm_start",
+    "warm_start_rank", "warm_start_mem_rank", "warm_start_reg", "warm_start_ridge_reg",
+    "warm_start_huber_delta",
+}
+_WARM_STARTS = ("als", "sideinfo", "none", "off", "")
+_MINIBATCH = "Cluster-GCN mini-batch is not ported yet (ROADMAP.md queue 1 item 6)"
+_MULTI_DEVICE = "multi-device training is not ported yet (ROADMAP.md queue 1 item 8)"
+_TRAIN_EXTRAS_NOT_PORTED = {
+    "num_clusters": _MINIBATCH,
+    "host_resident": _MINIBATCH,
+    "parallel": _MULTI_DEVICE,
+    "model_parallel": _MULTI_DEVICE,
 }
 _BASELINES = {"global_mean", "per_lab_mean", "nearest_neighbor", "als", "sideinfo_als"}
 _EVALUATION_EXTRAS = {"conformal_alpha", "conformal_split_fraction", "huber_delta"}

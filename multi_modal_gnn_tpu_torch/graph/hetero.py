@@ -12,7 +12,9 @@ Numpy copies of the JAX package's host-side plan builders
   lie in one ``span_rows``-row block of the source table;
 * :func:`build_dense_adjacency` — the mean-normalized dense adjacency;
 * :func:`build_gather_plan` — the windowed layout of a row gather's backward
-  (:class:`GatherPlan`).
+  (:class:`GatherPlan`);
+* :func:`build_value_plan` — an edge set in source order, for the value
+  context's sums (:class:`ValuePlan`).
 
 :class:`EdgeSet` and :class:`HeteroGraph` keep the JAX field names; their
 tensors are built on the CPU and moved with ``.to(device)``.
@@ -76,6 +78,13 @@ class EdgeSet:
     num_dst: int = 0
     num_windows: int = 0
     span_rows: int = 0  # 0 = no span plan
+    # float32 [E_pad]: which edges' values a forward may read (the value
+    # context channel, models/context.py); the trainer sets it per forward,
+    # None reads the structural mask
+    val_vis: Optional[torch.Tensor] = None
+    # the valid edges in source order, for the value context's sums on the
+    # card (build_value_plan; the trainer attaches it)
+    value_plan: Optional["ValuePlan"] = None
 
     def to(self, device) -> "EdgeSet":
         return dataclasses.replace(
@@ -83,7 +92,7 @@ class EdgeSet:
             **{
                 f.name: getattr(self, f.name).to(device)
                 for f in dataclasses.fields(self)
-                if isinstance(getattr(self, f.name), torch.Tensor)
+                if isinstance(getattr(self, f.name), (torch.Tensor, ValuePlan))
             },
         )
 
@@ -379,6 +388,31 @@ class GatherPlan:
                 if isinstance(getattr(self, f.name), torch.Tensor)
             },
         )
+
+
+@dataclass
+class ValuePlan:
+    """An edge set's valid edges in source order: with the destination-sorted
+    CSR the edge set already holds (``row_ptr``, ``src``), the CSR of its
+    transpose, so each side of a value-weighted sum, and its backward, is
+    one sparse product whose values are set per step."""
+
+    src_order: torch.Tensor  # int64 [E] valid edge positions, stably sorted by source
+    src_row_ptr: torch.Tensor  # int32 [num_src + 1]
+    src_sorted_dst: torch.Tensor  # int32 [E] destination of each edge in that order
+
+    def to(self, device) -> "ValuePlan":
+        return ValuePlan(*(t.to(device) for t in (self.src_order, self.src_row_ptr, self.src_sorted_dst)))
+
+
+def build_value_plan(es: EdgeSet) -> ValuePlan:
+    """:class:`ValuePlan` of ``es``, on its device (once per graph)."""
+    src = es.src[: es.num_valid].long()
+    order = torch.argsort(src, stable=True)
+    counts = torch.bincount(src, minlength=es.num_src)
+    row_ptr = torch.zeros(es.num_src + 1, dtype=torch.int64, device=src.device)
+    row_ptr[1:] = torch.cumsum(counts, 0)
+    return ValuePlan(order, row_ptr.int(), es.dst[: es.num_valid][order].contiguous())
 
 
 def build_gather_plan(idx: np.ndarray, num_rows: int) -> GatherPlan:

@@ -11,9 +11,15 @@ flax leaf                      torch leaf
 ``params .../bias``             ``bias``
 ``params .../embedding``        ``weight``
 ``params .../scale`` (BN)       ``weight``, plus ``num_batches_tracked = 0``
+``params .../bilinear_u``       ``bilinear_u [hidden, rank]`` (as it is)
+``params .../bilinear_l``       ``bilinear_l [hidden, rank]`` (as it is)
 ``batch_stats .../mean``        ``running_mean``
 ``batch_stats .../var``         ``running_var``
 =============================  ===========================================
+
+The bilinear factors are raw parameters, at the model's root (the
+``embedding`` / ``context`` sources) or inside either head (``head``); the
+value-context projections ``vctx_patient`` / ``vctx_lab`` are Dense layers.
 
 The per-relation ``conv_<i>/neigh_<key>`` and ``root_<key>`` stay per
 relation; the layer folds them at call time, as the JAX layer does.  An HGT
@@ -30,7 +36,10 @@ from typing import Dict, Iterator, Tuple
 import numpy as np
 import torch
 
-_PARAM_LEAVES = {"kernel": "weight", "bias": "bias", "embedding": "weight", "scale": "weight"}
+_PARAM_LEAVES = {
+    "kernel": "weight", "bias": "bias", "embedding": "weight", "scale": "weight",
+    "bilinear_u": "bilinear_u", "bilinear_l": "bilinear_l",
+}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -50,12 +59,12 @@ def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
         *mods, leaf = path
         if leaf not in _PARAM_LEAVES:
             raise KeyError(f"no torch counterpart for flax param {'/'.join(path)}")
-        prefix = ".".join(mods)
         if leaf == "kernel":
             arr = arr.T
-        out[f"{prefix}.{_PARAM_LEAVES[leaf]}"] = torch.from_numpy(np.array(arr, dtype=np.float32))
+        key = ".".join([*mods, _PARAM_LEAVES[leaf]])
+        out[key] = torch.from_numpy(np.array(arr, dtype=np.float32))
         if leaf == "scale":
-            out[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+            out[f"{'.'.join(mods)}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     for path, arr in _leaves(variables.get("batch_stats", {})):
         *mods, leaf = path
         if leaf not in _STAT_LEAVES:

@@ -24,7 +24,8 @@ def build_model(
 ) -> Union[HeteroRGCN, HeteroGT]:
     """The configured architecture sized to ``graph``, weights drawn from
     ``generator`` (on the CPU) and moved to ``device`` (default: the card;
-    raises without one)."""
+    raises without one).  The config has already refused the ``context``
+    bilinear source without ``value_context`` (JAX refuses it here)."""
     device = resolve_device(device)
     mc = config.model
     impl = "pallas" if mc.use_pallas else "xla"
@@ -36,6 +37,9 @@ def build_model(
         dropout=mc.dropout,
         head_hidden_dims=mc.edge_head.hidden_dims,
         impl=impl,
+        bilinear_rank=mc.edge_head.bilinear_rank,
+        bilinear_source=mc.edge_head.bilinear_source,
+        value_context=mc.value_context,
         generator=generator,
     )
     if mc.architecture == "HGT":

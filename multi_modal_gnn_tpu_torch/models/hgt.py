@@ -21,6 +21,11 @@ Three interchangeable tiers per destination group, as in the JAX layer:
   (``ops/attention.py``) over the relations' projections stacked in
   ``plan.rel_keys`` order;
 * ``segment`` — per-edge gathers and :func:`segment_softmax`, plain PyTorch.
+
+The RGCN's quality channels come with the same fields and meaning
+(``value_context``, ``bilinear_rank``, ``bilinear_source``; see
+``models/rgcn.py``): the value context is added to the ID embeddings before
+layer 0, and the shared bilinear term reads the raw ID tables.
 """
 
 from __future__ import annotations
@@ -32,9 +37,16 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from multi_modal_gnn_tpu_torch.config import BILINEAR_SOURCES
 from multi_modal_gnn_tpu_torch.graph.hetero import HeteroGraph
 from multi_modal_gnn_tpu_torch.graph.schema import LAB, PATIENT, EdgeTypeKey
-from multi_modal_gnn_tpu_torch.models.layers import EdgeRegressionHead, make_dense
+from multi_modal_gnn_tpu_torch.models.context import inject_value_context
+from multi_modal_gnn_tpu_torch.models.layers import (
+    EdgeRegressionHead,
+    bilinear_factor,
+    make_dense,
+    shared_bilinear_tables,
+)
 from multi_modal_gnn_tpu_torch.ops.attention import flash_attention_group
 from multi_modal_gnn_tpu_torch.ops.attention_kernels import heads_supported
 from multi_modal_gnn_tpu_torch.ops.segment import segment_softmax, segment_sum
@@ -201,12 +213,20 @@ class HeteroGT(nn.Module):
         head_hidden_dims: Sequence[int] = (64, 32),
         dense_attn_max_bytes: int = 134_217_728,
         impl: str = "xla",
+        bilinear_rank: int = 0,
+        bilinear_source: str = "head",
+        value_context: bool = False,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
+        if bilinear_source not in BILINEAR_SOURCES:
+            raise ValueError(f"bilinear_source must be one of {BILINEAR_SOURCES}, got {bilinear_source!r}")
         self.node_counts = tuple(node_counts)
         self.num_layers = num_layers
         self.impl = impl
+        self.bilinear_rank = int(bilinear_rank)
+        self.bilinear_source = bilinear_source
+        self.value_context = bool(value_context)
         for nt, n in self.node_counts:
             emb = nn.Embedding(n, hidden_dim)
             bound = math.sqrt(6.0 / (n + hidden_dim))  # xavier-uniform
@@ -221,11 +241,24 @@ class HeteroGT(nn.Module):
                     impl, generator,
                 ),
             )
-        self.edge_predictor = EdgeRegressionHead(2 * hidden_dim, head_hidden_dims, 1, dropout, generator)
+        head_rank = self.bilinear_rank if bilinear_source == "head" else 0
+        self.edge_predictor = EdgeRegressionHead(
+            2 * hidden_dim, head_hidden_dims, 1, dropout, generator, head_rank
+        )
+        if self.shared_bilinear:
+            self.bilinear_u = bilinear_factor(hidden_dim, self.bilinear_rank, generator)
+            self.bilinear_l = bilinear_factor(hidden_dim, self.bilinear_rank, generator)
+        if self.value_context:
+            self.vctx_patient = make_dense(hidden_dim, hidden_dim + 1, generator=generator)
+            self.vctx_lab = make_dense(hidden_dim, hidden_dim + 1, generator=generator)
 
     @property
     def node_types(self) -> Tuple[str, ...]:
         return tuple(name for name, _ in self.node_counts)
+
+    @property
+    def shared_bilinear(self) -> bool:
+        return self.bilinear_rank > 0 and self.bilinear_source in ("embedding", "context")
 
     def forward(self, graph: HeteroGraph, train: bool = False) -> Dict[str, torch.Tensor]:
         """Final node states.  The last layer computes only the groups the
@@ -234,6 +267,8 @@ class HeteroGT(nn.Module):
         step, so under ``jit`` the JAX step drops the other groups as dead
         code too; the other types keep their previous states."""
         x_dict = {nt: getattr(self, f"embed_{nt}").weight for nt in self.node_types}
+        if self.value_context:
+            x_dict = inject_value_context(x_dict, graph, self.vctx_patient, self.vctx_lab)
         for i in range(self.num_layers):
             last = i == self.num_layers - 1
             x_dict = getattr(self, f"hgt_{i}")(x_dict, graph, READ_TYPES if last else None)
@@ -255,7 +290,11 @@ class HeteroGT(nn.Module):
         accepted and not used: HGT has no degree gate, and the head's
         dropout draws from torch's generator."""
         x_dict = self(graph, train)
-        return self._head(x_dict[PATIENT], x_dict[LAB], p_idx, l_idx, train)
+        pred = self._head(x_dict[PATIENT], x_dict[LAB], p_idx, l_idx, train)
+        if self.shared_bilinear:
+            u, c = shared_bilinear_tables(self, graph)
+            pred = pred + (u.index_select(0, p_idx.long()) * c.index_select(0, l_idx.long())).sum(-1)
+        return pred
 
     def _head(self, final_p, final_l, p_idx, l_idx, train: bool = False) -> torch.Tensor:
         # index_select: its backward is an index_add_, where the backward of
@@ -271,7 +310,13 @@ class HeteroGT(nn.Module):
         if self.training:
             raise RuntimeError("compute_node_state is an eval-mode forward: call model.eval() first")
         x_dict = self(graph)
-        return {"final_p": x_dict[PATIENT].detach(), "final_l": x_dict[LAB].detach()}
+        state = {"final_p": x_dict[PATIENT], "final_l": x_dict[LAB]}
+        if self.shared_bilinear:
+            state["bl_u"], state["bl_l"] = shared_bilinear_tables(self, graph)
+        return {k: v.detach() for k, v in state.items()}
 
     def predict_pairs_cached(self, state: Dict[str, torch.Tensor], p_idx, l_idx) -> torch.Tensor:
-        return self._head(state["final_p"], state["final_l"], p_idx, l_idx)
+        pred = self._head(state["final_p"], state["final_l"], p_idx, l_idx)
+        if "bl_u" in state:
+            pred = pred + (state["bl_u"][p_idx] * state["bl_l"][l_idx]).sum(-1)
+        return pred

@@ -21,6 +21,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from multi_modal_gnn_tpu_torch.graph.hetero import GatherPlan
+from multi_modal_gnn_tpu_torch.graph.schema import PATIENT_LAB
+from multi_modal_gnn_tpu_torch.models.context import patient_value_context
 from multi_modal_gnn_tpu_torch.ops.pairhead import fused_pair_head
 from multi_modal_gnn_tpu_torch.ops.pairhead_kernels import head_widths_supported
 from multi_modal_gnn_tpu_torch.ops.segment import take_with_plan
@@ -43,6 +45,32 @@ def make_dense(
         if bias:
             layer.bias.uniform_(-bound, bound, generator=generator)
     return layer
+
+
+def bilinear_factor(rows: int, rank: int, generator: Optional[torch.Generator] = None) -> nn.Parameter:
+    """A ``[rows, rank]`` factor of the low-rank bilinear term, drawn from
+    ``N(0, 1 / rows)`` (the flax init's scale); no transpose in the bridge."""
+    return nn.Parameter(torch.randn(rows, rank, generator=generator) / math.sqrt(rows))
+
+
+def shared_bilinear_tables(model: nn.Module, graph) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The projected ``[N, rank]`` patient and lab tables of a model's
+    shared bilinear term (``bilinear_source`` ``embedding`` or
+    ``context``): the raw patient ID table, or each patient's value context
+    over the raw lab table, against the raw lab table (JAX
+    ``rgcn.py:488-531``, ``hgt.py:331-367``)."""
+    lab = model.embed_lab.weight
+    if model.bilinear_source == "embedding":
+        u = model.embed_patient.weight
+    else:
+        u, _ = patient_value_context(lab, graph.edges[PATIENT_LAB])
+    return u @ model.bilinear_u, lab @ model.bilinear_l
+
+
+def take_rows(x: torch.Tensor, idx: torch.Tensor, plan: Optional[GatherPlan]) -> torch.Tensor:
+    """:func:`take_with_plan` for tables whose rows K1 takes (a multiple of
+    4 wide); a plain gather for narrower or odd ranks."""
+    return take_with_plan(x, idx, plan if x.shape[1] % 4 == 0 else None)
 
 
 ACTIVATIONS: dict[str, Callable] = {
@@ -88,7 +116,10 @@ class FlaxBatchNorm(nn.BatchNorm1d):
 class EdgeRegressionHead(nn.Module):
     """MLP over concatenated ``[h_patient; h_lab]``: per hidden layer
     Linear -> ReLU -> Dropout, then a final Linear.  Submodules keep the
-    flax names (``dense_0`` ... ``dense_out``)."""
+    flax names (``dense_0`` ... ``dense_out``).
+
+    ``bilinear_rank > 0`` adds ``<h_patient A, h_lab B>`` with ``[D, rank]``
+    factors ``bilinear_u`` / ``bilinear_l`` (the ``head`` bilinear source)."""
 
     def __init__(
         self,
@@ -97,6 +128,7 @@ class EdgeRegressionHead(nn.Module):
         output_dim: int = 1,
         dropout: float = 0.2,
         generator: Optional[torch.Generator] = None,
+        bilinear_rank: int = 0,
     ):
         super().__init__()
         dims = [input_dim, *hidden_dims]
@@ -105,11 +137,20 @@ class EdgeRegressionHead(nn.Module):
             self.add_module(name, make_dense(dims[i + 1], dims[i], generator=generator))
         self.dense_out = make_dense(output_dim, dims[-1], generator=generator)
         self.dropout = float(dropout)
+        self.bilinear_rank = int(bilinear_rank)
+        if self.bilinear_rank > 0:
+            self.bilinear_u = bilinear_factor(input_dim // 2, self.bilinear_rank, generator)
+            self.bilinear_l = bilinear_factor(input_dim // 2, self.bilinear_rank, generator)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        pair = x
         for name in self.hidden_names:
             x = F.dropout(F.relu(getattr(self, name)(x)), self.dropout, train)
-        return self.dense_out(x)
+        out = self.dense_out(x)
+        if self.bilinear_rank > 0:
+            u, c = pair.chunk(2, dim=-1)
+            out = out + ((u @ self.bilinear_u) * (c @ self.bilinear_l)).sum(-1, keepdim=True)
+        return out
 
 
 class FactoredEdgeHead(nn.Module):
@@ -125,7 +166,14 @@ class FactoredEdgeHead(nn.Module):
     (through :func:`take_with_plan` where plans are given) and the MLP runs
     as torch layers.  ``project_only`` hands the caller the node projections
     and the MLP's pieces instead (``HeteroRGCN``'s dual-head fusion), read
-    from the same parameters."""
+    from the same parameters.
+
+    ``bilinear_rank > 0`` adds ``<x_p[p] A, x_l[l] B>`` (the ``head``
+    bilinear source): the node tables are projected to rank width first and
+    the narrow rows gathered, through :func:`take_with_plan` where plans are
+    given; on the fused path it is added after the kernel's output, as in
+    JAX.  The dual-head call (``project_only``) does not carry it: the
+    model runs single heads then."""
 
     def __init__(
         self,
@@ -134,6 +182,7 @@ class FactoredEdgeHead(nn.Module):
         output_dim: int = 1,
         dropout: float = 0.2,
         generator: Optional[torch.Generator] = None,
+        bilinear_rank: int = 0,
     ):
         super().__init__()
         h0 = hidden_dims[0]
@@ -149,6 +198,10 @@ class FactoredEdgeHead(nn.Module):
             )
         self.dense_out = make_dense(output_dim, hidden_dims[-1], generator=generator)
         self.dropout = float(dropout)
+        self.bilinear_rank = int(bilinear_rank)
+        if self.bilinear_rank > 0:
+            self.bilinear_u = bilinear_factor(node_dim, self.bilinear_rank, generator)
+            self.bilinear_l = bilinear_factor(node_dim, self.bilinear_rank, generator)
 
     def fused_widths(self) -> bool:
         """Whether the fused pair-head kernels take this head's widths."""
@@ -187,13 +240,18 @@ class FactoredEdgeHead(nn.Module):
                 l_idx, patient_plan.win_local, patient_plan.win_tile_map, seed, tile_mask,
                 patient_plan.lab_block_map, patient_plan.num_windows, rate,
                 patient_plan.lab_block_rows, patient_plan.lab_span_mode,
-            )
-            return out[:, None]
-        x = take_with_plan(proj_p, p_idx, patient_plan) + take_with_plan(proj_l, l_idx, lab_plan)
-        x = F.dropout(F.relu(x), rate, train)
-        for name in self.hidden_names:
-            x = F.dropout(F.relu(getattr(self, name)(x)), rate, train)
-        return self.dense_out(x)
+            )[:, None]
+        else:
+            x = take_with_plan(proj_p, p_idx, patient_plan) + take_with_plan(proj_l, l_idx, lab_plan)
+            x = F.dropout(F.relu(x), rate, train)
+            for name in self.hidden_names:
+                x = F.dropout(F.relu(getattr(self, name)(x)), rate, train)
+            out = self.dense_out(x)
+        if self.bilinear_rank > 0:
+            u = take_rows(x_p_nodes @ self.bilinear_u, p_idx, patient_plan)
+            c = take_rows(x_l_nodes @ self.bilinear_l, l_idx, lab_plan)
+            out = out + (u * c).sum(-1, keepdim=True)
+        return out
 
 
 class PatientEncoder(nn.Module):

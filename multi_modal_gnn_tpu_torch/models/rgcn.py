@@ -7,6 +7,13 @@ degree-gated dual edge heads.  Submodules keep the flax names
 (``embed_<type>``, ``conv_<i>.neigh_<relation>``, ``bn_<i>_<type>``, ...), so
 the weight bridge maps parameters one for one.
 
+Two opt-in quality channels, as in JAX: ``value_context`` adds the
+observed-value aggregation before layer 0 (``models/context.py``), and
+``bilinear_rank > 0`` adds a low-rank bilinear term to the prediction, read
+from each head's inputs (``bilinear_source="head"``), from the raw ID
+tables (``"embedding"``, the channel the ALS warm start plants into) or
+from the patient's value context over the raw lab table (``"context"``).
+
 Training runs :meth:`HeteroRGCN.predict_lab_values` with ``train=True``,
 the batch's gather plans and its per-slot degrees.  The serving section
 (:meth:`HeteroRGCN.compute_node_state`, :meth:`HeteroRGCN.predict_pairs_cached`)
@@ -23,15 +30,20 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from multi_modal_gnn_tpu_torch.config import BILINEAR_SOURCES
 from multi_modal_gnn_tpu_torch.graph.hetero import TILE_E, GatherPlan, HeteroGraph
 from multi_modal_gnn_tpu_torch.graph.schema import LAB, PATIENT, EdgeTypeKey, mirror_edge_type
+from multi_modal_gnn_tpu_torch.models.context import inject_value_context
 from multi_modal_gnn_tpu_torch.models.layers import (
     EdgeRegressionHead,
     FactoredEdgeHead,
     FlaxBatchNorm,
     PatientEncoder,
+    bilinear_factor,
     get_activation,
     make_dense,
+    shared_bilinear_tables,
+    take_rows,
 )
 from multi_modal_gnn_tpu_torch.ops.pairhead import fused_pair_head_dual
 from multi_modal_gnn_tpu_torch.ops.segment import aggregate_neighbors, take_with_plan
@@ -118,11 +130,16 @@ class HeteroRGCN(nn.Module):
         impl: str = "xla",
         head_style: str = "concat",
         dual_head_fusion: str = "auto",
+        bilinear_rank: int = 0,
+        bilinear_source: str = "head",
+        value_context: bool = False,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         if head_style not in ("concat", "factored"):
             raise ValueError(f"head_style must be concat|factored, got {head_style!r}")
+        if bilinear_source not in BILINEAR_SOURCES:
+            raise ValueError(f"bilinear_source must be one of {BILINEAR_SOURCES}, got {bilinear_source!r}")
         self.node_counts = tuple(node_counts)
         self.num_layers = num_layers
         self.use_batch_norm = use_batch_norm
@@ -130,6 +147,9 @@ class HeteroRGCN(nn.Module):
         self.head_style = head_style
         self.dual_head_fusion = dual_head_fusion
         self.impl = impl
+        self.bilinear_rank = int(bilinear_rank)
+        self.bilinear_source = bilinear_source
+        self.value_context = bool(value_context)
         self.act = get_activation(activation)
         for nt, n in self.node_counts:
             emb = nn.Embedding(n, hidden_dim)
@@ -148,13 +168,31 @@ class HeteroRGCN(nn.Module):
             if use_batch_norm:
                 for nt in self.node_types:
                     self.add_module(f"bn_{i}_{nt}", FlaxBatchNorm(hidden_dim))
+        head_rank = self.head_rank
         for name in ("edge_predictor", "tabular_mlp"):
             if head_style == "factored":
-                head = FactoredEdgeHead(hidden_dim, head_hidden_dims, 1, dropout, generator)
+                head = FactoredEdgeHead(hidden_dim, head_hidden_dims, 1, dropout, generator, head_rank)
             else:
-                head = EdgeRegressionHead(2 * hidden_dim, head_hidden_dims, 1, dropout, generator)
+                head = EdgeRegressionHead(2 * hidden_dim, head_hidden_dims, 1, dropout, generator, head_rank)
             self.add_module(name, head)
+        if self.shared_bilinear:
+            self.bilinear_u = bilinear_factor(hidden_dim, self.bilinear_rank, generator)
+            self.bilinear_l = bilinear_factor(hidden_dim, self.bilinear_rank, generator)
+        if self.value_context:
+            # input: the value-weighted mean context (hidden) and the visible share (1)
+            self.vctx_patient = make_dense(hidden_dim, hidden_dim + 1, generator=generator)
+            self.vctx_lab = make_dense(hidden_dim, hidden_dim + 1, generator=generator)
         self.dropout = float(dropout)
+
+    @property
+    def head_rank(self) -> int:
+        """The rank of each head's own bilinear term (the ``head`` source)."""
+        return self.bilinear_rank if self.bilinear_source == "head" else 0
+
+    @property
+    def shared_bilinear(self) -> bool:
+        """One bilinear term over the raw tables (``embedding`` / ``context``)."""
+        return self.bilinear_rank > 0 and self.bilinear_source in ("embedding", "context")
 
     @property
     def node_types(self) -> Tuple[str, ...]:
@@ -170,6 +208,8 @@ class HeteroRGCN(nn.Module):
     def propagate(
         self, x_dict: Dict[str, torch.Tensor], graph: HeteroGraph, train: bool = False
     ) -> Dict[str, torch.Tensor]:
+        if self.value_context:
+            x_dict = inject_value_context(x_dict, graph, self.vctx_patient, self.vctx_lab)
         for i in range(self.num_layers):
             x_dict = getattr(self, f"conv_{i}")(x_dict, graph)
             if self.use_batch_norm:
@@ -190,10 +230,12 @@ class HeteroRGCN(nn.Module):
         JAX also asks for eval mode, dropout 0 or a TPU there, because its
         in-kernel dropout lowers only on the TPU; K5 draws its bits in the
         kernel as the TPU kernel does, and its plain version draws the same
-        bits, so the port takes the dual path at any dropout."""
+        bits, so the port takes the dual path at any dropout.  Heads with
+        their own bilinear term (the ``head`` source) run single, as in JAX."""
         want = self.dual_head_fusion == "on" or (self.dual_head_fusion == "auto" and tab_mask is None)
         return (
             want
+            and self.head_rank == 0
             and patient_plan is not None
             and patient_plan.identity
             and not patient_plan.lab_block_rows
@@ -280,12 +322,18 @@ class HeteroRGCN(nn.Module):
         initial = self.encode_nodes(train)
         final = self.propagate(initial, graph, train)
         use_plans = self.impl == "pallas"
+        patient_plan = patient_plan if use_plans else None
+        lab_plan = lab_plan if use_plans else None
         gate = degrees if degrees is not None else graph.patient_lab_degree[p_idx.long()]
-        return self._heads(
+        pred = self._heads(
             initial[PATIENT], initial[LAB], final[PATIENT], final[LAB], p_idx, l_idx, gate,
-            train, patient_plan if use_plans else None, lab_plan if use_plans else None,
-            dropout_seed, mask_degrees=degrees,
+            train, patient_plan, lab_plan, dropout_seed, mask_degrees=degrees,
         )
+        if self.shared_bilinear:
+            # tables projected to rank width first, then the narrow rows gathered
+            u, c = shared_bilinear_tables(self, graph)
+            pred = pred + (take_rows(u, p_idx, patient_plan) * take_rows(c, l_idx, lab_plan)).sum(-1)
+        return pred
 
     def compute_node_state(self, graph: HeteroGraph) -> Dict[str, torch.Tensor]:
         """Everything :meth:`predict_pairs_cached` needs, from one eval-mode
@@ -301,11 +349,17 @@ class HeteroRGCN(nn.Module):
             "final_l": final[LAB],
             "degree": graph.patient_lab_degree,
         }
+        # the head source's factors live in the heads, which the request path runs
+        if self.shared_bilinear:
+            state["bl_u"], state["bl_l"] = shared_bilinear_tables(self, graph)
         return {k: v.detach() for k, v in state.items()}
 
     def predict_pairs_cached(self, state: Dict[str, torch.Tensor], p_idx, l_idx) -> torch.Tensor:
         """``predict_lab_values`` in eval mode, from a node-state dict."""
-        return self._heads(
+        pred = self._heads(
             state["init_p"], state["init_l"], state["final_p"], state["final_l"], p_idx, l_idx,
             state["degree"][p_idx],
         )
+        if "bl_u" in state:
+            pred = pred + (state["bl_u"][p_idx] * state["bl_l"][l_idx]).sum(-1)
+        return pred

@@ -10,7 +10,8 @@ Each seed gets a copy of the config (written by ``save_config``) with
 ``logging.log_file`` inside a temporary directory, so nothing is written to
 the repo.  Each run is ``python -m multi_modal_gnn_tpu_torch.pipeline``
 (steps 1-5, 7 and 8) on ``--device``.  The data seed stays the config's.
-Prints one JSON line.  The JAX package's band at the same seeds comes from
+A warm-start band runs ``--config`` on the file that
+:func:`warm_start_config` derives.  Prints one JSON line.  The JAX package's band at the same seeds comes from
 ``scripts/flagship_band_jax.py``.
 """
 
@@ -57,6 +58,23 @@ def seed_config(config_path, seed: int, workdir: Path, **sections):
         cfg = cfg.replace(**{name: dataclasses.replace(section, **fields)})
     save_config(cfg, workdir / "config.yaml")
     return cfg
+
+
+def warm_start_config(config_path, out_path, warm_start: str = "sideinfo") -> Path:
+    """Write the config at ``config_path`` with ``train.extras.warm_start``
+    set and the bilinear channel it plants into written out
+    (``training.warmstart.wire_warm_start``: ``bilinear_rank`` 17 for
+    ``sideinfo`` at the default ranks 8 and 8, ``bilinear_source:
+    embedding``) to ``out_path``, by ``save_config``.  Written out, every
+    pipeline step builds the model the train step trained: a config that
+    leaves the wiring to ``train_pipeline`` trains a model whose checkpoint
+    the later steps refuse (its model hash differs), in both packages."""
+    from multi_modal_gnn_tpu_torch.config import load_config, save_config
+    from multi_modal_gnn_tpu_torch.training.warmstart import wire_warm_start
+
+    cfg = load_config(config_path)
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, extras={**cfg.train.extras, "warm_start": warm_start}))
+    return save_config(wire_warm_start(cfg), out_path)
 
 
 def read_result(out_dir: Path) -> Dict:

@@ -221,6 +221,8 @@ class EdgeMasker:
         self._l = es.dst.cpu().numpy()[mask].astype(np.int32)
         self._v = es.val.cpu().numpy()[mask].astype(np.float32)
         self.num_edges = int(len(self._p))
+        # split positions are edge-array positions only if the valid edges lead
+        self._valid_lead = bool(mask[: self.num_edges].all())
 
         rng = np.random.default_rng(self.seed)
         perm = rng.permutation(self.num_edges)
@@ -282,6 +284,27 @@ class EdgeMasker:
         """Host (patient_idx, lab_idx, values) without padding."""
         idx = self._split_indices[split]
         return self._p[idx], self._l[idx], self._v[idx]
+
+    def split_edge_positions(self, split: str) -> np.ndarray:
+        """Position of each of the split's rows in the padded patient->lab
+        edge arrays: the valid edges lead those arrays in their
+        (destination-sorted) order (``graph/hetero.py pad_edge_set``), so
+        a position in the valid edge list is one in the padded arrays."""
+        return np.asarray(self._split_indices[split])
+
+    def visibility_base(self, num_padded: int) -> np.ndarray:
+        """float32[num_padded] value-visibility template over the padded
+        patient->lab edges: 1 at train edges, 0 at val / test / "cal" edges
+        and padding (JAX ``EdgeMasker.visibility_base``).  Eval forwards
+        read it as it is; the train step also hides the epoch's supervised
+        edges."""
+        if num_padded < self.num_edges:
+            raise ValueError(f"num_padded={num_padded} < {self.num_edges} valid edges")
+        if not self._valid_lead:
+            raise ValueError("the graph's valid patient->lab edges do not lead its edge arrays")
+        base = np.zeros(num_padded, dtype=np.float32)
+        base[self._split_indices["train"]] = 1.0
+        return base
 
     def train_positions(self) -> np.ndarray:
         """int32[B_pad] edge-list position of each train-batch slot (padding

@@ -14,6 +14,13 @@ Optimizer: ``torch.optim.Adam`` with ``weight_decay``, which adds
 of the JAX chain ``add_decayed_weights -> adam``.  ``embedding_weight_decay``
 adds to it on the ``embed_*`` tables, as the JAX masked decay does.
 
+With the value-context channel (``model.extras.value_context``) the graph
+carries the visibility template (train edges' values visible, val / test
+hidden) and each train step also hides the epoch's supervised edges
+(:meth:`Trainer._visible_graph`), on the device; eval forwards read the
+template as it is.  ``train.extras.warm_start`` plants the ALS or
+side-information baseline before ``fit`` (``training/warmstart.py``).
+
 Every draw of an epoch (supervision mask, dropout) is keyed by (seed,
 epoch), so a run restored from a checkpoint (:meth:`Trainer.restore`) continues as the unbroken run would:
 bit for bit on the CPU; on the card within the order of the kernels' float
@@ -23,6 +30,7 @@ atomics.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import logging
 import time
 from pathlib import Path
@@ -33,8 +41,8 @@ import torch
 
 from multi_modal_gnn_tpu_torch.config import Config
 from multi_modal_gnn_tpu_torch.graph.attn_plan import ensure_attn_plans
-from multi_modal_gnn_tpu_torch.graph.hetero import HeteroGraph
-from multi_modal_gnn_tpu_torch.graph.schema import LAB
+from multi_modal_gnn_tpu_torch.graph.hetero import HeteroGraph, build_value_plan
+from multi_modal_gnn_tpu_torch.graph.schema import LAB, PATIENT_LAB
 from multi_modal_gnn_tpu_torch.models.factory import build_model
 from multi_modal_gnn_tpu_torch.models.losses import (
     compute_lab_weights,
@@ -56,6 +64,7 @@ from multi_modal_gnn_tpu_torch.training.masker import (
     masker_from_config,
 )
 from multi_modal_gnn_tpu_torch.training.schedulers import build_scheduler
+from multi_modal_gnn_tpu_torch.training.warmstart import warm_start_from_config, wire_warm_start
 from multi_modal_gnn_tpu_torch.utils.device import resolve_device
 from multi_modal_gnn_tpu_torch.utils.io import save_json
 from multi_modal_gnn_tpu_torch.utils.profiling import MetricsWriter
@@ -99,6 +108,17 @@ class Trainer:
         self.masker = masker
         self.config = config
         tc = config.train
+        # value visibility: the template rides on the graph, so every eval
+        # forward (and the serving state) conditions on the train values only
+        self._value_context = bool(getattr(self.model, "value_context", False))
+        if self._value_context:
+            es = self.graph.edges[PATIENT_LAB]
+            base = torch.from_numpy(masker.visibility_base(es.src.shape[0])).to(self.device)
+            es = dataclasses.replace(es, val_vis=base, value_plan=build_value_plan(es))
+            edges = {**self.graph.edges, PATIENT_LAB: es}
+            self.graph = dataclasses.replace(self.graph, edges=edges)
+            # each train-batch slot's edge position (padding slots: 0)
+            self._vis_train_pos = torch.from_numpy(masker.train_positions()).long().to(self.device)
         self.optimizer = build_optimizer(self.model, tc)
         # every parameter gets a gradient, zero where the loss does not reach
         # it (the RGCN's last non-patient, non-lab BatchNorms; the HGT's last
@@ -139,12 +159,26 @@ class Trainer:
 
     # -- steps -------------------------------------------------------------
 
+    def _visible_graph(self, sup_mask: torch.Tensor) -> HeteroGraph:
+        """The graph with the train step's value visibility: the template
+        with the supervised train edges hidden too, so no edge reads its own
+        target (JAX ``Trainer._visible_graph``, single device).  Padding
+        slots point at position 0 with supervision 0: the product over every
+        slot's factor keeps edge 0 hidden when it is supervised, whatever
+        the order of the duplicate writes."""
+        if not self._value_context:
+            return self.graph
+        es = self.graph.edges[PATIENT_LAB]
+        vis = es.val_vis.clone().index_reduce_(0, self._vis_train_pos, 1.0 - sup_mask, "prod")
+        edges = {**self.graph.edges, PATIENT_LAB: dataclasses.replace(es, val_vis=vis)}
+        return dataclasses.replace(self.graph, edges=edges)
+
     def _train_step(self, batch: SplitBatch, sup_mask: torch.Tensor, dropout_seed: int) -> torch.Tensor:
         """One forward, weighted masked loss, backward and Adam step; the
-        loss stays on the device."""
+        loss stays on the device.  ``batch`` is the train batch."""
         self.model.train()
         preds = self.model.predict_lab_values(
-            self.graph, batch.patient_idx, batch.lab_idx, train=True,
+            self._visible_graph(sup_mask), batch.patient_idx, batch.lab_idx, train=True,
             patient_plan=batch.patient_plan, lab_plan=batch.lab_plan, degrees=batch.degrees,
             dropout_seed=dropout_seed,
         )
@@ -451,16 +485,22 @@ def train_pipeline(
     ``output_dir`` (``scan_chunk`` from ``train.scan_chunk``), then the best
     state's test loss in ``test_results.json``.  Runs on ``device``
     (default: the card; raises without one), under
-    ``config.reproducibility`` (:func:`apply_reproducibility`)."""
+    ``config.reproducibility`` (:func:`apply_reproducibility`).
+
+    ``train.extras.warm_start: als | sideinfo`` wires the bilinear channel
+    into the model config (:func:`~multi_modal_gnn_tpu_torch.training.warmstart.wire_warm_start`)
+    and plants the baseline before ``fit``, as JAX ``train_pipeline`` does."""
     debug_context = apply_reproducibility(config)
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
+    config = wire_warm_start(config)
     tc = config.train
     masker = masker_from_config(config, graph)
     logger.info("Edge splits: %s", masker.split_sizes())
     generator = torch.Generator().manual_seed(stream_seed(tc.seed, "init"))
     model = build_model(config, graph, device=device, generator=generator)
     trainer = Trainer(model, graph, masker, config, device=device)
+    warm_start_from_config(trainer, config)
     with debug_context:
         trainer.fit(output_dir=output_dir, resume_from=resume_from, scan_chunk=tc.scan_chunk)
     test_loss = trainer.validate("test", state=trainer.best_state)

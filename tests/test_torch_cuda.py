@@ -1563,3 +1563,74 @@ def test_serving_artifact_on_the_card(gpu, arch, tmp_path):
             for p, l in requests:  # the 700 pairs run as 256, 256 and 188
                 want = models[exported_on](p, l).cpu().numpy()  # the exported state's answers
                 np.testing.assert_allclose(served.predict(p, l), want, **TOL)
+
+
+VC_CASES = [("RGCN", "context", 8), ("RGCN", "head", 8), ("RGCN", "embedding", 9), ("HGT", "embedding", 9),
+            ("HGT", "context", 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,source,rank", VC_CASES, ids=["-".join(map(str, c)) for c in VC_CASES])
+def test_value_context_step_on_the_card_matches_the_plain_versions(gpu, arch, source, rank):
+    """One train step with value context and a bilinear source (dropout 0,
+    the same numpy supervision mask): the knockout equals the CPU's exactly,
+    the loss follows the plain versions' within ``rtol 1e-5`` and every
+    gradient within ``1e-2`` of its norm plus ``1e-5`` of the largest norm
+    (a bias feeding a BatchNorm has a gradient of exactly 0, which both
+    sides give as rounding noise: 1.8e-8 against a largest norm of 1.6e-2
+    on an H100); the path's kernels launch."""
+    head = {"bilinear_rank": rank, "bilinear_source": source}
+    config = Config(
+        graph=GraphConfig(dense_adjacency_max_bytes=0),
+        model=ModelConfig(
+            architecture=arch, use_pallas=True, dropout=0.0,
+            extras={"head_style": "factored", "value_context": True, "hgt_dense_attn_bytes": 0},
+            edge_head=dataclasses.replace(ModelConfig().edge_head, extras=head),
+        ),
+    )
+    graph = make_synthetic_graph(LIFECYCLE_SPEC, config, device="cpu")
+    out = {}
+    for dev in (gpu, torch.device("cpu")):
+        trainer = _lifecycle_trainer(config, graph, dev)
+        batch = trainer.get_batch("train")
+        sup = (np.random.default_rng(0).random(batch.valid.shape[0]) < 0.3) * batch.valid.cpu().numpy()
+        sup = torch.from_numpy(sup.astype(np.float32)).to(dev)
+        for counts in (sk, pk, ak):
+            counts.reset_launch_counts()
+        vis = trainer._visible_graph(sup).edges[("patient", "has_lab", "lab")].val_vis.cpu()
+        loss = trainer.train_step(batch, sup, 0)
+        launched = {**sk.launch_counts, **pk.launch_counts, **ak.launch_counts}
+        out[dev.type] = (vis, loss, {n: p.grad.cpu() for n, p in trainer.model.named_parameters()}, launched)
+    (vis, loss, grads, launched), (vis_ref, loss_ref, grads_ref, _) = out["cuda"], out["cpu"]
+    assert torch.equal(vis, vis_ref)
+    if arch == "RGCN":
+        path = ("segment_sum_windowed", "fused_table_segment_sum", "fused_table_segment_sum_bwd",
+                "pair_head_fwd", "pair_head_bwd")
+    else:
+        path = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv")
+    assert all(launched[name] for name in path), launched
+    np.testing.assert_allclose(loss, loss_ref, rtol=1e-5)
+    floor = 1e-5 * max(float(g.norm()) for g in grads_ref.values())
+    for name, g in grads_ref.items():
+        err = float((grads[name] - g).norm())
+        assert err <= 1e-2 * float(g.norm()) + floor, f"{name}: ||d|| {err:.3e}, ||ref|| {float(g.norm()):.3e}"
+
+
+@pytest.mark.cuda
+def test_side_information_warm_start_on_the_card(gpu):
+    """Right after the plant the card's predictions are the baseline's."""
+    from multi_modal_gnn_tpu_torch.training import bundle_membership_matrix, warm_start_trainer
+
+    head = {"bilinear_rank": 17, "bilinear_source": "embedding"}
+    config = Config(
+        graph=GraphConfig(dense_adjacency_max_bytes=0),
+        model=ModelConfig(use_pallas=True, extras={"head_style": "factored"},
+                          edge_head=dataclasses.replace(ModelConfig().edge_head, extras=head)),
+    )
+    graph = make_synthetic_graph(LIFECYCLE_SPEC, config, device="cpu")
+    trainer = _lifecycle_trainer(config, graph, gpu)
+    baseline = warm_start_trainer(trainer, memberships=bundle_membership_matrix(graph))
+    p, l, _ = trainer.masker.split_arrays("val")
+    np.testing.assert_allclose(trainer.predict("val"), baseline.predict(p, l), atol=1e-4)
+    assert trainer.best_val_loss == trainer.validate()
+    assert np.isfinite(trainer.train_epoch())

@@ -202,11 +202,11 @@ def test_config_accepts_jax_to_dict():
         {"architecture": "GAT"},
         {"compute_dtype": "bfloat16"},
         {"compute_dtype": "auto"},
-        {"value_context": True},
-        {"edge_head": {"bilinear_rank": 4}},
+        {"edge_head": {"bilinear_rank": 4, "bilinear_source": "context"}},
+        {"edge_head": {"bilinear_rank": 4, "bilinear_source": "hidden"}},
         {"unknown_knob": 1},
-        {"architecture": "HGT", "value_context": True},
-        {"architecture": "HGT", "edge_head": {"bilinear_rank": 4}},
+        {"architecture": "HGT", "edge_head": {"bilinear_rank": 4, "bilinear_source": "context"}},
+        {"architecture": "HGT", "edge_head": {"extras": {"bilinear_rank": 4}}},
         {"architecture": "HGT", "num_heads": 3},
         {"architecture": "HGT", "extras": {"hgt_flash": "always"}},
     ],
@@ -214,6 +214,28 @@ def test_config_accepts_jax_to_dict():
 def test_config_rejects_unsupported(model):
     with pytest.raises(port_config.ConfigError):
         port_config.Config.from_dict({"model": model})
+
+
+@pytest.mark.parametrize(
+    "model",
+    [
+        {"value_context": True},
+        {"edge_head": {"bilinear_rank": 4}},
+        {"architecture": "HGT", "value_context": True},
+        {"architecture": "HGT", "edge_head": {"bilinear_rank": 4}},
+    ],
+)
+def test_config_takes_the_quality_channels(model):
+    """The four settings the port refused before the value-context slice
+    load, and write JAX's dict and model hash."""
+    d = JaxConfig().to_dict()
+    d["model"].update({k: v for k, v in model.items() if k != "edge_head"})
+    d["model"]["edge_head"].update(model.get("edge_head", {}))
+    cfg, jax_cfg = port_config.Config.from_dict(d), JaxConfig.from_dict(d)
+    assert cfg.to_dict() == jax_cfg.to_dict()
+    assert cfg.model_hash() == jax_cfg.model_hash()
+    assert cfg.model.value_context == bool(model.get("value_context"))
+    assert cfg.model.edge_head.bilinear_rank == model.get("edge_head", {}).get("bilinear_rank", 0)
 
 
 def test_config_reads_the_jax_hgt_settings():

@@ -20,7 +20,11 @@ inverse of ``models/convert.py``'s bridge, held to it).  Then:
   (float64 numpy), a JAX-written ``coldstart.npz`` served by the port gives
   JAX's answers, and ``calibrate_cold_start`` radii equal JAX's on the same
   splits and factors, with and without a "cal" split;
-* ``_as_index`` checks a host batch without touching the device.
+* ``_as_index`` checks a host batch without touching the device;
+* a factored RGCN with value context and the ``context`` or ``head``
+  bilinear source: the port's artifact (``bl_u`` / ``bl_l`` in its state,
+  or the heads' own factors) against the trainer and the JAX artifact of
+  the same weights.
 """
 
 import dataclasses
@@ -106,14 +110,16 @@ def _flax_variables(model) -> dict:
             leaf_names[name] = {"weight": "kernel", "bias": "bias"}
         elif isinstance(module, torch.nn.BatchNorm1d):
             leaf_names[name] = {"weight": "scale", "bias": "bias", "running_mean": "mean", "running_var": "var"}
+        else:  # the bilinear factors, raw parameters of the model or a head
+            leaf_names[name] = {"bilinear_u": "bilinear_u", "bilinear_l": "bilinear_l"}
     variables = {"params": {}}
     for key, value in model.state_dict().items():
-        mod, leaf = key.rsplit(".", 1)
+        mod, _, leaf = key.rpartition(".")
         if leaf == "num_batches_tracked":
             continue
         section = "batch_stats" if leaf.startswith("running_") else "params"
         node = variables.setdefault(section, {})
-        for part in mod.split("."):
+        for part in filter(None, mod.split(".")):
             node = node.setdefault(part, {})
         arr = value.detach().numpy()
         node[leaf_names[mod][leaf]] = arr.T if leaf_names[mod][leaf] == "kernel" else arr
@@ -241,6 +247,39 @@ def test_programs_hold_no_weights(tmp_path):
     p, l = _pairs(100, seed=4, num_p=8000)
     fn, _ = build_trainer_serving_fn(trainer)
     np.testing.assert_allclose(ServingModel.load(tmp_path, device="cpu").predict(p, l), fn(p, l).numpy(), **TOL)
+
+
+@pytest.mark.parametrize("source", ["context", "head"])
+def test_value_context_artifact_answers_like_jax(tmp_path, source):
+    """A factored RGCN with value context and the ``context`` (or ``head``)
+    bilinear source, trained 2 epochs by the port: its artifact carries
+    ``bl_u`` / ``bl_l`` in the state (computed under the eval visibility
+    template), or each head's own factors among the head parameters, and
+    answers like the trainer and like the JAX artifact of the same weights."""
+    jcfg = _jax_config(dict(architecture="RGCN", extras={"head_style": "factored", "value_context": True}))
+    head = dataclasses.replace(jcfg.model.edge_head, extras={"bilinear_rank": 4, "bilinear_source": source})
+    jcfg = jcfg.replace(model=dataclasses.replace(jcfg.model, edge_head=head))
+    jbundle = make_synthetic_bundle(JaxSpec(**SPEC), jcfg)
+    cfg = Config.from_dict(jcfg.to_dict())
+    bundle = _port_bundle(cfg)
+    model = build_model(cfg, bundle.graph, device="cpu", generator=torch.Generator().manual_seed(0))
+    trainer = Trainer(model, bundle.graph, masker_from_config(cfg, bundle.graph), cfg, device="cpu")
+    for _ in range(2):
+        trainer.train_epoch()
+        trainer.epoch += 1
+    export_serving(trainer, bundle, tmp_path / "port", buckets=BUCKETS)
+    jax_export_serving(_jax_trainer(jcfg, jbundle, trainer.model), jbundle, tmp_path / "jax", buckets=BUCKETS)
+    served, jax_served = ServingModel.load(tmp_path / "port", device="cpu"), JaxServingModel.load(tmp_path / "jax")
+    leaves = set(served.manifest["leaves"])
+    if source == "context":
+        assert {"state.bl_u", "state.bl_l"} <= leaves
+    else:
+        assert {f"{m}.bilinear_{s}" for m in ("tabular_mlp", "edge_predictor") for s in "ul"} <= leaves
+        assert "state.bl_u" not in leaves
+    p, l = _pairs(300, seed=6)
+    fn, _ = build_trainer_serving_fn(trainer)
+    np.testing.assert_allclose(served.predict(p, l), fn(p, l).numpy(), **TOL)
+    np.testing.assert_allclose(served.predict(p, l), jax_served.predict(p, l), **TOL)
 
 
 # -- cold start ------------------------------------------------------------------------

@@ -114,6 +114,7 @@ def test_train_config_reads_the_jax_section():
         {"lab_tile_mode": "block"},
         {"loss": "l1"},
         {"train_split": 0.9},
+        {"warm_start": "svd"},
     ],
 )
 def test_train_config_rejects_what_the_port_does_not_run(train):
