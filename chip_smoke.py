@@ -2,9 +2,9 @@
 """Smoke run of the PyTorch port's RGCN and HGT serving and training paths,
 the RGCN's dual-head training path, the gather probe, the bench, the
 trainer's lifecycle (checkpoints, resume, evaluation), the pipeline
-command line on the flagship config, the serving artifact, and the quality
+command line on the flagship config, the serving artifact, the quality
 channels (value context, the bilinear channel, the side-information warm
-start) on one CUDA GPU.
+start) and Cluster-GCN mini-batch training on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -160,6 +160,39 @@ Phases, each printing one line with its seconds:
                    within 1e-4, its best val loss is not above the plant's,
                    and its step-8 artifact carries bl_u / bl_l and answers
                    like the trainer
+ 25. clusters      Cluster-GCN on phase 3's graph: (a) the K = 8
+                   edge-balanced partition (bases, local_size, each
+                   relation's padded edges and tier, build seconds), every
+                   valid edge in exactly one cluster (host check); (b) one
+                   cluster step (base > 0, dropout 0, the embedding bilinear
+                   source at rank 8) on the card against the CPU plain step
+                   (phase 8's tolerances), embed_patient's gradient only on
+                   the cluster's window, K1 / K2f / K2b launched and K3 not;
+                   (c) K1, K2f and K2b at the cluster shapes of K = 8 and of
+                   K = 64 equal-patient ranges (fused patient tables), and K1
+                   as a cluster batch's gather backward, against their plain
+                   versions (phase 4's tolerances), timed beside their bounds
+                   and torch.sparse.mm (index_add_ for the gather); (d) K = 1
+                   against full batch (mask fraction 0, dropout 0, 3 epochs)
+                   on a window-aligned scale_100k cohort (99,968 patients):
+                   first loss rtol 1e-5, third loss and validation loss
+                   rtol 1e-4 / atol 1e-5 (JAX's bound), test predictions
+                   within twice the drift of four full-batch runs (the
+                   count over JAX's elementwise bound printed);
+                   (e) full batch, device-resident and host-resident K = 8, 3
+                   epochs each: losses within twice the drift of three
+                   device-resident runs, peak memory (host-resident below
+                   device-resident by K - 3 clusters' edge sets), epoch ms,
+                   launches of a cluster epoch, a profiled host-resident
+                   epoch's share of copy time overlapping kernels; (f) the
+                   HGT, K = 16, host-resident, 2 epochs: tiers, peak, epoch
+                   ms, the validation loss below the untrained one; (g)
+                   run_bench(scale, no dense, quick, clusters=8)'s line
+ 26. cluster-quality JAX tests/test_minibatch.py's K > 1 quality pin with the
+                   port on the card (eicu_demo, signal 0.6, side-info warm
+                   start, 60 epochs): R2 of K = 1 and K = 4 both >= 0.22,
+                   within 0.005 of each other, and K = 4 within 0.02 of the
+                   JAX CPU value (JAX_CPU_R2_K4)
 Then a JSON line of per-kernel results, the nvidia-smi line, and the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero before the last line; without a CUDA device it fails in phase 1.
@@ -169,6 +202,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import json
 import math
 import shutil
@@ -751,6 +785,547 @@ def _flagship_serving_check(run_dir: Path, dev) -> str:
         f"trainer; intervals at alpha {alpha} cover {coverage:.4f} of {len(test_v)} test values (target "
         f"{1 - alpha:.2f}); cold start from {len(observed)} labs equals ALSBaseline on the artifact's factors"
     )
+
+
+# phase 25: Cluster-GCN mini-batch training on phase 3's graph.  K = 8
+# edge-balanced (JAX's default balance) for the partition, the step, the
+# resident modes and the bench; K = 64 equal-patient ranges for the kernels at
+# fused-table patient tables (1,664 rows); K = 16 for the HGT
+CLUSTER_K, CLUSTER_K_SMALL, CLUSTER_K_HGT = 8, 64, 16
+CLUSTER_EPOCHS, CLUSTER_HGT_EPOCHS = 3, 2
+CLUSTER_RANK = 8  # the embedding bilinear source of the step check
+# (d): K = 1 against full batch after 3 epochs, JAX's own bound for this
+# comparison (tests/test_minibatch.py:100-103) on the third loss and the
+# validation loss; the first epoch's loss at the step's rtol.  The test
+# predictions are held to twice the drift of four full-batch runs from the
+# same weights (the largest |difference| of their six pairs; three runs'
+# pairs gave 2.244e-05 and 2.129e-05 on the H100), as phase 20 holds a
+# resume, and the count over JAX's elementwise bound is printed: a
+# cluster rebuilds its reverse relations from the destination-sorted forward
+# edges, so each patient's lab / diagnosis / medication -> patient sums run
+# in another order than the full graph's (JAX's partition does the same),
+# and three Adam steps carry that rounding into the predictions: a largest
+# |difference| of 1.787e-05 to 3.399e-05 in four runs on the H100 at
+# scale_100k (predictions up to 0.103), over the elementwise 1e-5 + 1e-4
+# |ref| (7.3e-06 in one CPU thread at 2,560 patients), which JAX's test meets
+# at 128 patients.  A cluster's patient table is padded to whole 128-row
+# windows and the padding rows enter the BatchNorm statistics, so K = 1
+# equals full batch only on a window-aligned cohort (as JAX's test uses):
+# scale_100k cut to 781 windows of patients
+K1_RTOL, K1_ATOL = 1e-4, 1e-5
+K1_FULL_RUNS = 4
+K1_PATIENTS = 781 * 128
+# the full-batch HGT segment tier's peak on the H100 (PERF.md section 6)
+HGT_SEGMENT_PEAK_GIB = 60.94
+# phase 26: JAX tests/test_minibatch.py:375-455 on the card: both R2 >= 0.22,
+# |R2(K=4) - R2(K=1)| <= 0.005, and the port's K = 4 R2 within 0.02 of the JAX
+# package's K = 4 R2 for the same recipe on the CPU: that test's run(4), as
+# `python tests/jax_minibatch_quality.py` prints it, measured on 2026-10-18
+# (its run(1): 0.23848633617816206)
+QUALITY_EPOCHS = 60
+QUALITY_R2_MIN, QUALITY_R2_GAP, QUALITY_JAX_MARGIN = 0.22, 0.005, 0.02
+JAX_CPU_R2_K4 = 0.23874707503417192
+
+
+def _merge(intervals):
+    out = []
+    for lo, hi in sorted(intervals):
+        if out and lo <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], hi)
+        else:
+            out.append([lo, hi])
+    return out
+
+
+def _copy_overlap(prof) -> tuple:
+    """(the share of host-to-device copy time that overlaps kernels, copy ms,
+    copies, kernel busy ms, the trace's device span ms) in a torch.profiler
+    trace."""
+    from torch.autograd import DeviceType
+
+    host_names = {evt.name for evt in prof.events() if evt.device_type == DeviceType.CPU}
+    copies, kernels = [], []
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA or evt.name in host_names:
+            continue
+        span = (evt.time_range.start, evt.time_range.end)
+        if "HtoD" in evt.name:
+            copies.append(span)
+        elif not evt.name.startswith(("Memcpy", "Memset")):
+            kernels.append(span)
+    busy = _merge(kernels)
+    total = sum(hi - lo for lo, hi in copies)
+    covered = 0.0
+    for lo, hi in copies:
+        for blo, bhi in busy:
+            if bhi <= lo:
+                continue
+            if blo >= hi:
+                break
+            covered += min(hi, bhi) - max(lo, blo)
+    spans = copies + kernels
+    span = (max(hi for _, hi in spans) - min(lo for lo, _ in spans)) if spans else 0.0
+    busy_us = sum(hi - lo for lo, hi in busy)
+    return (covered / total if total else float("nan")), total / 1e3, len(copies), busy_us / 1e3, span / 1e3
+
+
+def _cluster_kernels(cd, label, dev, d) -> dict:
+    """K1, K2f and K2b at a partition's cluster shapes (its cluster with the
+    most patient -> lab edges) against their plain versions, each timed
+    with its plain version, its bound and torch.sparse.mm."""
+    import torch
+
+    from multi_modal_gnn_tpu_torch.graph.hetero import WINDOW
+    from multi_modal_gnn_tpu_torch.graph.schema import PATIENT_LAB, mirror_edge_type
+    from multi_modal_gnn_tpu_torch.ops import aggregation_tier
+    from multi_modal_gnn_tpu_torch.ops import segment_kernels as sk
+
+    k = max(range(len(cd.subgraphs)), key=lambda i: cd.subgraphs[i].edges[PATIENT_LAB].num_valid)
+    g = cd.subgraphs[k].to(dev)
+    gen = torch.Generator().manual_seed(25)
+    sites = {}
+
+    def record(name, rel, kernel, plain, library, got, want, nbytes, flops):
+        max_abs, _ = _compare(f"{label} {name} on {rel}", got, want, KERNEL_ATOL, KERNEL_RTOL)
+        ms, plain_ms = _median_ms(kernel), _median_ms(plain)
+        lib_ms = _library_ms(f"{label} {name} on {rel}", library)
+        bound = _bound(nbytes, flops)
+        print(
+            f"    {label} {name} on {rel}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library "
+            f"{lib_ms if lib_ms is None else f'{lib_ms:.4f}'} ms  bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})",
+            flush=True,
+        )
+        sites.setdefault(name, {})[rel] = {
+            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": lib_ms,
+        }
+
+    for et, es in g.edges.items():
+        rel = "/".join(et)
+        mirror = g.edges[mirror_edge_type(et)]
+        tier = aggregation_tier(es, mirror, d)
+        print(f"    {label}, cluster {k}: {rel}: tier {tier}  E {es.num_valid} (padded {es.src.shape[0]})  "
+              f"sources {es.num_src}  windows {es.num_windows}")
+        x = torch.randn(es.num_src, d, generator=gen).to(dev)
+        csr = _csr(es.row_ptr, es.src, es.num_dst, es.num_src, dev)
+        cnt = es.dst_count.clamp_min(1.0)[:, None]
+        plan = (es.win_src, es.win_local, es.win_tile_map)
+        out_bytes = es.num_windows * WINDOW * d * 4
+        if tier == "paired":
+            kernel = lambda x=x, es=es: sk.segment_sum_windowed(x, *plan_of(es), es.num_windows)  # noqa: E731
+            plain = lambda x=x, es=es: sk.segment_sum_windowed_plain(x, *plan_of(es), es.num_windows)  # noqa: E731
+            record("segment_sum_windowed", rel, kernel, plain, lambda csr=csr, x=x: torch.sparse.mm(csr, x),
+                   kernel()[: es.num_dst] / cnt, plain()[: es.num_dst] / cnt,
+                   _nbytes(x, *plan) + out_bytes, es.num_valid * d)
+        elif tier == "fused_table":
+            kernel = lambda x=x, es=es: sk.fused_table_segment_sum(x, *plan_of(es), es.num_windows)  # noqa: E731
+            plain = lambda x=x, es=es: sk.fused_table_segment_sum_plain(x, *plan_of(es), es.num_windows)  # noqa: E731
+            record("fused_table_segment_sum", rel, kernel, plain, lambda csr=csr, x=x: torch.sparse.mm(csr, x),
+                   kernel()[: es.num_dst] / cnt, plain()[: es.num_dst] / cnt,
+                   _nbytes(x, *plan) + out_bytes, es.num_valid * d)
+            gd = torch.randn(es.num_dst, d, generator=gen).to(dev)
+            per_src = torch.bincount(es.win_src[es.win_local < WINDOW].long(), minlength=es.num_src)
+            per_src = per_src.clamp_min(1).double()[:, None]
+            bwd = lambda gd=gd, es=es: sk.fused_table_segment_sum_bwd(gd, *plan_of(es), es.num_src)  # noqa: E731
+            bwd_plain = lambda gd=gd, es=es: sk.fused_table_segment_sum_bwd_plain(gd, *plan_of(es), es.num_src)  # noqa: E731
+            csr_t = _csr(mirror.row_ptr, mirror.src, mirror.num_dst, mirror.num_src, dev)
+            record("fused_table_segment_sum_bwd", rel, bwd, bwd_plain,
+                   lambda csr_t=csr_t, gd=gd: torch.sparse.mm(csr_t, gd),
+                   bwd() / per_src, bwd_plain() / per_src,
+                   _nbytes(gd, *plan) + es.num_src * d * 4, es.num_valid * d)
+        else:
+            raise AssertionError(f"{label}: {rel} takes tier {tier}, not paired or fused_table")
+    return sites
+
+
+def plan_of(es):
+    """An edge set's windowed plan: (win_src, win_local, win_tile_map)."""
+    return es.win_src, es.win_local, es.win_tile_map
+
+
+def _clusters_phase(dev, graph_cpu, graph, graph_hgt, config, masker, reset_counts, counts_of) -> dict:
+    """Phase 25.  Returns the per-kernel additions to the kernels line."""
+    import numpy as np
+    import torch
+
+    from multi_modal_gnn_tpu_torch.data import SyntheticSpec, make_synthetic_graph
+    from multi_modal_gnn_tpu_torch.graph.build import GraphBundle, GraphMeta, host_edges_of
+    from multi_modal_gnn_tpu_torch.graph.hetero import WINDOW
+    from multi_modal_gnn_tpu_torch.graph.schema import LAB, PATIENT, PATIENT_LAB, mirror_edge_type
+    from multi_modal_gnn_tpu_torch.models import build_model
+    from multi_modal_gnn_tpu_torch.models.losses import compute_lab_weights
+    from multi_modal_gnn_tpu_torch.ops import aggregation_tier
+    from multi_modal_gnn_tpu_torch.ops import segment_kernels as sk
+    from multi_modal_gnn_tpu_torch.tools import bench
+    from multi_modal_gnn_tpu_torch.training import MiniBatchTrainer, Trainer, masker_from_config
+    from multi_modal_gnn_tpu_torch.training.minibatch import build_patient_clusters
+
+    d = config.model.hidden_dim
+    out = {}
+    laps = [time.perf_counter()]
+
+    def lap(label):
+        laps.append(time.perf_counter())
+        print(f"    ({label}) {laps[-1] - laps[-2]:.1f} s", flush=True)
+    bundle = GraphBundle(graph=graph_cpu, meta=GraphMeta(), host_edges=host_edges_of(graph_cpu))
+    _, tr_l, tr_v = masker.split_arrays("train")
+    lab_w = compute_lab_weights(tr_v, tr_l, graph_cpu.num_nodes(LAB))
+
+    # (a) the partition
+    t_build = time.perf_counter()
+    cd = build_patient_clusters(bundle, masker, config, CLUSTER_K, lab_weights=lab_w)
+    build_s = time.perf_counter() - t_build
+    g0 = cd.subgraphs[0]
+    print(f"    (a) K {CLUSTER_K} edges: built in {build_s:.2f} s; bases {cd.bases}; local_size {cd.local_size}")
+    for et, es in g0.edges.items():
+        tier = aggregation_tier(es, g0.edges.get(mirror_edge_type(et)), d)
+        print(f"      {'/'.join(et)}: padded edges {es.src.shape[0]} a cluster  windows {es.num_windows}  tier {tier}  "
+              f"valid per cluster {[g.edges[et].num_valid for g in cd.subgraphs]}")
+    num_p = graph_cpu.num_nodes(PATIENT)
+    ends = cd.bases[1:] + [num_p]
+    for et, (src, dst, val) in bundle.host_edges.items():
+        if et[0] != PATIENT:
+            continue
+        num_dst = graph_cpu.num_nodes(et[2])
+        keys, vals = [], []
+        for k, g in enumerate(cd.subgraphs):
+            es = g.edges[et]
+            n = es.num_valid
+            s_loc = es.src[:n].numpy().astype(np.int64)
+            if n and (s_loc.min() < 0 or s_loc.max() >= ends[k] - cd.bases[k]):
+                raise AssertionError(f"cluster {k} of {et}: a source outside its patient range")
+            keys.append((s_loc + cd.bases[k]) * num_dst + es.dst[:n].numpy())
+            if val is not None:
+                vals.append(es.val[:n].numpy())
+        got = np.concatenate(keys)
+        want = np.asarray(src, np.int64) * num_dst + np.asarray(dst)
+        if val is not None:
+            o_got, o_want = np.lexsort((np.concatenate(vals), got)), np.lexsort((val, want))
+            same = np.array_equal(got[o_got], want[o_want]) and np.array_equal(np.concatenate(vals)[o_got], val[o_want])
+        else:
+            same = np.array_equal(np.sort(got), np.sort(want))
+        if not same:
+            raise AssertionError(f"{et}: the clusters' edges are not the graph's, each once")
+    print(f"    (a) every valid edge of the three forward relations lies in exactly one cluster (host check)")
+    cluster_bytes = _nbytes(*g0.tensors())
+    print(f"    (a) one cluster's edge sets and degrees: {cluster_bytes} B")
+
+    lap("a")
+
+    # (b) one cluster step on the card against the same step on the CPU
+    eh = config.model.edge_head
+    cfg_b = dataclasses.replace(config, model=dataclasses.replace(
+        config.model, dropout=0.0,
+        edge_head=dataclasses.replace(eh, extras={**eh.extras, "bilinear_rank": CLUSTER_RANK, "bilinear_source": "embedding"}),
+    ))
+    model_gpu = build_model(cfg_b, graph_cpu, generator=torch.Generator().manual_seed(0))
+    model_ref = build_model(cfg_b, graph_cpu, device="cpu", generator=torch.Generator().manual_seed(0))
+    tr = MiniBatchTrainer(model_gpu, bundle, masker, cfg_b, CLUSTER_K, clusters=cd)
+    tr_ref = MiniBatchTrainer(model_ref, bundle, masker, cfg_b, CLUSTER_K, device="cpu", clusters=cd)
+    k = CLUSTER_K // 2
+    b_gpu, g_gpu = tr._ensure_clusters().batches["train"][k][0], tr._ensure_clusters().subgraphs[k]
+    b_ref, g_ref = tr_ref._ensure_clusters().batches["train"][k][0], tr_ref._ensure_clusters().subgraphs[k]
+    sup = masker.supervision_mask(0, b_ref, cluster=k)
+    reset_counts()
+    t_step = time.perf_counter()
+    loss = tr.train_step(b_gpu, sup.to(dev), 0, graph=g_gpu)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t_step) * 1e3
+    step_launches = counts_of()
+    t_ref = time.perf_counter()
+    loss_ref = tr_ref.train_step(b_ref, sup, 0, graph=g_ref)
+    ref_s = time.perf_counter() - t_ref
+    _compare(f"(b) cluster {k} step loss", torch.tensor(loss), torch.tensor(loss_ref), 0.0, STEP_LOSS_RTOL)
+    params = dict(model_gpu.named_parameters())
+    floor = STEP_GRAD_ZERO_FLOOR * max(float(p.grad.norm()) for p in model_ref.parameters())
+    failed = [name for name, p in model_ref.named_parameters()
+              if not _compare_norm(f"(b) grad {name}", params[name].grad, p.grad, STEP_GRAD_NORM_REL, floor)]
+    if failed:
+        raise AssertionError(f"(b) gradients outside tolerance: {failed}")
+    for name, p in model_ref.named_parameters():
+        diff = float((params[name].detach().cpu() - p.detach()).abs().max())
+        if diff > STEP_PARAM_ATOL:
+            raise AssertionError(f"(b) param {name}: max |d| {diff:.3e} > {STEP_PARAM_ATOL}")
+    buffers = dict(model_gpu.named_buffers())
+    for name, b in model_ref.named_buffers():
+        if name.endswith(("running_mean", "running_var")):
+            _compare(f"(b) bn {name}", buffers[name], b, STEP_BN_ATOL, STEP_BN_RTOL)
+    # the step read the cluster's window of the global patient table
+    # (its own patients and, through the BatchNorm statistics, the padding
+    # rows past its range up to local_size)
+    rows = params["embed_patient.weight"].grad.abs().sum(1).cpu()
+    lo, hi, top = cd.bases[k], ends[k], cd.bases[k] + cd.local_size
+    if not (float(rows[:lo].sum()) == 0.0 and float(rows[top:].sum()) == 0.0 and bool((rows[lo:hi] > 0).all())):
+        raise AssertionError(f"(b) embed_patient's gradient is not confined to cluster {k}'s window [{lo}, {top})")
+    on_path = {"segment_sum_windowed", "fused_table_segment_sum", "fused_table_segment_sum_bwd"}
+    if not all(step_launches[n] for n in on_path) or step_launches["span_segment_sum"]:
+        raise AssertionError(f"(b) launches {step_launches}: K1, K2f and K2b must launch and K3 must not")
+    print(f"    (b) cluster {k} (base {lo}, patients to {hi}): loss {loss:.6f} (CPU plain {loss_ref:.6f}); "
+          f"embed_patient's gradient only on its window [{lo}, {top}); launches {step_launches}; step {step_ms:.1f} ms on the card (first), "
+          f"{ref_s:.1f} s on the CPU")
+    del tr, tr_ref, model_gpu, model_ref, b_gpu, g_gpu
+
+    lap("b")
+
+    # (c) each cluster-path kernel at its cluster shapes
+    cd_small = build_patient_clusters(bundle, masker, config, CLUSTER_K_SMALL, lab_weights=lab_w, balance="patients")
+    print(f"    (c) K {CLUSTER_K_SMALL} patients: local_size {cd_small.local_size}")
+    sites = {f"K{CLUSTER_K} edges": _cluster_kernels(cd, f"(c) K {CLUSTER_K}", dev, d),
+             f"K{CLUSTER_K_SMALL} patients": _cluster_kernels(cd_small, f"(c) K {CLUSTER_K_SMALL}", dev, d)}
+    if "segment_sum_windowed" in sites[f"K{CLUSTER_K_SMALL} patients"]:
+        raise AssertionError(f"(c) K {CLUSTER_K_SMALL}: a patient-source relation took K1, not the fused tier")
+    # K1 as the backward of a cluster batch's patient gather: the rows'
+    # upstream gradient (0 on padding slots, as the loss gives it), held as
+    # per-row means (phase 7 holds K2b so)
+    batch = cd.batches["train"][0][0].to(dev)
+    plan = batch.patient_plan
+    gb = torch.randn(batch.patient_idx.shape[0], d, generator=torch.Generator().manual_seed(7)).to(dev)
+    gb *= batch.valid[:, None]
+    args = (plan.win_src, plan.win_local, plan.win_tile_map, plan.num_windows)
+    kern = lambda: sk.segment_sum_windowed(gb, *args)  # noqa: E731
+    plain = lambda: sk.segment_sum_windowed_plain(gb, *args)  # noqa: E731
+    idx = batch.patient_idx.long()
+    per_row = torch.bincount(idx, minlength=plan.num_rows).clamp_min(1).double()[:, None]
+    lib = lambda: torch.zeros(plan.num_rows, d, device=dev).index_add_(0, idx, gb)  # noqa: E731
+    max_abs, _ = _compare("(c) K1 as the cluster batch's patient-gather backward (per-row means)",
+                          kern()[: plan.num_rows] / per_row, plain()[: plan.num_rows] / per_row,
+                          KERNEL_ATOL, KERNEL_RTOL)
+    bound = _bound(_nbytes(gb, *args[:3]) + plan.num_rows * d * 4, batch.patient_idx.shape[0] * d)
+    gsite = {"max_abs_err": max_abs, "ms": _median_ms(kern), "plain_ms": _median_ms(plain), **bound,
+             "library_ms": _library_ms("(c) index_add_ of the gather's rows", lib)}
+    print(f"    (c) K1 as the gather backward ({batch.patient_idx.shape[0]} rows onto {plan.num_rows}): "
+          f"kernel {gsite['ms']:.4f} ms  plain {gsite['plain_ms']:.4f}  bound {bound['bound_ms']:.4f} ({bound['bound_by']})")
+    sites[f"K{CLUSTER_K} edges"].setdefault("segment_sum_windowed", {})["gather backward (patients)"] = gsite
+    del cd_small, batch, gb
+
+    lap("c")
+
+    # (d) K = 1 against full batch on a window-aligned cohort
+    cfg_d = dataclasses.replace(
+        config, model=dataclasses.replace(config.model, dropout=0.0),
+        train=dataclasses.replace(config.train, mask_fraction=0.0),
+    )
+    spec = dataclasses.replace(SyntheticSpec.scale_100k(seed=0), num_patients=K1_PATIENTS)
+    graph_d_cpu = make_synthetic_graph(spec, cfg_d, device="cpu")
+    graph_d = graph_d_cpu.to(dev)
+    masker_d = masker_from_config(cfg_d, graph_d_cpu)
+    def full_run():
+        full = Trainer(build_model(cfg_d, graph_d_cpu, generator=torch.Generator().manual_seed(2)), graph_d,
+                       masker_d, cfg_d)
+        losses = full.train_epochs(CLUSTER_EPOCHS, with_val=True)
+        return losses, torch.from_numpy(full.predict("test"))
+
+    fulls = [full_run() for _ in range(K1_FULL_RUNS)]
+    (lf, vf), pred_full = fulls[0]
+    bundle_d = GraphBundle(graph=graph_d, meta=GraphMeta(), host_edges=host_edges_of(graph_d_cpu))
+    one = MiniBatchTrainer(build_model(cfg_d, graph_d_cpu, generator=torch.Generator().manual_seed(2)), bundle_d,
+                           masker_d, cfg_d, 1)
+    l1, v1 = one.train_epochs(CLUSTER_EPOCHS, with_val=True)
+    print(f"    (d) {K1_PATIENTS} patients, {graph_d_cpu.edges[PATIENT_LAB].num_valid} patient-lab edges: "
+          f"full batch train {lf.tolist()} val {vf.tolist()}; K = 1 train {l1.tolist()} val {v1.tolist()}")
+    _compare("(d) first epoch's loss, K = 1 vs full batch", torch.tensor(l1[:1]), torch.tensor(lf[:1]), 0.0, STEP_LOSS_RTOL)
+    _compare(f"(d) epoch {CLUSTER_EPOCHS}'s loss", torch.tensor(l1[-1:]), torch.tensor(lf[-1:]), K1_ATOL, K1_RTOL)
+    _compare("(d) validation loss", torch.tensor(v1[-1:]), torch.tensor(vf[-1:]), K1_ATOL, K1_RTOL)
+    pred_one = torch.from_numpy(one.predict("test"))
+    pred_err = float((pred_one - pred_full).abs().max())
+    pred_drift = max(float((a[1] - b[1]).abs().max()) for i, a in enumerate(fulls) for b in fulls[i + 1:])
+    over = int(((pred_one - pred_full).abs() > K1_ATOL + K1_RTOL * pred_full.abs()).sum())
+    print(f"    (d) test predictions: K = 1 vs full batch max |d| {pred_err:.3e} (max|ref| "
+          f"{float(pred_full.abs().max()):.3e}; {over} of {len(pred_full)} over JAX's elementwise 1e-5 + 1e-4 |ref|); "
+          f"{K1_FULL_RUNS} full-batch runs differ by up to {pred_drift:.3e}")
+    if not pred_err <= 2 * pred_drift:
+        raise AssertionError(f"(d) K = 1's test predictions differ from full batch's by {pred_err:.3e}, over twice "
+                             f"the drift of full-batch runs ({pred_drift:.3e})")
+    del fulls, one, graph_d, graph_d_cpu, bundle_d, masker_d
+    torch.cuda.empty_cache()
+
+    lap("d")
+
+    # (e) host-resident against device-resident, K = 8
+    def peak_run(make, epochs=CLUSTER_EPOCHS, count=False, keep=False):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = make()
+        if count:
+            reset_counts()
+        times, losses, vals, launches = [], [], [], None
+        for i in range(epochs):
+            t_ep = time.perf_counter()
+            tl, vl = trainer.train_epochs(1, with_val=True)
+            times.append((time.perf_counter() - t_ep) * 1e3)
+            losses.append(float(tl[0]))
+            vals.append(float(vl[0]))
+            if count and i == 0:  # the launches of one epoch (its steps and its validation)
+                launches = counts_of()
+        peak = torch.cuda.max_memory_allocated() - before
+        run = dict(train=losses, val=vals, ms=times, peak=peak, launches=launches,
+                   absolute=torch.cuda.max_memory_allocated())
+        return (trainer, run) if keep else run
+
+    # every trainer gets the full graph already on the card, so no peak
+    # below counts a copy of it
+    bundle_dev = GraphBundle(graph=graph, meta=GraphMeta(), host_edges=bundle.host_edges)
+
+    def cluster_trainer(host):
+        return lambda: MiniBatchTrainer(build_model(config, graph_cpu, generator=torch.Generator().manual_seed(4)),
+                                        bundle_dev, masker, config, CLUSTER_K, host_resident=host, clusters=cd)
+
+    full_run = peak_run(lambda: Trainer(build_model(config, graph_cpu, generator=torch.Generator().manual_seed(4)),
+                                        graph, masker, config))
+    dev_runs = [peak_run(cluster_trainer(False), count=i == 0) for i in range(3)]
+    dev_run = dev_runs[0]
+    host_tr, host_run = peak_run(cluster_trainer(True), keep=True)
+    for label, run in (("full batch", full_run), *((f"device-resident {i + 1}", r) for i, r in enumerate(dev_runs)),
+                       ("host-resident", host_run)):
+        print(f"    (e) {label}: train {run['train']} val {run['val']}; epochs {', '.join('%.1f' % t for t in run['ms'])} "
+              f"ms; peak {run['peak'] / 2**30:.3f} GiB above what was allocated before "
+              f"({run['absolute'] / 2**30:.3f} GiB in all)")
+
+    def rel_drift(a, b):
+        return max(abs(x - y) / abs(y) for key in ("train", "val") for x, y in zip(a[key], b[key]))
+
+    # the drift of device-resident runs from one init (the kernels' atomics):
+    # the largest over the three pairs of three runs, as phase 20 measures a pair
+    drift = max(rel_drift(a, b) for i, a in enumerate(dev_runs) for b in dev_runs[i + 1:])
+    host_drift = rel_drift(host_run, dev_run)
+    if not host_drift <= 2 * drift:
+        raise AssertionError(f"(e) host-resident differs from device-resident by {host_drift:.3e} (relative), "
+                             f"over twice the drift of device-resident runs ({drift:.3e})")
+    saved = dev_run["peak"] - host_run["peak"]
+    need = (CLUSTER_K - 3) * cluster_bytes
+    if saved < need:
+        raise AssertionError(f"(e) host-resident's peak is {saved} B below device-resident's, less than "
+                             f"{CLUSTER_K - 3} clusters' edge sets ({need} B)")
+    print(f"    (e) launches in one device-resident epoch ({CLUSTER_K} steps and the validation): {dev_run['launches']}")
+    print(f"    (e) host-resident vs device-resident: {host_drift:.3e} (relative) <= 2 x drift {drift:.3e}; peak "
+          f"{saved} B lower >= {CLUSTER_K - 3} x {cluster_bytes} B")
+    from torch.profiler import ProfilerActivity, profile
+
+    host_tr.train_epochs(1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        host_tr.train_epochs(1)
+        torch.cuda.synchronize()
+    share, copy_ms, n_copies, busy_ms, span_ms = _copy_overlap(prof)
+    print(f"    (e) profiled host-resident epoch: {n_copies} host-to-device copies, {copy_ms:.3f} ms; share of copy time "
+          f"overlapping kernels {share:.4f}; kernels busy {busy_ms:.3f} ms of the trace's {span_ms:.3f} ms on the "
+          f"device (idle {1 - busy_ms / max(span_ms, 1e-9):.4f})")
+    del host_tr
+    torch.cuda.empty_cache()
+
+    lap("e")
+
+    # (f) the HGT, K = 16, host-resident
+    hgt_cfg = dataclasses.replace(config, model=dataclasses.replace(config.model, architecture="HGT", num_heads=HGT_HEADS))
+    bundle_h = GraphBundle(graph=graph_hgt, meta=GraphMeta(), host_edges=bundle.host_edges)
+    hgt_model = build_model(hgt_cfg, graph_cpu, generator=torch.Generator().manual_seed(6))
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    hgt = MiniBatchTrainer(hgt_model, bundle_h, masker, hgt_cfg, CLUSTER_K_HGT, host_resident=True)
+    val0 = hgt.validate()
+    hcd = hgt._ensure_clusters()
+    tiers = {dst: hgt.model.hgt_0.tier(hcd.subgraphs[0], dst) for dst in hgt.model.hgt_0.groups()}
+    if set(tiers.values()) != {"segment"}:
+        raise AssertionError(f"(f) cluster tiers {tiers}: the HGT's clusters carry no attention plan")
+    h_ms, h_losses = [], []
+    for _ in range(CLUSTER_HGT_EPOCHS):
+        t_ep = time.perf_counter()
+        tl, vl = hgt.train_epochs(1, with_val=True)
+        h_ms.append((time.perf_counter() - t_ep) * 1e3)
+        h_losses.append((float(tl[0]), float(vl[0])))
+    h_peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for pair in h_losses for x in pair) or not h_losses[-1][1] < val0:
+        raise AssertionError(f"(f) HGT losses {h_losses}: not finite, or the validation loss not below {val0:.6f}")
+    print(f"    (f) HGT K {CLUSTER_K_HGT} host-resident: tier per cluster {tiers} (every cluster alike: no plans); "
+          f"untrained val {val0:.6f}; (train, val) {h_losses}; epochs {', '.join('%.1f' % t for t in h_ms)} ms; "
+          f"peak {h_peak / 2**30:.2f} GiB ({(h_peak - before) / 2**30:.2f} above what was allocated before) against "
+          f"the full-batch segment tier's {HGT_SEGMENT_PEAK_GIB} GiB")
+    del hgt, hgt_model, bundle_h
+    torch.cuda.empty_cache()
+
+    lap("f")
+
+    # (g) the bench
+    result = bench.run_bench(scale=True, dense=False, quick=True, clusters=CLUSTER_K)
+    print("    (g) " + json.dumps(result), flush=True)
+    if result.get("clusters") != CLUSTER_K or not result["value"] > 0:
+        raise AssertionError(f"(g) the bench line: {result}")
+
+    lap("g")
+    out.update(
+        launches_cluster_epoch=dev_run["launches"], sites=sites, summary=dict(
+            build_s=build_s, cluster_bytes=cluster_bytes, drift=drift, host_drift=host_drift,
+            peaks={"full": full_run["peak"], "device": dev_run["peak"], "host": host_run["peak"]},
+            epoch_ms={"full": full_run["ms"], "device": dev_run["ms"], "host": host_run["ms"]},
+            overlap=share, hgt_peak=h_peak, hgt_ms=h_ms, bench=result["value"],
+            k1_pred_err=pred_err, k1_pred_drift=pred_drift,
+        ),
+    )
+    return out
+
+
+def _cluster_quality_phase(dev) -> dict:
+    """Phase 26: JAX's K > 1 quality pin on the card with the port."""
+    import numpy as np
+    import torch
+
+    from multi_modal_gnn_tpu_torch.config import Config
+    from multi_modal_gnn_tpu_torch.data import SyntheticSpec
+    from multi_modal_gnn_tpu_torch.data.synthetic import generate_synthetic_tables
+    from multi_modal_gnn_tpu_torch.evaluation.metrics import compute_regression_metrics
+    from multi_modal_gnn_tpu_torch.graph.build import build_heterogeneous_graph
+    from multi_modal_gnn_tpu_torch.models import build_model
+    from multi_modal_gnn_tpu_torch.training import (
+        EdgeMasker, MiniBatchTrainer, Trainer, bundle_membership_matrix, warm_start_trainer,
+    )
+    from multi_modal_gnn_tpu_torch.utils.rng import stream_seed
+
+    cfg = Config()
+    cfg = dataclasses.replace(
+        cfg,
+        model=dataclasses.replace(cfg.model, edge_head=dataclasses.replace(
+            cfg.model.edge_head, extras={"bilinear_rank": 17, "bilinear_source": "embedding"})),
+        train=dataclasses.replace(
+            cfg.train, loss="mse", epochs=QUALITY_EPOCHS, early_stopping_patience=10**9,
+            optimizer=dataclasses.replace(cfg.train.optimizer, lr=1e-4),
+            lr_scheduler=dataclasses.replace(cfg.train.lr_scheduler, enabled=False),
+        ),
+    )
+    spec = dataclasses.replace(SyntheticSpec.eicu_demo(), seed=0, signal_strength=0.6)
+    t = generate_synthetic_tables(spec)
+    bundle = build_heterogeneous_graph(
+        t["labs_normalized"], t["diagnoses"], t["medications"], t["cohort"], t["labitems"], cfg
+    )
+    memberships = bundle_membership_matrix(bundle)
+    runs = {}
+    for k in (1, 4):
+        t_run = time.perf_counter()
+        masker = EdgeMasker(bundle.graph, seed=42)
+        model = build_model(cfg, bundle.graph, generator=torch.Generator().manual_seed(stream_seed(cfg.train.seed, "init")))
+        tr = Trainer(model, bundle.graph, masker, cfg) if k == 1 else MiniBatchTrainer(model, bundle, masker, cfg, k)
+        warm_start_trainer(tr, rank=8, reg=12.0, memberships=memberships)
+        for _ in range(QUALITY_EPOCHS):
+            tr.train_epoch()
+            val = tr.validate()
+            if val < tr.best_val_loss:
+                tr.best_val_loss = val
+                tr.best_state = copy.deepcopy(tr.model.state_dict())
+            tr.epoch += 1
+        _, _, te_v = masker.split_arrays("test")
+        r2 = compute_regression_metrics(tr.predict("test", state=tr.best_state).astype(np.float64), te_v)["r2"]
+        runs[k] = r2
+        print(f"    K = {k}: test R2 {r2:.6f} (best val loss {tr.best_val_loss:.6f}); {time.perf_counter() - t_run:.1f} s",
+              flush=True)
+    r2_full, r2_k4 = runs[1], runs[4]
+    if not (r2_full >= QUALITY_R2_MIN and r2_k4 >= QUALITY_R2_MIN and abs(r2_full - r2_k4) <= QUALITY_R2_GAP):
+        raise AssertionError(f"cluster quality: R2 K=1 {r2_full:.4f}, K=4 {r2_k4:.4f} (JAX's criterion: both >= "
+                             f"{QUALITY_R2_MIN}, |gap| <= {QUALITY_R2_GAP})")
+    if not abs(r2_k4 - JAX_CPU_R2_K4) <= QUALITY_JAX_MARGIN:
+        raise AssertionError(f"cluster quality: K=4 R2 {r2_k4:.4f} outside {JAX_CPU_R2_K4:.4f} +- {QUALITY_JAX_MARGIN}")
+    return {"r2_k1": r2_full, "r2_k4": r2_k4}
 
 
 def main() -> int:
@@ -2764,6 +3339,37 @@ def main() -> int:
         f"{plant_loss:.6f}; the artifact (bl_u / bl_l) within {served_err:.2e} of the trainer",
     )
 
+    def counts_of():
+        counts = {**sk.launch_counts, **pk.launch_counts, **ak.launch_counts, **gp.launch_counts}
+        return {name: counts.get(name, 0) for name in KERNELS}
+
+    # 25. clusters ---------------------------------------------------------
+    t0 = time.perf_counter()
+    clusters = _clusters_phase(dev, graph_cpu, graph, graph_hgt, config, masker, reset_counts, counts_of)
+    cs = clusters["summary"]
+    _phase(
+        "clusters", t0,
+        f"(a) K {CLUSTER_K} partition exact, built in {cs['build_s']:.2f} s; (b) the cluster step on the card "
+        f"matches the CPU plain step; (c) K1, K2f, K2b match at K {CLUSTER_K} and K {CLUSTER_K_SMALL}; (d) K = 1 "
+        f"matches full batch; (e) host-resident within {cs['host_drift']:.2e} <= 2 x {cs['drift']:.2e}, peaks full / "
+        f"device / host {cs['peaks']['full'] / 2**30:.3f} / {cs['peaks']['device'] / 2**30:.3f} / "
+        f"{cs['peaks']['host'] / 2**30:.3f} GiB, copy overlap {cs['overlap']:.4f}; (f) HGT K {CLUSTER_K_HGT} peak "
+        f"{cs['hgt_peak'] / 2**30:.2f} GiB; (g) bench --clusters {CLUSTER_K} {cs['bench']:.1f} edges/s",
+    )
+
+    # 26. cluster-quality --------------------------------------------------
+    t0 = time.perf_counter()
+    quality = _cluster_quality_phase(dev)
+    _phase(
+        "cluster-quality", t0,
+        f"R2 K=1 {quality['r2_k1']:.6f}, K=4 {quality['r2_k4']:.6f} (both >= {QUALITY_R2_MIN}, gap <= "
+        f"{QUALITY_R2_GAP}); K=4 within {QUALITY_JAX_MARGIN} of the JAX CPU value {JAX_CPU_R2_K4:.6f}",
+    )
+    cluster_launches = clusters["launches_cluster_epoch"]
+    for name in ("segment_sum_windowed", "fused_table_segment_sum", "fused_table_segment_sum_bwd"):
+        if not cluster_launches[name]:
+            raise AssertionError(f"{name} did not launch in the K {CLUSTER_K} cluster epoch: {cluster_launches}")
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces}
@@ -2799,6 +3405,11 @@ def main() -> int:
             entry["launches_value_context_step"] = vc_launches[name]
         if name in vc_hgt_launches:
             entry["launches_value_context_hgt_step"] = vc_hgt_launches[name]
+        entry["launches_cluster_epoch"] = cluster_launches[name]
+        if any(name in sites for sites in clusters["sites"].values()):
+            entry["cluster_sites"] = {
+                cfg: sites[name] for cfg, sites in clusters["sites"].items() if name in sites
+            }
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(identity)

@@ -310,7 +310,9 @@ class TrainConfig:
     test_split: float = 0.15
     loss: str = "mae"  # mae | mse | huber
     epochs: int = 100
-    batch_size: Optional[int] = None  # None = full batch, the only mode ported
+    # None = full batch; n > 0 trains Cluster-GCN mini-batches of about n
+    # train rows (training/minibatch.py; train_pipeline's cluster count)
+    batch_size: Optional[int] = None
     early_stopping_patience: int = 15
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     lr_scheduler: LRSchedulerConfig = field(default_factory=LRSchedulerConfig)
@@ -327,7 +329,9 @@ class TrainConfig:
     # extras.lab_reweighting (bool), extras.auto_resume (bool: the pipeline's
     # train step resumes from the newest periodic checkpoint),
     # extras.warm_start (als | sideinfo | none | off | "") with
-    # warm_start_rank / _mem_rank / _reg / _ridge_reg / _huber_delta
+    # warm_start_rank / _mem_rank / _reg / _ridge_reg / _huber_delta,
+    # extras.num_clusters (int >= 1), extras.host_resident (bool),
+    # extras.cluster_balance (edges | patients): mini-batch training
     extras: Dict[str, Any] = field(default_factory=dict)
 
     def __post_init__(self):
@@ -340,17 +344,23 @@ class TrainConfig:
             raise ConfigError(f"train.task invalid: {self.task!r}")
         if self.scan_chunk < 1:
             raise ConfigError(f"train.scan_chunk must be >= 1, got {self.scan_chunk}")
-        if self.batch_size is not None:
-            raise ConfigError(
-                "train.batch_size: the PyTorch port trains full-batch only (batch_size: null); "
-                "Cluster-GCN mini-batch is ROADMAP.md queue 1 item 6"
-            )
+        if self.batch_size is not None and (
+            isinstance(self.batch_size, bool) or not isinstance(self.batch_size, int) or self.batch_size < 1
+        ):
+            raise ConfigError(f"train.batch_size must be a positive integer or null, got {self.batch_size!r}")
         refused = sorted(set(self.extras) & set(_TRAIN_EXTRAS_NOT_PORTED))
         if refused:
             raise ConfigError(f"train.extras.{refused[0]}: {_TRAIN_EXTRAS_NOT_PORTED[refused[0]]}")
         unknown = set(self.extras) - _TRAIN_EXTRAS
         if unknown:
             raise ConfigError(f"unsupported train extras: {sorted(unknown)}")
+        nc = self.extras.get("num_clusters")
+        if nc is not None and (isinstance(nc, bool) or not isinstance(nc, int) or nc < 1):
+            raise ConfigError(f"train.extras.num_clusters must be a positive integer, got {nc!r}")
+        if str(self.extras.get("cluster_balance") or "edges") not in ("edges", "patients"):
+            raise ConfigError(
+                f"train.extras.cluster_balance must be edges | patients, got {self.extras['cluster_balance']!r}"
+            )
         ws = self.extras.get("warm_start")
         # JAX reads str(value or "").lower(): None and false are off, true is refused
         if not (ws is None or ws is False or (isinstance(ws, str) and ws.lower() in _WARM_STARTS)):
@@ -543,14 +553,11 @@ _MODEL_EXTRAS = {"head_style", "dual_head_fusion", "hgt_flash", "hgt_dense_attn_
 _TRAIN_EXTRAS = {
     "lab_tile_rows", "lab_tile_mode", "lab_reweighting", "auto_resume", "warm_start",
     "warm_start_rank", "warm_start_mem_rank", "warm_start_reg", "warm_start_ridge_reg",
-    "warm_start_huber_delta",
+    "warm_start_huber_delta", "num_clusters", "host_resident", "cluster_balance",
 }
 _WARM_STARTS = ("als", "sideinfo", "none", "off", "")
-_MINIBATCH = "Cluster-GCN mini-batch is not ported yet (ROADMAP.md queue 1 item 6)"
 _MULTI_DEVICE = "multi-device training is not ported yet (ROADMAP.md queue 1 item 8)"
 _TRAIN_EXTRAS_NOT_PORTED = {
-    "num_clusters": _MINIBATCH,
-    "host_resident": _MINIBATCH,
     "parallel": _MULTI_DEVICE,
     "model_parallel": _MULTI_DEVICE,
 }

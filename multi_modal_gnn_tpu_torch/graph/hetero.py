@@ -86,15 +86,33 @@ class EdgeSet:
     # card (build_value_plan; the trainer attaches it)
     value_plan: Optional["ValuePlan"] = None
 
-    def to(self, device) -> "EdgeSet":
+    def _map(self, fn) -> "EdgeSet":
+        """A copy with ``fn`` applied to every tensor and the value plan."""
         return dataclasses.replace(
             self,
             **{
-                f.name: getattr(self, f.name).to(device)
+                f.name: fn(getattr(self, f.name))
                 for f in dataclasses.fields(self)
                 if isinstance(getattr(self, f.name), (torch.Tensor, ValuePlan))
             },
         )
+
+    def to(self, device, non_blocking: bool = False) -> "EdgeSet":
+        return self._map(lambda t: t.to(device, non_blocking=non_blocking))
+
+    def pin_memory(self) -> "EdgeSet":
+        return self._map(lambda t: t.pin_memory())
+
+    def tensors(self) -> list:
+        """Every tensor the edge set holds, its value plan's too."""
+        out = []
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, torch.Tensor):
+                out.append(v)
+            elif isinstance(v, ValuePlan):
+                out.extend((v.src_order, v.src_row_ptr, v.src_sorted_dst))
+        return out
 
 
 @dataclass
@@ -107,6 +125,11 @@ class HeteroGraph:
     # lab index -> name, where the graph artifact records them (graph.npz's
     # sidecar); evaluation names the others Lab_<i>
     lab_names: Optional[Dict[int, str]] = None
+    # a Cluster-GCN cluster's first global patient row (training/minibatch.py):
+    # its patients are local rows 0.. of the window [base, base + n_local) of
+    # the model's patient table; None on a full graph.  A Python int, so the
+    # model slices with it without reading the device back
+    patient_id_base: Optional[int] = None
 
     @property
     def node_count_map(self) -> Dict[str, int]:
@@ -123,15 +146,32 @@ class HeteroGraph:
     def edge_types(self) -> Tuple[EdgeTypeKey, ...]:
         return tuple(self.edges.keys())
 
-    def to(self, device) -> "HeteroGraph":
+    def to(self, device, non_blocking: bool = False) -> "HeteroGraph":
         return dataclasses.replace(
             self,
-            edges={et: es.to(device) for et, es in self.edges.items()},
-            patient_lab_degree=self.patient_lab_degree.to(device),
+            edges={et: es.to(device, non_blocking) for et, es in self.edges.items()},
+            patient_lab_degree=self.patient_lab_degree.to(device, non_blocking=non_blocking),
             attn_plans=None if self.attn_plans is None else {
                 dst_t: plan.to(device) for dst_t, plan in self.attn_plans.items()
             },
         )
+
+    def pin_memory(self) -> "HeteroGraph":
+        """A copy whose edge sets and degrees lie in page-locked host memory,
+        so ``to(device, non_blocking=True)`` copies asynchronously.  Needs
+        CUDA (the attention plans stay as they are)."""
+        return dataclasses.replace(
+            self,
+            edges={et: es.pin_memory() for et, es in self.edges.items()},
+            patient_lab_degree=self.patient_lab_degree.pin_memory(),
+        )
+
+    def tensors(self) -> list:
+        """Every tensor of the edge sets and the degrees."""
+        out = [self.patient_lab_degree]
+        for es in self.edges.values():
+            out.extend(es.tensors())
+        return out
 
 
 def pad_edge_set(
@@ -401,8 +441,13 @@ class ValuePlan:
     src_row_ptr: torch.Tensor  # int32 [num_src + 1]
     src_sorted_dst: torch.Tensor  # int32 [E] destination of each edge in that order
 
-    def to(self, device) -> "ValuePlan":
-        return ValuePlan(*(t.to(device) for t in (self.src_order, self.src_row_ptr, self.src_sorted_dst)))
+    def to(self, device, non_blocking: bool = False) -> "ValuePlan":
+        return ValuePlan(
+            *(t.to(device, non_blocking=non_blocking) for t in (self.src_order, self.src_row_ptr, self.src_sorted_dst))
+        )
+
+    def pin_memory(self) -> "ValuePlan":
+        return ValuePlan(*(t.pin_memory() for t in (self.src_order, self.src_row_ptr, self.src_sorted_dst)))
 
 
 def build_value_plan(es: EdgeSet) -> ValuePlan:

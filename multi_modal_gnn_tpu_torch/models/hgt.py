@@ -45,6 +45,8 @@ from multi_modal_gnn_tpu_torch.models.layers import (
     EdgeRegressionHead,
     bilinear_factor,
     make_dense,
+    patient_rows,
+    refuse_cluster_graph,
     shared_bilinear_tables,
 )
 from multi_modal_gnn_tpu_torch.ops.attention import flash_attention_group
@@ -202,6 +204,10 @@ class HeteroGT(nn.Module):
     """ID embeddings, ``num_layers`` x :class:`HGTLayer`, and one
     :class:`EdgeRegressionHead` on ``[h_patient; h_lab]``."""
 
+    # cluster graphs' local patients read their window of the global table,
+    # as in the RGCN
+    supports_patient_id_base = True
+
     def __init__(
         self,
         node_counts: Tuple[Tuple[str, int], ...],
@@ -267,6 +273,7 @@ class HeteroGT(nn.Module):
         step, so under ``jit`` the JAX step drops the other groups as dead
         code too; the other types keep their previous states."""
         x_dict = {nt: getattr(self, f"embed_{nt}").weight for nt in self.node_types}
+        x_dict[PATIENT] = patient_rows(x_dict[PATIENT], graph)
         if self.value_context:
             x_dict = inject_value_context(x_dict, graph, self.vctx_patient, self.vctx_lab)
         for i in range(self.num_layers):
@@ -309,6 +316,7 @@ class HeteroGT(nn.Module):
         """The final patient and lab states, from one eval-mode forward."""
         if self.training:
             raise RuntimeError("compute_node_state is an eval-mode forward: call model.eval() first")
+        refuse_cluster_graph(graph)
         x_dict = self(graph)
         state = {"final_p": x_dict[PATIENT], "final_l": x_dict[LAB]}
         if self.shared_bilinear:

@@ -21,7 +21,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from multi_modal_gnn_tpu_torch.graph.hetero import GatherPlan
-from multi_modal_gnn_tpu_torch.graph.schema import PATIENT_LAB
+from multi_modal_gnn_tpu_torch.graph.schema import PATIENT, PATIENT_LAB
 from multi_modal_gnn_tpu_torch.models.context import patient_value_context
 from multi_modal_gnn_tpu_torch.ops.pairhead import fused_pair_head
 from multi_modal_gnn_tpu_torch.ops.pairhead_kernels import head_widths_supported
@@ -53,15 +53,44 @@ def bilinear_factor(rows: int, rank: int, generator: Optional[torch.Generator] =
     return nn.Parameter(torch.randn(rows, rank, generator=generator) / math.sqrt(rows))
 
 
+def patient_rows(table: torch.Tensor, graph) -> torch.Tensor:
+    """The rows of the global patient table that ``graph``'s patients read:
+    the whole table on a full graph; on a cluster graph
+    (``graph.patient_id_base`` set) local row ``i`` reads global row
+    ``min(base + i, N - 1)``, so padding patients past the global count
+    read the last row (JAX ``rgcn.py:316-322``).  A slice, and the last
+    row repeated, where JAX gathers: the same rows and gradients."""
+    base = None if graph is None else graph.patient_id_base
+    if base is None:
+        return table
+    end = base + graph.num_nodes(PATIENT)
+    if end <= table.shape[0]:
+        return table[base:end]
+    return torch.cat([table[base:], table[-1:].expand(end - table.shape[0], -1)])
+
+
+def refuse_cluster_graph(graph) -> None:
+    """The serving state is one forward over the full graph (JAX
+    ``rgcn.py:547-551``)."""
+    if graph.patient_id_base is not None:
+        raise ValueError(
+            "serving state must be computed on the FULL graph, not a mini-batch cluster "
+            "subgraph (patient_id_base is set)"
+        )
+
+
 def shared_bilinear_tables(model: nn.Module, graph) -> Tuple[torch.Tensor, torch.Tensor]:
     """The projected ``[N, rank]`` patient and lab tables of a model's
     shared bilinear term (``bilinear_source`` ``embedding`` or
     ``context``): the raw patient ID table, or each patient's value context
     over the raw lab table, against the raw lab table (JAX
-    ``rgcn.py:488-531``, ``hgt.py:331-367``)."""
+    ``rgcn.py:488-531``, ``hgt.py:331-367``).  On a cluster graph the
+    patient table is the cluster's window (:func:`patient_rows`), so the
+    batch's local indices read their global rows (JAX offsets the indices
+    by the base instead)."""
     lab = model.embed_lab.weight
     if model.bilinear_source == "embedding":
-        u = model.embed_patient.weight
+        u = patient_rows(model.embed_patient.weight, graph)
     else:
         u, _ = patient_value_context(lab, graph.edges[PATIENT_LAB])
     return u @ model.bilinear_u, lab @ model.bilinear_l

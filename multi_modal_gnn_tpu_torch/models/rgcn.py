@@ -42,6 +42,8 @@ from multi_modal_gnn_tpu_torch.models.layers import (
     bilinear_factor,
     get_activation,
     make_dense,
+    patient_rows,
+    refuse_cluster_graph,
     shared_bilinear_tables,
     take_rows,
 )
@@ -115,6 +117,10 @@ class HeteroSAGELayer(nn.Module):
 
 
 class HeteroRGCN(nn.Module):
+    # cluster graphs' local patients read their window of the global table
+    # (HeteroGraph.patient_id_base; training/minibatch.py)
+    supports_patient_id_base = True
+
     def __init__(
         self,
         node_counts: Tuple[Tuple[str, int], ...],
@@ -198,11 +204,13 @@ class HeteroRGCN(nn.Module):
     def node_types(self) -> Tuple[str, ...]:
         return tuple(name for name, _ in self.node_counts)
 
-    def encode_nodes(self, train: bool = False) -> Dict[str, torch.Tensor]:
-        """Initial embeddings; the patient table goes through the encoder."""
+    def encode_nodes(self, train: bool = False, graph: Optional[HeteroGraph] = None) -> Dict[str, torch.Tensor]:
+        """Initial embeddings; the patient table goes through the encoder.
+        On a cluster graph the patient rows are the cluster's window of the
+        global table (:func:`~multi_modal_gnn_tpu_torch.models.layers.patient_rows`)."""
         x_dict = {nt: getattr(self, f"embed_{nt}").weight for nt in self.node_types}
         if PATIENT in x_dict:
-            x_dict[PATIENT] = self.patient_encoder(x_dict[PATIENT], train)
+            x_dict[PATIENT] = self.patient_encoder(patient_rows(x_dict[PATIENT], graph), train)
         return x_dict
 
     def propagate(
@@ -220,7 +228,7 @@ class HeteroRGCN(nn.Module):
         return x_dict
 
     def forward(self, graph: HeteroGraph, train: bool = False) -> Dict[str, torch.Tensor]:
-        return self.propagate(self.encode_nodes(train), graph, train)
+        return self.propagate(self.encode_nodes(train, graph), graph, train)
 
     def _use_dual(self, patient_plan: Optional[GatherPlan], tab_mask) -> bool:
         """JAX's rule (``rgcn.py:419-436``): ``on``, or ``auto`` without tile
@@ -319,7 +327,7 @@ class HeteroRGCN(nn.Module):
         ``degrees`` is the per-pair patient lab-degree: given, it also builds
         the heads' tile masks; None, it is gathered here for the gate only.
         ``dropout_seed`` seeds the fused heads' dropout."""
-        initial = self.encode_nodes(train)
+        initial = self.encode_nodes(train, graph)
         final = self.propagate(initial, graph, train)
         use_plans = self.impl == "pallas"
         patient_plan = patient_plan if use_plans else None
@@ -340,6 +348,7 @@ class HeteroRGCN(nn.Module):
         forward over the full graph."""
         if self.training:
             raise RuntimeError("compute_node_state is an eval-mode forward: call model.eval() first")
+        refuse_cluster_graph(graph)
         initial = self.encode_nodes()
         final = self.propagate(initial, graph)
         state = {

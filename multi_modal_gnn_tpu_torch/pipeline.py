@@ -100,7 +100,7 @@ def step_train(config, opts: RunOptions):
 
     bundle = _load_bundle(config, opts)
     resume = "auto" if config.train.extras.get("auto_resume") else None
-    train_pipeline(config, bundle.graph, config.data.output_dir, resume_from=resume, device=opts.device)
+    train_pipeline(config, bundle, config.data.output_dir, resume_from=resume, device=opts.device)
 
 
 def step_evaluate(config, opts: RunOptions):

@@ -1,22 +1,26 @@
 """Training-throughput benchmark on the card (the repo root's ``bench.py``,
 ported).
 
-Metric: patient-lab train edges per second of full-batch training, sustained
-over timed epochs after a warm-up.  The warm-up is one chunk of
+Metric: patient-lab train edges per second of training, sustained over
+timed epochs after a warm-up: full batch, or ``--clusters N`` host-resident
+Cluster-GCN clusters (``training/minibatch.py``), as the JAX bench runs
+them.  The warm-up is one chunk of
 ``Trainer.train_epochs``; the timed chunks run back to back with no host
 readback, one ``torch.cuda.synchronize`` at the end, and the losses are read
 once.  Prints ONE JSON line with the JAX bench's keys:
 ``{"metric", "value", "unit", "vs_baseline", ...}``; ``device`` is the
 card's name and power limit, ``aggregation_impl`` the aggregation tiers the
 model's relations (RGCN) or attention groups (HGT) take, and
-``kernel_launches`` the hand-written kernels' launches in the timed chunks.
+``kernel_launches`` the hand-written kernels' launches in the timed chunks;
+with ``--clusters`` the line also has ``clusters`` and the tiers are the
+cluster graphs'.
 
-    python -m multi_modal_gnn_tpu_torch.tools.bench --scale --no-dense [--arch hgt | --mimic | --lab-tile-rows 0]
+    python -m multi_modal_gnn_tpu_torch.tools.bench --scale --no-dense [--arch hgt | --mimic | --lab-tile-rows 0 | --clusters 8]
 
 There is no CPU fallback: without a card, or on any failure, it prints the
-traceback and exits non-zero with no JSON line.  ``--clusters > 1`` and
-``--bf16`` raise ``ConfigError`` (mini-batch training and bfloat16 are not
-ported), as does ``--lab-tile-mode block``.
+traceback and exits non-zero with no JSON line.  ``--bf16`` raises
+``ConfigError`` (bfloat16 is not ported), as do ``--lab-tile-mode block``
+and ``--clusters`` below 1.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from multi_modal_gnn_tpu_torch.ops import attention_kernels, pairhead_kernels, s
 from multi_modal_gnn_tpu_torch.ops.segment import aggregation_tier
 from multi_modal_gnn_tpu_torch.training import Trainer, masker_from_config
 from multi_modal_gnn_tpu_torch.training.masker import resolve_lab_tile_rows
+from multi_modal_gnn_tpu_torch.training.minibatch import MiniBatchTrainer
 from multi_modal_gnn_tpu_torch.utils.device import disable_tf32, gpu_identity, resolve_device
 from multi_modal_gnn_tpu_torch.utils.rng import stream_seed
 
@@ -83,8 +88,8 @@ def run_bench(
     """One bench run on ``device`` (default: the card; raises without one).
     ``use_pallas`` None takes the kernel path."""
     device = resolve_device(device)
-    if clusters > 1:
-        raise ConfigError("--clusters > 1: mini-batch (Cluster-GCN) training is not ported yet")
+    if clusters < 1:
+        raise ConfigError(f"--clusters must be >= 1, got {clusters}")
     if bf16:
         raise ConfigError("--bf16: the port runs float32 only")
     if use_pallas is None:
@@ -126,7 +131,12 @@ def run_bench(
     n_train = masker.split_sizes()["train"]
     generator = torch.Generator().manual_seed(stream_seed(cfg.train.seed, "init"))
     model = build_model(cfg, graph, device=device, generator=generator)
-    trainer = Trainer(model, graph, masker, cfg, device=device)
+    if clusters > 1:
+        trainer = MiniBatchTrainer(model, graph, masker, cfg, num_clusters=clusters, host_resident=True, device=device)
+        tier_graph = trainer._ensure_clusters().subgraphs[0]
+    else:
+        trainer = Trainer(model, graph, masker, cfg, device=device)
+        tier_graph = trainer.graph
 
     n_epochs = epochs or (10 if quick else (30 if scale else 300))
     chunk = min(10 if (quick or scale) else 50, n_epochs)
@@ -156,7 +166,8 @@ def run_bench(
         "vs_baseline": edges_per_sec / REFERENCE_EDGES_PER_SEC,
         "config": "mimic_scale" if mimic else "scale_100k" if scale else "eicu_demo_synthetic",
         "arch": cfg.model.architecture,
-        "aggregation_impl": _aggregation_impl(trainer.model, trainer.graph, cfg),
+        **({"clusters": trainer.num_clusters} if clusters > 1 else {}),
+        "aggregation_impl": _aggregation_impl(trainer.model, tier_graph, cfg),
         "compute_dtype": cfg.model.compute_dtype,
         "lab_tile_rows": lab_tile_rows,
         "device": gpu_identity() if device.type == "cuda" else str(device),
@@ -196,7 +207,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         help="HGT dense-attention budget (model.extras.hgt_dense_attn_bytes; "
                              "0 forces the flash or segment tier)")
     parser.add_argument("--clusters", type=int, default=1,
-                        help="mini-batch patient clusters (>1 refused: not ported)")
+                        help="mini-batch patient clusters (>1: host-resident Cluster-GCN training)")
     parser.add_argument("--src-span-rows", type=int, default=None,
                         help="span plan block height (graph.src_span_rows; unset=256)")
     return parser.parse_args(argv)

@@ -1,5 +1,6 @@
-"""Full-batch training: splits and supervision, schedulers, the trainer,
-checkpoints, the ALS / side-information warm start."""
+"""Training: splits and supervision, schedulers, the full-batch trainer and
+the Cluster-GCN mini-batch trainer, checkpoints, the ALS / side-information
+warm start."""
 
 from multi_modal_gnn_tpu_torch.training.checkpoint import (
     load_checkpoint,
@@ -8,6 +9,7 @@ from multi_modal_gnn_tpu_torch.training.checkpoint import (
 )
 from multi_modal_gnn_tpu_torch.training.masker import EdgeMasker, SplitBatch, masker_from_config
 from multi_modal_gnn_tpu_torch.training.trainer import Trainer, build_optimizer, train_pipeline
+from multi_modal_gnn_tpu_torch.training.minibatch import MiniBatchTrainer, build_patient_clusters
 from multi_modal_gnn_tpu_torch.training.warmstart import (
     als_warm_start_params,
     bundle_membership_matrix,
@@ -17,8 +19,8 @@ from multi_modal_gnn_tpu_torch.training.warmstart import (
 )
 
 __all__ = [
-    "EdgeMasker", "SplitBatch", "Trainer", "als_warm_start_params", "build_optimizer",
-    "bundle_membership_matrix", "load_checkpoint", "load_flax_checkpoint", "masker_from_config",
+    "EdgeMasker", "MiniBatchTrainer", "SplitBatch", "Trainer", "als_warm_start_params",
+    "build_optimizer", "build_patient_clusters", "bundle_membership_matrix", "load_checkpoint", "load_flax_checkpoint", "masker_from_config",
     "save_checkpoint", "sideinfo_warm_start_params", "train_pipeline", "warm_start_from_config",
     "warm_start_trainer",
 ]

@@ -36,7 +36,7 @@ from multi_modal_gnn_tpu_torch.graph.hetero import (
     regroup_slots_by_lab_span,
 )
 from multi_modal_gnn_tpu_torch.graph.schema import LAB, PATIENT, PATIENT_LAB
-from multi_modal_gnn_tpu_torch.utils.rng import stream_seed
+from multi_modal_gnn_tpu_torch.utils.rng import fold_in, stream_seed
 
 # below this many train rows the slot-major layout's window padding costs
 # more than it saves (the JAX package's measured threshold)
@@ -79,6 +79,10 @@ class SplitBatch:
     lab_plan: Optional[GatherPlan] = None
     degrees: Optional[torch.Tensor] = None  # int32 [B_pad] patient lab-degree
     sample_weights: Optional[torch.Tensor] = None  # float32 [B_pad] lab weight
+    # the value-context knockout's position of each slot in the edge array of
+    # the graph the step runs on (cluster-local for mini-batch training);
+    # None: the trainer's global train positions
+    vis_positions: Optional[torch.Tensor] = None  # int32 [B_pad]
     num_valid: int = 0
 
     def to(self, device) -> "SplitBatch":
@@ -319,14 +323,21 @@ class EdgeMasker:
             out[slots[: len(idx)]] = idx
         return out
 
-    def supervision_mask(self, epoch: int, batch: Optional[SplitBatch] = None) -> torch.Tensor:
+    def supervision_mask(
+        self, epoch: int, batch: Optional[SplitBatch] = None, cluster: Optional[int] = None
+    ) -> torch.Tensor:
         """The epoch's Bernoulli(mask_fraction) supervision mask over the
-        train batch, times its validity, on the batch's device."""
+        train batch, times its validity, on the batch's device.  A
+        mini-batch cluster's batch draws from its own stream, the epoch's
+        folded with ``cluster`` (JAX ``fold_in(sup_key, k)``)."""
         batch = batch if batch is not None else self.get_split("train")
         if self.mask_fraction <= 0:
             return batch.valid
         device = batch.valid.device
-        gen = torch.Generator(device=device).manual_seed(stream_seed(self.seed, "supervision", epoch))
+        seed = stream_seed(self.seed, "supervision", epoch)
+        if cluster is not None:
+            seed = fold_in(seed, cluster)
+        gen = torch.Generator(device=device).manual_seed(seed)
         draw = torch.rand(batch.valid.shape, generator=gen, device=device) < self.mask_fraction
         return draw.float() * batch.valid
 

@@ -128,13 +128,14 @@ class Trainer:
             param.grad = torch.zeros_like(param)
 
         # lab-wise inverse-variance loss weights from the train split;
-        # train.extras.lab_reweighting: false gives uniform weights
+        # train.extras.lab_reweighting: false gives uniform weights.  The host
+        # copy serves host-side consumers (the cluster batches) with no readback
         _, train_lab_idx, train_values = masker.split_arrays("train")
         if bool(tc.extras.get("lab_reweighting", True)):
-            weights = compute_lab_weights(train_values, train_lab_idx, graph.num_nodes(LAB))
+            self.host_lab_weights = compute_lab_weights(train_values, train_lab_idx, graph.num_nodes(LAB))
         else:
-            weights = np.ones(graph.num_nodes(LAB), dtype=np.float32)
-        self.lab_weights = torch.from_numpy(weights).to(self.device)
+            self.host_lab_weights = np.ones(graph.num_nodes(LAB), dtype=np.float32)
+        self.lab_weights = torch.from_numpy(self.host_lab_weights).to(self.device)
         self._batches: Dict[str, SplitBatch] = {}
         self._loss_type = tc.loss
 
@@ -159,26 +160,43 @@ class Trainer:
 
     # -- steps -------------------------------------------------------------
 
-    def _visible_graph(self, sup_mask: torch.Tensor) -> HeteroGraph:
-        """The graph with the train step's value visibility: the template
-        with the supervised train edges hidden too, so no edge reads its own
-        target (JAX ``Trainer._visible_graph``, single device).  Padding
+    def _visible_graph(
+        self,
+        sup_mask: torch.Tensor,
+        graph: Optional[HeteroGraph] = None,
+        positions: Optional[torch.Tensor] = None,
+    ) -> HeteroGraph:
+        """``graph`` (default: the trainer's) with the train step's value
+        visibility: its template with the supervised train edges hidden too,
+        so no edge reads its own target (JAX ``Trainer._visible_graph``,
+        single device).  ``positions`` are the batch slots' edge positions
+        in ``graph`` (default: the full graph's train positions; a cluster
+        batch carries its own, ``SplitBatch.vis_positions``).  Padding
         slots point at position 0 with supervision 0: the product over every
         slot's factor keeps edge 0 hidden when it is supervised, whatever
         the order of the duplicate writes."""
+        graph = self.graph if graph is None else graph
         if not self._value_context:
-            return self.graph
-        es = self.graph.edges[PATIENT_LAB]
-        vis = es.val_vis.clone().index_reduce_(0, self._vis_train_pos, 1.0 - sup_mask, "prod")
-        edges = {**self.graph.edges, PATIENT_LAB: dataclasses.replace(es, val_vis=vis)}
-        return dataclasses.replace(self.graph, edges=edges)
+            return graph
+        positions = self._vis_train_pos if positions is None else positions.long()
+        es = graph.edges[PATIENT_LAB]
+        vis = es.val_vis.clone().index_reduce_(0, positions, 1.0 - sup_mask, "prod")
+        edges = {**graph.edges, PATIENT_LAB: dataclasses.replace(es, val_vis=vis)}
+        return dataclasses.replace(graph, edges=edges)
 
-    def _train_step(self, batch: SplitBatch, sup_mask: torch.Tensor, dropout_seed: int) -> torch.Tensor:
+    def _train_step(
+        self,
+        batch: SplitBatch,
+        sup_mask: torch.Tensor,
+        dropout_seed: int,
+        graph: Optional[HeteroGraph] = None,
+    ) -> torch.Tensor:
         """One forward, weighted masked loss, backward and Adam step; the
-        loss stays on the device.  ``batch`` is the train batch."""
+        loss stays on the device.  ``batch`` is the train batch of ``graph``
+        (default: the trainer's graph)."""
         self.model.train()
         preds = self.model.predict_lab_values(
-            self._visible_graph(sup_mask), batch.patient_idx, batch.lab_idx, train=True,
+            self._visible_graph(sup_mask, graph, batch.vis_positions), batch.patient_idx, batch.lab_idx, train=True,
             patient_plan=batch.patient_plan, lab_plan=batch.lab_plan, degrees=batch.degrees,
             dropout_seed=dropout_seed,
         )
@@ -193,23 +211,34 @@ class Trainer:
         self.optimizer.step()
         return loss.detach()
 
-    def train_step(self, batch: SplitBatch, sup_mask: torch.Tensor, dropout_seed: int) -> float:
+    def train_step(
+        self,
+        batch: SplitBatch,
+        sup_mask: torch.Tensor,
+        dropout_seed: int,
+        graph: Optional[HeteroGraph] = None,
+    ) -> float:
         """:meth:`_train_step`, the loss read back."""
-        return float(self._train_step(batch, sup_mask, dropout_seed))
+        return float(self._train_step(batch, sup_mask, dropout_seed, graph))
 
-    def _epoch_step(self, epoch: int) -> torch.Tensor:
-        """Epoch ``epoch``'s step with its (seed, epoch) supervision mask and
-        dropout stream: the fused heads' counter-based dropout and torch's
-        generator (every other dropout) are both seeded from it, the
-        caller's generator state restored after.  The loss stays on the
-        device."""
-        batch = self.get_batch("train")
-        sup_mask = self.masker.supervision_mask(epoch, batch)
-        seed = stream_seed(self.config.train.seed, "dropout", epoch)
+    def _seeded_step(
+        self, batch: SplitBatch, sup_mask: torch.Tensor, seed: int, graph: Optional[HeteroGraph] = None
+    ) -> torch.Tensor:
+        """:meth:`_train_step` with its dropout stream ``seed``: the fused
+        heads' counter-based dropout and torch's generator (every other
+        dropout) are both seeded from it, the caller's generator state
+        restored after."""
         devices = [self.device] if self.device.type == "cuda" else []
         with torch.random.fork_rng(devices=devices):
             torch.manual_seed(seed)
-            return self._train_step(batch, sup_mask, seed)
+            return self._train_step(batch, sup_mask, seed, graph)
+
+    def _epoch_step(self, epoch: int) -> torch.Tensor:
+        """Epoch ``epoch``'s step with its (seed, epoch) supervision mask and
+        dropout stream.  The loss stays on the device."""
+        batch = self.get_batch("train")
+        sup_mask = self.masker.supervision_mask(epoch, batch)
+        return self._seeded_step(batch, sup_mask, stream_seed(self.config.train.seed, "dropout", epoch))
 
     def train_epoch(self) -> float:
         return float(self._epoch_step(self.epoch))
@@ -250,13 +279,17 @@ class Trainer:
             model.load_state_dict(state)
         return model.eval()
 
-    def _eval_preds(self, batch: SplitBatch, state: Optional[dict] = None) -> torch.Tensor:
-        model = self.eval_model(state)
+    @staticmethod
+    def _forward_eval(model: torch.nn.Module, graph: HeteroGraph, batch: SplitBatch) -> torch.Tensor:
+        """``model``'s eval-mode predictions for ``batch`` over ``graph``."""
         with torch.no_grad():
             return model.predict_lab_values(
-                self.graph, batch.patient_idx, batch.lab_idx, train=False,
+                graph, batch.patient_idx, batch.lab_idx, train=False,
                 patient_plan=batch.patient_plan, lab_plan=batch.lab_plan, degrees=batch.degrees,
             )
+
+    def _eval_preds(self, batch: SplitBatch, state: Optional[dict] = None) -> torch.Tensor:
+        return self._forward_eval(self.eval_model(state), self.graph, batch)
 
     def _eval_loss(self, split: str, state: Optional[dict] = None) -> torch.Tensor:
         batch = self.get_batch(split)
@@ -477,16 +510,33 @@ class Trainer:
         logger.info("Resumed training at epoch %d (best val %.4f)", self.epoch, self.best_val_loss)
 
 
+def cluster_count(config: Config, num_train: int) -> int:
+    """The number of mini-batch clusters the config asks for:
+    ``train.extras.num_clusters`` (default 1), raised to
+    ``ceil(num_train / train.batch_size)`` when ``batch_size`` is set (JAX
+    ``train_pipeline``)."""
+    tc = config.train
+    n = max(int(tc.extras.get("num_clusters", 1) or 1), 1)
+    if tc.batch_size:
+        n = max(n, -(-num_train // int(tc.batch_size)))
+    return n
+
+
 def train_pipeline(
-    config: Config, graph: HeteroGraph, output_dir, resume_from=None, device=None
+    config: Config, graph, output_dir, resume_from=None, device=None
 ) -> Tuple[Trainer, Dict]:
     """The training stage: the model from ``config`` (weights drawn from
     ``train.seed``), the masker from the config, :meth:`Trainer.fit` into
     ``output_dir`` (``scan_chunk`` from ``train.scan_chunk``), then the best
-    state's test loss in ``test_results.json``.  Runs on ``device``
+    state's test loss in ``test_results.json``.  ``graph`` is a
+    :class:`HeteroGraph` or a ``GraphBundle``.  Runs on ``device``
     (default: the card; raises without one), under
     ``config.reproducibility`` (:func:`apply_reproducibility`).
 
+    More than one cluster (:func:`cluster_count`: ``train.batch_size`` or
+    ``train.extras.num_clusters``) trains with
+    :class:`~multi_modal_gnn_tpu_torch.training.minibatch.MiniBatchTrainer`,
+    host-resident under ``train.extras.host_resident``.
     ``train.extras.warm_start: als | sideinfo`` wires the bilinear channel
     into the model config (:func:`~multi_modal_gnn_tpu_torch.training.warmstart.wire_warm_start`)
     and plants the baseline before ``fit``, as JAX ``train_pipeline`` does."""
@@ -495,11 +545,23 @@ def train_pipeline(
     output_dir.mkdir(parents=True, exist_ok=True)
     config = wire_warm_start(config)
     tc = config.train
+    bundle = graph
+    graph = getattr(bundle, "graph", bundle)
     masker = masker_from_config(config, graph)
     logger.info("Edge splits: %s", masker.split_sizes())
     generator = torch.Generator().manual_seed(stream_seed(tc.seed, "init"))
     model = build_model(config, graph, device=device, generator=generator)
-    trainer = Trainer(model, graph, masker, config, device=device)
+    n_clusters = cluster_count(config, masker.split_sizes()["train"])
+    if n_clusters > 1:
+        from multi_modal_gnn_tpu_torch.training.minibatch import MiniBatchTrainer
+
+        logger.info("Mini-batch training over %d patient clusters", n_clusters)
+        trainer = MiniBatchTrainer(
+            model, bundle, masker, config, num_clusters=n_clusters,
+            host_resident=bool(tc.extras.get("host_resident", False)), device=device,
+        )
+    else:
+        trainer = Trainer(model, graph, masker, config, device=device)
     warm_start_from_config(trainer, config)
     with debug_context:
         trainer.fit(output_dir=output_dir, resume_from=resume_from, scan_chunk=tc.scan_chunk)

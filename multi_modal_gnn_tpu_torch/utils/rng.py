@@ -23,6 +23,12 @@ def stream_seed(seed: int, name: str, index: int = 0) -> int:
     return int(state.generate_state(1, np.uint64)[0] >> np.uint64(1))
 
 
+def fold_in(seed: int, index: int) -> int:
+    """A seed for sub-stream ``index`` of the stream ``seed`` seeds (JAX
+    ``jax.random.fold_in``)."""
+    return stream_seed(seed, "fold_in", index)
+
+
 def stream_seed_pair(seed: int, name: str, index: int = 0) -> tuple:
     """Two 32-bit words for a kernel's counter-based generator."""
     state = np.random.SeedSequence([int(seed), zlib.crc32(name.encode()), int(index)])

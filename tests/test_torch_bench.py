@@ -5,9 +5,10 @@
   bench's key set (plus ``kernel_launches``), and its ``params`` and
   ``train_edges`` equal JAX ``count_parameters`` and the JAX masker's train
   size for the same configuration.
-* ``--clusters > 1``, ``--bf16`` and ``--lab-tile-mode block`` raise
+* ``--clusters`` below 1, ``--bf16`` and ``--lab-tile-mode block`` raise
   ``ConfigError``; without a card the bench raises, and its command line
-  exits non-zero with no JSON line (no CPU fallback).
+  exits non-zero with no JSON line (no CPU fallback).  ``--clusters 2``
+  runs in ``tests/test_torch_minibatch.py``.
 """
 
 import json
@@ -92,7 +93,7 @@ def test_cpu_run_prints_the_jax_keys_and_counts(eicu_bundle):
 
 
 @pytest.mark.parametrize(
-    "kwargs", [{"clusters": 2}, {"bf16": True}, {"lab_tile_mode": "block", "lab_tile_rows": 256}]
+    "kwargs", [{"clusters": 0}, {"bf16": True}, {"lab_tile_mode": "block", "lab_tile_rows": 256}]
 )
 def test_what_the_port_does_not_run_is_refused(kwargs):
     with pytest.raises(ConfigError):

@@ -1634,3 +1634,69 @@ def test_side_information_warm_start_on_the_card(gpu):
     np.testing.assert_allclose(trainer.predict("val"), baseline.predict(p, l), atol=1e-4)
     assert trainer.best_val_loss == trainer.validate()
     assert np.isfinite(trainer.train_epoch())
+
+
+# -- Cluster-GCN mini-batch training -------------------------------------------
+
+CLUSTER_CONFIG = Config(graph=GraphConfig(dense_adjacency_max_bytes=0), model=ModelConfig(use_pallas=True))
+
+
+def _cluster_trainer(graph, device, host_resident, seed=0):
+    from multi_modal_gnn_tpu_torch.training import MiniBatchTrainer
+
+    model = build_model(CLUSTER_CONFIG, graph, device="cpu", generator=torch.Generator().manual_seed(seed))
+    return MiniBatchTrainer(model, graph, EdgeMasker(graph), CLUSTER_CONFIG, 4, host_resident=host_resident,
+                            device=device)
+
+
+@pytest.mark.cuda
+def test_host_resident_clusters_on_the_card(gpu):
+    """Host-resident clusters lie pinned on the host and train like
+    device-resident ones: within twice the drift of three device-resident
+    runs (the kernels' atomics), as chip_smoke.py phase 25 (e)."""
+    graph = make_synthetic_graph(LIFECYCLE_SPEC, CLUSTER_CONFIG, device="cpu")
+
+    def run(host):
+        trainer = _cluster_trainer(graph, gpu, host)
+        losses, vals = trainer.train_epochs(2, with_val=True)
+        return trainer, np.concatenate([losses, vals])
+
+    runs = [run(False)[1] for _ in range(3)]
+    host, c = run(True)
+    drift = max(float(np.abs(a - b).max() / np.abs(a).min()) for i, a in enumerate(runs) for b in runs[i + 1:])
+    assert float(np.abs(c - runs[0]).max() / np.abs(runs[0]).min()) <= 2 * drift
+    cd = host._ensure_clusters()
+    assert all(t.is_pinned() for g in cd.subgraphs for t in g.tensors())
+    assert cd.batches["train"][0][0].patient_idx.is_cuda
+    preds = host.predict("test")
+    assert np.isfinite(preds).all() and preds.shape == (len(host.masker.split_indices("test")),)
+
+
+@pytest.mark.cuda
+def test_cluster_step_launches_the_segment_kernels(gpu):
+    graph = make_synthetic_graph(LIFECYCLE_SPEC, CLUSTER_CONFIG, device="cpu")
+    trainer = _cluster_trainer(graph, gpu, False)
+    cd = trainer._ensure_clusters()
+    batch, sub = cd.batches["train"][1][0], cd.subgraphs[1]
+    sk.reset_launch_counts()
+    loss = trainer.train_step(batch, batch.valid, 0, graph=sub)
+    assert np.isfinite(loss)
+    counts = dict(sk.launch_counts)
+    assert counts["segment_sum_windowed"] > 0 and counts["fused_table_segment_sum"] > 0, counts
+    assert counts["fused_table_segment_sum_bwd"] > 0 and counts["span_segment_sum"] == 0, counts
+
+
+@pytest.mark.cuda
+def test_bench_clusters_prints_its_line(gpu):
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "multi_modal_gnn_tpu_torch.tools.bench", "--epochs", "2", "--no-dense", "--clusters", "2"],
+        cwd=Path(__file__).resolve().parent.parent, capture_output=True, text=True, timeout=600,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert line["clusters"] == 2 and line["value"] > 0 and line["kernel_launches"]

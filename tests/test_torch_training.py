@@ -106,10 +106,11 @@ def test_train_config_reads_the_jax_section():
 @pytest.mark.parametrize(
     "train",
     [
-        {"batch_size": 1024},
+        {"batch_size": 0},
         {"optimizer": {"type": "sgd"}},
         {"parallel": "dp"},
-        {"num_clusters": 8},
+        {"num_clusters": 8, "parallel": "dp"},
+        {"cluster_balance": "nodes"},
         {"warm_start": True},
         {"lab_tile_mode": "block"},
         {"loss": "l1"},
