@@ -4,7 +4,8 @@ the RGCN's dual-head training path, the gather probe, the bench, the
 trainer's lifecycle (checkpoints, resume, evaluation), the pipeline
 command line on the flagship config, the serving artifact, the quality
 channels (value context, the bilinear channel, the side-information warm
-start) and Cluster-GCN mini-batch training on one CUDA GPU.
+start), Cluster-GCN mini-batch training and the bfloat16 compute path on
+one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -154,8 +155,8 @@ Phases, each printing one line with its seconds:
  24. warm-start    conf/eicu_real.yaml with train.extras.warm_start:
                    sideinfo and its channel written out
                    (flagship_band.warm_start_config) through the command
-                   line at train seeds 42-44, held to the JAX package's CPU
-                   band of that file (JAX_CPU_BAND_SIDEINFO); seed 42's plant
+                   line at train seed 42 (WARM_START_SEEDS), held to the JAX
+                   package's CPU band of that file (JAX_CPU_BAND_SIDEINFO); seed 42's plant
                    on the card equals SideInfoALSBaseline on the val pairs
                    within 1e-4, its best val loss is not above the plant's,
                    and its step-8 artifact carries bl_u / bl_l and answers
@@ -193,7 +194,35 @@ Phases, each printing one line with its seconds:
                    start, 60 epochs): R2 of K = 1 and K = 4 both >= 0.22,
                    within 0.005 of each other, and K = 4 within 0.02 of the
                    JAX CPU value (JAX_CPU_R2_K4)
-Then a JSON line of per-kernel results, the nvidia-smi line, and the last
+ 27. bf16          model.compute_dtype bfloat16 | auto on phase 3's graph:
+                   (a) the tensor-core probe (utils/mxu_probe.py, called
+                   directly: its t_f32 / t_bf16 lists and ratios) and
+                   build_model with auto against the rule; (d) the bf16
+                   node state and three request types against the CPU
+                   plain versions, as a share of bf16's own effect (the
+                   same weights in f32); (c) one bf16 train step (dropout
+                   0) against the CPU plain step (loss to one rounding,
+                   gradients per tensor, parameters after Adam), K1 / K2f /
+                   K3 / K4f / K4b launching their bf16 instantiations, and
+                   the step with dual_head_fusion on (K5f / K5b bf16)
+                   against off; (b) every bf16 kernel of the path against
+                   its plain version at the path's shapes (K1 at each call
+                   site of the step, K2f and K2b on the three fused-table
+                   relations, K3, K4f / K4b on the span@256 batch, K5f /
+                   K5b on the full-table batch; a planted 601-fold edge for
+                   K2b and K3), timed in turns with its f32 kernel beside
+                   its bound for 2-byte rows; their -Xptxas -v lines; (e)
+                   5 RGCN and 2 HGT epochs each in bf16 and f32 in turns
+                   (epoch ms, device ms and idle share, peak memory) and
+                   bench --scale --no-dense --quick --bf16's line; (f) JAX's
+                   bf16 quality pin with the port (R2 >= 0.15; f32 beside
+                   it) and conf/eicu_real.yaml in bf16 at seed 42 within
+                   0.03 of phase 21's float32 run of that seed (the JAX
+                   package's bf16 run beside it), its step 8 refusing the
+                   bf16 model
+Then a JSON line of per-kernel results (a kernel with a bf16 instantiation
+also carries launches_bf16_step and its bf16 results), the nvidia-smi
+line, and the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero before the last line; without a CUDA device it fails in phase 1.
 """
@@ -282,6 +311,9 @@ JAX_CPU_BAND_SIDEINFO = {
     "r2": (0.27537223719962145, 0.2878246991449701, 0.2853947600452612),
     "mae": (0.5681749143247993, 0.5810189486826384, 0.5760004550891525),
 }
+# phase 24 trains seed 42 alone (phase 21 keeps all three): its depth was cut
+# to hold all 27 phases near 900 s, the band check is unchanged
+WARM_START_SEEDS = FLAGSHIP_SEEDS[:1]
 # phase 24: the val predictions right after the plant against the baseline
 # (float64 numpy) on the card
 WARM_START_ATOL = 1e-4
@@ -381,6 +413,58 @@ HGT_PLAIN_REPS = 5  # the plain versions gather [E, 128] tensors: fewer repetiti
 # group's gradient dropped, misscaled or sent through the wrong plan) moves
 # whole terms of a tensor
 HGT_STEP_GRAD_NORM_REL = 1e-2
+
+
+# phase 27 (bfloat16): rows, node projections and W1 in bfloat16, sums in
+# float32.  A bfloat16 value has 8 significant bits: one spacing is at most
+# 2^-7 of it.  The loss of a step whose heads take bfloat16 inputs: within
+# one rounding, 2^-8.  A gradient that leaves in bfloat16 is rounded from a
+# float32 sum in another order on each side, and a slot gradient summed into
+# it may round the other way: within 1e-4 of its largest element except for
+# at most BF16_FLIP_SHARE of its elements, each within one spacing of the
+# largest.  The bounds of 2-byte rows use the bfloat16 tensor-core peak for
+# operations (NVIDIA's data sheet, dense)
+BF16_ULP = 2.0 ** -7
+BF16_LOSS_RTOL = 2.0 ** -8
+BF16_FLIP_SHARE = 1e-3
+BF16_FLOPS = 989e12
+# phase 27 (c): a bfloat16 step's gradients against another bfloat16 step's
+# (card against CPU plain; dual on against off), per tensor in the 2-norm.
+# The two sides round activations to bfloat16 after float32 sums in other
+# orders, so a unit within a bfloat16 rounding of its ReLU's kink takes the
+# other branch (65,536 times as many units as within float32's rounding),
+# and BatchNorm's backward over the 500 labs subtracts means that nearly
+# cancel: the card against the CPU plain step drifted up to 0.205 of a
+# gradient's norm (conv_0.neigh_patient__has_lab__lab.weight; 0.098 for
+# embed_patient, phase 8's float32 drift there 1e-2), every head gradient
+# below 3e-3 (NVIDIA H100 80GB HBM3, 700.00 W).  Held to three times the
+# largest drift; a fault of the path (a relation's gradient dropped,
+# misscaled or sent through the wrong plan) moves whole terms of a tensor
+BF16_STEP_GRAD_NORM_REL = 0.6
+# phase 27 (d): the node state and answers, card against CPU plain, as a
+# share of bfloat16's own effect on them (the same weights in float32)
+BF16_STATE_RATIO = 0.5
+# (f) JAX tests/test_mxu_probe.py's quality pin (R2 >= 0.15 under bfloat16),
+# and its "dtype noise budget" (0.03) for the flagship in bfloat16 at train
+# seed 42 against phase 21's float32 run of that seed.  The JAX package's
+# bfloat16 run of it on the CPU is printed beside them, not held to: `python
+# scripts/flagship_band_jax.py --config <the flagship with
+# model.compute_dtype: bfloat16, tools/flagship_band.dtype_config> --seeds
+# 42`.  Its scatter-adds round at every add, so the pair head's lab
+# gradients (40,000 rows summed into 50) carry a few percent of error and
+# its run stalls and stops at 30 epochs, 0.039 below its float32 seed 42;
+# the port sums bfloat16 rows in float32 (ops/segment.py)
+BF16_PIN_R2_MIN = 0.15
+BF16_NOISE_BUDGET = 0.03
+JAX_CPU_BF16_R2_42 = 0.23711894617133844
+BF16_RGCN_EPOCHS, BF16_HGT_EPOCHS = 5, 2
+# the bfloat16 instantiations' -Xptxas -v lines, by kernel
+BF16_NAMED = tuple((label, entry + "13__nv_bfloat16") for label, entry in (
+    ("K2b", "incidence_kernelILb0E"), ("K3", "incidence_kernelILb1E"),
+    ("K2f / K1 small table", "gather_runs_kernelI"), ("K1 large table", "gather_tile_kernelILb0E"),
+    ("K1 pre-gathered", "gather_tile_kernelILb1E"), ("K4f", "pair_head_fwd_kernelI"),
+    ("K4b", "pair_head_bwd_kernelI"), ("K5f", "pair_head_dual_fwd_kernelI"), ("K5b", "pair_head_dual_bwd_kernelI"),
+))
 
 
 def _ptxas_report(log: str, entry: str) -> list:
@@ -1326,6 +1410,489 @@ def _cluster_quality_phase(dev) -> dict:
     if not abs(r2_k4 - JAX_CPU_R2_K4) <= QUALITY_JAX_MARGIN:
         raise AssertionError(f"cluster quality: K=4 R2 {r2_k4:.4f} outside {JAX_CPU_R2_K4:.4f} +- {QUALITY_JAX_MARGIN}")
     return {"r2_k1": r2_full, "r2_k4": r2_k4}
+
+
+def _bf16_close(name: str, got, want) -> float:
+    """A gradient that leaves in bfloat16 (constants above): returns the
+    largest error."""
+    import torch
+
+    got, want = got.double().cpu(), want.double().cpu()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} / {tuple(want.shape)} or non-finite values")
+    err, scale = (got - want).abs(), float(want.abs().max())
+    off = float((err > 1e-4 * scale).double().mean()) if err.numel() else 0.0
+    ok = float(err.max()) <= BF16_ULP * scale and off <= BF16_FLIP_SHARE
+    print(f"    {name}: max_abs_err {float(err.max()):.3e}  max|ref| {scale:.3e}  beyond 1e-4 max|ref|: {off:.2e} "
+          f"of the elements (<= {BF16_FLIP_SHARE:g}, each <= 2^-7 max|ref|)  {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{name}: outside tolerance")
+    return float(err.max())
+
+
+def _bf16_grads_close(name: str, got: dict, want: dict) -> None:
+    """A bfloat16 step's gradients against another bfloat16 step's, per
+    tensor: ``||got - want|| <= BF16_STEP_GRAD_NORM_REL * ||want||`` plus
+    1e-6 of the step's largest gradient norm.  A bias right before a
+    BatchNorm has a gradient of 0 in exact arithmetic: each side holds its
+    own rounding noise, and ``got``'s is held to twice ``want``'s."""
+    import torch
+
+    largest = max(float(g.norm()) for g in want.values())
+    floor = STEP_GRAD_ZERO_FLOOR * largest
+    drift, failed = {}, []
+    for key, ref in want.items():
+        a, b = got[key].double().cpu(), ref.double().cpu()
+        if _feeds_batch_norm(key):
+            ok = float(a.norm()) <= 2 * float(b.norm()) + floor
+        else:
+            diff, norm = float(torch.linalg.vector_norm(a - b)), float(torch.linalg.vector_norm(b))
+            ok = diff <= BF16_STEP_GRAD_NORM_REL * norm + floor
+            drift[key] = diff / norm if norm > 0 else 0.0
+        if not ok:
+            failed.append(key)
+    top = sorted(drift.items(), key=lambda kv: -kv[1])[:6]
+    print(f"    {name}: ||d|| / ||ref|| largest " + ", ".join(f"{k} {v:.3e}" for k, v in top)
+          + f" (<= {BF16_STEP_GRAD_NORM_REL}); {len(want) - len(drift)} BatchNorm-fed biases within twice the "
+          f"reference's noise; {'ok' if not failed else 'FAIL ' + str(failed)}", flush=True)
+    if failed:
+        raise AssertionError(f"{name}: gradients outside the bound: {failed}")
+
+
+def _feeds_batch_norm(name: str) -> bool:
+    """A bias added right before a BatchNorm (the encoder's hidden layers,
+    the convolutions' summed neighbor biases)."""
+    return name.endswith(".bias") and (
+        name.startswith("conv_") or name in ("patient_encoder.dense_0.bias", "patient_encoder.dense_1.bias")
+    )
+
+
+def _bf16_state_close(name: str, got, want, f32) -> float:
+    """Node state and answers in bfloat16, card against the CPU plain
+    versions: ``||got - want|| <= BF16_STATE_RATIO * ||want - f32||`` (the
+    two sides' disagreement well under bfloat16's own effect, ``f32`` the
+    same weights in float32; tests/test_torch_bf16.py's bound).  Returns
+    the ratio."""
+    import torch
+
+    got, want, f32 = got.double().cpu(), want.double().cpu(), f32.double().cpu()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} / {tuple(want.shape)} or non-finite values")
+    diff, effect = float(torch.linalg.vector_norm(got - want)), float(torch.linalg.vector_norm(want - f32))
+    ratio = diff / effect if effect > 0 else (0.0 if diff == 0 else float("inf"))
+    ok = ratio <= BF16_STATE_RATIO
+    print(f"    {name}: ||card - CPU|| / ||bf16 - f32|| {ratio:.3e}  max_abs_err {float((got - want).abs().max()):.3e}  "
+          f"(<= {BF16_STATE_RATIO})  {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{name}: outside tolerance")
+    return ratio
+
+
+def _bf16_phase(dev, graph_cpu, graph, graph_hgt, config, hgt_config, dual_config, tiers, masker, masker0,
+                flagship_r2_f32, reset_counts) -> dict:
+    """Phase 27: the bfloat16 compute path (model.compute_dtype: bfloat16 |
+    auto) on phase 3's graph.  Returns each kernel's bfloat16 results and
+    launches for the kernels line."""
+    import numpy as np
+    import torch
+
+    from multi_modal_gnn_tpu_torch import pipeline
+    from multi_modal_gnn_tpu_torch.config import ConfigError
+    from multi_modal_gnn_tpu_torch.data import SyntheticSpec
+    from multi_modal_gnn_tpu_torch.data.synthetic import generate_synthetic_tables
+    from multi_modal_gnn_tpu_torch.evaluation.metrics import compute_regression_metrics
+    from multi_modal_gnn_tpu_torch.graph.build import build_heterogeneous_graph
+    from multi_modal_gnn_tpu_torch.graph.hetero import TILE_E, WINDOW, pad_edge_set
+    from multi_modal_gnn_tpu_torch.models import build_model
+    from multi_modal_gnn_tpu_torch.ops import _build
+    from multi_modal_gnn_tpu_torch.ops import pairhead_kernels as pk
+    from multi_modal_gnn_tpu_torch.ops import segment as seg_ops
+    from multi_modal_gnn_tpu_torch.ops import segment_kernels as sk
+    from multi_modal_gnn_tpu_torch.serving import build_serving_fn, compute_node_state, predict_patient
+    from multi_modal_gnn_tpu_torch.tools import bench, flagship_band
+    from multi_modal_gnn_tpu_torch.training import EdgeMasker, Trainer, warm_start_trainer
+    from multi_modal_gnn_tpu_torch.utils import mxu_probe
+    from multi_modal_gnn_tpu_torch.utils.rng import stream_seed
+
+    bf, d = torch.bfloat16, config.model.hidden_dim
+    gen = torch.Generator().manual_seed(27)
+    out = {"kernels": {}, "launches_step": {}}
+
+    def bf16_counts():
+        counts = {**sk.launch_counts, **pk.launch_counts}
+        return {name: counts[name + "_bf16"] for name in (*SEGMENT_KERNELS, "pair_head_fwd", "pair_head_bwd",
+                                                          "pair_head_dual_fwd", "pair_head_dual_bwd")}
+
+    def with_dtype(cfg, dtype, **model):
+        return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype=dtype, **model))
+
+    for label, entry in BF16_NAMED:
+        print(f"    ptxas bf16 {label}: " + (" | ".join(_ptxas_report(_build.build_log, entry)) or "not built in this run"))
+
+    # (a) the tensor-core probe, called directly: a probe that fails fails the phase
+    stats = mxu_probe.probe_bf16_stats(force=True)
+    print(f"    (a) probe: t_f32 {stats['t_f32_ms']} ms, t_bf16 {stats['t_bf16_ms']} ms (32 dependent [2048, 2048] "
+          f"matmuls, median of 7, {stats['repeats']} pairs); ratio {stats['ratio']}, ratio_min {stats['ratio_min']}, "
+          f"ratio_max {stats['ratio_max']}", flush=True)
+    want_auto = bf if stats["ratio_min"] >= mxu_probe.BF16_ENGAGE_RATIO else None
+    auto_model = build_model(with_dtype(config, "auto"), graph_cpu, generator=torch.Generator().manual_seed(0))
+    if auto_model.compute_dtype != want_auto:
+        raise AssertionError(f"compute_dtype auto built {auto_model.compute_dtype}, the rule says {want_auto}")
+    print(f"    (a) compute_dtype auto -> {auto_model.compute_dtype or torch.float32} (engage at ratio_min >= "
+          f"{mxu_probe.BF16_ENGAGE_RATIO})")
+    out["probe"] = stats
+    del auto_model
+
+    # (c) one RGCN train step in bfloat16 (dropout 0), the card against the
+    # CPU plain versions; K1's call sites recorded as phase 8 does
+    cfg_bf = with_dtype(config, "bfloat16", dropout=0.0)
+    model_gpu = build_model(cfg_bf, graph_cpu, generator=torch.Generator().manual_seed(0))
+    model_ref = build_model(cfg_bf, graph_cpu, device="cpu", generator=torch.Generator().manual_seed(0))
+    # (d) the bf16 node state and the three request types of the same
+    # weights, card against CPU plain (before the step moves them)
+    model_f32 = build_model(with_dtype(cfg_bf, "float32"), graph_cpu, generator=torch.Generator().manual_seed(0))
+    state = compute_node_state(model_gpu, graph)
+    state_ref = compute_node_state(model_ref, graph_cpu)
+    state_f32 = compute_node_state(model_f32, graph)
+    for key, value in state_ref.items():
+        if value.is_floating_point() and key != "degree":
+            _bf16_state_close(f"(d) state {key} ({state[key].dtype})", state[key], value, state_f32[key])
+    fn, _ = build_serving_fn(model_gpu, graph, state)
+    fn_ref, _ = build_serving_fn(model_ref, graph_cpu, state_ref)
+    fn_f32, _ = build_serving_fn(model_f32, graph, state_f32)
+    num_l = graph.num_nodes("lab")
+    rng = np.random.default_rng(27)
+    requests = {"patient 17": None, "batch 256": 256, "batch 4096": 4096}
+    for label, n in requests.items():
+        if n is None:
+            got, want, ref32 = (predict_patient(f, 17, num_l) for f in (fn, fn_ref, fn_f32))
+        else:
+            p, l = rng.integers(0, graph.num_nodes("patient"), n), rng.integers(0, num_l, n)
+            got, want, ref32 = fn(p, l), fn_ref(p, l), fn_f32(p, l)
+        if got.dtype != torch.float32:
+            raise AssertionError(f"(d) {label}: answers in {got.dtype}, not float32")
+        _bf16_state_close(f"(d) request {label}", got, want, ref32)
+    del state_ref, fn_ref, model_f32, state_f32, fn_f32
+    trainer, trainer_ref = Trainer(model_gpu, graph, masker, cfg_bf), Trainer(model_ref, graph_cpu, masker, cfg_bf, device="cpu")
+    batch_cpu = masker.get_split("train")
+    sup = masker.supervision_mask(0, batch_cpu)
+    b_gpu, b_ref = trainer.get_batch("train"), trainer_ref.get_batch("train")
+    plan_of = {es.win_local.data_ptr(): et for et, es in graph.edges.items() if es.win_local is not None}
+    k1_calls, k1_real = [], seg_ops.segment_sum_windowed
+
+    def k1_recorded(x, idx, win_local, win_tile_map, num_windows):
+        k1_calls.append((plan_of.get(win_local.data_ptr()), x.dtype))
+        return k1_real(x, idx, win_local, win_tile_map, num_windows)
+
+    reset_counts()
+    seg_ops.segment_sum_windowed = k1_recorded
+    try:
+        loss = trainer.train_step(b_gpu, sup.to(dev), 0)
+        torch.cuda.synchronize()
+    finally:
+        seg_ops.segment_sum_windowed = k1_real
+    step_bf16 = bf16_counts()
+    step_f32 = {name: n for name, n in {**sk.launch_counts, **pk.launch_counts}.items() if not name.endswith("_bf16")}
+    grads_gpu = {n: p.grad.detach().clone() for n, p in model_gpu.named_parameters()}
+    t_ref = time.perf_counter()
+    loss_ref = trainer_ref.train_step(b_ref, sup, 0)
+    ref_s = time.perf_counter() - t_ref
+    _compare("(c) bf16 train step loss", torch.tensor(loss), torch.tensor(loss_ref), 0.0, BF16_LOSS_RTOL)
+    grads_ref = {n: p.grad.detach() for n, p in model_ref.named_parameters()}
+    _bf16_grads_close("(c) bf16 step, card vs CPU plain", grads_gpu, grads_ref)
+    params = dict(model_gpu.named_parameters())
+    for name, p in model_ref.named_parameters():
+        diff = float((params[name].detach().cpu() - p.detach()).abs().max())
+        if diff > STEP_PARAM_ATOL:
+            raise AssertionError(f"bf16 param {name}: max |d| {diff:.3e} > {STEP_PARAM_ATOL}")
+    print(f"    (c) params after Adam within {STEP_PARAM_ATOL:g}; CPU plain step {ref_s:.1f} s; bf16 launches "
+          f"{step_bf16}; float32 launches {step_f32} (K2b takes the float32 scaled gradient, as JAX's "
+          f"fused-table backward does)", flush=True)
+    for name in ("segment_sum_windowed", "fused_table_segment_sum", "span_segment_sum", "pair_head_fwd", "pair_head_bwd"):
+        if not step_bf16[name]:
+            raise AssertionError(f"{name}_bf16 did not launch in the bf16 step: {step_bf16}")
+    if any(dtype != bf for _, dtype in k1_calls):
+        raise AssertionError(f"K1 took float32 rows in the bf16 step: {k1_calls}")
+    # the same step with both heads in one call (dual on, lab_tile_rows 0)
+    # against dual off on that batch, both on the card
+    losses, grads = {}, {}
+    for key in ("on", "off"):
+        cfg_d = with_dtype(dual_config, "bfloat16", dropout=0.0, extras={"dual_head_fusion": key})
+        model = build_model(cfg_d, graph_cpu, generator=torch.Generator().manual_seed(0))
+        tr = Trainer(model, graph, masker0, cfg_d)
+        b0 = tr.get_batch("train")
+        reset_counts()
+        losses[key] = tr.train_step(b0, masker0.supervision_mask(0, masker0.get_split("train")).to(dev), 0)
+        torch.cuda.synchronize()
+        if key == "on":
+            dual_counts = bf16_counts()
+        grads[key] = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+        del model, tr
+    _compare("(c) bf16 step, dual on vs off: loss", torch.tensor(losses["on"]), torch.tensor(losses["off"]), 0.0,
+             BF16_LOSS_RTOL)
+    _bf16_grads_close("(c) bf16 step, dual on vs off", grads["on"], grads["off"])
+    if not (dual_counts["pair_head_dual_fwd"] and dual_counts["pair_head_dual_bwd"]):
+        raise AssertionError(f"bf16 dual step: K5 did not launch: {dual_counts}")
+    out["launches_step"] = {n: step_bf16[n] + dual_counts[n] for n in step_bf16}
+    print(f"    (c) dual-on bf16 step launches {dual_counts}", flush=True)
+
+    del model_ref, trainer_ref
+
+    # (b) each kernel against its plain version in bfloat16 at the path's
+    # shapes, timed in turns with its float32 kernel (bf16, f32, f32, bf16)
+    # beside its bound for 2-byte rows
+    def turns(name, kernel_bf16, kernel_f32, plain_bf16, nbytes, flops, max_abs, peak=FP32_FLOPS):
+        t = [_median_ms(kernel_bf16), _median_ms(kernel_f32), _median_ms(kernel_f32), _median_ms(kernel_bf16)]
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+        entry = {"max_abs_err": max_abs, "ms": (t[0] + t[3]) / 2, "f32_ms": (t[1] + t[2]) / 2, "turns_ms": t,
+                 "plain_ms": _median_ms(plain_bf16, 5), "bound_ms": max(t_bytes, t_ops),
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        print(f"    (b) {name}: turns bf16, f32, f32, bf16 {', '.join('%.4f' % x for x in t)} ms; plain "
+              f"{entry['plain_ms']:.4f} ms; bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}, 2-byte rows)",
+              flush=True)
+        return entry
+
+    def mean_of(total, es):
+        return total[: es.num_dst] / es.dst_count.clamp_min(1.0)[:, None]
+
+    def seg_site(kind, et, es, rows, args, kernel, plain, out_rows):
+        x = torch.randn(rows, d, generator=gen).to(dev)
+        xb = x.to(bf)
+        got, want = kernel(xb, *args), plain(xb, *args)
+        if kind == "K2b":
+            per = torch.bincount(es.win_src[es.win_local < WINDOW].long(), minlength=es.num_src).clamp_min(1)[:, None]
+            max_abs, _ = _compare(f"(b) bf16 {kind} on {'/'.join(et)}", got / per, want / per, KERNEL_ATOL, KERNEL_RTOL)
+        else:
+            max_abs, _ = _compare(f"(b) bf16 {kind} on {'/'.join(et)}", mean_of(got, es), mean_of(want, es),
+                                  KERNEL_ATOL, KERNEL_RTOL)
+        nbytes = _nbytes(xb, *[a for a in args if isinstance(a, torch.Tensor)]) + out_rows * d * 4
+        return turns(f"{kind} on {'/'.join(et)}", lambda: kernel(xb, *args), lambda: kernel(x, *args),
+                     lambda: plain(xb, *args), nbytes, es.num_valid * d, max_abs)
+
+    k1_sites = {}
+    if any(et is None for et, _ in k1_calls):
+        raise AssertionError(f"K1 ran outside the graph's windowed plans in the bf16 step: {k1_calls}")
+    for et in sorted(set(et for et, _ in k1_calls), key=lambda et: -graph.edges[et].num_valid):
+        es = graph.edges[et]
+        args = (es.win_src, es.win_local, es.win_tile_map, es.num_windows)
+        k1_sites["/".join(et)] = seg_site("K1", et, es, es.num_src, args, sk.segment_sum_windowed,
+                                           sk.segment_sum_windowed_plain, es.num_windows * WINDOW)
+        k1_sites["/".join(et)]["calls_per_step"] = sum(1 for e, _ in k1_calls if e == et)
+    k2f, k2b = {}, {}
+    for et in sorted((et for et, t in tiers.items() if t == "fused_table"), key=lambda et: -graph.edges[et].num_valid):
+        es = graph.edges[et]
+        k2f["/".join(et)] = seg_site("K2f", et, es, es.num_src, (es.win_src, es.win_local, es.win_tile_map, es.num_windows),
+                                     sk.fused_table_segment_sum, sk.fused_table_segment_sum_plain, es.num_windows * WINDOW)
+        k2b["/".join(et)] = seg_site("K2b", et, es, es.num_dst, (es.win_src, es.win_local, es.win_tile_map, es.num_src),
+                                     sk.fused_table_segment_sum_bwd, sk.fused_table_segment_sum_bwd_plain, es.num_src)
+    et3 = next(et for et, t in tiers.items() if t == "span")
+    es3 = graph.edges[et3]
+    k3 = seg_site("K3", et3, es3, es3.num_src,
+                  (es3.span_src, es3.span_local, es3.span_tile_map, es3.span_base, es3.num_windows, es3.span_rows),
+                  sk.span_segment_sum, sk.span_segment_sum_plain, es3.num_windows * WINDOW)
+    # a planted 601-fold duplicate edge: counts stay TF32 (bf16 would make it 600)
+    prng = np.random.default_rng(601)
+    src = np.concatenate([np.full(601, 77), prng.integers(0, 4996, 80_000)])
+    dst = np.concatenate([np.full(601, 9), prng.integers(0, 300, 80_000)])
+    fwd601, rev601 = pad_edge_set(src, dst, 4996, 300, src_span_rows=256).to(dev), pad_edge_set(dst, src, 300, 4996).to(dev)
+    x601 = torch.randn(4996, d, generator=gen).to(dev).to(bf)
+    exact = torch.zeros(300, d, dtype=torch.float64, device=dev).index_add_(
+        0, torch.from_numpy(dst).to(dev), x601.double()[torch.from_numpy(src).to(dev)])
+    got = sk.span_segment_sum(x601, fwd601.span_src, fwd601.span_local, fwd601.span_tile_map, fwd601.span_base,
+                              fwd601.num_windows, fwd601.span_rows)[:300]
+    _compare("(b) bf16 K3 with a 601-fold edge (per-destination means vs float64)", mean_of(got, fwd601),
+             exact / fwd601.dst_count.clamp_min(1.0)[:, None].double(), KERNEL_ATOL, KERNEL_RTOL)
+    g601 = torch.randn(4996, d, generator=gen).to(dev).to(bf)
+    exact = torch.zeros(300, d, dtype=torch.float64, device=dev).index_add_(
+        0, torch.from_numpy(dst).to(dev), g601.double()[torch.from_numpy(src).to(dev)])
+    got = sk.fused_table_segment_sum_bwd(g601, rev601.win_src, rev601.win_local, rev601.win_tile_map, 300)
+    per = torch.bincount(torch.from_numpy(dst).to(dev), minlength=300).clamp_min(1)[:, None].double()
+    _compare("(b) bf16 K2b with a 601-fold edge (per-source means vs float64)", got / per, exact / per,
+             KERNEL_ATOL, KERNEL_RTOL)
+
+    # the pair heads: K4f / K4b on the span@256 batch, K5f / K5b on the full-table batch
+    def head_params():
+        return [torch.randn(graph.num_nodes("patient"), 64, generator=gen).to(dev).to(bf),
+                torch.randn(num_l, 64, generator=gen).to(dev).to(bf),
+                (torch.randn(64, 32, generator=gen) * 0.1).to(dev).to(bf),
+                (torch.randn(32, generator=gen) * 0.1).to(dev), (torch.randn(32, generator=gen) * 0.1).to(dev),
+                torch.tensor([0.3], device=dev)]
+
+    def f32(params):
+        return [p.float() for p in params]
+
+    def tile_masks(batch):
+        low = (graph.patient_lab_degree[batch.patient_idx.long()] < config.model.degree_threshold).reshape(-1, TILE_E)
+        return (~low).any(dim=1).to(torch.int32), low.any(dim=1).to(torch.int32)
+
+    heads = {}
+    batch = batch_cpu.to(dev)
+    plan = batch.patient_plan
+    gnn_mask, _ = tile_masks(batch)
+    hp = head_params()
+    plan_args = (batch.lab_idx, plan.win_local, plan.win_tile_map, (3, 4), gnn_mask, plan.lab_block_map, 0.2,
+                 plan.lab_block_rows)
+    active = int(((plan.win_local < WINDOW).reshape(-1, TILE_E) & (gnn_mask[:, None] != 0)).sum())
+    got, want = pk.pair_head_fwd(*hp, *plan_args), pk.pair_head_fwd_plain(*hp, *plan_args)
+    fwd_err, _ = _compare("(b) bf16 K4f (GNN head, span@256, dropout 0.2)", got, want, HEAD_ATOL, HEAD_RTOL)
+    g = torch.randn(plan.win_local.shape[0], generator=gen).to(dev) * (plan.win_local < WINDOW)
+    g = torch.where(pk.relu_margin_plain(*hp[:4], *plan_args) > KINK_MARGIN, g, torch.zeros_like(g))
+    got = pk.pair_head_bwd(*hp, *plan_args, plan.num_windows, g)
+    want = pk.pair_head_bwd_plain(*hp, *plan_args, g)
+    bwd_err = max(_bf16_close(f"(b) bf16 K4b grad {n}", a.float(), b.float()) if a.dtype == bf else
+                  _compare_scaled(f"(b) bf16 K4b grad {n}", a, b, GRAD_REL)
+                  for n, a, b in zip(("proj_p", "proj_l", "w1", "b1", "w2", "b2"), got, want))
+    head_bytes = _nbytes(*hp, *[a for a in plan_args if isinstance(a, torch.Tensor)])
+    heads["pair_head_fwd"] = turns(
+        "K4f GNN head", lambda: pk.pair_head_fwd(*hp, *plan_args), lambda: pk.pair_head_fwd(*f32(hp), *plan_args),
+        lambda: pk.pair_head_fwd_plain(*hp, *plan_args), head_bytes + plan.win_local.shape[0] * 4,
+        active * HEAD_FWD_FLOPS, fwd_err, BF16_FLOPS)
+    heads["pair_head_bwd"] = turns(
+        "K4b GNN head", lambda: pk.pair_head_bwd(*hp, *plan_args, plan.num_windows, g),
+        lambda: pk.pair_head_bwd(*f32(hp), *plan_args, plan.num_windows, g),
+        lambda: pk.pair_head_bwd_plain(*hp, *plan_args, g), head_bytes + _nbytes(g, *want),
+        active * HEAD_BWD_FLOPS, bwd_err, BF16_FLOPS)
+    batch0 = masker0.get_split("train").to(dev)
+    plan0 = batch0.patient_plan
+    masks0 = tile_masks(batch0)
+    dp = head_params() + head_params()
+    dual_args = (batch0.lab_idx, plan0.win_local, plan0.win_tile_map, (1, 2, 3, 4), masks0[1], masks0[0], 0.2)
+    got, want = pk.pair_head_dual_fwd(*dp, *dual_args), pk.pair_head_dual_fwd_plain(*dp, *dual_args)
+    fwd_err = max(_compare(f"(b) bf16 K5f {h}", a, b, HEAD_ATOL, HEAD_RTOL)[0] for h, a, b in zip(("tab", "gnn"), got, want))
+    margins = pk.relu_margin_dual_plain(*dp[0:4], *dp[6:10], *dual_args)
+    gs = [torch.where(m > KINK_MARGIN, torch.randn(m.shape[0], generator=gen).to(dev), torch.zeros_like(m))
+          * (plan0.win_local < WINDOW) for m in margins]
+    got = pk.pair_head_dual_bwd(*dp, *dual_args, plan0.num_windows, *gs)
+    want = pk.pair_head_dual_bwd_plain(*dp, *dual_args, *gs)
+    names = [f"{h}.{n}" for h in ("tab", "gnn") for n in ("proj_p", "proj_l", "w1", "b1", "w2", "b2")]
+    bwd_err = max(_bf16_close(f"(b) bf16 K5b grad {n}", a.float(), b.float()) if a.dtype == bf else
+                  _compare_scaled(f"(b) bf16 K5b grad {n}", a, b, GRAD_REL) for n, a, b in zip(names, got, want))
+    active0 = sum(int(((plan0.win_local < WINDOW).reshape(-1, TILE_E) & (m[:, None] != 0)).sum()) for m in masks0)
+    dual_bytes = _nbytes(*dp, *[a for a in dual_args if isinstance(a, torch.Tensor)])
+    heads["pair_head_dual_fwd"] = turns(
+        "K5f both heads", lambda: pk.pair_head_dual_fwd(*dp, *dual_args), lambda: pk.pair_head_dual_fwd(*f32(dp), *dual_args),
+        lambda: pk.pair_head_dual_fwd_plain(*dp, *dual_args), dual_bytes + 2 * plan0.win_local.shape[0] * 4,
+        active0 * HEAD_FWD_FLOPS, fwd_err, BF16_FLOPS)
+    heads["pair_head_dual_bwd"] = turns(
+        "K5b both heads", lambda: pk.pair_head_dual_bwd(*dp, *dual_args, plan0.num_windows, *gs),
+        lambda: pk.pair_head_dual_bwd(*f32(dp), *dual_args, plan0.num_windows, *gs),
+        lambda: pk.pair_head_dual_bwd_plain(*dp, *dual_args, *gs), dual_bytes + _nbytes(*gs, *want),
+        active0 * HEAD_BWD_FLOPS, bwd_err, BF16_FLOPS)
+    big = lambda sites: sites[next(iter(sites))]  # noqa: E731 (the largest relation)
+    out["kernels"] = {
+        "segment_sum_windowed": {**big(k1_sites), "call_sites": k1_sites},
+        "fused_table_segment_sum": {**big(k2f), "relations": k2f},
+        "fused_table_segment_sum_bwd": {**big(k2b), "relations": k2b},
+        "span_segment_sum": k3, **heads,
+    }
+    del hp, dp, gs, got, want, batch, batch0, state, fn, model_gpu, trainer
+    torch.cuda.empty_cache()
+
+    # (e) speed: RGCN and HGT epochs, bf16 and float32 in turns (dropout 0.2)
+    def epochs_in_turns(cfgs, g, m, n):
+        trainers = {}
+        for key, cfg in cfgs.items():
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            model = build_model(cfg, graph_cpu, generator=torch.Generator().manual_seed(1))
+            tr = Trainer(model, g, m, cfg)
+            tr.train_epoch()
+            tr.epoch += 1
+            torch.cuda.synchronize()
+            trainers[key] = (tr, torch.cuda.max_memory_allocated() - base)
+        ms = {key: [] for key in cfgs}
+        for i in range(n):
+            for key in (list(cfgs) if i % 2 == 0 else list(cfgs)[::-1]):
+                tr = trainers[key][0]
+                t_ep = time.perf_counter()
+                tr.train_epoch()
+                torch.cuda.synchronize()
+                ms[key].append((time.perf_counter() - t_ep) * 1e3)
+                tr.epoch += 1
+        result = {}
+        for key, (tr, peak) in trainers.items():
+            wall, busy, top = _device_profile(tr.train_epoch)
+            val = tr.validate("val")
+            if not np.isfinite(val):
+                raise AssertionError(f"(e) {key}: non-finite validation loss")
+            result[key] = {"epoch_ms": statistics.median(ms[key]), "epochs_ms": ms[key], "wall_ms": wall,
+                           "device_ms": busy, "idle": max(0.0, 1 - busy / wall), "peak_gib": peak / 2**30,
+                           "val_loss": val, "top": top[:6]}
+            print(f"    (e) {key}: epochs {['%.2f' % x for x in ms[key]]} ms (median {result[key]['epoch_ms']:.2f}); "
+                  f"profiled epoch wall {wall:.2f} ms, device {busy:.2f} ms, idle share {result[key]['idle']:.4f}; "
+                  f"peak above the graph {peak / 2**30:.3f} GiB; val loss {val:.6f}", flush=True)
+            for name, t in top[:6]:
+                print(f"          {t:8.3f} ms  {name[:110]}")
+        del trainers
+        torch.cuda.empty_cache()
+        return result
+
+    out["rgcn"] = epochs_in_turns({"RGCN bf16": with_dtype(config, "bfloat16"), "RGCN f32": config},
+                                  graph, masker, BF16_RGCN_EPOCHS)
+    out["hgt"] = epochs_in_turns({"HGT bf16": with_dtype(hgt_config, "bfloat16"), "HGT f32": hgt_config},
+                                 graph_hgt, masker, BF16_HGT_EPOCHS)
+    line = bench.run_bench(scale=True, dense=False, quick=True, bf16=True)
+    print("    (e) bench --scale --no-dense --quick --bf16: " + json.dumps(line), flush=True)
+    if line["compute_dtype"] != "bfloat16" or not line["value"] > 0 or "mxu_bf16_speedup" not in line:
+        raise AssertionError(f"bench --bf16: {line}")
+    out["bench"] = line
+
+    # (f) quality: JAX's bfloat16 pin (tests/test_mxu_probe.py:132-172) with
+    # the port on the card, beside float32; the flagship seed 42 in bfloat16
+    pin = {}
+    spec = dataclasses.replace(SyntheticSpec.eicu_demo(), seed=0, signal_strength=0.6)
+    tables = generate_synthetic_tables(spec)
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(config.__class__(), model=dataclasses.replace(
+            config.__class__().model, compute_dtype=dtype, edge_head=dataclasses.replace(
+                config.__class__().model.edge_head, extras={"bilinear_rank": 9, "bilinear_source": "embedding"})),
+            train=dataclasses.replace(config.__class__().train, loss="mse"))
+        bundle = build_heterogeneous_graph(tables["labs_normalized"], tables["diagnoses"], tables["medications"],
+                                           tables["cohort"], tables["labitems"], cfg)
+        pm = EdgeMasker(bundle.graph, seed=42)
+        tr = Trainer(build_model(cfg, bundle.graph, generator=torch.Generator().manual_seed(
+            stream_seed(cfg.train.seed, "init"))), bundle.graph, pm, cfg)
+        warm_start_trainer(tr, rank=8, reg=12.0)
+        _, _, te_v = pm.split_arrays("test")
+        pin[dtype] = compute_regression_metrics(tr.predict("test").astype(np.float64), te_v)["r2"]
+    print(f"    (f) JAX's bf16 quality pin on the card: test R2 bf16 {pin['bfloat16']:.6f} (>= {BF16_PIN_R2_MIN}), "
+          f"float32 {pin['float32']:.6f}", flush=True)
+    if not pin["bfloat16"] >= BF16_PIN_R2_MIN:
+        raise AssertionError(f"bf16 quality pin: R2 {pin['bfloat16']:.4f} < {BF16_PIN_R2_MIN}")
+    repo = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        flag_cfg = flagship_band.seed_config(
+            flagship_band.dtype_config(repo / "conf" / "eicu_real.yaml", tmp / "eicu_real_bf16.yaml"),
+            FLAGSHIP_SEEDS[0], tmp,
+        )
+        opts = pipeline.RunOptions(device=dev)
+        flag_s = {}
+        for index in (0, 1, 2, 3, 4):
+            name, _, step, _ = pipeline.STEPS[index]
+            step_t = time.perf_counter()
+            step(flag_cfg, opts)
+            flag_s[name] = time.perf_counter() - step_t
+        name, _, step, _ = pipeline.STEPS[7]
+        try:  # the serving artifact of a bf16 model waits for its slice
+            step(flag_cfg, opts)
+        except ConfigError as exc:
+            refusal = str(exc)
+        else:
+            raise AssertionError("pipeline step 8 exported a bf16 model")
+        if "ROADMAP.md queue 1 item 11" not in refusal:
+            raise AssertionError(f"step 8's refusal names no ROADMAP item: {refusal}")
+        flag = flagship_band.read_result(tmp / "out")
+    print(f"    (f) conf/eicu_real.yaml, compute_dtype bfloat16, seed {FLAGSHIP_SEEDS[0]}: steps "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in flag_s.items())
+          + f"; {flag['epochs']} epochs; guarded R2 {flag['r2']:.6f}, MAE {flag['mae']:.6f} (phase 21's "
+          f"float32 seed {FLAGSHIP_SEEDS[0]}: {flagship_r2_f32:.6f}; the JAX package's bf16 run, CPU: "
+          f"{JAX_CPU_BF16_R2_42:.6f}); step 8 refuses: {refusal}", flush=True)
+    if flag["leak"] or not abs(flag["r2"] - flagship_r2_f32) <= BF16_NOISE_BUDGET:
+        raise AssertionError(f"bf16 flagship: R2 {flag['r2']:.6f} not within {BF16_NOISE_BUDGET} of phase 21's "
+                             f"float32 {flagship_r2_f32:.6f}, or the audit reports a leak")
+    out["quality"] = {"pin": pin, "flagship_r2": flag["r2"], "flagship_mae": flag["mae"]}
+    return out
 
 
 def main() -> int:
@@ -2858,6 +3425,7 @@ def main() -> int:
     mae_band = (min(JAX_CPU_BAND["mae"]) - FLAGSHIP_MAE_MARGIN, max(JAX_CPU_BAND["mae"]) + FLAGSHIP_MAE_MARGIN)
     mean_r2 = statistics.fmean(runs[seed]["r2"] for seed in FLAGSHIP_SEEDS)
     mean_mae = statistics.fmean(runs[seed]["mae"] for seed in FLAGSHIP_SEEDS)
+    flagship_r2_f32 = runs[FLAGSHIP_SEEDS[0]]["r2"]  # phase 27 holds the bfloat16 run to it
     for label, r2, mae in (("3-seed mean", mean_r2, mean_mae), ("use_pallas run", runs["kernels"]["r2"], runs["kernels"]["mae"])):
         if not (r2_band[0] <= r2 <= r2_band[1] and mae_band[0] <= mae <= mae_band[1]):
             raise AssertionError(
@@ -3261,7 +3829,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         derived = flagship_band.warm_start_config(flagship, tmp / "eicu_real_sideinfo.yaml", "sideinfo")
-        for seed in FLAGSHIP_SEEDS:
+        for seed in WARM_START_SEEDS:
             ws_runs[seed] = flagship_band.run_seed(derived, seed, tmp / f"seed{seed}", device="cuda")
             run = ws_runs[seed]
             print(
@@ -3321,7 +3889,7 @@ def main() -> int:
     ws_mae = statistics.fmean(r["mae"] for r in ws_runs.values())
     if not (ws_r2_band[0] <= ws_r2 <= ws_r2_band[1] and ws_mae_band[0] <= ws_mae <= ws_mae_band[1]):
         raise AssertionError(
-            f"warm start: 3-seed mean guarded R2 {ws_r2:.6f} / MAE {ws_mae:.6f} outside the band R2 "
+            f"warm start: {len(ws_runs)}-seed mean guarded R2 {ws_r2:.6f} / MAE {ws_mae:.6f} outside the band R2 "
             f"[{ws_r2_band[0]:.4f}, {ws_r2_band[1]:.4f}], MAE [{ws_mae_band[0]:.4f}, {ws_mae_band[1]:.4f}]"
         )
     changed = [name for name, state in guarded.items() if _tree_state(repo / name) != state]
@@ -3332,7 +3900,7 @@ def main() -> int:
     _phase(
         "warm-start", t0,
         f"conf/eicu_real.yaml with train.extras.warm_start: sideinfo (channel wired: bilinear_rank 17, "
-        f"embedding) through the command line, seeds {list(FLAGSHIP_SEEDS)}: guarded R2 mean {ws_r2:.6f} in "
+        f"embedding) through the command line, seeds {list(WARM_START_SEEDS)}: guarded R2 mean {ws_r2:.6f} in "
         f"[{ws_r2_band[0]:.4f}, {ws_r2_band[1]:.4f}], MAE mean {ws_mae:.6f} in [{ws_mae_band[0]:.4f}, "
         f"{ws_mae_band[1]:.4f}] (the JAX package's, CPU); the plant equals SideInfoALSBaseline within "
         f"{plant_err:.2e}, best val loss {ws_runs[FLAGSHIP_SEEDS[0]]['best_val_loss']:.6f} <= the plant's "
@@ -3365,6 +3933,26 @@ def main() -> int:
         f"R2 K=1 {quality['r2_k1']:.6f}, K=4 {quality['r2_k4']:.6f} (both >= {QUALITY_R2_MIN}, gap <= "
         f"{QUALITY_R2_GAP}); K=4 within {QUALITY_JAX_MARGIN} of the JAX CPU value {JAX_CPU_R2_K4:.6f}",
     )
+    # 27. bf16 -------------------------------------------------------------
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf16 = _bf16_phase(dev, graph_cpu, graph, graph_hgt, config, hgt_config, dual_config, tiers, masker, masker0,
+                       flagship_r2_f32, reset_counts)
+    rg, hg = bf16["rgcn"], bf16["hgt"]
+    _phase(
+        "bf16", t0,
+        f"(a) probe ratio {bf16['probe']['ratio']} (min {bf16['probe']['ratio_min']}); (b) K1, K2f, K2b, K3, K4f, K4b, "
+        f"K5f, K5b in bf16 match their plain versions; (c) the bf16 step matches the CPU plain step, launches "
+        f"{bf16['launches_step']}; (d) state and requests within {BF16_STATE_RATIO} of bf16's own effect; (e) RGCN "
+        f"epoch bf16 / f32 "
+        f"{rg['RGCN bf16']['epoch_ms']:.2f} / {rg['RGCN f32']['epoch_ms']:.2f} ms (device "
+        f"{rg['RGCN bf16']['device_ms']:.2f} / {rg['RGCN f32']['device_ms']:.2f}), HGT "
+        f"{hg['HGT bf16']['epoch_ms']:.2f} / {hg['HGT f32']['epoch_ms']:.2f} ms, bench --bf16 "
+        f"{bf16['bench']['value']:.1f} edges/s; (f) pin R2 {bf16['quality']['pin']['bfloat16']:.4f}, flagship bf16 R2 "
+        f"{bf16['quality']['flagship_r2']:.4f} (f32 {flagship_r2_f32:.4f})",
+    )
+
     cluster_launches = clusters["launches_cluster_epoch"]
     for name in ("segment_sum_windowed", "fused_table_segment_sum", "fused_table_segment_sum_bwd"):
         if not cluster_launches[name]:
@@ -3406,6 +3994,9 @@ def main() -> int:
         if name in vc_hgt_launches:
             entry["launches_value_context_hgt_step"] = vc_hgt_launches[name]
         entry["launches_cluster_epoch"] = cluster_launches[name]
+        if name in bf16["launches_step"]:  # the kernels with a bfloat16 instantiation
+            entry["launches_bf16_step"] = bf16["launches_step"][name]
+            entry["bf16"] = bf16["kernels"][name]
         if any(name in sites for sites in clusters["sites"].values()):
             entry["cluster_sites"] = {
                 cfg: sites[name] for cfg, sites in clusters["sites"].items() if name in sites

@@ -208,6 +208,9 @@ class ModelConfig:
     num_heads: int = 4  # HGT only
     degree_threshold: int = 6
     edge_head: EdgeHeadConfig = field(default_factory=EdgeHeadConfig)
+    # float32 | bfloat16 | auto: the models' compute dtype (parameters stay
+    # float32); "auto" probes the card's tensor cores at model build
+    # (utils/mxu_probe.py) and picks bfloat16 only where it measures faster
     compute_dtype: str = "float32"
     # run neighbor aggregation through the tiered kernels (ops/segment.py)
     use_pallas: bool = False
@@ -236,11 +239,12 @@ class ModelConfig:
             raise ConfigError(f"model.activation invalid: {self.activation!r}")
         if self.aggregation not in ("mean", "sum", "max"):
             raise ConfigError(f"model.aggregation invalid: {self.aggregation!r}")
-        if self.compute_dtype != "float32":
+        if self.compute_dtype not in ("float32", "bfloat16", "auto"):
             raise ConfigError(
-                f"model.compute_dtype={self.compute_dtype!r} is not supported by the "
-                "PyTorch port yet (float32 only)"
+                f"model.compute_dtype must be float32|bfloat16|auto, got {self.compute_dtype!r}"
             )
+        if self.compute_dtype == "bfloat16" and self.value_context:
+            refuse_bf16("model.extras.value_context")
         if self.head_style not in ("auto", "concat", "factored"):
             raise ConfigError(f"model.extras.head_style invalid: {self.head_style!r}")
 
@@ -526,6 +530,11 @@ class Config:
         """Hash of the whole config, written into artifacts for provenance."""
         return _hash(self.to_dict())
 
+    def __post_init__(self):
+        nc = self.train.extras.get("num_clusters")
+        if self.model.compute_dtype == "bfloat16" and nc is not None and nc > 1:
+            refuse_bf16("Cluster-GCN mini-batches (train.extras.num_clusters > 1)")
+
     def model_hash(self) -> str:
         """Hash of the sections a checkpoint must agree on to be restored
         (``model``, ``graph``, ``feature_space``), equal to JAX
@@ -557,6 +566,14 @@ _TRAIN_EXTRAS = {
 }
 _WARM_STARTS = ("als", "sideinfo", "none", "off", "")
 _MULTI_DEVICE = "multi-device training is not ported yet (ROADMAP.md queue 1 item 8)"
+
+
+def refuse_bf16(what: str) -> None:
+    """The parts of the JAX package's bfloat16 path that wait for their
+    slice raise here, naming it."""
+    raise ConfigError(
+        f"model.compute_dtype=bfloat16 with {what} is not ported yet (ROADMAP.md queue 1 item 11)"
+    )
 _TRAIN_EXTRAS_NOT_PORTED = {
     "parallel": _MULTI_DEVICE,
     "model_parallel": _MULTI_DEVICE,

@@ -120,7 +120,21 @@
 //     head, which runs on most tiles, so its blocks are dispatched first;
 //     blockIdx.y = 1 the tabular head; each head has its own unit counter.
 //   Neither direction uses shared-memory float atomics.
+//
+// bfloat16 operands (the model's compute dtype; T = __nv_bfloat16): Pp, Pl
+// and W1 in bf16, b1, w2 and b2 in f32, as the TPU kernels take them.  Every
+// body is a template on T and rounds where the TPU kernel rounds to bf16:
+//   * Pp / Pl rows are exact copies (8-byte cp.async chunks, widened in
+//     registers); pre0, ReLU and dropout stay f32;
+//   * h0 is rounded to bf16 before h0 W1, and dpre1 before dpre1 W1^T and
+//     h0^T dpre1; bf16 operands are exact in TF32, so each product is one
+//     mma term where f32 operands take three (hi / lo);
+//   * db1, dw2, db2 and the outputs stay f32; dpre0 is rounded to bf16
+//     before its scatter, whose sums stay f32; the wrapper casts dPp, dPl and
+//     dW1 to bf16 (their operands' dtype).
+// The dropout hashes are the same for both types.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -133,9 +147,9 @@ constexpr int H1 = 32;
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Head {
-  const float* __restrict__ pp;  // [num_p, 64]
-  const float* __restrict__ pl;  // [num_l, 64]
-  const float* __restrict__ w1;  // [64, 32]
+  const void* __restrict__ pp;   // T [num_p, 64]
+  const void* __restrict__ pl;   // T [num_l, 64]
+  const void* __restrict__ w1;   // T [64, 32]
   const float* __restrict__ b1;  // [32]
   const float* __restrict__ w2;  // [32]
   const float* __restrict__ b2;  // [1]
@@ -179,6 +193,18 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   h *= 0xc2b2ae35u;
   h ^= h >> 16;
   return h;
+}
+
+// Operand values as f32 (a bf16 widens exactly), and f32 rounded to the
+// nearest bf16 (ties to even), kept as an f32.
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+
+// Two consecutive row elements as f32 (8 bytes of f32, 4 of bf16).
+__device__ __forceinline__ float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
 __device__ __forceinline__ uint32_t slot_key(const Head& a, uint32_t e) {
@@ -259,6 +285,42 @@ __device__ __forceinline__ void mma3(float (&c)[4], const SplitA& a, uint2 bh, u
   mma_tf32(c, a.hi, bh.x, bh.y);
 }
 
+// An A fragment for operand type T: f32 values split hi / lo; bf16 operands
+// rounded to bf16, which TF32 holds exactly (hi only).
+template <typename T>
+__device__ __forceinline__ SplitA make_a(float a0, float a1, float a2, float a3) {
+  if (sizeof(T) == 4) return split_a(a0, a1, a2, a3);
+  SplitA s;
+  s.hi[0] = __float_as_uint(round_bf16(a0));
+  s.hi[1] = __float_as_uint(round_bf16(a1));
+  s.hi[2] = __float_as_uint(round_bf16(a2));
+  s.hi[3] = __float_as_uint(round_bf16(a3));
+  s.lo[0] = s.lo[1] = s.lo[2] = s.lo[3] = 0u;
+  return s;
+}
+
+// c += a * b: three TF32 terms for f32 operands, one for bf16 operands.
+template <typename T>
+__device__ __forceinline__ void mma_t(float (&c)[4], const SplitA& a, uint2 bh, uint2 bl) {
+  if (sizeof(T) == 4) {
+    mma3(c, a, bh, bl);
+  } else {
+    mma_tf32(c, a.hi, bh.x, bh.y);
+  }
+}
+
+// A B-fragment element of W1 for operand type T: f32 split hi / lo, bf16
+// exact in hi.
+template <typename T>
+__device__ __forceinline__ void split_w(T w, unsigned& hi, unsigned& lo) {
+  if (sizeof(T) == 4) {
+    split_tf32(to_f32(w), hi, lo);
+  } else {
+    hi = __float_as_uint(to_f32(w));
+    lo = 0u;
+  }
+}
+
 // B fragments of W1 (split hi / lo, laid out so a lane reads its pair with
 // one 8-byte load), b1 and w2, and per warp the staging of one 16-slot group.
 struct BwdShared {
@@ -267,7 +329,7 @@ struct BwdShared {
   float b1[H1], w2[H1];
   float h0s[BWD_WARPS][16][H0_STRIDE];  // h0 after dropout, then dpre0; at the end dW1 ...
   float d1s[BWD_WARPS][16][H1_STRIDE];  // dpre1
-  float rows[BWD_WARPS][2][16][H0_STRIDE];  // the group's Pp and Pl rows, copied in ahead
+  float rows[BWD_WARPS][2][16][H0_STRIDE];  // the group's Pp and Pl rows (T), copied in ahead
   int meta_p[BWD_WARPS][BWD_UNIT];    // per slot of the unit: its dPp row (-1: padding)
   int meta_l[BWD_WARPS][BWD_UNIT];    // its Pl / dPl row (-1: a zero row)
   float meta_go[BWD_WARPS][BWD_UNIT];  // its upstream gradient (0: padding)
@@ -279,29 +341,32 @@ static_assert(sizeof(float) * BWD_WARPS * 16 * H0_STRIDE >= sizeof(float) * RED_
 // <-> feature 8 kk + 2t, column t + 4 <-> 8 kk + 2t + 1; so a lane's A
 // fragment is its own h0 elements, which sit where dh0's accumulator puts
 // the same features.
-__device__ void load_w1_fragments(const float* __restrict__ w1, uint2 (*hi)[H1 / 8][32],
+template <typename T>
+__device__ void load_w1_fragments(const T* __restrict__ w1, uint2 (*hi)[H1 / 8][32],
                                   uint2 (*lo)[H1 / 8][32], int nthreads) {
   for (int i = threadIdx.x; i < (H0 / 8) * (H1 / 8) * 32; i += nthreads) {
     const int kk = i / ((H1 / 8) * 32), nt = (i / 32) % (H1 / 8), ln = i % 32;
     const int g = ln / 4, t = ln % 4;
     unsigned h0, l0, h1, l1;
-    split_tf32(w1[(8 * kk + 2 * t) * H1 + 8 * nt + g], h0, l0);
-    split_tf32(w1[(8 * kk + 2 * t + 1) * H1 + 8 * nt + g], h1, l1);
+    split_w(w1[(8 * kk + 2 * t) * H1 + 8 * nt + g], h0, l0);
+    split_w(w1[(8 * kk + 2 * t + 1) * H1 + 8 * nt + g], h1, l1);
     hi[kk][nt][ln] = make_uint2(h0, h1);
     lo[kk][nt][ln] = make_uint2(l0, l1);
   }
 }
 
+template <typename T>
 __device__ void load_bwd_weights(const Head& a, BwdShared& sm) {
-  load_w1_fragments(a.w1, sm.fw_hi, sm.fw_lo, BWD_THREADS);
+  const T* w1 = static_cast<const T*>(a.w1);
+  load_w1_fragments(w1, sm.fw_hi, sm.fw_lo, BWD_THREADS);
   // dpre1 @ W1^T: k8 step s's columns t, t + 4 <-> j = 8 s + 2t, 8 s + 2t + 1,
   // pre1's own C layout
   for (int i = threadIdx.x; i < (H1 / 8) * (H0 / 8) * 32; i += BWD_THREADS) {
     const int s = i / ((H0 / 8) * 32), nt = (i / 32) % (H0 / 8), ln = i % 32;
     const int g = ln / 4, t = ln % 4;
     unsigned h0, l0, h1, l1;
-    split_tf32(a.w1[(8 * nt + g) * H1 + 8 * s + 2 * t], h0, l0);
-    split_tf32(a.w1[(8 * nt + g) * H1 + 8 * s + 2 * t + 1], h1, l1);
+    split_w(w1[(8 * nt + g) * H1 + 8 * s + 2 * t], h0, l0);
+    split_w(w1[(8 * nt + g) * H1 + 8 * s + 2 * t + 1], h1, l1);
     sm.bw_hi[s][nt][ln] = make_uint2(h0, h1);
     sm.bw_lo[s][nt][ln] = make_uint2(l0, l1);
   }
@@ -315,6 +380,12 @@ __device__ void load_bwd_weights(const Head& a, BwdShared& sm) {
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(gmem), "r"(src_bytes));
+}
+
+// 8-byte asynchronous copy global -> shared; src_bytes 0 writes zeros.
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(gmem), "r"(src_bytes));
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
@@ -341,23 +412,25 @@ __device__ __forceinline__ void load_unit_meta(const Head& a, const float* __res
 }
 
 // A lane's part of copying a group's 16 Pp and Pl rows into its warp's row
-// buffer: lanes 0-15 copy 16 bytes (their chunk) of each Pp row, lanes 16-31
-// of each Pl row.  Source, bound and destination are fixed once; a row id
-// not below the bound (-1: padding or a lab outside the tile's slice, or a
-// patient >= num_p) reads zeros.
+// buffer: lanes 0-15 copy their chunk of four elements of each Pp row (16
+// bytes of f32, 8 of bf16), lanes 16-31 of each Pl row.  Source, bound and
+// destination are fixed once; a row id not below the bound (-1: padding or
+// a lab outside the tile's slice, or a patient >= num_p) reads zeros.  The
+// buffer holds rows of H0_STRIDE elements of T.
+template <typename T>
 struct RowCopy {
-  const float* src;  // the lane's table at its chunk
+  const T* src;      // the lane's table at its chunk
   const int* meta;   // the unit's row ids of that table (mp or ml)
   unsigned limit;
-  float* dst;        // the lane's chunk of slot 0's row
+  T* dst;            // the lane's chunk of slot 0's row
 
   __device__ __forceinline__ RowCopy(const Head& a, const int* mp, const int* ml,
                                      float (*rows)[16][H0_STRIDE]) {
     const int lane = threadIdx.x % 32, table = lane / 16;
-    src = (table == 0 ? a.pp : a.pl) + 4 * (lane % 16);
+    src = static_cast<const T*>(table == 0 ? a.pp : a.pl) + 4 * (lane % 16);
     meta = table == 0 ? mp : ml;
     limit = table == 0 ? (unsigned)a.num_p : 0x7fffffffu;
-    dst = &rows[table][0][4 * (lane % 16)];
+    dst = reinterpret_cast<T*>(&rows[table][0][0]) + 4 * (lane % 16);
   }
 
   // Group grp's rows (slots 16 grp ... of the unit), one commit group.
@@ -369,7 +442,12 @@ struct RowCopy {
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const bool ok = (unsigned)rows4[k] < limit;
-        cp_async16(dst + (4 * q + k) * H0_STRIDE, src + (long long)(ok ? rows4[k] : 0) * H0, ok ? 16 : 0);
+        const T* from = src + (long long)(ok ? rows4[k] : 0) * H0;
+        if (sizeof(T) == 4) {
+          cp_async16(dst + (4 * q + k) * H0_STRIDE, from, ok ? 16 : 0);
+        } else {
+          cp_async8(dst + (4 * q + k) * H0_STRIDE, from, ok ? 8 : 0);
+        }
       }
     }
     cp_async_commit();
@@ -415,15 +493,18 @@ struct WarpGrads {
 // copied in: recompute the forward on the tensor cores, then dpre1, dW1 +=
 // h0^T dpre1 and dpre0 = dpre1 W1^T through the masks; dpre0 goes into the
 // runs of dPp and dPl.  The next group's rows are copied in meanwhile.
-template <class C>
-__device__ __forceinline__ void bwd_group(const Head& a, BwdShared& sm, const RowCopy& copy_rows,
+template <class C, typename T>
+__device__ __forceinline__ void bwd_group(const Head& a, BwdShared& sm, const RowCopy<T>& copy_rows,
                                           int grp, long long e0, WarpGrads& wg, Run& run_p,
                                           Run& run_l, const Grads& d) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, tq = lane % 4;
   float(*h0s)[H0_STRIDE] = sm.h0s[warp];
   float(*d1s)[H1_STRIDE] = sm.d1s[warp];
+  const T* prow = reinterpret_cast<const T*>(&sm.rows[warp][0][0][0]);  // [16][H0_STRIDE] of T
+  const T* lrow = reinterpret_cast<const T*>(&sm.rows[warp][1][0][0]);
   const float scale = a.dropout ? a.scale : 1.f;
+  constexpr bool kBf16 = sizeof(T) == 2;
 
   // ---- the lane's two slots (rows g and g + 8 of the group) ----
   float go[2];
@@ -439,8 +520,8 @@ __device__ __forceinline__ void bwd_group(const Head& a, BwdShared& sm, const Ro
     uint32_t bits = 0u;
 #pragma unroll
     for (int kk = 0; kk < H0 / 8; ++kk) {
-      const float2 x = *reinterpret_cast<const float2*>(&sm.rows[warp][0][sl][8 * kk + 2 * tq]);
-      const float2 y = *reinterpret_cast<const float2*>(&sm.rows[warp][1][sl][8 * kk + 2 * tq]);
+      const float2 x = load2(prow + sl * H0_STRIDE + 8 * kk + 2 * tq);
+      const float2 y = load2(lrow + sl * H0_STRIDE + 8 * kk + 2 * tq);
       const float v[2] = {x.x + y.x, x.y + y.y};
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
@@ -448,7 +529,10 @@ __device__ __forceinline__ void bwd_group(const Head& a, BwdShared& sm, const Ro
         bits |= (on ? 1u : 0u) << (2 * kk + q);
         h[r][2 * kk + q] = on ? (a.dropout ? v[q] * scale : v[q]) : 0.f;
       }
-      *reinterpret_cast<float2*>(&h0s[sl][8 * kk + 2 * tq]) = make_float2(h[r][2 * kk], h[r][2 * kk + 1]);
+      // the staging holds h0 as the products take it (rounded to bf16 for bf16 operands)
+      *reinterpret_cast<float2*>(&h0s[sl][8 * kk + 2 * tq]) =
+          kBf16 ? make_float2(round_bf16(h[r][2 * kk]), round_bf16(h[r][2 * kk + 1]))
+                : make_float2(h[r][2 * kk], h[r][2 * kk + 1]);
     }
     pass0[r] = bits;
   }
@@ -464,9 +548,9 @@ __device__ __forceinline__ void bwd_group(const Head& a, BwdShared& sm, const Ro
   }
 #pragma unroll
   for (int kk = 0; kk < H0 / 8; ++kk) {
-    const SplitA af = split_a(h[0][2 * kk], h[1][2 * kk], h[0][2 * kk + 1], h[1][2 * kk + 1]);
+    const SplitA af = make_a<T>(h[0][2 * kk], h[1][2 * kk], h[0][2 * kk + 1], h[1][2 * kk + 1]);
 #pragma unroll
-    for (int nt = 0; nt < H1 / 8; ++nt) mma3(acc1[nt], af, sm.fw_hi[kk][nt][lane], sm.fw_lo[kk][nt][lane]);
+    for (int nt = 0; nt < H1 / 8; ++nt) mma_t<T>(acc1[nt], af, sm.fw_hi[kk][nt][lane], sm.fw_lo[kk][nt][lane]);
   }
 
   // ---- layer 1's backward: dw2, db1, db2 and dpre1 (into acc1) ----
@@ -481,7 +565,7 @@ __device__ __forceinline__ void bwd_group(const Head& a, BwdShared& sm, const Ro
       wg.dw2[nt][q] = fmaf(go[r], h1, wg.dw2[nt][q]);
       const float dpre1 = (kept && pre > 0.f) ? go[r] * sm.w2[j] * scale : 0.f;
       wg.db1[nt][q] += dpre1;
-      acc1[nt][e] = dpre1;
+      acc1[nt][e] = kBf16 ? round_bf16(dpre1) : dpre1;  // the products' operand
     }
     *reinterpret_cast<float2*>(&d1s[g][8 * nt + 2 * tq]) = make_float2(acc1[nt][0], acc1[nt][1]);
     *reinterpret_cast<float2*>(&d1s[g + 8][8 * nt + 2 * tq]) = make_float2(acc1[nt][2], acc1[nt][3]);
@@ -494,9 +578,9 @@ __device__ __forceinline__ void bwd_group(const Head& a, BwdShared& sm, const Ro
   for (int nt = 0; nt < H0 / 8; ++nt) acc0[nt][0] = acc0[nt][1] = acc0[nt][2] = acc0[nt][3] = 0.f;
 #pragma unroll
   for (int s = 0; s < H1 / 8; ++s) {
-    const SplitA af = split_a(acc1[s][0], acc1[s][2], acc1[s][1], acc1[s][3]);
+    const SplitA af = make_a<T>(acc1[s][0], acc1[s][2], acc1[s][1], acc1[s][3]);
 #pragma unroll
-    for (int nt = 0; nt < H0 / 8; ++nt) mma3(acc0[nt], af, sm.bw_hi[s][nt][lane], sm.bw_lo[s][nt][lane]);
+    for (int nt = 0; nt < H0 / 8; ++nt) mma_t<T>(acc0[nt], af, sm.bw_hi[s][nt][lane], sm.bw_lo[s][nt][lane]);
   }
   __syncwarp();  // h0s and d1s are written
 
@@ -506,15 +590,21 @@ __device__ __forceinline__ void bwd_group(const Head& a, BwdShared& sm, const Ro
     uint2 bh[H1 / 8], bl[H1 / 8];
 #pragma unroll
     for (int nj = 0; nj < H1 / 8; ++nj) {
-      split_tf32(d1s[8 * ks + tq][8 * nj + g], bh[nj].x, bl[nj].x);
-      split_tf32(d1s[8 * ks + tq + 4][8 * nj + g], bh[nj].y, bl[nj].y);
+      const float b0 = d1s[8 * ks + tq][8 * nj + g], b1 = d1s[8 * ks + tq + 4][8 * nj + g];
+      if (kBf16) {  // d1s holds dpre1 rounded to bf16: exact in hi
+        bh[nj] = make_uint2(__float_as_uint(b0), __float_as_uint(b1));
+        bl[nj] = make_uint2(0u, 0u);
+      } else {
+        split_tf32(b0, bh[nj].x, bl[nj].x);
+        split_tf32(b1, bh[nj].y, bl[nj].y);
+      }
     }
 #pragma unroll
     for (int mt = 0; mt < H0 / 16; ++mt) {
-      const SplitA af = split_a(h0s[8 * ks + tq][16 * mt + g], h0s[8 * ks + tq][16 * mt + g + 8],
-                                h0s[8 * ks + tq + 4][16 * mt + g], h0s[8 * ks + tq + 4][16 * mt + g + 8]);
+      const SplitA af = make_a<T>(h0s[8 * ks + tq][16 * mt + g], h0s[8 * ks + tq][16 * mt + g + 8],
+                                  h0s[8 * ks + tq + 4][16 * mt + g], h0s[8 * ks + tq + 4][16 * mt + g + 8]);
 #pragma unroll
-      for (int nj = 0; nj < H1 / 8; ++nj) mma3(wg.dw1[mt][nj], af, bh[nj], bl[nj]);
+      for (int nj = 0; nj < H1 / 8; ++nj) mma_t<T>(wg.dw1[mt][nj], af, bh[nj], bl[nj]);
     }
   }
   __syncwarp();  // h0s is read: dpre0 takes its place
@@ -529,6 +619,7 @@ __device__ __forceinline__ void bwd_group(const Head& a, BwdShared& sm, const Ro
       for (int q = 0; q < 2; ++q) {
         const float x = acc0[nt][2 * r + q];
         v[q] = ((pass0[r] >> (2 * nt + q)) & 1u) ? (a.dropout ? x * scale : x) : 0.f;
+        if (kBf16) v[q] = round_bf16(v[q]);  // dpre0 leaves in the operands' dtype
       }
       *reinterpret_cast<float2*>(&h0s[g + 8 * r][8 * nt + 2 * tq]) = make_float2(v[0], v[1]);
     }
@@ -551,13 +642,13 @@ __device__ __forceinline__ void bwd_group(const Head& a, BwdShared& sm, const Ro
 // masked tile's units cost a mask read.  At the end the block sums its
 // warps' weight gradients in shared memory and adds them to d with one
 // atomic per element.
-template <class C>
+template <class C, typename T>
 __device__ __forceinline__ void pair_head_bwd_body(const Head& a, const float* __restrict__ g_out,
                                                    int num_tiles, int* work, const Grads& d) {
   extern __shared__ float4 smem4[];
   BwdShared& sm = *reinterpret_cast<BwdShared*>(smem4);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  load_bwd_weights(a, sm);
+  load_bwd_weights<T>(a, sm);
   __syncthreads();
 
   WarpGrads wg;
@@ -571,7 +662,7 @@ __device__ __forceinline__ void pair_head_bwd_body(const Head& a, const float* _
   for (int nt = 0; nt < H1 / 8; ++nt) wg.dw2[nt][0] = wg.dw2[nt][1] = wg.db1[nt][0] = wg.db1[nt][1] = 0.f;
   wg.db2 = 0.f;
 
-  const RowCopy copy_rows(a, sm.meta_p[warp], sm.meta_l[warp], sm.rows[warp]);
+  const RowCopy<T> copy_rows(a, sm.meta_p[warp], sm.meta_l[warp], sm.rows[warp]);
   const int num_units = num_tiles * UNITS_PER_TILE;
   int next = lane == 0 ? atomicAdd(work, 1) : 0;
   for (;;) {
@@ -586,7 +677,7 @@ __device__ __forceinline__ void pair_head_bwd_body(const Head& a, const float* _
     Run run_p{-1, make_float2(0.f, 0.f)}, run_l{-1, make_float2(0.f, 0.f)};
 #pragma unroll 1
     for (int grp = 0; grp < BWD_UNIT / 16; ++grp) {
-      bwd_group<C>(a, sm, copy_rows, grp, (long long)u * BWD_UNIT + grp * 16, wg, run_p, run_l, d);
+      bwd_group<C, T>(a, sm, copy_rows, grp, (long long)u * BWD_UNIT + grp * 16, wg, run_p, run_l, d);
     }
     flush_run(run_p, d.dpp, lane);
     flush_run(run_l, d.dpl, lane);
@@ -649,21 +740,23 @@ __device__ __forceinline__ void pair_head_bwd_body(const Head& a, const float* _
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
 pair_head_bwd_kernel(Head a, const float* __restrict__ g_out, int num_tiles, int* work, Grads d) {
-  pair_head_bwd_body<SingleCols>(a, g_out, num_tiles, work, d);
+  pair_head_bwd_body<SingleCols, T>(a, g_out, num_tiles, work, d);
 }
 
 // K5b: blockIdx.y = 0 runs the GNN head, 1 the tabular head, each from its
 // own counter (work[0], work[1]).
+template <typename T>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
 pair_head_dual_bwd_kernel(Head hg, Head ht, const float* __restrict__ g_out_g,
                           const float* __restrict__ g_out_t, int num_tiles, int* work, Grads dg,
                           Grads dt) {
   if (blockIdx.y == 0) {
-    pair_head_bwd_body<GnnCols>(hg, g_out_g, num_tiles, work, dg);
+    pair_head_bwd_body<GnnCols, T>(hg, g_out_g, num_tiles, work, dg);
   } else {
-    pair_head_bwd_body<TabCols>(ht, g_out_t, num_tiles, work + 1, dt);
+    pair_head_bwd_body<TabCols, T>(ht, g_out_t, num_tiles, work + 1, dt);
   }
 }
 
@@ -681,7 +774,7 @@ constexpr int FWD_UNIT = BWD_UNIT;    // 128 slots: 8 groups of 16 (load_unit_me
 struct FwdShared {
   uint2 fw_hi[H0 / 8][H1 / 8][32], fw_lo[H0 / 8][H1 / 8][32];
   float b1[H1], w2[H1];
-  float rows[FWD_WARPS][2][16][H0_STRIDE];
+  float rows[FWD_WARPS][2][16][H0_STRIDE];  // the group's Pp and Pl rows (T)
   int meta_p[FWD_WARPS][FWD_UNIT];  // per slot of the unit: its Pp row (-1: padding)
   int meta_l[FWD_WARPS][FWD_UNIT];  // its Pl row (-1: a zero row)
 };
@@ -710,14 +803,14 @@ __device__ __forceinline__ int active_unit(const Head& a, int u, int& next, int*
 // unit as 8 groups of 16 slots.  A group's rows are copied in (cp.async)
 // while the group before it computes; the next unit's metadata and first
 // rows while its last group computes.
-template <class C>
+template <class C, typename T>
 __device__ __forceinline__ void pair_head_fwd_body(const Head& a, int num_tiles, int* work,
                                                    float* __restrict__ out) {
   extern __shared__ float4 smem4[];
   FwdShared& sm = *reinterpret_cast<FwdShared*>(smem4);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, tq = lane % 4;
-  load_w1_fragments(a.w1, sm.fw_hi, sm.fw_lo, FWD_THREADS);
+  load_w1_fragments(static_cast<const T*>(a.w1), sm.fw_hi, sm.fw_lo, FWD_THREADS);
   if (threadIdx.x < H1) {
     sm.b1[threadIdx.x] = a.b1[threadIdx.x];
     sm.w2[threadIdx.x] = a.w2[threadIdx.x];
@@ -729,7 +822,9 @@ __device__ __forceinline__ void pair_head_fwd_body(const Head& a, int num_tiles,
   int* mp = sm.meta_p[warp];
   int* ml = sm.meta_l[warp];
   float(*rows)[16][H0_STRIDE] = sm.rows[warp];
-  const RowCopy copy_rows(a, mp, ml, rows);
+  const T* prow = reinterpret_cast<const T*>(&rows[0][0][0]);  // [16][H0_STRIDE] of T
+  const T* lrow = reinterpret_cast<const T*>(&rows[1][0][0]);
+  const RowCopy<T> copy_rows(a, mp, ml, rows);
   const int num_units = num_tiles * UNITS_PER_TILE;
   const int first = gridDim.x * FWD_WARPS;  // units taken by index
   int next = lane == 0 ? first + atomicAdd(work, 1) : 0;
@@ -754,8 +849,8 @@ __device__ __forceinline__ void pair_head_fwd_body(const Head& a, int num_tiles,
         valid[r] = mp[grp * 16 + sl] >= 0;
 #pragma unroll
         for (int kk = 0; kk < H0 / 8; ++kk) {
-          const float2 x = *reinterpret_cast<const float2*>(&rows[0][sl][8 * kk + 2 * tq]);
-          const float2 y = *reinterpret_cast<const float2*>(&rows[1][sl][8 * kk + 2 * tq]);
+          const float2 x = load2(prow + sl * H0_STRIDE + 8 * kk + 2 * tq);
+          const float2 y = load2(lrow + sl * H0_STRIDE + 8 * kk + 2 * tq);
           h[r][2 * kk] = x.x + y.x;
           h[r][2 * kk + 1] = x.y + y.y;
         }
@@ -799,9 +894,9 @@ __device__ __forceinline__ void pair_head_fwd_body(const Head& a, int num_tiles,
       }
 #pragma unroll
       for (int kk = 0; kk < H0 / 8; ++kk) {
-        const SplitA af = split_a(h[0][2 * kk], h[1][2 * kk], h[0][2 * kk + 1], h[1][2 * kk + 1]);
+        const SplitA af = make_a<T>(h[0][2 * kk], h[1][2 * kk], h[0][2 * kk + 1], h[1][2 * kk + 1]);
 #pragma unroll
-        for (int nt = 0; nt < H1 / 8; ++nt) mma3(acc[nt], af, sm.fw_hi[kk][nt][lane], sm.fw_lo[kk][nt][lane]);
+        for (int nt = 0; nt < H1 / 8; ++nt) mma_t<T>(acc[nt], af, sm.fw_hi[kk][nt][lane], sm.fw_lo[kk][nt][lane]);
       }
 
       // ---- out = drop1(relu(pre1)) . w2 + b2: the lane's 8 columns, then the quad ----
@@ -841,27 +936,29 @@ __device__ __forceinline__ void reset_counters(int* work) {
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(FWD_THREADS, FWD_BLOCKS_PER_SM)
 pair_head_fwd_kernel(Head a, int num_tiles, int* work, float* __restrict__ out) {
-  pair_head_fwd_body<SingleCols>(a, num_tiles, work, out);
+  pair_head_fwd_body<SingleCols, T>(a, num_tiles, work, out);
   reset_counters(work);
 }
 
 // K5f: blockIdx.y = 0 runs the GNN head from work[0], 1 the tabular head
 // from work[1], as K5b: the tabular head's blocks follow as the GNN head's
 // retire.
+template <typename T>
 __global__ void __launch_bounds__(FWD_THREADS, FWD_BLOCKS_PER_SM)
 pair_head_dual_fwd_kernel(Head hg, Head ht, int num_tiles, int* work, float* __restrict__ out_g,
                           float* __restrict__ out_t) {
   if (blockIdx.y == 0) {
-    pair_head_fwd_body<GnnCols>(hg, num_tiles, work, out_g);
+    pair_head_fwd_body<GnnCols, T>(hg, num_tiles, work, out_g);
   } else {
-    pair_head_fwd_body<TabCols>(ht, num_tiles, work + 1, out_t);
+    pair_head_fwd_body<TabCols, T>(ht, num_tiles, work + 1, out_t);
   }
   reset_counters(work);
 }
 
-Head make_head(const float* pp, int num_p, const float* pl, int num_l, const float* w1,
+Head make_head(const void* pp, int num_p, const void* pl, int num_l, const void* w1,
                const float* b1, const float* w2, const float* b2, const int* lab,
                const int* local, const int* tile_map, const int* tile_mask,
                const int* lab_base, int lab_rows, int lab_base_max, unsigned seed0,
@@ -892,14 +989,15 @@ Head make_head(const float* pp, int num_p, const float* pl, int num_l, const flo
 
 // The two heads of K5: shared plan and seed, own tables and masks (their
 // dropout columns: TabCols, GnnCols).
-void make_dual(const float* const* tab, const float* const* gnn, int num_p, int num_l,
+void make_dual(const void* const* tab, const void* const* gnn, int num_p, int num_l,
                const int* lab, const int* local, const int* tile_map, const int* tab_mask,
                const int* gnn_mask, unsigned seed0, unsigned seed1, unsigned threshold,
                float scale, int dropout, Head* ht, Head* hg) {
-  *ht = make_head(tab[0], num_p, tab[1], num_l, tab[2], tab[3], tab[4], tab[5], lab, local,
-                  tile_map, tab_mask, nullptr, 0, 0, seed0, seed1, threshold, scale, dropout);
-  *hg = make_head(gnn[0], num_p, gnn[1], num_l, gnn[2], gnn[3], gnn[4], gnn[5], lab, local,
-                  tile_map, gnn_mask, nullptr, 0, 0, seed0, seed1, threshold, scale, dropout);
+  const auto f = [](const void* x) { return static_cast<const float*>(x); };
+  *ht = make_head(tab[0], num_p, tab[1], num_l, tab[2], f(tab[3]), f(tab[4]), f(tab[5]), lab,
+                  local, tile_map, tab_mask, nullptr, 0, 0, seed0, seed1, threshold, scale, dropout);
+  *hg = make_head(gnn[0], num_p, gnn[1], num_l, gnn[2], f(gnn[3]), f(gnn[4]), f(gnn[5]), lab,
+                  local, tile_map, gnn_mask, nullptr, 0, 0, seed0, seed1, threshold, scale, dropout);
 }
 
 Grads make_grads(float* dpp, float* dpl, float* dw1, float* db1, float* dw2, float* db2) {
@@ -913,117 +1011,184 @@ Grads make_grads(float* dpp, float* dpl, float* dw1, float* db1, float* dw2, flo
   return d;
 }
 
+// The four launches for operands of type T (the C entry points below).
+template <typename T>
+int pair_head_fwd(const void* pp, int num_p, const void* pl, int num_l, const void* w1,
+                  const float* b1, const float* w2, const float* b2, const int* lab,
+                  const int* local, const int* tile_map, const int* tile_mask,
+                  const int* lab_base, int lab_rows, int lab_base_max, int num_tiles,
+                  unsigned seed0, unsigned seed1, unsigned threshold, float scale, int dropout,
+                  int* work, int blocks, float* out, void* stream) {
+  const Head a = make_head(pp, num_p, pl, num_l, w1, b1, w2, b2, lab, local, tile_map, tile_mask,
+                           lab_base, lab_rows, lab_base_max, seed0, seed1, threshold, scale,
+                           dropout);
+  const int smem = (int)sizeof(FwdShared);
+  cudaError_t err = cudaFuncSetAttribute(pair_head_fwd_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  pair_head_fwd_kernel<T><<<blocks, FWD_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      a, num_tiles, work, out);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int pair_head_bwd(const void* pp, int num_p, const void* pl, int num_l, const void* w1,
+                  const float* b1, const float* w2, const float* b2, const int* lab,
+                  const int* local, const int* tile_map, const int* tile_mask,
+                  const int* lab_base, int lab_rows, int lab_base_max, int num_tiles,
+                  unsigned seed0, unsigned seed1, unsigned threshold, float scale, int dropout,
+                  const float* g_out, int* work, int blocks, float* dpp, float* dpl, float* dw1,
+                  float* db1, float* dw2, float* db2, void* stream) {
+  const Head a = make_head(pp, num_p, pl, num_l, w1, b1, w2, b2, lab, local, tile_map, tile_mask,
+                           lab_base, lab_rows, lab_base_max, seed0, seed1, threshold, scale,
+                           dropout);
+  const int smem = (int)sizeof(BwdShared);
+  cudaError_t err = cudaFuncSetAttribute(pair_head_bwd_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  pair_head_bwd_kernel<T><<<blocks, BWD_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      a, g_out, num_tiles, work, make_grads(dpp, dpl, dw1, db1, dw2, db2));
+  return cudaGetLastError();
+}
+
+template <typename T>
+int pair_head_dual_fwd(const void* const* tab, const void* const* gnn, int num_p, int num_l,
+                       const int* lab, const int* local, const int* tile_map, const int* tab_mask,
+                       const int* gnn_mask, int num_tiles, unsigned seed0, unsigned seed1,
+                       unsigned threshold, float scale, int dropout, int* work, int blocks,
+                       float* out_t, float* out_g, void* stream) {
+  Head ht, hg;
+  make_dual(tab, gnn, num_p, num_l, lab, local, tile_map, tab_mask, gnn_mask, seed0, seed1,
+            threshold, scale, dropout, &ht, &hg);
+  const int smem = (int)sizeof(FwdShared);
+  cudaError_t err = cudaFuncSetAttribute(pair_head_dual_fwd_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  pair_head_dual_fwd_kernel<T><<<dim3(blocks, 2), FWD_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      hg, ht, num_tiles, work, out_g, out_t);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int pair_head_dual_bwd(const void* const* tab, const void* const* gnn, int num_p, int num_l,
+                       const int* lab, const int* local, const int* tile_map, const int* tab_mask,
+                       const int* gnn_mask, int num_tiles, unsigned seed0, unsigned seed1,
+                       unsigned threshold, float scale, int dropout, const float* g_out_t,
+                       const float* g_out_g, int* work, int blocks, const Grads& dt,
+                       const Grads& dg, void* stream) {
+  Head ht, hg;
+  make_dual(tab, gnn, num_p, num_l, lab, local, tile_map, tab_mask, gnn_mask, seed0, seed1,
+            threshold, scale, dropout, &ht, &hg);
+  const int smem = (int)sizeof(BwdShared);
+  cudaError_t err = cudaFuncSetAttribute(pair_head_dual_bwd_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  pair_head_dual_bwd_kernel<T><<<dim3(blocks, 2), BWD_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      hg, ht, g_out_g, g_out_t, num_tiles, work, dg, dt);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// The C entry points: each kernel for float32 operands (Pp, Pl, W1), and for
+// bfloat16 operands under the same name with the suffix _bf16 (same
+// arguments: b1, w2, b2, the upstream gradients and every output f32).
 extern "C" {
 
-// Shared memory of a K4b / K5b block (the same for any lab table).
+// Shared memory of a K4b / K5b block (the same for any lab table and dtype).
 int mmgnn_pair_head_bwd_shared_bytes() { return (int)sizeof(BwdShared); }
 
 // Shared memory of a K4f / K5f block.
 int mmgnn_pair_head_fwd_shared_bytes() { return (int)sizeof(FwdShared); }
 
+#define MMGNN_HEAD_PARAMS                                                                   \
+  const void *pp, int num_p, const void *pl, int num_l, const void *w1, const float *b1,    \
+      const float *w2, const float *b2, const int *lab, const int *local,                   \
+      const int *tile_map, const int *tile_mask, const int *lab_base, int lab_rows,         \
+      int lab_base_max, int num_tiles, unsigned seed0, unsigned seed1, unsigned threshold,  \
+      float scale, int dropout
+#define MMGNN_HEAD_ARGS                                                                     \
+  pp, num_p, pl, num_l, w1, b1, w2, b2, lab, local, tile_map, tile_mask, lab_base, lab_rows, \
+      lab_base_max, num_tiles, seed0, seed1, threshold, scale, dropout
+
 // K4f.  out [num_tiles * 1024] is written in full (0 for padding and masked
 // tiles); work[3] (reset_counters) is zero and is left zero; `blocks`
 // persistent blocks (the wrapper's launch plan, ops/pairhead_kernels.py
 // fwd_launch).
-int mmgnn_pair_head_fwd(const float* pp, int num_p, const float* pl, int num_l, const float* w1,
-                        const float* b1, const float* w2, const float* b2, const int* lab,
-                        const int* local, const int* tile_map, const int* tile_mask,
-                        const int* lab_base, int lab_rows, int lab_base_max, int num_tiles,
-                        unsigned seed0, unsigned seed1, unsigned threshold, float scale,
-                        int dropout, int* work, int blocks, float* out, void* stream) {
-  const Head a = make_head(pp, num_p, pl, num_l, w1, b1, w2, b2, lab, local, tile_map, tile_mask,
-                           lab_base, lab_rows, lab_base_max, seed0, seed1, threshold, scale,
-                           dropout);
-  const int smem = mmgnn_pair_head_fwd_shared_bytes();
-  cudaError_t err = cudaFuncSetAttribute(pair_head_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  pair_head_fwd_kernel<<<blocks, FWD_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      a, num_tiles, work, out);
-  return cudaGetLastError();
+int mmgnn_pair_head_fwd(MMGNN_HEAD_PARAMS, int* work, int blocks, float* out, void* stream) {
+  return pair_head_fwd<float>(MMGNN_HEAD_ARGS, work, blocks, out, stream);
+}
+int mmgnn_pair_head_fwd_bf16(MMGNN_HEAD_PARAMS, int* work, int blocks, float* out, void* stream) {
+  return pair_head_fwd<__nv_bfloat16>(MMGNN_HEAD_ARGS, work, blocks, out, stream);
 }
 
 // K4b.  dpp [num_windows * 128, 64], dpl [num_l, 64], dw1 [64, 32], db1, dw2
 // [32] and db2 [1] are zeroed by the caller and accumulated with atomics;
 // `work` is a zeroed unit counter; `blocks` persistent blocks (the wrapper's
 // launch plan, ops/pairhead_kernels.py bwd_launch).
-int mmgnn_pair_head_bwd(const float* pp, int num_p, const float* pl, int num_l, const float* w1,
-                        const float* b1, const float* w2, const float* b2, const int* lab,
-                        const int* local, const int* tile_map, const int* tile_mask,
-                        const int* lab_base, int lab_rows, int lab_base_max, int num_tiles,
-                        unsigned seed0, unsigned seed1, unsigned threshold, float scale,
-                        int dropout, const float* g_out, int* work, int blocks, float* dpp,
-                        float* dpl, float* dw1, float* db1, float* dw2, float* db2,
-                        void* stream) {
-  const Head a = make_head(pp, num_p, pl, num_l, w1, b1, w2, b2, lab, local, tile_map, tile_mask,
-                           lab_base, lab_rows, lab_base_max, seed0, seed1, threshold, scale,
-                           dropout);
-  const int smem = mmgnn_pair_head_bwd_shared_bytes();
-  cudaError_t err = cudaFuncSetAttribute(pair_head_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  pair_head_bwd_kernel<<<blocks, BWD_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      a, g_out, num_tiles, work, make_grads(dpp, dpl, dw1, db1, dw2, db2));
-  return cudaGetLastError();
+int mmgnn_pair_head_bwd(MMGNN_HEAD_PARAMS, const float* g_out, int* work, int blocks, float* dpp,
+                        float* dpl, float* dw1, float* db1, float* dw2, float* db2, void* stream) {
+  return pair_head_bwd<float>(MMGNN_HEAD_ARGS, g_out, work, blocks, dpp, dpl, dw1, db1, dw2, db2,
+                              stream);
 }
+int mmgnn_pair_head_bwd_bf16(MMGNN_HEAD_PARAMS, const float* g_out, int* work, int blocks,
+                             float* dpp, float* dpl, float* dw1, float* db1, float* dw2,
+                             float* db2, void* stream) {
+  return pair_head_bwd<__nv_bfloat16>(MMGNN_HEAD_ARGS, g_out, work, blocks, dpp, dpl, dw1, db1,
+                                      dw2, db2, stream);
+}
+
+#define MMGNN_DUAL_PARAMS                                                                    \
+  const void *pp_t, const void *pl_t, const void *w1_t, const float *b1_t, const float *w2_t, \
+      const float *b2_t, const void *pp_g, const void *pl_g, const void *w1_g,               \
+      const float *b1_g, const float *w2_g, const float *b2_g, int num_p, int num_l,         \
+      const int *lab, const int *local, const int *tile_map, const int *tab_mask,            \
+      const int *gnn_mask, int num_tiles, unsigned seed0, unsigned seed1, unsigned threshold, \
+      float scale, int dropout
+#define MMGNN_DUAL_TABLES                                                     \
+  const void* tab[6] = {pp_t, pl_t, w1_t, b1_t, w2_t, b2_t};                  \
+  const void* gnn[6] = {pp_g, pl_g, w1_g, b1_g, w2_g, b2_g}
+#define MMGNN_DUAL_ARGS                                                                    \
+  tab, gnn, num_p, num_l, lab, local, tile_map, tab_mask, gnn_mask, num_tiles, seed0, seed1, \
+      threshold, scale, dropout
 
 // K5f.  out_t and out_g [num_tiles * 1024] are written in full (0 for
 // padding slots and for each head's masked tiles); work[3] (reset_counters)
 // is zero and is left zero; `blocks` blocks a head.
-int mmgnn_pair_head_dual_fwd(const float* pp_t, const float* pl_t, const float* w1_t,
-                             const float* b1_t, const float* w2_t, const float* b2_t,
-                             const float* pp_g, const float* pl_g, const float* w1_g,
-                             const float* b1_g, const float* w2_g, const float* b2_g, int num_p,
-                             int num_l, const int* lab, const int* local, const int* tile_map,
-                             const int* tab_mask, const int* gnn_mask, int num_tiles,
-                             unsigned seed0, unsigned seed1, unsigned threshold, float scale,
-                             int dropout, int* work, int blocks, float* out_t, float* out_g,
+int mmgnn_pair_head_dual_fwd(MMGNN_DUAL_PARAMS, int* work, int blocks, float* out_t, float* out_g,
                              void* stream) {
-  const float* tab[6] = {pp_t, pl_t, w1_t, b1_t, w2_t, b2_t};
-  const float* gnn[6] = {pp_g, pl_g, w1_g, b1_g, w2_g, b2_g};
-  Head ht, hg;
-  make_dual(tab, gnn, num_p, num_l, lab, local, tile_map, tab_mask, gnn_mask, seed0, seed1,
-            threshold, scale, dropout, &ht, &hg);
-  const int smem = mmgnn_pair_head_fwd_shared_bytes();
-  cudaError_t err = cudaFuncSetAttribute(pair_head_dual_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  pair_head_dual_fwd_kernel<<<dim3(blocks, 2), FWD_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      hg, ht, num_tiles, work, out_g, out_t);
-  return cudaGetLastError();
+  MMGNN_DUAL_TABLES;
+  return pair_head_dual_fwd<float>(MMGNN_DUAL_ARGS, work, blocks, out_t, out_g, stream);
+}
+int mmgnn_pair_head_dual_fwd_bf16(MMGNN_DUAL_PARAMS, int* work, int blocks, float* out_t,
+                                  float* out_g, void* stream) {
+  MMGNN_DUAL_TABLES;
+  return pair_head_dual_fwd<__nv_bfloat16>(MMGNN_DUAL_ARGS, work, blocks, out_t, out_g, stream);
 }
 
 // K5b.  Each head's dpp [num_windows * 128, 64], dpl [num_l, 64], dw1
 // [64, 32], db1, dw2 [32] and db2 [1] are zeroed by the caller; work[2]
 // (the GNN head's counter, then the tabular head's) too; `blocks` blocks a head.
-int mmgnn_pair_head_dual_bwd(const float* pp_t, const float* pl_t, const float* w1_t,
-                             const float* b1_t, const float* w2_t, const float* b2_t,
-                             const float* pp_g, const float* pl_g, const float* w1_g,
-                             const float* b1_g, const float* w2_g, const float* b2_g, int num_p,
-                             int num_l, const int* lab, const int* local, const int* tile_map,
-                             const int* tab_mask, const int* gnn_mask, int num_tiles,
-                             unsigned seed0, unsigned seed1, unsigned threshold, float scale,
-                             int dropout, const float* g_out_t, const float* g_out_g,
+int mmgnn_pair_head_dual_bwd(MMGNN_DUAL_PARAMS, const float* g_out_t, const float* g_out_g,
                              int* work, int blocks, float* dpp_t, float* dpl_t, float* dw1_t,
                              float* db1_t, float* dw2_t, float* db2_t, float* dpp_g,
                              float* dpl_g, float* dw1_g, float* db1_g, float* dw2_g,
                              float* db2_g, void* stream) {
-  const float* tab[6] = {pp_t, pl_t, w1_t, b1_t, w2_t, b2_t};
-  const float* gnn[6] = {pp_g, pl_g, w1_g, b1_g, w2_g, b2_g};
-  Head ht, hg;
-  make_dual(tab, gnn, num_p, num_l, lab, local, tile_map, tab_mask, gnn_mask, seed0, seed1,
-            threshold, scale, dropout, &ht, &hg);
-  const int smem = mmgnn_pair_head_bwd_shared_bytes();
-  cudaError_t err = cudaFuncSetAttribute(pair_head_dual_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  pair_head_dual_bwd_kernel<<<dim3(blocks, 2), BWD_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      hg, ht, g_out_g, g_out_t, num_tiles, work,
-      make_grads(dpp_g, dpl_g, dw1_g, db1_g, dw2_g, db2_g),
-      make_grads(dpp_t, dpl_t, dw1_t, db1_t, dw2_t, db2_t));
-  return cudaGetLastError();
+  MMGNN_DUAL_TABLES;
+  return pair_head_dual_bwd<float>(MMGNN_DUAL_ARGS, g_out_t, g_out_g, work, blocks,
+                                   make_grads(dpp_t, dpl_t, dw1_t, db1_t, dw2_t, db2_t),
+                                   make_grads(dpp_g, dpl_g, dw1_g, db1_g, dw2_g, db2_g), stream);
+}
+int mmgnn_pair_head_dual_bwd_bf16(MMGNN_DUAL_PARAMS, const float* g_out_t, const float* g_out_g,
+                                  int* work, int blocks, float* dpp_t, float* dpl_t,
+                                  float* dw1_t, float* db1_t, float* dw2_t, float* db2_t,
+                                  float* dpp_g, float* dpl_g, float* dw1_g, float* db1_g,
+                                  float* dw2_g, float* db2_g, void* stream) {
+  MMGNN_DUAL_TABLES;
+  return pair_head_dual_bwd<__nv_bfloat16>(MMGNN_DUAL_ARGS, g_out_t, g_out_g, work, blocks,
+                                           make_grads(dpp_t, dpl_t, dw1_t, db1_t, dw2_t, db2_t),
+                                           make_grads(dpp_g, dpl_g, dw1_g, db1_g, dw2_g, db2_g),
+                                           stream);
 }
 
 }  // extern "C"

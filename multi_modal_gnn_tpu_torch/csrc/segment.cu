@@ -16,6 +16,19 @@
 // relation's windowed sum of the scaled upstream gradient), and of a row
 // gather with a GatherPlan (ops/segment.py).
 //
+// Rows come in float32 or bfloat16 (the model's compute dtype), as the TPU
+// kernels take them; every sum is float32 and every output is float32.  Each
+// kernel is a template on the row type T, with a C entry point per type
+// (mmgnn_..._bf16 for bfloat16).  A bf16 value widens to f32 exactly:
+//   * the gathers (K1, K2f) keep the f32 lane layout (four columns a lane);
+//     a lane loads 8 bytes of a bf16 row where it loads 16 of an f32 row, and
+//     K2f / K1 stage a bf16 table slice in shared memory at 2 bytes a value;
+//   * the incidence products (K2b, K3) stage bf16 row slices and feed them to
+//     the TF32 mma as one term: 8 significant bits are exact in TF32's 11, so
+//     the hi / lo split of f32 rows is not needed.  The counts stay TF32
+//     (exact to 2048) and never pass through bf16, which would round a
+//     multiplicity of 601 to 600.
+//
 // K1, K2f and K3 compute, for a windowed plan (graph/hetero.py),
 //   out[tile_map[t] * 128 + local[e]] += row(e)       for every slot e of tile t
 // with f32 accumulation; slots with local == 128 are padding and add nothing.
@@ -130,6 +143,7 @@
 //   * A real K3 slot whose source falls outside its tile's span (never, for a
 //     plan from build_src_span_plan) adds its row with global atomics.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 // Gives the blocks of `threads` threads and `smem` bytes of dynamic shared
@@ -195,6 +209,26 @@ __device__ __forceinline__ void add_into(float4& a, const float4& b) {
   a.w += b.w;
 }
 
+// Row elements as f32: a float as it is, a bf16 widened (exact).
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// Four consecutive row elements as f32: one 16-byte load of f32, one 8-byte
+// load of bf16 (p 16- or 8-byte aligned).  ldg4 reads through the
+// read-only path.
+__device__ __forceinline__ float4 widen(uint2 u) {
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  return widen(*reinterpret_cast<const uint2*>(p));
+}
+__device__ __forceinline__ float4 ldg4(const float* p) { return __ldg(reinterpret_cast<const float4*>(p)); }
+__device__ __forceinline__ float4 ldg4(const __nv_bfloat16* p) {
+  return widen(__ldg(reinterpret_cast<const uint2*>(p)));
+}
+
 // 16- and 4-byte asynchronous copies global -> shared (sm_80+).
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -219,7 +253,7 @@ constexpr int ROUND_TILES = 63;     // K2b tiles per count matrix: counts stay b
 constexpr unsigned TF32_EXACT = 2048;  // integers up to 2^11 are exact in TF32
 
 struct Incidence {
-  const float* __restrict__ rows;  // B's source rows: the table (K3) or g (K2b)
+  const void* __restrict__ rows;   // B's source rows (T): the table (K3) or g (K2b)
   int num_rows;                    // rows of `rows`; no row past them is read
   const int* __restrict__ src;
   const int* __restrict__ local;
@@ -232,7 +266,7 @@ struct Incidence {
   int num_src;      // K2b: rows of dT
   int d;
   int count_words;  // 32-bit words per row of C (two 16-bit counts each)
-  int b_stride;     // floats per row of a staged slice of B
+  int b_stride;     // elements (T) per row of a staged slice of B
   float* __restrict__ out;
 };
 
@@ -312,18 +346,21 @@ __device__ __forceinline__ void publish(int need, unsigned long long kbits, bool
 
 // Slice `s` of the unit's B (rows row0 + 32 s ...) into `buf`: rows below
 // `limit` by cp.async, the others zero.  Columns past ncols stay zero.
-__device__ __forceinline__ void stage_slice(const Incidence& p, float* buf, long long row0,
+template <typename T>
+__device__ __forceinline__ void stage_slice(const Incidence& p, T* buf, long long row0,
                                             int s, int limit, int c0, int ncols) {
+  constexpr int VEC = 16 / sizeof(T);  // elements a 16-byte chunk holds
+  const T* rows = static_cast<const T*>(p.rows);
   const int valid = min(max(limit - s * SLICE, 0), SLICE);
-  const int cpr = ncols / 4;  // 16-byte chunks per row
+  const int cpr = ncols / VEC;  // 16-byte chunks per row
   for (int i = threadIdx.x; i < SLICE * cpr; i += MMA_THREADS) {
     const int r = i / cpr;
-    const int q = (i - r * cpr) * 4;
-    float* dst = buf + r * p.b_stride + q;
+    const int q = (i - r * cpr) * VEC;
+    T* dst = buf + r * p.b_stride + q;
     if (r < valid) {
-      cp_async16(dst, p.rows + (row0 + s * SLICE + r) * p.d + c0 + q);
+      cp_async16(dst, rows + (row0 + s * SLICE + r) * p.d + c0 + q);
     } else {
-      *reinterpret_cast<float4*>(dst) = zero4();
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
     }
   }
   cp_async_commit();
@@ -334,8 +371,9 @@ __device__ __forceinline__ void stage_slice(const Incidence& p, float* buf, long
 // wn + 2, ... below nt.  kBig: C is split into its 11 high and 5 low bits.
 // kFull: all 16 n8 tiles (128 columns), so no test cuts the unrolled loop
 // into blocks and the compiler interleaves the tiles' loads and products.
-template <bool kBig, bool kFull>
-__device__ __forceinline__ void mma_slice(const unsigned* counts, int cw, const float* buf, int sb,
+// f32 rows: B split into hi and lo (two products); bf16 rows: one product.
+template <bool kBig, bool kFull, typename T>
+__device__ __forceinline__ void mma_slice(const unsigned* counts, int cw, const T* buf, int sb,
                                           int s, unsigned long long kmask, int nt,
                                           float (&acc)[2][8][4]) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -359,21 +397,27 @@ __device__ __forceinline__ void mma_slice(const unsigned* counts, int cw, const 
         if (kBig) a_lo[mi][e] = __float_as_uint(__uint2float_rn(n & 0x1fu));
       }
     }
-    const float* b0 = buf + (kk * 8 + t) * sb + g;
-    const float* b1 = b0 + 4 * sb;
+    const T* b0 = buf + (kk * 8 + t) * sb + g;
+    const T* b1 = b0 + 4 * sb;
+    constexpr bool kSplit = sizeof(T) == 4;  // bf16 is exact in TF32
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int j = wn + 2 * i;
       if (kFull || j < nt) {
-        unsigned h0, l0, h1, l1;
-        split_tf32(b0[j * 8], h0, l0);
-        split_tf32(b1[j * 8], h1, l1);
+        unsigned h0, l0 = 0u, h1, l1 = 0u;
+        if (kSplit) {
+          split_tf32(to_f32(b0[j * 8]), h0, l0);
+          split_tf32(to_f32(b1[j * 8]), h1, l1);
+        } else {
+          h0 = __float_as_uint(to_f32(b0[j * 8]));
+          h1 = __float_as_uint(to_f32(b1[j * 8]));
+        }
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi) {
-          mma_tf32(acc[mi][i], a_hi[mi], l0, l1);
+          if (kSplit) mma_tf32(acc[mi][i], a_hi[mi], l0, l1);
           mma_tf32(acc[mi][i], a_hi[mi], h0, h1);
           if (kBig) {
-            mma_tf32(acc[mi][i], a_lo[mi], l0, l1);
+            if (kSplit) mma_tf32(acc[mi][i], a_lo[mi], l0, l1);
             mma_tf32(acc[mi][i], a_lo[mi], h0, h1);
           }
         }
@@ -413,9 +457,10 @@ struct NextTile {
 
 // Shared memory of one block: C, two slices of B, what the unit found, and
 // (K3) the next tile's slots and place.
+template <typename T>
 struct Staging {
   unsigned* counts;  // [MMA_ROWS, cw]
-  float* bufs;       // 2 x [SLICE, sb]
+  T* bufs;           // 2 x [SLICE, sb]
   int* slots;        // K3: [2, TILE_E], the next tile's local rows, then sources
   UnitState* st;
   NextTile* next;
@@ -423,7 +468,8 @@ struct Staging {
 };
 
 // K3: copy tile t's slots and place into shared memory (one commit group).
-__device__ __forceinline__ void prefetch_tile(const Incidence& p, const Staging& sm, int t) {
+template <typename T>
+__device__ __forceinline__ void prefetch_tile(const Incidence& p, const Staging<T>& sm, int t) {
   const long long e = (long long)t * TILE_E + 4 * threadIdx.x;
   cp_async16(sm.slots + 4 * threadIdx.x, p.local + e);
   cp_async16(sm.slots + TILE_E + 4 * threadIdx.x, p.src + e);
@@ -440,8 +486,8 @@ __device__ __forceinline__ void prefetch_tile(const Incidence& p, const Staging&
 // place of sm.next->tile, which thread 0 set, are copied in under the
 // products; returns that tile.  K2b: C[src - chunk0, local].  All threads
 // call it; it ends with C clear and the copies landed.
-template <bool kSpan>
-__device__ int incidence_unit(const Incidence& p, const Staging& sm, int t, int te, int w,
+template <bool kSpan, typename T>
+__device__ int incidence_unit(const Incidence& p, const Staging<T>& sm, int t, int te, int w,
                               long long row0, int chunk0, float (&acc)[2][8][4]) {
   const int cw = p.count_words, sb = p.b_stride;
   int need = 0;
@@ -459,9 +505,9 @@ __device__ int incidence_unit(const Incidence& p, const Staging& sm, int t, int 
       if (static_cast<unsigned>(rel) < static_cast<unsigned>(p.k_rows)) {
         add_count(sm.counts, cw, ls[u], rel, need, kbits, big);
       } else if (static_cast<unsigned>(ss[u]) < static_cast<unsigned>(p.num_rows)) {
-        const float* from = p.rows + (long long)ss[u] * p.d + sm.c0;
+        const T* from = static_cast<const T*>(p.rows) + (long long)ss[u] * p.d + sm.c0;
         float* to = p.out + (out_row + ls[u]) * p.d + sm.c0;
-        for (int c = 0; c < sm.ncols; ++c) atomicAdd(to + c, __ldg(from + c));
+        for (int c = 0; c < sm.ncols; ++c) atomicAdd(to + c, to_f32(from[c]));
       }
     }
   } else {
@@ -507,7 +553,7 @@ __device__ int incidence_unit(const Incidence& p, const Staging& sm, int t, int 
         cp_async_wait<0>();
       }
       __syncthreads();
-      const float* buf = sm.bufs + b * SLICE * sb;
+      const T* buf = sm.bufs + b * SLICE * sb;
       if (big) {
         mma_slice<true, false>(sm.counts, cw, buf, sb, s, kbits, sm.nt, acc);
       } else if (sm.nt == MMA_COLS / 8) {
@@ -544,15 +590,15 @@ __device__ int incidence_unit(const Incidence& p, const Staging& sm, int t, int 
 // tiles only increase).  K2b: a unit is a run of up to ROUND_TILES tiles of
 // one window; the block that takes a window's first tile takes all of it,
 // and acc (one source chunk) goes out at the end.
-template <bool kSpan>
+template <bool kSpan, typename T>
 __global__ void __launch_bounds__(MMA_THREADS, 2) incidence_kernel(Incidence p) {
   extern __shared__ float4 smem4[];
   __shared__ UnitState st;
   __shared__ NextTile next;
   const int cw = p.count_words, sb = p.b_stride;
-  Staging sm;
+  Staging<T> sm;
   sm.counts = reinterpret_cast<unsigned*>(smem4);
-  sm.bufs = reinterpret_cast<float*>(sm.counts + MMA_ROWS * cw);
+  sm.bufs = reinterpret_cast<T*>(sm.counts + MMA_ROWS * cw);
   sm.slots = reinterpret_cast<int*>(sm.bufs + 2 * SLICE * sb);
   sm.st = &st;
   sm.next = &next;
@@ -562,7 +608,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) incidence_kernel(Incidence p) 
   const int chunk0 = blockIdx.y * MMA_ROWS;  // K2b: the chunk's first source row
   int* work = p.work + blockIdx.y + gridDim.y * blockIdx.z;
   for (int i = threadIdx.x; i < MMA_ROWS * cw; i += MMA_THREADS) sm.counts[i] = 0u;
-  for (int i = threadIdx.x; i < 2 * SLICE * sb; i += MMA_THREADS) sm.bufs[i] = 0.f;
+  for (int i = threadIdx.x; i < 2 * SLICE * sb; i += MMA_THREADS) sm.bufs[i] = T(0.f);
   float acc[2][8][4] = {};
   int pending = 0;  // thread 0: the grab taken ahead
   if (threadIdx.x == 0) {
@@ -594,7 +640,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) incidence_kernel(Incidence p) 
         }
         next.tile = n;
       }
-      t = incidence_unit<true>(p, sm, t, t + 1, w, base, 0, acc);
+      t = incidence_unit<true, T>(p, sm, t, t + 1, w, base, 0, acc);
     }
     if (window >= 0) flush_acc(acc, p.out, (long long)window * WINDOW, WINDOW, p.d, sm.c0, sm.ncols);
   } else {
@@ -606,7 +652,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) incidence_kernel(Incidence p) 
         for (int ts = tt; ts < p.num_tiles && p.tile_map[ts] == w;) {
           int te = ts + 1;
           while (te < p.num_tiles && te - ts < ROUND_TILES && p.tile_map[te] == w) ++te;
-          incidence_unit<false>(p, sm, ts, te, w, (long long)w * WINDOW, chunk0, acc);
+          incidence_unit<false, T>(p, sm, ts, te, w, (long long)w * WINDOW, chunk0, acc);
           ts = te;
         }
       }
@@ -624,15 +670,15 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) incidence_kernel(Incidence p) 
   }
 }
 
-template <bool kSpan>
+template <bool kSpan, typename T>
 int launch_incidence(const Incidence& p, int blocks, int chunks, int col_blocks, void* stream) {
   const size_t smem = sizeof(unsigned) * MMA_ROWS * p.count_words +
-                      sizeof(float) * 2 * SLICE * p.b_stride + (kSpan ? sizeof(int) * 2 * TILE_E : 0);
-  cudaError_t err = cudaFuncSetAttribute(incidence_kernel<kSpan>,
+                      sizeof(T) * 2 * SLICE * p.b_stride + (kSpan ? sizeof(int) * 2 * TILE_E : 0);
+  cudaError_t err = cudaFuncSetAttribute(incidence_kernel<kSpan, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  incidence_kernel<kSpan><<<dim3(blocks, chunks, col_blocks), MMA_THREADS, smem,
-                            static_cast<cudaStream_t>(stream)>>>(p);
+  incidence_kernel<kSpan, T><<<dim3(blocks, chunks, col_blocks), MMA_THREADS, smem,
+                               static_cast<cudaStream_t>(stream)>>>(p);
   return cudaGetLastError();
 }
 
@@ -647,7 +693,7 @@ constexpr int FT_COUNTER_STRIDE = 32;  // a slice's counter on its own 128-byte 
 constexpr int FT_BATCH = 8;  // rows a row group loads before it sums them
 
 struct FusedTable {
-  const float* __restrict__ table;  // [num_src, d]; pre-gathered rows (K1, src null): [units * 64, d]
+  const void* __restrict__ table;   // T [num_src, d]; pre-gathered rows (K1, src null): [units * 64, d]
   int num_src, d;
   const int* __restrict__ src;
   const int* __restrict__ local;
@@ -655,8 +701,8 @@ struct FusedTable {
   int num_units;
   int* work;    // a unit counter per column slice (every 32nd int), zeroed by the caller
   int grab;     // units a warp takes at a time
-  int slice;    // columns of a slice (a multiple of 4)
-  int stride;   // floats per staged row
+  int slice;    // columns of a slice (a multiple of 4; of 8 for bf16)
+  int stride;   // elements (T) per staged row
   float* __restrict__ out;
 };
 
@@ -669,16 +715,20 @@ struct FusedTable {
 // (slots are dst-sorted within a tile) in registers and adds each run to
 // its output row with float4 global atomics.  A slot whose source lies past
 // the table adds nothing.
+template <typename T>
 __global__ void __launch_bounds__(FT_THREADS, 1) gather_runs_kernel(FusedTable p) {
+  constexpr int VEC = 16 / sizeof(T);  // elements a 16-byte chunk holds
   extern __shared__ float4 smem4[];
-  float* tab = reinterpret_cast<float*>(smem4);
+  T* tab = reinterpret_cast<T*>(smem4);
   int* idx = reinterpret_cast<int*>(tab + (size_t)p.num_src * p.stride);  // per warp: locals, sources
+  const T* table = static_cast<const T*>(p.table);
   const int c0 = blockIdx.y * p.slice;
   const int ncols = min(p.slice, p.d - c0);
   const int q = ncols / 4;
-  for (int i = threadIdx.x; i < p.num_src * q; i += FT_THREADS) {
-    const int r = i / q, c = (i - r * q) * 4;
-    cp_async16(tab + (size_t)r * p.stride + c, p.table + (long long)r * p.d + c0 + c);
+  const int cpr = ncols / VEC;  // 16-byte chunks a row
+  for (int i = threadIdx.x; i < p.num_src * cpr; i += FT_THREADS) {
+    const int r = i / cpr, c = (i - r * cpr) * VEC;
+    cp_async16(tab + (size_t)r * p.stride + c, table + (long long)r * p.d + c0 + c);
   }
   cp_async_commit();
   cp_async_wait<0>();
@@ -743,7 +793,7 @@ __global__ void __launch_bounds__(FT_THREADS, 1) gather_runs_kernel(FusedTable p
 #pragma unroll
       for (int k = 0; k < FT_BATCH; ++k) {
         const bool ok = ls[k] < WINDOW && static_cast<unsigned>(ss[k]) < static_cast<unsigned>(p.num_src);
-        v[k] = ok ? *reinterpret_cast<const float4*>(tab + (size_t)ss[k] * p.stride + 4 * ci) : zero4();
+        v[k] = ok ? load4(tab + (size_t)ss[k] * p.stride + 4 * ci) : zero4();
       }
 #pragma unroll
       for (int k = 0; k < FT_BATCH; ++k) {
@@ -776,7 +826,7 @@ constexpr int GU_MIN_BLOCKS = 3;  // resident blocks an SM (40 registers a threa
 constexpr int GU_THREADS = 512;
 constexpr int GU_WARPS = GU_THREADS / 32;
 
-template <bool kGathered>
+template <bool kGathered, typename T>
 __global__ void __launch_bounds__(GU_THREADS, GU_MIN_BLOCKS) gather_tile_kernel(FusedTable p) {
   __shared__ int sloc[TILE_E];
   __shared__ int ssrc[kGathered ? 1 : TILE_E];
@@ -796,7 +846,7 @@ __global__ void __launch_bounds__(GU_THREADS, GU_MIN_BLOCKS) gather_tile_kernel(
   const bool active = gi < groups;
   const int gid = warp * groups + gi, chunk = TILE_E / (GU_WARPS * groups);
   const int i0 = active ? gid * chunk : 0, i1 = active ? i0 + chunk : 0;
-  const float* rows = p.table + c0 + 4 * ci;
+  const T* rows = static_cast<const T*>(p.table) + c0 + 4 * ci;
   float* out = p.out + c0 + 4 * ci;
   __syncthreads();
   const bool head_cut = active && i0 > 0 && sloc[i0] < WINDOW && sloc[i0 - 1] == sloc[i0];
@@ -814,7 +864,7 @@ __global__ void __launch_bounds__(GU_THREADS, GU_MIN_BLOCKS) gather_tile_kernel(
       const long long r = kGathered ? e0 + i + k : (in ? ssrc[i + k] : 0);
       const bool ok = l < WINDOW && (kGathered || static_cast<unsigned long long>(r) < static_cast<unsigned>(p.num_src));
       ls[k] = l;
-      v[k] = ok ? __ldg(reinterpret_cast<const float4*>(rows + r * p.d)) : zero4();
+      v[k] = ok ? ldg4(rows + r * p.d) : zero4();
     }
 #pragma unroll
     for (int k = 0; k < GU_BATCH; ++k) {
@@ -847,89 +897,129 @@ __global__ void __launch_bounds__(GU_THREADS, GU_MIN_BLOCKS) gather_tile_kernel(
   }
 }
 
-template <bool kGathered>
+template <bool kGathered, typename T>
 int launch_gather_tiles(const FusedTable& p, int slices, void* stream) {
   int wave = 0;
-  const cudaError_t err = mmgnn_one_wave(reinterpret_cast<const void*>(gather_tile_kernel<kGathered>),
-                                         GU_THREADS, 0, &wave);
+  const cudaError_t err = mmgnn_one_wave(
+      reinterpret_cast<const void*>(gather_tile_kernel<kGathered, T>), GU_THREADS, 0, &wave);
   if (err != cudaSuccess) return err;
   const int tiles = p.num_units / (TILE_E / FT_UNIT);
-  gather_tile_kernel<kGathered><<<dim3(tiles, slices), GU_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  gather_tile_kernel<kGathered, T><<<dim3(tiles, slices), GU_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return cudaGetLastError();
 }
 
 // Launch K2f's body on (blocks, slices), blocks at most one wave of the
 // blocks that are resident at once.
+template <typename T>
 int launch_gather_runs(const FusedTable& p, int blocks, int slices, void* stream) {
-  const size_t smem = sizeof(float) * (size_t)p.num_src * p.stride + sizeof(int) * FT_WARPS * 2 * FT_UNIT;
+  const size_t smem = sizeof(T) * (size_t)p.num_src * p.stride + sizeof(int) * FT_WARPS * 2 * FT_UNIT;
   int wave = 0;
-  const cudaError_t err = mmgnn_one_wave(reinterpret_cast<const void*>(gather_runs_kernel), FT_THREADS, smem, &wave);
+  const cudaError_t err =
+      mmgnn_one_wave(reinterpret_cast<const void*>(gather_runs_kernel<T>), FT_THREADS, smem, &wave);
   if (err != cudaSuccess) return err;
   blocks = min(blocks, wave / slices > 0 ? wave / slices : 1);  // any grid is right: the counter deals past gridDim.x
-  gather_runs_kernel<<<dim3(blocks, slices), FT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  gather_runs_kernel<T><<<dim3(blocks, slices), FT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return cudaGetLastError();
+}
+
+// The four launches for rows of type T (the C entry points below).
+template <typename T>
+int segment_sum_windowed(const T* x, int num_rows, const int* idx, const int* local,
+                         const int* tile_map, int num_tiles, int* work, int grab, int blocks,
+                         int slices, int slice, int stride, int staged, int d, float* out,
+                         void* stream) {
+  const FusedTable p{x, num_rows, d, idx, local, tile_map, num_tiles * (TILE_E / FT_UNIT),
+                     work, grab, slice, stride, out};
+  if (idx == nullptr) return launch_gather_tiles<true, T>(p, slices, stream);
+  if (!staged) return launch_gather_tiles<false, T>(p, slices, stream);
+  return launch_gather_runs<T>(p, blocks, slices, stream);
+}
+
+template <typename T>
+int fused_table_segment_sum(const T* table, int num_src, const int* win_src, const int* local,
+                            const int* tile_map, int num_tiles, int* work, int grab, int blocks,
+                            int slices, int slice, int stride, int d, float* out, void* stream) {
+  const FusedTable p{table, num_src, d, win_src, local, tile_map, num_tiles * (TILE_E / FT_UNIT),
+                     work, grab, slice, stride, out};
+  return launch_gather_runs<T>(p, blocks, slices, stream);
+}
+
+template <typename T>
+int fused_table_segment_sum_bwd(const T* g, int num_g_rows, const int* win_src, const int* local,
+                                const int* tile_map, int num_tiles, int* work, int grab,
+                                int blocks, int chunks, int col_blocks, int count_words,
+                                int b_stride, int num_src, int d, float* out, void* stream) {
+  const Incidence p{g, num_g_rows, win_src, local, tile_map, nullptr, num_tiles, work, grab,
+                    WINDOW, num_src, d, count_words, b_stride, out};
+  return launch_incidence<false, T>(p, blocks, chunks, col_blocks, stream);
+}
+
+template <typename T>
+int span_segment_sum(const T* table, int num_rows, const int* span_src, const int* span_local,
+                     const int* tile_map, const int* span_base, int num_tiles, int span_rows,
+                     int* work, int grab, int blocks, int col_blocks, int count_words,
+                     int b_stride, int d, float* out, void* stream) {
+  if (span_rows > MAX_K) return cudaErrorInvalidValue;
+  const Incidence p{table, num_rows, span_src, span_local, tile_map, span_base, num_tiles, work,
+                    grab, span_rows, 0, d, count_words, b_stride, out};
+  return launch_incidence<true, T>(p, blocks, 1, col_blocks, stream);
 }
 
 }  // namespace
 
-extern "C" {
+// The C entry points: each kernel for float32 rows, and for bfloat16 rows
+// under the same name with the suffix _bf16 (same arguments; outputs f32).
+#define MMGNN_BOTH_TYPES(name, params, args)                                       \
+  extern "C" int mmgnn_##name(const float* rows, MMGNN_UNPAREN params) {          \
+    return name<float>(rows, MMGNN_UNPAREN args);                                  \
+  }                                                                                \
+  extern "C" int mmgnn_##name##_bf16(const __nv_bfloat16* rows, MMGNN_UNPAREN params) { \
+    return name<__nv_bfloat16>(rows, MMGNN_UNPAREN args);                          \
+  }
+#define MMGNN_UNPAREN(...) __VA_ARGS__
 
-// K1.  idx == nullptr: x holds pre-gathered rows [num_tiles * 1024, d];
-// otherwise row(e) = x[idx[e]] for a table of num_rows rows, staged in
+// K1.  idx == nullptr: rows holds pre-gathered rows [num_tiles * 1024, d];
+// otherwise row(e) = rows[idx[e]] for a table of num_rows rows, staged in
 // shared memory (staged != 0, column slices of `slice` columns at `stride`
-// floats a row) or read from device memory.  out [num_windows * 128, d] and
-// work [32 * slices] are zeroed by the caller.  The route and the launch
+// elements a row) or read from device memory.  out [num_windows * 128, d]
+// and work [32 * slices] are zeroed by the caller.  The route and the launch
 // shape come from the wrapper (ops/segment_kernels.py windowed_route,
 // windowed_launch, fused_table_launch).
-int mmgnn_segment_sum_windowed(const float* x, int num_rows, const int* idx, const int* local,
-                               const int* tile_map, int num_tiles, int* work, int grab, int blocks,
-                               int slices, int slice, int stride, int staged, int d, float* out,
-                               void* stream) {
-  const FusedTable p{x, num_rows, d, idx, local, tile_map, num_tiles * (TILE_E / FT_UNIT),
-                     work, grab, slice, stride, out};
-  if (idx == nullptr) return launch_gather_tiles<true>(p, slices, stream);
-  if (!staged) return launch_gather_tiles<false>(p, slices, stream);
-  return launch_gather_runs(p, blocks, slices, stream);
-}
+MMGNN_BOTH_TYPES(segment_sum_windowed,
+                 (int num_rows, const int* idx, const int* local, const int* tile_map,
+                  int num_tiles, int* work, int grab, int blocks, int slices, int slice,
+                  int stride, int staged, int d, float* out, void* stream),
+                 (num_rows, idx, local, tile_map, num_tiles, work, grab, blocks, slices, slice,
+                  stride, staged, d, out, stream))
 
-// K2f.  row(e) = table[win_src[e]] for a small source table of num_src
-// rows; out [num_windows * 128, d] is zeroed by the caller, work [32 *
-// slices] too.  The launch shape and the shared layout come from the wrapper
+// K2f.  row(e) = rows[win_src[e]] for a small source table of num_src rows;
+// out [num_windows * 128, d] is zeroed by the caller, work [32 * slices]
+// too.  The launch shape and the shared layout come from the wrapper
 // (ops/segment_kernels.py fused_table_launch).
-int mmgnn_fused_table_segment_sum(const float* table, int num_src, const int* win_src,
-                                  const int* local, const int* tile_map, int num_tiles, int* work,
-                                  int grab, int blocks, int slices, int slice, int stride, int d,
-                                  float* out, void* stream) {
-  const FusedTable p{table, num_src, d, win_src, local, tile_map, num_tiles * (TILE_E / FT_UNIT),
-                     work, grab, slice, stride, out};
-  return launch_gather_runs(p, blocks, slices, stream);
-}
+MMGNN_BOTH_TYPES(fused_table_segment_sum,
+                 (int num_src, const int* win_src, const int* local, const int* tile_map,
+                  int num_tiles, int* work, int grab, int blocks, int slices, int slice,
+                  int stride, int d, float* out, void* stream),
+                 (num_src, win_src, local, tile_map, num_tiles, work, grab, blocks, slices, slice,
+                  stride, d, out, stream))
 
-// K2b.  dT[win_src[e]] += g[tile_map[t] * 128 + local[e]]; g holds the
+// K2b.  dT[win_src[e]] += g[tile_map[t] * 128 + local[e]]; rows (g) holds the
 // destination rows [num_g_rows, d], dT [num_src, d] is zeroed by the caller.
 // The launch shape and the shared layout come from the wrapper
 // (ops/segment_kernels.py incidence_launch).
-int mmgnn_fused_table_segment_sum_bwd(const float* g, int num_g_rows, const int* win_src,
-                                      const int* local, const int* tile_map, int num_tiles,
-                                      int* work, int grab, int blocks, int chunks, int col_blocks,
-                                      int count_words, int b_stride, int num_src, int d,
-                                      float* out, void* stream) {
-  const Incidence p{g, num_g_rows, win_src, local, tile_map, nullptr, num_tiles, work, grab,
-                    WINDOW, num_src, d, count_words, b_stride, out};
-  return launch_incidence<false>(p, blocks, chunks, col_blocks, stream);
-}
+MMGNN_BOTH_TYPES(fused_table_segment_sum_bwd,
+                 (int num_g_rows, const int* win_src, const int* local, const int* tile_map,
+                  int num_tiles, int* work, int grab, int blocks, int chunks, int col_blocks,
+                  int count_words, int b_stride, int num_src, int d, float* out, void* stream),
+                 (num_g_rows, win_src, local, tile_map, num_tiles, work, grab, blocks, chunks,
+                  col_blocks, count_words, b_stride, num_src, d, out, stream))
 
-// K3.  row(e) = table[span_src[e]], read from the tile's row block
-// table[span_base[t] : span_base[t] + span_rows] (bounded by num_rows).
-int mmgnn_span_segment_sum(const float* table, int num_rows, const int* span_src,
-                           const int* span_local, const int* tile_map, const int* span_base,
-                           int num_tiles, int span_rows, int* work, int grab, int blocks,
-                           int col_blocks, int count_words, int b_stride, int d, float* out,
-                           void* stream) {
-  if (span_rows > MAX_K) return cudaErrorInvalidValue;
-  const Incidence p{table, num_rows, span_src, span_local, tile_map, span_base, num_tiles, work,
-                    grab, span_rows, 0, d, count_words, b_stride, out};
-  return launch_incidence<true>(p, blocks, 1, col_blocks, stream);
-}
-
-}  // extern "C"
+// K3.  row(e) = rows[span_src[e]], read from the tile's row block
+// rows[span_base[t] : span_base[t] + span_rows] (bounded by num_rows).
+MMGNN_BOTH_TYPES(span_segment_sum,
+                 (int num_rows, const int* span_src, const int* span_local, const int* tile_map,
+                  const int* span_base, int num_tiles, int span_rows, int* work, int grab,
+                  int blocks, int col_blocks, int count_words, int b_stride, int d, float* out,
+                  void* stream),
+                 (num_rows, span_src, span_local, tile_map, span_base, num_tiles, span_rows, work,
+                  grab, blocks, col_blocks, count_words, b_stride, d, out, stream))

@@ -6,14 +6,25 @@ from typing import Optional, Union
 
 import torch
 
-from multi_modal_gnn_tpu_torch.config import Config
+from multi_modal_gnn_tpu_torch.config import Config, refuse_bf16
 from multi_modal_gnn_tpu_torch.graph.hetero import HeteroGraph
 from multi_modal_gnn_tpu_torch.models.hgt import HeteroGT
 from multi_modal_gnn_tpu_torch.models.rgcn import HeteroRGCN
+from multi_modal_gnn_tpu_torch.utils import mxu_probe
 from multi_modal_gnn_tpu_torch.utils.device import resolve_device
 
 # head_style "auto": factored heads from this many patients up
 FACTORED_HEAD_MIN_PATIENTS = 20_000
+_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(config: Config, device=None) -> Optional[torch.dtype]:
+    """The model's compute dtype (None: float32), as JAX
+    ``factory.py:30-37`` resolves ``model.compute_dtype``: ``auto`` through
+    the tensor-core probe (:func:`~multi_modal_gnn_tpu_torch.utils.mxu_probe.resolve_compute_dtype`;
+    float32 on the CPU)."""
+    name = mxu_probe.resolve_compute_dtype(config.model.compute_dtype, device)
+    return _DTYPES.get(name)
 
 
 def build_model(
@@ -25,9 +36,17 @@ def build_model(
     """The configured architecture sized to ``graph``, weights drawn from
     ``generator`` (on the CPU) and moved to ``device`` (default: the card;
     raises without one).  The config has already refused the ``context``
-    bilinear source without ``value_context`` (JAX refuses it here)."""
+    bilinear source without ``value_context`` (JAX refuses it here).
+
+    ``model.compute_dtype`` (:func:`compute_dtype`) goes to the RGCN.  The
+    JAX HGT takes it only in its value-context projections
+    (``hgt.py:257-291``), which the port refuses with bfloat16, so a
+    bfloat16 HGT computes in float32, as JAX's does."""
     device = resolve_device(device)
     mc = config.model
+    dtype = compute_dtype(config, device)
+    if dtype is not None and mc.value_context:  # "auto" that resolved to bfloat16
+        refuse_bf16("model.extras.value_context")
     impl = "pallas" if mc.use_pallas else "xla"
     common = dict(
         node_counts=graph.node_counts,
@@ -59,5 +78,6 @@ def build_model(
         degree_threshold=mc.degree_threshold,
         head_style=head_style,
         dual_head_fusion=mc.dual_head_fusion,
+        dtype=dtype,
     )
     return model.to(device)

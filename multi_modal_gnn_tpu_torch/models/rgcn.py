@@ -14,6 +14,13 @@ from each head's inputs (``bilinear_source="head"``), from the raw ID
 tables (``"embedding"``, the channel the ALS warm start plants into) or
 from the patient's value context over the raw lab table (``"context"``).
 
+``dtype`` (None or ``torch.bfloat16``, ``model.compute_dtype``) is the JAX
+model's compute dtype: parameters stay float32; the patient encoder, the
+convolutions and the heads compute in it, BatchNorm returns float32, and
+each layer rounds where its JAX module rounds (``models/layers.py``,
+``ops/segment.py``).  Predictions come out float32 (fused heads) or in the
+compute dtype (unfused heads), as JAX's do; callers read them as float32.
+
 Training runs :meth:`HeteroRGCN.predict_lab_values` with ``train=True``,
 the batch's gather plans and its per-slot degrees.  The serving section
 (:meth:`HeteroRGCN.compute_node_state`, :meth:`HeteroRGCN.predict_pairs_cached`)
@@ -41,6 +48,7 @@ from multi_modal_gnn_tpu_torch.models.layers import (
     PatientEncoder,
     bilinear_factor,
     get_activation,
+    linear_in,
     make_dense,
     patient_rows,
     refuse_cluster_graph,
@@ -63,7 +71,10 @@ class HeteroSAGELayer(nn.Module):
     Each destination type runs one matmul over the concatenated messages and
     its own features: the neighbor weights are stacked along K and the root
     weights summed.  Parameters stay per relation (``neigh_<key>``,
-    ``root_<key>``)."""
+    ``root_<key>``).  With a compute ``dtype`` the source rows are cast to
+    it before aggregation (half the gather bytes) and the destination rows,
+    the stacked weights and the summed bias before the one matmul (JAX
+    ``rgcn.py:107-108``, ``:136-142``)."""
 
     def __init__(
         self,
@@ -73,12 +84,14 @@ class HeteroSAGELayer(nn.Module):
         aggregation: str = "mean",
         impl: str = "xla",
         generator: Optional[torch.Generator] = None,
+        dtype=None,
     ):
         super().__init__()
         self.edge_types = tuple(edge_types)
         self.node_types = tuple(node_types)
         self.aggregation = aggregation
         self.impl = impl
+        self.compute_dtype = dtype
         for et in self.edge_types:
             key = _et_key(et)
             self.add_module(f"neigh_{key}", make_dense(hidden_dim, hidden_dim, generator=generator))
@@ -90,6 +103,8 @@ class HeteroSAGELayer(nn.Module):
         by_dst: Dict[str, list] = {}
         for et in self.edge_types:
             by_dst.setdefault(et[2], []).append(et)
+        dt = self.compute_dtype
+        cast = (lambda x: x) if dt is None else (lambda x: x.to(dt))  # noqa: E731
         out: Dict[str, torch.Tensor] = {}
         for dst_t, ets in by_dst.items():
             parts, weights = [], []
@@ -97,7 +112,7 @@ class HeteroSAGELayer(nn.Module):
             for et in ets:
                 parts.append(
                     aggregate_neighbors(
-                        x_dict[et[0]], graph.edges[et], self.aggregation, impl=self.impl,
+                        cast(x_dict[et[0]]), graph.edges[et], self.aggregation, impl=self.impl,
                         edges_rev=graph.edges.get(mirror_edge_type(et)),
                     )
                 )
@@ -107,8 +122,11 @@ class HeteroSAGELayer(nn.Module):
                 bias = neigh.bias if bias is None else bias + neigh.bias
                 root = rw if root is None else root + rw
             weights.append(root)
-            parts.append(x_dict[dst_t])
-            out[dst_t] = F.linear(torch.cat(parts, dim=-1), torch.cat(weights, dim=1), bias)
+            parts.append(cast(x_dict[dst_t]))
+            if dt is None:
+                out[dst_t] = F.linear(torch.cat(parts, dim=-1), torch.cat(weights, dim=1), bias)
+            else:
+                out[dst_t] = linear_in(torch.cat(parts, dim=-1), torch.cat(weights, dim=1), bias, dt)
         # node types that receive no relation pass through unchanged
         for nt in self.node_types:
             if nt in x_dict:
@@ -140,6 +158,7 @@ class HeteroRGCN(nn.Module):
         bilinear_source: str = "head",
         value_context: bool = False,
         generator: Optional[torch.Generator] = None,
+        dtype=None,
     ):
         super().__init__()
         if head_style not in ("concat", "factored"):
@@ -156,6 +175,7 @@ class HeteroRGCN(nn.Module):
         self.bilinear_rank = int(bilinear_rank)
         self.bilinear_source = bilinear_source
         self.value_context = bool(value_context)
+        self.compute_dtype = dtype
         self.act = get_activation(activation)
         for nt, n in self.node_counts:
             emb = nn.Embedding(n, hidden_dim)
@@ -163,12 +183,12 @@ class HeteroRGCN(nn.Module):
             with torch.no_grad():
                 emb.weight.uniform_(-bound, bound, generator=generator)
             self.add_module(f"embed_{nt}", emb)
-        self.patient_encoder = PatientEncoder(hidden_dim, dropout, use_batch_norm, generator)
+        self.patient_encoder = PatientEncoder(hidden_dim, dropout, use_batch_norm, generator, dtype)
         for i in range(num_layers):
             self.add_module(
                 f"conv_{i}",
                 HeteroSAGELayer(
-                    edge_types, self.node_types, hidden_dim, aggregation, impl, generator
+                    edge_types, self.node_types, hidden_dim, aggregation, impl, generator, dtype
                 ),
             )
             if use_batch_norm:
@@ -177,17 +197,21 @@ class HeteroRGCN(nn.Module):
         head_rank = self.head_rank
         for name in ("edge_predictor", "tabular_mlp"):
             if head_style == "factored":
-                head = FactoredEdgeHead(hidden_dim, head_hidden_dims, 1, dropout, generator, head_rank)
+                head = FactoredEdgeHead(
+                    hidden_dim, head_hidden_dims, 1, dropout, generator, head_rank, dtype
+                )
             else:
-                head = EdgeRegressionHead(2 * hidden_dim, head_hidden_dims, 1, dropout, generator, head_rank)
+                head = EdgeRegressionHead(
+                    2 * hidden_dim, head_hidden_dims, 1, dropout, generator, head_rank, dtype
+                )
             self.add_module(name, head)
         if self.shared_bilinear:
             self.bilinear_u = bilinear_factor(hidden_dim, self.bilinear_rank, generator)
             self.bilinear_l = bilinear_factor(hidden_dim, self.bilinear_rank, generator)
         if self.value_context:
             # input: the value-weighted mean context (hidden) and the visible share (1)
-            self.vctx_patient = make_dense(hidden_dim, hidden_dim + 1, generator=generator)
-            self.vctx_lab = make_dense(hidden_dim, hidden_dim + 1, generator=generator)
+            self.vctx_patient = make_dense(hidden_dim, hidden_dim + 1, generator=generator, dtype=dtype)
+            self.vctx_lab = make_dense(hidden_dim, hidden_dim + 1, generator=generator, dtype=dtype)
         self.dropout = float(dropout)
 
     @property

@@ -3,8 +3,9 @@
 from multi_modal_gnn_tpu_torch.ops.segment import (
     aggregate_neighbors,
     aggregation_tier,
+    gather_rows,
     segment_mean,
     segment_sum,
 )
 
-__all__ = ["aggregate_neighbors", "aggregation_tier", "segment_mean", "segment_sum"]
+__all__ = ["aggregate_neighbors", "aggregation_tier", "gather_rows", "segment_mean", "segment_sum"]

@@ -24,6 +24,13 @@ BUILD_DIR = _PKG / "_build"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# entry points with a bfloat16 twin of the same arguments (``<name>_bf16``)
+_BF16_TWINS = (
+    "mmgnn_segment_sum_windowed", "mmgnn_fused_table_segment_sum",
+    "mmgnn_fused_table_segment_sum_bwd", "mmgnn_span_segment_sum", "mmgnn_pair_head_fwd",
+    "mmgnn_pair_head_bwd", "mmgnn_pair_head_dual_fwd", "mmgnn_pair_head_dual_bwd",
+)
+
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""  # nvcc's output (register and shared-memory report) of this process's build
 
@@ -122,6 +129,8 @@ def load() -> ctypes.CDLL:
         "mmgnn_flash_attention_dq": [*[p] * 9, i, p, *[i] * 6, p, p],
         "mmgnn_flash_attention_dkv": [*[p] * 9, i, i, i, p, *[i] * 8, p, p, p],
     }
+    for name in _BF16_TWINS:
+        signatures[f"{name}_bf16"] = signatures[name]
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

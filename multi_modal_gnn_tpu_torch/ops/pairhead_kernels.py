@@ -16,6 +16,15 @@ forward is the head MLP written out on gathered rows; the plain backward is
 autograd through it.  Both draw dropout from :func:`dropout_bits`, the
 counter-based generator the kernels compute, so kernel and plain version
 agree with dropout on.
+
+The node projections and ``w1`` are float32 or bfloat16 (the model's compute
+dtype), with ``b1``, ``w2`` and ``b2`` float32, as the TPU kernels take them.
+With bfloat16 operands both the kernels and the plain versions round where
+the TPU kernel rounds (``pallas_pairhead.py:102``, ``:124-141``): ``h0``
+before ``h0 @ W1``, ``dpre1`` before both of its products and ``dpre0``
+before its scatter, every sum in float32; the output is float32 and the
+gradients come back in their operands' dtypes.  A bfloat16 call launches
+the ``_bf16`` instantiation and counts under ``<name>_bf16``.
 """
 
 from __future__ import annotations
@@ -32,7 +41,9 @@ from multi_modal_gnn_tpu_torch.graph.hetero import TILE_E, WINDOW
 from multi_modal_gnn_tpu_torch.ops.segment_kernels import _check_plan, _on_cpu, _ptr, _raise_on, _sms
 
 launch_counts: Dict[str, int] = {
-    "pair_head_fwd": 0, "pair_head_bwd": 0, "pair_head_dual_fwd": 0, "pair_head_dual_bwd": 0,
+    f"{n}{sfx}": 0
+    for n in ("pair_head_fwd", "pair_head_bwd", "pair_head_dual_fwd", "pair_head_dual_bwd")
+    for sfx in ("", "_bf16")
 }
 
 H0, H1 = 64, 32  # the head widths the kernels are compiled for
@@ -158,6 +169,33 @@ def _keep_mask(
 # ---------------------------------------------------------------------------
 
 
+class _RoundOperand(torch.autograd.Function):
+    """``x`` rounded to ``dtype`` (kept in its own dtype) as a product's
+    operand; the gradient passes unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        return x.to(dtype).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _RoundGrad(torch.autograd.Function):
+    """The identity whose backward rounds the gradient to ``dtype`` (kept in
+    its own dtype): where the TPU kernel casts a gradient to ``in_dt``."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        ctx.dtype = dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype).to(g.dtype), None
+
+
 def _lab_base_max(num_l: int, lab_block_rows: int) -> int:
     labs_pad = max(-(-num_l // _LAB_PAD) * _LAB_PAD, lab_block_rows)
     return labs_pad - lab_block_rows
@@ -167,8 +205,14 @@ def _layer1_plain(
     proj_p, proj_l, w1, b1, lab_idx, win_local, win_tile_map, seed,
     tile_mask, lab_block_map, rate: float, lab_block_rows: int, cols=SINGLE_COLS,
 ):
-    """(active slots, their layer-1 pre-activations ``[n, H1]``, threshold,
-    scale): the head up to its second ReLU."""
+    """(active slots, their layer-1 pre-activations ``[n, H1]`` (float32),
+    threshold, scale): the head up to its second ReLU.  bfloat16 operands
+    are read exactly; ``h0`` is rounded to them before ``h0 @ W1``, and in
+    the backward ``dpre1`` before its products and ``dpre0`` before its
+    scatter."""
+    in_dt = proj_p.dtype
+    rounds = in_dt == torch.bfloat16
+    ct = torch.promote_types(in_dt, torch.float32)  # float32 sums (float64 in checks)
     num_p, num_l = proj_p.shape[0], proj_l.shape[0]
     active = win_local < WINDOW
     if tile_mask is not None:
@@ -181,14 +225,22 @@ def _layer1_plain(
     if lab_block_rows:
         base = lab_block_map.long()[t].clamp(0, _lab_base_max(num_l, lab_block_rows))
         lab_ok = lab_ok & (l >= base) & (l < base + lab_block_rows)
-    zero = proj_p.new_zeros(())
-    pp = torch.where((p < num_p)[:, None], proj_p[p.clamp_max(num_p - 1)], zero)
-    pl = torch.where(lab_ok[:, None], proj_l[l.clamp(0, num_l - 1)], zero)
-    h0 = torch.relu(pp + pl)
+    zero = torch.zeros((), dtype=ct, device=proj_p.device)
+    pp = torch.where((p < num_p)[:, None], proj_p.to(ct)[p.clamp_max(num_p - 1)], zero)
+    pl = torch.where(lab_ok[:, None], proj_l.to(ct)[l.clamp(0, num_l - 1)], zero)
+    pre0 = pp + pl
+    if rounds:
+        pre0 = _RoundGrad.apply(pre0, in_dt)
+    h0 = torch.relu(pre0)
     threshold, scale = dropout_params(rate)
     if rate > 0:
         h0 = torch.where(_keep_mask(seed, slots, 0, h0.shape[1], threshold, cols), h0 * scale, zero)
-    return slots, h0 @ w1 + b1, threshold, scale
+    if rounds:
+        h0 = _RoundOperand.apply(h0, in_dt)
+    prod = h0 @ w1.to(ct)
+    if rounds:
+        prod = _RoundGrad.apply(prod, in_dt)
+    return slots, prod + b1, threshold, scale
 
 
 def pair_head_fwd_plain(
@@ -205,8 +257,8 @@ def pair_head_fwd_plain(
     h1 = torch.relu(pre1)
     if rate > 0:
         keep = _keep_mask(seed, slots, 1, h1.shape[1], threshold, cols)
-        h1 = torch.where(keep, h1 * scale, proj_p.new_zeros(()))
-    out = proj_p.new_zeros(win_local.shape[0])
+        h1 = torch.where(keep, h1 * scale, pre1.new_zeros(()))
+    out = pre1.new_zeros(win_local.shape[0])
     return out.index_put((slots,), h1 @ w2 + b2)
 
 
@@ -227,7 +279,7 @@ def relu_margin_plain(
             proj_p, proj_l, w1, b1, lab_idx, win_local, win_tile_map, seed, tile_mask,
             lab_block_map, rate, lab_block_rows, cols,
         )
-        out = proj_p.new_zeros(win_local.shape[0])
+        out = pre1.new_zeros(win_local.shape[0])
         return out.index_put((slots,), pre1.abs().amin(dim=1))
 
 
@@ -236,7 +288,7 @@ def pair_head_bwd_plain(
     tile_mask, lab_block_map, rate: float, lab_block_rows: int, g_out, cols=SINGLE_COLS,
 ):
     """Gradients of ``sum(pair_head_fwd_plain(...) * g_out)`` with respect
-    to (proj_p, proj_l, w1, b1, w2, b2)."""
+    to (proj_p, proj_l, w1, b1, w2, b2), each in its operand's dtype."""
     with torch.enable_grad():
         leaves = [x.detach().requires_grad_() for x in (proj_p, proj_l, w1, b1, w2, b2)]
         out = pair_head_fwd_plain(
@@ -299,8 +351,14 @@ def pair_head_dual_bwd_plain(
 def _check_head(name, proj_p, proj_l, w1, b1, w2, b2, lab_idx, win_local, win_tile_map,
                 tile_mask, lab_block_map, lab_block_rows) -> int:
     for x in (proj_p, proj_l, w1, b1, w2, b2):
-        if x.dtype != torch.float32 or not x.is_contiguous() or x.device != proj_p.device:
-            raise ValueError(f"{name}: head operands must be contiguous float32 on one device")
+        if not x.is_contiguous() or x.device != proj_p.device:
+            raise ValueError(f"{name}: head operands must be contiguous on one device")
+    if proj_p.dtype not in (torch.float32, torch.bfloat16) or any(
+        x.dtype != proj_p.dtype for x in (proj_l, w1)
+    ):
+        raise ValueError(f"{name}: proj_p, proj_l and w1 must all be float32 or all bfloat16")
+    if any(x.dtype != torch.float32 for x in (b1, w2, b2)):
+        raise ValueError(f"{name}: b1, w2 and b2 must be float32")
     if proj_p.dim() != 2 or proj_p.shape[1] != H0 or proj_l.dim() != 2 or proj_l.shape[1] != H0:
         raise ValueError(f"{name}: node projections must be [rows, {H0}]")
     if tuple(w1.shape) != (H0, H1) or b1.numel() != H1 or w2.numel() != H1 or b2.numel() != 1:
@@ -367,6 +425,13 @@ def fwd_launch(num_tiles: int, sms: int, heads: int = 1) -> HeadLaunch:
     return _head_launch(num_tiles, sms, heads, FWD_WARPS, FWD_UNIT, _FWD_BLOCKS_PER_SM, FWD_SHARED_BYTES)
 
 
+def _head_entry(direction: str, name: str, proj_p: torch.Tensor):
+    """The C entry point of wrapper ``name`` for the operands' dtype and the
+    launch counter it adds to (``name`` or ``name_bf16``)."""
+    key = name + ("_bf16" if proj_p.dtype == torch.bfloat16 else "")
+    return getattr(_head_lib(direction), f"mmgnn_{key}"), key
+
+
 @functools.lru_cache(maxsize=None)
 def _head_lib(direction: str) -> ctypes.CDLL:
     """The kernel library, once its pair-head ``direction`` kernels' shared
@@ -405,17 +470,17 @@ def pair_head_fwd(
         return pair_head_fwd_plain(*args)
     num_tiles = _check_head(name, proj_p, proj_l, w1, b1, w2, b2, lab_idx, win_local,
                             win_tile_map, tile_mask, lab_block_map, lab_block_rows)
-    lib = _head_lib("fwd")
+    fn, key = _head_entry("fwd", name, proj_p)
     dev = proj_p.device
     launch = fwd_launch(num_tiles, _sms(dev))
     out = torch.empty(win_local.shape[0], dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev)
-    rc = lib.mmgnn_pair_head_fwd(
+    rc = fn(
         *_head_args(*args, num_tiles), _ptr(_fwd_counters(dev, stream)), launch.blocks, _ptr(out),
         ctypes.c_void_p(stream.cuda_stream),
     )
-    _raise_on(rc, name)
-    launch_counts[name] += 1
+    _raise_on(rc, key)
+    launch_counts[key] += 1
     return out
 
 
@@ -425,7 +490,8 @@ def pair_head_bwd(
     rate: float, lab_block_rows: int, num_windows: int, g_out: torch.Tensor,
 ):
     """K4b: (d_proj_p, d_proj_l, d_w1, d_b1, d_w2, d_b2) of
-    ``sum(pair_head_fwd(...) * g_out)``; the forward is recomputed."""
+    ``sum(pair_head_fwd(...) * g_out)``, each in its operand's dtype (summed
+    in float32); the forward is recomputed."""
     name = "pair_head_bwd"
     args = (proj_p, proj_l, w1, b1, w2, b2, lab_idx, win_local, win_tile_map, seed,
             tile_mask, lab_block_map, rate, lab_block_rows)
@@ -435,7 +501,7 @@ def pair_head_bwd(
                             win_tile_map, tile_mask, lab_block_map, lab_block_rows)
     if g_out.dtype != torch.float32 or not g_out.is_contiguous() or g_out.shape != win_local.shape:
         raise ValueError(f"{name}: g_out must be contiguous float32 [E_win]")
-    lib = _head_lib("bwd")
+    fn, key = _head_entry("bwd", name, proj_p)
     num_l = proj_l.shape[0]
     dev = proj_p.device
     launch = bwd_launch(num_tiles, _sms(dev))
@@ -443,14 +509,19 @@ def pair_head_bwd(
     dpp, dpl = zeros(max(num_windows * WINDOW, proj_p.shape[0]), H0), zeros(num_l, H0)
     dw1, db1, dw2, db2 = zeros(H0, H1), zeros(H1), zeros(H1), zeros(1)
     work = torch.zeros(1, dtype=torch.int32, device=dev)
-    rc = lib.mmgnn_pair_head_bwd(
+    rc = fn(
         *_head_args(*args, num_tiles), _ptr(g_out), _ptr(work), launch.blocks, _ptr(dpp), _ptr(dpl),
         _ptr(dw1), _ptr(db1), _ptr(dw2), _ptr(db2),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
-    _raise_on(rc, name)
-    launch_counts[name] += 1
-    return dpp[: proj_p.shape[0]], dpl, dw1, db1.view_as(b1), dw2.view_as(w2), db2.view_as(b2)
+    _raise_on(rc, key)
+    launch_counts[key] += 1
+    return _as_operands((dpp[: proj_p.shape[0]], dpl, dw1, db1, dw2, db2), args[:6])
+
+
+def _as_operands(grads, operands):
+    """The kernels' float32 gradients in their operands' dtypes and shapes."""
+    return tuple(g.view_as(x).to(x.dtype) for g, x in zip(grads, operands))
 
 
 def _check_dual(name, heads, lab_idx, win_local, win_tile_map, tab_mask, gnn_mask) -> int:
@@ -487,17 +558,17 @@ def pair_head_dual_fwd(
                tab_mask, gnn_mask):
         return pair_head_dual_fwd_plain(*heads[0], *heads[1], *plan, rate)
     num_tiles = _check_dual(name, heads, lab_idx, win_local, win_tile_map, tab_mask, gnn_mask)
-    lib = _head_lib("fwd")
+    fn, key = _head_entry("fwd", name, proj_p_t)
     dev = proj_p_t.device
     launch = fwd_launch(num_tiles, _sms(dev), heads=2)
     out_t, out_g = (torch.empty(win_local.shape[0], dtype=torch.float32, device=dev) for _ in range(2))
     stream = torch.cuda.current_stream(dev)
-    rc = lib.mmgnn_pair_head_dual_fwd(
+    rc = fn(
         *_dual_args(heads, *plan, rate, num_tiles), _ptr(_fwd_counters(dev, stream)), launch.blocks,
         _ptr(out_t), _ptr(out_g), ctypes.c_void_p(stream.cuda_stream),
     )
-    _raise_on(rc, name)
-    launch_counts[name] += 1
+    _raise_on(rc, key)
+    launch_counts[key] += 1
     return out_t, out_g
 
 
@@ -508,8 +579,8 @@ def pair_head_dual_bwd(
     num_windows: int, g_out_t: torch.Tensor, g_out_g: torch.Tensor,
 ):
     """K5b: both heads' (d_proj_p, d_proj_l, d_w1, d_b1, d_w2, d_b2), the
-    tabular head's first, of ``sum(out_tab * g_out_t + out_gnn * g_out_g)``;
-    the forward is recomputed."""
+    tabular head's first, of ``sum(out_tab * g_out_t + out_gnn * g_out_g)``,
+    each in its operand's dtype; the forward is recomputed."""
     name = "pair_head_dual_bwd"
     heads = ((proj_p_t, proj_l_t, w1_t, b1_t, w2_t, b2_t), (proj_p_g, proj_l_g, w1_g, b1_g, w2_g, b2_g))
     plan = (lab_idx, win_local, win_tile_map, seed4, tab_mask, gnn_mask)
@@ -520,7 +591,7 @@ def pair_head_dual_bwd(
     for g in (g_out_t, g_out_g):
         if g.dtype != torch.float32 or not g.is_contiguous() or g.shape != win_local.shape:
             raise ValueError(f"{name}: g_out must be contiguous float32 [E_win]")
-    lib = _head_lib("bwd")
+    fn, key = _head_entry("bwd", name, proj_p_t)
     num_p, num_l = proj_p_t.shape[0], proj_l_t.shape[0]
     dev = proj_p_t.device
     launch = bwd_launch(num_tiles, _sms(dev), heads=2)
@@ -531,14 +602,14 @@ def pair_head_dual_bwd(
         for _ in heads
     ]
     work = torch.zeros(2, dtype=torch.int32, device=dev)
-    rc = lib.mmgnn_pair_head_dual_bwd(
+    rc = fn(
         *_dual_args(heads, *plan, rate, num_tiles), _ptr(g_out_t), _ptr(g_out_g), _ptr(work),
         launch.blocks, *(_ptr(x) for head_grads in grads for x in head_grads),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
-    _raise_on(rc, name)
-    launch_counts[name] += 1
-    out = []
-    for (pp, _, _, b1, w2, b2), (dpp, dpl, dw1, db1, dw2, db2) in zip(heads, grads):
-        out += [dpp[:num_p], dpl, dw1, db1.view_as(b1), dw2.view_as(w2), db2.view_as(b2)]
-    return tuple(out)
+    _raise_on(rc, key)
+    launch_counts[key] += 1
+    out = ()
+    for head, (dpp, *rest) in zip(heads, grads):
+        out += _as_operands((dpp[:num_p], *rest), head)
+    return out

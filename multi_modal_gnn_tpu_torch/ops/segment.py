@@ -23,6 +23,24 @@ upstream gradient (``d x_src[s] = sum_{e: src e = s} g[dst e] / deg``);
 ``windowed`` (no mirror plan) gathers the gradient rows back to the slots
 and scatter-adds them.  :func:`take_with_plan` is a row gather whose backward
 is K1 over a :class:`~multi_modal_gnn_tpu_torch.graph.hetero.GatherPlan`.
+
+bfloat16 features (the model's compute dtype) round where the JAX tiers
+round (``ops/pallas_segment.py``): every kernel sums in float32, and each
+tier divides by the in-degree in float32 and casts back to the features'
+dtype.  In the backward, the span, paired and windowed tiers scale the
+gradient in float32 and round it to bfloat16 before K1 (or the scatter)
+sums it in float32; the fused-table tier hands K2b the scaled gradient in
+float32, as JAX does (``pallas_segment.py:443-454``); a planned gather's
+backward runs K1 on the gradient in its own dtype.  The dense tier multiplies in float32
+and casts back.  The segment path (``impl="xla"``) and a gather without a
+plan (:func:`gather_rows`, whose backward is a scatter-add) sum bfloat16
+rows in float32 and round each total once, as the kernels do: torch's
+``index_add_`` into a bfloat16 tensor rounds at every add on the card, in
+the order its atomics land, so a lab row's gradient summed from thousands
+of edges carried an error of a few percent that changed from run to run
+(JAX's scatter on the CPU rounds at every add too, in edge order).  On the
+CPU torch's ``index_add_`` already sums bfloat16 rows in float32, so the CPU
+results do not change.
 """
 
 from __future__ import annotations
@@ -45,8 +63,38 @@ FUSED_TABLE_MAX_BYTES = 4 * 1024 * 1024
 
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
-    out = torch.zeros((num_segments,) + tuple(data.shape[1:]), dtype=data.dtype, device=data.device)
-    return out.index_add_(0, segment_ids.long(), data)
+    """Sum of ``data``'s rows per segment; bfloat16 rows are summed in
+    float32 and each total rounded once (see the module docstring)."""
+    acc = torch.float32 if data.dtype == torch.bfloat16 else data.dtype
+    out = torch.zeros((num_segments,) + tuple(data.shape[1:]), dtype=acc, device=data.device)
+    return out.index_add_(0, segment_ids.long(), data.to(acc)).to(data.dtype)
+
+
+class _GatherRows(torch.autograd.Function):
+    """``x[idx]`` whose backward sums the gradient rows in float32 and
+    rounds each total once to ``x``'s dtype."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = x.shape[0]
+        return x.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        dx = torch.zeros((ctx.rows,) + tuple(g.shape[1:]), dtype=torch.float32, device=g.device)
+        return dx.index_add_(0, idx, g.float()).to(g.dtype), None
+
+
+def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` along rows.  For bfloat16 rows the backward's scatter-add
+    sums in float32 and rounds once (see the module docstring); other
+    dtypes take ``index_select``'s own backward."""
+    idx = idx.long()
+    if x.dtype == torch.bfloat16:
+        return _GatherRows.apply(x, idx)
+    return x.index_select(0, idx)
 
 
 def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -140,8 +188,9 @@ def _forward_sum(x: torch.Tensor, edges: EdgeSet, tier: str) -> torch.Tensor:
 
 
 def _backward_sum(g: torch.Tensor, edges: EdgeSet, edges_rev: Optional[EdgeSet], tier: str):
-    """``d x_src`` from the (degree-scaled, f32, contiguous) destination
-    gradient ``g [num_dst, D]``."""
+    """``d x_src`` (float32 sums) from the degree-scaled, contiguous
+    destination gradient ``g [num_dst, D]`` (float32 for the fused-table
+    tier, the features' dtype otherwise)."""
     if tier == "fused_table":
         return fused_table_segment_sum_bwd(
             g, edges.win_src, edges.win_local, edges.win_tile_map, edges.num_src
@@ -156,7 +205,7 @@ def _backward_sum(g: torch.Tensor, edges: EdgeSet, edges_rev: Optional[EdgeSet],
     window_of_slot = torch.repeat_interleave(edges.win_tile_map.long(), TILE_E)[real]
     rows = window_of_slot * WINDOW + edges.win_local[real].long()
     dx = torch.zeros(edges.num_src, g.shape[1], dtype=torch.float32, device=g.device)
-    return dx.index_add_(0, edges.win_src[real].long(), g.index_select(0, rows))
+    return dx.index_add_(0, edges.win_src[real].long(), g.index_select(0, rows).float())
 
 
 class _KernelAggregate(torch.autograd.Function):
@@ -174,6 +223,8 @@ class _KernelAggregate(torch.autograd.Function):
         g = g.float()
         if ctx.aggregation == "mean":
             g = g / edges.dst_count.clamp_min(1.0)[:, None]
+        if ctx.tier != "fused_table":
+            g = g.to(ctx.dtype)
         dx = _backward_sum(g.contiguous(), edges, ctx.edges_rev, ctx.tier)
         return dx.to(ctx.dtype), None, None, None, None
 
@@ -187,7 +238,7 @@ class _TakeWithPlan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         plan = ctx.plan
-        g = g.float().contiguous()
+        g = g.contiguous()
         # identity plans (slot-major batches): the gradient is already in slot order
         src = None if plan.identity else plan.win_src
         dx = segment_sum_windowed(g, src, plan.win_local, plan.win_tile_map, plan.num_windows)
@@ -198,7 +249,7 @@ def take_with_plan(x: torch.Tensor, idx: torch.Tensor, plan: Optional[GatherPlan
     """``x[idx]`` whose backward runs K1 over ``plan`` (a plain gather
     without one)."""
     if plan is None:
-        return x.index_select(0, idx.long())
+        return gather_rows(x, idx)
     return _TakeWithPlan.apply(x, idx, plan)
 
 
@@ -215,15 +266,17 @@ def aggregate_neighbors(
         edges, edges_rev, x_src.shape[1], aggregation, impl, x_src.element_size()
     )
     if tier == "dense":
-        out = torch.matmul(edges.dense_adj.to(x_src.dtype), x_src)
+        # the adjacency in the features' dtype, the product and sum in float32
+        adj = edges.dense_adj.to(x_src.dtype)
+        out = torch.matmul(adj.float(), x_src.float()) if x_src.dtype == torch.bfloat16 else adj @ x_src
         if aggregation == "sum":
             out = out * edges.dst_count.clamp_min(1.0)[:, None]
-        return out
+        return out.to(x_src.dtype)
     if tier in ("fused_table", "span", "paired", "windowed"):
         return _KernelAggregate.apply(x_src, edges, edges_rev, tier, aggregation)
 
     # segment path: padding edges point at the dummy segment num_dst
-    gathered = x_src.index_select(0, edges.src.long())
+    gathered = gather_rows(x_src, edges.src)
     num_segments = edges.num_dst + 1
     if aggregation in ("mean", "sum"):
         total = segment_sum(gathered, edges.dst, num_segments)[: edges.num_dst]

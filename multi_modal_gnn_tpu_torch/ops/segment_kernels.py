@@ -18,6 +18,12 @@ span_segment_sum              K3  ``_span_dma_segment_sum_fwd`` / ``_span_dma_ke
 
 K1 is also the backward of the span and paired tiers and of a planned row
 gather (``ops/segment.py``).
+
+Rows are float32 or bfloat16 (the model's compute dtype), as the TPU kernels
+take them; the sums and outputs are float32 either way.  A bfloat16 tensor
+launches the kernel's bfloat16 instantiation (``mmgnn_<name>_bf16``) and
+counts under ``<name>_bf16`` in :data:`launch_counts`; nothing is upcast to
+run the float32 kernel.
 """
 
 from __future__ import annotations
@@ -32,12 +38,9 @@ import torch
 from multi_modal_gnn_tpu_torch.graph.hetero import TILE_E, WINDOW
 
 # launches per wrapper: each adds one where it launches its kernel
-launch_counts: Dict[str, int] = {
-    "segment_sum_windowed": 0,
-    "fused_table_segment_sum": 0,
-    "fused_table_segment_sum_bwd": 0,
-    "span_segment_sum": 0,
-}
+WRAPPERS = ("segment_sum_windowed", "fused_table_segment_sum", "fused_table_segment_sum_bwd",
+             "span_segment_sum")
+launch_counts: Dict[str, int] = {f"{n}{sfx}": 0 for n in WRAPPERS for sfx in ("", "_bf16")}
 
 _MAX_SHARED_BYTES = 232_448  # dynamic shared memory one H100 block may use
 _SM_SHARED_BYTES = 233_472  # shared memory of one H100 SM
@@ -61,7 +64,7 @@ _MMA_MAX_GRAB = 32
 _FT_WARPS = 16
 _FT_UNIT = 64
 _FT_INDEX_BYTES = _FT_WARPS * 2 * _FT_UNIT * 4
-_FT_SLICES = (128, 64, 32, 16, 8, 4)
+_FT_SLICES = (128, 64, 32, 16, 8, 4)  # bfloat16 rows: down to 8 (a 16-byte chunk)
 _FT_GRABS_PER_WARP = 4  # the first by the warp's index, the rest from the counter
 _FT_COUNTER_STRIDE = 32  # ints between two slices' counters: one 128-byte line each
 # K1 (csrc/segment.cu): on a table of at most these rows and bytes (the
@@ -137,13 +140,27 @@ def _on_cpu(*tensors: Optional[torch.Tensor]) -> bool:
     raise ValueError(f"segment kernels take tensors all on the CPU or all on one GPU, got {devices}")
 
 
-def _check_rows(x: torch.Tensor, name: str) -> None:
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32 rows, got {x.dtype}")
+def _check_rows(x: torch.Tensor, name: str, bf16: bool = False) -> None:
+    """float32 rows with D a multiple of 4, or (``bf16``: the kernel has a
+    bfloat16 instantiation) bfloat16 rows with D a multiple of 8 (rows of
+    whole 16-byte chunks); either way contiguous and 16-byte aligned."""
+    dtypes = (torch.float32, torch.bfloat16) if bf16 else (torch.float32,)
+    if x.dtype not in dtypes:
+        raise TypeError(f"{name}: expected {' or '.join(map(str, dtypes))} rows, got {x.dtype}")
     if x.dim() != 2 or not x.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous [rows, D] tensor, got {tuple(x.shape)}")
-    if x.shape[1] % 4 or x.data_ptr() % 16:
-        raise ValueError(f"{name}: D must be a multiple of 4 and rows 16-byte aligned")
+    per_chunk = 16 // x.element_size()
+    if x.shape[1] % per_chunk or x.data_ptr() % 16:
+        raise ValueError(f"{name}: D must be a multiple of {per_chunk} and rows 16-byte aligned")
+
+
+def _entry(name: str, x: torch.Tensor):
+    """The C entry point for ``x``'s row type and the launch counter it adds
+    to: ``name`` for float32, ``name_bf16`` for bfloat16."""
+    from multi_modal_gnn_tpu_torch.ops import _build
+
+    key = name + ("_bf16" if x.dtype == torch.bfloat16 else "")
+    return getattr(_build.load(), f"mmgnn_{key}"), key
 
 
 def _check_plan(name: str, device, slots: int, *pairs) -> int:
@@ -188,7 +205,7 @@ class IncidenceLaunch:
     grid ``(blocks, chunks, col_blocks)`` of persistent blocks that take
     ``grab`` tiles at a time from a counter per (chunk, column block);
     ``count_words`` 32-bit words per row of the ``[128, k]`` 16-bit count
-    matrix, ``b_stride`` floats per row of a staged 32-row slice (two
+    matrix, ``b_stride`` row elements per row of a staged 32-row slice (two
     buffers)."""
 
     blocks: int
@@ -201,7 +218,8 @@ class IncidenceLaunch:
 
 
 def incidence_launch(
-    num_tiles: int, k_rows: int, chunks: int, d: int, sms: int, span: bool = False
+    num_tiles: int, k_rows: int, chunks: int, d: int, sms: int, span: bool = False,
+    itemsize: int = 4,
 ) -> IncidenceLaunch:
     """Plan K2b (``k_rows = 128``, ``chunks`` 128-source chunks) or K3
     (``span``: ``k_rows = span_rows``, one chunk, and 8 KB more shared memory
@@ -212,13 +230,17 @@ def incidence_launch(
 
     A count row holds ``round8(k_rows) / 2 + 2`` words (2 mod 4, so the
     eight rows of an A fragment fall in distinct bank pairs); a slice row
-    holds the block's columns rounded up to 8 and padded to 8 mod 32 floats
-    (the four rows of a B fragment fall in distinct banks)."""
+    holds the block's columns rounded up to 8 and padded to 8 words mod 32
+    (8 mod 32 floats, 8 mod 64 bfloat16 values of ``itemsize`` 2: the four
+    rows of a B fragment fall in distinct banks)."""
     col_blocks = -(-d // _MMA_COLS)
     cols = -(-min(d, _MMA_COLS) // 8) * 8
     count_words = -(-k_rows // 8) * 4 + 2
-    b_stride = cols + (8 - cols) % 32
-    shared = 4 * (_MMA_ROWS * count_words + 2 * _MMA_SLICE * b_stride + (2 * TILE_E if span else 0))
+    b_stride = cols + (8 - cols) % (128 // itemsize)
+    shared = (
+        4 * (_MMA_ROWS * count_words + (2 * TILE_E if span else 0))
+        + itemsize * 2 * _MMA_SLICE * b_stride
+    )
     per_sm = max(1, min(_MMA_BLOCKS_PER_SM, _SM_SHARED_BYTES // (shared + 1024)))
     blocks = max(1, min(num_tiles, sms * per_sm // (chunks * col_blocks)))
     grab = max(1, min(_MMA_MAX_GRAB, num_tiles // (blocks * _MMA_GRABS_PER_BLOCK)))
@@ -232,7 +254,7 @@ def incidence_launch(
 class FusedTableLaunch:
     """Launch shape and shared layout of K2f (``fused_table_kernel``): grid
     ``(blocks, slices)``; a block keeps columns ``[c0, c0 + slice)`` of every
-    table row in shared memory at ``stride`` floats a row, and its warps
+    table row in shared memory at ``stride`` elements a row, and its warps
     take ``grab`` units of 64 slots at a time, the first by their index and
     the rest from the slice's counter."""
 
@@ -246,20 +268,24 @@ class FusedTableLaunch:
 
 
 @functools.lru_cache(maxsize=256)
-def fused_table_launch(num_tiles: int, num_src: int, d: int, sms: int) -> FusedTableLaunch:
-    """Plan K2f over ``num_tiles`` tiles of a ``[num_src, d]`` table on
-    ``sms`` SMs.  The slice is the widest of 128, 64, ..., 4 columns (at most
-    ``d``) whose rows fit a block's shared memory beside the staged
-    indices; rows of a slice narrower than 32 columns are padded by 4 floats,
-    so the row groups of a quarter-warp read other banks.  The slices share
-    the SMs, one block each, and a warp takes about a quarter of its share
-    of units at a time: the counter's atomics serialize at one L2 slice, so
-    a warp grabs a few times, not once a unit."""
-    for s in _FT_SLICES:
+def fused_table_launch(
+    num_tiles: int, num_src: int, d: int, sms: int, itemsize: int = 4
+) -> FusedTableLaunch:
+    """Plan K2f over ``num_tiles`` tiles of a ``[num_src, d]`` table of
+    ``itemsize``-byte values on ``sms`` SMs.  The slice is the widest of 128,
+    64, ..., 4 columns (..., 8 for bfloat16: a 16-byte chunk) (at most ``d``)
+    whose rows fit a block's shared memory beside the staged indices; rows
+    of a slice narrower than 128 bytes are padded by 16 bytes, so the row
+    groups of a quarter-warp read other banks.  The slices share the SMs,
+    one block each, and a warp takes about a quarter of its share of units
+    at a time: the counter's atomics serialize at one L2 slice, so a warp
+    grabs a few times, not once a unit."""
+    slices = [s for s in _FT_SLICES if s * itemsize >= 16]
+    for s in slices:
         width = min(s, d)
-        stride = width + (4 if width < 32 else 0)
-        shared = 4 * num_src * stride + _FT_INDEX_BYTES
-        if shared <= _MAX_SHARED_BYTES or s == _FT_SLICES[-1]:
+        stride = width + (16 // itemsize if width * itemsize < 128 else 0)
+        shared = itemsize * num_src * stride + _FT_INDEX_BYTES
+        if shared <= _MAX_SHARED_BYTES or s == slices[-1]:
             break
     slices = -(-d // width)
     units = num_tiles * (TILE_E // _FT_UNIT)
@@ -271,19 +297,22 @@ def fused_table_launch(num_tiles: int, num_src: int, d: int, sms: int) -> FusedT
     )
 
 
-def windowed_route(num_rows: int, d: int, gathered: bool = False) -> str:
-    """K1's row source for ``x [num_rows, d]``: ``"gathered"`` (rows already
-    in slot order, ``idx=None``), ``"shared"`` (a table within the
-    fused-table tier's gates, staged in shared memory as K2f stages it) or
-    ``"global"`` (a larger table, read from device memory)."""
+def windowed_route(num_rows: int, d: int, gathered: bool = False, itemsize: int = 4) -> str:
+    """K1's row source for ``x [num_rows, d]`` of ``itemsize``-byte values:
+    ``"gathered"`` (rows already in slot order, ``idx=None``), ``"shared"``
+    (a table within the fused-table tier's gates, staged in shared memory as
+    K2f stages it) or ``"global"`` (a larger table, read from device
+    memory)."""
     if gathered:
         return "gathered"
-    small = num_rows <= WINDOWED_TABLE_MAX_ROWS and num_rows * d * 4 <= WINDOWED_TABLE_MAX_BYTES
+    small = num_rows <= WINDOWED_TABLE_MAX_ROWS and num_rows * d * itemsize <= WINDOWED_TABLE_MAX_BYTES
     return "shared" if small else "global"
 
 
 @functools.lru_cache(maxsize=256)
-def windowed_launch(num_tiles: int, num_rows: int, d: int, sms: int, route: str) -> FusedTableLaunch:
+def windowed_launch(
+    num_tiles: int, num_rows: int, d: int, sms: int, route: str, itemsize: int = 4
+) -> FusedTableLaunch:
     """Plan K1 over ``num_tiles`` tiles of rows ``[num_rows, d]`` on ``sms``
     SMs by its :func:`windowed_route`: the ``"shared"`` route is K2f's plan
     (:func:`fused_table_launch`); the others run a block a tile for each
@@ -291,7 +320,7 @@ def windowed_launch(num_tiles: int, num_rows: int, d: int, sms: int, route: str)
     of their own beyond the kernel's static 12-16 KB (``shared_bytes`` 0) and
     no counter (``grab`` 1, ``blocks`` the tiles)."""
     if route == "shared":
-        return fused_table_launch(num_tiles, num_rows, d, sms)
+        return fused_table_launch(num_tiles, num_rows, d, sms, itemsize)
     if route not in ("global", "gathered"):
         raise ValueError(f"unknown K1 route {route!r}")
     width = min(_K1_SLICE, d)
@@ -325,7 +354,7 @@ def segment_sum_windowed(x, idx, win_local, win_tile_map, num_windows: int) -> t
     name = "segment_sum_windowed"
     if _on_cpu(x, idx, win_local, win_tile_map):
         return segment_sum_windowed_plain(x, idx, win_local, win_tile_map, num_windows)
-    _check_rows(x, name)
+    _check_rows(x, name, bf16=True)
     slots = win_local.shape[0]
     pairs = [(win_local, slots), (win_tile_map, slots // TILE_E)]
     if idx is not None:
@@ -334,19 +363,18 @@ def segment_sum_windowed(x, idx, win_local, win_tile_map, num_windows: int) -> t
         raise ValueError(f"{name}: {x.shape[0]} pre-gathered rows for {slots} slots")
     num_tiles = _check_plan(name, x.device, slots, *pairs)
     d = x.shape[1]
-    route = windowed_route(x.shape[0], d, gathered=idx is None)
-    launch = windowed_launch(num_tiles, x.shape[0], d, _sms(x.device), route)
+    route = windowed_route(x.shape[0], d, gathered=idx is None, itemsize=x.element_size())
+    launch = windowed_launch(num_tiles, x.shape[0], d, _sms(x.device), route, x.element_size())
     _check_shared(name, launch.shared_bytes)
     out, work = _zeroed_out_and_counters(num_windows * WINDOW, d, launch.slices, x.device)
-    from multi_modal_gnn_tpu_torch.ops import _build
-
-    rc = _build.load().mmgnn_segment_sum_windowed(
+    fn, key = _entry(name, x)
+    rc = fn(
         _ptr(x), x.shape[0], _ptr(idx), _ptr(win_local), _ptr(win_tile_map), num_tiles, _ptr(work),
         launch.grab, launch.blocks, launch.slices, launch.slice, launch.stride, int(route == "shared"),
         d, _ptr(out), ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
     )
-    _raise_on(rc, name)
-    launch_counts[name] += 1
+    _raise_on(rc, key)
+    launch_counts[key] += 1
     return out
 
 
@@ -356,25 +384,24 @@ def fused_table_segment_sum(table, win_src, win_local, win_tile_map, num_windows
     name = "fused_table_segment_sum"
     if _on_cpu(table, win_src, win_local, win_tile_map):
         return fused_table_segment_sum_plain(table, win_src, win_local, win_tile_map, num_windows)
-    _check_rows(table, name)
+    _check_rows(table, name, bf16=True)
     slots = win_local.shape[0]
     num_tiles = _check_plan(
         name, table.device, slots, (win_src, slots), (win_local, slots),
         (win_tile_map, slots // TILE_E),
     )
     d = table.shape[1]
-    launch = fused_table_launch(num_tiles, table.shape[0], d, _sms(table.device))
+    launch = fused_table_launch(num_tiles, table.shape[0], d, _sms(table.device), table.element_size())
     _check_shared(name, launch.shared_bytes)
     out, work = _zeroed_out_and_counters(num_windows * WINDOW, d, launch.slices, table.device)
-    from multi_modal_gnn_tpu_torch.ops import _build
-
-    rc = _build.load().mmgnn_fused_table_segment_sum(
+    fn, key = _entry(name, table)
+    rc = fn(
         _ptr(table), table.shape[0], _ptr(win_src), _ptr(win_local), _ptr(win_tile_map), num_tiles,
         _ptr(work), launch.grab, launch.blocks, launch.slices, launch.slice, launch.stride, d,
         _ptr(out), ctypes.c_void_p(torch.cuda.current_stream(table.device).cuda_stream),
     )
-    _raise_on(rc, name)
-    launch_counts[name] += 1
+    _raise_on(rc, key)
+    launch_counts[key] += 1
     return out
 
 
@@ -385,7 +412,7 @@ def fused_table_segment_sum_bwd(g, win_src, win_local, win_tile_map, num_src: in
     name = "fused_table_segment_sum_bwd"
     if _on_cpu(g, win_src, win_local, win_tile_map):
         return fused_table_segment_sum_bwd_plain(g, win_src, win_local, win_tile_map, num_src)
-    _check_rows(g, name)
+    _check_rows(g, name, bf16=True)
     slots = win_local.shape[0]
     num_tiles = _check_plan(
         name, g.device, slots, (win_src, slots), (win_local, slots),
@@ -394,20 +421,19 @@ def fused_table_segment_sum_bwd(g, win_src, win_local, win_tile_map, num_src: in
     _check_slot_alignment(name, win_src, win_local)
     d = g.shape[1]
     chunks = max(1, -(-num_src // _MMA_ROWS))
-    launch = incidence_launch(num_tiles, WINDOW, chunks, d, _sms(g.device))
+    launch = incidence_launch(num_tiles, WINDOW, chunks, d, _sms(g.device), itemsize=g.element_size())
     _check_shared(name, launch.shared_bytes)
     out = torch.zeros(num_src, d, dtype=torch.float32, device=g.device)
     work = torch.zeros(launch.chunks * launch.col_blocks, dtype=torch.int32, device=g.device)
-    from multi_modal_gnn_tpu_torch.ops import _build
-
-    rc = _build.load().mmgnn_fused_table_segment_sum_bwd(
+    fn, key = _entry(name, g)
+    rc = fn(
         _ptr(g), g.shape[0], _ptr(win_src), _ptr(win_local), _ptr(win_tile_map), num_tiles,
         _ptr(work), launch.grab, launch.blocks, launch.chunks, launch.col_blocks,
         launch.count_words, launch.b_stride, num_src, d, _ptr(out),
         ctypes.c_void_p(torch.cuda.current_stream(g.device).cuda_stream),
     )
-    _raise_on(rc, name)
-    launch_counts[name] += 1
+    _raise_on(rc, key)
+    launch_counts[key] += 1
     return out
 
 
@@ -423,7 +449,7 @@ def span_segment_sum(
         return span_segment_sum_plain(
             table, span_src, span_local, span_tile_map, span_base, num_windows, span_rows
         )
-    _check_rows(table, name)
+    _check_rows(table, name, bf16=True)
     slots = span_local.shape[0]
     num_tiles = _check_plan(
         name, table.device, slots, (span_src, slots), (span_local, slots),
@@ -433,18 +459,19 @@ def span_segment_sum(
     d = table.shape[1]
     if not 0 < span_rows <= _MMA_MAX_K:
         raise ValueError(f"{name}: span_rows must be in 1..{_MMA_MAX_K}, got {span_rows}")
-    launch = incidence_launch(num_tiles, span_rows, 1, d, _sms(table.device), span=True)
+    launch = incidence_launch(
+        num_tiles, span_rows, 1, d, _sms(table.device), span=True, itemsize=table.element_size()
+    )
     _check_shared(name, launch.shared_bytes)
     out = torch.zeros(num_windows * WINDOW, d, dtype=torch.float32, device=table.device)
     work = torch.zeros(launch.col_blocks, dtype=torch.int32, device=table.device)
-    from multi_modal_gnn_tpu_torch.ops import _build
-
-    rc = _build.load().mmgnn_span_segment_sum(
+    fn, key = _entry(name, table)
+    rc = fn(
         _ptr(table), table.shape[0], _ptr(span_src), _ptr(span_local), _ptr(span_tile_map),
         _ptr(span_base), num_tiles, span_rows, _ptr(work), launch.grab, launch.blocks,
         launch.col_blocks, launch.count_words, launch.b_stride, d, _ptr(out),
         ctypes.c_void_p(torch.cuda.current_stream(table.device).cuda_stream),
     )
-    _raise_on(rc, name)
-    launch_counts[name] += 1
+    _raise_on(rc, key)
+    launch_counts[key] += 1
     return out

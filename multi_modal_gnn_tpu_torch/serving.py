@@ -40,6 +40,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from multi_modal_gnn_tpu_torch.config import refuse_bf16
 from multi_modal_gnn_tpu_torch.evaluation.baselines import ALSBaseline, SideInfoALSBaseline
 from multi_modal_gnn_tpu_torch.evaluation.conformal import ConformalCalibrator
 from multi_modal_gnn_tpu_torch.graph.hetero import HeteroGraph
@@ -95,8 +96,8 @@ def build_serving_fn(
     graph: HeteroGraph,
     state: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[Callable, Dict[str, torch.Tensor]]:
-    """``(fn, state)`` with ``fn(p_idx, l_idx) -> predictions`` computed on
-    the state's device from the cached node state."""
+    """``(fn, state)`` with ``fn(p_idx, l_idx) -> predictions`` (float32)
+    computed on the state's device from the cached node state."""
     if state is None:
         state = compute_node_state(model, graph)
     device = state["final_p"].device
@@ -108,7 +109,7 @@ def build_serving_fn(
         if p.shape != l.shape:
             raise ValueError(f"patient/lab batches differ in length: {p.shape} vs {l.shape}")
         with torch.no_grad():
-            return model.predict_pairs_cached(state, p, l)
+            return model.predict_pairs_cached(state, p, l).float()
 
     return fn, state
 
@@ -203,9 +204,12 @@ def export_serving(
     interval radii in ``conformal.json`` for ``predict(...,
     return_interval=True)``; ``conformal_cold`` (``calibrate_cold_start``)
     the fold-in channel's own radii in ``conformal_cold.json``."""
+    model = serving_model(trainer)
+    if getattr(model, "compute_dtype", None) is not None:
+        # the artifact's programs and weights.npz are float32 (numpy has no bfloat16)
+        refuse_bf16("the serving artifact (export_serving, ServingModel)")
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
-    model = serving_model(trainer)
     state = compute_node_state(model, trainer.graph)
     names, leaves = _leaves(model, state)
     device = leaves[-1].device

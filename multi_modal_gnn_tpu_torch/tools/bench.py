@@ -17,10 +17,14 @@ cluster graphs'.
 
     python -m multi_modal_gnn_tpu_torch.tools.bench --scale --no-dense [--arch hgt | --mimic | --lab-tile-rows 0 | --clusters 8]
 
-There is no CPU fallback: without a card, or on any failure, it prints the
-traceback and exits non-zero with no JSON line.  ``--bf16`` raises
-``ConfigError`` (bfloat16 is not ported), as do ``--lab-tile-mode block``
-and ``--clusters`` below 1.
+``--bf16`` sets ``model.compute_dtype: bfloat16`` (the JAX bench's flag);
+on the card the line also carries ``mxu_bf16_speedup``, the tensor-core
+probe's median ``t_f32 / t_bf16`` (``utils/mxu_probe.py``, cached per card).
+
+There is no CPU fallback: without a card, or on any failure (the probe's
+included), it prints the traceback and exits non-zero with no JSON line.
+``--lab-tile-mode block``, ``--clusters`` below 1 and ``--bf16`` with
+``--clusters`` above 1 raise ``ConfigError``.
 """
 
 from __future__ import annotations
@@ -90,8 +94,6 @@ def run_bench(
     device = resolve_device(device)
     if clusters < 1:
         raise ConfigError(f"--clusters must be >= 1, got {clusters}")
-    if bf16:
-        raise ConfigError("--bf16: the port runs float32 only")
     if use_pallas is None:
         use_pallas = True
     if device.type == "cuda":
@@ -101,7 +103,10 @@ def run_bench(
     extras = {"hgt_dense_attn_bytes": int(hgt_dense_bytes)} if hgt_dense_bytes is not None else {}
     cfg = dataclasses.replace(
         cfg,
-        model=dataclasses.replace(cfg.model, architecture=arch.upper(), use_pallas=use_pallas, extras=extras),
+        model=dataclasses.replace(
+            cfg.model, architecture=arch.upper(), use_pallas=use_pallas, extras=extras,
+            **({"compute_dtype": "bfloat16"} if bf16 else {}),
+        ),
     )
     if not dense:
         cfg = dataclasses.replace(cfg, graph=dataclasses.replace(cfg.graph, dense_adjacency_max_bytes=0))
@@ -157,9 +162,15 @@ def run_bench(
     elapsed = time.perf_counter() - t0
     launches = {name: n - before[name] for name, n in _launch_totals().items() if n > before[name]}
     last_loss = float(losses[-1])
+    mxu_ratio = None
+    if device.type == "cuda":
+        from multi_modal_gnn_tpu_torch.utils.mxu_probe import probe_bf16_speedup
+
+        mxu_ratio = round(probe_bf16_speedup(), 3)
 
     edges_per_sec = n_train * n_epochs / elapsed
     return {
+        **({"mxu_bf16_speedup": mxu_ratio} if mxu_ratio is not None else {}),
         "metric": "train_patient_lab_edges_per_sec",
         "value": edges_per_sec,
         "unit": "edges/s",
@@ -195,7 +206,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         help="plain PyTorch aggregation (the xla tier)")
     parser.add_argument("--no-dense", dest="dense", action="store_false", default=True,
                         help="disable the dense-adjacency tier (bench the windowed kernels)")
-    parser.add_argument("--bf16", action="store_true", help="refused: the port is float32 only")
+    parser.add_argument("--bf16", action="store_true", help="model.compute_dtype: bfloat16")
     parser.add_argument("--lab-tile-rows", type=int, default=None,
                         help="narrow lab tiles in the pair-head kernels (0=off; unset=auto: "
                              "256-row span tiles at >=512 padded labs)")

@@ -4,14 +4,19 @@ on ``conf/eicu_real.yaml`` once per train seed and report each run's guarded
 
     python -m multi_modal_gnn_tpu_torch.tools.flagship_band [--seeds 42,43,44]
         [--device cuda | cpu] [--config conf/eicu_real.yaml]
+        [--dtype float32 | bfloat16] [--repeats N]
 
 Each seed gets a copy of the config (written by ``save_config``) with
 ``train.seed`` set and ``data.interim_dir``, ``data.output_dir`` and
 ``logging.log_file`` inside a temporary directory, so nothing is written to
 the repo.  Each run is ``python -m multi_modal_gnn_tpu_torch.pipeline``
-(steps 1-5, 7 and 8) on ``--device``.  The data seed stays the config's.
+(steps 1-5, 7 and 8; steps 1-5 in bfloat16, whose serving artifact is not
+ported yet) on ``--device``.  The data seed stays the config's.
 A warm-start band runs ``--config`` on the file that
-:func:`warm_start_config` derives.  Prints one JSON line.  The JAX package's band at the same seeds comes from
+:func:`warm_start_config` derives; ``--dtype`` runs the config with
+``model.compute_dtype`` set (:func:`dtype_config`).  ``--repeats`` runs
+each seed that many times, to show how far runs of one seed spread on the
+card.  Prints one JSON line.  The JAX package's band at the same seeds comes from
 ``scripts/flagship_band_jax.py``.
 """
 
@@ -25,7 +30,7 @@ import subprocess
 import sys
 import tempfile
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 REPO = Path(__file__).resolve().parents[2]
 ARTIFACTS = (
@@ -77,6 +82,16 @@ def warm_start_config(config_path, out_path, warm_start: str = "sideinfo") -> Pa
     return save_config(wire_warm_start(cfg), out_path)
 
 
+def dtype_config(config_path, out_path, dtype: str = "bfloat16") -> Path:
+    """Write the config at ``config_path`` with ``model.compute_dtype`` set
+    to ``dtype`` to ``out_path`` (the flagship in bfloat16: ``python
+    scripts/flagship_band_jax.py --config <out_path>`` runs JAX's side)."""
+    from multi_modal_gnn_tpu_torch.config import load_config, save_config
+
+    cfg = load_config(config_path)
+    return save_config(cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype=dtype)), out_path)
+
+
 def read_result(out_dir: Path) -> Dict:
     """Guarded R² / MAE, the per_lab_mean baseline's R², the epochs trained
     and the best validation loss, the audit's leak flags and the missing
@@ -100,13 +115,16 @@ def read_result(out_dir: Path) -> Dict:
     }
 
 
-def run_seed(config_path, seed: int, workdir: Path, device: str = "cuda") -> Dict:
+def run_seed(config_path, seed: int, workdir: Path, device: str = "cuda", steps: Optional[str] = None) -> Dict:
     """One pipeline run (see the module docstring): :func:`read_result`
-    plus each step's wall seconds."""
+    plus each step's wall seconds.  ``steps`` is the command line's
+    ``--step`` (all ported steps when None)."""
     workdir.mkdir(parents=True, exist_ok=True)
     seed_config(config_path, seed, workdir)
     command = [sys.executable, "-m", "multi_modal_gnn_tpu_torch.pipeline", "--config",
                str(workdir / "config.yaml"), "--no-confirm", "--device", device]
+    if steps is not None:
+        command += ["--step", steps]
     proc = subprocess.run(command, cwd=REPO, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
@@ -116,15 +134,20 @@ def run_seed(config_path, seed: int, workdir: Path, device: str = "cuda") -> Dic
     return {**read_result(workdir / "out"), "step_seconds": step_seconds}
 
 
-def run_band(config_path, seeds: Sequence[int], device: str) -> Dict:
+def run_band(config_path, seeds: Sequence[int], device: str, repeats: int = 1,
+             steps: Optional[str] = None) -> Dict:
     with tempfile.TemporaryDirectory() as tmp:
-        runs = {seed: run_seed(config_path, seed, Path(tmp) / f"seed{seed}", device) for seed in seeds}
+        runs = {
+            seed: [run_seed(config_path, seed, Path(tmp) / f"seed{seed}_{r}", device, steps) for r in range(repeats)]
+            for seed in seeds
+        }
+    firsts = [seed_runs[0] for seed_runs in runs.values()]
     return {
         "impl": "torch",
         "config": str(config_path),
-        "seeds": runs,
-        "mean_r2": statistics.fmean(r["r2"] for r in runs.values()),
-        "mean_mae": statistics.fmean(r["mae"] for r in runs.values()),
+        "seeds": {seed: seed_runs[0] if repeats == 1 else seed_runs for seed, seed_runs in runs.items()},
+        "mean_r2": statistics.fmean(r["r2"] for r in firsts),
+        "mean_mae": statistics.fmean(r["mae"] for r in firsts),
     }
 
 
@@ -133,9 +156,17 @@ def main(argv=None) -> int:
     parser.add_argument("--seeds", default="42,43,44")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     parser.add_argument("--config", default=str(REPO / "conf" / "eicu_real.yaml"))
+    parser.add_argument("--dtype", choices=("float32", "bfloat16"), default=None,
+                        help="set model.compute_dtype (default: the config's)")
+    parser.add_argument("--repeats", type=int, default=1, help="runs of each seed")
     args = parser.parse_args(argv)
     seeds = [int(s) for s in args.seeds.split(",")]
-    print(json.dumps(run_band(args.config, seeds, args.device)))
+    with tempfile.TemporaryDirectory() as tmp:
+        config = args.config if args.dtype is None else dtype_config(
+            args.config, Path(tmp) / f"config_{args.dtype}.yaml", args.dtype)
+        # the serving artifact (step 8) of a bfloat16 model is not ported yet
+        steps = "1-5" if args.dtype == "bfloat16" else None
+        print(json.dumps(run_band(config, seeds, args.device, args.repeats, steps)))
     return 0
 
 

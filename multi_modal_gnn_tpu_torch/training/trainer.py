@@ -265,7 +265,7 @@ class Trainer:
         vl = torch.stack(val_losses) if with_val else None
         if not as_numpy:
             return tl, vl
-        return tl.cpu().numpy(), (vl.cpu().numpy() if with_val else None)
+        return tl.float().cpu().numpy(), (vl.float().cpu().numpy() if with_val else None)
 
     def eval_model(self, state: Optional[dict] = None) -> torch.nn.Module:
         """The model in eval mode with the parameters and buffers of
@@ -306,7 +306,7 @@ class Trainer:
         batches are inverted back to row order), of the live model or of
         ``state``."""
         batch = self.get_batch(split)
-        preds = self._eval_preds(batch, state).cpu().numpy()
+        preds = self._eval_preds(batch, state).float().cpu().numpy()
         slots = self.masker.slot_map(split)
         if slots is not None:
             preds = preds[slots]
@@ -327,7 +327,7 @@ class Trainer:
         batch, _ = _pad_batch(patient_idx, lab_idx, np.zeros(n, np.float32), pad_multiple)
         batch = batch.to(self.device)
         batch.degrees = self.graph.patient_lab_degree[batch.patient_idx.long()]
-        return self._eval_preds(batch, state).cpu().numpy()[:n]
+        return self._eval_preds(batch, state).float().cpu().numpy()[:n]
 
     # -- the loop ----------------------------------------------------------
 

@@ -21,9 +21,12 @@ def resolve_device(device=None) -> torch.device:
 
 
 def disable_tf32() -> None:
-    """Full float32 in matmuls and convolutions (TF32 keeps ~3 digits)."""
+    """Full float32 in matmuls and convolutions (TF32 keeps ~3 digits), and
+    float32 sums in bfloat16 matmuls: cuBLAS may otherwise reduce in
+    bfloat16, where JAX accumulates in float32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def gpu_identity() -> str:

@@ -5,6 +5,13 @@ neither JAX nor the JAX package, so it also runs on a machine without them:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
+The K1-K5 cases run in float32 and in bfloat16 (rows, node projections and
+W1 in bfloat16, every sum float32): both sides sum the same bfloat16 values,
+so the float32 bounds below hold for the segment sums and the float32
+gradients.  A pair-head gradient that leaves in bfloat16 is rounded from a
+float32 sum in another order, and a slot gradient summed into it may round
+to bfloat16 the other way (:func:`_assert_close_bf16`).
+
 Kernels sum with f32 atomics in an order that changes from run to run.  An
 f32 sum of n terms taken in another order differs by about sqrt(n) * 6e-8
 of its largest partial sums, which can be far above an entry that cancels
@@ -27,7 +34,7 @@ from multi_modal_gnn_tpu_torch.graph import hetero
 from multi_modal_gnn_tpu_torch.graph.attn_plan import AttnGroupPlan, _build_side, ensure_attn_plans
 from multi_modal_gnn_tpu_torch.graph.schema import mirror_edge_type
 from multi_modal_gnn_tpu_torch.models import build_model
-from multi_modal_gnn_tpu_torch.ops import aggregate_neighbors, aggregation_tier
+from multi_modal_gnn_tpu_torch.ops import aggregate_neighbors, aggregation_tier, gather_rows, segment_sum
 from multi_modal_gnn_tpu_torch.ops import attention_kernels as ak
 from multi_modal_gnn_tpu_torch.ops import gather_probe as gp
 from multi_modal_gnn_tpu_torch.ops.attention import flash_attention_group
@@ -39,6 +46,39 @@ from multi_modal_gnn_tpu_torch.training import EdgeMasker, Trainer
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 NUM_SRC, D = 4096 + 900, 128
+DTYPES = [torch.float32, torch.bfloat16]
+BF16_ULP = 2.0 ** -7  # the largest bf16 spacing relative to a value (8 significant bits)
+
+
+def _key(name, dtype):
+    """The launch counter a wrapper adds to for rows of ``dtype``."""
+    return name + ("_bf16" if dtype == torch.bfloat16 else "")
+
+
+def _randn(*shape, seed, dtype=torch.float32):
+    return torch.randn(*shape, generator=torch.Generator().manual_seed(seed)).to(dtype)
+
+
+def _assert_close_bf16(got, want, name="", share=1e-3):
+    """A gradient that leaves in bfloat16: within ``1e-4 * max |want|``
+    except where a bfloat16 rounding went the other way (of a slot gradient
+    summed into it, or of the result itself, after float32 sums in another
+    order): at most ``share`` of the elements, each within one bfloat16
+    spacing at the tensor's scale."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape and np.isfinite(got).all(), name
+    err, scale = np.abs(got - want), float(np.abs(want).max())
+    assert float(err.max()) <= BF16_ULP * scale, f"{name}: max |d| {err.max():.3e} > 2^-7 * {scale:.3e}"
+    off = float((err > 1e-4 * scale).mean())
+    assert off <= share, f"{name}: {off:.2e} of the elements beyond 1e-4 * {scale:.3e}"
+
+
+def _assert_grad_close(got, want, name, rel=1e-4):
+    """Per gradient, by the dtype it leaves in."""
+    if got.dtype == torch.bfloat16:
+        _assert_close_bf16(got.float().cpu().numpy(), want.float().cpu().numpy(), name)
+    else:
+        _assert_close_scaled(got.cpu().numpy(), want.cpu().numpy(), rel, name)
 
 
 @pytest.fixture
@@ -81,24 +121,26 @@ def _assert_close_scaled(got, want, rel, name=""):
 
 
 @pytest.mark.cuda
-def test_windowed_kernel_matches_plain(gpu, plans):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_windowed_kernel_matches_plain(gpu, plans, dtype):
     es = plans[0].to(gpu)
-    x = torch.randn(NUM_SRC, D, generator=torch.Generator().manual_seed(1)).to(gpu)
+    x = _randn(NUM_SRC, D, seed=1, dtype=dtype).to(gpu)
     args = (es.win_local, es.win_tile_map, es.num_windows)
-    before = sk.launch_counts["segment_sum_windowed"]
+    before = sk.launch_counts[_key("segment_sum_windowed", dtype)]
     got = sk.segment_sum_windowed(x, es.win_src, *args)
     want = sk.segment_sum_windowed_plain(x, es.win_src, *args)
     np.testing.assert_allclose(_means(got, es), _means(want, es), **TOL)
     gathered = x.index_select(0, es.win_src.long())
     got = sk.segment_sum_windowed(gathered, None, *args)
     np.testing.assert_allclose(_means(got, es), _means(want, es), **TOL)
-    assert sk.launch_counts["segment_sum_windowed"] == before + 2
+    assert sk.launch_counts[_key("segment_sum_windowed", dtype)] == before + 2
 
 
 @pytest.mark.cuda
-def test_fused_table_kernel_matches_plain(gpu, plans):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_table_kernel_matches_plain(gpu, plans, dtype):
     es = plans[1].to(gpu)  # the small-source mirror relation
-    x = torch.randn(es.num_src, D, generator=torch.Generator().manual_seed(2)).to(gpu)
+    x = _randn(es.num_src, D, seed=2, dtype=dtype).to(gpu)
     args = (es.win_src, es.win_local, es.win_tile_map, es.num_windows)
     got = sk.fused_table_segment_sum(x, *args)
     want = sk.fused_table_segment_sum_plain(x, *args)
@@ -106,29 +148,35 @@ def test_fused_table_kernel_matches_plain(gpu, plans):
 
 
 @pytest.mark.cuda
-def test_span_kernel_matches_plain_and_skips_rows_past_the_table(gpu, plans):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_span_kernel_matches_plain_and_skips_rows_past_the_table(gpu, plans, dtype):
     es = plans[0].to(gpu)
-    x = torch.randn(NUM_SRC, D, generator=torch.Generator().manual_seed(3)).to(gpu)
+    x = _randn(NUM_SRC, D, seed=3, dtype=dtype).to(gpu)
     args = (es.span_src, es.span_local, es.span_tile_map, es.span_base, es.num_windows, es.span_rows)
     want = _means(sk.span_segment_sum_plain(x, *args), es)
     np.testing.assert_allclose(_means(sk.span_segment_sum(x, *args), es), want, **TOL)
     rows_pad = -(-NUM_SRC // 128) * 128
-    x_nan = torch.full((rows_pad, D), float("nan"), device=gpu)
+    x_nan = torch.full((rows_pad, D), float("nan"), device=gpu, dtype=dtype)
     x_nan[:NUM_SRC] = x
     got = _means(sk.span_segment_sum(x_nan, *args), es)
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, **TOL)
 
 
+# widths a multiple of 4 (float32) or 8 (bfloat16: rows of whole 16-byte chunks)
+OTHER_WIDTHS = [(4, torch.float32), (36, torch.float32), (256, torch.float32),
+                (8, torch.bfloat16), (40, torch.bfloat16), (256, torch.bfloat16)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", [4, 36, 256])
-def test_kernels_at_other_widths(gpu, plans, width):
-    # K1 / K2f: lanes past D idle (36), several 128-column passes (256); K3:
-    # a column tail zero in shared memory (4, 36), two column blocks (256)
+@pytest.mark.parametrize("width,dtype", OTHER_WIDTHS)
+def test_kernels_at_other_widths(gpu, plans, width, dtype):
+    # K1 / K2f: lanes past D idle (36, 40), several 128-column passes (256); K3:
+    # a column tail zero in shared memory (4, 36, 8, 40), two column blocks (256)
     fwd, rev = plans[0].to(gpu), plans[1].to(gpu)
     gen = torch.Generator().manual_seed(width)
-    x = torch.randn(NUM_SRC, width, generator=gen).to(gpu)
-    xr = torch.randn(rev.num_src, width, generator=gen).to(gpu)
+    x = torch.randn(NUM_SRC, width, generator=gen).to(dtype).to(gpu)
+    xr = torch.randn(rev.num_src, width, generator=gen).to(dtype).to(gpu)
     win = (fwd.win_src, fwd.win_local, fwd.win_tile_map, fwd.num_windows)
     np.testing.assert_allclose(
         _means(sk.segment_sum_windowed(x, *win), fwd),
@@ -148,38 +196,44 @@ def test_kernels_at_other_widths(gpu, plans, width):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", [4, 36, 128, 256])
+@pytest.mark.parametrize("width,dtype", OTHER_WIDTHS[:2] + [(128, torch.float32)] + OTHER_WIDTHS[2:])
 @pytest.mark.parametrize("num_src", [37, 2048])
-def test_fused_table_kernel_on_any_table_the_tier_admits(gpu, num_src, width):
+def test_fused_table_kernel_on_any_table_the_tier_admits(gpu, num_src, width, dtype):
     # K2f keeps a column slice of every row in shared memory: 37 rows fit
-    # whole, 2048 rows at 128 columns take eight 16-column slices; rows of
-    # NaN past the table are staged but never read
+    # whole, 2048 rows at 128 columns take eight 16-column slices (four
+    # 32-column slices of bfloat16); rows of NaN past the table are staged
+    # but never read
     rng = np.random.default_rng(num_src + width)
     src, dst = rng.integers(0, num_src, 60_000), rng.integers(0, 700, 60_000)
     es = hetero.pad_edge_set(src, dst, num_src, 700).to(gpu)
-    x = torch.randn(num_src, width, generator=torch.Generator().manual_seed(width)).to(gpu)
+    x = _randn(num_src, width, seed=width, dtype=dtype).to(gpu)
     args = (es.win_src, es.win_local, es.win_tile_map, es.num_windows)
-    launch = sk.fused_table_launch(es.win_local.shape[0] // hetero.TILE_E, num_src + 5, width, 132)
+    itemsize = x.element_size()
+    launch = sk.fused_table_launch(es.win_local.shape[0] // hetero.TILE_E, num_src + 5, width, 132, itemsize)
     assert launch.shared_bytes <= sk._MAX_SHARED_BYTES and launch.slices * launch.slice >= width
-    x_nan = torch.full((num_src + 5, width), float("nan"), device=gpu)
+    x_nan = torch.full((num_src + 5, width), float("nan"), device=gpu, dtype=dtype)
     x_nan[:num_src] = x
-    before = sk.launch_counts["fused_table_segment_sum"]
+    before = sk.launch_counts[_key("fused_table_segment_sum", dtype)]
     got = _means(sk.fused_table_segment_sum(x_nan, *args), es)
-    assert sk.launch_counts["fused_table_segment_sum"] == before + 1
+    assert sk.launch_counts[_key("fused_table_segment_sum", dtype)] == before + 1
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, _means(sk.fused_table_segment_sum_plain(x, *args), es), **TOL)
 
 
+BWD_WIDTHS = [(36, torch.float32), (128, torch.float32), (256, torch.float32),
+              (40, torch.bfloat16), (128, torch.bfloat16), (256, torch.bfloat16)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", [36, 128, 256])
-def test_fused_table_backward_kernel_matches_plain(gpu, plans, width):
+@pytest.mark.parametrize("width,dtype", BWD_WIDTHS)
+def test_fused_table_backward_kernel_matches_plain(gpu, plans, width, dtype):
     es = plans[1].to(gpu)  # the small-source relation: dT [num_src, width]
-    g = torch.randn(es.num_dst, width, generator=torch.Generator().manual_seed(width)).to(gpu)
+    g = _randn(es.num_dst, width, seed=width, dtype=dtype).to(gpu)
     args = (es.win_src, es.win_local, es.win_tile_map, es.num_src)
-    before = sk.launch_counts["fused_table_segment_sum_bwd"]
+    before = sk.launch_counts[_key("fused_table_segment_sum_bwd", dtype)]
     got = sk.fused_table_segment_sum_bwd(g, *args)
     want = sk.fused_table_segment_sum_bwd_plain(g, *args)
-    assert sk.launch_counts["fused_table_segment_sum_bwd"] == before + 1
+    assert sk.launch_counts[_key("fused_table_segment_sum_bwd", dtype)] == before + 1
     # per-source means, as the forward kernels are compared
     real = es.win_local < hetero.WINDOW
     count = torch.bincount(es.win_src[real].long(), minlength=es.num_src).clamp_min(1)[:, None]
@@ -210,13 +264,13 @@ def _incidence_case(case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", [36, 128, 256])
+@pytest.mark.parametrize("width,dtype", BWD_WIDTHS)
 @pytest.mark.parametrize("case", ["partial_chunk", "empty_windows_and_chunks", "counts_above_2048"])
-def test_fused_table_backward_kernel_on_chunks_windows_and_counts(gpu, case, width):
+def test_fused_table_backward_kernel_on_chunks_windows_and_counts(gpu, case, width, dtype):
     # held to the sum in float64: the plain version's own f32 sum of one
     # value added 3,000 times drifts by ~1e-4 of it
     es = _incidence_case(case).to(gpu)
-    g = torch.randn(es.num_dst, width, generator=torch.Generator().manual_seed(width)).to(gpu)
+    g = _randn(es.num_dst, width, seed=width, dtype=dtype).to(gpu)
     args = (es.win_src, es.win_local, es.win_tile_map, es.num_src)
     got = sk.fused_table_segment_sum_bwd(g, *args)
     real = es.win_local < hetero.WINDOW
@@ -230,25 +284,109 @@ def test_fused_table_backward_kernel_on_chunks_windows_and_counts(gpu, case, wid
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", [4, 36, 128, 256])
-def test_span_kernel_on_tiles_wider_than_a_slice(gpu, width):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_incidence_kernels_count_a_601_fold_edge(gpu, dtype):
+    # K2b and K3 take the edge counts in TF32 (exact to 2048), never in the
+    # rows' dtype: 601 copies of one edge, which bfloat16 would count as 600
+    rng = np.random.default_rng(601)
+    src = np.concatenate([np.full(601, 77), rng.integers(0, NUM_SRC, 80_000)])
+    dst = np.concatenate([np.full(601, 9), rng.integers(0, 300, 80_000)])
+    fwd = hetero.pad_edge_set(src, dst, NUM_SRC, 300, src_span_rows=256).to(gpu)
+    rev = hetero.pad_edge_set(dst, src, 300, NUM_SRC).to(gpu)
+    assert fwd.span_rows == 256
+    x = _randn(NUM_SRC, D, seed=60, dtype=dtype).to(gpu)
+    span = (fwd.span_src, fwd.span_local, fwd.span_tile_map, fwd.span_base, fwd.num_windows, fwd.span_rows)
+    want = torch.zeros(fwd.num_dst, D, dtype=torch.float64, device=gpu)
+    want.index_add_(0, torch.from_numpy(dst).to(gpu), x.double()[torch.from_numpy(src).to(gpu)])
+    got = sk.span_segment_sum(x, *span)[: fwd.num_dst]
+    count = fwd.dst_count.clamp_min(1.0)[:, None]
+    np.testing.assert_allclose((got / count).cpu().numpy(), (want / count).cpu().numpy(), **TOL)
+    g = _randn(rev.num_dst, D, seed=61, dtype=dtype).to(gpu)  # K2b: the mirror's small table
+    got = sk.fused_table_segment_sum_bwd(g, rev.win_src, rev.win_local, rev.win_tile_map, rev.num_src)
+    want = torch.zeros(rev.num_src, D, dtype=torch.float64, device=gpu)
+    want.index_add_(0, torch.from_numpy(dst).to(gpu), g.double()[torch.from_numpy(src).to(gpu)])
+    per = torch.bincount(torch.from_numpy(dst).to(gpu), minlength=rev.num_src).clamp_min(1)[:, None]
+    np.testing.assert_allclose((got / per).cpu().numpy(), (want / per).cpu().numpy(), **TOL)
+    assert abs(float(got[9, 0]) - float(want[9, 0])) <= 1e-5 * abs(float(want[9, 0])) + 1e-5
+
+
+@pytest.mark.cuda
+def test_bf16_autograd_step_through_the_kernels(gpu, plans):
+    """A bfloat16 step on the card through _KernelAggregate (span forward,
+    K1 backward) and fused_pair_head (K4f / K4b) against the same step's
+    plain versions on the CPU: the bfloat16 kernels launch, and the
+    gradients agree as bfloat16 gradients do."""
+    fwd, rev = plans
+    params, plan_args, num_windows, lab_rows, g = _head_problem(500, 256, seed=21)
+    x = _randn(NUM_SRC, D, seed=22, dtype=torch.bfloat16)
+    w = _randn(D, 64, seed=23) * 0.1
+    before = dict(sk.launch_counts, **pk.launch_counts)
+    grads = []
+    for dev in (gpu, torch.device("cpu")):
+        xd = x.to(dev).requires_grad_()
+        leaves = [p.to(dev).requires_grad_() for p in _as(params, torch.bfloat16)]
+        agg = aggregate_neighbors(xd, fwd.to(dev), "mean", impl="pallas", edges_rev=rev.to(dev))
+        assert agg.dtype == torch.bfloat16
+        mixed = (agg.float() @ w.to(dev)).to(torch.bfloat16)  # the first num_dst patients' rows
+        pad = torch.zeros(leaves[0].shape[0] - mixed.shape[0], 64, dtype=torch.bfloat16, device=dev)
+        pp = leaves[0] + torch.cat([mixed, pad])
+        a = _to(plan_args, dev)
+        out = fused_pair_head(
+            pp.contiguous(), *leaves[1:], a["lab_idx"], a["win_local"], a["win_tile_map"], (5, 6),
+            a["tile_mask"], a["lab_block_map"], num_windows, 0.2, lab_rows, True,
+        )
+        assert out.dtype == torch.float32
+        (out * g.to(dev)).sum().backward()
+        grads.append([xd.grad] + [leaf.grad for leaf in leaves])
+    for key in ("span_segment_sum_bf16", "segment_sum_windowed_bf16", "pair_head_fwd_bf16",
+                "pair_head_bwd_bf16"):
+        assert dict(sk.launch_counts, **pk.launch_counts)[key] > before[key], key
+    for name, a, b in zip(("x", "proj_p", "proj_l", "w1", "b1", "w2", "b2"), *grads):
+        assert a.dtype == b.dtype, name
+        _assert_close_bf16(a.float().cpu().numpy(), b.float().cpu().numpy(), name, share=1e-2)
+
+
+@pytest.mark.cuda
+def test_bf16_row_scatters_sum_in_float32_on_the_card(gpu):
+    """On the card, gather_rows' backward and segment_sum on bfloat16 rows
+    (40,000 rows into 50, as a pair head's lab gradients are summed) give
+    the float32 sum rounded once, within one bfloat16 spacing and the float32
+    atomics' reordering (1e-5 of the largest total); bfloat16 atomics, which
+    round at every add, miss it by percents."""
+    idx = torch.from_numpy(np.random.default_rng(0).integers(0, 50, 40_000))
+    g = _randn(40_000, 64, seed=31, dtype=torch.bfloat16)
+    exact = torch.zeros(50, 64, dtype=torch.float64).index_add_(0, idx, g.double())
+    spacing = exact.abs() * BF16_ULP + 1e-5 * exact.abs().max()
+    x = torch.zeros(50, 64, dtype=torch.bfloat16, device=gpu, requires_grad=True)
+    gather_rows(x, idx.to(gpu)).backward(g.to(gpu))
+    for name, got in (("gather_rows backward", x.grad), ("segment_sum", segment_sum(g.to(gpu), idx.to(gpu), 50))):
+        assert got.dtype == torch.bfloat16, name
+        assert ((got.double().cpu() - exact).abs() <= spacing).all(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,dtype", OTHER_WIDTHS[:2] + [(128, torch.float32)] + OTHER_WIDTHS[2:])
+def test_span_kernel_on_tiles_wider_than_a_slice(gpu, width, dtype):
     es = _incidence_case("wide_spans").to(gpu)
     assert es.span_rows == 256
     real = es.span_local < hetero.WINDOW
     rel = (es.span_src - torch.repeat_interleave(es.span_base, hetero.TILE_E))[real]
     assert int(rel.max()) >= 192  # a tile reads past its sixth 32-row slice
-    x = torch.randn(NUM_SRC, width, generator=torch.Generator().manual_seed(width)).to(gpu)
+    x = _randn(NUM_SRC, width, seed=width, dtype=dtype).to(gpu)
     args = (es.span_src, es.span_local, es.span_tile_map, es.span_base, es.num_windows, es.span_rows)
     want = _means(sk.span_segment_sum_plain(x, *args), es)
     np.testing.assert_allclose(_means(sk.span_segment_sum(x, *args), es), want, **TOL)
-    x_nan = torch.full((NUM_SRC + 300, width), float("nan"), device=gpu)
+    x_nan = torch.full((NUM_SRC + 300, width), float("nan"), device=gpu, dtype=dtype)
     x_nan[:NUM_SRC] = x
     np.testing.assert_allclose(_means(sk.span_segment_sum(x_nan, *args), es), want, **TOL)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("tier", ["fused_table", "span", "paired", "windowed"])
-def test_tier_gradients_match_plain(gpu, plans, tier):
+def test_tier_gradients_match_plain(gpu, plans, tier, dtype):
+    # bfloat16: the gradient leaves in bfloat16, rounded from float32 sums
+    # taken in another order (one spacing at most, and rarely)
     fwd, rev = plans
     if tier == "fused_table":
         es, mirror = rev, fwd
@@ -256,19 +394,20 @@ def test_tier_gradients_match_plain(gpu, plans, tier):
         es, mirror = dataclasses.replace(fwd, span_rows=0), rev
     else:
         es, mirror = fwd, (rev if tier == "span" else None)
-    assert aggregation_tier(es, mirror, D) == tier
+    assert aggregation_tier(es, mirror, D, itemsize=torch.finfo(dtype).bits // 8) == tier
     gen = torch.Generator().manual_seed(5)
-    x = torch.randn(es.num_src, D, generator=gen)
-    g = torch.randn(es.num_dst, D, generator=gen)
+    x = torch.randn(es.num_src, D, generator=gen).to(dtype)
+    g = torch.randn(es.num_dst, D, generator=gen).to(dtype)
     grads = []
     for dev in (gpu, torch.device("cpu")):
         xd = x.to(dev).requires_grad_()
         out = aggregate_neighbors(
             xd, es.to(dev), "mean", impl="pallas", edges_rev=None if mirror is None else mirror.to(dev)
         )
+        assert out.dtype == dtype
         (out * g.to(dev)).sum().backward()
-        grads.append(xd.grad.cpu().numpy())
-    _assert_close_scaled(grads[0], grads[1], 1e-5, tier)
+        grads.append(xd.grad)
+    _assert_grad_close(grads[0], grads[1], tier, 1e-5)
 
 
 def _head_problem(num_l, lab_rows, seed=0, batch=40_000, num_p=3000):
@@ -309,6 +448,12 @@ def _to(args, dev):
     return {k: None if v is None else v.to(dev) for k, v in args.items()}
 
 
+def _as(params, dtype):
+    """A head's (proj_p, proj_l, w1, b1, w2, b2) with the first three in
+    ``dtype`` (the kernels' operand dtype; b1, w2, b2 stay float32)."""
+    return [p.to(dtype) if i % 6 < 3 else p for i, p in enumerate(params)]
+
+
 def _head_call(fn, params, plan_args, lab_rows, seed, rate, masked, *extra):
     a = plan_args
     return fn(
@@ -329,24 +474,27 @@ def _away_from_kinks(g, params, plan_args, lab_rows, seed, rate, masked):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("num_l,lab_rows", [(37, 0), (500, 256)], ids=["full_table", "span256"])
-def test_pair_head_kernels_match_plain(gpu, num_l, lab_rows, masked, rate):
+def test_pair_head_kernels_match_plain(gpu, num_l, lab_rows, masked, rate, dtype):
     params, plan_args, num_windows, lab_rows, g = _head_problem(num_l, lab_rows)
     seed = (123, 456)
-    pg, ag = [p.to(gpu) for p in params], _to(plan_args, gpu)
+    pg, ag = [p.to(gpu) for p in _as(params, dtype)], _to(plan_args, gpu)
     before = dict(pk.launch_counts)
     got = _head_call(pk.pair_head_fwd, pg, ag, lab_rows, seed, rate, masked)
     want = _head_call(pk.pair_head_fwd_plain, pg, ag, lab_rows, seed, rate, masked)
+    assert got.dtype == want.dtype == torch.float32
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-5)
     g = _away_from_kinks(g.to(gpu), pg, ag, lab_rows, seed, rate, masked)
     got_g = _head_call(pk.pair_head_bwd, pg, ag, lab_rows, seed, rate, masked, num_windows, g)
     want_g = _head_call(pk.pair_head_bwd_plain, pg, ag, lab_rows, seed, rate, masked, g)
-    for name, a, b in zip(("proj_p", "proj_l", "w1", "b1", "w2", "b2"), got_g, want_g):
-        _assert_close_scaled(a.cpu().numpy(), b.cpu().numpy(), 1e-4, name)
-    assert pk.launch_counts["pair_head_fwd"] == before["pair_head_fwd"] + 1
-    assert pk.launch_counts["pair_head_bwd"] == before["pair_head_bwd"] + 1
+    for name, a, b, x in zip(("proj_p", "proj_l", "w1", "b1", "w2", "b2"), got_g, want_g, pg):
+        assert a.dtype == b.dtype == x.dtype, name
+        _assert_grad_close(a, b, name)
+    assert pk.launch_counts[_key("pair_head_fwd", dtype)] == before[_key("pair_head_fwd", dtype)] + 1
+    assert pk.launch_counts[_key("pair_head_bwd", dtype)] == before[_key("pair_head_bwd", dtype)] + 1
 
 
 @pytest.mark.cuda
@@ -405,21 +553,22 @@ def test_fused_pair_head_autograd_on_gpu(gpu):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("lab_rows", [0, 256])
 @pytest.mark.parametrize("num_l", [37, 500, 720, 2048])
-def test_pair_head_backward_at_any_lab_count(gpu, num_l, lab_rows):
+def test_pair_head_backward_at_any_lab_count(gpu, num_l, lab_rows, dtype):
     # K4b keeps no lab table in shared memory: any lab count, span tiles or
     # the full table, with dropout and both kinds of masked tile
     params, plan_args, num_windows, lab_rows, g = _head_problem(num_l, lab_rows, seed=num_l)
     seed = (31, 41)
-    pg, ag = [p.to(gpu) for p in params], _to(plan_args, gpu)
+    pg, ag = [p.to(gpu) for p in _as(params, dtype)], _to(plan_args, gpu)
     g = _away_from_kinks(g.to(gpu), pg, ag, lab_rows, seed, 0.2, True)
-    before = pk.launch_counts["pair_head_bwd"]
+    before = pk.launch_counts[_key("pair_head_bwd", dtype)]
     got = _head_call(pk.pair_head_bwd, pg, ag, lab_rows, seed, 0.2, True, num_windows, g)
     want = _head_call(pk.pair_head_bwd_plain, pg, ag, lab_rows, seed, 0.2, True, g)
-    assert pk.launch_counts["pair_head_bwd"] == before + 1
+    assert pk.launch_counts[_key("pair_head_bwd", dtype)] == before + 1
     for name, a, b in zip(("proj_p", "proj_l", "w1", "b1", "w2", "b2"), got, want):
-        _assert_close_scaled(a.cpu().numpy(), b.cpu().numpy(), 1e-4, name)
+        _assert_grad_close(a, b, name)
 
 
 # -- the dual pair head (K5f, K5b) --------------------------------------------
@@ -478,16 +627,17 @@ def _fwd_close(got, want):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("lab_rows", [0, 256], ids=["full_table", "span256"])
 @pytest.mark.parametrize("num_l", [37, 500, 720, 2048])
-def test_pair_head_fwd_matches_plain_at_any_lab_count(gpu, num_l, lab_rows, masked, rate):
+def test_pair_head_fwd_matches_plain_at_any_lab_count(gpu, num_l, lab_rows, masked, rate, dtype):
     params, plan_args, _, lab_rows, _ = _head_problem(num_l, lab_rows, seed=num_l + 1)
-    pg, ag = [p.to(gpu) for p in params], _to(plan_args, gpu)
+    pg, ag = [p.to(gpu) for p in _as(params, dtype)], _to(plan_args, gpu)
     before = dict(pk.launch_counts)
     got = _head_call(pk.pair_head_fwd, pg, ag, lab_rows, (27, 18), rate, masked)
-    assert pk.launch_counts["pair_head_fwd"] == before["pair_head_fwd"] + 1
+    assert pk.launch_counts[_key("pair_head_fwd", dtype)] == before[_key("pair_head_fwd", dtype)] + 1
     assert pk.launch_counts["pair_head_dual_fwd"] == before["pair_head_dual_fwd"]
     _fwd_close([got], [_head_call(pk.pair_head_fwd_plain, pg, ag, lab_rows, (27, 18), rate, masked)])
 
@@ -538,15 +688,16 @@ def test_pair_head_fwd_reads_zero_rows_past_num_p_and_num_l(gpu, lab_rows):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("num_l", [37, 500, 720, 2048])
-def test_dual_fwd_matches_plain_at_any_lab_count(gpu, num_l, masked, rate):
+def test_dual_fwd_matches_plain_at_any_lab_count(gpu, num_l, masked, rate, dtype):
     params, plan_args, _, _ = _dual_problem(num_l, seed=num_l + 2)
-    pg, ag = [p.to(gpu) for p in params], _to(plan_args, gpu)
+    pg, ag = [p.to(gpu) for p in _as(params, dtype)], _to(plan_args, gpu)
     before = dict(pk.launch_counts)
     got = _dual_call(pk.pair_head_dual_fwd, pg, ag, (6, 7, 8, 9), rate, masked)
-    assert pk.launch_counts["pair_head_dual_fwd"] == before["pair_head_dual_fwd"] + 1
+    assert pk.launch_counts[_key("pair_head_dual_fwd", dtype)] == before[_key("pair_head_dual_fwd", dtype)] + 1
     assert pk.launch_counts["pair_head_fwd"] == before["pair_head_fwd"]
     _fwd_close(got, _dual_call(pk.pair_head_dual_fwd_plain, pg, ag, (6, 7, 8, 9), rate, masked))
 
@@ -609,13 +760,14 @@ def test_forward_launches_leave_their_counters_zero(gpu):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("num_l", [37, 500])
-def test_dual_pair_head_kernels_match_plain(gpu, num_l, masked, rate):
+def test_dual_pair_head_kernels_match_plain(gpu, num_l, masked, rate, dtype):
     params, plan_args, num_windows, g = _dual_problem(num_l)
     seed4 = (123, 456, 789, 1011)
-    pg, ag = [p.to(gpu) for p in params], _to(plan_args, gpu)
+    pg, ag = [p.to(gpu) for p in _as(params, dtype)], _to(plan_args, gpu)
     before = dict(pk.launch_counts)
     got = _dual_call(pk.pair_head_dual_fwd, pg, ag, seed4, rate, masked)
     want = _dual_call(pk.pair_head_dual_fwd_plain, pg, ag, seed4, rate, masked)
@@ -625,10 +777,9 @@ def test_dual_pair_head_kernels_match_plain(gpu, num_l, masked, rate):
     got_g = _dual_call(pk.pair_head_dual_bwd, pg, ag, seed4, rate, masked, num_windows, *g)
     want_g = _dual_call(pk.pair_head_dual_bwd_plain, pg, ag, seed4, rate, masked, *g)
     for name, a, b in zip(DUAL_NAMES, got_g, want_g):
-        _assert_close_scaled(a.cpu().numpy(), b.cpu().numpy(), 1e-4, name)
-    assert pk.launch_counts["pair_head_dual_fwd"] == before["pair_head_dual_fwd"] + 1
-    assert pk.launch_counts["pair_head_dual_bwd"] == before["pair_head_dual_bwd"] + 1
-    assert pk.launch_counts["pair_head_fwd"] == before["pair_head_fwd"]
+        _assert_grad_close(a, b, name)
+    for name, n in (("pair_head_dual_fwd", 1), ("pair_head_dual_bwd", 1), ("pair_head_fwd", 0)):
+        assert pk.launch_counts[_key(name, dtype)] == before[_key(name, dtype)] + n
 
 
 @pytest.mark.cuda
@@ -768,6 +919,8 @@ def test_dual_train_step_on_gpu_matches_plain_on_cpu(gpu):
         if dev == gpu:
             assert pk.launch_counts == {
                 "pair_head_fwd": 0, "pair_head_bwd": 0, "pair_head_dual_fwd": 1, "pair_head_dual_bwd": 1,
+                "pair_head_fwd_bf16": 0, "pair_head_bwd_bf16": 0, "pair_head_dual_fwd_bf16": 0,
+                "pair_head_dual_bwd_bf16": 0,
             }
         grads = {n: p.grad.cpu().double() + decay[id(p)] * before[n] for n, p in model.named_parameters()}
         results.append((loss, grads, {k: v.cpu().double() for k, v in model.state_dict().items()}))
@@ -960,7 +1113,7 @@ def test_train_step_on_gpu_matches_plain_on_cpu(gpu):
         loss = trainer.train_step(batch, sup, 0)
         if dev == gpu:
             single_heads = (pk.launch_counts["pair_head_fwd"], pk.launch_counts["pair_head_bwd"])
-            assert all(sk.launch_counts.values()) and all(single_heads), (
+            assert all(sk.launch_counts[n] for n in sk.WRAPPERS) and all(single_heads), (
                 sk.launch_counts, pk.launch_counts,
             )
         results.append((loss, {k: v.cpu() for k, v in model.state_dict().items()}))
@@ -1024,26 +1177,26 @@ def _k1_plan(num_src, seed=5):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", [36, 128, 256])
+@pytest.mark.parametrize("width,dtype", BWD_WIDTHS)
 @pytest.mark.parametrize("route,num_src", [("shared", 700), ("global", 5000), ("gathered", 5000)])
-def test_k1_routes_match_plain(gpu, route, num_src, width):
+def test_k1_routes_match_plain(gpu, route, num_src, width, dtype):
     win_src, win_local, win_tile_map, num_windows, count = _k1_plan(num_src)
     plan = [torch.from_numpy(a).to(gpu) for a in (win_src, win_local, win_tile_map)]
-    gen = torch.Generator().manual_seed(width)
-    x = torch.randn(num_src, width, generator=gen).to(gpu)
+    x = _randn(num_src, width, seed=width, dtype=dtype).to(gpu)
     if route == "gathered":
         x = x.index_select(0, plan[0].long()).contiguous()
         idx = None
     else:  # the table has NaN rows right past it: never read
-        x_nan = torch.full((num_src + 37, width), float("nan"), device=gpu)
+        x_nan = torch.full((num_src + 37, width), float("nan"), device=gpu, dtype=dtype)
         x_nan[:num_src] = x
         x, idx = x_nan, plan[0]
-    assert sk.windowed_route(x.shape[0], width, idx is None) == route
+    assert sk.windowed_route(x.shape[0], width, idx is None, x.element_size()) == route
     args = (idx, plan[1], plan[2], num_windows)
-    before = sk.launch_counts["segment_sum_windowed"]
+    key = _key("segment_sum_windowed", dtype)
+    before = sk.launch_counts[key]
     got = sk.segment_sum_windowed(x, *args)[:1000]
     want = sk.segment_sum_windowed_plain(x[:num_src] if idx is not None else x, *args)[:1000]
-    assert sk.launch_counts["segment_sum_windowed"] == before + 1
+    assert sk.launch_counts[key] == before + 1
     per = torch.from_numpy(count).clamp_min(1.0)[:, None].to(gpu)
     got, want = (got / per).cpu().numpy(), (want / per).cpu().numpy()
     assert np.isfinite(got).all()
@@ -1485,7 +1638,7 @@ def test_train_epochs_on_the_card_match_the_plain_versions(gpu, dual):
             assert tl.device == vl.device == gpu
             heads = ("pair_head_dual_fwd", "pair_head_dual_bwd") if dual else ("pair_head_fwd", "pair_head_bwd")
             assert all(pk.launch_counts[name] >= 3 for name in heads), pk.launch_counts
-            assert all(n >= 3 for n in sk.launch_counts.values()), sk.launch_counts
+            assert all(sk.launch_counts[n] >= 3 for n in sk.WRAPPERS), sk.launch_counts
         losses[dev.type] = (tl.cpu().numpy(), vl.cpu().numpy())
     print({k: (v[0].tolist(), v[1].tolist()) for k, v in losses.items()})
     for got, want in zip(losses["cuda"], losses["cpu"]):

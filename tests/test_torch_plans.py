@@ -200,8 +200,8 @@ def test_config_accepts_jax_to_dict():
     "model",
     [
         {"architecture": "GAT"},
-        {"compute_dtype": "bfloat16"},
-        {"compute_dtype": "auto"},
+        {"compute_dtype": "float16"},
+        {"compute_dtype": "bfloat16", "value_context": True},
         {"edge_head": {"bilinear_rank": 4, "bilinear_source": "context"}},
         {"edge_head": {"bilinear_rank": 4, "bilinear_source": "hidden"}},
         {"unknown_knob": 1},
