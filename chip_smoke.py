@@ -99,9 +99,11 @@ Phases, each printing one line with its seconds:
                    a validation loss, an eval step over the train batch (K5f),
                    one profiled epoch of on
  18. gather-probe  P1: python -m multi_modal_gnn_tpu_torch.tools.bench_gather
-                   at the script's defaults (3840 tiles, 512 rows, H 64),
-                   then A / B / C against their plain versions at H 64 and
-                   128: errors, median times, bounds, library times
+                   at the script's defaults (3840 tiles, 512 rows, H 64) in
+                   float32 and with --dtype bfloat16, then A / B / C against
+                   their plain versions at H 64 and 128 on float32 and
+                   bfloat16 tables: errors, median times, bounds (A's one-hot
+                   product's operations beside), library times
  19. bench         python -m multi_modal_gnn_tpu_torch.tools.bench --scale
                    --no-dense --quick through run_bench: its JSON line, a
                    finite positive value, the card named in its device, and
@@ -118,16 +120,24 @@ Phases, each printing one line with its seconds:
                    predict("test") within 1e-5
  21. pipeline      conf/eicu_real.yaml through python -m
                    multi_modal_gnn_tpu_torch.pipeline (steps 1-5, 7, 8) at
-                   train seeds 42-44, held to the JAX package's CPU band;
+                   train seeds 42-44, side by side on the card (four
+                   processes with seed 44's run below), held to the JAX
+                   package's CPU band;
                    seed 42's serving artifact loaded on the card: its test
                    pairs against the trainer, predict_patient(denormalize=
                    True), intervals (their coverage of the test split
                    printed), cold start with and without an interval
-                   against ALSBaseline on the artifact's factors; one
-                   use_pallas run (factored heads) with K4f / K4b held to
-                   their plain versions on its train batch
+                   against ALSBaseline on the artifact's factors; seed 44
+                   once more (steps 1-5) with the CPU's dropout and
+                   supervision draws (--draws cpu, tools/cpu_draws.py)
+                   beside the card's own
+                   and the CPU run's epochs and R2; one use_pallas run
+                   (factored heads) with K4f / K4b held to their plain
+                   versions on its train batch
  22. serving-export export_serving with phase 5's RGCN (K1, K2f, K3 launch in
-                   its compute_node_state) and phase 12's HGT (K6): file
+                   its compute_node_state), phase 12's HGT (K6) and phase
+                   5's RGCN in bfloat16 (its bf16 instantiations; its
+                   weights.npz size against the float32 one's): file
                    sizes (the programs under 1 % of weights.npz), load with
                    the CUDA graph captures; ServingModel's answers to three
                    500-lab patients, batches of 256 and 4,096 and a
@@ -151,7 +161,14 @@ Phases, each printing one line with its seconds:
                    alone; (d) the head source with dual_head_fusion on:
                    K4, no K5; (e) the HGT with value context and the
                    embedding source (rank 9), flash tier against segment
-                   tier, peak memory, K6-K8 launched
+                   tier, peak memory, K6-K8 launched; (f) the RGCN of (a)
+                   in bfloat16: its step against the CPU plain step at
+                   phase 27's bounds, bf16 launches per kernel, (b)'s leak
+                   check, and the context sums with bf16 against float32
+                   patient rows in turns beside torch.sparse.mm on a bf16
+                   CSR (its error and time); (g) the HGT of (e) in bfloat16
+                   (its value-context projections), flash against segment
+                   tier at phase 27's bounds
  24. warm-start    conf/eicu_real.yaml with train.extras.warm_start:
                    sideinfo and its channel written out
                    (flagship_band.warm_start_config) through the command
@@ -181,19 +198,27 @@ Phases, each printing one line with its seconds:
                    within twice the drift of four full-batch runs (the
                    count over JAX's elementwise bound printed);
                    (e) full batch, device-resident and host-resident K = 8, 3
-                   epochs each: losses within twice the drift of three
-                   device-resident runs, peak memory (host-resident below
+                   epochs each, 6 device- and 2 host-resident runs in turns
+                   from one init: each run's drift from the first printed,
+                   every host-resident run within twice the largest drift
+                   between device-resident runs, peak memory (host-resident below
                    device-resident by K - 3 clusters' edge sets), epoch ms,
                    launches of a cluster epoch, a profiled host-resident
                    epoch's share of copy time overlapping kernels; (f) the
                    HGT, K = 16, host-resident, 2 epochs: tiers, peak, epoch
                    ms, the validation loss below the untrained one; (g)
-                   run_bench(scale, no dense, quick, clusters=8)'s line
+                   run_bench(scale, no dense, quick, clusters=8, bf16)'s
+                   line; (b) also in bfloat16 (phase 27's bounds; K1 / K2f
+                   bf16, K2b float32); (h) bfloat16 at K = 8: K1 / K2f / K2b
+                   at the cluster sites against their plain versions, timed
+                   in turns with their float32 launches, and 6 device- and
+                   2 host-resident runs under (e)'s check
  26. cluster-quality JAX tests/test_minibatch.py's K > 1 quality pin with the
                    port on the card (eicu_demo, signal 0.6, side-info warm
                    start, 60 epochs): R2 of K = 1 and K = 4 both >= 0.22,
                    within 0.005 of each other, and K = 4 within 0.02 of the
-                   JAX CPU value (JAX_CPU_R2_K4)
+                   JAX CPU value (JAX_CPU_R2_K4); K = 4 once more in
+                   bfloat16: R2 >= 0.22 and within 0.03 of float32's
  27. bf16          model.compute_dtype bfloat16 | auto on phase 3's graph:
                    (a) the tensor-core probe (utils/mxu_probe.py, called
                    directly: its t_f32 / t_bf16 lists and ratios) and
@@ -218,11 +243,12 @@ Phases, each printing one line with its seconds:
                    bf16 quality pin with the port (R2 >= 0.15; f32 beside
                    it) and conf/eicu_real.yaml in bf16 at seed 42 within
                    0.03 of phase 21's float32 run of that seed (the JAX
-                   package's bf16 run beside it), its step 8 refusing the
-                   bf16 model
+                   package's bf16 run beside it), through step 8, its bf16
+                   artifact served on the card as phase 21 serves seed 42's
 Then a JSON line of per-kernel results (a kernel with a bf16 instantiation
-also carries launches_bf16_step and its bf16 results), the nvidia-smi
-line, and the last
+also carries launches_bf16_step and its bf16 results, and its bf16 cluster
+sites and value-context launches; P1's bf16 kernels have rows of their
+own), the nvidia-smi line, and the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero before the last line; without a CUDA device it fails in phase 1.
 """
@@ -307,6 +333,11 @@ FLAGSHIP_R2_MARGIN, FLAGSHIP_MAE_MARGIN = 0.02, 0.015
 # JAX package's band of that derived file with phase 21's margins: `python
 # scripts/flagship_band_jax.py --config <derived file>` on the CPU, seeds
 # 42, 43, 44 in order
+# phase 21: float32 seed 44 with the CPU's random draws on the card, beside
+# the port's CPU run of that seed (tools/flagship_band.py --seeds 44 --device
+# cpu, and the same with --draws cpu: the same 100 epochs and R2)
+STREAM_SEED = 44
+CPU_SEED44 = {"epochs": 100, "r2": 0.3044513639624198}
 JAX_CPU_BAND_SIDEINFO = {
     "r2": (0.27537223719962145, 0.2878246991449701, 0.2853947600452612),
     "mae": (0.5681749143247993, 0.5810189486826384, 0.5760004550891525),
@@ -320,6 +351,10 @@ WARM_START_ATOL = 1e-4
 # phase 23: the bilinear ranks of the RGCN (context and head sources) and of
 # the HGT (embedding source)
 VC_RANK, VC_HGT_RANK = 8, 9
+# phase 23 (f): bf16 predictions drift between runs by a bf16 rounding that
+# goes the other way (float32: by float32 sums in another order), so the
+# visible values must move them by 10 times the drift (float32: 1e3 times)
+VC_LIVE_FACTOR_BF16 = 10
 # phases 21-22: served answers against the eager serving path and the
 # trainer, both on the card (f32 sums of the state's atomics in another order)
 SERVE_ATOL, SERVE_RTOL = 1e-5, 1e-5
@@ -379,6 +414,10 @@ KERNELS = {  # wrapper: (source, the TPU kernel it replaces)
     "gather_probe_indicator": (PROBE_SOURCE, "scripts/bench_gather_impl.py:47"),
     "gather_probe_padded": (PROBE_SOURCE, "scripts/bench_gather_impl.py:47"),
     "gather_probe_direct": (PROBE_SOURCE, "scripts/bench_gather_impl.py:47"),
+    # P1 on bfloat16 tables (the script's --dtype bfloat16)
+    "gather_probe_indicator_bf16": (PROBE_SOURCE, "scripts/bench_gather_impl.py:57"),
+    "gather_probe_padded_bf16": (PROBE_SOURCE, "scripts/bench_gather_impl.py:57"),
+    "gather_probe_direct_bf16": (PROBE_SOURCE, "scripts/bench_gather_impl.py:57"),
 }
 # the RGCN training path's kernels with single heads (phases 8, 9) and with
 # the dual heads (phases 16, 17)
@@ -650,6 +689,29 @@ def _sdpa_yardstick(q, k, v, dout, src, local, tile_map, num_windows, num_heads,
     }
 
 
+def _cut_run_plan(tiles: int, seed: int):
+    """A windowed plan (``local``, ``tile_map``, ``num_windows``) whose tiles
+    hold unsorted runs over six rows of their window, as a span-mode train
+    batch does (each window's slots ordered by lab, so a patient's runs are
+    cut at chunk boundaries that other runs of it follow): runs of 1-8 or
+    1-149 slots, padding at each tile's end, four tiles a window."""
+    import numpy as np
+    import torch
+
+    from multi_modal_gnn_tpu_torch.graph.hetero import TILE_E, WINDOW
+
+    rng = np.random.default_rng(seed)
+    local = np.full((tiles, TILE_E), WINDOW, np.int32)
+    for t in range(tiles):
+        vals = []
+        while len(vals) < TILE_E:
+            vals += [int(rng.integers(0, 6))] * int(rng.integers(1, 9) if rng.random() < 0.5 else rng.integers(1, 150))
+        real = TILE_E - int(rng.integers(0, 100))
+        local[t, :real] = vals[:real]
+    tile_map = np.arange(tiles, dtype=np.int32) // 4
+    return torch.from_numpy(local.reshape(-1)), torch.from_numpy(tile_map), -(-tiles // 4)
+
+
 def _csr(row_ptr, cols, num_rows, num_cols, device):
     """The 0/1 sparse matrix [num_rows, num_cols] of a dst-sorted relation
     (rows = destinations), for torch.sparse.mm."""
@@ -877,6 +939,12 @@ def _flagship_serving_check(run_dir: Path, dev) -> str:
 # fused-table patient tables (1,664 rows); K = 16 for the HGT
 CLUSTER_K, CLUSTER_K_SMALL, CLUSTER_K_HGT = 8, 64, 16
 CLUSTER_EPOCHS, CLUSTER_HGT_EPOCHS = 3, 2
+# (e): device- and host-resident runs from one init, in turns; (h) the same
+# in bfloat16, whose runs drift further apart (a bf16 rounding that goes the
+# other way): three device-resident runs gave a spread of 1.2e-04 in one
+# call and 1.9e-04 in another, so its sample is as large as (e)'s
+CLUSTER_DEVICE_RUNS, CLUSTER_HOST_RUNS = 6, 2
+CLUSTER_DEVICE_RUNS_BF16, CLUSTER_HOST_RUNS_BF16 = 6, 2
 CLUSTER_RANK = 8  # the embedding bilinear source of the step check
 # (d): K = 1 against full batch after 3 epochs, JAX's own bound for this
 # comparison (tests/test_minibatch.py:100-103) on the third loss and the
@@ -1021,6 +1089,63 @@ def _cluster_kernels(cd, label, dev, d) -> dict:
     return sites
 
 
+def _cluster_kernels_bf16(cd, label, dev, d) -> dict:
+    """K1 and K2f in their bfloat16 instantiations and K2b at a partition's
+    cluster shapes (its cluster with the most patient -> lab edges) against
+    their plain versions on bfloat16 rows (as means), each timed in turns
+    with its float32 launch (bf16, f32, f32, bf16) beside its bound for
+    2-byte rows.  A bf16 step launches K2b in float32 (JAX hands the
+    fused-table backward float32); its bf16 instantiation is timed too."""
+    import torch
+
+    from multi_modal_gnn_tpu_torch.graph.hetero import WINDOW
+    from multi_modal_gnn_tpu_torch.graph.schema import PATIENT_LAB, mirror_edge_type
+    from multi_modal_gnn_tpu_torch.ops import aggregation_tier
+    from multi_modal_gnn_tpu_torch.ops import segment_kernels as sk
+
+    k = max(range(len(cd.subgraphs)), key=lambda i: cd.subgraphs[i].edges[PATIENT_LAB].num_valid)
+    g = cd.subgraphs[k].to(dev)
+    gen = torch.Generator().manual_seed(28)
+    sites = {}
+
+    def site(name, rel, kernel, plain, rows, out_rows, per, es):
+        x = torch.randn(rows, d, generator=gen).to(dev)
+        xb = x.to(torch.bfloat16)
+        max_abs, _ = _compare(f"{label} bf16 {name} on {rel}", kernel(xb) / per, plain(xb) / per,
+                              KERNEL_ATOL, KERNEL_RTOL)
+        t = [_median_ms(lambda: kernel(xb)), _median_ms(lambda: kernel(x)), _median_ms(lambda: kernel(x)),
+             _median_ms(lambda: kernel(xb))]
+        bound = _bound(_nbytes(xb, es.win_src, es.win_local, es.win_tile_map) + out_rows * d * 4, es.num_valid * d)
+        entry = {"max_abs_err": max_abs, "ms": (t[0] + t[3]) / 2, "f32_ms": (t[1] + t[2]) / 2, "turns_ms": t,
+                 "plain_ms": _median_ms(lambda: plain(xb), 5), **bound}
+        print(f"    {label} bf16 {name} on {rel}: turns bf16, f32, f32, bf16 {', '.join('%.4f' % v for v in t)} ms; "
+              f"plain {entry['plain_ms']:.4f} ms; bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}, 2-byte rows)",
+              flush=True)
+        sites.setdefault(name, {})[rel] = entry
+
+    for et, es in g.edges.items():
+        rel = "/".join(et)
+        tier = aggregation_tier(es, g.edges[mirror_edge_type(et)], d)
+        plan = (es.win_src, es.win_local, es.win_tile_map)
+        cnt = es.dst_count.clamp_min(1.0)[:, None]
+        out_rows = es.num_windows * WINDOW
+        if tier == "paired":
+            site("segment_sum_windowed", rel, lambda x, es=es, plan=plan: sk.segment_sum_windowed(
+                x, *plan, es.num_windows)[: es.num_dst], lambda x, es=es, plan=plan: sk.segment_sum_windowed_plain(
+                x, *plan, es.num_windows)[: es.num_dst], es.num_src, out_rows, cnt, es)
+        elif tier == "fused_table":
+            site("fused_table_segment_sum", rel, lambda x, es=es, plan=plan: sk.fused_table_segment_sum(
+                x, *plan, es.num_windows)[: es.num_dst], lambda x, es=es, plan=plan: sk.fused_table_segment_sum_plain(
+                x, *plan, es.num_windows)[: es.num_dst], es.num_src, out_rows, cnt, es)
+            per_src = torch.bincount(es.win_src[es.win_local < WINDOW].long(), minlength=es.num_src)
+            site("fused_table_segment_sum_bwd", rel, lambda x, es=es, plan=plan: sk.fused_table_segment_sum_bwd(
+                x, *plan, es.num_src), lambda x, es=es, plan=plan: sk.fused_table_segment_sum_bwd_plain(
+                x, *plan, es.num_src), es.num_dst, es.num_src, per_src.clamp_min(1).double()[:, None], es)
+        else:
+            raise AssertionError(f"{label}: {rel} takes tier {tier}, not paired or fused_table")
+    return sites
+
+
 def plan_of(es):
     """An edge set's windowed plan: (win_src, win_local, win_tile_map)."""
     return es.win_src, es.win_local, es.win_tile_map
@@ -1148,6 +1273,41 @@ def _clusters_phase(dev, graph_cpu, graph, graph_hgt, config, masker, reset_coun
           f"{ref_s:.1f} s on the CPU")
     del tr, tr_ref, model_gpu, model_ref, b_gpu, g_gpu
 
+    # the same step in bfloat16, at phase 27's bounds: K1 and K2f launch
+    # their bf16 instantiations, K2b takes float32 (JAX's fused-table
+    # backward), K3 does not launch
+    cfg_bb = dataclasses.replace(cfg_b, model=dataclasses.replace(cfg_b.model, compute_dtype="bfloat16"))
+    model_gpu = build_model(cfg_bb, graph_cpu, generator=torch.Generator().manual_seed(0))
+    model_ref = build_model(cfg_bb, graph_cpu, device="cpu", generator=torch.Generator().manual_seed(0))
+    tr = MiniBatchTrainer(model_gpu, bundle, masker, cfg_bb, CLUSTER_K, clusters=cd)
+    tr_ref = MiniBatchTrainer(model_ref, bundle, masker, cfg_bb, CLUSTER_K, device="cpu", clusters=cd)
+    b_gpu, g_gpu = tr._ensure_clusters().batches["train"][k][0], tr._ensure_clusters().subgraphs[k]
+    b_ref, g_ref = tr_ref._ensure_clusters().batches["train"][k][0], tr_ref._ensure_clusters().subgraphs[k]
+    reset_counts()
+    loss = tr.train_step(b_gpu, sup.to(dev), 0, graph=g_gpu)
+    torch.cuda.synchronize()
+    bf16_step = {n: sk.launch_counts[n + "_bf16"] for n in ("segment_sum_windowed", "fused_table_segment_sum",
+                                                            "fused_table_segment_sum_bwd", "span_segment_sum")}
+    f32_step = counts_of()
+    loss_ref = tr_ref.train_step(b_ref, sup, 0, graph=g_ref)
+    _compare(f"(b) bf16 cluster {k} step loss", torch.tensor(loss), torch.tensor(loss_ref), 0.0, BF16_LOSS_RTOL)
+    _bf16_grads_close(f"(b) bf16 cluster {k} step, card vs CPU plain",
+                      {n: p.grad for n, p in model_gpu.named_parameters()},
+                      {n: p.grad for n, p in model_ref.named_parameters()})
+    params = dict(model_gpu.named_parameters())
+    for name, p in model_ref.named_parameters():
+        diff = float((params[name].detach().cpu() - p.detach()).abs().max())
+        if diff > STEP_PARAM_ATOL:
+            raise AssertionError(f"(b) bf16 param {name}: max |d| {diff:.3e} > {STEP_PARAM_ATOL}")
+    if not (bf16_step["segment_sum_windowed"] and bf16_step["fused_table_segment_sum"]
+            and f32_step["fused_table_segment_sum_bwd"]) or bf16_step["span_segment_sum"] or f32_step["span_segment_sum"]:
+        raise AssertionError(f"(b) bf16 launches {bf16_step}, float32 {f32_step}: K1 and K2f in bf16 and K2b in "
+                             f"float32 must launch, K3 must not")
+    print(f"    (b) bf16 cluster {k}: loss {loss:.6f} (CPU plain {loss_ref:.6f}); bf16 launches {bf16_step}; float32 "
+          f"launches {f32_step}", flush=True)
+    out["launches_bf16_cluster_step"] = bf16_step
+    del tr, tr_ref, model_gpu, model_ref, b_gpu, g_gpu, b_ref, g_ref
+
     lap("b")
 
     # (c) each cluster-path kernel at its cluster shapes
@@ -1258,32 +1418,50 @@ def _clusters_phase(dev, graph_cpu, graph, graph_hgt, config, masker, reset_coun
 
     full_run = peak_run(lambda: Trainer(build_model(config, graph_cpu, generator=torch.Generator().manual_seed(4)),
                                         graph, masker, config))
-    dev_runs = [peak_run(cluster_trainer(False), count=i == 0) for i in range(3)]
-    dev_run = dev_runs[0]
-    host_tr, host_run = peak_run(cluster_trainer(True), keep=True)
+    def resident_sample(make, n_dev, n_host):
+        """n_dev device- and n_host host-resident runs from one init, in
+        turns (a host-resident run after every n_dev // n_host device-resident
+        ones); the last host-resident trainer is kept."""
+        dev, host, kept = [], [], None
+        for i in range(n_dev):
+            dev.append(peak_run(make(False), count=i == 0))
+            if (i + 1) % (n_dev // n_host) == 0 and len(host) < n_host:
+                kept = None
+                kept, run = peak_run(make(True), keep=True)
+                host.append(run)
+        return dev, host, kept
+
+    dev_runs, host_runs, host_tr = resident_sample(cluster_trainer, CLUSTER_DEVICE_RUNS, CLUSTER_HOST_RUNS)
+    dev_run, host_run = dev_runs[0], host_runs[-1]
     for label, run in (("full batch", full_run), *((f"device-resident {i + 1}", r) for i, r in enumerate(dev_runs)),
-                       ("host-resident", host_run)):
+                       *((f"host-resident {i + 1}", r) for i, r in enumerate(host_runs))):
         print(f"    (e) {label}: train {run['train']} val {run['val']}; epochs {', '.join('%.1f' % t for t in run['ms'])} "
               f"ms; peak {run['peak'] / 2**30:.3f} GiB above what was allocated before "
               f"({run['absolute'] / 2**30:.3f} GiB in all)")
 
-    def rel_drift(a, b):
-        return max(abs(x - y) / abs(y) for key in ("train", "val") for x, y in zip(a[key], b[key]))
+    from multi_modal_gnn_tpu_torch.tools.cluster_drift import rel_drift
 
     # the drift of device-resident runs from one init (the kernels' atomics):
-    # the largest over the three pairs of three runs, as phase 20 measures a pair
+    # the largest over the pairs of CLUSTER_DEVICE_RUNS runs.  Host- and
+    # device-resident runs drift from one population (10 + 10 runs of
+    # tools/cluster_drift.py on the H100), so each host-resident run is held
+    # to twice that spread of the larger sample
     drift = max(rel_drift(a, b) for i, a in enumerate(dev_runs) for b in dev_runs[i + 1:])
-    host_drift = rel_drift(host_run, dev_run)
+    sample = {"device": [rel_drift(r, dev_run) for r in dev_runs[1:]], "host": [rel_drift(r, dev_run) for r in host_runs]}
+    host_drift = max(sample["host"])
+    print(f"    (e) the sample, each run's relative drift from device-resident run 1: device "
+          f"{', '.join('%.3e' % v for v in sample['device'])}; host {', '.join('%.3e' % v for v in sample['host'])}")
     if not host_drift <= 2 * drift:
         raise AssertionError(f"(e) host-resident differs from device-resident by {host_drift:.3e} (relative), "
-                             f"over twice the drift of device-resident runs ({drift:.3e})")
+                             f"over twice the drift of {CLUSTER_DEVICE_RUNS} device-resident runs ({drift:.3e})")
     saved = dev_run["peak"] - host_run["peak"]
     need = (CLUSTER_K - 3) * cluster_bytes
     if saved < need:
         raise AssertionError(f"(e) host-resident's peak is {saved} B below device-resident's, less than "
                              f"{CLUSTER_K - 3} clusters' edge sets ({need} B)")
     print(f"    (e) launches in one device-resident epoch ({CLUSTER_K} steps and the validation): {dev_run['launches']}")
-    print(f"    (e) host-resident vs device-resident: {host_drift:.3e} (relative) <= 2 x drift {drift:.3e}; peak "
+    print(f"    (e) host-resident vs device-resident: {host_drift:.3e} (relative, the largest of {CLUSTER_HOST_RUNS}) <= "
+          f"2 x drift {drift:.3e} ({CLUSTER_DEVICE_RUNS} runs); peak "
           f"{saved} B lower >= {CLUSTER_K - 3} x {cluster_bytes} B")
     from torch.profiler import ProfilerActivity, profile
 
@@ -1332,16 +1510,48 @@ def _clusters_phase(dev, graph_cpu, graph, graph_hgt, config, masker, reset_coun
 
     lap("f")
 
-    # (g) the bench
-    result = bench.run_bench(scale=True, dense=False, quick=True, clusters=CLUSTER_K)
+    # (g) the bench, in bfloat16 (bench --bf16 --clusters 8; the float32
+    # cluster path is (e)'s)
+    # phase 3's graph is the bench's (scale_100k, no dense tier, span 256): not built again
+    result = bench.run_bench(scale=True, dense=False, quick=True, clusters=CLUSTER_K, bf16=True, graph=graph)
     print("    (g) " + json.dumps(result), flush=True)
-    if result.get("clusters") != CLUSTER_K or not result["value"] > 0:
+    if result.get("clusters") != CLUSTER_K or result["compute_dtype"] != "bfloat16" or not result["value"] > 0:
         raise AssertionError(f"(g) the bench line: {result}")
+    if not all(result["kernel_launches"].get(n) for n in ("segment_sum_windowed_bf16", "fused_table_segment_sum_bf16")):
+        raise AssertionError(f"(g) the bf16 cluster bench did not launch K1 / K2f in bf16: {result['kernel_launches']}")
 
     lap("g")
+
+    # (h) bfloat16 at K = 8: K1 / K2f (bf16) and K2b at the cluster sites in
+    # turns with their float32 launches; device- against host-resident runs
+    # from one init under (e)'s check
+    sites_bf16 = {f"K{CLUSTER_K} edges": _cluster_kernels_bf16(cd, f"(h) K {CLUSTER_K}", dev, d)}
+    cfg_h = dataclasses.replace(config, model=dataclasses.replace(config.model, compute_dtype="bfloat16"))
+
+    def bf16_trainer(host):
+        return lambda: MiniBatchTrainer(build_model(cfg_h, graph_cpu, generator=torch.Generator().manual_seed(4)),
+                                        bundle_dev, masker, cfg_h, CLUSTER_K, host_resident=host, clusters=cd)
+
+    dev_bf, host_bf, _ = resident_sample(bf16_trainer, CLUSTER_DEVICE_RUNS_BF16, CLUSTER_HOST_RUNS_BF16)
+    drift_bf = max(rel_drift(a, b) for i, a in enumerate(dev_bf) for b in dev_bf[i + 1:])
+    host_drift_bf = max(rel_drift(r, dev_bf[0]) for r in host_bf)
+    for label, run in (*((f"device-resident {i + 1}", r) for i, r in enumerate(dev_bf)),
+                       *((f"host-resident {i + 1}", r) for i, r in enumerate(host_bf))):
+        print(f"    (h) bf16 {label}: train {run['train']} val {run['val']}; epochs "
+              f"{', '.join('%.1f' % t for t in run['ms'])} ms; peak {run['peak'] / 2**30:.3f} GiB")
+    print(f"    (h) bf16 host-resident vs device-resident: {host_drift_bf:.3e} (relative) <= 2 x drift {drift_bf:.3e} "
+          f"({CLUSTER_DEVICE_RUNS_BF16} runs)", flush=True)
+    if not host_drift_bf <= 2 * drift_bf:
+        raise AssertionError(f"(h) bf16 host-resident differs from device-resident by {host_drift_bf:.3e}, over "
+                             f"twice the drift of device-resident runs ({drift_bf:.3e})")
+    if not all(math.isfinite(x) for r in (*dev_bf, *host_bf) for key in ("train", "val") for x in r[key]):
+        raise AssertionError("(h) non-finite bf16 cluster losses")
+
+    lap("h")
     out.update(
-        launches_cluster_epoch=dev_run["launches"], sites=sites, summary=dict(
-            build_s=build_s, cluster_bytes=cluster_bytes, drift=drift, host_drift=host_drift,
+        launches_cluster_epoch=dev_run["launches"], sites=sites, sites_bf16=sites_bf16, summary=dict(
+            build_s=build_s, cluster_bytes=cluster_bytes, drift=drift, host_drift=host_drift, sample=sample,
+            drift_bf16=drift_bf, host_drift_bf16=host_drift_bf,
             peaks={"full": full_run["peak"], "device": dev_run["peak"], "host": host_run["peak"]},
             epoch_ms={"full": full_run["ms"], "device": dev_run["ms"], "host": host_run["ms"]},
             overlap=share, hgt_peak=h_peak, hgt_ms=h_ms, bench=result["value"],
@@ -1385,11 +1595,13 @@ def _cluster_quality_phase(dev) -> dict:
     )
     memberships = bundle_membership_matrix(bundle)
     runs = {}
-    for k in (1, 4):
+    for k, dtype in ((1, "float32"), (4, "float32"), (4, "bfloat16")):
         t_run = time.perf_counter()
         masker = EdgeMasker(bundle.graph, seed=42)
-        model = build_model(cfg, bundle.graph, generator=torch.Generator().manual_seed(stream_seed(cfg.train.seed, "init")))
-        tr = Trainer(model, bundle.graph, masker, cfg) if k == 1 else MiniBatchTrainer(model, bundle, masker, cfg, k)
+        cfg_k = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype=dtype))
+        model = build_model(cfg_k, bundle.graph,
+                            generator=torch.Generator().manual_seed(stream_seed(cfg.train.seed, "init")))
+        tr = Trainer(model, bundle.graph, masker, cfg_k) if k == 1 else MiniBatchTrainer(model, bundle, masker, cfg_k, k)
         warm_start_trainer(tr, rank=8, reg=12.0, memberships=memberships)
         for _ in range(QUALITY_EPOCHS):
             tr.train_epoch()
@@ -1400,16 +1612,21 @@ def _cluster_quality_phase(dev) -> dict:
             tr.epoch += 1
         _, _, te_v = masker.split_arrays("test")
         r2 = compute_regression_metrics(tr.predict("test", state=tr.best_state).astype(np.float64), te_v)["r2"]
-        runs[k] = r2
-        print(f"    K = {k}: test R2 {r2:.6f} (best val loss {tr.best_val_loss:.6f}); {time.perf_counter() - t_run:.1f} s",
-              flush=True)
-    r2_full, r2_k4 = runs[1], runs[4]
+        runs[(k, dtype)] = r2
+        print(f"    K = {k}, {dtype}: test R2 {r2:.6f} (best val loss {tr.best_val_loss:.6f}); "
+              f"{time.perf_counter() - t_run:.1f} s", flush=True)
+    r2_full, r2_k4, r2_k4_bf16 = runs[(1, "float32")], runs[(4, "float32")], runs[(4, "bfloat16")]
     if not (r2_full >= QUALITY_R2_MIN and r2_k4 >= QUALITY_R2_MIN and abs(r2_full - r2_k4) <= QUALITY_R2_GAP):
         raise AssertionError(f"cluster quality: R2 K=1 {r2_full:.4f}, K=4 {r2_k4:.4f} (JAX's criterion: both >= "
                              f"{QUALITY_R2_MIN}, |gap| <= {QUALITY_R2_GAP})")
     if not abs(r2_k4 - JAX_CPU_R2_K4) <= QUALITY_JAX_MARGIN:
         raise AssertionError(f"cluster quality: K=4 R2 {r2_k4:.4f} outside {JAX_CPU_R2_K4:.4f} +- {QUALITY_JAX_MARGIN}")
-    return {"r2_k1": r2_full, "r2_k4": r2_k4}
+    # the same K = 4 recipe in bfloat16: JAX's bar, and within bf16's noise
+    # budget of the float32 run above
+    if not (r2_k4_bf16 >= QUALITY_R2_MIN and abs(r2_k4_bf16 - r2_k4) <= BF16_NOISE_BUDGET):
+        raise AssertionError(f"cluster quality in bf16: K=4 R2 {r2_k4_bf16:.4f} (>= {QUALITY_R2_MIN}, within "
+                             f"{BF16_NOISE_BUDGET} of float32's {r2_k4:.4f})")
+    return {"r2_k1": r2_full, "r2_k4": r2_k4, "r2_k4_bf16": r2_k4_bf16}
 
 
 def _bf16_close(name: str, got, want) -> float:
@@ -1430,20 +1647,22 @@ def _bf16_close(name: str, got, want) -> float:
     return float(err.max())
 
 
-def _bf16_grads_close(name: str, got: dict, want: dict) -> None:
+def _bf16_grads_close(name: str, got: dict, want: dict, zero=None) -> None:
     """A bfloat16 step's gradients against another bfloat16 step's, per
     tensor: ``||got - want|| <= BF16_STEP_GRAD_NORM_REL * ||want||`` plus
     1e-6 of the step's largest gradient norm.  A bias right before a
-    BatchNorm has a gradient of 0 in exact arithmetic: each side holds its
-    own rounding noise, and ``got``'s is held to twice ``want``'s."""
+    BatchNorm (``zero``, default :func:`_feeds_batch_norm`) has a gradient of
+    0 in exact arithmetic: each side holds its own rounding noise, and
+    ``got``'s is held to twice ``want``'s."""
     import torch
 
     largest = max(float(g.norm()) for g in want.values())
     floor = STEP_GRAD_ZERO_FLOOR * largest
     drift, failed = {}, []
+    zero = zero or _feeds_batch_norm
     for key, ref in want.items():
         a, b = got[key].double().cpu(), ref.double().cpu()
-        if _feeds_batch_norm(key):
+        if zero(key):
             ok = float(a.norm()) <= 2 * float(b.norm()) + floor
         else:
             diff, norm = float(torch.linalg.vector_norm(a - b)), float(torch.linalg.vector_norm(b))
@@ -1465,6 +1684,15 @@ def _feeds_batch_norm(name: str) -> bool:
     return name.endswith(".bias") and (
         name.startswith("conv_") or name in ("patient_encoder.dense_0.bias", "patient_encoder.dense_1.bias")
     )
+
+
+def _vctx_rgcn_zero(name: str) -> bool:
+    """The value-context RGCN's parameters with a gradient of 0 in exact
+    arithmetic: the BatchNorm-fed biases and the value-context biases
+    (each shifts every patient or lab row alike, and those rows reach the
+    loss only through mean aggregations into BatchNorm;
+    tests/test_torch_bf16_slice.py)."""
+    return _feeds_batch_norm(name) or name in ("vctx_patient.bias", "vctx_lab.bias")
 
 
 def _bf16_state_close(name: str, got, want, f32) -> float:
@@ -1497,7 +1725,6 @@ def _bf16_phase(dev, graph_cpu, graph, graph_hgt, config, hgt_config, dual_confi
     import torch
 
     from multi_modal_gnn_tpu_torch import pipeline
-    from multi_modal_gnn_tpu_torch.config import ConfigError
     from multi_modal_gnn_tpu_torch.data import SyntheticSpec
     from multi_modal_gnn_tpu_torch.data.synthetic import generate_synthetic_tables
     from multi_modal_gnn_tpu_torch.evaluation.metrics import compute_regression_metrics
@@ -1831,7 +2058,8 @@ def _bf16_phase(dev, graph_cpu, graph, graph_hgt, config, hgt_config, dual_confi
                                   graph, masker, BF16_RGCN_EPOCHS)
     out["hgt"] = epochs_in_turns({"HGT bf16": with_dtype(hgt_config, "bfloat16"), "HGT f32": hgt_config},
                                  graph_hgt, masker, BF16_HGT_EPOCHS)
-    line = bench.run_bench(scale=True, dense=False, quick=True, bf16=True)
+    # phase 3's graph is the bench's (scale_100k, no dense tier, span 256): not built again
+    line = bench.run_bench(scale=True, dense=False, quick=True, bf16=True, graph=graph)
     print("    (e) bench --scale --no-dense --quick --bf16: " + json.dumps(line), flush=True)
     if line["compute_dtype"] != "bfloat16" or not line["value"] > 0 or "mxu_bf16_speedup" not in line:
         raise AssertionError(f"bench --bf16: {line}")
@@ -1868,26 +2096,23 @@ def _bf16_phase(dev, graph_cpu, graph, graph_hgt, config, hgt_config, dual_confi
         )
         opts = pipeline.RunOptions(device=dev)
         flag_s = {}
-        for index in (0, 1, 2, 3, 4):
-            name, _, step, _ = pipeline.STEPS[index]
+        for name, _, step, _ in pipeline.STEPS:  # every ported step: 1-5, 7 and 8
+            if step is None:
+                continue
             step_t = time.perf_counter()
             step(flag_cfg, opts)
             flag_s[name] = time.perf_counter() - step_t
-        name, _, step, _ = pipeline.STEPS[7]
-        try:  # the serving artifact of a bf16 model waits for its slice
-            step(flag_cfg, opts)
-        except ConfigError as exc:
-            refusal = str(exc)
-        else:
-            raise AssertionError("pipeline step 8 exported a bf16 model")
-        if "ROADMAP.md queue 1 item 11" not in refusal:
-            raise AssertionError(f"step 8's refusal names no ROADMAP item: {refusal}")
         flag = flagship_band.read_result(tmp / "out")
+        if flag["missing"]:
+            raise AssertionError(f"the bf16 flagship run left out {flag['missing']}")
+        # step 8's bf16 artifact served on the card, as phase 21 serves float32's
+        served = _flagship_serving_check(tmp, dev)
     print(f"    (f) conf/eicu_real.yaml, compute_dtype bfloat16, seed {FLAGSHIP_SEEDS[0]}: steps "
           + ", ".join(f"{k} {v:.2f} s" for k, v in flag_s.items())
           + f"; {flag['epochs']} epochs; guarded R2 {flag['r2']:.6f}, MAE {flag['mae']:.6f} (phase 21's "
           f"float32 seed {FLAGSHIP_SEEDS[0]}: {flagship_r2_f32:.6f}; the JAX package's bf16 run, CPU: "
-          f"{JAX_CPU_BF16_R2_42:.6f}); step 8 refuses: {refusal}", flush=True)
+          f"{JAX_CPU_BF16_R2_42:.6f})", flush=True)
+    print(f"    (f) the bf16 step-8 artifact: {served}", flush=True)
     if flag["leak"] or not abs(flag["r2"] - flagship_r2_f32) <= BF16_NOISE_BUDGET:
         raise AssertionError(f"bf16 flagship: R2 {flag['r2']:.6f} not within {BF16_NOISE_BUDGET} of phase 21's "
                              f"float32 {flagship_r2_f32:.6f}, or the audit reports a leak")
@@ -2038,6 +2263,21 @@ def main() -> int:
         mean_of(sk.segment_sum_windowed_plain(g1, None, es1.win_local, es1.win_tile_map, es1.num_windows), es1),
         KERNEL_ATOL, KERNEL_RTOL,
     )
+    # K1 on tiles of unsorted runs cut at chunk boundaries (a span-mode train
+    # batch's patient plan, the backward of take_rows), from pre-gathered
+    # rows and from the 100,000-row patient table, at the context bilinear
+    # source's width and at d
+    cut_local, cut_map, cut_windows = _cut_run_plan(256, seed=0)
+    cut = (cut_local.to(dev), cut_map.to(dev), cut_windows)
+    n_patients = graph.num_nodes(PATIENT)
+    for w in (VC_RANK, d):
+        rows_w = torch.randn(cut_local.shape[0], w, generator=gen).to(dev)
+        table_w = torch.randn(n_patients, w, generator=gen).to(dev)
+        idx_w = torch.randint(0, n_patients, (cut_local.shape[0],), generator=gen, dtype=torch.int32).to(dev)
+        for route, src, idx in (("gathered", rows_w, None), ("global", table_w, idx_w)):
+            _compare_scaled(f"segment_sum_windowed on unsorted tiles with cut runs, D {w}, {route} rows",
+                            sk.segment_sum_windowed(src, idx, *cut), sk.segment_sum_windowed_plain(src, idx, *cut),
+                            1e-4)
 
     # K1 on the other relations it aggregates (the paired tier's forward),
     # each against torch.sparse.mm; the largest above heads the JSON entry
@@ -3161,55 +3401,62 @@ def main() -> int:
     # 18. gather-probe -----------------------------------------------------
     t0 = time.perf_counter()
     gp.reset_launch_counts()
-    tool = bench_gather.main([])  # the tool at the script's defaults
+    tool = {dtype: bench_gather.main(["--dtype", dtype]) for dtype in ("float32", "bfloat16")}  # the script's defaults
     probe_launches = dict(gp.launch_counts)  # the probe's path ends here
     if not all(probe_launches.values()):
         raise AssertionError(f"a kernel of the gather probe did not launch: {probe_launches}")
     probe_results = {}
-    for h in (64, 128):
-        args = bench_gather.parse_args(["--h", str(h)])
-        idx, table, padded = (torch.from_numpy(a).to(dev) for a in bench_gather.make_inputs(args))
-        n_slots = idx.shape[0]
-        # kernel, its table, library call, FLOPs of the function (each slot's
-        # row sum); A's one-hot product does rows times that work, reported
-        # apart as onehot_ops_ms and not used as its bound
-        work = {
-            "gather_probe_indicator": (
-                lambda: gp.gather_probe_indicator(idx, table), table,
-                lambda: torch.index_select(table, 0, idx).sum(1), float(n_slots * h),
-            ),
-            "gather_probe_padded": (
-                lambda: gp.gather_probe_padded(idx, padded, h), padded,
-                lambda: torch.index_select(padded, 0, idx)[:, :h].sum(1), float(n_slots * h),
-            ),
-            "gather_probe_direct": (
-                lambda: gp.gather_probe_direct(idx, table), table,
-                lambda: torch.index_select(table, 0, idx).sum(1), float(n_slots * h),
-            ),
-        }
-        for name, (kernel, tbl, library, flops) in work.items():
-            plain = lambda tbl=tbl: gp.gather_rowsum_plain(idx, tbl, h)  # noqa: E731
-            err = _compare_scaled(f"{name}, H {h}", kernel(), plain(), 1e-5)
-            ms, plain_ms = _median_ms(kernel), _median_ms(plain)
-            bound = _bound(_nbytes(idx, tbl) + n_slots * 4, flops)
-            if name == "gather_probe_indicator":
-                bound["onehot_ops_ms"] = 2.0 * n_slots * args.rows * h / FP32_FLOPS * 1e3
-                layout = f"  one-hot product's operations {bound['onehot_ops_ms']:.4f} ms"
-            else:
-                layout = "  table in shared memory" if gp.direct_staged(*tbl.shape) else "  table through L2"
-            print(
-                f"    {name}, H {h}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound['bound_ms']:.4f} ms "
-                f"({bound['bound_by']}){layout}"
-            )
-            probe_results.setdefault(name, {})[h] = {
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound,
-                "library_ms": _library_ms(f"{name} (index_select + sum), H {h}", library),
+    for dtype in ("float32", "bfloat16"):
+        suffix = "_bf16" if dtype == "bfloat16" else ""
+        for h in (64, 128):
+            args = bench_gather.parse_args(["--h", str(h), "--dtype", dtype])
+            idx, table, padded = bench_gather.to_device(args, bench_gather.make_inputs(args), dev)
+            n_slots = idx.shape[0]
+            # kernel, its table, library call, FLOPs of the function (each slot's
+            # row sum); A's one-hot product does rows times that work, reported
+            # apart as onehot_ops_ms (at the table dtype's peak) and not used as
+            # its bound
+            work = {
+                "gather_probe_indicator": (
+                    lambda: gp.gather_probe_indicator(idx, table), table,
+                    lambda: torch.index_select(table, 0, idx).sum(1, dtype=torch.float32), float(n_slots * h),
+                ),
+                "gather_probe_padded": (
+                    lambda: gp.gather_probe_padded(idx, padded, h), padded,
+                    lambda: torch.index_select(padded, 0, idx)[:, :h].sum(1, dtype=torch.float32),
+                    float(n_slots * h),
+                ),
+                "gather_probe_direct": (
+                    lambda: gp.gather_probe_direct(idx, table), table,
+                    lambda: torch.index_select(table, 0, idx).sum(1, dtype=torch.float32), float(n_slots * h),
+                ),
             }
-        del idx, table, padded, work
+            for name, (kernel, tbl, library, flops) in work.items():
+                plain = lambda tbl=tbl: gp.gather_rowsum_plain(idx, tbl, h)  # noqa: E731
+                err = _compare_scaled(f"{name} ({dtype}), H {h}", kernel(), plain(), 1e-5)
+                ms, plain_ms = _median_ms(kernel), _median_ms(plain)
+                bound = _bound(_nbytes(idx, tbl) + n_slots * 4, flops)
+                if name == "gather_probe_indicator":
+                    peak = BF16_FLOPS if dtype == "bfloat16" else FP32_FLOPS
+                    bound["onehot_ops_ms"] = 2.0 * n_slots * args.rows * h / peak * 1e3
+                    layout = f"  one-hot product's operations {bound['onehot_ops_ms']:.4f} ms"
+                else:
+                    staged = gp.direct_staged(*tbl.shape, tbl.dtype)
+                    layout = "  table in shared memory" if staged else "  table through L2"
+                print(
+                    f"    {name} ({dtype}), H {h}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+                    f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}){layout}"
+                )
+                probe_results.setdefault(name + suffix, {})[h] = {
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound,
+                    "library_ms": _library_ms(f"{name} ({dtype}, index_select + sum), H {h}", library),
+                }
+            del idx, table, padded, work
     _phase(
         "gather-probe", t0,
-        "bench_gather at the script's defaults: " + ", ".join(f"{k} {v['ms']:.4f} ms" for k, v in tool.items())
-        + f"; launches {probe_launches}",
+        "bench_gather at the script's defaults: " + "; ".join(
+            f"{dtype} " + ", ".join(f"{k} {v['ms']:.4f} ms" for k, v in res.items()) for dtype, res in tool.items()
+        ) + f"; launches {probe_launches}",
     )
 
     # 19. bench ------------------------------------------------------------
@@ -3356,8 +3603,22 @@ def main() -> int:
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
+        # the seeds' command lines (and seed 44 with the CPU's draws, below)
+        # run side by side on the card: each is its own process over a
+        # 1,834-patient graph, so their step seconds are under that load
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(max_workers=len(FLAGSHIP_SEEDS) + 1) as pool:
+            pending = {seed: pool.submit(flagship_band.run_seed, flagship, seed, tmp / f"seed{seed}", device="cuda")
+                       for seed in FLAGSHIP_SEEDS}
+            # float32 seed 44 stops early on the card (ROADMAP section 3): the
+            # same run with the CPU's dropout and supervision draws
+            # (tools/cpu_draws.py) trains as the CPU run does
+            pending_draws = pool.submit(flagship_band.run_seed, flagship, STREAM_SEED, tmp / "cpu_draws",
+                                        device="cuda", steps="1-5", draws="cpu")
+            runs.update({seed: future.result() for seed, future in pending.items()})
+            draws = pending_draws.result()
         for seed in FLAGSHIP_SEEDS:
-            runs[seed] = flagship_band.run_seed(flagship, seed, tmp / f"seed{seed}", device="cuda")
             run = runs[seed]
             print(
                 f"    seed {seed}: steps "
@@ -3367,6 +3628,10 @@ def main() -> int:
                 flush=True,
             )
         print(f"    {_flagship_serving_check(tmp / f'seed{FLAGSHIP_SEEDS[0]}', dev)}", flush=True)
+        print(f"    seed {STREAM_SEED} with the CPU's draws on the card: {draws['epochs']} epochs, guarded R2 "
+              f"{draws['r2']:.6f} (the card's own draws above: {runs[STREAM_SEED]['epochs']} epochs, R2 "
+              f"{runs[STREAM_SEED]['r2']:.6f}; the CPU run: {CPU_SEED44['epochs']} epochs, R2 {CPU_SEED44['r2']:.6f})",
+              flush=True)
         # the kernel path in this process: factored heads over a slot-major
         # train batch (K4f / K4b); the aggregations take the dense tier.  At
         # 1,834 patients the flagship's train batch (42,315 rows) lies below
@@ -3456,12 +3721,17 @@ def main() -> int:
     export_launches, serving_times = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        # phase 5's seeded RGCN on phase 3's graph, phase 12's HGT on its plans
+        # phase 5's seeded RGCN on phase 3's graph, phase 12's HGT on its
+        # plans, and phase 5's RGCN in bfloat16 (its bf16 leaves stored as
+        # bit patterns)
+        rgcn_bf16 = dataclasses.replace(config, model=dataclasses.replace(config.model, compute_dtype="bfloat16"))
         for arch, cfg, g, must_launch in (
             ("RGCN", config, graph, ("segment_sum_windowed", "fused_table_segment_sum", "span_segment_sum")),
             ("HGT", hgt_config, graph_hgt, ("flash_attention_fwd",)),
+            ("RGCN bf16", rgcn_bf16, graph,
+             ("segment_sum_windowed_bf16", "fused_table_segment_sum_bf16", "span_segment_sum_bf16")),
         ):
-            if arch == "RGCN":
+            if arch.startswith("RGCN"):
                 model = build_model(cfg, graph_cpu, device="cpu", generator=torch.Generator().manual_seed(0)).to(dev)
             else:
                 model = build_model(cfg, graph_cpu, generator=torch.Generator().manual_seed(0))
@@ -3491,9 +3761,18 @@ def main() -> int:
             fn, _ = build_serving_fn(model, g)
             serving_times[arch] = {
                 "export_s": export_s, "load_s": load_s, "bytes": sizes,
-                **_served_vs_eager(served, fn, serve_requests if arch == "RGCN" else serve_requests[:SERVE_PATIENTS],
+                **_served_vs_eager(served, fn, serve_requests if arch.startswith("RGCN") else serve_requests[:SERVE_PATIENTS],
                                    num_l, arch),
             }
+            if arch == "RGCN bf16":
+                manifest = json.loads((tmp / arch / "serving.json").read_text())
+                bf16_leaves = [n for n, t in zip(manifest["leaves"], manifest["leaf_dtypes"]) if t == "bfloat16"]
+                f32_bytes = serving_times["RGCN"]["bytes"]["weights.npz"]
+                print(f"    RGCN bf16: weights.npz {sizes['weights.npz']} B against the float32 artifact's {f32_bytes} B "
+                      f"({sizes['weights.npz'] / f32_bytes:.4f}); bfloat16 leaves (uint16 bit patterns) {bf16_leaves}",
+                      flush=True)
+                if not bf16_leaves:
+                    raise AssertionError("the bf16 RGCN's artifact holds no bfloat16 leaf")
             # the device time of a request: each bucket's graph replayed alone
             serving_times[arch]["replay_ms"] = {b: _median_ms(served._buckets[b].graph.replay) for b in served.buckets}
             print(
@@ -3529,7 +3808,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     _phase(
         "serving-export", t0,
-        "export_serving / ServingModel on the card for the RGCN (K1, K2f, K3 in its export) and the HGT (K6): "
+        "export_serving / ServingModel on the card for the RGCN (K1, K2f, K3 in its export), the HGT (K6) and the "
+        "RGCN in bfloat16 (their bf16 instantiations): "
         "answers within the eager serving path's, the programs under 1 % of weights.npz, the card's artifact "
         "on the CPU and a CPU artifact on the card; p50 artifact / eager: " + "; ".join(
             f"{arch} {kind} {t['artifact_p50_ms']:.4f} / {t['eager_p50_ms']:.4f} ms"
@@ -3753,8 +4033,8 @@ def main() -> int:
 
     # (e) the HGT on phase 3's graph, flash tier against the segment tier,
     # value context and the embedding source at rank VC_HGT_RANK
-    def hgt_vc_steps(g_flash, g_seg, g_cpu, hgt_masker):
-        cfg = channel_config(hgt_config, "embedding", VC_HGT_RANK)
+    def hgt_vc_steps(g_flash, g_seg, g_cpu, hgt_masker, base=hgt_config):
+        cfg = channel_config(base, "embedding", VC_HGT_RANK)
         cfg_seg = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, extras={**cfg.model.extras, "hgt_flash": "off"}))
         sup_h = hgt_masker.supervision_mask(0, hgt_masker.get_split("train")).to(dev)
@@ -3806,6 +4086,124 @@ def main() -> int:
     )
     del steps, flash, seg
     torch.cuda.empty_cache()
+
+    # (f) the value context in bfloat16: the RGCN's step on the card against
+    # the CPU plain step at phase 27's bounds, its launches, the leak check
+    # of (b), and the context sums in bfloat16 against float32, in turns
+    bf = torch.bfloat16
+
+    def with_bf16(base):
+        return dataclasses.replace(base, model=dataclasses.replace(base.model, compute_dtype="bfloat16"))
+
+    vc_bf = channel_config(with_bf16(config), "context", VC_RANK)
+    model_gpu = build_model(vc_bf, graph_cpu, generator=torch.Generator().manual_seed(0))
+    model_ref = build_model(vc_bf, graph_cpu, device="cpu", generator=torch.Generator().manual_seed(0))
+    trainer = Trainer(model_gpu, graph, masker, vc_bf)
+    trainer_ref = Trainer(model_ref, graph_cpu, masker, vc_bf, device="cpu")
+    b_gpu, b_ref = trainer.get_batch("train"), trainer_ref.get_batch("train")
+    reset_counts()
+    loss = trainer.train_step(b_gpu, sup.to(dev), 0)
+    torch.cuda.synchronize()
+    counts = {**sk.launch_counts, **pk.launch_counts}
+    vc_bf16_launches = {name: counts[name + "_bf16"] for name in RGCN_KERNELS}
+    vc_bf16_f32 = read_counts()
+    if not (all(vc_bf16_launches[n] for n in RGCN_KERNELS if n != "fused_table_segment_sum_bwd")
+            and vc_bf16_f32["fused_table_segment_sum_bwd"]):
+        raise AssertionError(f"(f) the bf16 value-context step: bf16 launches {vc_bf16_launches}, float32 "
+                             f"{vc_bf16_f32}: K1, K2f, K3, K4f, K4b in bf16 and K2b in float32 must launch")
+    t_ref = time.perf_counter()
+    loss_ref = trainer_ref.train_step(b_ref, sup, 0)
+    ref_s = time.perf_counter() - t_ref
+    _compare("(f) bf16 value-context step loss", torch.tensor(loss), torch.tensor(loss_ref), 0.0, BF16_LOSS_RTOL)
+    _bf16_grads_close("(f) bf16 value-context step, card vs CPU plain",
+                      {n: p.grad for n, p in model_gpu.named_parameters()},
+                      {n: p.grad for n, p in model_ref.named_parameters()}, zero=_vctx_rgcn_zero)
+    params = dict(model_gpu.named_parameters())
+    for name, p_ref in model_ref.named_parameters():
+        diff = float((params[name].detach().cpu() - p_ref.detach()).abs().max())
+        if diff > STEP_PARAM_ATOL:
+            raise AssertionError(f"(f) bf16 value-context param {name}: max |d| {diff:.3e} > {STEP_PARAM_ATOL}")
+    print(f"    (f) bf16, context source rank {VC_RANK}: loss {loss:.6f} (CPU plain {loss_ref:.6f}, {ref_s:.1f} s); "
+          f"params within {STEP_PARAM_ATOL:g}; bf16 launches {vc_bf16_launches}; float32 launches {vc_bf16_f32}",
+          flush=True)
+    del model_ref, trainer_ref
+    g_vis = trainer._visible_graph(sup.to(dev))  # step_preds and perturbed read model_gpu, b_gpu, g_vis
+    plain_runs = [step_preds(g_vis) for _ in range(4)]
+    drift_bf = max(float((a - b).abs().max()) for i, a in enumerate(plain_runs) for b in plain_runs[i + 1:])
+    leak_bf = min(float((p - a).abs().max()) for p in [step_preds(perturbed(hidden, 1)) for _ in range(2)]
+                  for a in plain_runs)
+    live_bf = float((step_preds(perturbed(visible, 2)) - plain_runs[0]).abs().max())
+    print(f"    (f) bf16 leakage: hidden values perturbed move the step's predictions by {leak_bf:.3e} (the closest "
+          f"of 2 perturbed runs to 4 unperturbed ones); the unperturbed runs differ by up to {drift_bf:.3e}; the "
+          f"visible train values perturbed move them by {live_bf:.3e}", flush=True)
+    if not leak_bf <= drift_bf:
+        raise AssertionError(f"(f) bf16 value leak: {leak_bf:.3e} > drift {drift_bf:.3e}")
+    if not live_bf > VC_LIVE_FACTOR_BF16 * max(drift_bf, 1e-7):
+        raise AssertionError(f"(f) the bf16 value channel reads no visible value: {live_bf:.3e}")
+    # the context sums of both sides (the bf16 RGCN's tables: patient rows
+    # in bf16, lab rows in float32), forward and backward, bf16 against
+    # float32 patient rows in turns (bf16, f32, f32, bf16)
+    es = g_vis.edges[PATIENT_LAB]
+    x_l = torch.randn(num_l, d, device=dev, requires_grad=True)
+    x_ps = {dtype: torch.randn(num_p, d, device=dev).to(dtype).requires_grad_() for dtype in (bf, torch.float32)}
+    g_p, g_l = torch.randn(num_p, d, device=dev), torch.randn(num_l, d, device=dev)
+
+    def sums(dtype, backward):
+        s_ = context_mod._Sums(es, dev)
+        (wsum_l, _), (wsum_p, _) = s_.lab(x_ps[dtype]), s_.patient(x_l)
+        if backward:
+            torch.autograd.backward([wsum_l, wsum_p], [g_l.to(wsum_l.dtype), g_p])
+
+    vc_sums = {}
+    for backward in (False, True):
+        with torch.set_grad_enabled(backward):
+            t = [_median_ms(lambda dt=dt: sums(dt, backward)) for dt in (bf, torch.float32, torch.float32, bf)]
+        vc_sums["forward + backward" if backward else "forward"] = {"bf16_ms": (t[0] + t[3]) / 2,
+                                                                    "f32_ms": (t[1] + t[2]) / 2, "turns_ms": t}
+    # the library yardstick: one torch.sparse.mm of a bfloat16 CSR matrix and
+    # the bf16 rows (the route the port does not take), its error against the
+    # float32 sums of the same bfloat16 operands beside the port's
+    with torch.no_grad():
+        e = es.num_valid
+        v = (es.val * es.val_vis)[:e].to(bf)
+        a_bf = torch.sparse_csr_tensor(es.row_ptr, es.src[:e], v, (es.num_dst, es.num_src), check_invariants=False)
+        a_32 = torch.sparse_csr_tensor(es.row_ptr, es.src[:e], v.float(), (es.num_dst, es.num_src),
+                                       check_invariants=False)
+        xb = x_ps[bf].detach()
+        ref = torch.sparse.mm(a_32, xb.float())
+        ours = context_mod._Sums(es, dev).lab(xb)[0].float()
+        native = torch.sparse.mm(a_bf, xb).float()
+        native_ms = _median_ms(lambda: torch.sparse.mm(a_bf, xb))
+    ours_err, native_err = float((ours - ref).abs().max()), float((native - ref).abs().max())
+    scale = float(ref.abs().max())
+    print("    (f) the context sums, bf16 / float32 patient rows (CUDA events, median of "
+          f"{TIMING_REPS}, in turns): " + ", ".join(f"{k} {v['bf16_ms']:.4f} / {v['f32_ms']:.4f} ms" for k, v in
+                                                   vc_sums.items())
+          + f"; the lab side against the float32 sums of its bf16 operands (max|ref| {scale:.3e}): the port's "
+          f"{ours_err:.3e} (rounded once), torch.sparse.mm on a bf16 CSR {native_err:.3e} in {native_ms:.4f} ms",
+          flush=True)
+    if not ours_err <= BF16_ULP * scale:
+        raise AssertionError(f"(f) the bf16 context sums are {ours_err:.3e} off their float32 sums")
+    del model_gpu, trainer, g_vis, plain_runs, es, x_l, x_ps, a_bf, a_32, xb, ref, ours, native
+    torch.cuda.empty_cache()
+
+    # (g) the HGT with value context in bfloat16 (its vctx projections only),
+    # flash tier against segment tier at phase 27's bounds
+    steps = hgt_vc_steps(graph_hgt, graph_seg, graph_cpu, masker, base=with_bf16(hgt_config))
+    flash, seg = steps["flash"], steps["segment"]
+    if not all(flash["launches"].values()) or any(seg["launches"].values()):
+        raise AssertionError(f"(g) launches: flash tier {flash['launches']}, segment tier {seg['launches']}")
+    _compare("(g) bf16 HGT value-context step loss, flash vs segment tier", torch.tensor(flash["loss"]),
+             torch.tensor(seg["loss"]), 0.0, BF16_LOSS_RTOL)
+    _bf16_grads_close("(g) bf16 HGT value-context step, flash vs segment", flash["grads"], seg["grads"])
+    for name, p_seg in seg["params"].items():
+        diff = float((flash["params"][name] - p_seg).abs().max())
+        if diff > STEP_PARAM_ATOL:
+            raise AssertionError(f"(g) bf16 HGT value-context param {name}: max |d| {diff:.3e} > {STEP_PARAM_ATOL}")
+    print(f"    (g) bf16 HGT, embedding source rank {VC_HGT_RANK}: loss {flash['loss']:.6f} (segment tier "
+          f"{seg['loss']:.6f}); peak flash {flash['peak_gb']:.2f} GiB; launches {flash['launches']}", flush=True)
+    del steps, flash, seg
+    torch.cuda.empty_cache()
     _phase(
         "value-context", t0,
         f"(a) the step on the card matches the CPU plain step; (b) leak {leak:.3e} <= drift {drift:.3e}; "
@@ -3814,7 +4212,9 @@ def main() -> int:
         f"(phase 9 without the channels: {rgcn_train[0]:.2f} ms, {rgcn_train[1]:.1f}); context sums "
         f"forward {ctx_ms['inject forward']:.4f} + {ctx_ms['context term forward']:.4f} ms (index_add_: "
         f"{ctx_plain_ms['inject forward']:.4f} + {ctx_plain_ms['context term forward']:.4f}); (d) K4 without K5; "
-        f"(e) HGT flash matches segment",
+        f"(e) HGT flash matches segment; (f) bf16: the step matches the CPU plain step, leak {leak_bf:.3e} <= drift "
+        f"{drift_bf:.3e}, context sums bf16 / f32 forward {vc_sums['forward']['bf16_ms']:.4f} / "
+        f"{vc_sums['forward']['f32_ms']:.4f} ms; (g) bf16 HGT flash matches segment",
     )
 
     # 24. warm-start -------------------------------------------------------
@@ -3922,7 +4322,8 @@ def main() -> int:
         f"matches full batch; (e) host-resident within {cs['host_drift']:.2e} <= 2 x {cs['drift']:.2e}, peaks full / "
         f"device / host {cs['peaks']['full'] / 2**30:.3f} / {cs['peaks']['device'] / 2**30:.3f} / "
         f"{cs['peaks']['host'] / 2**30:.3f} GiB, copy overlap {cs['overlap']:.4f}; (f) HGT K {CLUSTER_K_HGT} peak "
-        f"{cs['hgt_peak'] / 2**30:.2f} GiB; (g) bench --clusters {CLUSTER_K} {cs['bench']:.1f} edges/s",
+        f"{cs['hgt_peak'] / 2**30:.2f} GiB; (g) bench --bf16 --clusters {CLUSTER_K} {cs['bench']:.1f} edges/s; (h) bf16 "
+        f"host-resident within {cs['host_drift_bf16']:.2e} <= 2 x {cs['drift_bf16']:.2e}",
     )
 
     # 26. cluster-quality --------------------------------------------------
@@ -3931,7 +4332,8 @@ def main() -> int:
     _phase(
         "cluster-quality", t0,
         f"R2 K=1 {quality['r2_k1']:.6f}, K=4 {quality['r2_k4']:.6f} (both >= {QUALITY_R2_MIN}, gap <= "
-        f"{QUALITY_R2_GAP}); K=4 within {QUALITY_JAX_MARGIN} of the JAX CPU value {JAX_CPU_R2_K4:.6f}",
+        f"{QUALITY_R2_GAP}); K=4 within {QUALITY_JAX_MARGIN} of the JAX CPU value {JAX_CPU_R2_K4:.6f}; K=4 in bf16 "
+        f"{quality['r2_k4_bf16']:.6f} (>= {QUALITY_R2_MIN}, within {BF16_NOISE_BUDGET} of float32's)",
     )
     # 27. bf16 -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -4001,6 +4403,13 @@ def main() -> int:
             entry["cluster_sites"] = {
                 cfg: sites[name] for cfg, sites in clusters["sites"].items() if name in sites
             }
+        if any(name in sites for sites in clusters["sites_bf16"].values()):
+            entry["cluster_sites_bf16"] = {
+                cfg: sites[name] for cfg, sites in clusters["sites_bf16"].items() if name in sites
+            }
+            entry["launches_bf16_cluster_step"] = clusters["launches_bf16_cluster_step"][name]
+        if name in vc_bf16_launches:
+            entry["launches_value_context_bf16_step"] = vc_bf16_launches[name]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(identity)

@@ -243,8 +243,6 @@ class ModelConfig:
             raise ConfigError(
                 f"model.compute_dtype must be float32|bfloat16|auto, got {self.compute_dtype!r}"
             )
-        if self.compute_dtype == "bfloat16" and self.value_context:
-            refuse_bf16("model.extras.value_context")
         if self.head_style not in ("auto", "concat", "factored"):
             raise ConfigError(f"model.extras.head_style invalid: {self.head_style!r}")
 
@@ -530,11 +528,6 @@ class Config:
         """Hash of the whole config, written into artifacts for provenance."""
         return _hash(self.to_dict())
 
-    def __post_init__(self):
-        nc = self.train.extras.get("num_clusters")
-        if self.model.compute_dtype == "bfloat16" and nc is not None and nc > 1:
-            refuse_bf16("Cluster-GCN mini-batches (train.extras.num_clusters > 1)")
-
     def model_hash(self) -> str:
         """Hash of the sections a checkpoint must agree on to be restored
         (``model``, ``graph``, ``feature_space``), equal to JAX
@@ -568,12 +561,6 @@ _WARM_STARTS = ("als", "sideinfo", "none", "off", "")
 _MULTI_DEVICE = "multi-device training is not ported yet (ROADMAP.md queue 1 item 8)"
 
 
-def refuse_bf16(what: str) -> None:
-    """The parts of the JAX package's bfloat16 path that wait for their
-    slice raise here, naming it."""
-    raise ConfigError(
-        f"model.compute_dtype=bfloat16 with {what} is not ported yet (ROADMAP.md queue 1 item 11)"
-    )
 _TRAIN_EXTRAS_NOT_PORTED = {
     "parallel": _MULTI_DEVICE,
     "model_parallel": _MULTI_DEVICE,

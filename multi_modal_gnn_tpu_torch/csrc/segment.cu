@@ -820,7 +820,11 @@ __global__ void __launch_bounds__(FT_THREADS, 1) gather_runs_kernel(FusedTable p
 // the groups' edge buffers in shared memory and is added once, after a
 // barrier, by the group where it starts (on a relation into few rows every
 // chunk of a tile holds the same row, and a global atomic per chunk would
-// queue at that row's L2 slice).
+// queue at that row's L2 slice).  A tile's `local` values need not be
+// sorted (a span-mode train batch orders each window's slots by lab), so
+// the run's start follows it only through groups whose whole chunk it
+// covers (`through`): a later chunk that merely starts with the same row
+// belongs to another run, and its edge entry may be unwritten.
 constexpr int GU_BATCH = 4;       // rows a row group loads before it sums them
 constexpr int GU_MIN_BLOCKS = 3;  // resident blocks an SM (40 registers a thread)
 constexpr int GU_THREADS = 512;
@@ -831,6 +835,7 @@ __global__ void __launch_bounds__(GU_THREADS, GU_MIN_BLOCKS) gather_tile_kernel(
   __shared__ int sloc[TILE_E];
   __shared__ int ssrc[kGathered ? 1 : TILE_E];
   __shared__ float4 edge[GU_WARPS * 32];  // a run cut at a chunk's start, per group: [groups, q]
+  __shared__ bool through[GU_WARPS * 32];  // per group: the run cut at its start covers its chunk and is cut at its end
   const long long t = blockIdx.x;
   const long long e0 = t * TILE_E;
   for (int i = threadIdx.x; i < TILE_E; i += GU_THREADS) {
@@ -883,16 +888,23 @@ __global__ void __launch_bounds__(GU_THREADS, GU_MIN_BLOCKS) gather_tile_kernel(
       add_into(run, v[k]);
     }
   }
+  const bool whole = first && head_cut;  // no run ends inside the chunk
   if (cur < WINDOW) {  // the chunk's last run
-    if (first && head_cut) {
+    if (whole) {
       edge[gid * q + ci] = run;
     } else if (!tail_cut) {
       atomicAdd(reinterpret_cast<float4*>(out + (row0 + cur) * p.d), run);
     }
   }
-  __syncthreads();  // every group's cut head is written
-  if (tail_cut && !(first && head_cut)) {  // this group holds the start of a cut run
-    for (int o = gid + 1; o < GU_WARPS * groups && sloc[o * chunk] == cur; ++o) add_into(run, edge[o * q + ci]);
+  if (active && ci == 0) through[gid] = whole && tail_cut;
+  __syncthreads();  // every group's cut head and flag are written
+  if (tail_cut && !whole) {  // this group holds the start of a cut run
+    // group gid + 1 is cut at its start; each group the run covers whole and
+    // leaves cut passes it on to the next
+    for (int o = gid + 1;; ++o) {
+      add_into(run, edge[o * q + ci]);
+      if (!through[o]) break;
+    }
     atomicAdd(reinterpret_cast<float4*>(out + (row0 + cur) * p.d), run);
   }
 }

@@ -67,35 +67,52 @@ def csr_route(es: EdgeSet, device: torch.device) -> bool:
 
 class _Sums:
     """Both sides' value-weighted sums and visible counts over one edge set:
-    ``lab(x_p) -> (wsum_l, cnt_l)``, ``patient(x_l) -> (wsum_p, cnt_p)``."""
+    ``lab(x_p) -> (wsum_l, cnt_l)``, ``patient(x_l) -> (wsum_p, cnt_p)``.
 
-    def __init__(self, es: EdgeSet, dtype, device):
+    Each side's values are cast to the dtype of the table it weights, as
+    JAX casts them (``context.py:40``, ``:73``).  A bfloat16 table's sums
+    run in float32 and are rounded to bfloat16 once, where JAX rounds at
+    every add (a stated deviation, ``CHANGES.md``).  The plain route rounds
+    each product ``x[e] * v[e]`` to bfloat16 as JAX does; the sparse route
+    multiplies float32 copies of the rows and values in float32 and drops
+    that rounding: the card's bfloat16 sparse product rounds its partial
+    sums in bfloat16 (``chip_smoke.py`` phase 23 (f) prints its error)."""
+
+    def __init__(self, es: EdgeSet, device):
         self.es = es
         self.vis = es.val_vis if es.val_vis is not None else es.mask
-        self.v = (es.val * self.vis).to(dtype)
-        plan = es.value_plan
+        self.val_vis = es.val * self.vis
         self.csr = csr_route(es, device)
-        if self.csr:
+        self._matrices = {}
+
+    def _by(self, dtype):
+        """The CSR matrices (by lab, by patient) of ``val * vis`` rounded to
+        ``dtype``, as float32."""
+        if dtype not in self._matrices:
+            es, plan = self.es, self.es.value_plan
             e = es.num_valid
-            v, order = self.v[:e], plan.src_order
+            v = self.val_vis[:e].to(dtype).float()
             # the structure is the graph's own, valid by construction
-            self.by_lab = torch.sparse_csr_tensor(
+            by_lab = torch.sparse_csr_tensor(
                 es.row_ptr, es.src[:e], v, (es.num_dst, es.num_src), check_invariants=False
             )
-            self.by_patient = torch.sparse_csr_tensor(
-                plan.src_row_ptr, plan.src_sorted_dst, v[order], (es.num_src, es.num_dst),
+            by_patient = torch.sparse_csr_tensor(
+                plan.src_row_ptr, plan.src_sorted_dst, v[plan.src_order], (es.num_src, es.num_dst),
                 check_invariants=False,
             )
+            self._matrices[dtype] = (by_lab, by_patient)
+        return self._matrices[dtype]
 
     def lab(self, x_p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         es = self.es
         if self.csr:
-            wsum = _CsrProduct.apply(x_p, self.by_lab, self.by_patient)
+            by_lab, by_patient = self._by(x_p.dtype)
+            wsum = _CsrProduct.apply(x_p.float(), by_lab, by_patient).to(x_p.dtype)
             return wsum, _segment_totals(self.vis[: es.num_valid], es.row_ptr)
         dst = es.dst.long()
-        rows = x_p.index_select(0, es.src.long()) * self.v[:, None]
-        wsum = torch.zeros(es.num_dst + 1, x_p.shape[1], dtype=x_p.dtype, device=x_p.device)
-        wsum = wsum.index_add_(0, dst, rows)[: es.num_dst]
+        rows = (x_p.index_select(0, es.src.long()) * self.val_vis.to(x_p.dtype)[:, None]).float()
+        wsum = torch.zeros(es.num_dst + 1, x_p.shape[1], device=x_p.device)
+        wsum = wsum.index_add_(0, dst, rows)[: es.num_dst].to(x_p.dtype)
         cnt = torch.zeros(es.num_dst + 1, dtype=self.vis.dtype, device=self.vis.device)
         return wsum, cnt.index_add_(0, dst, self.vis)[: es.num_dst]
 
@@ -103,11 +120,13 @@ class _Sums:
         es = self.es
         if self.csr:
             plan = es.value_plan
-            wsum = _CsrProduct.apply(x_l, self.by_patient, self.by_lab)
+            by_lab, by_patient = self._by(x_l.dtype)
+            wsum = _CsrProduct.apply(x_l.float(), by_patient, by_lab).to(x_l.dtype)
             return wsum, _segment_totals(self.vis[: es.num_valid][plan.src_order], plan.src_row_ptr)
         src = es.src.long()
-        rows = x_l.index_select(0, es.dst.clamp_max(es.num_dst - 1).long()) * self.v[:, None]
-        wsum = torch.zeros(es.num_src, x_l.shape[1], dtype=x_l.dtype, device=x_l.device).index_add_(0, src, rows)
+        rows = x_l.index_select(0, es.dst.clamp_max(es.num_dst - 1).long()) * self.val_vis.to(x_l.dtype)[:, None]
+        rows = rows.float()
+        wsum = torch.zeros(es.num_src, x_l.shape[1], device=x_l.device).index_add_(0, src, rows).to(x_l.dtype)
         cnt = torch.zeros(es.num_src, dtype=self.vis.dtype, device=self.vis.device)
         return wsum, cnt.index_add_(0, src, self.vis)
 
@@ -119,7 +138,7 @@ def _mean(wsum: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
 def patient_value_context(x_l: torch.Tensor, es: EdgeSet) -> Tuple[torch.Tensor, torch.Tensor]:
     """(each patient's mean of ``val * x_l[lab]`` over its visible edges
     ``[num_patients, D]``, its visible count ``[num_patients]``)."""
-    wsum, cnt = _Sums(es, x_l.dtype, x_l.device).patient(x_l)
+    wsum, cnt = _Sums(es, x_l.device).patient(x_l)
     return _mean(wsum, cnt), cnt
 
 
@@ -132,7 +151,7 @@ def inject_value_context(
     if es is None or es.val is None:
         return x_dict
     x_p, x_l = x_dict[PATIENT], x_dict[LAB]
-    sums = _Sums(es, x_p.dtype, x_p.device)
+    sums = _Sums(es, x_p.device)
     wsum_l, cnt_l = sums.lab(x_p)
     wsum_p, cnt_p = sums.patient(x_l)
 

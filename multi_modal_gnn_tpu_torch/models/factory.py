@@ -6,7 +6,7 @@ from typing import Optional, Union
 
 import torch
 
-from multi_modal_gnn_tpu_torch.config import Config, refuse_bf16
+from multi_modal_gnn_tpu_torch.config import Config
 from multi_modal_gnn_tpu_torch.graph.hetero import HeteroGraph
 from multi_modal_gnn_tpu_torch.models.hgt import HeteroGT
 from multi_modal_gnn_tpu_torch.models.rgcn import HeteroRGCN
@@ -38,15 +38,14 @@ def build_model(
     raises without one).  The config has already refused the ``context``
     bilinear source without ``value_context`` (JAX refuses it here).
 
-    ``model.compute_dtype`` (:func:`compute_dtype`) goes to the RGCN.  The
-    JAX HGT takes it only in its value-context projections
-    (``hgt.py:257-291``), which the port refuses with bfloat16, so a
-    bfloat16 HGT computes in float32, as JAX's does."""
+    ``model.compute_dtype`` (:func:`compute_dtype`) goes to the RGCN, which
+    computes in it end to end, the value context included.  The JAX HGT
+    takes it only in its value-context projections (``hgt.py:285-291``): a
+    bfloat16 HGT without value context is its float32 program, and with it
+    only ``vctx_patient`` / ``vctx_lab`` compute in bfloat16, as JAX's do."""
     device = resolve_device(device)
     mc = config.model
     dtype = compute_dtype(config, device)
-    if dtype is not None and mc.value_context:  # "auto" that resolved to bfloat16
-        refuse_bf16("model.extras.value_context")
     impl = "pallas" if mc.use_pallas else "xla"
     common = dict(
         node_counts=graph.node_counts,
@@ -60,6 +59,7 @@ def build_model(
         bilinear_source=mc.edge_head.bilinear_source,
         value_context=mc.value_context,
         generator=generator,
+        dtype=dtype,
     )
     if mc.architecture == "HGT":
         model = HeteroGT(
@@ -78,6 +78,5 @@ def build_model(
         degree_threshold=mc.degree_threshold,
         head_style=head_style,
         dual_head_fusion=mc.dual_head_fusion,
-        dtype=dtype,
     )
     return model.to(device)

@@ -25,7 +25,11 @@ Three interchangeable tiers per destination group, as in the JAX layer:
 The RGCN's quality channels come with the same fields and meaning
 (``value_context``, ``bilinear_rank``, ``bilinear_source``; see
 ``models/rgcn.py``): the value context is added to the ID embeddings before
-layer 0, and the shared bilinear term reads the raw ID tables.
+layer 0, and the shared bilinear term reads the raw ID tables.  JAX's HGT
+takes ``model.compute_dtype`` only in its value-context projections
+(``hgt.py:285-291``), and so does this one (``dtype``): they compute in it,
+and their bfloat16 output added to the float32 features gives float32, as
+JAX promotes the sum; everything else is the float32 program.
 """
 
 from __future__ import annotations
@@ -223,6 +227,7 @@ class HeteroGT(nn.Module):
         bilinear_source: str = "head",
         value_context: bool = False,
         generator: Optional[torch.Generator] = None,
+        dtype=None,
     ):
         super().__init__()
         if bilinear_source not in BILINEAR_SOURCES:
@@ -233,6 +238,8 @@ class HeteroGT(nn.Module):
         self.bilinear_rank = int(bilinear_rank)
         self.bilinear_source = bilinear_source
         self.value_context = bool(value_context)
+        # JAX gives the compute dtype only to the value-context projections
+        self.compute_dtype = dtype if self.value_context else None
         for nt, n in self.node_counts:
             emb = nn.Embedding(n, hidden_dim)
             bound = math.sqrt(6.0 / (n + hidden_dim))  # xavier-uniform
@@ -255,8 +262,8 @@ class HeteroGT(nn.Module):
             self.bilinear_u = bilinear_factor(hidden_dim, self.bilinear_rank, generator)
             self.bilinear_l = bilinear_factor(hidden_dim, self.bilinear_rank, generator)
         if self.value_context:
-            self.vctx_patient = make_dense(hidden_dim, hidden_dim + 1, generator=generator)
-            self.vctx_lab = make_dense(hidden_dim, hidden_dim + 1, generator=generator)
+            self.vctx_patient = make_dense(hidden_dim, hidden_dim + 1, generator=generator, dtype=dtype)
+            self.vctx_lab = make_dense(hidden_dim, hidden_dim + 1, generator=generator, dtype=dtype)
 
     @property
     def node_types(self) -> Tuple[str, ...]:

@@ -29,6 +29,7 @@ _BF16_TWINS = (
     "mmgnn_segment_sum_windowed", "mmgnn_fused_table_segment_sum",
     "mmgnn_fused_table_segment_sum_bwd", "mmgnn_span_segment_sum", "mmgnn_pair_head_fwd",
     "mmgnn_pair_head_bwd", "mmgnn_pair_head_dual_fwd", "mmgnn_pair_head_dual_bwd",
+    "mmgnn_gather_direct", "mmgnn_gather_direct_staged_bytes",
 )
 
 _lib: Optional[ctypes.CDLL] = None
@@ -123,6 +124,8 @@ def load() -> ctypes.CDLL:
         "mmgnn_pair_head_dual_fwd": [*dual, p, i, p, p, p],
         "mmgnn_pair_head_dual_bwd": [*dual, p, p, p, i, *[p] * 12, p],
         "mmgnn_gather_indicator": [p, p, i, i, i, p, p],
+        "mmgnn_gather_indicator_bf16": [p, p, i, i, i, i, p, p],
+        "mmgnn_gather_indicator_bf16_shared_bytes": [i, i],
         "mmgnn_gather_direct": [p, p, i, i, i, i, i, i, p, p],
         "mmgnn_gather_direct_staged_bytes": [i, i],
         "mmgnn_flash_attention_fwd": [*[p] * 6, i, p, *[i] * 7, *[p] * 6],

@@ -19,7 +19,10 @@ Two surfaces:
     ``torch.export`` program per padding bucket (``pairs_b{b}.pt2``, a
     static ``(b,)`` int32 batch).  Every tensor the request path reads (the
     head parameters and the node state) is an input of the programs, stored
-    once in ``weights.npz`` and listed in the manifest (``serving.json``), so
+    once in ``weights.npz`` and listed in the manifest (``serving.json``)
+    with its dtype (a bfloat16 leaf, whose dtype numpy lacks, is stored as
+    its ``uint16`` bit pattern; a manifest without ``leaf_dtypes`` is
+    float32 throughout), so
     a serving host needs this directory and torch, no model code, config or
     graph.  Requests of any size are chunked by the largest bucket and padded
     to the smallest that fits.  On the card :meth:`ServingModel.load`
@@ -40,7 +43,6 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from multi_modal_gnn_tpu_torch.config import refuse_bf16
 from multi_modal_gnn_tpu_torch.evaluation.baselines import ALSBaseline, SideInfoALSBaseline
 from multi_modal_gnn_tpu_torch.evaluation.conformal import ConformalCalibrator
 from multi_modal_gnn_tpu_torch.graph.hetero import HeteroGraph
@@ -151,7 +153,9 @@ class _CachedPairs(torch.nn.Module):
         self.model = model
 
     def forward(self, state, p_idx, l_idx):
-        return self.model.predict_pairs_cached(state, p_idx, l_idx)
+        out = self.model.predict_pairs_cached(state, p_idx, l_idx)
+        # a bfloat16 model's unfused heads answer in bfloat16; answers leave as float32
+        return out if out.dtype == torch.float32 else out.float()
 
 
 class _PairsProgram(torch.nn.Module):
@@ -183,6 +187,27 @@ def _leaves(model: Model, state: Dict[str, torch.Tensor]) -> Tuple[List[str], Li
     return [n for n, _ in named], [t for _, t in named]
 
 
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).removeprefix("torch.")
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A leaf for ``weights.npz``: numpy has no bfloat16, so a bfloat16 leaf
+    goes in as its ``uint16`` bit pattern."""
+    t = t.detach().cpu()
+    return t.view(torch.int16).numpy().view(np.uint16) if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _from_numpy(a: np.ndarray, dtype_name: str) -> torch.Tensor:
+    """:func:`_to_numpy` undone, by the manifest's name of the leaf's dtype."""
+    if dtype_name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    t = torch.from_numpy(a)
+    if _dtype_name(t) != dtype_name:
+        raise ValueError(f"weights.npz holds {t.dtype} where the manifest names {dtype_name}")
+    return t
+
+
 def export_serving(
     trainer,
     bundle,
@@ -205,15 +230,12 @@ def export_serving(
     return_interval=True)``; ``conformal_cold`` (``calibrate_cold_start``)
     the fold-in channel's own radii in ``conformal_cold.json``."""
     model = serving_model(trainer)
-    if getattr(model, "compute_dtype", None) is not None:
-        # the artifact's programs and weights.npz are float32 (numpy has no bfloat16)
-        refuse_bf16("the serving artifact (export_serving, ServingModel)")
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
     state = compute_node_state(model, trainer.graph)
     names, leaves = _leaves(model, state)
     device = leaves[-1].device
-    np.savez(path / "weights.npz", **{f"w{i}": t.cpu().numpy() for i, t in enumerate(leaves)})
+    np.savez(path / "weights.npz", **{f"w{i}": _to_numpy(t) for i, t in enumerate(leaves)})
     program = _PairsProgram(model, names)
     buckets = tuple(sorted(set(int(b) for b in buckets)))
     for b in buckets:
@@ -260,6 +282,7 @@ def export_serving(
         "normalize_method": trainer.config.feature_space.labs.normalize,
         "export_platform": device.type,
         "leaves": names,
+        "leaf_dtypes": [_dtype_name(t) for t in leaves],
     }
     (path / _MANIFEST).write_text(json.dumps(manifest, indent=1))
     logger.info("Serving artifact exported to %s (buckets %s)", path, buckets)
@@ -349,8 +372,13 @@ class ServingModel:
                 "of multi_modal_gnn_tpu holds StableHLO programs, which torch cannot run: export with "
                 "multi_modal_gnn_tpu_torch.serving.export_serving"
             )
+        n_leaves = len(manifest["leaves"])
+        dtypes = manifest.get("leaf_dtypes")
         with np.load(path / "weights.npz") as z:
-            leaves = [torch.from_numpy(z[f"w{i}"]).to(device) for i in range(len(manifest["leaves"]))]
+            leaves = [
+                (torch.from_numpy(z[f"w{i}"]) if dtypes is None else _from_numpy(z[f"w{i}"], dtypes[i])).to(device)
+                for i in range(n_leaves)
+            ]
         pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
         buckets = {}
         for b in manifest["buckets"]:

@@ -17,14 +17,14 @@ cluster graphs'.
 
     python -m multi_modal_gnn_tpu_torch.tools.bench --scale --no-dense [--arch hgt | --mimic | --lab-tile-rows 0 | --clusters 8]
 
-``--bf16`` sets ``model.compute_dtype: bfloat16`` (the JAX bench's flag);
-on the card the line also carries ``mxu_bf16_speedup``, the tensor-core
-probe's median ``t_f32 / t_bf16`` (``utils/mxu_probe.py``, cached per card).
+``--bf16`` sets ``model.compute_dtype: bfloat16`` (the JAX bench's flag),
+with or without ``--clusters``; on the card the line also carries
+``mxu_bf16_speedup``, the tensor-core probe's median ``t_f32 / t_bf16``
+(``utils/mxu_probe.py``, cached per card).
 
 There is no CPU fallback: without a card, or on any failure (the probe's
 included), it prints the traceback and exits non-zero with no JSON line.
-``--lab-tile-mode block``, ``--clusters`` below 1 and ``--bf16`` with
-``--clusters`` above 1 raise ``ConfigError``.
+``--lab-tile-mode block`` and ``--clusters`` below 1 raise ``ConfigError``.
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ import torch
 from multi_modal_gnn_tpu_torch.config import Config, ConfigError
 from multi_modal_gnn_tpu_torch.data import SyntheticSpec, make_synthetic_graph
 from multi_modal_gnn_tpu_torch.graph.attn_plan import ensure_attn_plans
+from multi_modal_gnn_tpu_torch.graph.hetero import HeteroGraph
 from multi_modal_gnn_tpu_torch.graph.schema import mirror_edge_type
 from multi_modal_gnn_tpu_torch.models import build_model
 from multi_modal_gnn_tpu_torch.ops import attention_kernels, pairhead_kernels, segment_kernels
@@ -88,9 +89,12 @@ def run_bench(
     clusters: int = 1,
     hgt_dense_bytes: Optional[int] = None,
     device=None,
+    graph: Optional[HeteroGraph] = None,
 ) -> dict:
     """One bench run on ``device`` (default: the card; raises without one).
-    ``use_pallas`` None takes the kernel path."""
+    ``use_pallas`` None takes the kernel path.  ``graph``: the graph this
+    configuration builds, built already and on ``device`` (its build is not
+    timed again: ``graph_build_s`` is null)."""
     device = resolve_device(device)
     if clusters < 1:
         raise ConfigError(f"--clusters must be >= 1, got {clusters}")
@@ -128,9 +132,17 @@ def run_bench(
     if lab_tile_rows:  # narrow lab tiles want frequency-numbered labs
         cfg = dataclasses.replace(cfg, graph=dataclasses.replace(cfg.graph, cluster_labs_by_frequency=True))
 
-    t0 = time.perf_counter()
-    graph = ensure_attn_plans(make_synthetic_graph(spec, cfg, device=device), cfg)
-    build_s = time.perf_counter() - t0
+    build_s = None
+    if graph is None:
+        t0 = time.perf_counter()
+        graph = ensure_attn_plans(make_synthetic_graph(spec, cfg, device=device), cfg)
+        build_s = time.perf_counter() - t0
+    else:
+        want = (spec.num_patients, spec.num_labs)
+        on = next(iter(graph.tensors())).device
+        if (graph.num_nodes("patient"), graph.num_nodes("lab")) != want or on.type != device.type:
+            raise ValueError(f"the graph given is not this configuration's on {device}: {graph.node_counts}")
+        graph = ensure_attn_plans(graph, cfg)
 
     masker = masker_from_config(cfg, graph)
     n_train = masker.split_sizes()["train"]

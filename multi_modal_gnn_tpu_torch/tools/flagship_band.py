@@ -4,14 +4,17 @@ on ``conf/eicu_real.yaml`` once per train seed and report each run's guarded
 
     python -m multi_modal_gnn_tpu_torch.tools.flagship_band [--seeds 42,43,44]
         [--device cuda | cpu] [--config conf/eicu_real.yaml]
-        [--dtype float32 | bfloat16] [--repeats N]
+        [--dtype float32 | bfloat16] [--repeats N] [--draws card | cpu]
 
 Each seed gets a copy of the config (written by ``save_config``) with
 ``train.seed`` set and ``data.interim_dir``, ``data.output_dir`` and
 ``logging.log_file`` inside a temporary directory, so nothing is written to
 the repo.  Each run is ``python -m multi_modal_gnn_tpu_torch.pipeline``
-(steps 1-5, 7 and 8; steps 1-5 in bfloat16, whose serving artifact is not
-ported yet) on ``--device``.  The data seed stays the config's.
+(steps 1-5, 7 and 8) on ``--device``; with ``--draws cpu`` it is
+``python -m multi_modal_gnn_tpu_torch.tools.cpu_draws`` with the same
+arguments, which takes the dropout and supervision draws from the CPU's
+generators, as a CPU run of the seed draws them.  The data seed stays the
+config's.
 A warm-start band runs ``--config`` on the file that
 :func:`warm_start_config` derives; ``--dtype`` runs the config with
 ``model.compute_dtype`` set (:func:`dtype_config`).  ``--repeats`` runs
@@ -115,13 +118,16 @@ def read_result(out_dir: Path) -> Dict:
     }
 
 
-def run_seed(config_path, seed: int, workdir: Path, device: str = "cuda", steps: Optional[str] = None) -> Dict:
+def run_seed(config_path, seed: int, workdir: Path, device: str = "cuda", steps: Optional[str] = None,
+             draws: str = "card") -> Dict:
     """One pipeline run (see the module docstring): :func:`read_result`
     plus each step's wall seconds.  ``steps`` is the command line's
-    ``--step`` (all ported steps when None)."""
+    ``--step`` (all ported steps when None); ``draws="cpu"`` runs it
+    through :mod:`~multi_modal_gnn_tpu_torch.tools.cpu_draws`."""
     workdir.mkdir(parents=True, exist_ok=True)
     seed_config(config_path, seed, workdir)
-    command = [sys.executable, "-m", "multi_modal_gnn_tpu_torch.pipeline", "--config",
+    module = {"card": "multi_modal_gnn_tpu_torch.pipeline", "cpu": "multi_modal_gnn_tpu_torch.tools.cpu_draws"}[draws]
+    command = [sys.executable, "-m", module, "--config",
                str(workdir / "config.yaml"), "--no-confirm", "--device", device]
     if steps is not None:
         command += ["--step", steps]
@@ -135,10 +141,11 @@ def run_seed(config_path, seed: int, workdir: Path, device: str = "cuda", steps:
 
 
 def run_band(config_path, seeds: Sequence[int], device: str, repeats: int = 1,
-             steps: Optional[str] = None) -> Dict:
+             steps: Optional[str] = None, draws: str = "card") -> Dict:
     with tempfile.TemporaryDirectory() as tmp:
         runs = {
-            seed: [run_seed(config_path, seed, Path(tmp) / f"seed{seed}_{r}", device, steps) for r in range(repeats)]
+            seed: [run_seed(config_path, seed, Path(tmp) / f"seed{seed}_{r}", device, steps, draws)
+                   for r in range(repeats)]
             for seed in seeds
         }
     firsts = [seed_runs[0] for seed_runs in runs.values()]
@@ -159,14 +166,14 @@ def main(argv=None) -> int:
     parser.add_argument("--dtype", choices=("float32", "bfloat16"), default=None,
                         help="set model.compute_dtype (default: the config's)")
     parser.add_argument("--repeats", type=int, default=1, help="runs of each seed")
+    parser.add_argument("--draws", choices=("card", "cpu"), default="card",
+                        help="cpu: dropout and supervision draws from the CPU's generators (tools/cpu_draws.py)")
     args = parser.parse_args(argv)
     seeds = [int(s) for s in args.seeds.split(",")]
     with tempfile.TemporaryDirectory() as tmp:
         config = args.config if args.dtype is None else dtype_config(
             args.config, Path(tmp) / f"config_{args.dtype}.yaml", args.dtype)
-        # the serving artifact (step 8) of a bfloat16 model is not ported yet
-        steps = "1-5" if args.dtype == "bfloat16" else None
-        print(json.dumps(run_band(config, seeds, args.device, args.repeats, steps)))
+        print(json.dumps(run_band(config, seeds, args.device, args.repeats, draws=args.draws)))
     return 0
 
 

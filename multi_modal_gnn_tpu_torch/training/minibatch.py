@@ -48,7 +48,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from multi_modal_gnn_tpu_torch.config import Config, refuse_bf16
+from multi_modal_gnn_tpu_torch.config import Config
 from multi_modal_gnn_tpu_torch.graph.build import GraphBundle, GraphMeta, host_edges_of
 from multi_modal_gnn_tpu_torch.graph.hetero import (
     WINDOW,
@@ -290,8 +290,6 @@ class MiniBatchTrainer(Trainer):
     ):
         if num_clusters < 1:
             raise ValueError("num_clusters must be >= 1")
-        if num_clusters > 1 and getattr(model, "compute_dtype", None) is not None:
-            refuse_bf16("Cluster-GCN mini-batches (more than one cluster)")
         if num_clusters > 1 and not getattr(model, "supports_patient_id_base", False):
             # a model that reads the whole patient table would read cluster
             # 0's rows for every cluster

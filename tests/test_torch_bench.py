@@ -5,9 +5,9 @@
   bench's key set (plus ``kernel_launches``), and its ``params`` and
   ``train_edges`` equal JAX ``count_parameters`` and the JAX masker's train
   size for the same configuration.
-* ``--clusters`` below 1, ``--bf16`` with ``--clusters`` above 1 and
-  ``--lab-tile-mode block`` raise ``ConfigError`` (``--bf16`` alone runs in
-  ``tests/test_torch_bf16.py``); without a card the bench raises, and its command line
+* ``--clusters`` below 1 (with ``--bf16`` too) and ``--lab-tile-mode
+  block`` raise ``ConfigError``; ``--bf16 --clusters 2`` runs (``--bf16``
+  alone runs in ``tests/test_torch_bf16.py``); without a card the bench raises, and its command line
   exits non-zero with no JSON line (no CPU fallback).  ``--clusters 2``
   runs in ``tests/test_torch_minibatch.py``.
 """
@@ -19,6 +19,7 @@ import sys
 from pathlib import Path
 
 import jax
+import numpy as np
 import pytest
 import torch
 
@@ -95,11 +96,17 @@ def test_cpu_run_prints_the_jax_keys_and_counts(eicu_bundle):
 
 @pytest.mark.parametrize(
     "kwargs",
-    [{"clusters": 0}, {"bf16": True, "clusters": 2}, {"lab_tile_mode": "block", "lab_tile_rows": 256}],
+    [{"clusters": 0}, {"bf16": True, "clusters": 0}, {"lab_tile_mode": "block", "lab_tile_rows": 256}],
 )
 def test_what_the_port_does_not_run_is_refused(kwargs):
     with pytest.raises(ConfigError):
         bench.run_bench(epochs=1, device="cpu", **kwargs)
+
+
+def test_bench_runs_bf16_clusters():
+    result = bench.run_bench(epochs=1, device="cpu", bf16=True, clusters=2, dense=False)
+    assert result["compute_dtype"] == "bfloat16" and result["clusters"] == 2
+    assert np.isfinite(result["final_train_loss"]) and result["value"] > 0
 
 
 def test_no_cpu_fallback():

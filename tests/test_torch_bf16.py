@@ -586,24 +586,51 @@ def test_config_takes_jax_dtypes_and_hashes_them():
 
 @pytest.mark.parametrize(
     "section",
+    [{"model": {"compute_dtype": "bfloat16"}, "train": {"extras": {"parallel": "dp"}}},
+     {"model": {"compute_dtype": "float16", "extras": {"value_context": True}}}],
+    ids=["parallel", "float16"],
+)
+def test_config_refuses_what_the_bf16_slice_does_not_run(section):
+    """bfloat16 runs everything the float32 config runs on one card; what is
+    refused stays refused (multi-device, queue 1 item 8; other dtypes)."""
+    with pytest.raises(ConfigError, match="queue 1 item 8|float32\\|bfloat16\\|auto"):
+        Config.from_dict(section)
+
+
+@pytest.mark.parametrize(
+    "section",
     [{"model": {"compute_dtype": "bfloat16", "extras": {"value_context": True}}},
      {"model": {"compute_dtype": "bfloat16"}, "train": {"extras": {"num_clusters": 4}}}],
     ids=["value_context", "clusters"],
 )
-def test_config_refuses_what_the_bf16_slice_does_not_run(section):
-    with pytest.raises(ConfigError, match="queue 1 item 11"):
-        Config.from_dict(section)
+def test_config_takes_bf16_with(section):
+    """Taken, and hashed as JAX hashes it (JAX runs both in bfloat16)."""
+    cfg = Config.from_dict(section)
+    assert cfg.model.compute_dtype == "bfloat16"
+    jcfg = JaxConfig.from_dict(cfg.to_dict())
+    assert jcfg.to_dict() == cfg.to_dict() and jcfg.model_hash() == cfg.model_hash()
 
 
-def test_bf16_clusters_and_serving_artifact_are_refused(cohort, tmp_path):
+def test_bf16_clusters_and_serving_artifact_run(cohort, tmp_path):
+    """A bfloat16 model trains in clusters and exports its serving
+    artifact, which loads and answers in float32 (JAX's side of both:
+    ``tests/test_torch_bf16_slice.py``)."""
+    from multi_modal_gnn_tpu_torch.graph.build import GraphBundle, GraphMeta
+    from multi_modal_gnn_tpu_torch.serving import ServingModel
+
     cfg = Config.from_dict(_jax_config().to_dict())
     model = _port_model(cohort, _jax_config())
-    with pytest.raises(ConfigError, match="queue 1 item 11"):
-        MiniBatchTrainer(model, cohort["graph"], cohort["masker"], cfg, num_clusters=2, device="cpu")
+    clusters = MiniBatchTrainer(model, cohort["graph"], cohort["masker"], cfg, num_clusters=2, device="cpu")
+    losses, _ = clusters.train_epochs(1)
+    assert np.isfinite(losses).all()
     trainer = Trainer(model, cohort["graph"], cohort["masker"], cfg, device="cpu")
-    with pytest.raises(ConfigError, match="queue 1 item 11"):
-        export_serving(trainer, None, tmp_path / "serving")
-    assert not (tmp_path / "serving").exists()
+    path = export_serving(trainer, GraphBundle(graph=cohort["graph"], meta=GraphMeta(), host_edges=None),
+                          tmp_path / "serving", buckets=(128,))
+    p, l = np.arange(0, 600, 7), np.arange(0, 600, 7) % 40
+    got = ServingModel.load(path, device="cpu").predict(p, l)
+    want = build_serving_fn(model, cohort["graph"])[0](p, l).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
 def test_bf16_checkpoint_restores_into_float32_only_when_forced(cohort, tmp_path):

@@ -136,6 +136,46 @@ def test_windowed_kernel_matches_plain(gpu, plans, dtype):
     assert sk.launch_counts[_key("segment_sum_windowed", dtype)] == before + 2
 
 
+def _cut_run_plan(tiles, seed):
+    """A windowed plan (``local``, ``tile_map``, ``num_windows``) whose tiles
+    hold unsorted runs over six rows of their window, as a span-mode train
+    batch does (each window's slots ordered by lab, so a patient's runs are
+    cut at chunk boundaries that other runs of it follow): runs of 1-8 or
+    1-149 slots, padding at each tile's end, four tiles a window."""
+    rng = np.random.default_rng(seed)
+    local = np.full((tiles, hetero.TILE_E), hetero.WINDOW, np.int32)
+    for t in range(tiles):
+        vals = []
+        while len(vals) < hetero.TILE_E:
+            vals += [int(rng.integers(0, 6))] * int(rng.integers(1, 9) if rng.random() < 0.5 else rng.integers(1, 150))
+        real = hetero.TILE_E - int(rng.integers(0, 100))
+        local[t, :real] = vals[:real]
+    tile_map = np.arange(tiles, dtype=np.int32) // 4
+    return torch.from_numpy(local.reshape(-1)), torch.from_numpy(tile_map), -(-tiles // 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,dtype", [(4, torch.float32), (8, torch.float32), (12, torch.float32),
+                                         (32, torch.float32), (128, torch.float32), (8, torch.bfloat16),
+                                         (128, torch.bfloat16)])
+def test_windowed_kernel_on_unsorted_tiles_with_cut_runs(gpu, width, dtype):
+    # K1's device-memory routes merge a run cut at a chunk boundary through
+    # shared memory: a later chunk that only starts with the same row is
+    # another run (its edge entry unwritten, or added by its own start too)
+    local, tile_map, num_windows = _cut_run_plan(256, seed=width)
+    local, tile_map = local.to(gpu), tile_map.to(gpu)
+    gen = torch.Generator().manual_seed(width)
+    rows = torch.randn(local.shape[0], width, generator=gen).to(dtype).to(gpu)
+    args = (local, tile_map, num_windows)
+    _assert_close_scaled(sk.segment_sum_windowed(rows, None, *args).cpu().numpy(),
+                         sk.segment_sum_windowed_plain(rows, None, *args).cpu().numpy(), 1e-4, "gathered")
+    table = torch.randn(NUM_SRC, width, generator=gen).to(dtype).to(gpu)  # past the shared route's 2048 rows
+    idx = torch.randint(0, NUM_SRC, (local.shape[0],), generator=gen, dtype=torch.int32).to(gpu)
+    assert sk.windowed_route(NUM_SRC, width, itemsize=table.element_size()) == "global"
+    _assert_close_scaled(sk.segment_sum_windowed(table, idx, *args).cpu().numpy(),
+                         sk.segment_sum_windowed_plain(table, idx, *args).cpu().numpy(), 1e-4, "global")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_fused_table_kernel_matches_plain(gpu, plans, dtype):
@@ -1007,12 +1047,16 @@ def test_train_step_with_720_labs_on_gpu_matches_plain_on_cpu(gpu, dual):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("h", [64, 128])
-def test_gather_probe_kernels_match_plain(gpu, h):
+def test_gather_probe_kernels_match_plain(gpu, h, dtype):
+    """A, B and C on float32 or bfloat16 tables: float32 row sums within
+    ``1e-5 max |ref|`` (sums of h float32 values in another order)."""
     from multi_modal_gnn_tpu_torch.tools import bench_gather
 
     args = bench_gather.parse_args(["--tiles", "40", "--rows", "512", "--h", str(h)])
     idx, table, padded = (torch.from_numpy(a).to(gpu) for a in bench_gather.make_inputs(args))
+    table, padded = table.to(dtype), padded.to(dtype)
     idx[:7] = torch.tensor([-1, 512, 10_000, 0, 511, -5, 3], dtype=torch.int32)  # outside: zero rows
     before = dict(gp.launch_counts)
     for name, kernel, plain in (
@@ -1023,19 +1067,36 @@ def test_gather_probe_kernels_match_plain(gpu, h):
         ("gather_probe_direct", lambda: gp.gather_probe_direct(idx, table),
          lambda: gp.gather_rowsum_plain(idx, table, table.shape[1])),
     ):
-        got, want = kernel().cpu().numpy(), plain().cpu().numpy()
+        got, want = kernel(), plain()
+        assert got.dtype == want.dtype == torch.float32, name
+        got, want = got.cpu().numpy(), want.cpu().numpy()
         _assert_close_scaled(got, want, 1e-5, name)
         assert got[0] == got[1] == got[2] == got[5] == 0.0
-        assert gp.launch_counts[name] == before[name] + 1
+        assert gp.launch_counts[_key(name, dtype)] == before[_key(name, dtype)] + 1
 
 
 @pytest.mark.cuda
-def test_gather_probe_tool_runs_the_three_kernels(gpu):
+@pytest.mark.parametrize("rows,h", [(8, 8), (50, 48), (700, 128), (3, 16)])
+def test_gather_probe_bf16_indicator_at_other_shapes(gpu, rows, h):
+    """A in bfloat16 on tables whose rows are not a multiple of 16 (the
+    staged rows past the table are zero) and widths that leave a pass of
+    fewer than four n8 tiles; indices inside, past and before the table."""
+    gen = torch.Generator().manual_seed(rows + h)
+    table = torch.randn(rows, h, generator=gen).to(torch.bfloat16).to(gpu)
+    idx = torch.randint(-3, rows + 20, (5 * 1024,), generator=gen, dtype=torch.int32).to(gpu)
+    got = gp.gather_probe_indicator(idx, table).cpu().numpy()
+    _assert_close_scaled(got, gp.gather_rowsum_plain(idx, table, h).cpu().numpy(), 1e-5, f"[{rows}, {h}]")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_probe_tool_runs_the_three_kernels(gpu, dtype):
     from multi_modal_gnn_tpu_torch.tools import bench_gather
 
     gp.reset_launch_counts()
-    results = bench_gather.main(["--tiles", "64"])
-    assert set(results) == {"A", "B", "C"} and all(gp.launch_counts.values())
+    results = bench_gather.main(["--tiles", "64", "--dtype", dtype])
+    suffix = "_bf16" if dtype == "bfloat16" else ""
+    assert set(results) == {"A", "B", "C"} and all(gp.launch_counts[n + suffix] for n in gp.WRAPPERS)
     assert results["A"]["sum"] == pytest.approx(results["C"]["sum"], rel=1e-4, abs=1e-2)
 
 
@@ -1680,17 +1741,22 @@ def test_checkpoint_round_trip_on_the_card(gpu, tmp_path):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", ["RGCN", "HGT"])
-def test_serving_artifact_on_the_card(gpu, arch, tmp_path):
+def test_serving_artifact_on_the_card(gpu, arch, dtype, tmp_path):
     """An artifact exported on the card answers through its CUDA graphs like
     the eager serving path, request after request, and on the CPU; one
-    exported on the CPU answers on the card."""
+    exported on the CPU answers on the card.  A bfloat16 model's artifact
+    (its bfloat16 leaves stored as bit patterns, value context on) answers
+    in float32 alike, within one bfloat16 spacing of the answers' scale on
+    the other device."""
     from multi_modal_gnn_tpu_torch.graph.build import GraphBundle, GraphMeta
-    from multi_modal_gnn_tpu_torch.serving import ServingModel, build_serving_fn, export_serving
+    from multi_modal_gnn_tpu_torch.serving import ServingModel, build_trainer_serving_fn, export_serving
 
     config = Config(
         graph=GraphConfig(dense_adjacency_max_bytes=0),
-        model=ModelConfig(architecture=arch, use_pallas=True, extras={"hgt_dense_attn_bytes": 0}),
+        model=ModelConfig(architecture=arch, use_pallas=True, compute_dtype=dtype,
+                          extras={"hgt_dense_attn_bytes": 0, "value_context": dtype == "bfloat16"}),
     )
     graph_cpu = ensure_attn_plans(make_synthetic_graph(LIFECYCLE_SPEC, config, device="cpu"), config)
     rng = np.random.default_rng(0)
@@ -1704,7 +1770,7 @@ def test_serving_artifact_on_the_card(gpu, arch, tmp_path):
         model = build_model(config, graph_cpu, device="cpu", generator=torch.Generator().manual_seed(0)).to(dev)
         trainer = Trainer(model, graph, EdgeMasker(graph, seed=0), config, device=dev)
         export_serving(trainer, GraphBundle(graph=graph, meta=GraphMeta()), tmp_path / dev.type, buckets=(64, 256))
-        models[dev.type] = build_serving_fn(model, graph)[0]
+        models[dev.type] = build_trainer_serving_fn(trainer)[0]  # the trainer's eval visibility, as exported
     for exported_on in ("cuda", "cpu"):
         for dev in (gpu, torch.device("cpu")):
             served = ServingModel.load(tmp_path / exported_on, device=dev)
@@ -1715,7 +1781,14 @@ def test_serving_artifact_on_the_card(gpu, arch, tmp_path):
                 junk = [torch.full(z[k].shape, float("nan"), device=gpu) for k in z.files]  # noqa: F841
             for p, l in requests:  # the 700 pairs run as 256, 256 and 188
                 want = models[exported_on](p, l).cpu().numpy()  # the exported state's answers
-                np.testing.assert_allclose(served.predict(p, l), want, **TOL)
+                got = served.predict(p, l)
+                assert got.dtype == np.float32
+                if dtype == "bfloat16" and dev.type != exported_on:
+                    # the other device's bf16 products and sums round otherwise:
+                    # within one bf16 spacing at the answers' scale
+                    np.testing.assert_allclose(got, want, rtol=0, atol=BF16_ULP * float(np.abs(want).max()))
+                else:
+                    np.testing.assert_allclose(got, want, **TOL)
 
 
 VC_CASES = [("RGCN", "context", 8), ("RGCN", "head", 8), ("RGCN", "embedding", 9), ("HGT", "embedding", 9),
@@ -1769,6 +1842,74 @@ def test_value_context_step_on_the_card_matches_the_plain_versions(gpu, arch, so
         assert err <= 1e-2 * float(g.norm()) + floor, f"{name}: ||d|| {err:.3e}, ||ref|| {float(g.norm()):.3e}"
 
 
+BF16_STEP_LOSS_RTOL = 2.0 ** -8  # chip_smoke.py phase 27 (c)
+BF16_STEP_GRAD_REL = 0.6  # chip_smoke.py phase 27 (c): bf16 ReLU / BatchNorm flips
+
+
+def _zero_in_exact_arithmetic(name):
+    """A bias right before a BatchNorm, or a value-context bias (it shifts
+    every patient or lab row alike, and those rows reach the loss only
+    through mean aggregations into BatchNorm): each side holds only its
+    rounding noise (chip_smoke.py _feeds_batch_norm, _vctx_rgcn_zero)."""
+    bn_fed = name.endswith(".bias") and (
+        name.startswith("conv_") or name in ("patient_encoder.dense_0.bias", "patient_encoder.dense_1.bias"))
+    return bn_fed or name in ("vctx_patient.bias", "vctx_lab.bias")
+
+
+def _bf16_step_close(out, path):
+    """Card against CPU plain for a bfloat16 RGCN step, at phase 27's
+    bounds; a gradient that is 0 in exact arithmetic held, as there, to
+    twice the CPU's noise."""
+    (loss, grads, launched), (loss_ref, grads_ref, _) = out["cuda"], out["cpu"]
+    assert all(launched[name] for name in path), launched
+    np.testing.assert_allclose(loss, loss_ref, rtol=BF16_STEP_LOSS_RTOL)
+    floor = 1e-5 * max(float(g.norm()) for g in grads_ref.values())
+    for name, g in grads_ref.items():
+        assert grads[name].dtype == torch.float32, name
+        if _zero_in_exact_arithmetic(name):
+            assert float(grads[name].norm()) <= 2 * float(g.norm()) + floor, name
+            continue
+        err = float((grads[name] - g).norm())
+        assert err <= BF16_STEP_GRAD_REL * float(g.norm()) + floor, f"{name}: ||d|| {err:.3e}, ||ref|| {float(g.norm()):.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,source,rank", [("RGCN", "context", 8), ("HGT", "embedding", 9)])
+def test_bf16_value_context_step_on_the_card(gpu, arch, source, rank):
+    """One bfloat16 train step with value context (dropout 0, one numpy
+    supervision mask), card against the CPU plain versions: the RGCN's
+    bfloat16 kernels launch (K2b in float32, as JAX hands it), the HGT's
+    flash kernels in float32; loss and gradients at phase 27's bounds."""
+    head = {"bilinear_rank": rank, "bilinear_source": source}
+    config = Config(
+        graph=GraphConfig(dense_adjacency_max_bytes=0),
+        model=ModelConfig(
+            architecture=arch, use_pallas=True, dropout=0.0, compute_dtype="bfloat16",
+            extras={"head_style": "factored", "value_context": True, "hgt_dense_attn_bytes": 0},
+            edge_head=dataclasses.replace(ModelConfig().edge_head, extras=head),
+        ),
+    )
+    graph = make_synthetic_graph(LIFECYCLE_SPEC, config, device="cpu")
+    out = {}
+    for dev in (gpu, torch.device("cpu")):
+        trainer = _lifecycle_trainer(config, graph, dev)
+        assert trainer.model.compute_dtype == torch.bfloat16
+        batch = trainer.get_batch("train")
+        sup = (np.random.default_rng(0).random(batch.valid.shape[0]) < 0.3) * batch.valid.cpu().numpy()
+        sup = torch.from_numpy(sup.astype(np.float32)).to(dev)
+        for counts in (sk, pk, ak):
+            counts.reset_launch_counts()
+        loss = trainer.train_step(batch, sup, 0)
+        launched = {**sk.launch_counts, **pk.launch_counts, **ak.launch_counts}
+        out[dev.type] = (loss, {n: p.grad.cpu() for n, p in trainer.model.named_parameters()}, launched)
+    if arch == "RGCN":
+        path = ("segment_sum_windowed_bf16", "fused_table_segment_sum_bf16", "fused_table_segment_sum_bwd",
+                "pair_head_fwd_bf16", "pair_head_bwd_bf16")
+    else:
+        path = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv")
+    _bf16_step_close(out, path)
+
+
 @pytest.mark.cuda
 def test_side_information_warm_start_on_the_card(gpu):
     """Right after the plant the card's predictions are the baseline's."""
@@ -1805,8 +1946,10 @@ def _cluster_trainer(graph, device, host_resident, seed=0):
 @pytest.mark.cuda
 def test_host_resident_clusters_on_the_card(gpu):
     """Host-resident clusters lie pinned on the host and train like
-    device-resident ones: within twice the drift of three device-resident
-    runs (the kernels' atomics), as chip_smoke.py phase 25 (e)."""
+    device-resident ones: within twice the drift of six device-resident
+    runs (the kernels' atomics), as chip_smoke.py phase 25 (e) holds them
+    (host- and device-resident runs drift from one population:
+    tools/cluster_drift.py)."""
     graph = make_synthetic_graph(LIFECYCLE_SPEC, CLUSTER_CONFIG, device="cpu")
 
     def run(host):
@@ -1814,7 +1957,7 @@ def test_host_resident_clusters_on_the_card(gpu):
         losses, vals = trainer.train_epochs(2, with_val=True)
         return trainer, np.concatenate([losses, vals])
 
-    runs = [run(False)[1] for _ in range(3)]
+    runs = [run(False)[1] for _ in range(6)]
     host, c = run(True)
     drift = max(float(np.abs(a - b).max() / np.abs(a).min()) for i, a in enumerate(runs) for b in runs[i + 1:])
     assert float(np.abs(c - runs[0]).max() / np.abs(runs[0]).min()) <= 2 * drift
@@ -1823,6 +1966,36 @@ def test_host_resident_clusters_on_the_card(gpu):
     assert cd.batches["train"][0][0].patient_idx.is_cuda
     preds = host.predict("test")
     assert np.isfinite(preds).all() and preds.shape == (len(host.masker.split_indices("test")),)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("host_resident", [False, True], ids=["device", "host"])
+def test_bf16_cluster_step_on_the_card(gpu, host_resident):
+    """One bfloat16 cluster step (base > 0, dropout 0), card against the CPU
+    plain versions at phase 27's bounds: K1 and K2f launch in bfloat16, K2b
+    in float32 (JAX hands the fused-table backward float32), K3 not."""
+    from multi_modal_gnn_tpu_torch.training import MiniBatchTrainer
+
+    config = dataclasses.replace(
+        CLUSTER_CONFIG, model=dataclasses.replace(CLUSTER_CONFIG.model, compute_dtype="bfloat16", dropout=0.0))
+    graph = make_synthetic_graph(LIFECYCLE_SPEC, config, device="cpu")
+    out = {}
+    for dev in (gpu, torch.device("cpu")):
+        model = build_model(config, graph, device="cpu", generator=torch.Generator().manual_seed(0))
+        trainer = MiniBatchTrainer(model, graph, EdgeMasker(graph), config, 4,
+                                   host_resident=host_resident and dev.type == "cuda", device=dev)
+        cd = trainer._ensure_clusters()
+        assert cd.bases[1] > 0
+        batch = cd.batches["train"][1][0]
+        sup = (np.random.default_rng(1).random(batch.valid.shape[0]) < 0.4) * batch.valid.cpu().numpy()
+        sk.reset_launch_counts()
+        pk.reset_launch_counts()
+        loss = trainer.train_step(batch, torch.from_numpy(sup.astype(np.float32)).to(dev), 0,
+                                  graph=cd.subgraphs[1].to(dev))
+        launched = {**sk.launch_counts, **pk.launch_counts}
+        out[dev.type] = (loss, {n: p.grad.cpu() for n, p in trainer.model.named_parameters()}, launched)
+    assert not out["cuda"][2]["span_segment_sum_bf16"] and not out["cuda"][2]["fused_table_segment_sum_bwd_bf16"]
+    _bf16_step_close(out, ("segment_sum_windowed_bf16", "fused_table_segment_sum_bf16", "fused_table_segment_sum_bwd"))
 
 
 @pytest.mark.cuda
