@@ -4,14 +4,16 @@ the RGCN's dual-head training path, the gather probe, the bench, the
 trainer's lifecycle (checkpoints, resume, evaluation), the pipeline
 command line on the flagship config, the serving artifact, the quality
 channels (value context, the bilinear channel, the side-information warm
-start), Cluster-GCN mini-batch training and the bfloat16 compute path on
-one CUDA GPU.
+start), Cluster-GCN mini-batch training, the bfloat16 compute path and
+the raw-data ingest path (raw MIMIC-III / eICU CSVs, the host graph core)
+on one CUDA GPU.
 
     python3 chip_smoke.py
 
 Phases, each printing one line with its seconds:
   1. device        the card's name and power limit (nvidia-smi); TF32 off
-  2. build         compile csrc/*.cu for sm_90a, one nvcc per source; the
+  2. build         compile csrc/*.cu for sm_90a, one nvcc per source, and
+                   the host graph core csrc/graphcore.cpp with g++; the
                    -Xptxas -v lines of every kernel, and by name those of
                    K2b and K3 (the two instances of incidence_kernel), K2f
                    and K1 (gather_runs_kernel, gather_tile_kernel's two
@@ -245,6 +247,21 @@ Phases, each printing one line with its seconds:
                    0.03 of phase 21's float32 run of that seed (the JAX
                    package's bf16 run beside it), through step 8, its bf16
                    artifact served on the card as phase 21 serves seed 42's
+ 28. ingest        tools/bench_etl's raw MIMIC-III-shaped CSVs (46,000
+                   patients, 5,000,000 LABEVENTS rows, 720 labs, seed 0):
+                   (a) written; (b) the graph core's LABEVENTS scan against
+                   its plain version (run once, on the .csv) on the first
+                   250,000 rows as .csv and .csv.gz (bit-equal arrays),
+                   then the full cohort scan (rows/s); (c)
+                   preprocess_pipeline (top 500 labs) and the graph build
+                   with the core, then with the plain numpy plans, every
+                   plan array equal;
+                   (d) 3 full-batch RGCN epochs at the default widths with
+                   use_pallas and no dense tier: the kernels of the tiers
+                   and the fused pair heads launched, finite losses,
+                   evaluate_model's finite test metrics; (e) a raw eICU
+                   directory through python -m multi_modal_gnn_tpu_torch
+                   --step 1-4 on the card
 Then a JSON line of per-kernel results (a kernel with a bf16 instantiation
 also carries launches_bf16_step and its bf16 results, and its bf16 cluster
 sites and value-context launches; P1's bf16 kernels have rows of their
@@ -497,6 +514,14 @@ BF16_PIN_R2_MIN = 0.15
 BF16_NOISE_BUDGET = 0.03
 JAX_CPU_BF16_R2_42 = 0.23711894617133844
 BF16_RGCN_EPOCHS, BF16_HGT_EPOCHS = 5, 2
+# phase 28 (ingest): tools/bench_etl's raw MIMIC-III-shaped directory at the
+# mimic_scale cohort (scripts/bench_etl.py's defaults), its top 500 labs,
+# the scan's native route against its plain version on the first
+# ETL_SCAN_ROWS rows, RGCN epochs at the default widths on the kernel path
+ETL_PATIENTS, ETL_LAB_ROWS, ETL_LABS, ETL_DX, ETL_RX = 46_000, 5_000_000, 720, 800, 400
+ETL_SCAN_ROWS = 250_000
+ETL_EPOCHS = 3
+ETL_EICU_STAYS = 3_000
 # the bfloat16 instantiations' -Xptxas -v lines, by kernel
 BF16_NAMED = tuple((label, entry + "13__nv_bfloat16") for label, entry in (
     ("K2b", "incidence_kernelILb0E"), ("K3", "incidence_kernelILb1E"),
@@ -2120,10 +2145,184 @@ def _bf16_phase(dev, graph_cpu, graph, graph_hgt, config, hgt_config, dual_confi
     return out
 
 
+def _bits_equal(got, want) -> bool:
+    import numpy as np
+
+    return all(
+        g.dtype == w.dtype and g.shape == w.shape and np.array_equal(g.view(np.uint8), w.view(np.uint8))
+        for g, w in zip(got, want)
+    )
+
+
+def _graph_arrays_equal(a, b) -> list:
+    """The names of the plan arrays that differ between two graphs (every
+    tensor and count of every edge set, and the degree vector)."""
+    import torch
+
+    bad = []
+    if not torch.equal(a.patient_lab_degree, b.patient_lab_degree):
+        bad.append("patient_lab_degree")
+    for et, es in a.edges.items():
+        other = b.edges[et]
+        for f in dataclasses.fields(es):
+            x, y = getattr(es, f.name), getattr(other, f.name)
+            same = (x is None and y is None) or (
+                torch.equal(x, y) if isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor) else x == y
+            )
+            if not same:
+                bad.append(f"{'/'.join(et)}.{f.name}")
+    return bad
+
+
+def _ingest_phase(dev, reset_counts, counts_of) -> dict:
+    """Phase 28: raw MIMIC-III-shaped CSVs through the graph core's scan,
+    preprocess and the graph build into kernel epochs on the card; the
+    scan and the plans against their plain versions; a raw eICU directory
+    through the command line."""
+    import gzip
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    from multi_modal_gnn_tpu_torch import native
+    from multi_modal_gnn_tpu_torch.config import save_config
+    from multi_modal_gnn_tpu_torch.graph.build import build_graph_from_preprocessed
+    from multi_modal_gnn_tpu_torch.graph.schema import mirror_edge_type
+    from multi_modal_gnn_tpu_torch.ops import _build, aggregation_tier
+    from multi_modal_gnn_tpu_torch.tools import bench_etl
+
+    out = {}
+    root = Path(tempfile.mkdtemp(prefix="mmgnn_etl_"))
+    try:
+        # (a) the raw directory
+        raw = root / "raw"
+        emitted = bench_etl.emit_raw_mimic(raw, ETL_PATIENTS, ETL_LAB_ROWS, ETL_LABS, ETL_DX, ETL_RX, seed=0)
+        out["emit_s"] = emitted["emit_s"]
+        print(f"    (a) raw MIMIC-III CSVs: {ETL_PATIENTS} patients, {ETL_LAB_ROWS} LABEVENTS rows, {ETL_LABS} labs, "
+              f"written in {emitted['emit_s']:.2f} s", flush=True)
+
+        # (b) the scan: native against plain on the first rows, plain and gzip
+        t_build = time.perf_counter()
+        library = _build.build_graphcore()
+        native.load()
+        print(f"    (b) graph core {library.name}, "
+              f"ready in {time.perf_counter() - t_build:.2f} s; {_build.graphcore_log.splitlines()[0] if _build.graphcore_log else 'built before'}")
+        small = root / "scan"
+        small.mkdir()
+        with open(raw / "LABEVENTS.csv") as f:
+            text = "".join(f.readline() for _ in range(ETL_SCAN_ROWS + 1))
+        (small / "LABEVENTS.csv").write_text(text)
+        with gzip.open(small / "LABEVENTS.csv.gz", "wt") as f:
+            f.write(text)
+        ids = np.arange(10_000, 10_000 + ETL_PATIENTS, 2, dtype=np.int64)  # every other patient
+        # the plain version once, on the plain file: both files hold the same text
+        t0 = time.perf_counter()
+        want = native.labevents_scan_plain(small / "LABEVENTS.csv", 0, 1, 3, 2, ids)
+        scans = {"plain_s": time.perf_counter() - t0}
+        for name in ("LABEVENTS.csv", "LABEVENTS.csv.gz"):
+            before = native.launch_counts["labevents_scan"]
+            t0 = time.perf_counter()
+            got = native.labevents_scan(small / name, 0, 1, 3, 2, ids)
+            t_native = time.perf_counter() - t0
+            if native.launch_counts["labevents_scan"] != before + 1:
+                raise AssertionError("(b) the scan did not take the native route")
+            if not _bits_equal(got, want) or len(got[0]) < ETL_SCAN_ROWS // 3:
+                raise AssertionError(f"(b) {name}: the native scan ({len(got[0])} rows) differs from its plain "
+                                     f"version ({len(want[0])} rows)")
+            scans[name] = {"rows_kept": len(got[0]), "native_s": t_native}
+            print(f"    (b) {name} ({ETL_SCAN_ROWS} rows): native {t_native:.3f} s, plain (on the .csv) "
+                  f"{scans['plain_s']:.3f} s, {len(got[0])} rows kept, arrays bit-equal")
+        out["scan_check"] = scans
+
+        # the full scan, preprocess and the graph build (the core)
+        config = bench_etl.etl_config(raw, root / "interim", root / "out")
+        stages, bundle = bench_etl.ingest(config, lab_rows=ETL_LAB_ROWS)
+        out["stages"] = stages
+        if stages["labevents_scan"]["native"] != 1:
+            raise AssertionError(f"the full scan did not take the native route: {stages['labevents_scan']}")
+        calls = stages["graph_build"]["native_calls"]
+        if not all(calls[k] for k in ("sort_edges_by_dst", "factorize", "window_plan", "span_plan")):
+            raise AssertionError(f"(c) the graph build did not run every plan in the core: {calls}")
+
+        # (c) the plain plans against the core's (the build above)
+        reset_native = dict(native.launch_counts)
+        with native.plain_route():
+            t0 = time.perf_counter()
+            plain = build_graph_from_preprocessed(config.data.interim_dir, config)
+            t_plain = time.perf_counter() - t0
+        if native.launch_counts != reset_native:
+            raise AssertionError("(c) the plain build called the core")
+        bad = _graph_arrays_equal(bundle.graph, plain.graph)
+        if bad:
+            raise AssertionError(f"(c) the plain graph differs from the core's: {bad}")
+        out["graph_build_s"] = {"core": stages["graph_build"]["s"], "plain": t_plain}
+        print(f"    (c) graph build: core {stages['graph_build']['s']:.3f} s, plain {t_plain:.3f} s; "
+              f"every plan array equal")
+        del plain
+
+        # (d) training on the card: the tiers' kernels launch, losses finite
+        g = bundle.graph
+        d = config.model.hidden_dim
+        tiers = {et: aggregation_tier(es, g.edges.get(mirror_edge_type(et)), d) for et, es in g.edges.items()}
+        print("    (d) tiers: " + ", ".join(f"{'/'.join(et)} {t}" for et, t in tiers.items()))
+        expected = set()
+        for t in tiers.values():
+            expected |= {"fused_table": {"fused_table_segment_sum", "fused_table_segment_sum_bwd"},
+                         "span": {"span_segment_sum", "segment_sum_windowed"},
+                         "paired": {"segment_sum_windowed"}, "windowed": {"segment_sum_windowed"}}.get(t, set())
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_counts()
+        line, trainer = bench_etl.train(config, bundle, dev, epochs=ETL_EPOCHS)
+        launches = counts_of()
+        plan = trainer.get_batch("train").patient_plan
+        if not (plan is not None and plan.identity and trainer.model.head_style == "factored"):
+            raise AssertionError("(d) the ETL train batch is not slot-major with factored heads: no pair-head kernel")
+        expected |= {"pair_head_fwd", "pair_head_bwd"}
+        missing = sorted(k for k in expected if not launches.get(k))
+        if missing:
+            raise AssertionError(f"(d) kernels of the tiers did not launch in the ETL epochs: {missing} ({launches})")
+        metrics = (line["test_r2"], line["test_mae"])
+        if not all(np.isfinite(line["losses"])) or not all(np.isfinite(metrics)):
+            raise AssertionError(f"(d) non-finite losses or metrics: {line['losses']}, {metrics}")
+        out["train"] = {**line, "launches": launches, "expected": sorted(expected)}
+        print(f"    (d) {ETL_EPOCHS} epochs: first {line['first_epoch_s']:.3f} s, then "
+              f"{', '.join('%.4f' % x for x in line['epoch_s'])} s; losses {line['losses']}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }; test R2 {metrics[0]:.4f}, MAE {metrics[1]:.4f}")
+        del trainer, bundle
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (e) a raw eICU directory through the command line, on the card
+        eraw = bench_etl.emit_raw_eicu(root / "eicu_raw", num_stays=ETL_EICU_STAYS)
+        ecfg = save_config(bench_etl.eicu_config(eraw, root / "eicu"), root / "eicu.yaml")
+        command = [sys.executable, "-m", "multi_modal_gnn_tpu_torch", "--config", str(ecfg), "--step", "1-4",
+                   "--no-confirm"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(command, cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"(e) {' '.join(command)} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+        steps = json.loads(proc.stdout.strip().splitlines()[-1])["step_seconds"]
+        with open(root / "eicu" / "out" / "evaluation_results.json") as f:
+            overall = json.load(f)["overall_metrics"]
+        if not all(np.isfinite([overall["r2"], overall["mae"]])):
+            raise AssertionError(f"(e) non-finite eICU metrics: {overall}")
+        out["eicu"] = {"s": time.perf_counter() - t0, "step_seconds": steps, "r2": overall["r2"],
+                       "mae": overall["mae"]}
+        print(f"    (e) eICU ({ETL_EICU_STAYS} stays) through python -m multi_modal_gnn_tpu_torch --step 1-4: "
+              f"{time.perf_counter() - t0:.2f} s, steps {steps}, test R2 {overall['r2']:.4f}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
 
+    from multi_modal_gnn_tpu_torch import native
     from multi_modal_gnn_tpu_torch.config import Config, GraphConfig, ModelConfig
     from multi_modal_gnn_tpu_torch.data import SyntheticSpec, make_synthetic_graph
     from multi_modal_gnn_tpu_torch.graph.attn_plan import ensure_attn_plans
@@ -2180,7 +2379,12 @@ def main() -> int:
         print(f"    ptxas: {ln}")
     for label, entry in NAMED_KERNELS:
         print(f"    ptxas {label}: " + (" | ".join(_ptxas_report(_build.build_log, entry)) or "not built in this run"))
-    _phase("build", t0, f"built and loaded {_build.build().name} from {len(_build.SOURCES)} sources")
+    t_core = time.perf_counter()
+    native.load()  # the host graph core (csrc/graphcore.cpp, g++): a failed build raises
+    core_s = time.perf_counter() - t_core
+    print(f"    graph core: {_build.build_graphcore().name}, "
+          f"{core_s:.2f} s" + (f" ({_build.graphcore_log.splitlines()[0]})" if _build.graphcore_log else ""))
+    _phase("build", t0, f"built and loaded {_build.build().name} from {len(_build.SOURCES)} sources and the graph core")
 
     # 3. graph -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -2189,7 +2393,12 @@ def main() -> int:
         model=ModelConfig(use_pallas=True),
     )
     d = config.model.hidden_dim
+    native.reset_launch_counts()
     graph_cpu = make_synthetic_graph(SyntheticSpec.scale_100k(seed=0), config, device="cpu")
+    core_calls = dict(native.launch_counts)
+    if not all(core_calls[k] for k in ("sort_edges_by_dst", "window_plan", "span_plan")):
+        raise AssertionError(f"the graph build did not run its plans in the graph core: {core_calls}")
+    print(f"    graph core calls: {core_calls}")
     graph = graph_cpu.to(dev)
     tiers = {}
     for et, es in graph.edges.items():
@@ -4353,6 +4562,22 @@ def main() -> int:
         f"{hg['HGT bf16']['epoch_ms']:.2f} / {hg['HGT f32']['epoch_ms']:.2f} ms, bench --bf16 "
         f"{bf16['bench']['value']:.1f} edges/s; (f) pin R2 {bf16['quality']['pin']['bfloat16']:.4f}, flagship bf16 R2 "
         f"{bf16['quality']['flagship_r2']:.4f} (f32 {flagship_r2_f32:.4f})",
+    )
+
+    # 28. ingest -------------------------------------------------------------
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ingest = _ingest_phase(dev, reset_counts, counts_of)
+    st = ingest["stages"]
+    _phase(
+        "ingest", t0,
+        f"(a) raw CSVs {ingest['emit_s']:.2f} s; (b) scan native = plain on {ETL_SCAN_ROWS} rows (.csv, .csv.gz), "
+        f"full scan {st['labevents_scan']['s']:.3f} s ({st['labevents_scan']['rows_per_sec']:.0f} rows/s); (c) "
+        f"cohort {st['cohort']['s']:.3f} s, preprocess {st['preprocess']['s']:.3f} s, graph build core "
+        f"{ingest['graph_build_s']['core']:.3f} / plain {ingest['graph_build_s']['plain']:.3f} s, plans equal; "
+        f"(d) {ETL_EPOCHS} kernel epochs, test R2 {ingest['train']['test_r2']:.4f}; (e) eICU command line "
+        f"{ingest['eicu']['s']:.2f} s",
     )
 
     cluster_launches = clusters["launches_cluster_epoch"]

@@ -7,7 +7,10 @@ package's module layout so each module's counterpart is easy to find:
 * :mod:`.config` — every config section as dataclasses, read from
   ``conf/*.yaml`` by a YAML subset reader (:mod:`.utils.yaml_subset`);
 * :mod:`.data` — the flat and eICU-phenomenology synthetic cohorts, as COO
-  arrays or as the preprocess stage's tables, and the preprocess stage;
+  arrays or as the preprocess stage's tables, the raw eICU and MIMIC-III
+  loaders, and the preprocess stage;
+* :mod:`.native` — the host graph core (``csrc/graphcore.cpp``, built with
+  g++ at first use): the graph build's sorts and plans, the LABEVENTS scan;
 * :mod:`.graph` — edge-set plans (windowed, span, dense), the HGT
   attention plans, node indexers and numbering, the graph build from
   tables, validation and the ``graph.npz`` artifact;
@@ -23,7 +26,7 @@ package's module layout so each module's counterpart is easy to find:
   reports;
 * :mod:`.serving` — cached node state and per-request pair heads;
 * :mod:`.pipeline` — the command line, ``python -m
-  multi_modal_gnn_tpu_torch.pipeline``.
+  multi_modal_gnn_tpu_torch`` (or ``.pipeline``).
 """
 
 __version__ = "0.1.0"

@@ -34,8 +34,8 @@ class ConfigError(ValueError):
 
 @dataclass(frozen=True)
 class DataConfig:
-    # synthetic is generated in the port; eicu and mimic3 parse, and the
-    # preprocess step refuses them (their raw loaders are not ported)
+    # eicu and mimic3 read the raw tables under raw_dir (data/eicu.py,
+    # data/mimic.py); synthetic is generated
     dataset: str = "eicu"  # eicu | mimic3 | synthetic
     raw_dir: str = "data/raw"
     interim_dir: str = "data/interim"

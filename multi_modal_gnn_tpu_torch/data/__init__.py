@@ -1,4 +1,5 @@
-"""Synthetic cohort generation and the preprocess stage."""
+"""Synthetic cohort generation, the raw eICU and MIMIC-III loaders
+(:mod:`.eicu`, :mod:`.mimic`) and the preprocess stage."""
 
 from multi_modal_gnn_tpu_torch.data.synthetic import (
     SyntheticSpec,

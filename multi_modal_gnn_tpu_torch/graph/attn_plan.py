@@ -30,6 +30,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from multi_modal_gnn_tpu_torch import native
 from multi_modal_gnn_tpu_torch.graph.hetero import (
     TILE_E,
     HeteroGraph,
@@ -139,10 +140,10 @@ def _build_side(
     """Window plan over ``out_ids`` (and a span layout of the gathers when
     the gather side is over ``resident_max`` rows), or None when no rung of
     the span ladder passes the packer's inflation guard."""
-    order = np.argsort(out_ids, kind="stable")
+    order, _counts, row_ptr = native.sort_edges_by_dst(out_ids, num_out)  # the graph core's counting sort
     g_sorted = np.asarray(gather_ids, np.int32)[order]
     o_sorted = np.asarray(out_ids, np.int32)[order]
-    win_src, win_local, win_tile_map, num_windows = build_window_plan(g_sorted, o_sorted, num_out)
+    win_src, win_local, win_tile_map, num_windows = build_window_plan(g_sorted, o_sorted, num_out, row_ptr=row_ptr)
     span = None
     if num_gather > resident_max and len(g_sorted):
         for mult in _SPAN_LADDER:

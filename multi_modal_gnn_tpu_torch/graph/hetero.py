@@ -1,8 +1,9 @@
 """Edge-set plans and the heterogeneous graph as plain dataclasses of tensors.
 
-Numpy copies of the JAX package's host-side plan builders
+Copies of the JAX package's host-side plan builders
 (``multi_modal_gnn_tpu/graph/hetero.py``), held equal to them by
-``tests/test_torch_plans.py``:
+``tests/test_torch_plans.py``; the dst sort, the windowed layout and the
+span packer run in the graph core (:mod:`multi_modal_gnn_tpu_torch.native`):
 
 * :func:`pad_edge_set` — dst-sorted padded COO + CSR, plus every plan;
 * :func:`build_window_plan` — the windowed layout: each ``TILE_E``-slot tile
@@ -29,6 +30,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from multi_modal_gnn_tpu_torch import native
 from multi_modal_gnn_tpu_torch.graph.schema import EdgeTypeKey
 
 WINDOW = 128  # output rows per window
@@ -199,15 +201,16 @@ def pad_edge_set(
     if e and (dst.min() < 0 or dst.max() >= num_dst):
         raise ValueError(f"dst indices out of range [0, {num_dst})")
 
-    counts_int = np.bincount(dst, minlength=num_dst) if e else np.zeros(num_dst, np.int64)
     if e:
-        order = np.argsort(dst, kind="stable")
+        # stable counting sort + counts + CSR in one pass (the graph core)
+        order, counts_i32, row_ptr = native.sort_edges_by_dst(dst, num_dst)
         src, dst = src[order], dst[order]
         if val is not None:
             val = val[order]
-    counts = counts_int.astype(np.float32)
-    row_ptr = np.zeros(num_dst + 1, dtype=np.int32)
-    row_ptr[1:] = np.cumsum(counts_int).astype(np.int32)
+        counts = counts_i32.astype(np.float32)
+    else:
+        counts = np.zeros(num_dst, np.float32)
+        row_ptr = np.zeros(num_dst + 1, dtype=np.int32)
 
     e_pad = _round_up(e, pad_multiple) if pad_multiple else max(e, 1)
     pad = e_pad - e
@@ -216,7 +219,7 @@ def pad_edge_set(
     mask_p = np.concatenate([np.ones(e, np.float32), np.zeros(pad, np.float32)])
     val_p = None if val is None else np.concatenate([val, np.zeros(pad, np.float32)])
 
-    win_src, win_local, win_tile_map, num_windows = build_window_plan(src, dst, num_dst)
+    win_src, win_local, win_tile_map, num_windows = build_window_plan(src, dst, num_dst, row_ptr=row_ptr)
     dense = build_dense_adjacency(src, dst, num_src, num_dst, counts, dense_max_bytes)
     span = None
     if src_span_rows and dense is None and num_src >= SPAN_MIN_SRC and e:
@@ -272,56 +275,20 @@ def build_window_plan(
     num_dst: int,
     window: int = WINDOW,
     tile_e: int = TILE_E,
+    row_ptr: Optional[np.ndarray] = None,
 ):
     """Regroup dst-sorted edges so each ``tile_e``-slot tile maps to one
-    ``window``-row output window.  Every window's run is padded to a whole
-    number of tiles (at least one); pad slots carry ``win_local == window``.
+    ``window``-row output window (the graph core's ``window_plan``).  Every
+    window's run is padded to a whole number of tiles (at least one); pad
+    slots carry ``win_local == window``.  ``row_ptr``: the CSR of ``dst``
+    where the caller has it.
 
     Returns ``(win_src, win_local, win_tile_map, num_windows)``."""
-    src = np.asarray(src, dtype=np.int32)
     dst = np.asarray(dst, dtype=np.int32)
-    num_windows = max((num_dst + window - 1) // window, 1)
-    boundaries = np.searchsorted(dst, np.arange(num_windows + 1) * window)
-    src_parts, local_parts, tile_map = [], [], []
-    for w in range(num_windows):
-        lo, hi = int(boundaries[w]), int(boundaries[w + 1])
-        n = hi - lo
-        n_pad = max(tile_e, ((n + tile_e - 1) // tile_e) * tile_e)
-        pad = n_pad - n
-        src_parts.append(np.concatenate([src[lo:hi], np.zeros(pad, np.int32)]))
-        local_parts.append(
-            np.concatenate([dst[lo:hi] - w * window, np.full(pad, window, np.int32)])
-        )
-        tile_map.append(np.full(n_pad // tile_e, w, np.int32))
-    return (
-        np.concatenate(src_parts).astype(np.int32),
-        np.concatenate(local_parts).astype(np.int32),
-        np.concatenate(tile_map).astype(np.int32),
-        num_windows,
-    )
-
-
-def _pad_and_sort_tiles(slot_moves, tile_meta, tile_windows, out_len, win_tile_map, num_tiles):
-    """Windows with no real slot still get one pad tile, so the window
-    sequence stays complete; then tiles re-sort by window and
-    ``slot_moves`` follows the tile permutation."""
-    seen_windows = set(tile_windows)
-    for w in range(int(win_tile_map.max()) + 1 if num_tiles else 0):
-        if w not in seen_windows:
-            tile_meta.append(0)
-            tile_windows.append(w)
-            out_len += TILE_E
-    t_order = np.argsort(np.asarray(tile_windows), kind="stable")
-    if not np.array_equal(t_order, np.arange(len(t_order))):
-        tile_new_pos = np.empty(len(t_order), dtype=np.int64)
-        tile_new_pos[t_order] = np.arange(len(t_order))
-        old_tile = slot_moves // TILE_E
-        off = slot_moves % TILE_E
-        m = slot_moves >= 0
-        slot_moves[m] = tile_new_pos[old_tile[m]] * TILE_E + off[m]
-        tile_meta = list(np.asarray(tile_meta)[t_order])
-        tile_windows = list(np.asarray(tile_windows)[t_order])
-    return slot_moves, tile_meta, tile_windows, out_len
+    if row_ptr is None:
+        row_ptr = np.zeros(num_dst + 1, dtype=np.int32)
+        row_ptr[1:] = np.cumsum(np.bincount(dst, minlength=num_dst)).astype(np.int32)
+    return native.window_plan(src, dst, row_ptr, num_dst, window, tile_e)
 
 
 def regroup_slots_by_lab_span(
@@ -334,66 +301,14 @@ def regroup_slots_by_lab_span(
     """Re-lay a windowed plan so every tile's real slots address rows inside
     one ``block_rows``-row span of a table, at a ``SPAN_BASE_ALIGN``-aligned
     base: each window's real slots are sorted by row, and tiles are packed
-    greedily, closing when full or when the next row leaves the span.
+    greedily, closing when full or when the next row leaves the span (the
+    graph core's ``span_plan``).
 
     Returns ``(slot_moves, new_len, local2, tile_map2, base)``:
     ``slot_moves[old_slot]`` is the new slot of each real old slot (-1 for
     old padding), ``base[t]`` the table row base of new tile ``t``."""
-    if block_rows % SPAN_BASE_ALIGN:
-        raise ValueError(
-            f"span-mode block_rows must be a multiple of {SPAN_BASE_ALIGN}, got {block_rows}"
-        )
-    win_local = np.asarray(win_local)
-    win_tile_map = np.asarray(win_tile_map)
-    lab_idx = np.asarray(lab_idx)
-    e_win = len(win_local)
-    num_tiles = e_win // TILE_E
-    real = win_local < WINDOW
-
-    labs_pad = max(-(-max(num_labs, 1) // 128) * 128, block_rows)
-    max_base = labs_pad - block_rows
-
-    slot_window = np.repeat(win_tile_map, TILE_E)
-    order = np.lexsort((np.arange(e_win), lab_idx, slot_window))
-    order = order[real[order]]
-    g_win = slot_window[order]
-    g_lab = lab_idx[order]
-    n = len(order)
-    if n:
-        w_starts = np.nonzero(np.r_[True, g_win[1:] != g_win[:-1]])[0]
-        w_ends = np.r_[w_starts[1:], n]
-    else:
-        w_starts = w_ends = np.zeros(0, dtype=np.int64)
-
-    slot_moves = np.full(e_win, -1, dtype=np.int64)
-    tile_bases: list = []
-    tile_windows: list = []
-    out_len = 0
-    for s, e in zip(w_starts, w_ends):
-        w = int(g_win[s])
-        i = int(s)
-        while i < e:
-            base = min((int(g_lab[i]) // SPAN_BASE_ALIGN) * SPAN_BASE_ALIGN, max_base)
-            cut = i + int(np.searchsorted(g_lab[i:e], base + block_rows, "left"))
-            j = min(i + TILE_E, cut)
-            slot_moves[order[i:j]] = out_len + np.arange(j - i)
-            tile_bases.append(base)
-            tile_windows.append(w)
-            out_len += TILE_E
-            i = j
-
-    slot_moves, tile_bases, tile_windows, out_len = _pad_and_sort_tiles(
-        slot_moves, tile_bases, tile_windows, out_len, win_tile_map, num_tiles
-    )
-    local2 = np.full(out_len, WINDOW, dtype=np.int32)
-    m = slot_moves >= 0
-    local2[slot_moves[m]] = win_local[m]
-    return (
-        slot_moves,
-        out_len,
-        local2,
-        np.asarray(tile_windows, dtype=np.int32),
-        np.asarray(tile_bases, dtype=np.int32),
+    return native.span_plan(
+        win_local, win_tile_map, lab_idx, int(num_labs), int(block_rows), WINDOW, TILE_E, SPAN_BASE_ALIGN
     )
 
 

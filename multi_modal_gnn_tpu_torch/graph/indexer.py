@@ -15,6 +15,8 @@ from typing import Dict, Hashable, Iterable, List, Optional, Tuple
 
 import numpy as np
 
+from multi_modal_gnn_tpu_torch import native
+
 # every NaN id canonicalizes to this one object, so dict lookups find it
 _NAN = float("nan")
 
@@ -60,7 +62,10 @@ def _factorize(arr: np.ndarray) -> Tuple[np.ndarray, List[Hashable]]:
     """``(codes, uniques)``: the distinct raw values in first-seen order,
     canonicalized, and each element's position among them."""
     ints = _canonical_int_values(arr) if arr.dtype != object else None
-    values = ints if ints is not None else arr
+    if ints is not None:  # the graph core's linear-probing factorizer
+        codes, uniq = native.factorize(ints)
+        return codes.astype(np.int64), [int(u) for u in uniq]
+    values = arr
     if values.dtype != object:
         uniq, first, inverse = np.unique(values, return_index=True, return_inverse=True)
         order = np.argsort(first, kind="stable")
@@ -72,8 +77,6 @@ def _factorize(arr: np.ndarray) -> Tuple[np.ndarray, List[Hashable]]:
         seen: Dict = {}
         codes = np.fromiter((seen.setdefault(v, len(seen)) for v in values), np.int64, len(values))
         uniq = list(seen)
-    if ints is not None:
-        return codes, [int(u) for u in uniq]
     return codes, [canonical_id(u.item() if isinstance(u, np.generic) else u) for u in uniq]
 
 

@@ -1,18 +1,27 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) and its host
+graph core (``csrc/graphcore.cpp``).
 
-At first use ``nvcc`` compiles every source in this checkout, one process
-per source and all at once, and links the objects into one shared library
-with a plain C interface under ``multi_modal_gnn_tpu_torch/_build/`` (named
-by the sources' hash, so an edited source builds anew); ctypes loads it.
-A missing ``nvcc`` or a failed build raises; there is no other path to the
-kernels.
+At first use ``nvcc`` compiles every CUDA source in this checkout, one
+process per source and all at once, and links the objects into one shared
+library with a plain C interface under ``multi_modal_gnn_tpu_torch/_build/``
+(named by the sources' hash, so an edited source builds anew); ctypes loads
+it.  A missing ``nvcc`` or a failed build raises; there is no other path to
+the kernels.
+
+:func:`build_graphcore` compiles the graph core with the host's C++
+compiler into the same directory, under a file lock: concurrent processes
+(test workers, a phase's subprocess) wait for one build, which is written
+under a temporary name and renamed into place.  It links zlib (``-lz``):
+a host without zlib's header fails the build, with the compiler's output.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 from pathlib import Path
@@ -140,3 +149,49 @@ def load() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
+
+
+GRAPHCORE_SOURCE = _PKG / "csrc" / "graphcore.cpp"
+GRAPHCORE_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")
+graphcore_log = ""  # the compiler's output of this process's graph-core build
+
+
+def cxx() -> Optional[str]:
+    """The host's C++ compiler (``$CXX``, ``g++``, ``c++``, ``clang++``), or
+    None where there is none."""
+    for name in (os.environ.get("CXX"), "g++", "c++", "clang++"):
+        found = shutil.which(name) if name else None
+        if found:
+            return found
+    return None
+
+
+def build_graphcore() -> Path:
+    """Compile ``csrc/graphcore.cpp`` unless a library of this source,
+    compiler and machine exists; raises with the compiler's output when the
+    build fails or no compiler is found."""
+    global graphcore_log
+    compiler = cxx()
+    if compiler is None:
+        raise RuntimeError("no C++ compiler found ($CXX, g++, c++, clang++) to build csrc/graphcore.cpp")
+    h = hashlib.sha256(" ".join((compiler, platform.machine(), *GRAPHCORE_FLAGS)).encode())
+    h.update(GRAPHCORE_SOURCE.read_bytes())
+    out = BUILD_DIR / f"libgraphcore_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "graphcore.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the process ends, too
+        if out.exists():  # another process built it while this one waited
+            return out
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [compiler, *GRAPHCORE_FLAGS, "-o", str(tmp), str(GRAPHCORE_SOURCE), "-lz"]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+            graphcore_log = f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+            if proc.returncode != 0:
+                raise RuntimeError(f"building csrc/graphcore.cpp failed:\n{graphcore_log}")
+            tmp.replace(out)
+        finally:
+            tmp.unlink(missing_ok=True)
+    return out

@@ -1,13 +1,15 @@
 """The pipeline command line of the PyTorch package (``run_pipeline.py``):
 
-    python -m multi_modal_gnn_tpu_torch.pipeline --config conf/eicu_real.yaml --no-confirm
+    python -m multi_modal_gnn_tpu_torch --config conf/eicu_real.yaml --no-confirm
+    python -m multi_modal_gnn_tpu_torch.pipeline ...   (the same)
 
 Steps, numbered as in ``run_pipeline.py``; each runs in this process and
 hands over to the next only through the artifacts on disk
 (``data.interim_dir``, ``data.output_dir``), so any step can be run alone
 against existing artifacts:
 
-  1 preprocess      synthetic cohort -> interim tables (<name>.npz)
+  1 preprocess      raw eICU / MIMIC-III tables (data.raw_dir) or the synthetic
+                    cohort -> interim tables (<name>.npz, normalizer.npz)
   2 build-graph     interim tables -> graph.npz + graph.meta.json
   3 train           graph -> best_model.ckpt, checkpoints, training_history.json,
                     test_results.json
@@ -168,7 +170,7 @@ def step_export_serving(config, opts: RunOptions):
 
 # (name, description, function or None, the ROADMAP.md item of an unported step)
 STEPS = [
-    ("preprocess", "Generate the cohort, write the interim tables", step_preprocess, None),
+    ("preprocess", "Load raw data, select cohort, engineer features", step_preprocess, None),
     ("build-graph", "Assemble the padded heterogeneous graph", step_build_graph, None),
     ("train", "Train the GNN with mask-and-recover supervision", step_train, None),
     ("evaluate", "Winsorized metrics, baselines, stratification", step_evaluate, None),
@@ -224,7 +226,7 @@ def run_step(index: int, config, opts: RunOptions, confirm: bool) -> Optional[fl
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
-        prog="python -m multi_modal_gnn_tpu_torch.pipeline",
+        prog="python -m multi_modal_gnn_tpu_torch",
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter,
     )
     parser.add_argument("--config", default="conf/config.yaml")

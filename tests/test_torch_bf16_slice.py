@@ -63,8 +63,9 @@ from test_torch_bf16 import _jax_config as _bf16_config
 from test_torch_value_context import SPEC, _config_dict, flax_variables
 
 BF = "bfloat16"
-# the value-context cohort: test_torch_bf16's (600 patients, 40 labs)
-VC_SPEC = BF16_SPEC
+# the value-context cohort: test_torch_bf16's at 300 patients (40 labs; every
+# relation on the fused-table tier, as at its 600)
+VC_SPEC = dataclasses.replace(BF16_SPEC, num_patients=300)
 
 
 @pytest.fixture(scope="module", autouse=True)

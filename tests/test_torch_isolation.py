@@ -11,7 +11,9 @@ resume from them) and ``evaluate_model`` on its best state; and the
 pipeline command line (``python -m multi_modal_gnn_tpu_torch.pipeline
 --device cpu``) on a tiny synthetic config written by ``save_config``:
 preprocess, graph build, train, evaluate, audit, inference and the serving
-export, whose artifact ``ServingModel`` then loads and serves.
+export, whose artifact ``ServingModel`` then loads and serves; and the
+raw-data ingest: small MIMIC-III and eICU raw directories through
+``preprocess_pipeline`` and the graph build.
 """
 
 import os
@@ -138,6 +140,22 @@ SCRIPT = textwrap.dedent(
         served = ServingModel.load(Path(out) / "out" / "serving", device="cpu")
         report = served.predict_patient(0, denormalize=True)
         assert len(report) == served.manifest["num_labs"] and len(served.predict_cold_start({0: 0.5})) == len(report)
+    # the raw-data ingest: MIMIC-III (the graph core's scan) and eICU CSVs to
+    # interim tables and a graph, with no pandas
+    from multi_modal_gnn_tpu_torch.data.preprocess import preprocess_pipeline
+    from multi_modal_gnn_tpu_torch.graph.build import build_graph_from_preprocessed
+    from multi_modal_gnn_tpu_torch.tools import bench_etl
+    with tempfile.TemporaryDirectory() as out:
+        out = Path(out)
+        bench_etl.emit_raw_mimic(out / "mimic", 300, 6000, num_labs=40, num_dx=30, num_rx=20)
+        raw_cfgs = (
+            bench_etl.etl_config(out / "mimic", out / "mi", out / "mo"),
+            bench_etl.eicu_config(bench_etl.emit_raw_eicu(out / "eicu", num_stays=200, labs_per_stay=8), out / "e"),
+        )
+        for raw_cfg in raw_cfgs:
+            tables = preprocess_pipeline(raw_cfg, interim_dir=raw_cfg.data.interim_dir)
+            assert len(tables["normalizer"]["lab_id"]) and len(tables["labs_normalized"]["VALUE_NORMALIZED"])
+            assert build_graph_from_preprocessed(raw_cfg.data.interim_dir, raw_cfg).graph.num_nodes("lab") > 0
     assert not any(blocked(name) and sys.modules[name] is not None for name in sys.modules), sorted(sys.modules)
     print("ISOLATED-OK")
     """

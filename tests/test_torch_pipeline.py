@@ -264,9 +264,11 @@ def test_spec_from_config_equals_jax(name):
 
 @pytest.mark.parametrize("dataset", ["eicu", "mimic3"])
 def test_preprocess_refuses_the_raw_datasets(dataset, tmp_path):
-    cfg = Config.from_dict({"data": {"dataset": dataset}})
-    with pytest.raises(ConfigError, match="queue 1 item 9"):
-        preprocess_pipeline(cfg, interim_dir=tmp_path)
+    # the raw loaders are ported (tests/test_torch_ingest.py); without a raw
+    # directory the stage raises before it writes anything, as JAX's does
+    cfg = Config.from_dict({"data": {"dataset": dataset, "raw_dir": str(tmp_path / "no_raw")}})
+    with pytest.raises(FileNotFoundError, match="no_raw"):
+        preprocess_pipeline(cfg, interim_dir=tmp_path / "interim")
     assert not any(tmp_path.iterdir())
 
 
