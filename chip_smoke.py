@@ -4,9 +4,9 @@ the RGCN's dual-head training path, the gather probe, the bench, the
 trainer's lifecycle (checkpoints, resume, evaluation), the pipeline
 command line on the flagship config, the serving artifact, the quality
 channels (value context, the bilinear channel, the side-information warm
-start), Cluster-GCN mini-batch training, the bfloat16 compute path and
-the raw-data ingest path (raw MIMIC-III / eICU CSVs, the host graph core)
-on one CUDA GPU.
+start), Cluster-GCN mini-batch training, the bfloat16 compute path, the
+raw-data ingest path (raw MIMIC-III / eICU CSVs, the host graph core), and
+the visualize step with the performance ceilings on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -109,7 +109,8 @@ Phases, each printing one line with its seconds:
  19. bench         python -m multi_modal_gnn_tpu_torch.tools.bench --scale
                    --no-dense --quick through run_bench: its JSON line, a
                    finite positive value, the card named in its device, and
-                   K1-K4 launched in its timed chunks
+                   K1-K4 launched in its timed chunks; on phase 3's graph
+                   (the bench's own, not built again)
  20. lifecycle     on phase 3's graph at full width (dropout 0.2):
                    train_pipeline for 4 epochs (checkpoints every 2) twice,
                    whose relative drift over the losses of epochs 3-4 sets
@@ -119,12 +120,14 @@ Phases, each printing one line with its seconds:
                    within it; load_best_model, evaluate_model (baselines
                    global_mean, per_lab_mean; conformal alpha 0.1) and its
                    artifacts; predict_pairs on 4096 test pairs against
-                   predict("test") within 1e-5
+                   predict("test") within 1e-5; the run's directory stays
+                   for phase 29
  21. pipeline      conf/eicu_real.yaml through python -m
-                   multi_modal_gnn_tpu_torch.pipeline (steps 1-5, 7, 8) at
-                   train seeds 42-44, side by side on the card (four
-                   processes with seed 44's run below), held to the JAX
-                   package's CPU band;
+                   multi_modal_gnn_tpu_torch.pipeline (steps 1-8) at
+                   train seeds 42-44, side by side on the card (six
+                   processes with seed 44's run below, phase 24's
+                   warm-start run and phase 27 (f)'s bfloat16 run), held to
+                   the JAX package's CPU band;
                    seed 42's serving artifact loaded on the card: its test
                    pairs against the trainer, predict_patient(denormalize=
                    True), intervals (their coverage of the test split
@@ -134,7 +137,8 @@ Phases, each printing one line with its seconds:
                    supervision draws (--draws cpu, tools/cpu_draws.py)
                    beside the card's own
                    and the CPU run's epochs and R2; one use_pallas run
-                   (factored heads) with K4f / K4b held to their plain
+                   (factored heads, steps 1-8 in this process while the
+                   command lines run) with K4f / K4b held to their plain
                    versions on its train batch
  22. serving-export export_serving with phase 5's RGCN (K1, K2f, K3 launch in
                    its compute_node_state), phase 12's HGT (K6) and phase
@@ -174,7 +178,8 @@ Phases, each printing one line with its seconds:
  24. warm-start    conf/eicu_real.yaml with train.extras.warm_start:
                    sideinfo and its channel written out
                    (flagship_band.warm_start_config) through the command
-                   line at train seed 42 (WARM_START_SEEDS), held to the JAX
+                   line at train seed 42 (WARM_START_SEEDS; run in phase
+                   21's pool), held to the JAX
                    package's CPU band of that file (JAX_CPU_BAND_SIDEINFO); seed 42's plant
                    on the card equals SideInfoALSBaseline on the val pairs
                    within 1e-4, its best val loss is not above the plant's,
@@ -245,8 +250,9 @@ Phases, each printing one line with its seconds:
                    bf16 quality pin with the port (R2 >= 0.15; f32 beside
                    it) and conf/eicu_real.yaml in bf16 at seed 42 within
                    0.03 of phase 21's float32 run of that seed (the JAX
-                   package's bf16 run beside it), through step 8, its bf16
-                   artifact served on the card as phase 21 serves seed 42's
+                   package's bf16 run beside it), through the command line
+                   (steps 1-8, run in phase 21's pool), its bf16 artifact
+                   served on the card as phase 21 serves seed 42's
  28. ingest        tools/bench_etl's raw MIMIC-III-shaped CSVs (46,000
                    patients, 5,000,000 LABEVENTS rows, 720 labs, seed 0):
                    (a) written; (b) the graph core's LABEVENTS scan against
@@ -262,10 +268,31 @@ Phases, each printing one line with its seconds:
                    evaluate_model's finite test metrics; (e) a raw eICU
                    directory through python -m multi_modal_gnn_tpu_torch
                    --step 1-4 on the card
+ 29. visualize     the pipeline's step 6 (viz.visualize) and the ceilings:
+                   (a) on phase 20's run directory (scale_100k, full width,
+                   use_pallas, dense budget 0), the trainer restored from
+                   its best checkpoint: K1, K2f and K3 launched, seconds,
+                   the figures left out and why (matplotlib absent: every
+                   figure; present: every PNG written), per_lab_calibration.csv
+                   against the same function on the CPU plain path's test
+                   predictions and the embeddings' PCA plane against the
+                   CPU's (VIZ_ATOL); (b) the same step on phase 14's HGT on
+                   its flash tier (K6 launched) against the segment tier on
+                   the card; (c) the flat Bayes ceiling of phase 3's cohort
+                   on its train / test split, card against CPU within 1e-9
+                   relative (seconds, peak memory), and the LMMSE ceiling
+                   of conf/eicu_real.yaml's cohort against the JAX
+                   package's CPU value (JAX_CPU_LMMSE) beside phase 21's
+                   band; (d) python -m
+                   multi_modal_gnn_tpu_torch.tools.diagnose_quality --spec
+                   eicu --epochs 30 on the card, its yardsticks against its
+                   --device cpu --skip-train run's within 1e-9 (both started
+                   at the phase's start, in the background of (a)-(c))
 Then a JSON line of per-kernel results (a kernel with a bf16 instantiation
 also carries launches_bf16_step and its bf16 results, and its bf16 cluster
 sites and value-context launches; P1's bf16 kernels have rows of their
-own), the nvidia-smi line, and the last
+own; every row carries launches_visualize, its launches in phase 29's
+step 6), the nvidia-smi line, and the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero before the last line; without a CUDA device it fails in phase 1.
 """
@@ -522,6 +549,23 @@ ETL_PATIENTS, ETL_LAB_ROWS, ETL_LABS, ETL_DX, ETL_RX = 46_000, 5_000_000, 720, 8
 ETL_SCAN_ROWS = 250_000
 ETL_EPOCHS = 3
 ETL_EICU_STAYS = 3_000
+# phase 29: the visualize step and the ceilings.  The calibration table and
+# the PCA plane of step 6 on the card against the same functions on the CPU
+# plain path's predictions and embeddings: f32 sums in another order move the
+# predictions by ~1e-5, and a recalibrated MAE divides them by the lab's
+# slope, so those two columns are held to 1e-4 (1 + |ref|) / min(1, |slope|)
+VIZ_ATOL = 1e-4
+# the Bayes and LMMSE ceilings in float64: the card's sums against the
+# CPU's, and the JAX package's LMMSE ceiling of conf/eicu_real.yaml's cohort
+# (SyntheticSpec.eicu_real(0), default splits at seed 42), as
+# `python tests/jax_lmmse_ceiling.py` prints it on the CPU
+CEILING_REL = 1e-9
+JAX_CPU_LMMSE = {
+    "mae": 0.5676102175632975, "rmse": 0.9063563055042431, "r2": 0.11039252727203197,
+    "mape": 108.88189645568704,
+}
+# (d): tools/diagnose_quality on the card, beside its CPU yardsticks
+DIAGNOSE_EPOCHS = 30
 # the bfloat16 instantiations' -Xptxas -v lines, by kernel
 BF16_NAMED = tuple((label, entry + "13__nv_bfloat16") for label, entry in (
     ("K2b", "incidence_kernelILb0E"), ("K3", "incidence_kernelILb1E"),
@@ -1742,14 +1786,13 @@ def _bf16_state_close(name: str, got, want, f32) -> float:
 
 
 def _bf16_phase(dev, graph_cpu, graph, graph_hgt, config, hgt_config, dual_config, tiers, masker, masker0,
-                flagship_r2_f32, reset_counts) -> dict:
+                flagship_r2_f32, reset_counts, flag_run, flag_dir) -> dict:
     """Phase 27: the bfloat16 compute path (model.compute_dtype: bfloat16 |
     auto) on phase 3's graph.  Returns each kernel's bfloat16 results and
     launches for the kernels line."""
     import numpy as np
     import torch
 
-    from multi_modal_gnn_tpu_torch import pipeline
     from multi_modal_gnn_tpu_torch.data import SyntheticSpec
     from multi_modal_gnn_tpu_torch.data.synthetic import generate_synthetic_tables
     from multi_modal_gnn_tpu_torch.evaluation.metrics import compute_regression_metrics
@@ -1761,7 +1804,7 @@ def _bf16_phase(dev, graph_cpu, graph, graph_hgt, config, hgt_config, dual_confi
     from multi_modal_gnn_tpu_torch.ops import segment as seg_ops
     from multi_modal_gnn_tpu_torch.ops import segment_kernels as sk
     from multi_modal_gnn_tpu_torch.serving import build_serving_fn, compute_node_state, predict_patient
-    from multi_modal_gnn_tpu_torch.tools import bench, flagship_band
+    from multi_modal_gnn_tpu_torch.tools import bench
     from multi_modal_gnn_tpu_torch.training import EdgeMasker, Trainer, warm_start_trainer
     from multi_modal_gnn_tpu_torch.utils import mxu_probe
     from multi_modal_gnn_tpu_torch.utils.rng import stream_seed
@@ -2112,26 +2155,13 @@ def _bf16_phase(dev, graph_cpu, graph, graph_hgt, config, hgt_config, dual_confi
           f"float32 {pin['float32']:.6f}", flush=True)
     if not pin["bfloat16"] >= BF16_PIN_R2_MIN:
         raise AssertionError(f"bf16 quality pin: R2 {pin['bfloat16']:.4f} < {BF16_PIN_R2_MIN}")
-    repo = Path(__file__).resolve().parent
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        flag_cfg = flagship_band.seed_config(
-            flagship_band.dtype_config(repo / "conf" / "eicu_real.yaml", tmp / "eicu_real_bf16.yaml"),
-            FLAGSHIP_SEEDS[0], tmp,
-        )
-        opts = pipeline.RunOptions(device=dev)
-        flag_s = {}
-        for name, _, step, _ in pipeline.STEPS:  # every ported step: 1-5, 7 and 8
-            if step is None:
-                continue
-            step_t = time.perf_counter()
-            step(flag_cfg, opts)
-            flag_s[name] = time.perf_counter() - step_t
-        flag = flagship_band.read_result(tmp / "out")
-        if flag["missing"]:
-            raise AssertionError(f"the bf16 flagship run left out {flag['missing']}")
-        # step 8's bf16 artifact served on the card, as phase 21 serves float32's
-        served = _flagship_serving_check(tmp, dev)
+    # the flagship in bfloat16 went through the command line (steps 1-8)
+    # beside phase 21's float32 runs
+    flag, flag_s = flag_run, flag_run["step_seconds"]
+    if flag["missing"]:
+        raise AssertionError(f"the bf16 flagship run left out {flag['missing']}")
+    # step 8's bf16 artifact served on the card, as phase 21 serves float32's
+    served = _flagship_serving_check(flag_dir, dev)
     print(f"    (f) conf/eicu_real.yaml, compute_dtype bfloat16, seed {FLAGSHIP_SEEDS[0]}: steps "
           + ", ".join(f"{k} {v:.2f} s" for k, v in flag_s.items())
           + f"; {flag['epochs']} epochs; guarded R2 {flag['r2']:.6f}, MAE {flag['mae']:.6f} (phase 21's "
@@ -2315,6 +2345,258 @@ def _ingest_phase(dev, reset_counts, counts_of) -> dict:
               f"{time.perf_counter() - t0:.2f} s, steps {steps}, test R2 {overall['r2']:.4f}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _calibration_close(label: str, got: list, want: list) -> float:
+    """Two per-lab calibration tables (rows keyed by lab) within
+    VIZ_ATOL; the largest difference, scaled as the bound is."""
+    if sorted(r["lab_index"] for r in got) != sorted(r["lab_index"] for r in want):
+        raise AssertionError(f"{label}: the calibration tables hold other labs")
+    by_lab = {r["lab_index"]: r for r in got}
+    worst = 0.0
+    for ref in want:
+        row = by_lab[ref["lab_index"]]
+        if row["num_samples"] != ref["num_samples"]:
+            raise AssertionError(f"{label}: lab {ref['lab_index']}: {row['num_samples']} rows, not {ref['num_samples']}")
+        for col in ("slope", "intercept", "mae", "mae_recalibrated", "mae_delta"):
+            bound = VIZ_ATOL * (1.0 + abs(ref[col]))
+            if col in ("mae_recalibrated", "mae_delta"):
+                bound /= min(1.0, abs(ref["slope"]))
+            diff = abs(float(row[col]) - ref[col])
+            worst = max(worst, diff / bound)
+            if not diff <= bound:
+                raise AssertionError(f"{label}: lab {ref['lab_index']} {col} {row[col]} against {ref[col]} "
+                                     f"(bound {bound:.3e})")
+    return worst
+
+
+def _plane_close(label: str, got, want) -> float:
+    """Two PCA projections, each component up to its sign, within VIZ_ATOL;
+    the largest difference."""
+    worst = 0.0
+    for comp in range(2):
+        sign = 1.0 if float((got[:, comp] * want[:, comp]).sum()) >= 0 else -1.0
+        worst = max(worst, float((sign * got[:, comp] - want[:, comp]).abs().max()))
+    if not worst <= VIZ_ATOL:
+        raise AssertionError(f"{label}: the PCA planes differ by {worst:.3e} > {VIZ_ATOL}")
+    return worst
+
+
+def _read_calibration(path: Path) -> list:
+    import csv
+
+    with open(path) as f:
+        return [
+            {k: (int(v) if k in ("lab_index", "num_samples") else v if k == "lab_name" else float(v))
+             for k, v in row.items()}
+            for row in csv.DictReader(f)
+        ]
+
+
+def _visualize_phase(dev, life_dir, life_config, hgt_state, hgt_config, graph_cpu, graph, graph_hgt, graph_seg,
+                     masker, config, reset_counts, counts_of) -> dict:
+    """Phase 29: the pipeline's visualize step (step 6) on phase 20's RGCN
+    run and phase 14's HGT on the card, against the CPU plain path and the
+    segment tier; the Bayes and LMMSE ceilings on the card against the CPU
+    and the JAX package; tools/diagnose_quality on the card against its CPU
+    yardsticks."""
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    from multi_modal_gnn_tpu_torch import viz
+    from multi_modal_gnn_tpu_torch.data import SyntheticSpec
+    from multi_modal_gnn_tpu_torch.evaluation import gaussian_conditional_ceiling
+    from multi_modal_gnn_tpu_torch.graph.build import GraphBundle, GraphMeta
+    from multi_modal_gnn_tpu_torch.graph.schema import PATIENT
+    from multi_modal_gnn_tpu_torch.models import build_model
+    from multi_modal_gnn_tpu_torch.ops import attention_kernels as ak
+    from multi_modal_gnn_tpu_torch.tools import diagnose_quality
+    from multi_modal_gnn_tpu_torch.training import Trainer, masker_from_config
+    from multi_modal_gnn_tpu_torch.utils.io import load_json
+    from multi_modal_gnn_tpu_torch.viz.advanced import per_lab_calibration
+
+    out = {}
+    repo = Path(__file__).resolve().parent
+    drawing = viz.library_available("matplotlib")
+    tmp = Path(tempfile.mkdtemp(prefix="mmgnn_viz_"))
+    # (d) first, in the background: the card's run trains while (a)-(c) run
+    module = "multi_modal_gnn_tpu_torch.tools.diagnose_quality"
+    commands = {
+        "card": [sys.executable, "-m", module, "--spec", "eicu", "--epochs", str(DIAGNOSE_EPOCHS),
+                 "--out-dir", str(tmp / "dq"), "--tag", "card"],
+        "cpu": [sys.executable, "-m", module, "--spec", "eicu", "--skip-train", "--device", "cpu",
+                "--out-dir", str(tmp / "dq"), "--tag", "cpu"],
+    }
+    t_dq = time.perf_counter()
+    procs = {k: subprocess.Popen(c, cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for k, c in commands.items()}
+    try:
+        def check_figures(label, summary, run_dir):
+            left_out = summary["left_out"]
+            if drawing:
+                missing = [p for p in summary["drawn"] if not Path(p).exists()]
+                if missing or not summary["drawn"]:
+                    raise AssertionError(f"({label}) figures not written: {missing or 'none drawn'}")
+            elif summary["drawn"] or set(left_out.values()) != {"matplotlib is not installed"}:
+                raise AssertionError(f"({label}) without matplotlib: drew {summary['drawn']}, left out {left_out}")
+            if [Path(p).name for p in summary["written"]] != ["per_lab_calibration.csv"]:
+                raise AssertionError(f"({label}) wrote {summary['written']}")
+            return sorted(Path(p).name for p in left_out)
+
+        # (a) step 6 on phase 20's run, the trainer restored from its best
+        # checkpoint as the pipeline's step restores it
+        model = build_model(life_config, graph_cpu, generator=torch.Generator().manual_seed(0))
+        trainer = Trainer(model, graph, masker_from_config(life_config, graph), life_config)
+        trainer.restore(life_dir / "best_model.ckpt")
+        trainer.best_state = copy.deepcopy(trainer.model.state_dict())
+        bundle = GraphBundle(graph=graph, meta=GraphMeta())
+        history = load_json(life_dir / "training_history.json")
+        torch.cuda.synchronize()
+        reset_counts()
+        t_step = time.perf_counter()
+        summary = viz.visualize(life_config, bundle, trainer, history=history, output_dir=life_dir)
+        torch.cuda.synchronize()
+        out["step_s"] = time.perf_counter() - t_step
+        launches = counts_of()
+        out["launches"] = launches
+        for name in ("segment_sum_windowed", "fused_table_segment_sum", "span_segment_sum"):
+            if not launches[name]:
+                raise AssertionError(f"(a) {name} did not launch in step 6: {launches}")
+        left_out = check_figures("a", summary, life_dir)
+        print(f"    (a) step 6 on phase 20's run (RGCN, scale_100k): {out['step_s']:.2f} s; launches "
+              f"{ {k: v for k, v in launches.items() if v} }; matplotlib {'present' if drawing else 'absent'}: "
+              f"drew {len(summary['drawn'])}, left out {len(left_out)} {left_out}, for "
+              f"{sorted(set(summary['left_out'].values()))}", flush=True)
+        rows = _read_calibration(life_dir / "advanced_visualizations" / "per_lab_calibration.csv")
+        card_plane = viz.pca_2d(torch.cat(list(viz.node_embeddings(trainer).values())))
+        card_preds = trainer.predict("test", state=trainer.best_state)
+        # the CPU plain path: the same best state, the plain versions
+        cpu_model = build_model(life_config, graph_cpu, generator=torch.Generator().manual_seed(0))
+        cpu_model.load_state_dict({k: v.cpu() for k, v in trainer.best_state.items()})
+        cpu = Trainer(cpu_model, graph_cpu, masker_from_config(life_config, graph_cpu), life_config, device="cpu")
+        t_cpu = time.perf_counter()
+        cpu_preds = cpu.predict("test")
+        cpu_s = time.perf_counter() - t_cpu
+        _, test_l, test_v = trainer.masker.split_arrays("test")
+        worst = _calibration_close("(a) per_lab_calibration.csv, card against the CPU plain path",
+                                   rows, per_lab_calibration(cpu_preds, test_v, test_l, {}))
+        cpu_plane = viz.pca_2d(torch.cat(list(viz.node_embeddings(cpu).values())))
+        plane_err = _plane_close("(a) embeddings", card_plane.cpu(), cpu_plane)
+        print(f"    (a) {len(rows)} calibration rows within {worst:.3f} of the bound of the CPU plain path's "
+              f"(its test predictions {cpu_s:.2f} s; card - CPU max |d| {np.abs(card_preds - cpu_preds).max():.3e}); "
+              f"the PCA plane of {card_plane.shape[0]} embeddings within {plane_err:.3e} of the CPU's", flush=True)
+        out["a"] = {"rows": len(rows), "calibration": worst, "plane": plane_err, "left_out": left_out}
+        del trainer, model, cpu, cpu_model
+
+        # (b) the HGT of phase 14 on its flash tier, against the segment tier
+        hgt_seg_config = dataclasses.replace(
+            hgt_config, model=dataclasses.replace(hgt_config.model, extras={"hgt_flash": "off"}))
+        hgt = {}
+        for tier, cfg, g in (("flash", hgt_config, graph_hgt), ("segment", hgt_seg_config, graph_seg)):
+            model = build_model(cfg, graph_cpu, generator=torch.Generator().manual_seed(0))
+            model.load_state_dict(hgt_state)
+            tr = Trainer(model, g, masker, cfg)
+            torch.cuda.synchronize()
+            reset_counts()
+            t_step = time.perf_counter()
+            summary = viz.visualize(cfg, GraphBundle(graph=g, meta=GraphMeta()), tr, output_dir=tmp / tier)
+            torch.cuda.synchronize()
+            hgt[tier] = {
+                "s": time.perf_counter() - t_step, "launches": dict(ak.launch_counts),
+                "rows": _read_calibration(tmp / tier / "advanced_visualizations" / "per_lab_calibration.csv"),
+                "plane": viz.pca_2d(torch.cat(list(viz.node_embeddings(tr).values()))),
+                "left_out": check_figures(f"b, {tier}", summary, tmp / tier),
+            }
+            del model, tr
+        flash, seg = hgt["flash"], hgt["segment"]
+        if not flash["launches"]["flash_attention_fwd"] or any(seg["launches"].values()):
+            raise AssertionError(f"(b) launches: flash tier {flash['launches']}, segment tier {seg['launches']}")
+        h_worst = _calibration_close("(b) the HGT's calibration table, flash against segment tier",
+                                     flash["rows"], seg["rows"])
+        h_plane = _plane_close("(b) the HGT's embeddings", flash["plane"], seg["plane"])
+        out["launches_hgt"] = flash["launches"]
+        print(f"    (b) step 6 on the HGT: flash tier {flash['s']:.2f} s (launches {flash['launches']}), segment tier "
+              f"{seg['s']:.2f} s; calibration within {h_worst:.3f} of the bound, PCA plane within {h_plane:.3e}; "
+              f"left out {len(flash['left_out'])}", flush=True)
+
+        # (c) the flat Bayes ceiling of phase 3's cohort on its train / test
+        # split, card against CPU; the LMMSE ceiling of the flagship's cohort
+        w, signal = diagnose_quality.flat_graph_loadings(SyntheticSpec.scale_100k(seed=0), config)
+        train, test = masker.split_arrays("train"), masker.split_arrays("test")
+        num_p = graph.num_nodes(PATIENT)
+        ceil = {}
+        for where in ("card", "cpu"):
+            device = dev if where == "card" else torch.device("cpu")
+            if where == "card":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+            t_c = time.perf_counter()
+            ceil[where] = gaussian_conditional_ceiling(w, signal, *train, *test, num_patients=num_p, device=device)
+            if where == "card":
+                torch.cuda.synchronize()
+                ceil["peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+            ceil[where + "_s"] = time.perf_counter() - t_c
+        got, want = ceil["card"], ceil["cpu"]
+        pairs = [(f"expected {k}", got["expected"][k], want["expected"][k]) for k in want["expected"]]
+        pairs += [(f"realized {k}", got["realized"][k], want["realized"][k]) for k in want["realized"]]
+        pairs.append(("mean_posterior_var", got["mean_posterior_var"], want["mean_posterior_var"]))
+        rel = max(abs(a - b) / abs(b) for _, a, b in pairs)
+        pred_rel = float(np.abs(got["predictions"] - want["predictions"]).max() / np.abs(want["predictions"]).max())
+        if not (rel <= CEILING_REL and pred_rel <= CEILING_REL):
+            raise AssertionError(f"(c) the flat ceiling on the card differs from the CPU's: {pairs}, "
+                                 f"predictions {pred_rel:.3e}")
+        lmmse = diagnose_quality.eicu_lmmse_ceiling(SyntheticSpec.eicu_real(0), device=dev)
+        l_rel = max(abs(lmmse[k] - JAX_CPU_LMMSE[k]) / abs(JAX_CPU_LMMSE[k]) for k in JAX_CPU_LMMSE)
+        if not l_rel <= CEILING_REL:
+            raise AssertionError(f"(c) the LMMSE ceiling {lmmse} differs from the JAX package's {JAX_CPU_LMMSE}")
+        band = JAX_CPU_BAND["r2"]
+        print(f"    (c) the Bayes ceiling of scale_100k ({len(train[0])} train edges observed, {len(test[0])} test "
+              f"queried): expected R2 {got['expected']['r2']:.6f}, realized R2 {got['realized']['r2']:.6f}; card "
+              f"{ceil['card_s']:.3f} s, peak {ceil['peak_gib']:.3f} GiB, CPU {ceil['cpu_s']:.3f} s; card against CPU "
+              f"within {rel:.2e} (predictions {pred_rel:.2e}); the LMMSE ceiling of conf/eicu_real.yaml's cohort "
+              f"R2 {lmmse['r2']:.6f} (the JAX package's {JAX_CPU_LMMSE['r2']:.6f}, within {l_rel:.2e}) beside "
+              f"phase 21's JAX CPU R2 band [{min(band):.4f}, {max(band):.4f}]", flush=True)
+        out["ceiling"] = {"card_s": ceil["card_s"], "cpu_s": ceil["cpu_s"], "peak_gib": ceil["peak_gib"],
+                          "rel": rel, "expected_r2": got["expected"]["r2"], "realized_r2": got["realized"]["r2"],
+                          "lmmse_r2": lmmse["r2"]}
+
+        # (d) tools/diagnose_quality: the card's yardsticks equal the CPU's
+        reports = {}
+        for key, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                raise AssertionError(f"(d) {' '.join(commands[key])} exited {proc.returncode}:\n{stderr[-3000:]}")
+            reports[key] = json.loads(stdout.strip().splitlines()[-1])
+        dq_s = time.perf_counter() - t_dq
+        card, cpu_r = reports["card"], reports["cpu"]
+        pairs = [(f"ceiling {k} {m}", card["ceiling"][k][m], cpu_r["ceiling"][k][m])
+                 for k in ("expected", "realized") for m in cpu_r["ceiling"][k]]
+        pairs += [(f"combined {m}", card["combined_ceiling"]["realized"][m], cpu_r["combined_ceiling"]["realized"][m])
+                  for m in cpu_r["combined_ceiling"]["realized"]]
+        pairs += [(f"als {m}", card["als"][m], cpu_r["als"][m]) for m in cpu_r["als"]]
+        dq_rel = max(abs(a - b) / abs(b) for _, a, b in pairs)
+        if not (dq_rel <= CEILING_REL and card["combined_ceiling"]["reg"] == cpu_r["combined_ceiling"]["reg"]):
+            raise AssertionError(f"(d) the card's yardsticks differ from the CPU's: {pairs}")
+        model_m = card.get("model")
+        if model_m is None or not all(math.isfinite(v) for v in model_m["raw"].values()):
+            raise AssertionError(f"(d) the card's training gave no finite test metrics: {card.get('train_error')}")
+        print(f"    (d) diagnose_quality --spec eicu --epochs {DIAGNOSE_EPOCHS} on the card beside its --device cpu "
+              f"--skip-train run ({dq_s:.1f} s wall, both in the background of (a)-(c)): yardsticks within "
+              f"{dq_rel:.2e}; ceiling realized R2 {card['ceiling']['realized']['r2']:.6f}, combined "
+              f"{card['combined_ceiling']['realized']['r2']:.6f}, ALS {card['als']['r2']:.6f}; the GNN "
+              f"{model_m['epochs_run']} epochs in {model_m['train_time_s']:.2f} s: test R2 {model_m['raw']['r2']:.6f}, "
+              f"winsorized {model_m['winsorized']['r2']:.6f}", flush=True)
+        out["diagnose"] = {"rel": dq_rel, "s": dq_s, "model_r2": model_m["raw"]["r2"]}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 
@@ -3301,6 +3583,7 @@ def main() -> int:
         f"({n_train} train rows)",
     )
 
+    hgt_state = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}  # phase 29's HGT
     del model, trainer
     torch.cuda.empty_cache()
 
@@ -3672,7 +3955,8 @@ def main() -> int:
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     reset_counts()
-    bench_line = bench.run_bench(scale=True, dense=False, quick=True)
+    # phase 3's graph is the bench's (scale_100k, no dense tier, span 256): not built again
+    bench_line = bench.run_bench(scale=True, dense=False, quick=True, graph=graph)
     bench_launches = read_counts()  # the bench's path ends here
     print(json.dumps(bench_line), flush=True)
     timed = bench_line["kernel_launches"]
@@ -3685,8 +3969,7 @@ def main() -> int:
     _phase(
         "bench", t0,
         f"train_patient_lab_edges_per_sec {bench_line['value']:.1f}, epoch {bench_line['epoch_time_ms']:.3f} ms, "
-        f"warm-up {bench_line['warmup_s']:.2f} s, graph build {bench_line['graph_build_s']:.2f} s; "
-        f"launches in the timed chunks {timed}",
+        f"warm-up {bench_line['warmup_s']:.2f} s, on phase 3's graph; launches in the timed chunks {timed}",
     )
 
     # 20. lifecycle --------------------------------------------------------
@@ -3701,82 +3984,85 @@ def main() -> int:
         ),
     )
     reset_counts()
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        runs = {}
-        for label in ("unbroken", "unbroken again"):
-            run_t = time.perf_counter()
-            trainer, pipeline_results = train_pipeline(life_config, graph, tmp / label)
-            runs[label] = (list(trainer.history["train_loss"]), list(trainer.history["val_loss"]))
-            print(
-                f"    {label}: {time.perf_counter() - run_t:.1f} s  train {runs[label][0]}  "
-                f"val {runs[label][1]}  test loss of the best state {pipeline_results['test_loss']:.6f}"
-            )
-            if label == "unbroken":
-                unbroken = trainer
-            del trainer
-        # a fresh trainer resumes from the unbroken run's own epoch-2 checkpoint
-        (tmp / "resumed").mkdir()
-        for name in ("checkpoint_epoch_2.ckpt", "checkpoint_epoch_2.ckpt.json"):
-            shutil.copy(tmp / "unbroken" / name, tmp / "resumed" / name)
-        model = build_model(life_config, graph_cpu, generator=torch.Generator().manual_seed(5))
-        resumed = Trainer(model, graph, masker_from_config(life_config, graph), life_config)
-        resumed.fit(output_dir=tmp / "resumed", resume_from="auto")
-        runs["resumed"] = (list(resumed.history["train_loss"]), list(resumed.history["val_loss"]))
-        print(f"    resumed from checkpoint_epoch_2.ckpt: train {runs['resumed'][0]}  val {runs['resumed'][1]}")
-        # a planted fault the tolerance must catch: a resume that loses the
-        # Adam state (moments and step count) after the restore
-        faulty = Trainer(model, graph, masker_from_config(life_config, graph), life_config)
-        faulty.restore(tmp / "resumed" / "checkpoint_epoch_2.ckpt")
-        faulty.optimizer.state.clear()
-        faulty.fit(output_dir=tmp / "faulty")
-        runs["faulty"] = (list(faulty.history["train_loss"]), list(faulty.history["val_loss"]))
-        print(f"    resumed with the Adam state dropped: train {runs['faulty'][0]}  val {runs['faulty'][1]}")
-        del resumed, faulty, model
-
-        def rel_drift(a, b):  # over epochs 3 on, train and val losses
-            return max(abs(x - y) / abs(y) for la, lb in zip(a, b) for x, y in zip(la[2:], lb[2:]))
-
-        drift = rel_drift(runs["unbroken again"], runs["unbroken"])
-        tolerance = 2 * drift
-        resume_drift = rel_drift(runs["resumed"], runs["unbroken"])
-        if len(runs["resumed"][0]) != LIFECYCLE_EPOCHS or not resume_drift <= tolerance:
-            raise AssertionError(
-                f"resumed epochs 3-{LIFECYCLE_EPOCHS} differ from the unbroken run by {resume_drift:.3e} "
-                f"(relative), over the tolerance {tolerance:.3e} (twice the unbroken runs' drift {drift:.3e})"
-            )
-        fault_drift = rel_drift(runs["faulty"], runs["unbroken"])
-        if not fault_drift > tolerance:
-            raise AssertionError(
-                f"a resume that drops the Adam state differs from the unbroken run by {fault_drift:.3e}, "
-                f"within the tolerance {tolerance:.3e}: the check cannot tell a faulty resume"
-            )
-        tmp_unbroken = tmp / "unbroken"
-        unbroken.load_best_model(tmp_unbroken)
-        evaluation = evaluate_model(unbroken, graph, life_config, output_dir=tmp_unbroken)
-        artifacts = (
-            "best_model.ckpt", "best_model.ckpt.json", "checkpoint_epoch_2.ckpt", "checkpoint_epoch_4.ckpt",
-            "metrics.jsonl", "training_history.json", "test_results.json", "evaluation_results.json",
-            "per_lab_metrics.csv", "conformal.json",
+    # the unbroken run's directory stays for phase 29 (step 6 on it)
+    life_tmp = tempfile.TemporaryDirectory(prefix="mmgnn_life_")
+    tmp = Path(life_tmp.name)
+    runs = {}
+    for label in ("unbroken", "unbroken again"):
+        run_t = time.perf_counter()
+        trainer, pipeline_results = train_pipeline(life_config, graph, tmp / label)
+        runs[label] = (list(trainer.history["train_loss"]), list(trainer.history["val_loss"]))
+        print(
+            f"    {label}: {time.perf_counter() - run_t:.1f} s  train {runs[label][0]}  "
+            f"val {runs[label][1]}  test loss of the best state {pipeline_results['test_loss']:.6f}"
         )
-        missing = [name for name in artifacts if not (tmp_unbroken / name).exists()]
-        if missing:
-            raise AssertionError(f"artifacts missing after the lifecycle: {missing}")
-        metrics = [
-            *evaluation["overall_metrics"].values(), *evaluation["raw_metrics"].values(),
-            *(v for m in evaluation["baselines"].values() for v in m.values()),
-            evaluation["conformal"]["coverage"], evaluation["conformal"]["mean_width"],
-        ]
-        if not all(math.isfinite(v) for v in metrics):
-            raise AssertionError(f"non-finite evaluation metrics: {evaluation}")
-        test_p, test_l, _ = unbroken.masker.split_arrays("test")
-        pick = np.random.default_rng(0).choice(len(test_p), PAIRS_CHECKED, replace=False)
-        pairs = unbroken.predict_pairs(test_p[pick], test_l[pick], state=unbroken.best_state)
-        pairs_err, _ = _compare(
-            "predict_pairs against predict('test')", torch.from_numpy(pairs),
-            torch.from_numpy(unbroken.predict("test", unbroken.best_state)[pick]), 1e-5, 0.0,
+        if label == "unbroken":
+            unbroken = trainer
+        del trainer
+    # a fresh trainer resumes from the unbroken run's own epoch-2 checkpoint
+    (tmp / "resumed").mkdir()
+    for name in ("checkpoint_epoch_2.ckpt", "checkpoint_epoch_2.ckpt.json"):
+        shutil.copy(tmp / "unbroken" / name, tmp / "resumed" / name)
+    model = build_model(life_config, graph_cpu, generator=torch.Generator().manual_seed(5))
+    resumed = Trainer(model, graph, masker_from_config(life_config, graph), life_config)
+    resumed.fit(output_dir=tmp / "resumed", resume_from="auto")
+    runs["resumed"] = (list(resumed.history["train_loss"]), list(resumed.history["val_loss"]))
+    print(f"    resumed from checkpoint_epoch_2.ckpt: train {runs['resumed'][0]}  val {runs['resumed'][1]}")
+    # a planted fault the tolerance must catch: a resume that loses the
+    # Adam state (moments and step count) after the restore
+    faulty = Trainer(model, graph, masker_from_config(life_config, graph), life_config)
+    faulty.restore(tmp / "resumed" / "checkpoint_epoch_2.ckpt")
+    faulty.optimizer.state.clear()
+    faulty.fit(output_dir=tmp / "faulty")
+    runs["faulty"] = (list(faulty.history["train_loss"]), list(faulty.history["val_loss"]))
+    print(f"    resumed with the Adam state dropped: train {runs['faulty'][0]}  val {runs['faulty'][1]}")
+    del resumed, faulty, model
+
+    def rel_drift(a, b):  # over epochs 3 on, train and val losses
+        return max(abs(x - y) / abs(y) for la, lb in zip(a, b) for x, y in zip(la[2:], lb[2:]))
+
+    drift = rel_drift(runs["unbroken again"], runs["unbroken"])
+    tolerance = 2 * drift
+    resume_drift = rel_drift(runs["resumed"], runs["unbroken"])
+    if len(runs["resumed"][0]) != LIFECYCLE_EPOCHS or not resume_drift <= tolerance:
+        raise AssertionError(
+            f"resumed epochs 3-{LIFECYCLE_EPOCHS} differ from the unbroken run by {resume_drift:.3e} "
+            f"(relative), over the tolerance {tolerance:.3e} (twice the unbroken runs' drift {drift:.3e})"
         )
-        del unbroken
+    fault_drift = rel_drift(runs["faulty"], runs["unbroken"])
+    if not fault_drift > tolerance:
+        raise AssertionError(
+            f"a resume that drops the Adam state differs from the unbroken run by {fault_drift:.3e}, "
+            f"within the tolerance {tolerance:.3e}: the check cannot tell a faulty resume"
+        )
+    tmp_unbroken = tmp / "unbroken"
+    unbroken.load_best_model(tmp_unbroken)
+    evaluation = evaluate_model(unbroken, graph, life_config, output_dir=tmp_unbroken)
+    artifacts = (
+        "best_model.ckpt", "best_model.ckpt.json", "checkpoint_epoch_2.ckpt", "checkpoint_epoch_4.ckpt",
+        "metrics.jsonl", "training_history.json", "test_results.json", "evaluation_results.json",
+        "per_lab_metrics.csv", "conformal.json",
+    )
+    missing = [name for name in artifacts if not (tmp_unbroken / name).exists()]
+    if missing:
+        raise AssertionError(f"artifacts missing after the lifecycle: {missing}")
+    metrics = [
+        *evaluation["overall_metrics"].values(), *evaluation["raw_metrics"].values(),
+        *(v for m in evaluation["baselines"].values() for v in m.values()),
+        evaluation["conformal"]["coverage"], evaluation["conformal"]["mean_width"],
+    ]
+    if not all(math.isfinite(v) for v in metrics):
+        raise AssertionError(f"non-finite evaluation metrics: {evaluation}")
+    test_p, test_l, _ = unbroken.masker.split_arrays("test")
+    pick = np.random.default_rng(0).choice(len(test_p), PAIRS_CHECKED, replace=False)
+    pairs = unbroken.predict_pairs(test_p[pick], test_l[pick], state=unbroken.best_state)
+    pairs_err, _ = _compare(
+        "predict_pairs against predict('test')", torch.from_numpy(pairs),
+        torch.from_numpy(unbroken.predict("test", unbroken.best_state)[pick]), 1e-5, 0.0,
+    )
+    del unbroken
+    for label in ("unbroken again", "resumed", "faulty"):
+        shutil.rmtree(tmp / label, ignore_errors=True)
     lifecycle_launches = read_counts()  # the lifecycle's path ends here
     if not all(lifecycle_launches.values()):
         raise AssertionError(f"a kernel of the RGCN path did not launch in the lifecycle: {lifecycle_launches}")
@@ -3810,14 +4096,22 @@ def main() -> int:
     flagship = repo / "conf" / "eicu_real.yaml"
     guarded = {name: _tree_state(repo / name) for name in ("outputs", "data")}
     runs = {}
+    # phase 24's warm-start runs and phase 27 (f)'s bfloat16 flagship go
+    # through the command line beside this phase's: their directories stay
+    side_tmp = tempfile.TemporaryDirectory(prefix="mmgnn_side_runs_")
+    side_runs = Path(side_tmp.name)
+    ws_derived = flagship_band.warm_start_config(flagship, side_runs / "eicu_real_sideinfo.yaml", "sideinfo")
+    bf16_flagship = flagship_band.dtype_config(flagship, side_runs / "eicu_real_bf16.yaml")
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        # the seeds' command lines (and seed 44 with the CPU's draws, below)
-        # run side by side on the card: each is its own process over a
-        # 1,834-patient graph, so their step seconds are under that load
+        # the seeds' command lines (and seed 44 with the CPU's draws, the
+        # warm-start and the bfloat16 runs) run side by side on the card: each
+        # is its own process over a 1,834-patient graph, so their step
+        # seconds are under that load; this process runs the kernel path
+        # meanwhile
         from concurrent.futures import ThreadPoolExecutor
 
-        with ThreadPoolExecutor(max_workers=len(FLAGSHIP_SEEDS) + 1) as pool:
+        with ThreadPoolExecutor(max_workers=len(FLAGSHIP_SEEDS) + len(WARM_START_SEEDS) + 2) as pool:
             pending = {seed: pool.submit(flagship_band.run_seed, flagship, seed, tmp / f"seed{seed}", device="cuda")
                        for seed in FLAGSHIP_SEEDS}
             # float32 seed 44 stops early on the card (ROADMAP section 3): the
@@ -3825,8 +4119,45 @@ def main() -> int:
             # (tools/cpu_draws.py) trains as the CPU run does
             pending_draws = pool.submit(flagship_band.run_seed, flagship, STREAM_SEED, tmp / "cpu_draws",
                                         device="cuda", steps="1-5", draws="cpu")
+            pending_ws = {seed: pool.submit(flagship_band.run_seed, ws_derived, seed, side_runs / f"ws_seed{seed}",
+                                            device="cuda") for seed in WARM_START_SEEDS}
+            pending_bf16 = pool.submit(flagship_band.run_seed, bf16_flagship, FLAGSHIP_SEEDS[0], side_runs / "bf16",
+                                       device="cuda")
+            # the kernel path in this process: factored heads over a slot-major
+            # train batch (K4f / K4b); the aggregations take the dense tier.  At
+            # 1,834 patients the flagship's train batch (42,315 rows) lies below
+            # SLOT_MAJOR_MIN_ROWS, so with use_pallas: true as written it stays
+            # row-major and the heads run as torch layers: the run lowers the
+            # threshold to 0 for its masker
+            kernel_cfg = flagship_band.seed_config(
+                flagship, FLAGSHIP_SEEDS[0], tmp / "kernels",
+                model={"use_pallas": True, "extras": {"head_style": "factored"}},
+            )
+            opts = pipeline.RunOptions(device=dev)
+            kernel_seconds = {}
+            min_rows = masker_mod.SLOT_MAJOR_MIN_ROWS
+            masker_mod.SLOT_MAJOR_MIN_ROWS = 0
+            try:
+                reset_counts()
+                for name, _, fn in pipeline.STEPS:  # all eight steps
+                    step_t = time.perf_counter()
+                    fn(kernel_cfg, opts)
+                    torch.cuda.synchronize()
+                    kernel_seconds[name] = time.perf_counter() - step_t
+                pipeline_launches = read_counts(HEAD_PATH_KERNELS)
+                # K4f / K4b on the run's own train batch and trained heads
+                trainer = pipeline._load_trainer(
+                    kernel_cfg, pipeline._load_bundle(kernel_cfg, opts), opts, require_checkpoint=True
+                )
+                head_errs = _trained_head_check(trainer)
+                del trainer
+            finally:
+                masker_mod.SLOT_MAJOR_MIN_ROWS = min_rows
+            runs["kernels"] = flagship_band.read_result(tmp / "kernels" / "out")
             runs.update({seed: future.result() for seed, future in pending.items()})
             draws = pending_draws.result()
+            ws_runs = {seed: future.result() for seed, future in pending_ws.items()}
+            bf16_run = pending_bf16.result()
         for seed in FLAGSHIP_SEEDS:
             run = runs[seed]
             print(
@@ -3841,40 +4172,8 @@ def main() -> int:
               f"{draws['r2']:.6f} (the card's own draws above: {runs[STREAM_SEED]['epochs']} epochs, R2 "
               f"{runs[STREAM_SEED]['r2']:.6f}; the CPU run: {CPU_SEED44['epochs']} epochs, R2 {CPU_SEED44['r2']:.6f})",
               flush=True)
-        # the kernel path in this process: factored heads over a slot-major
-        # train batch (K4f / K4b); the aggregations take the dense tier.  At
-        # 1,834 patients the flagship's train batch (42,315 rows) lies below
-        # SLOT_MAJOR_MIN_ROWS, so with use_pallas: true as written it stays
-        # row-major and the heads run as torch layers: the run lowers the
-        # threshold to 0 for its masker
-        kernel_cfg = flagship_band.seed_config(
-            flagship, FLAGSHIP_SEEDS[0], tmp / "kernels",
-            model={"use_pallas": True, "extras": {"head_style": "factored"}},
-        )
-        opts = pipeline.RunOptions(device=dev)
-        kernel_seconds = {}
-        min_rows = masker_mod.SLOT_MAJOR_MIN_ROWS
-        masker_mod.SLOT_MAJOR_MIN_ROWS = 0
-        try:
-            reset_counts()
-            for index in (0, 1, 2, 3, 4, 6, 7):
-                name, _, fn, _ = pipeline.STEPS[index]
-                step_t = time.perf_counter()
-                fn(kernel_cfg, opts)
-                torch.cuda.synchronize()
-                kernel_seconds[name] = time.perf_counter() - step_t
-            pipeline_launches = read_counts(HEAD_PATH_KERNELS)
-            # K4f / K4b on the run's own train batch and trained heads
-            trainer = pipeline._load_trainer(
-                kernel_cfg, pipeline._load_bundle(kernel_cfg, opts), opts, require_checkpoint=True
-            )
-            head_errs = _trained_head_check(trainer)
-            del trainer
-        finally:
-            masker_mod.SLOT_MAJOR_MIN_ROWS = min_rows
-        runs["kernels"] = flagship_band.read_result(tmp / "kernels" / "out")
         print(
-            "    seed 42, use_pallas: true, factored heads: steps "
+            "    seed 42, use_pallas: true, factored heads (in this process, beside the command lines): steps "
             + ", ".join(f"{k} {v:.2f} s" for k, v in kernel_seconds.items())
             + f"; {runs['kernels']['epochs']} epochs, best val loss {runs['kernels']['best_val_loss']:.6f}; "
             f"guarded R2 {runs['kernels']['r2']:.6f}, MAE {runs['kernels']['mae']:.6f}; "
@@ -3912,7 +4211,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     _phase(
         "pipeline", t0,
-        f"conf/eicu_real.yaml through python -m multi_modal_gnn_tpu_torch.pipeline (steps 1-5, 7, 8), train seeds "
+        f"conf/eicu_real.yaml through python -m multi_modal_gnn_tpu_torch.pipeline (steps 1-8), train seeds "
         f"{list(FLAGSHIP_SEEDS)}: guarded R2 mean {mean_r2:.6f} in [{r2_band[0]:.4f}, {r2_band[1]:.4f}], MAE mean "
         f"{mean_mae:.6f} in [{mae_band[0]:.4f}, {mae_band[1]:.4f}]; the use_pallas run launched {pipeline_launches}, "
         f"and K4f / K4b match their plain versions on its train batch and trained heads",
@@ -4434,57 +4733,52 @@ def main() -> int:
     from multi_modal_gnn_tpu_torch.training import warm_start_from_config
     from multi_modal_gnn_tpu_torch.utils.rng import stream_seed
 
-    ws_runs = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        derived = flagship_band.warm_start_config(flagship, tmp / "eicu_real_sideinfo.yaml", "sideinfo")
-        for seed in WARM_START_SEEDS:
-            ws_runs[seed] = flagship_band.run_seed(derived, seed, tmp / f"seed{seed}", device="cuda")
-            run = ws_runs[seed]
-            print(
-                f"    seed {seed}: steps "
-                + ", ".join(f"{k} {v:.2f} s" for k, v in run["step_seconds"].items())
-                + f"; {run['epochs']} epochs, best val loss {run['best_val_loss']:.6f}; guarded R2 {run['r2']:.6f}, "
-                f"MAE {run['mae']:.6f}; per_lab_mean R2 {run['per_lab_mean_r2']:.6f}",
-                flush=True,
-            )
-        # seed 42's plant on the card, from its own graph and split
-        run_dir = tmp / f"seed{FLAGSHIP_SEEDS[0]}"
-        cfg = load_config(run_dir / "config.yaml")
-        opts = pipeline.RunOptions(device=dev)
-        bundle = pipeline._load_bundle(cfg, opts)
-        ws_cfg = cfg
-        ws_masker = masker_from_config(ws_cfg, bundle.graph)
-        ws_model = build_model(
-            ws_cfg, bundle.graph, generator=torch.Generator().manual_seed(stream_seed(cfg.train.seed, "init"))
+    # the runs went through the command line beside phase 21's (ws_runs)
+    for seed, run in ws_runs.items():
+        print(
+            f"    seed {seed} (run in phase 21's pool): steps "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in run["step_seconds"].items())
+            + f"; {run['epochs']} epochs, best val loss {run['best_val_loss']:.6f}; guarded R2 {run['r2']:.6f}, "
+            f"MAE {run['mae']:.6f}; per_lab_mean R2 {run['per_lab_mean_r2']:.6f}",
+            flush=True,
         )
-        ws_trainer = Trainer(ws_model, bundle.graph, ws_masker, ws_cfg)
-        baseline = warm_start_from_config(ws_trainer, ws_cfg)
-        if not isinstance(baseline, SideInfoALSBaseline):
-            raise AssertionError(f"the derived config planted {type(baseline).__name__}, not SideInfoALSBaseline")
-        val_p, val_l, _ = ws_masker.split_arrays("val")
-        plant_err, _ = _compare(
-            f"seed {FLAGSHIP_SEEDS[0]}: val predictions right after the plant against SideInfoALSBaseline.predict",
-            torch.from_numpy(ws_trainer.predict("val")).double(), torch.from_numpy(baseline.predict(val_p, val_l)),
-            WARM_START_ATOL, 0.0,
+    # seed 42's plant on the card, from its own graph and split
+    run_dir = side_runs / f"ws_seed{FLAGSHIP_SEEDS[0]}"
+    cfg = load_config(run_dir / "config.yaml")
+    opts = pipeline.RunOptions(device=dev)
+    bundle = pipeline._load_bundle(cfg, opts)
+    ws_cfg = cfg
+    ws_masker = masker_from_config(ws_cfg, bundle.graph)
+    ws_model = build_model(
+        ws_cfg, bundle.graph, generator=torch.Generator().manual_seed(stream_seed(cfg.train.seed, "init"))
+    )
+    ws_trainer = Trainer(ws_model, bundle.graph, ws_masker, ws_cfg)
+    baseline = warm_start_from_config(ws_trainer, ws_cfg)
+    if not isinstance(baseline, SideInfoALSBaseline):
+        raise AssertionError(f"the derived config planted {type(baseline).__name__}, not SideInfoALSBaseline")
+    val_p, val_l, _ = ws_masker.split_arrays("val")
+    plant_err, _ = _compare(
+        f"seed {FLAGSHIP_SEEDS[0]}: val predictions right after the plant against SideInfoALSBaseline.predict",
+        torch.from_numpy(ws_trainer.predict("val")).double(), torch.from_numpy(baseline.predict(val_p, val_l)),
+        WARM_START_ATOL, 0.0,
+    )
+    plant_loss = ws_trainer.best_val_loss
+    if not ws_runs[FLAGSHIP_SEEDS[0]]["best_val_loss"] <= plant_loss * (1 + 1e-6):
+        raise AssertionError(
+            f"best val loss {ws_runs[FLAGSHIP_SEEDS[0]]['best_val_loss']:.6f} is above the plant's {plant_loss:.6f}"
         )
-        plant_loss = ws_trainer.best_val_loss
-        if not ws_runs[FLAGSHIP_SEEDS[0]]["best_val_loss"] <= plant_loss * (1 + 1e-6):
-            raise AssertionError(
-                f"best val loss {ws_runs[FLAGSHIP_SEEDS[0]]['best_val_loss']:.6f} is above the plant's {plant_loss:.6f}"
-            )
-        served = ServingModel.load(run_dir / "out" / "serving", device=dev)
-        if not {"state.bl_u", "state.bl_l"} <= set(served.manifest["leaves"]):
-            raise AssertionError(f"the warm-started artifact carries no bl_u / bl_l: {served.manifest['leaves']}")
-        trainer = pipeline._load_trainer(cfg, bundle, opts, require_checkpoint=True)
-        test_p, test_l, _ = trainer.masker.split_arrays("test")
-        served_err, _ = _compare(
-            f"seed {FLAGSHIP_SEEDS[0]}: the warm-started artifact on {len(test_p)} test pairs against the trainer",
-            torch.from_numpy(served.predict(test_p, test_l)), torch.from_numpy(trainer.predict_pairs(test_p, test_l)),
-            SERVE_ATOL, SERVE_RTOL,
-        )
-        derived_text = derived.read_text()
-        del ws_model, ws_trainer, trainer, served, bundle
+    served = ServingModel.load(run_dir / "out" / "serving", device=dev)
+    if not {"state.bl_u", "state.bl_l"} <= set(served.manifest["leaves"]):
+        raise AssertionError(f"the warm-started artifact carries no bl_u / bl_l: {served.manifest['leaves']}")
+    trainer = pipeline._load_trainer(cfg, bundle, opts, require_checkpoint=True)
+    test_p, test_l, _ = trainer.masker.split_arrays("test")
+    served_err, _ = _compare(
+        f"seed {FLAGSHIP_SEEDS[0]}: the warm-started artifact on {len(test_p)} test pairs against the trainer",
+        torch.from_numpy(served.predict(test_p, test_l)), torch.from_numpy(trainer.predict_pairs(test_p, test_l)),
+        SERVE_ATOL, SERVE_RTOL,
+    )
+    derived_text = ws_derived.read_text()
+    del ws_model, ws_trainer, trainer, served, bundle
     for label, run in ws_runs.items():
         if run["missing"]:
             raise AssertionError(f"warm-start run {label}: artifacts missing: {run['missing']}")
@@ -4549,7 +4843,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     bf16 = _bf16_phase(dev, graph_cpu, graph, graph_hgt, config, hgt_config, dual_config, tiers, masker, masker0,
-                       flagship_r2_f32, reset_counts)
+                       flagship_r2_f32, reset_counts, bf16_run, side_runs / "bf16")
+    side_tmp.cleanup()
     rg, hg = bf16["rgcn"], bf16["hgt"]
     _phase(
         "bf16", t0,
@@ -4578,6 +4873,26 @@ def main() -> int:
         f"{ingest['graph_build_s']['core']:.3f} / plain {ingest['graph_build_s']['plain']:.3f} s, plans equal; "
         f"(d) {ETL_EPOCHS} kernel epochs, test R2 {ingest['train']['test_r2']:.4f}; (e) eICU command line "
         f"{ingest['eicu']['s']:.2f} s",
+    )
+
+    # 29. visualize ----------------------------------------------------------
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    visual = _visualize_phase(dev, Path(life_tmp.name) / "unbroken", life_config, hgt_state, hgt_config, graph_cpu,
+                              graph, graph_hgt, graph_seg, masker, config, reset_counts, counts_of)
+    life_tmp.cleanup()
+    ceil, va = visual["ceiling"], visual["a"]
+    _phase(
+        "visualize", t0,
+        f"(a) step 6 on the RGCN at scale_100k in {visual['step_s']:.2f} s, K1 / K2f / K3 launched "
+        f"{visual['launches']['segment_sum_windowed']} / {visual['launches']['fused_table_segment_sum']} / "
+        f"{visual['launches']['span_segment_sum']} times, left out {len(va['left_out'])} figures; the calibration "
+        f"table and the PCA plane match the CPU plain path's; (b) the HGT's on the flash tier (K6 "
+        f"{visual['launches_hgt']['flash_attention_fwd']}) match the segment tier's; (c) the Bayes ceiling card / "
+        f"CPU {ceil['card_s']:.3f} / {ceil['cpu_s']:.3f} s within {ceil['rel']:.1e}, peak {ceil['peak_gib']:.3f} GiB, the "
+        f"LMMSE ceiling R2 {ceil['lmmse_r2']:.6f} = the JAX package's; (d) diagnose_quality's yardsticks card = CPU "
+        f"within {visual['diagnose']['rel']:.1e}",
     )
 
     cluster_launches = clusters["launches_cluster_epoch"]
@@ -4635,6 +4950,9 @@ def main() -> int:
             entry["launches_bf16_cluster_step"] = clusters["launches_bf16_cluster_step"][name]
         if name in vc_bf16_launches:
             entry["launches_value_context_bf16_step"] = vc_bf16_launches[name]
+        # step 6: the RGCN's (a), the HGT's flash tier for K6-K8 (b)
+        entry["launches_visualize"] = (visual["launches_hgt"] if name in visual["launches_hgt"]
+                                       else visual["launches"]).get(name, 0)
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(identity)

@@ -412,8 +412,10 @@ class EvaluationConfig:
 
 @dataclass(frozen=True)
 class VisualizationConfig:
-    """The visualize step's settings; that step is not ported (ROADMAP.md
-    queue 1), so nothing reads them and any extras are kept as given."""
+    """The visualize step's settings (JAX ``VisualizationConfig``), read by
+    :mod:`~multi_modal_gnn_tpu_torch.viz`; ``embedding_color_by`` and
+    ``plot_edge_weight_distribution`` are read by nothing, as in JAX, and
+    any extras are kept as given."""
 
     generate_embeddings: bool = True
     dim_reduction: str = "pca"

@@ -2,6 +2,7 @@
 (:mod:`.eicu`, :mod:`.mimic`) and the preprocess stage."""
 
 from multi_modal_gnn_tpu_torch.data.synthetic import (
+    SyntheticLatents,
     SyntheticSpec,
     generate_synthetic_edges,
     generate_synthetic_tables,
@@ -10,6 +11,6 @@ from multi_modal_gnn_tpu_torch.data.synthetic import (
 )
 
 __all__ = [
-    "SyntheticSpec", "generate_synthetic_edges", "generate_synthetic_tables",
+    "SyntheticLatents", "SyntheticSpec", "generate_synthetic_edges", "generate_synthetic_tables",
     "make_synthetic_graph", "spec_from_config",
 ]

@@ -262,6 +262,32 @@ def _ref_count_shares(num_labs: int) -> np.ndarray:
     return prof / prof.sum()
 
 
+@dataclass(frozen=True)
+class SyntheticLatents:
+    """The generator's ground-truth latent structure (JAX
+    ``SyntheticLatents``), for the performance ceilings of
+    :mod:`~multi_modal_gnn_tpu_torch.evaluation.ceiling`.
+
+    Flat mode: ``value_norm = signal * <w_lab[l], z[p]> + sqrt(1 - signal^2)
+    * eps``, and the exact Bayes ceiling takes ``w_lab`` / ``signal``
+    (``gaussian_conditional_ceiling``).  eicu mode: after the per-lab
+    standardization ``value_norm ~= <w_eff[l], z[p]> - mean_shift[l] +
+    noise`` with per-lab noise variance ``noise_var[l]``, for
+    ``lmmse_conditional_ceiling`` (the noise is a severity-coupled scale
+    mixture, so that ceiling is LMMSE, not exact Bayes); ``z[:, 0]`` is the
+    severity factor."""
+
+    z: np.ndarray  # [num_patients, latent_dim]
+    w_lab: np.ndarray  # [num_labs, latent_dim], unit rows
+    signal: float
+    w_eff: Optional[np.ndarray] = None  # [num_labs, latent_dim] effective loadings
+    noise_var: Optional[np.ndarray] = None  # [num_labs] effective noise variance
+    mean_shift: Optional[np.ndarray] = None  # [num_labs] standardization offset
+    sev_share: Optional[np.ndarray] = None  # [num_labs] pre-selection share
+    special_labs: Optional[np.ndarray] = None  # twin-paired lab rows (eicu mode)
+    heavy_labs: Optional[np.ndarray] = None  # spike lab rows (eicu mode)
+
+
 def _standardized_gamma(rng: np.random.Generator, shape_k: float, size: int) -> np.ndarray:
     """Gamma(k, 1) standardized to mean 0 / var 1 (skew 2/sqrt(k))."""
     g = rng.gamma(shape_k, 1.0, size)
@@ -313,16 +339,20 @@ def _flat_draws(spec: SyntheticSpec) -> Dict[str, np.ndarray]:
     return dict(
         p_idx=p_idx, l_idx=l_idx, value_norm=value_norm, value_raw=value_raw,
         age=age, gender=gender, dxp_idx=dxp_idx, dx_idx=dx_idx, rxp_idx=rxp_idx, rx_idx=rx_idx,
+        z=z, w_lab=w_lab,
     )
 
 
-def generate_synthetic_edges(
-    spec: SyntheticSpec,
-) -> Tuple[Dict[EdgeTypeKey, tuple], Dict[str, int]]:
+def _flat_latents(spec: SyntheticSpec, draws: Dict[str, np.ndarray]) -> SyntheticLatents:
+    return SyntheticLatents(z=draws["z"], w_lab=draws["w_lab"], signal=float(spec.signal_strength))
+
+
+def generate_synthetic_edges(spec: SyntheticSpec, return_latents: bool = False):
     """``(edge_arrays, node_counts)`` of a flat cohort for
     :func:`assemble_graph`: ``edge_arrays[et] = (src, dst, val_or_None)``
     per forward relation, with the patient-lab ``val`` the normalized lab
-    value (float32).  The eicu phenomenology goes through
+    value (float32); with ``return_latents`` the cohort's
+    :class:`SyntheticLatents` third.  The eicu phenomenology goes through
     :func:`generate_synthetic_tables` and the graph build from tables."""
     if spec.phenomenology != "flat":
         raise ValueError(
@@ -341,6 +371,8 @@ def generate_synthetic_edges(
         DIAGNOSIS: spec.num_diagnoses,
         MEDICATION: spec.num_medications,
     }
+    if return_latents:
+        return edge_arrays, node_counts, _flat_latents(spec, d)
     return edge_arrays, node_counts
 
 
@@ -371,10 +403,11 @@ def _tables(
     }
 
 
-def _generate_eicu_tables(spec: SyntheticSpec) -> Dict[str, Table]:
+def _generate_eicu_tables(spec: SyntheticSpec, return_latents: bool = False):
     """The ``phenomenology="eicu"`` generator (JAX
     ``_generate_eicu_tables``, whose comments give each mechanism's
-    calibration target), draw for draw."""
+    calibration target), draw for draw; with ``return_latents`` also its
+    :class:`SyntheticLatents`."""
     rng = np.random.default_rng(spec.seed)
     n, L, k = spec.num_patients, spec.num_labs, spec.latent_dim
 
@@ -577,29 +610,58 @@ def _generate_eicu_tables(spec: SyntheticSpec) -> Dict[str, Table]:
 
     dx = _membership(spec.num_diagnoses, spec.mean_diagnoses_per_patient)
     rx = _membership(spec.num_medications, spec.mean_medications_per_patient)
-    return _tables(
+    tables = _tables(
         subject_ids, age, gender, p_idx, l_idx, value_raw, value_norm, L,
         dx, rx, spec.num_diagnoses, spec.num_medications,
     )
+    if not return_latents:
+        return tables
+
+    # the effective (post-standardization) linear model of the LMMSE ceiling
+    mbar = float(m.mean())
+    w_eff = np.concatenate(
+        [np.sqrt(sev_share)[:, None], np.sqrt(minor_share)[:, None] * w_minor * mbar], axis=1
+    ) / obs_std[:, None]
+    explained = np.einsum("ek,ek->e", w_eff[l_idx] * obs_std[l_idx, None], z[p_idx])
+    resid = core - explained
+    resid_mean = np.bincount(l_idx, weights=resid, minlength=L) / safe
+    noise_var = (
+        np.bincount(l_idx, weights=resid**2, minlength=L) / safe - resid_mean**2
+    ) / np.maximum(obs_var, 1e-12)
+    return tables, SyntheticLatents(
+        z=z,
+        w_lab=w_eff / (np.linalg.norm(w_eff, axis=1, keepdims=True) + 1e-12),
+        signal=float(np.sqrt(np.clip(1.0 - noise_var.mean(), 0.0, 1.0))),
+        w_eff=w_eff,
+        noise_var=noise_var,
+        mean_shift=obs_mean / obs_std,
+        sev_share=sev_share,
+        special_labs=np.asarray(special, dtype=np.int64),
+        heavy_labs=np.asarray(heavy, dtype=np.int64),
+    )
 
 
-def generate_synthetic_tables(spec: SyntheticSpec) -> Dict[str, Table]:
+def generate_synthetic_tables(spec: SyntheticSpec, return_latents: bool = False):
     """The preprocess contract's tables (JAX ``generate_synthetic_tables``)
     as dicts of numpy columns: ``cohort`` (SUBJECT_ID, AGE, GENDER),
     ``labs_normalized`` (SUBJECT_ID, ITEMID, VALUE, VALUE_NORMALIZED),
     ``diagnoses`` (SUBJECT_ID, ICD3_CODE), ``medications`` (SUBJECT_ID,
     DRUG), ``labitems`` (ITEMID, LABEL) and ``demographics`` (a copy of
-    ``cohort``)."""
+    ``cohort``).  With ``return_latents``, ``(tables, SyntheticLatents)``
+    from the same draws (the tables unchanged)."""
     if spec.phenomenology == "eicu":
-        return _generate_eicu_tables(spec)
+        return _generate_eicu_tables(spec, return_latents)
     if spec.phenomenology != "flat":
         raise ValueError(f"unknown phenomenology: {spec.phenomenology!r}")
     d = _flat_draws(spec)
-    return _tables(
+    tables = _tables(
         100000 + np.arange(spec.num_patients), d["age"], d["gender"], d["p_idx"], d["l_idx"],
         d["value_raw"], d["value_norm"], spec.num_labs, (d["dxp_idx"], d["dx_idx"]),
         (d["rxp_idx"], d["rx_idx"]), spec.num_diagnoses, spec.num_medications,
     )
+    if return_latents:
+        return tables, _flat_latents(spec, d)
+    return tables
 
 
 def make_synthetic_graph(

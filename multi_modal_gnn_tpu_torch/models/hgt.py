@@ -273,14 +273,23 @@ class HeteroGT(nn.Module):
     def shared_bilinear(self) -> bool:
         return self.bilinear_rank > 0 and self.bilinear_source in ("embedding", "context")
 
+    def encode_nodes(self, train: bool = False, graph: Optional[HeteroGraph] = None) -> Dict[str, torch.Tensor]:
+        """Every node's ID embedding (JAX ``HeteroGT.encode_nodes``).  On a
+        cluster graph the patient rows are the cluster's window of the
+        global table, local row ``i`` reading ``min(base + i, N - 1)``
+        (:func:`~multi_modal_gnn_tpu_torch.models.layers.patient_rows`), as
+        the RGCN's; ``train`` is accepted for the RGCN's signature."""
+        x_dict = {nt: getattr(self, f"embed_{nt}").weight for nt in self.node_types}
+        x_dict[PATIENT] = patient_rows(x_dict[PATIENT], graph)
+        return x_dict
+
     def forward(self, graph: HeteroGraph, train: bool = False) -> Dict[str, torch.Tensor]:
         """Final node states.  The last layer computes only the groups the
         heads read (:data:`READ_TYPES`): HGT has no BatchNorm, whose
         training statistics would make every group's output a result of the
         step, so under ``jit`` the JAX step drops the other groups as dead
         code too; the other types keep their previous states."""
-        x_dict = {nt: getattr(self, f"embed_{nt}").weight for nt in self.node_types}
-        x_dict[PATIENT] = patient_rows(x_dict[PATIENT], graph)
+        x_dict = self.encode_nodes(train, graph)
         if self.value_context:
             x_dict = inject_value_context(x_dict, graph, self.vctx_patient, self.vctx_lab)
         for i in range(self.num_layers):

@@ -16,16 +16,20 @@ against existing artifacts:
   4 evaluate        best_model.ckpt -> evaluation_results.json, per_lab_metrics.csv,
                     conformal.json
   5 audit           split hygiene + robust metrics -> audit_report.json
-  6 visualize       not ported yet (ROADMAP.md queue 1 item 10)
+  6 visualize       graph structure, training curves, advanced and uncertainty
+                    figures (graph_visualizations/, visualizations/,
+                    advanced_visualizations/ with per_lab_calibration.csv,
+                    uncertainty_visualizations/); a figure whose library
+                    (matplotlib, sklearn, networkx) is missing is left out and
+                    named, the CSV is written either way
   7 inference       per-patient reports -> inference_examples.json
   8 export-serving  best_model.ckpt -> serving/ (weights.npz, pairs_b{256,4096}.pt2,
                     serving.json, coldstart.npz, conformal.json, conformal_cold.json)
 
-Without ``--step`` the ported steps run (1-5, 7 and 8).  A ``--step`` range
-that takes in step 6 exits with code 2 before any step runs.  The steps run
-on the card and the command raises without one, unless ``--device cpu`` is
-given.  A failed step ends the run with exit code 1.  The last line of
-standard output is a JSON object with each step's wall seconds.
+Without ``--step`` all eight steps run.  The steps run on the card and the
+command raises without one, unless ``--device cpu`` is given.  A failed
+step ends the run with exit code 1.  The last line of standard output is a
+JSON object with each step's wall seconds.
 """
 
 from __future__ import annotations
@@ -121,6 +125,24 @@ def step_audit(config, opts: RunOptions):
     run_full_audit(config, bundle, trainer, output_dir=config.data.output_dir)
 
 
+def step_visualize(config, opts: RunOptions):
+    from multi_modal_gnn_tpu_torch.utils.io import load_json
+    from multi_modal_gnn_tpu_torch.viz import visualize
+
+    bundle = _load_bundle(config, opts)
+    trainer = _load_trainer(config, bundle, opts)
+    out = config.data.output_dir
+    history_path = Path(out) / "training_history.json"
+    history = load_json(history_path) if history_path.exists() else None
+    summary = visualize(config, bundle, trainer, history=history, output_dir=out)
+    left_out = sorted(Path(p).name for p in summary["left_out"])
+    print(
+        f"visualize: wrote {[Path(p).name for p in summary['written']]}, drew "
+        f"{len(summary['drawn'])} figure(s), left out {len(left_out)}"
+        + (f" ({', '.join(sorted(set(summary['left_out'].values())))}): {left_out}" if left_out else "")
+    )
+
+
 def step_inference(config, opts: RunOptions):
     from multi_modal_gnn_tpu_torch.data.preprocess import load_table
     from multi_modal_gnn_tpu_torch.inference import run_inference
@@ -168,16 +190,16 @@ def step_export_serving(config, opts: RunOptions):
     print(f"serving artifact: {out} ({sorted(p.name for p in out.iterdir())})")
 
 
-# (name, description, function or None, the ROADMAP.md item of an unported step)
+# (name, description, function)
 STEPS = [
-    ("preprocess", "Load raw data, select cohort, engineer features", step_preprocess, None),
-    ("build-graph", "Assemble the padded heterogeneous graph", step_build_graph, None),
-    ("train", "Train the GNN with mask-and-recover supervision", step_train, None),
-    ("evaluate", "Winsorized metrics, baselines, stratification", step_evaluate, None),
-    ("audit", "Leakage audit + robust metrics", step_audit, None),
-    ("visualize", "All plot families", None, "queue 1 item 10"),
-    ("inference", "Per-patient imputation reports", step_inference, None),
-    ("export-serving", "Serving artifact (cached node state)", step_export_serving, None),
+    ("preprocess", "Load raw data, select cohort, engineer features", step_preprocess),
+    ("build-graph", "Assemble the padded heterogeneous graph", step_build_graph),
+    ("train", "Train the GNN with mask-and-recover supervision", step_train),
+    ("evaluate", "Winsorized metrics, baselines, stratification", step_evaluate),
+    ("audit", "Leakage audit + robust metrics", step_audit),
+    ("visualize", "All plot families", step_visualize),
+    ("inference", "Per-patient imputation reports", step_inference),
+    ("export-serving", "Serving artifact (cached node state)", step_export_serving),
 ]
 
 
@@ -208,7 +230,7 @@ def _setup_logging(level: str, log_file: Optional[str]) -> None:
 def run_step(index: int, config, opts: RunOptions, confirm: bool) -> Optional[float]:
     """Run step ``index``; its wall seconds, or None when the user skipped
     it.  A failure propagates."""
-    name, desc, fn, _ = STEPS[index]
+    name, desc, fn = STEPS[index]
     print(f"\n{BOLD}{CYAN}[{index + 1}/{len(STEPS)}] {name}{RESET} — {desc}", flush=True)
     if confirm:
         answer = input("Run this step? [Y/n/q] ").strip().lower()
@@ -246,26 +268,11 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
 
     if args.list:
-        for i, (name, desc, fn, item) in enumerate(STEPS):
-            note = "" if fn is not None else f"  [not ported yet: ROADMAP.md {item}]"
-            print(f"  {i + 1}. {name:<14} {desc}{note}")
+        for i, (name, desc, _) in enumerate(STEPS):
+            print(f"  {i + 1}. {name:<14} {desc}")
         return 0
 
-    if args.step:
-        indices = parse_step_range(args.step, len(STEPS))
-        unported = [i for i in indices if STEPS[i][2] is None]
-        if unported:
-            for i in unported:
-                print(
-                    f"{RED}step {i + 1} ({STEPS[i][0]}) is not ported to the PyTorch package yet: "
-                    f"ROADMAP.md {STEPS[i][3]}{RESET}",
-                    file=sys.stderr,
-                )
-            return 2
-    else:
-        indices = [i for i, step in enumerate(STEPS) if step[2] is not None]
-        skipped = ", ".join(f"{i + 1} ({s[0]}: ROADMAP.md {s[3]})" for i, s in enumerate(STEPS) if s[2] is None)
-        print(f"{YELLOW}not ported yet, not run: steps {skipped}{RESET}")
+    indices = parse_step_range(args.step, len(STEPS)) if args.step else list(range(len(STEPS)))
 
     from multi_modal_gnn_tpu_torch.config import load_config
     from multi_modal_gnn_tpu_torch.utils.device import resolve_device

@@ -10,7 +10,7 @@ Each seed gets a copy of the config (written by ``save_config``) with
 ``train.seed`` set and ``data.interim_dir``, ``data.output_dir`` and
 ``logging.log_file`` inside a temporary directory, so nothing is written to
 the repo.  Each run is ``python -m multi_modal_gnn_tpu_torch.pipeline``
-(steps 1-5, 7 and 8) on ``--device``; with ``--draws cpu`` it is
+(steps 1-8) on ``--device``; with ``--draws cpu`` it is
 ``python -m multi_modal_gnn_tpu_torch.tools.cpu_draws`` with the same
 arguments, which takes the dropout and supervision draws from the CPU's
 generators, as a CPU run of the seed draws them.  The data seed stays the
@@ -39,8 +39,9 @@ REPO = Path(__file__).resolve().parents[2]
 ARTIFACTS = (
     "graph.npz", "graph.meta.json", "best_model.ckpt", "training_history.json", "test_results.json",
     "evaluation_results.json", "per_lab_metrics.csv", "conformal.json", "audit_report.json",
-    "inference_examples.json", "serving/serving.json", "serving/weights.npz", "serving/pairs_b256.pt2",
-    "serving/pairs_b4096.pt2", "serving/coldstart.npz", "serving/conformal.json", "serving/conformal_cold.json",
+    "inference_examples.json", "advanced_visualizations/per_lab_calibration.csv", "serving/serving.json",
+    "serving/weights.npz", "serving/pairs_b256.pt2", "serving/pairs_b4096.pt2", "serving/coldstart.npz",
+    "serving/conformal.json", "serving/conformal_cold.json",
 )
 
 
@@ -122,7 +123,7 @@ def run_seed(config_path, seed: int, workdir: Path, device: str = "cuda", steps:
              draws: str = "card") -> Dict:
     """One pipeline run (see the module docstring): :func:`read_result`
     plus each step's wall seconds.  ``steps`` is the command line's
-    ``--step`` (all ported steps when None); ``draws="cpu"`` runs it
+    ``--step`` (all eight steps when None); ``draws="cpu"`` runs it
     through :mod:`~multi_modal_gnn_tpu_torch.tools.cpu_draws`."""
     workdir.mkdir(parents=True, exist_ok=True)
     seed_config(config_path, seed, workdir)
