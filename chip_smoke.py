@@ -5,8 +5,9 @@ trainer's lifecycle (checkpoints, resume, evaluation), the pipeline
 command line on the flagship config, the serving artifact, the quality
 channels (value context, the bilinear channel, the side-information warm
 start), Cluster-GCN mini-batch training, the bfloat16 compute path, the
-raw-data ingest path (raw MIMIC-III / eICU CSVs, the host graph core), and
-the visualize step with the performance ceilings on one CUDA GPU.
+raw-data ingest path (raw MIMIC-III / eICU CSVs, the host graph core), the
+visualize step with the performance ceilings, and 1-D data parallelism over
+two ranks, on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -204,7 +205,7 @@ Phases, each printing one line with its seconds:
                    rtol 1e-4 / atol 1e-5 (JAX's bound), test predictions
                    within twice the drift of four full-batch runs (the
                    count over JAX's elementwise bound printed);
-                   (e) full batch, device-resident and host-resident K = 8, 3
+                   (e) full batch, device-resident and host-resident K = 8, 2
                    epochs each, 6 device- and 2 host-resident runs in turns
                    from one init: each run's drift from the first printed,
                    every host-resident run within twice the largest drift
@@ -267,7 +268,8 @@ Phases, each printing one line with its seconds:
                    and the fused pair heads launched, finite losses,
                    evaluate_model's finite test metrics; (e) a raw eICU
                    directory through python -m multi_modal_gnn_tpu_torch
-                   --step 1-4 on the card
+                   --step 1-4 on the card, started at the phase's start
+                   beside (a)-(d)
  29. visualize     the pipeline's step 6 (viz.visualize) and the ceilings:
                    (a) on phase 20's run directory (scale_100k, full width,
                    use_pallas, dense budget 0), the trainer restored from
@@ -288,11 +290,36 @@ Phases, each printing one line with its seconds:
                    eicu --epochs 30 on the card, its yardsticks against its
                    --device cpu --skip-train run's within 1e-9 (both started
                    at the phase's start, in the background of (a)-(c))
+ 30. data-parallel 1-D data parallelism (train.extras.parallel: dp) over 2
+                   ranks on the one card (gloo; a rank each, spawned once,
+                   parallel/launch.py) on phase 3's graph: (a) K1 per shard
+                   (the rank's per-shard plan, its block placed at its
+                   window offset) and as the mirror relation's backward on
+                   every relation against its plain version, and all-reduced
+                   against the unsharded K1, within 1e-5 + 1e-5 |ref|; rank
+                   0 times each call site beside its bound (the shard's
+                   slots' bytes) and torch.sparse.mm over the shard's edges;
+                   (b) 3 DP RGCN steps (dropout 0, injected masks, one init)
+                   against the one-process card trainer: losses rtol 1e-3
+                   (JAX's DP-with-shard-plans bound), the first step's
+                   gradients within phase 8's 3e-2 ||ref||, each rank
+                   launching K1 only; (c) MiniBatchDPTrainer at K = 8,
+                   host-resident, one epoch against MiniBatchTrainer; (d)
+                   the DP HGT (its sharded segment tier) 2 steps against
+                   the one-process segment tier; (e) the sharded graph
+                   artifact written with 2 shards and each rank's shard
+                   loaded, bit-equal to the in-memory shard; (f)
+                   conf/eicu_real.yaml with parallel: dp through python -m
+                   torch.distributed.run --nproc-per-node 2 (run in phase
+                   21's pool), its guarded R2 within 0.03 of phase 21's
+                   float32 seed 42
 Then a JSON line of per-kernel results (a kernel with a bf16 instantiation
 also carries launches_bf16_step and its bf16 results, and its bf16 cluster
 sites and value-context launches; P1's bf16 kernels have rows of their
 own; every row carries launches_visualize, its launches in phase 29's
-step 6), the nvidia-smi line, and the last
+step 6; K1 also carries its launches in a DP step, and its per-shard route
+has a row of its own, segment_sum_windowed_shard), the nvidia-smi line, and
+the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero before the last line; without a CUDA device it fails in phase 1.
 """
@@ -566,6 +593,26 @@ JAX_CPU_LMMSE = {
 }
 # (d): tools/diagnose_quality on the card, beside its CPU yardsticks
 DIAGNOSE_EPOCHS = 30
+# phase 30: 1-D data parallelism over DP_RANKS ranks on the one card (gloo:
+# NCCL refuses two ranks on one device).  The DP step against the
+# one-process step on the card from one init with injected masks (dropout
+# 0): losses within JAX's DP-with-shard-plans bound (tests/test_parallel.py
+# test_dp_with_shard_plans_matches_single_device: the per-shard K1 tier
+# against the single-device tiers), the first step's gradients within
+# phase 8's STEP_GRAD_NORM_REL; the DP flagship (parallel: dp through
+# torch.distributed.run, in phase 21's pool) within BF16_NOISE_BUDGET of
+# phase 21's float32 seed 42, as phase 27 (f) holds bf16
+DP_RANKS = 2
+DP_EPOCHS, DP_HGT_EPOCHS, DP_CLUSTER_K = 3, 2, 8
+DP_LOSS_RTOL = 1e-3
+DP_MASK_FRACTION = 0.2
+# every kernel the DP path must not launch: under DP the pair heads run
+# plain (JAX rgcn.py:393, :469) and the HGT takes its segment tier
+DP_UNLAUNCHED = (
+    "fused_table_segment_sum", "fused_table_segment_sum_bwd", "span_segment_sum", "pair_head_fwd",
+    "pair_head_bwd", "pair_head_dual_fwd", "pair_head_dual_bwd", "flash_attention_fwd", "flash_attention_dq",
+    "flash_attention_dkv",
+)
 # the bfloat16 instantiations' -Xptxas -v lines, by kernel
 BF16_NAMED = tuple((label, entry + "13__nv_bfloat16") for label, entry in (
     ("K2b", "incidence_kernelILb0E"), ("K3", "incidence_kernelILb1E"),
@@ -1008,6 +1055,9 @@ def _flagship_serving_check(run_dir: Path, dev) -> str:
 # fused-table patient tables (1,664 rows); K = 16 for the HGT
 CLUSTER_K, CLUSTER_K_SMALL, CLUSTER_K_HGT = 8, 64, 16
 CLUSTER_EPOCHS, CLUSTER_HGT_EPOCHS = 3, 2
+# (e), (h): each run's epochs (2: the peaks come in the first epoch, and
+# the drift check compares runs of equal length)
+CLUSTER_RESIDENT_EPOCHS = 2
 # (e): device- and host-resident runs from one init, in turns; (h) the same
 # in bfloat16, whose runs drift further apart (a bf16 rounding that goes the
 # other way): three device-resident runs gave a spread of 1.2e-04 in one
@@ -1454,7 +1504,7 @@ def _clusters_phase(dev, graph_cpu, graph, graph_hgt, config, masker, reset_coun
     lap("d")
 
     # (e) host-resident against device-resident, K = 8
-    def peak_run(make, epochs=CLUSTER_EPOCHS, count=False, keep=False):
+    def peak_run(make, epochs=CLUSTER_RESIDENT_EPOCHS, count=False, keep=False):
         gc.collect()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -1716,13 +1766,14 @@ def _bf16_close(name: str, got, want) -> float:
     return float(err.max())
 
 
-def _bf16_grads_close(name: str, got: dict, want: dict, zero=None) -> None:
+def _bf16_grads_close(name: str, got: dict, want: dict, zero=None, rel: float = BF16_STEP_GRAD_NORM_REL) -> None:
     """A bfloat16 step's gradients against another bfloat16 step's, per
-    tensor: ``||got - want|| <= BF16_STEP_GRAD_NORM_REL * ||want||`` plus
-    1e-6 of the step's largest gradient norm.  A bias right before a
-    BatchNorm (``zero``, default :func:`_feeds_batch_norm`) has a gradient of
-    0 in exact arithmetic: each side holds its own rounding noise, and
-    ``got``'s is held to twice ``want``'s."""
+    tensor: ``||got - want|| <= rel * ||want||`` (default
+    BF16_STEP_GRAD_NORM_REL) plus 1e-6 of the step's largest gradient norm.
+    A bias right before a BatchNorm (``zero``, default
+    :func:`_feeds_batch_norm`) has a gradient of 0 in exact arithmetic: each
+    side holds its own rounding noise, and ``got``'s is held to twice
+    ``want``'s."""
     import torch
 
     largest = max(float(g.norm()) for g in want.values())
@@ -1735,13 +1786,13 @@ def _bf16_grads_close(name: str, got: dict, want: dict, zero=None) -> None:
             ok = float(a.norm()) <= 2 * float(b.norm()) + floor
         else:
             diff, norm = float(torch.linalg.vector_norm(a - b)), float(torch.linalg.vector_norm(b))
-            ok = diff <= BF16_STEP_GRAD_NORM_REL * norm + floor
+            ok = diff <= rel * norm + floor
             drift[key] = diff / norm if norm > 0 else 0.0
         if not ok:
             failed.append(key)
     top = sorted(drift.items(), key=lambda kv: -kv[1])[:6]
     print(f"    {name}: ||d|| / ||ref|| largest " + ", ".join(f"{k} {v:.3e}" for k, v in top)
-          + f" (<= {BF16_STEP_GRAD_NORM_REL}); {len(want) - len(drift)} BatchNorm-fed biases within twice the "
+          + f" (<= {rel}); {len(want) - len(drift)} BatchNorm-fed biases within twice the "
           f"reference's noise; {'ok' if not failed else 'FAIL ' + str(failed)}", flush=True)
     if failed:
         raise AssertionError(f"{name}: gradients outside the bound: {failed}")
@@ -2225,6 +2276,16 @@ def _ingest_phase(dev, reset_counts, counts_of) -> dict:
     out = {}
     root = Path(tempfile.mkdtemp(prefix="mmgnn_etl_"))
     try:
+        # (e) a raw eICU directory through the command line, on the card: a
+        # process of its own from the phase's start, beside (a)-(d)
+        eraw = bench_etl.emit_raw_eicu(root / "eicu_raw", num_stays=ETL_EICU_STAYS)
+        ecfg = save_config(bench_etl.eicu_config(eraw, root / "eicu"), root / "eicu.yaml")
+        command = [sys.executable, "-m", "multi_modal_gnn_tpu_torch", "--config", str(ecfg), "--step", "1-4",
+                   "--no-confirm"]
+        t_eicu = time.perf_counter()
+        eicu_proc = subprocess.Popen(command, cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+
         # (a) the raw directory
         raw = root / "raw"
         emitted = bench_etl.emit_raw_mimic(raw, ETL_PATIENTS, ETL_LAB_ROWS, ETL_LABS, ETL_DX, ETL_RX, seed=0)
@@ -2324,26 +2385,24 @@ def _ingest_phase(dev, reset_counts, counts_of) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
 
-        # (e) a raw eICU directory through the command line, on the card
-        eraw = bench_etl.emit_raw_eicu(root / "eicu_raw", num_stays=ETL_EICU_STAYS)
-        ecfg = save_config(bench_etl.eicu_config(eraw, root / "eicu"), root / "eicu.yaml")
-        command = [sys.executable, "-m", "multi_modal_gnn_tpu_torch", "--config", str(ecfg), "--step", "1-4",
-                   "--no-confirm"]
-        t0 = time.perf_counter()
-        proc = subprocess.run(command, cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
-                              timeout=600)
-        if proc.returncode != 0:
-            raise AssertionError(f"(e) {' '.join(command)} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
-        steps = json.loads(proc.stdout.strip().splitlines()[-1])["step_seconds"]
+        # (e) the eICU command line started at the phase's start
+        stdout, stderr = eicu_proc.communicate(timeout=600)
+        if eicu_proc.returncode != 0:
+            raise AssertionError(f"(e) {' '.join(command)} exited {eicu_proc.returncode}:\n{stderr[-3000:]}")
+        steps = json.loads(stdout.strip().splitlines()[-1])["step_seconds"]
         with open(root / "eicu" / "out" / "evaluation_results.json") as f:
             overall = json.load(f)["overall_metrics"]
         if not all(np.isfinite([overall["r2"], overall["mae"]])):
             raise AssertionError(f"(e) non-finite eICU metrics: {overall}")
-        out["eicu"] = {"s": time.perf_counter() - t0, "step_seconds": steps, "r2": overall["r2"],
+        out["eicu"] = {"s": time.perf_counter() - t_eicu, "step_seconds": steps, "r2": overall["r2"],
                        "mae": overall["mae"]}
-        print(f"    (e) eICU ({ETL_EICU_STAYS} stays) through python -m multi_modal_gnn_tpu_torch --step 1-4: "
-              f"{time.perf_counter() - t0:.2f} s, steps {steps}, test R2 {overall['r2']:.4f}")
+        print(f"    (e) eICU ({ETL_EICU_STAYS} stays) through python -m multi_modal_gnn_tpu_torch --step 1-4 (beside "
+              f"(a)-(d)): done {out['eicu']['s']:.2f} s after the phase's start, steps {steps}, test R2 "
+              f"{overall['r2']:.4f}")
     finally:
+        if "eicu_proc" in locals() and eicu_proc.poll() is None:
+            eicu_proc.kill()
+            eicu_proc.wait()
         shutil.rmtree(root, ignore_errors=True)
     return out
 
@@ -2598,6 +2657,328 @@ def _visualize_phase(dev, life_dir, life_config, hgt_state, hgt_config, graph_cp
                 proc.wait()
         shutil.rmtree(tmp, ignore_errors=True)
     return out
+
+
+def _dp_mask(valid, epoch: int):
+    """Phase 30's injected supervision mask of ``epoch`` over a whole train
+    batch: the same in every process (numpy's generator, on the host)."""
+    import numpy as np
+    import torch
+
+    draw = np.random.default_rng(30_000 + epoch).random(valid.shape[0]) < DP_MASK_FRACTION
+    return torch.from_numpy(draw.astype(np.float32)).to(valid.device) * valid
+
+
+def _dp_plain_block(x, es, num_rows: int):
+    """The plain version of ``ops.segment.sharded_block_sum``: the rank's
+    windowed sum placed at its window offset."""
+    import torch
+
+    from multi_modal_gnn_tpu_torch.graph.hetero import WINDOW
+    from multi_modal_gnn_tpu_torch.ops import segment_kernels as sk
+
+    k = es.shard_win_windows
+    full = torch.zeros((-(-num_rows // WINDOW) + k) * WINDOW, x.shape[1], dtype=torch.float32, device=x.device)
+    row0 = es.shard_win_first * WINDOW
+    full[row0 : row0 + k * WINDOW] += sk.segment_sum_windowed_plain(
+        x, es.shard_win_src, es.shard_win_local, es.shard_win_tile_map, k
+    )
+    return full[:num_rows]
+
+
+def _dp_launches():
+    from multi_modal_gnn_tpu_torch.ops import attention_kernels as ak
+    from multi_modal_gnn_tpu_torch.ops import pairhead_kernels as pk
+    from multi_modal_gnn_tpu_torch.ops import segment_kernels as sk
+
+    return {**sk.launch_counts, **pk.launch_counts, **ak.launch_counts}
+
+
+def _dp_reset() -> None:
+    from multi_modal_gnn_tpu_torch.ops import attention_kernels as ak
+    from multi_modal_gnn_tpu_torch.ops import pairhead_kernels as pk
+    from multi_modal_gnn_tpu_torch.ops import segment_kernels as sk
+
+    sk.reset_launch_counts()
+    pk.reset_launch_counts()
+    ak.reset_launch_counts()
+
+
+def _dp_rank(job: dict) -> dict:
+    """One rank of phase 30 (spawned; module docstring): (a) K1 per shard
+    on every relation against its plain version and, all-reduced, against
+    the unsharded K1 total; (b) the DP RGCN's steps; (c) the DP clusters'
+    epoch; (d) the DP HGT's steps; (e) its shard of the sharded artifact
+    against the in-memory shard; then rank 0 times K1's call sites while the
+    other ranks wait."""
+    import torch
+    import torch.distributed as dist
+
+    from multi_modal_gnn_tpu_torch.config import Config
+    from multi_modal_gnn_tpu_torch.graph.build import GraphBundle, GraphMeta, host_edges_of
+    from multi_modal_gnn_tpu_torch.graph.distributed import attach_relation_plans, load_graph_distributed
+    from multi_modal_gnn_tpu_torch.graph.hetero import WINDOW
+    from multi_modal_gnn_tpu_torch.graph.schema import mirror_edge_type
+    from multi_modal_gnn_tpu_torch.models import build_model
+    from multi_modal_gnn_tpu_torch.ops import segment_kernels as sk
+    from multi_modal_gnn_tpu_torch.ops.segment import sharded_block_sum
+    from multi_modal_gnn_tpu_torch.parallel import collectives
+    from multi_modal_gnn_tpu_torch.parallel.dp import DataParallelTrainer, init_generator
+    from multi_modal_gnn_tpu_torch.parallel.mesh import init_axis
+    from multi_modal_gnn_tpu_torch.parallel.minibatch_dp import MiniBatchDPTrainer
+    from multi_modal_gnn_tpu_torch.parallel.sharding import attach_shard_plans, graph_shard, shard_rows
+    from multi_modal_gnn_tpu_torch.training import masker_from_config
+    from multi_modal_gnn_tpu_torch.utils.device import disable_tf32, require_cuda
+
+    dev = require_cuda()
+    disable_tf32()
+    t0 = time.perf_counter()
+    axis = init_axis(dev)
+    out = {"rank": axis.rank, "device": str(dev), "backend": axis.backend, "seconds": {"start": time.perf_counter() - t0}}
+    graph_cpu = torch.load(job["graph"], weights_only=False)
+    host_edges = host_edges_of(graph_cpu)
+    d = job["hidden"]
+
+    # (a) K1 per shard, forward and mirror backward, on every relation
+    t = time.perf_counter()
+    shard = graph_shard(attach_shard_plans(graph_cpu, host_edges, axis.size), axis.rank, axis.size).to(dev)
+    whole = graph_cpu.to(dev)
+    gen = torch.Generator().manual_seed(30)
+    k1, sites = {}, {}
+    for et in sorted(shard.edges):
+        es, rev, fes = shard.edges[et], shard.edges[mirror_edge_type(et)], whole.edges[et]
+        x = torch.randn(es.num_src, d, generator=gen).to(dev)
+        g = torch.randn(es.num_dst, d, generator=gen).to(dev)
+        name = "/".join(et)
+        fwd, fwd_plain = sharded_block_sum(x, es, es.num_dst), _dp_plain_block(x, es, es.num_dst)
+        bwd, bwd_plain = sharded_block_sum(g, rev, es.num_src), _dp_plain_block(g, rev, es.num_src)
+        fwd_err, _ = _compare(f"rank {axis.rank} K1 per shard on {name}", fwd / fes.dst_count.clamp_min(1.0)[:, None],
+                              fwd_plain / fes.dst_count.clamp_min(1.0)[:, None], KERNEL_ATOL, KERNEL_RTOL)
+        rev_count = whole.edges[mirror_edge_type(et)].dst_count.clamp_min(1.0)[:, None]
+        bwd_err, _ = _compare(f"rank {axis.rank} K1 per shard, mirror backward of {name}", bwd / rev_count,
+                              bwd_plain / rev_count, KERNEL_ATOL, KERNEL_RTOL)
+        total = collectives.all_reduce_(fwd.clone(), axis)
+        unsharded = sk.segment_sum_windowed(x, fes.win_src, fes.win_local, fes.win_tile_map, fes.num_windows)
+        _compare(f"rank {axis.rank} K1 all-reduced total on {name} vs the unsharded K1",
+                 total / fes.dst_count.clamp_min(1.0)[:, None],
+                 unsharded[: es.num_dst] / fes.dst_count.clamp_min(1.0)[:, None], KERNEL_ATOL, KERNEL_RTOL)
+        k1[name] = {"fwd_err": fwd_err, "bwd_err": bwd_err}
+        sites[name] = (x, es)
+    del whole
+    out["seconds"]["a"] = time.perf_counter() - t
+
+    # (b) the DP RGCN: DP_EPOCHS steps with injected masks, dropout 0
+    t = time.perf_counter()
+    cfg = Config.from_dict(job["config"])
+    masker = masker_from_config(cfg, graph_cpu)
+    trainer = DataParallelTrainer(
+        graph_cpu, masker, cfg, model=build_model(cfg, graph_cpu, device=dev, generator=init_generator(cfg)),
+        axis=axis, device=dev, host_edges=host_edges,
+    )
+    full, batch = trainer.full_batch("train"), trainer.get_batch("train")
+    losses, step_ms = [], []
+    collectives.reset_stats()
+    for epoch in range(DP_EPOCHS):
+        sup = shard_rows(_dp_mask(full.valid, epoch), axis)
+        _dp_reset()
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        losses.append(trainer.train_step(batch, sup, 0))
+        step_ms.append((time.perf_counter() - s0) * 1e3)
+        if epoch == 0:
+            out["launches_step"] = _dp_launches()
+            # numpy: a tensor crosses to the parent as a file descriptor that dies with the rank
+            out["grads"] = {n: p.grad.detach().cpu().numpy() for n, p in trainer.model.named_parameters()}
+            out["collectives_step"] = copy.deepcopy(collectives.stats)
+    out["rgcn"] = {"losses": losses, "val": trainer.validate("val"), "step_ms": step_ms,
+                   "edges": {"/".join(et): int(es.src.shape[0]) for et, es in trainer.graph.edges.items()}}
+    del trainer
+    out["seconds"]["b"] = time.perf_counter() - t
+
+    # (c) Cluster-GCN, K = DP_CLUSTER_K, host-resident, one epoch
+    t = time.perf_counter()
+    clusters = MiniBatchDPTrainer(
+        GraphBundle(graph_cpu, GraphMeta(), host_edges), masker, cfg, DP_CLUSTER_K,
+        model=build_model(cfg, graph_cpu, device=dev, generator=init_generator(cfg)), axis=axis,
+        host_resident=True, device=dev,
+    )
+    clusters._ensure_clusters()
+    _dp_reset()
+    s0 = time.perf_counter()
+    out["clusters"] = {"loss": clusters.train_epoch(), "epoch_ms": (time.perf_counter() - s0) * 1e3,
+                       "launches": _dp_launches()}
+    del clusters
+    out["seconds"]["c"] = time.perf_counter() - t
+
+    # (d) the HGT's sharded segment tier, DP_HGT_EPOCHS steps
+    t = time.perf_counter()
+    hcfg = Config.from_dict(job["hgt_config"])
+    hgt = DataParallelTrainer(
+        graph_cpu, masker_from_config(hcfg, graph_cpu), hcfg,
+        model=build_model(hcfg, graph_cpu, device=dev, generator=init_generator(hcfg)), axis=axis, device=dev,
+    )
+    hfull, hbatch = hgt.full_batch("train"), hgt.get_batch("train")
+    _dp_reset()
+    out["hgt"] = {"losses": [hgt.train_step(hbatch, shard_rows(_dp_mask(hfull.valid, e), axis), 0)
+                             for e in range(DP_HGT_EPOCHS)], "launches": _dp_launches()}
+    del hgt
+    out["seconds"]["d"] = time.perf_counter() - t
+
+    # (e) this rank's shard of the sharded artifact against the in-memory shard
+    # (the parent writes the artifact while the ranks run (a)-(d))
+    t = time.perf_counter()
+    while not Path(job["artifact_done"]).exists():
+        time.sleep(0.5)
+    loaded = load_graph_distributed(job["artifact"], axis.rank, axis.size, load_host_patient_lab=False).graph
+    want = graph_shard(attach_relation_plans(graph_cpu, axis.size), axis.rank, axis.size)
+    out["artifact_mismatch"] = _graph_arrays_equal(loaded, want)
+    out["seconds"]["e"] = time.perf_counter() - t
+
+    # rank 0 times K1's call sites once the one-process references are done
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if axis.rank == 0:
+        while not Path(job["references_done"]).exists():
+            time.sleep(0.5)
+        for name, (x, es) in sites.items():
+            slots = es.shard_win_local.shape[0]
+            real = int((es.shard_win_local < WINDOW).sum())
+            # each input read once (the table, the plan), the block written once
+            nbytes = _nbytes(x, es.shard_win_src, es.shard_win_local, es.shard_win_tile_map) \
+                + es.shard_win_windows * WINDOW * d * 4
+            csr = _csr(es.row_ptr, es.src, es.num_dst, es.num_src, dev)
+            k1[name].update(
+                ms=_median_ms(lambda: sharded_block_sum(x, es, es.num_dst)),
+                plain_ms=_median_ms(lambda: _dp_plain_block(x, es, es.num_dst)),
+                library_ms=_library_ms(f"torch.sparse.mm over rank 0's {name} edges", lambda: torch.sparse.mm(csr, x)),
+                slots=slots, real_slots=real, k_max=es.shard_win_windows, **_bound(nbytes, real * d),
+            )
+    dist.barrier()
+    out["k1"] = k1
+    return out
+
+
+def _dp_phase(dev, graph_cpu, config, dp_flagship: dict, flagship_r2_f32: float) -> dict:
+    """Phase 30: see the module docstring.  Starts the ranks, runs the
+    one-process references on the card meanwhile, then checks."""
+    import torch
+
+    from multi_modal_gnn_tpu_torch.graph.build import GraphBundle, GraphMeta, host_edges_of
+    from multi_modal_gnn_tpu_torch.graph.distributed import save_graph_sharded
+    from multi_modal_gnn_tpu_torch.models import build_model
+    from multi_modal_gnn_tpu_torch.parallel.dp import init_generator
+    from multi_modal_gnn_tpu_torch.parallel.launch import Ranks
+    from multi_modal_gnn_tpu_torch.training import Trainer, masker_from_config
+    from multi_modal_gnn_tpu_torch.training.minibatch import MiniBatchTrainer
+
+    seconds = {}
+    t = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="mmgnn_dp_")
+    root = Path(tmp.name)
+    torch.save(graph_cpu, root / "graph.pt")
+    seconds["graph_file"] = time.perf_counter() - t
+    cfg = config.replace(model=dataclasses.replace(config.model, dropout=0.0))
+    hcfg = cfg.replace(model=dataclasses.replace(cfg.model, architecture="HGT", use_pallas=False))
+    job = {
+        "graph": str(root / "graph.pt"), "artifact": str(root / "graph_sharded"), "hidden": cfg.model.hidden_dim,
+        "config": cfg.to_dict(), "hgt_config": hcfg.to_dict(), "references_done": str(root / "references_done"),
+        "artifact_done": str(root / "artifact_done"),
+    }
+    ranks = Ranks(_dp_rank, DP_RANKS, (job,))
+
+    # (e) the sharded artifact, then the one-process references on the card,
+    # while the ranks run
+    t = time.perf_counter()
+    save_graph_sharded(GraphBundle(graph_cpu, GraphMeta()), root / "graph_sharded", DP_RANKS, kernel_plans=True)
+    (root / "artifact_done").touch()
+    seconds["e_write"] = time.perf_counter() - t
+    t = time.perf_counter()
+    host_edges = host_edges_of(graph_cpu)
+    masker = masker_from_config(cfg, graph_cpu)
+    one = Trainer(build_model(cfg, graph_cpu, device=dev, generator=init_generator(cfg)), graph_cpu, masker, cfg,
+                  device=dev)
+    batch = one.get_batch("train")
+    ref = {"losses": []}
+    for epoch in range(DP_EPOCHS):
+        ref["losses"].append(one.train_step(batch, _dp_mask(batch.valid, epoch), 0))
+        if epoch == 0:
+            ref["grads"] = {n: p.grad.detach().cpu() for n, p in one.model.named_parameters()}
+    ref["val"] = one.validate("val")
+    del one, batch
+    clusters = MiniBatchTrainer(
+        build_model(cfg, graph_cpu, device=dev, generator=init_generator(cfg)),
+        GraphBundle(graph_cpu, GraphMeta(), host_edges), masker, cfg, DP_CLUSTER_K, host_resident=True, device=dev,
+    )
+    ref["clusters"] = clusters.train_epoch()
+    del clusters
+    hgt = Trainer(build_model(hcfg, graph_cpu, device=dev, generator=init_generator(hcfg)), graph_cpu,
+                  masker_from_config(hcfg, graph_cpu), hcfg, device=dev)
+    hbatch = hgt.get_batch("train")
+    ref["hgt"] = [hgt.train_step(hbatch, _dp_mask(hbatch.valid, e), 0) for e in range(DP_HGT_EPOCHS)]
+    del hgt, hbatch
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds["references"] = time.perf_counter() - t
+    (root / "references_done").touch()
+    t = time.perf_counter()
+    outs = ranks.join(900)
+    seconds["ranks_after_references"] = time.perf_counter() - t
+    tmp.cleanup()
+
+    r0 = outs[0]
+    for r in outs:
+        print(f"    rank {r['rank']} on {r['device']} ({r['backend']}): seconds "
+              + ", ".join(f"{k} {v:.2f}" for k, v in r["seconds"].items()), flush=True)
+    # (a)
+    for name, site in r0["k1"].items():
+        print(f"    (a) K1 per shard on {name} (rank 0 of {DP_RANKS}): {site['slots']} slots ({site['real_slots']} "
+              f"real), k_max {site['k_max']}; kernel {site['ms']:.4f} ms, plain {site['plain_ms']:.4f} ms, "
+              f"torch.sparse.mm {site['library_ms']}, bound {site['bound_ms']:.4f} ms ({site['bound_by']}); "
+              f"max_abs_err fwd {site['fwd_err']:.3e}, mirror bwd {site['bwd_err']:.3e}", flush=True)
+    # (b)
+    for r in outs:
+        launches = r["launches_step"]
+        if not launches["segment_sum_windowed"] or any(launches[k] for k in DP_UNLAUNCHED):
+            raise AssertionError(f"rank {r['rank']}'s DP step launched {launches}: K1 only, on its shard plans")
+        if r["rgcn"]["losses"] != r0["rgcn"]["losses"]:
+            raise AssertionError(f"the ranks' DP losses differ: {r['rgcn']['losses']} vs {r0['rgcn']['losses']}")
+    print(f"    (b) rank 0: step ms {', '.join('%.1f' % t for t in r0['rgcn']['step_ms'])}; the first step's "
+          f"collectives {r0['collectives_step']}; K1 launches in it {r0['launches_step']['segment_sum_windowed']}",
+          flush=True)
+    _compare("(b) DP RGCN losses vs one process", torch.tensor(r0["rgcn"]["losses"]), torch.tensor(ref["losses"]),
+             0.0, DP_LOSS_RTOL)
+    _compare("(b) DP RGCN validation loss vs one process", torch.tensor([r0["rgcn"]["val"]]),
+             torch.tensor([ref["val"]]), 0.0, DP_LOSS_RTOL)
+    # phase 8's bound; a bias right before a BatchNorm (its gradient 0 in
+    # exact arithmetic) within twice the one-process step's noise, as phase 27
+    _bf16_grads_close("(b) DP first-step gradients vs one process",
+                      {n: torch.from_numpy(g) for n, g in r0["grads"].items()}, ref["grads"], rel=STEP_GRAD_NORM_REL)
+    # (c), (d)
+    for r in outs:
+        for part in ("clusters", "hgt"):
+            launches = r[part]["launches"]
+            wanted = part == "clusters"
+            if bool(launches["segment_sum_windowed"]) != wanted or any(launches[k] for k in DP_UNLAUNCHED):
+                raise AssertionError(f"rank {r['rank']}'s DP {part} launched {launches}")
+    _compare("(c) DP clusters' epoch loss vs MiniBatchTrainer", torch.tensor([r0["clusters"]["loss"]]),
+             torch.tensor([ref["clusters"]]), 0.0, DP_LOSS_RTOL)
+    _compare("(d) DP HGT losses vs one process (segment tier)", torch.tensor(r0["hgt"]["losses"]),
+             torch.tensor(ref["hgt"]), 0.0, DP_LOSS_RTOL)
+    # (e)
+    for r in outs:
+        if r["artifact_mismatch"]:
+            raise AssertionError(f"rank {r['rank']}'s loaded shard differs from the in-memory one: "
+                                 f"{r['artifact_mismatch']}")
+    # (f)
+    flag = dp_flagship
+    print(f"    (f) conf/eicu_real.yaml with parallel: dp over {DP_RANKS} ranks (torch.distributed.run, in phase "
+          f"21's pool): steps " + ", ".join(f"{k} {v:.2f} s" for k, v in flag["step_seconds"].items())
+          + f"; {flag['epochs']} epochs, guarded R2 {flag['r2']:.6f}, MAE {flag['mae']:.6f} (float32 seed "
+          f"{FLAGSHIP_SEEDS[0]}, one process: {flagship_r2_f32:.6f})", flush=True)
+    if flag["leak"] or flag["missing"] or not abs(flag["r2"] - flagship_r2_f32) <= BF16_NOISE_BUDGET:
+        raise AssertionError(f"the DP flagship: R2 {flag['r2']:.6f} vs {flagship_r2_f32:.6f}, leak {flag['leak']}, "
+                             f"missing {flag['missing']}")
+    return {"ranks": outs, "ref": ref, "seconds": seconds}
 
 
 def main() -> int:
@@ -4102,6 +4483,7 @@ def main() -> int:
     side_runs = Path(side_tmp.name)
     ws_derived = flagship_band.warm_start_config(flagship, side_runs / "eicu_real_sideinfo.yaml", "sideinfo")
     bf16_flagship = flagship_band.dtype_config(flagship, side_runs / "eicu_real_bf16.yaml")
+    dp_flagship = flagship_band.parallel_config(flagship, side_runs / "eicu_real_dp.yaml")
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         # the seeds' command lines (and seed 44 with the CPU's draws, the
@@ -4111,7 +4493,7 @@ def main() -> int:
         # meanwhile
         from concurrent.futures import ThreadPoolExecutor
 
-        with ThreadPoolExecutor(max_workers=len(FLAGSHIP_SEEDS) + len(WARM_START_SEEDS) + 2) as pool:
+        with ThreadPoolExecutor(max_workers=len(FLAGSHIP_SEEDS) + len(WARM_START_SEEDS) + 3) as pool:
             pending = {seed: pool.submit(flagship_band.run_seed, flagship, seed, tmp / f"seed{seed}", device="cuda")
                        for seed in FLAGSHIP_SEEDS}
             # float32 seed 44 stops early on the card (ROADMAP section 3): the
@@ -4123,6 +4505,9 @@ def main() -> int:
                                             device="cuda") for seed in WARM_START_SEEDS}
             pending_bf16 = pool.submit(flagship_band.run_seed, bf16_flagship, FLAGSHIP_SEEDS[0], side_runs / "bf16",
                                        device="cuda")
+            # phase 30 (f): the flagship edge-sharded over DP_RANKS ranks
+            pending_dp = pool.submit(flagship_band.run_seed, dp_flagship, FLAGSHIP_SEEDS[0], side_runs / "dp",
+                                     device="cuda", ranks=DP_RANKS)
             # the kernel path in this process: factored heads over a slot-major
             # train batch (K4f / K4b); the aggregations take the dense tier.  At
             # 1,834 patients the flagship's train batch (42,315 rows) lies below
@@ -4158,6 +4543,7 @@ def main() -> int:
             draws = pending_draws.result()
             ws_runs = {seed: future.result() for seed, future in pending_ws.items()}
             bf16_run = pending_bf16.result()
+            dp_run = pending_dp.result()
         for seed in FLAGSHIP_SEEDS:
             run = runs[seed]
             print(
@@ -4895,6 +5281,25 @@ def main() -> int:
         f"within {visual['diagnose']['rel']:.1e}",
     )
 
+    # 30. data parallelism ----------------------------------------------------
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dp = _dp_phase(dev, graph_cpu, config, dp_run, flagship_r2_f32)
+    dp0 = dp["ranks"][0]
+    _phase(
+        "data-parallel", t0,
+        f"{DP_RANKS} ranks on {dp0['device']} ({dp0['backend']}): (a) K1 per shard and as the mirror backward "
+        f"match their plain versions on every relation, all-reduced the unsharded K1; (b) DP RGCN losses "
+        f"{[round(x, 6) for x in dp0['rgcn']['losses']]} vs one process {[round(x, 6) for x in dp['ref']['losses']]}, "
+        f"step {statistics.median(dp0['rgcn']['step_ms']):.1f} ms, K1 {dp0['launches_step']['segment_sum_windowed']} "
+        f"launches a step per rank and no other kernel; (c) K = {DP_CLUSTER_K} host-resident epoch "
+        f"{dp0['clusters']['epoch_ms']:.0f} ms, loss {dp0['clusters']['loss']:.6f} vs {dp['ref']['clusters']:.6f}; "
+        f"(d) HGT losses {[round(x, 6) for x in dp0['hgt']['losses']]} vs {[round(x, 6) for x in dp['ref']['hgt']]}; "
+        f"(e) the artifact's shards equal the in-memory shards (written in {dp['seconds']['e_write']:.2f} s); "
+        f"(f) the DP flagship R2 {dp_run['r2']:.6f} vs {flagship_r2_f32:.6f}",
+    )
+
     cluster_launches = clusters["launches_cluster_epoch"]
     for name in ("segment_sum_windowed", "fused_table_segment_sum", "fused_table_segment_sum_bwd"):
         if not cluster_launches[name]:
@@ -4953,7 +5358,22 @@ def main() -> int:
         # step 6: the RGCN's (a), the HGT's flash tier for K6-K8 (b)
         entry["launches_visualize"] = (visual["launches_hgt"] if name in visual["launches_hgt"]
                                        else visual["launches"]).get(name, 0)
+        if name == "segment_sum_windowed":
+            entry["launches_dp_step_per_rank"] = dp0["launches_step"][name]
         kernels.append(entry)
+    # K1's per-shard route (phase 30): rank 0's largest call site heads the
+    # entry, every site under "sites"
+    shard_sites = dp0["k1"]
+    head = max(shard_sites, key=lambda name: shard_sites[name]["real_slots"])
+    kernels.append({
+        "name": "segment_sum_windowed_shard", "route": "cuda", "source": KERNELS["segment_sum_windowed"][0],
+        "replaces": KERNELS["segment_sum_windowed"][1],
+        "launches": dp0["launches_step"]["segment_sum_windowed"],
+        "max_abs_err": max(max(v["fwd_err"], v["bwd_err"]) for v in shard_sites.values()),
+        **{k: shard_sites[head][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "site": head, "ranks": DP_RANKS, "sites": shard_sites,
+        "launches_cluster_epoch_per_rank": dp0["clusters"]["launches"]["segment_sum_windowed"],
+    })
     print(json.dumps({"kernels": kernels}))
     print(identity)
     print(json.dumps({

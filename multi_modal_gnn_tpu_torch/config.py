@@ -137,8 +137,8 @@ class GraphConfig:
     cluster_labs_by_frequency: bool = True
     # span-plan block height for big-source relations; 0 builds no span plan
     src_span_rows: int = 256
-    # extras.num_shards (> 1 raises at the graph build: sharded artifacts are
-    # not ported), extras.shard_kernel_plans
+    # extras.num_shards (> 1: the graph build also writes the sharded
+    # artifact, graph/distributed.py), extras.shard_kernel_plans
     extras: Dict[str, Any] = field(default_factory=dict)
 
     def __post_init__(self):
@@ -333,7 +333,9 @@ class TrainConfig:
     # extras.warm_start (als | sideinfo | none | off | "") with
     # warm_start_rank / _mem_rank / _reg / _ridge_reg / _huber_delta,
     # extras.num_clusters (int >= 1), extras.host_resident (bool),
-    # extras.cluster_balance (edges | patients): mini-batch training
+    # extras.cluster_balance (edges | patients): mini-batch training;
+    # extras.parallel (dp | data): 1-D data parallelism over the ranks of
+    # the launch, num_devices of them (0: the world size)
     extras: Dict[str, Any] = field(default_factory=dict)
 
     def __post_init__(self):
@@ -356,6 +358,13 @@ class TrainConfig:
         unknown = set(self.extras) - _TRAIN_EXTRAS
         if unknown:
             raise ConfigError(f"unsupported train extras: {sorted(unknown)}")
+        parallel = str(self.extras.get("parallel", "") or "").lower()
+        if parallel in _PARALLEL_2D:
+            raise ConfigError(f"train.extras.parallel: {parallel}: {_MULTI_DEVICE_2D}")
+        if parallel not in PARALLEL_MODES:
+            raise ConfigError(f"unknown train.extras.parallel={parallel!r} (expected dp | 2d | gspmd)")
+        if isinstance(self.num_devices, bool) or not isinstance(self.num_devices, int) or self.num_devices < 0:
+            raise ConfigError(f"train.num_devices must be an integer >= 0, got {self.num_devices!r}")
         nc = self.extras.get("num_clusters")
         if nc is not None and (isinstance(nc, bool) or not isinstance(nc, int) or nc < 1):
             raise ConfigError(f"train.extras.num_clusters must be a positive integer, got {nc!r}")
@@ -557,15 +566,21 @@ _MODEL_EXTRAS = {"head_style", "dual_head_fusion", "hgt_flash", "hgt_dense_attn_
 _TRAIN_EXTRAS = {
     "lab_tile_rows", "lab_tile_mode", "lab_reweighting", "auto_resume", "warm_start",
     "warm_start_rank", "warm_start_mem_rank", "warm_start_reg", "warm_start_ridge_reg",
-    "warm_start_huber_delta", "num_clusters", "host_resident", "cluster_balance",
+    "warm_start_huber_delta", "num_clusters", "host_resident", "cluster_balance", "parallel",
 }
 _WARM_STARTS = ("als", "sideinfo", "none", "off", "")
-_MULTI_DEVICE = "multi-device training is not ported yet (ROADMAP.md queue 1 item 8)"
+_MULTI_DEVICE_2D = (
+    "the 2-D modes (2d / dp2d / gspmd: patient table sharded over a model axis) are not "
+    "ported yet (ROADMAP.md queue 1 item 8b); 1-D data parallelism is parallel: dp"
+)
+# train.extras.parallel: "" / none / off (one process) or dp / data (1-D
+# data parallelism over the launch's ranks, parallel/dp.py)
+PARALLEL_MODES = ("", "none", "off", "dp", "data")
+_PARALLEL_2D = ("2d", "dp2d", "gspmd")
 
 
 _TRAIN_EXTRAS_NOT_PORTED = {
-    "parallel": _MULTI_DEVICE,
-    "model_parallel": _MULTI_DEVICE,
+    "model_parallel": _MULTI_DEVICE_2D,
 }
 _BASELINES = {"global_mean", "per_lab_mean", "nearest_neighbor", "als", "sideinfo_als"}
 _EVALUATION_EXTRAS = {"conformal_alpha", "conformal_split_fraction", "huber_delta"}

@@ -21,7 +21,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from multi_modal_gnn_tpu_torch.config import Config, ConfigError
+from multi_modal_gnn_tpu_torch.config import Config
 from multi_modal_gnn_tpu_torch.graph.hetero import EdgeSet, HeteroGraph, pad_edge_set
 from multi_modal_gnn_tpu_torch.graph.indexer import NodeIndexer
 from multi_modal_gnn_tpu_torch.graph.schema import (
@@ -240,11 +240,6 @@ def build_heterogeneous_graph(
     descending frequency under ``cluster_labs_by_frequency``, diagnoses and
     medications in first-seen order.  Node types left without nodes are
     dropped with their relations.  The graph lives on the CPU."""
-    if int(config.graph.extras.get("num_shards", 0) or 0) > 1:
-        raise ConfigError(
-            "graph.extras.num_shards > 1: sharded graph artifacts are not ported yet "
-            "(ROADMAP.md queue 1, multi-device)"
-        )
     diagnoses = diagnoses or {"SUBJECT_ID": np.zeros(0, np.int64), "ICD3_CODE": np.zeros(0, str)}
     medications = medications or {"SUBJECT_ID": np.zeros(0, np.int64), "DRUG": np.zeros(0, str)}
     indexers = {nt: NodeIndexer(nt) for nt in (PATIENT, LAB, DIAGNOSIS, MEDICATION)}
@@ -332,4 +327,18 @@ def build_graph_from_preprocessed(interim_dir, config: Config, output_path=None)
     logger.info("Graph statistics: %s", compute_graph_statistics(bundle.graph))
     if output_path is not None:
         save_graph(bundle, output_path)
+        # graph.extras.num_shards > 1 also writes the sharded artifact next
+        # to it, <output_path>_sharded.* (JAX build.py:401-418), with the
+        # per-shard K1 plans under graph.extras.shard_kernel_plans (default
+        # model.use_pallas)
+        n_shards = int(config.graph.extras.get("num_shards", 0) or 0)
+        if n_shards > 1:
+            from multi_modal_gnn_tpu_torch.graph.distributed import save_graph_sharded
+
+            base = Path(output_path)
+            base = base.with_suffix("") if base.suffix == ".npz" else base
+            save_graph_sharded(
+                bundle, base.parent / f"{base.name}_sharded", num_shards=n_shards,
+                kernel_plans=bool(config.graph.extras.get("shard_kernel_plans", config.model.use_pallas)),
+            )
     return bundle

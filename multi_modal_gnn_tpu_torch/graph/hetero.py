@@ -15,7 +15,9 @@ span packer run in the graph core (:mod:`multi_modal_gnn_tpu_torch.native`):
 * :func:`build_gather_plan` — the windowed layout of a row gather's backward
   (:class:`GatherPlan`);
 * :func:`build_value_plan` — an edge set in source order, for the value
-  context's sums (:class:`ValuePlan`).
+  context's sums (:class:`ValuePlan`);
+* :func:`build_sharded_window_plans` — the per-shard windowed plans of
+  edge-sharded data parallelism (``parallel/sharding.py``).
 
 :class:`EdgeSet` and :class:`HeteroGraph` keep the JAX field names; their
 tensors are built on the CPU and moved with ``.to(device)``.
@@ -87,6 +89,19 @@ class EdgeSet:
     # the valid edges in source order, for the value context's sums on the
     # card (build_value_plan; the trainer attaches it)
     value_plan: Optional["ValuePlan"] = None
+    # per-shard windowed plans of edge-sharded data parallelism
+    # (build_sharded_window_plans, attached by parallel/sharding.py): on the
+    # full graph the n shards' plans concatenated ([n * L], [n * L / TILE_E],
+    # [n]); on a rank's shard its own chunk, whose K1 block of
+    # shard_win_windows windows lands at global window shard_win_offset[0]
+    shard_win_src: Optional[torch.Tensor] = None  # int32 global source ids
+    shard_win_local: Optional[torch.Tensor] = None  # int32
+    shard_win_tile_map: Optional[torch.Tensor] = None  # int32
+    shard_win_offset: Optional[torch.Tensor] = None  # int32 first window of each shard
+    shard_win_windows: int = 0  # k_max, every shard's window count; 0 = no plan
+    # a rank's shard: shard_win_offset[0] as a Python int, so the block is
+    # placed without reading the device back
+    shard_win_first: int = 0
 
     def _map(self, fn) -> "EdgeSet":
         """A copy with ``fn`` applied to every tensor and the value plan."""
@@ -373,6 +388,78 @@ def build_value_plan(es: EdgeSet) -> ValuePlan:
     row_ptr = torch.zeros(es.num_src + 1, dtype=torch.int64, device=src.device)
     row_ptr[1:] = torch.cumsum(counts, 0)
     return ValuePlan(order, row_ptr.int(), es.dst[: es.num_valid][order].contiguous())
+
+
+def build_sharded_window_plans(
+    src_sorted: np.ndarray,
+    dst_sorted: np.ndarray,
+    num_dst: int,
+    n_shards: int,
+    window: int = WINDOW,
+    tile_e: int = TILE_E,
+):
+    """Per-shard windowed plans for edge-sharded data parallelism (JAX
+    ``build_sharded_window_plans``, ``graph/hetero.py:605-703``).
+
+    The valid dst-sorted edges are cut into ``n_shards`` contiguous,
+    near-equal chunks, and each chunk gets the windowed layout of its own
+    destinations, relative to its first destination window.  Any disjoint
+    cover of the valid edges is correct: each rank sums its chunk and one
+    all-reduce restores the total.  Every shard's plan is equalized to the
+    same window count ``k_max`` and the same tile count: all-padding tiles
+    (``local == window``) extend the window sequence (each local window
+    gets at least one tile) and then repeat the last window.  An empty
+    shard (fewer edges than shards) gets an all-padding plan at offset 0.
+
+    Returns ``(sh_src, sh_local, sh_tile_map, sh_offset, k_max)``; the
+    first three are the shards' plans concatenated, each shard's of equal
+    length."""
+    e = len(src_sorted)
+    bounds = [round(i * e / n_shards) for i in range(n_shards + 1)]
+    plans, k_list = [], []
+    offsets = np.zeros(n_shards, dtype=np.int32)
+    for s in range(n_shards):
+        lo, hi = bounds[s], bounds[s + 1]
+        if hi <= lo:
+            plans.append(None)
+            k_list.append(0)
+            continue
+        c_src = np.ascontiguousarray(src_sorted[lo:hi], dtype=np.int32)
+        c_dst = np.asarray(dst_sorted[lo:hi], dtype=np.int32)
+        first_w = int(c_dst[0]) // window
+        k_s = int(c_dst[-1]) // window - first_w + 1
+        offsets[s] = first_w
+        w_src, w_local, w_tm, _ = build_window_plan(
+            c_src, np.ascontiguousarray(c_dst - first_w * window), k_s * window, window=window, tile_e=tile_e,
+        )
+        plans.append((w_src, w_local, w_tm))
+        k_list.append(k_s)
+
+    k_max = max(max(k_list), 1)
+    n_tiles = max(k_max if p is None else len(p[2]) + (k_max - k) for p, k in zip(plans, k_list))
+    pad_src = np.zeros(tile_e, np.int32)
+    pad_local = np.full(tile_e, window, np.int32)
+    sh_src, sh_local, sh_tm = [], [], []
+    for p, k_s in zip(plans, k_list):
+        if p is None:
+            src_parts, local_parts = [pad_src] * n_tiles, [pad_local] * n_tiles
+            tm = list(range(k_max)) + [k_max - 1] * (n_tiles - k_max)
+        else:
+            w_src, w_local, w_tm = p
+            extra = list(range(k_s, k_max)) + [k_max - 1] * (n_tiles - len(w_tm) - (k_max - k_s))
+            src_parts = [w_src] + [pad_src] * len(extra)
+            local_parts = [w_local] + [pad_local] * len(extra)
+            tm = list(w_tm) + extra
+        sh_src.append(np.concatenate(src_parts))
+        sh_local.append(np.concatenate(local_parts))
+        sh_tm.append(np.asarray(tm, np.int32))
+    return (
+        np.concatenate(sh_src).astype(np.int32),
+        np.concatenate(sh_local).astype(np.int32),
+        np.concatenate(sh_tm).astype(np.int32),
+        offsets,
+        k_max,
+    )
 
 
 def build_gather_plan(idx: np.ndarray, num_rows: int) -> GatherPlan:

@@ -22,8 +22,12 @@ matrix over the valid edges, its structure built once and its values
 ``val * vis`` set per forward, and its backward the product with the
 transposed CSR: ``index_add_`` sends 5M edges' patient rows into 500 lab rows
 through float atomics at ``scale_100k``, 27 ms a forward on an H100
-(``PERF.md`` §6).  The JAX ``axis_name`` partial sums of
-edge-sharded training are not here: the port trains on one device.
+(``PERF.md`` §6).
+
+Under edge-sharded data parallelism (``axis``, JAX's ``axis_name``) the
+edge set is the rank's chunk: each route sums over it, and ``wsum`` and
+``cnt`` are all-reduced on both sides (in float32, before a bfloat16 table's
+rounding) (JAX ``context.py:32-87``).
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from torch import nn
 
 from multi_modal_gnn_tpu_torch.graph.hetero import EdgeSet, HeteroGraph
 from multi_modal_gnn_tpu_torch.graph.schema import LAB, PATIENT, PATIENT_LAB
+from multi_modal_gnn_tpu_torch.parallel.collectives import all_reduce_, all_reduce_sum
 
 
 class _CsrProduct(torch.autograd.Function):
@@ -78,12 +83,21 @@ class _Sums:
     that rounding: the card's bfloat16 sparse product rounds its partial
     sums in bfloat16 (``chip_smoke.py`` phase 23 (f) prints its error)."""
 
-    def __init__(self, es: EdgeSet, device):
+    def __init__(self, es: EdgeSet, device, axis=None):
         self.es = es
+        self.axis = axis
         self.vis = es.val_vis if es.val_vis is not None else es.mask
         self.val_vis = es.val * self.vis
         self.csr = csr_route(es, device)
         self._matrices = {}
+
+    def _combine(self, wsum: torch.Tensor, cnt: torch.Tensor, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The float32 sums all-reduced over the data axis (if any), then
+        rounded to ``dtype``."""
+        if self.axis is not None:
+            wsum = all_reduce_sum(wsum, self.axis)
+            cnt = all_reduce_(cnt.clone(), self.axis)
+        return wsum.to(dtype), cnt
 
     def _by(self, dtype):
         """The CSR matrices (by lab, by patient) of ``val * vis`` rounded to
@@ -107,43 +121,45 @@ class _Sums:
         es = self.es
         if self.csr:
             by_lab, by_patient = self._by(x_p.dtype)
-            wsum = _CsrProduct.apply(x_p.float(), by_lab, by_patient).to(x_p.dtype)
-            return wsum, _segment_totals(self.vis[: es.num_valid], es.row_ptr)
+            wsum = _CsrProduct.apply(x_p.float(), by_lab, by_patient)
+            return self._combine(wsum, _segment_totals(self.vis[: es.num_valid], es.row_ptr), x_p.dtype)
         dst = es.dst.long()
         rows = (x_p.index_select(0, es.src.long()) * self.val_vis.to(x_p.dtype)[:, None]).float()
         wsum = torch.zeros(es.num_dst + 1, x_p.shape[1], device=x_p.device)
-        wsum = wsum.index_add_(0, dst, rows)[: es.num_dst].to(x_p.dtype)
+        wsum = wsum.index_add_(0, dst, rows)[: es.num_dst]
         cnt = torch.zeros(es.num_dst + 1, dtype=self.vis.dtype, device=self.vis.device)
-        return wsum, cnt.index_add_(0, dst, self.vis)[: es.num_dst]
+        return self._combine(wsum, cnt.index_add_(0, dst, self.vis)[: es.num_dst], x_p.dtype)
 
     def patient(self, x_l: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         es = self.es
         if self.csr:
             plan = es.value_plan
             by_lab, by_patient = self._by(x_l.dtype)
-            wsum = _CsrProduct.apply(x_l.float(), by_patient, by_lab).to(x_l.dtype)
-            return wsum, _segment_totals(self.vis[: es.num_valid][plan.src_order], plan.src_row_ptr)
+            wsum = _CsrProduct.apply(x_l.float(), by_patient, by_lab)
+            cnt = _segment_totals(self.vis[: es.num_valid][plan.src_order], plan.src_row_ptr)
+            return self._combine(wsum, cnt, x_l.dtype)
         src = es.src.long()
         rows = x_l.index_select(0, es.dst.clamp_max(es.num_dst - 1).long()) * self.val_vis.to(x_l.dtype)[:, None]
         rows = rows.float()
-        wsum = torch.zeros(es.num_src, x_l.shape[1], device=x_l.device).index_add_(0, src, rows).to(x_l.dtype)
+        wsum = torch.zeros(es.num_src, x_l.shape[1], device=x_l.device).index_add_(0, src, rows)
         cnt = torch.zeros(es.num_src, dtype=self.vis.dtype, device=self.vis.device)
-        return wsum, cnt.index_add_(0, src, self.vis)
+        return self._combine(wsum, cnt.index_add_(0, src, self.vis), x_l.dtype)
 
 
 def _mean(wsum: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
     return wsum / cnt.clamp_min(1.0)[:, None].to(wsum.dtype)
 
 
-def patient_value_context(x_l: torch.Tensor, es: EdgeSet) -> Tuple[torch.Tensor, torch.Tensor]:
+def patient_value_context(x_l: torch.Tensor, es: EdgeSet, axis=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(each patient's mean of ``val * x_l[lab]`` over its visible edges
     ``[num_patients, D]``, its visible count ``[num_patients]``)."""
-    wsum, cnt = _Sums(es, x_l.device).patient(x_l)
+    wsum, cnt = _Sums(es, x_l.device, axis).patient(x_l)
     return _mean(wsum, cnt), cnt
 
 
 def inject_value_context(
-    x_dict: Dict[str, torch.Tensor], graph: HeteroGraph, vctx_patient: nn.Module, vctx_lab: nn.Module
+    x_dict: Dict[str, torch.Tensor], graph: HeteroGraph, vctx_patient: nn.Module, vctx_lab: nn.Module,
+    axis=None,
 ) -> Dict[str, torch.Tensor]:
     """``x_dict`` with the value channel added to the patient and lab
     features (unchanged when the graph has no patient->lab values)."""
@@ -151,7 +167,7 @@ def inject_value_context(
     if es is None or es.val is None:
         return x_dict
     x_p, x_l = x_dict[PATIENT], x_dict[LAB]
-    sums = _Sums(es, x_p.device)
+    sums = _Sums(es, x_p.device, axis)
     wsum_l, cnt_l = sums.lab(x_p)
     wsum_p, cnt_p = sums.patient(x_l)
 

@@ -31,7 +31,7 @@ tree (``embed_<type>``, ``hgt_<i>/q_<type>``, ``k_<src__rel__dst>``,
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
@@ -73,3 +73,28 @@ def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
             np.array(arr, dtype=np.float32)
         )
     return out
+
+
+def flax_paths(model: torch.nn.Module) -> Tuple[List[Tuple[Tuple[str, ...], str]], List[Tuple[Tuple[str, ...], str]]]:
+    """The flax paths of the JAX twin of ``model``, the bridge run backward:
+    ``(params, batch_stats)``, each a list of ``(flax path, state_dict
+    key)`` in the order ``jax.tree_util`` flattens the tree (keys sorted at
+    every level)."""
+    leaf_names = {}
+    for name, module in model.named_modules():
+        if isinstance(module, torch.nn.Embedding):
+            leaf_names[name] = {"weight": "embedding"}
+        elif isinstance(module, torch.nn.Linear):
+            leaf_names[name] = {"weight": "kernel", "bias": "bias"}
+        elif isinstance(module, torch.nn.BatchNorm1d):
+            leaf_names[name] = {"weight": "scale", "bias": "bias", "running_mean": "mean", "running_var": "var"}
+        else:  # the bilinear factors, raw parameters of the model or a head
+            leaf_names[name] = {"bilinear_u": "bilinear_u", "bilinear_l": "bilinear_l"}
+    params, stats = [], []
+    for key in model.state_dict():
+        mod, _, leaf = key.rpartition(".")
+        if leaf == "num_batches_tracked":
+            continue
+        path = tuple(filter(None, mod.split("."))) + (leaf_names[mod][leaf],)
+        (stats if leaf.startswith("running_") else params).append((path, key))
+    return sorted(params), sorted(stats)

@@ -32,6 +32,7 @@ def build_model(
     graph: HeteroGraph,
     device=None,
     generator: Optional[torch.Generator] = None,
+    axis=None,
 ) -> Union[HeteroRGCN, HeteroGT]:
     """The configured architecture sized to ``graph``, weights drawn from
     ``generator`` (on the CPU) and moved to ``device`` (default: the card;
@@ -42,7 +43,11 @@ def build_model(
     computes in it end to end, the value context included.  The JAX HGT
     takes it only in its value-context projections (``hgt.py:285-291``): a
     bfloat16 HGT without value context is its float32 program, and with it
-    only ``vctx_patient`` / ``vctx_lab`` compute in bfloat16, as JAX's do."""
+    only ``vctx_patient`` / ``vctx_lab`` compute in bfloat16, as JAX's do.
+
+    ``axis`` (a ``parallel.mesh.DataAxis``, JAX's ``axis_name``): the model
+    of an edge-sharded data-parallel trainer; its parameters are those of
+    the unsharded model from the same ``generator``."""
     device = resolve_device(device)
     mc = config.model
     dtype = compute_dtype(config, device)
@@ -60,6 +65,7 @@ def build_model(
         value_context=mc.value_context,
         generator=generator,
         dtype=dtype,
+        axis=axis,
     )
     if mc.architecture == "HGT":
         model = HeteroGT(

@@ -22,6 +22,12 @@ Three interchangeable tiers per destination group, as in the JAX layer:
   ``plan.rel_keys`` order;
 * ``segment`` — per-edge gathers and :func:`segment_softmax`, plain PyTorch.
 
+Under edge-sharded data parallelism (``axis``, as the RGCN's) every group
+takes the segment tier, over the rank's edges: the softmax's maximum is
+all-reduced (MAX), then its sums, then the aggregate (JAX ``hgt.py:59-91``,
+``:200-208``); the dense and flash tiers do not shard, as in JAX.  The head
+runs on the rank's batch shard, its dropout from the rank's own stream.
+
 The RGCN's quality channels come with the same fields and meaning
 (``value_context``, ``bilinear_rank``, ``bilinear_source``; see
 ``models/rgcn.py``): the value context is added to the ID embeddings before
@@ -34,6 +40,7 @@ JAX promotes the sum; everything else is the float32 program.
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -45,6 +52,7 @@ from multi_modal_gnn_tpu_torch.config import BILINEAR_SOURCES
 from multi_modal_gnn_tpu_torch.graph.hetero import HeteroGraph
 from multi_modal_gnn_tpu_torch.graph.schema import LAB, PATIENT, EdgeTypeKey
 from multi_modal_gnn_tpu_torch.models.context import inject_value_context
+from multi_modal_gnn_tpu_torch.models.rgcn import edge_head_stream
 from multi_modal_gnn_tpu_torch.models.layers import (
     EdgeRegressionHead,
     bilinear_factor,
@@ -56,6 +64,7 @@ from multi_modal_gnn_tpu_torch.models.layers import (
 from multi_modal_gnn_tpu_torch.ops.attention import flash_attention_group
 from multi_modal_gnn_tpu_torch.ops.attention_kernels import heads_supported
 from multi_modal_gnn_tpu_torch.ops.segment import segment_softmax, segment_sum
+from multi_modal_gnn_tpu_torch.parallel.collectives import all_reduce_sum
 
 # the node types whose final states the heads read
 READ_TYPES = (PATIENT, LAB)
@@ -106,11 +115,14 @@ class HGTLayer(nn.Module):
             incoming.setdefault(et[2], []).append(et)
         return incoming
 
-    def tier(self, graph: HeteroGraph, dst_t: str) -> str:
+    def tier(self, graph: HeteroGraph, dst_t: str, axis=None) -> str:
         """``dense``, ``flash`` or ``segment``: the tier of ``dst_t``'s group.
         Widths K6-K8 do not take (``hidden_dim`` above 128, or a head width
         that is not 4 * 2^n) take the segment tier, where the JAX package's
-        flash kernels take any width."""
+        flash kernels take any width.  Sharded edges (``axis``) take the
+        segment tier."""
+        if axis is not None:
+            return "segment"
         ets = self.groups()[dst_t]
         if self.dense_attn_max_bytes > 0 and all(graph.edges[et].dense_adj is not None for et in ets):
             total_src = sum(graph.edges[et].dense_adj.shape[1] for et in ets)
@@ -152,7 +164,7 @@ class HGTLayer(nn.Module):
         attn = w / w.sum(dim=1, keepdim=True).clamp_min(1e-20)
         return torch.einsum("dsh,shk->dhk", attn, torch.cat(values, dim=0))
 
-    def _segment(self, x_dict, graph, ets, q_nodes, num_dst):
+    def _segment(self, x_dict, graph, ets, q_nodes, num_dst, axis=None):
         nh = self.num_heads
         dh = self.hidden_dim // nh
         logits, values, dsts = [], [], []
@@ -168,15 +180,18 @@ class HGTLayer(nn.Module):
             logits.append(torch.where(es.mask[:, None] > 0, logit, torch.full_like(logit, float("-inf"))))
             dsts.append(dst)
         logits, dsts = torch.cat(logits), torch.cat(dsts)
-        attn = segment_softmax(logits, dsts, num_dst)
+        attn = segment_softmax(logits, dsts, num_dst, axis)
         attn = torch.where(torch.isfinite(logits), attn, torch.zeros_like(attn))
-        return segment_sum(torch.cat(values) * attn[..., None], dsts, num_dst)
+        agg = segment_sum(torch.cat(values) * attn[..., None], dsts, num_dst)
+        # the ranks' partial sums per destination
+        return agg if axis is None else all_reduce_sum(agg, axis)
 
     def forward(
         self,
         x_dict: Dict[str, torch.Tensor],
         graph: HeteroGraph,
         dst_types: Optional[Sequence[str]] = None,
+        axis=None,
     ) -> Dict[str, torch.Tensor]:
         """New states of the destination groups (only ``dst_types``, when
         given); the other node types pass through unchanged."""
@@ -188,7 +203,7 @@ class HGTLayer(nn.Module):
             x_dst = x_dict[dst_t]
             num_dst = x_dst.shape[0]
             q = getattr(self, f"q_{dst_t}")(x_dst)
-            tier = self.tier(graph, dst_t)
+            tier = self.tier(graph, dst_t, axis)
             if tier == "dense":
                 agg = self._dense(x_dict, graph, ets, q.reshape(num_dst, nh, h // nh))
             elif tier == "flash":
@@ -197,7 +212,7 @@ class HGTLayer(nn.Module):
                 vtab = torch.cat([self._proj("v", _et_key(et), x_dict[et[0]]) for et in plan.rel_keys])
                 agg = flash_attention_group(q, ktab, vtab, plan, nh)
             else:
-                agg = self._segment(x_dict, graph, ets, q.reshape(num_dst, nh, h // nh), num_dst)
+                agg = self._segment(x_dict, graph, ets, q.reshape(num_dst, nh, h // nh), num_dst, axis)
             out[dst_t] = gelu(getattr(self, f"out_{dst_t}")(agg.reshape(num_dst, h))) + x_dst
         for nt in self.node_types:
             out.setdefault(nt, x_dict[nt])
@@ -228,10 +243,12 @@ class HeteroGT(nn.Module):
         value_context: bool = False,
         generator: Optional[torch.Generator] = None,
         dtype=None,
+        axis=None,
     ):
         super().__init__()
         if bilinear_source not in BILINEAR_SOURCES:
             raise ValueError(f"bilinear_source must be one of {BILINEAR_SOURCES}, got {bilinear_source!r}")
+        self.axis = axis
         self.node_counts = tuple(node_counts)
         self.num_layers = num_layers
         self.impl = impl
@@ -273,6 +290,13 @@ class HeteroGT(nn.Module):
     def shared_bilinear(self) -> bool:
         return self.bilinear_rank > 0 and self.bilinear_source in ("embedding", "context")
 
+    def unsharded(self) -> "HeteroGT":
+        """The model without its data axis, sharing every parameter (JAX
+        ``Trainer.serving_model``): for the full graph."""
+        twin = copy.copy(self)
+        twin.axis = None
+        return twin
+
     def encode_nodes(self, train: bool = False, graph: Optional[HeteroGraph] = None) -> Dict[str, torch.Tensor]:
         """Every node's ID embedding (JAX ``HeteroGT.encode_nodes``).  On a
         cluster graph the patient rows are the cluster's window of the
@@ -291,10 +315,10 @@ class HeteroGT(nn.Module):
         code too; the other types keep their previous states."""
         x_dict = self.encode_nodes(train, graph)
         if self.value_context:
-            x_dict = inject_value_context(x_dict, graph, self.vctx_patient, self.vctx_lab)
+            x_dict = inject_value_context(x_dict, graph, self.vctx_patient, self.vctx_lab, self.axis)
         for i in range(self.num_layers):
             last = i == self.num_layers - 1
-            x_dict = getattr(self, f"hgt_{i}")(x_dict, graph, READ_TYPES if last else None)
+            x_dict = getattr(self, f"hgt_{i}")(x_dict, graph, READ_TYPES if last else None, self.axis)
         return x_dict
 
     def predict_lab_values(
@@ -313,6 +337,8 @@ class HeteroGT(nn.Module):
         accepted and not used: HGT has no degree gate, and the head's
         dropout draws from torch's generator."""
         x_dict = self(graph, train)
+        if self.axis is not None and train:
+            edge_head_stream(dropout_seed, self.axis)
         pred = self._head(x_dict[PATIENT], x_dict[LAB], p_idx, l_idx, train)
         if self.shared_bilinear:
             u, c = shared_bilinear_tables(self, graph)

@@ -132,7 +132,7 @@ def shared_bilinear_tables(model: nn.Module, graph) -> Tuple[torch.Tensor, torch
     if model.bilinear_source == "embedding":
         u = patient_rows(model.embed_patient.weight, graph)
     else:
-        u, _ = patient_value_context(lab, graph.edges[PATIENT_LAB])
+        u, _ = patient_value_context(lab, graph.edges[PATIENT_LAB], getattr(model, "axis", None))
     return u @ model.bilinear_u, lab @ model.bilinear_l
 
 

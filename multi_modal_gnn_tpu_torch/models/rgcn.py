@@ -21,6 +21,16 @@ each layer rounds where its JAX module rounds (``models/layers.py``,
 ``ops/segment.py``).  Predictions come out float32 (fused heads) or in the
 compute dtype (unfused heads), as JAX's do; callers read them as float32.
 
+``axis`` (a ``parallel.mesh.DataAxis``; JAX's ``axis_name``) is set on the
+model of an edge-sharded data-parallel trainer: the graph it runs on is the
+rank's shard, every aggregation combines the ranks' partial sums
+(``ops/segment.py``), the value context's sums are all-reduced, and the
+pair heads run plain, without gather plans or the fused K4 / K5 kernels
+(JAX ``rgcn.py:393``, ``:469``).  Its edge-head dropout draws from a
+stream of its own per rank (JAX folds ``axis_index`` into the key), the
+node dropout from the stream every rank shares.  :meth:`HeteroRGCN.unsharded`
+is the twin for serving and export.
+
 Training runs :meth:`HeteroRGCN.predict_lab_values` with ``train=True``,
 the batch's gather plans and its per-slot degrees.  The serving section
 (:meth:`HeteroRGCN.compute_node_state`, :meth:`HeteroRGCN.predict_pairs_cached`)
@@ -30,6 +40,7 @@ alone.
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -57,11 +68,18 @@ from multi_modal_gnn_tpu_torch.models.layers import (
 )
 from multi_modal_gnn_tpu_torch.ops.pairhead import fused_pair_head_dual
 from multi_modal_gnn_tpu_torch.ops.segment import aggregate_neighbors, take_with_plan
-from multi_modal_gnn_tpu_torch.utils.rng import stream_seed_pair
+from multi_modal_gnn_tpu_torch.utils.rng import stream_seed, stream_seed_pair
 
 
 def _et_key(et: EdgeTypeKey) -> str:
     return "__".join(et)
+
+
+def edge_head_stream(dropout_seed: int, axis) -> None:
+    """Seed torch's generator for the edge heads' dropout with a stream of
+    this rank's own (JAX ``fold_in(edge_key, axis_index)``): the ranks'
+    batch shards draw independent masks."""
+    torch.manual_seed(stream_seed(dropout_seed, "edge_dropout", axis.rank))
 
 
 class HeteroSAGELayer(nn.Module):
@@ -99,7 +117,7 @@ class HeteroSAGELayer(nn.Module):
                 f"root_{key}", make_dense(hidden_dim, hidden_dim, bias=False, generator=generator)
             )
 
-    def forward(self, x_dict: Dict[str, torch.Tensor], graph: HeteroGraph) -> Dict[str, torch.Tensor]:
+    def forward(self, x_dict: Dict[str, torch.Tensor], graph: HeteroGraph, axis=None) -> Dict[str, torch.Tensor]:
         by_dst: Dict[str, list] = {}
         for et in self.edge_types:
             by_dst.setdefault(et[2], []).append(et)
@@ -113,7 +131,7 @@ class HeteroSAGELayer(nn.Module):
                 parts.append(
                     aggregate_neighbors(
                         cast(x_dict[et[0]]), graph.edges[et], self.aggregation, impl=self.impl,
-                        edges_rev=graph.edges.get(mirror_edge_type(et)),
+                        edges_rev=graph.edges.get(mirror_edge_type(et)), axis=axis,
                     )
                 )
                 neigh = getattr(self, f"neigh_{_et_key(et)}")
@@ -159,8 +177,10 @@ class HeteroRGCN(nn.Module):
         value_context: bool = False,
         generator: Optional[torch.Generator] = None,
         dtype=None,
+        axis=None,
     ):
         super().__init__()
+        self.axis = axis
         if head_style not in ("concat", "factored"):
             raise ValueError(f"head_style must be concat|factored, got {head_style!r}")
         if bilinear_source not in BILINEAR_SOURCES:
@@ -214,6 +234,13 @@ class HeteroRGCN(nn.Module):
             self.vctx_lab = make_dense(hidden_dim, hidden_dim + 1, generator=generator, dtype=dtype)
         self.dropout = float(dropout)
 
+    def unsharded(self) -> "HeteroRGCN":
+        """The model without its data axis, sharing every parameter and
+        buffer (JAX ``Trainer.serving_model``): for the full graph."""
+        twin = copy.copy(self)
+        twin.axis = None
+        return twin
+
     @property
     def head_rank(self) -> int:
         """The rank of each head's own bilinear term (the ``head`` source)."""
@@ -241,9 +268,9 @@ class HeteroRGCN(nn.Module):
         self, x_dict: Dict[str, torch.Tensor], graph: HeteroGraph, train: bool = False
     ) -> Dict[str, torch.Tensor]:
         if self.value_context:
-            x_dict = inject_value_context(x_dict, graph, self.vctx_patient, self.vctx_lab)
+            x_dict = inject_value_context(x_dict, graph, self.vctx_patient, self.vctx_lab, self.axis)
         for i in range(self.num_layers):
-            x_dict = getattr(self, f"conv_{i}")(x_dict, graph)
+            x_dict = getattr(self, f"conv_{i}")(x_dict, graph, self.axis)
             if self.use_batch_norm:
                 x_dict = {nt: getattr(self, f"bn_{i}_{nt}")(x, train) for nt, x in x_dict.items()}
             x_dict = {nt: self.act(x) for nt, x in x_dict.items()}
@@ -353,9 +380,11 @@ class HeteroRGCN(nn.Module):
         ``dropout_seed`` seeds the fused heads' dropout."""
         initial = self.encode_nodes(train, graph)
         final = self.propagate(initial, graph, train)
-        use_plans = self.impl == "pallas"
+        use_plans = self.impl == "pallas" and self.axis is None
         patient_plan = patient_plan if use_plans else None
         lab_plan = lab_plan if use_plans else None
+        if self.axis is not None and train:
+            edge_head_stream(dropout_seed, self.axis)
         gate = degrees if degrees is not None else graph.patient_lab_degree[p_idx.long()]
         pred = self._heads(
             initial[PATIENT], initial[LAB], final[PATIENT], final[LAB], p_idx, l_idx, gate,

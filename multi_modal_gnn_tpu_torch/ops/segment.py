@@ -16,6 +16,23 @@ that applies, in this order:
 (``index_add_`` / ``scatter_reduce``).  The gates match the JAX ones in its
 ``take`` gather mode, so both packages pick the same tier on the same graph.
 
+Under edge-sharded data parallelism (``axis``, JAX's ``axis_name``; the
+edge set is the rank's shard, ``parallel/sharding.py``) the single-device
+tiers are off, as in JAX (``segment.py:185``, ``:228-265``):
+
+* ``sharded``: ``impl="pallas"``, ``mean`` / ``sum`` and the shard's
+  windowed plan — K1 over the rank's plan adds its ``[k_max * 128, D]``
+  block into the global rows at its window offset (a buffer
+  over-allocated by ``k_max`` windows, so no block is clipped), one
+  all-reduce restores the total, which is cut to ``[:num_dst]`` and divided
+  by ``dst_count`` for a mean (JAX ``_sharded_total``).  Its backward
+  all-reduces the upstream gradient's shares (``parallel/collectives.py``)
+  and runs K1 over the mirror relation's shard plan: the rank's share of
+  ``d x_src``; without a mirror plan the gradient's slot rows are
+  scatter-added onto their sources;
+* otherwise the segment path over the rank's edges, then an all-reduce
+  (``max``: an all-reduce MAX).
+
 Each kernel tier is a ``torch.autograd.Function`` whose backward is a kernel,
 as the JAX ``custom_vjp``s are: ``fused_table`` runs K2b; ``span`` and
 ``paired`` run K1 over the mirror relation's windowed plan on the scaled
@@ -50,6 +67,7 @@ from typing import Optional
 import torch
 
 from multi_modal_gnn_tpu_torch.graph.hetero import TILE_E, WINDOW, EdgeSet, GatherPlan
+from multi_modal_gnn_tpu_torch.parallel.collectives import all_reduce_, all_reduce_max, all_reduce_sum
 from multi_modal_gnn_tpu_torch.ops.segment_kernels import (
     SPAN_MAX_ROWS,
     fused_table_segment_sum,
@@ -105,19 +123,27 @@ def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: in
     return total / (count[:, None] if data.dim() > 1 else count)
 
 
-def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor, num_segments: int, axis=None) -> torch.Tensor:
     """Softmax of ``logits [E, ...]`` within each segment (the HGT segment
     tier).  The max shift carries no gradient, and a segment whose max is
-    not finite (only ``-inf`` logits, or none) is shifted by 0."""
+    not finite (only ``-inf`` logits, or none) is shifted by 0.  With
+    ``axis`` (the rows are the rank's edge shard) the maximum and the
+    normalizer combine over the ranks, by an all-reduce MAX and an
+    all-reduce sum, so a destination whose edges straddle shards normalizes
+    over all of them (JAX ``segment_softmax(axis_name=...)``)."""
     ids = segment_ids.long()
     index = ids.reshape((-1,) + (1,) * (logits.dim() - 1)).expand_as(logits)
     seg_max = torch.full(
         (num_segments,) + tuple(logits.shape[1:]), float("-inf"), dtype=logits.dtype,
         device=logits.device,
     ).scatter_reduce(0, index, logits.detach(), reduce="amax")
+    if axis is not None:
+        seg_max = all_reduce_(seg_max, axis, "max")
     seg_max = torch.where(torch.isfinite(seg_max), seg_max, torch.zeros_like(seg_max))
     exp = torch.exp(logits - seg_max.index_select(0, ids))
     denom = segment_sum(exp, ids, num_segments)
+    if axis is not None:
+        denom = all_reduce_sum(denom, axis)
     return exp / denom.index_select(0, ids).clamp_min(1e-16)
 
 
@@ -253,33 +279,67 @@ def take_with_plan(x: torch.Tensor, idx: torch.Tensor, plan: Optional[GatherPlan
     return _TakeWithPlan.apply(x, idx, plan)
 
 
-def aggregate_neighbors(
-    x_src: torch.Tensor,
-    edges: EdgeSet,
-    aggregation: str = "mean",
-    impl: str = "xla",
-    edges_rev: Optional[EdgeSet] = None,
-) -> torch.Tensor:
-    """``[num_dst, D]`` aggregate of source features over each destination's
-    in-neighbors (0 for isolated destinations)."""
-    tier = aggregation_tier(
-        edges, edges_rev, x_src.shape[1], aggregation, impl, x_src.element_size()
+def sharded_block_sum(x: torch.Tensor, edges: EdgeSet, num_rows: int) -> torch.Tensor:
+    """The rank's K1 over its shard plan, placed in the global rows: float32
+    ``[num_rows, D]`` (``num_rows`` the relation's destinations), not yet
+    all-reduced."""
+    k_max = edges.shard_win_windows
+    rows = (-(-num_rows // WINDOW) + k_max) * WINDOW
+    full = torch.zeros(rows, x.shape[1], dtype=torch.float32, device=x.device)
+    row0 = edges.shard_win_first * WINDOW
+    segment_sum_windowed(
+        x, edges.shard_win_src, edges.shard_win_local, edges.shard_win_tile_map, k_max,
+        out=full[row0 : row0 + k_max * WINDOW],
     )
-    if tier == "dense":
-        # the adjacency in the features' dtype, the product and sum in float32
-        adj = edges.dense_adj.to(x_src.dtype)
-        out = torch.matmul(adj.float(), x_src.float()) if x_src.dtype == torch.bfloat16 else adj @ x_src
-        if aggregation == "sum":
-            out = out * edges.dst_count.clamp_min(1.0)[:, None]
-        return out.to(x_src.dtype)
-    if tier in ("fused_table", "span", "paired", "windowed"):
-        return _KernelAggregate.apply(x_src, edges, edges_rev, tier, aggregation)
+    return full[:num_rows]
 
-    # segment path: padding edges point at the dummy segment num_dst
+
+class _ShardedAggregate(torch.autograd.Function):
+    """The ``sharded`` tier (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, edges, edges_rev, aggregation, axis):
+        ctx.edges, ctx.edges_rev, ctx.aggregation, ctx.axis = edges, edges_rev, aggregation, axis
+        ctx.dtype, ctx.num_src = x.dtype, x.shape[0]
+        total = all_reduce_(sharded_block_sum(x.contiguous(), edges, edges.num_dst), axis)
+        return _finish(total, edges, aggregation, x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        edges, edges_rev = ctx.edges, ctx.edges_rev
+        g = all_reduce_(g.float().contiguous(), ctx.axis)
+        if ctx.aggregation == "mean":
+            g = g / edges.dst_count.clamp_min(1.0)[:, None]
+        g = g.to(ctx.dtype).contiguous()
+        if edges_rev is not None and edges_rev.shard_win_src is not None:
+            dx = sharded_block_sum(g, edges_rev, ctx.num_src)
+        else:
+            # the slot rows of the rank's plan, scatter-added onto their sources
+            real = edges.shard_win_local < WINDOW
+            window = torch.repeat_interleave(edges.shard_win_tile_map.long(), TILE_E)[real]
+            rows = (window + edges.shard_win_first) * WINDOW + edges.shard_win_local[real].long()
+            dx = torch.zeros(ctx.num_src, g.shape[1], dtype=torch.float32, device=g.device)
+            dx.index_add_(0, edges.shard_win_src[real].long(), g.index_select(0, rows).float())
+        return dx.to(ctx.dtype), None, None, None, None
+
+
+def sharded_tier(edges: EdgeSet, aggregation: str, impl: str) -> bool:
+    """Whether an edge shard aggregates on the ``sharded`` tier (K1)."""
+    return impl == "pallas" and aggregation in ("mean", "sum") and edges.shard_win_src is not None
+
+
+def _segment_path(x_src, edges: EdgeSet, aggregation: str, axis=None) -> torch.Tensor:
+    """The segment path over ``edges`` (the rank's, all-reduced, with
+    ``axis``); padding edges point at the dummy segment ``num_dst``."""
     gathered = gather_rows(x_src, edges.src)
     num_segments = edges.num_dst + 1
     if aggregation in ("mean", "sum"):
-        total = segment_sum(gathered, edges.dst, num_segments)[: edges.num_dst]
+        if axis is None:
+            total = segment_sum(gathered, edges.dst, num_segments)[: edges.num_dst]
+        else:
+            # the partial sums all-reduced in float32, then rounded once
+            total = segment_sum(gathered.float(), edges.dst, num_segments)[: edges.num_dst]
+            total = all_reduce_sum(total, axis).to(x_src.dtype)
         if aggregation == "sum":
             return total
         return total / edges.dst_count.clamp_min(1.0).to(total.dtype)[:, None]
@@ -292,5 +352,37 @@ def aggregate_neighbors(
         )
         index = edges.dst.long()[:, None].expand(-1, x_src.shape[1])
         seg = seg.scatter_reduce(0, index, gathered, reduce="amax")[: edges.num_dst]
+        if axis is not None:
+            seg = all_reduce_max(seg, axis)
         return torch.where(torch.isfinite(seg), seg, torch.zeros_like(seg))
     raise ValueError(f"Unknown aggregation: {aggregation}")
+
+
+def aggregate_neighbors(
+    x_src: torch.Tensor,
+    edges: EdgeSet,
+    aggregation: str = "mean",
+    impl: str = "xla",
+    edges_rev: Optional[EdgeSet] = None,
+    axis=None,
+) -> torch.Tensor:
+    """``[num_dst, D]`` aggregate of source features over each destination's
+    in-neighbors (0 for isolated destinations).  ``axis``: the data axis
+    ``edges`` is sharded over (``parallel/mesh.DataAxis``)."""
+    if axis is not None:
+        if sharded_tier(edges, aggregation, impl):
+            return _ShardedAggregate.apply(x_src, edges, edges_rev, aggregation, axis)
+        return _segment_path(x_src, edges, aggregation, axis)
+    tier = aggregation_tier(
+        edges, edges_rev, x_src.shape[1], aggregation, impl, x_src.element_size()
+    )
+    if tier == "dense":
+        # the adjacency in the features' dtype, the product and sum in float32
+        adj = edges.dense_adj.to(x_src.dtype)
+        out = torch.matmul(adj.float(), x_src.float()) if x_src.dtype == torch.bfloat16 else adj @ x_src
+        if aggregation == "sum":
+            out = out * edges.dst_count.clamp_min(1.0)[:, None]
+        return out.to(x_src.dtype)
+    if tier in ("fused_table", "span", "paired", "windowed"):
+        return _KernelAggregate.apply(x_src, edges, edges_rev, tier, aggregation)
+    return _segment_path(x_src, edges, aggregation)

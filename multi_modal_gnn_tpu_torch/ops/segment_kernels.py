@@ -17,7 +17,9 @@ span_segment_sum              K3  ``_span_dma_segment_sum_fwd`` / ``_span_dma_ke
 ============================  =================================================
 
 K1 is also the backward of the span and paired tiers and of a planned row
-gather (``ops/segment.py``).
+gather, and the per-shard total of edge-sharded data parallelism, forward
+and backward, where it adds its block into a row range of the global
+buffer (``out=``; ``ops/segment.py``).
 
 Rows are float32 or bfloat16 (the model's compute dtype), as the TPU kernels
 take them; the sums and outputs are float32 either way.  A bfloat16 tensor
@@ -347,13 +349,29 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
-def segment_sum_windowed(x, idx, win_local, win_tile_map, num_windows: int) -> torch.Tensor:
+def _check_out(name: str, out: torch.Tensor, rows: int, d: int, device) -> None:
+    if out.dtype != torch.float32 or tuple(out.shape) != (rows, d) or not out.is_contiguous():
+        raise ValueError(f"{name}: out must be a contiguous float32 [{rows}, {d}] tensor, got {tuple(out.shape)}")
+    if out.device != device or out.data_ptr() % 16:
+        raise ValueError(f"{name}: out must lie on {device}, 16-byte aligned")
+
+
+def segment_sum_windowed(
+    x, idx, win_local, win_tile_map, num_windows: int, out: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """K1: ``out[tile_map[t]*128 + local[e]] += x[idx[e]]`` (or ``x[e]``
     with ``idx=None``, for rows already in slot order); a source past
-    ``x``'s rows adds nothing."""
+    ``x``'s rows adds nothing.
+
+    ``out``: where to add the ``[num_windows * 128, D]`` float32 block (a
+    contiguous row range of a larger zeroed buffer, as the per-shard total
+    of data parallelism places its block, ``ops/segment.py``); the kernel's
+    counters are then allocated apart.  Returns ``out``; without it a
+    zeroed block of its own."""
     name = "segment_sum_windowed"
-    if _on_cpu(x, idx, win_local, win_tile_map):
-        return segment_sum_windowed_plain(x, idx, win_local, win_tile_map, num_windows)
+    if _on_cpu(x, idx, win_local, win_tile_map, out):
+        block = segment_sum_windowed_plain(x, idx, win_local, win_tile_map, num_windows)
+        return block if out is None else out.add_(block)
     _check_rows(x, name, bf16=True)
     slots = win_local.shape[0]
     pairs = [(win_local, slots), (win_tile_map, slots // TILE_E)]
@@ -366,7 +384,11 @@ def segment_sum_windowed(x, idx, win_local, win_tile_map, num_windows: int) -> t
     route = windowed_route(x.shape[0], d, gathered=idx is None, itemsize=x.element_size())
     launch = windowed_launch(num_tiles, x.shape[0], d, _sms(x.device), route, x.element_size())
     _check_shared(name, launch.shared_bytes)
-    out, work = _zeroed_out_and_counters(num_windows * WINDOW, d, launch.slices, x.device)
+    if out is None:
+        out, work = _zeroed_out_and_counters(num_windows * WINDOW, d, launch.slices, x.device)
+    else:
+        _check_out(name, out, num_windows * WINDOW, d, x.device)
+        work = torch.zeros(launch.slices * _FT_COUNTER_STRIDE, dtype=torch.int32, device=x.device)
     fn, key = _entry(name, x)
     rc = fn(
         _ptr(x), x.shape[0], _ptr(idx), _ptr(win_local), _ptr(win_tile_map), num_tiles, _ptr(work),

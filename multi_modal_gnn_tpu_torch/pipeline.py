@@ -30,6 +30,17 @@ Without ``--step`` all eight steps run.  The steps run on the card and the
 command raises without one, unless ``--device cpu`` is given.  A failed
 step ends the run with exit code 1.  The last line of standard output is a
 JSON object with each step's wall seconds.
+
+Over N ranks (a config with ``train.extras.parallel: dp``)::
+
+    python -m torch.distributed.run --nproc-per-node N -m multi_modal_gnn_tpu_torch.pipeline \
+        --config ... --no-confirm [--device cpu]
+
+every rank runs the train step, edge-sharded (``parallel/dp.py``; each rank
+on card ``LOCAL_RANK % device_count``, NCCL when each has its own, else
+gloo); rank 0 alone runs the other steps, writes, and prints the step
+lines and the last line.  With ``WORLD_SIZE`` unset a ``parallel: dp``
+config trains on one rank.
 """
 
 from __future__ import annotations
@@ -46,6 +57,7 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+import torch.distributed
 
 logger = logging.getLogger("multi_modal_gnn_tpu_torch.pipeline")
 
@@ -227,10 +239,14 @@ def _setup_logging(level: str, log_file: Optional[str]) -> None:
     )
 
 
-def run_step(index: int, config, opts: RunOptions, confirm: bool) -> Optional[float]:
+def run_step(index: int, config, opts: RunOptions, confirm: bool, quiet: bool = False) -> Optional[float]:
     """Run step ``index``; its wall seconds, or None when the user skipped
-    it.  A failure propagates."""
+    it.  A failure propagates.  ``quiet``: print no step lines (the ranks
+    other than 0)."""
     name, desc, fn = STEPS[index]
+    if quiet:
+        fn(config, opts)
+        return None
     print(f"\n{BOLD}{CYAN}[{index + 1}/{len(STEPS)}] {name}{RESET} — {desc}", flush=True)
     if confirm:
         answer = input("Run this step? [Y/n/q] ").strip().lower()
@@ -275,31 +291,59 @@ def main(argv=None) -> int:
     indices = parse_step_range(args.step, len(STEPS)) if args.step else list(range(len(STEPS)))
 
     from multi_modal_gnn_tpu_torch.config import load_config
+    from multi_modal_gnn_tpu_torch.parallel.mesh import world_from_env
     from multi_modal_gnn_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(None if args.device == "cuda" else "cpu")
     config = load_config(args.config)
+    rank, world = world_from_env()
+    if world > 1:
+        from multi_modal_gnn_tpu_torch.training.trainer import parallel_mode
+
+        if not parallel_mode(config):
+            raise SystemExit(
+                f"launched over {world} ranks, but {args.config} sets no train.extras.parallel: dp"
+            )
+        if not args.no_confirm:
+            raise SystemExit("a launch over several ranks runs with --no-confirm")
     lc = config.logging
-    _setup_logging(lc.level, lc.log_file if lc.save_to_file else None)
+    _setup_logging(lc.level, lc.log_file if lc.save_to_file and rank == 0 else None)
     opts = RunOptions(
         device=device, force=args.force, patient_id=args.patient_id,
         num_examples=args.num_examples, detailed=args.detailed,
     )
+    axis = None
+    if world > 1:
+        from multi_modal_gnn_tpu_torch.parallel.mesh import init_axis
 
-    print(f"{BOLD}multi_modal_gnn_tpu_torch pipeline{RESET} — config {args.config}, device {device}")
+        axis = init_axis(device, config.train.num_devices)
+
+    if rank == 0:
+        print(f"{BOLD}multi_modal_gnn_tpu_torch pipeline{RESET} — config {args.config}, device {device}"
+              + (f", {world} ranks ({axis.backend})" if axis is not None else ""))
     t0 = time.perf_counter()
     seconds = {}
     for i in indices:
+        if axis is not None:
+            torch.distributed.barrier()  # the step before has written its artifacts
+            if rank != 0 and STEPS[i][0] != "train":
+                continue
         try:
-            took = run_step(i, config, opts, confirm=not args.no_confirm)
+            took = run_step(i, config, opts, confirm=not args.no_confirm, quiet=rank != 0)
         except Exception:  # noqa: BLE001 - reported, then the run ends non-zero
             traceback.print_exc()
-            print(f"{RED}FAILED: pipeline aborted at step {i + 1} ({STEPS[i][0]}).{RESET}")
+            print(f"{RED}FAILED: pipeline aborted at step {i + 1} ({STEPS[i][0]}) on rank {rank}.{RESET}")
             return 1
         if took is not None:
             seconds[STEPS[i][0]] = took
-    print(f"\n{GREEN}{BOLD}Pipeline complete{RESET} in {time.perf_counter() - t0:.1f}s")
-    print(json.dumps({"step_seconds": seconds}))
+    if axis is not None:
+        from multi_modal_gnn_tpu_torch.parallel.mesh import shutdown
+
+        torch.distributed.barrier()
+        shutdown()
+    if rank == 0:
+        print(f"\n{GREEN}{BOLD}Pipeline complete{RESET} in {time.perf_counter() - t0:.1f}s")
+        print(json.dumps({"step_seconds": seconds}))
     return 0
 
 

@@ -119,7 +119,15 @@ def build_serving_fn(
 def serving_model(trainer) -> Model:
     """The model a trainer serves, in eval mode: its best validation state
     once ``fit`` has recorded one, else the live parameters (JAX
-    ``serving._serving_variables``)."""
+    ``serving._serving_variables``).  A data-parallel trainer's graph is
+    its edge shard: serving from it is not ported (ROADMAP.md queue 1 item
+    8b); restore its ``best_model.ckpt`` into a single-process trainer, as
+    the pipeline's steps 4-8 do."""
+    if getattr(trainer, "axis", None) is not None:
+        raise NotImplementedError(
+            "serving straight from a data-parallel trainer is not ported (ROADMAP.md queue 1 "
+            "item 8b): restore its best_model.ckpt into a single-process Trainer"
+        )
     return trainer.eval_model(trainer.best_state)
 
 

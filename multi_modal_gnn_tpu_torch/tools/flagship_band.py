@@ -96,6 +96,18 @@ def dtype_config(config_path, out_path, dtype: str = "bfloat16") -> Path:
     return save_config(cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype=dtype)), out_path)
 
 
+def parallel_config(config_path, out_path) -> Path:
+    """Write the config at ``config_path`` with ``train.extras.parallel:
+    dp`` to ``out_path``: the flagship trained edge-sharded
+    over the ranks of a ``torch.distributed.run`` launch
+    (:func:`run_seed` with ``ranks``)."""
+    from multi_modal_gnn_tpu_torch.config import load_config, save_config
+
+    cfg = load_config(config_path)
+    train = dataclasses.replace(cfg.train, extras={**cfg.train.extras, "parallel": "dp"})
+    return save_config(cfg.replace(train=train), out_path)
+
+
 def read_result(out_dir: Path) -> Dict:
     """Guarded R² / MAE, the per_lab_mean baseline's R², the epochs trained
     and the best validation loss, the audit's leak flags and the missing
@@ -120,15 +132,21 @@ def read_result(out_dir: Path) -> Dict:
 
 
 def run_seed(config_path, seed: int, workdir: Path, device: str = "cuda", steps: Optional[str] = None,
-             draws: str = "card") -> Dict:
+             draws: str = "card", ranks: int = 1) -> Dict:
     """One pipeline run (see the module docstring): :func:`read_result`
     plus each step's wall seconds.  ``steps`` is the command line's
     ``--step`` (all eight steps when None); ``draws="cpu"`` runs it
-    through :mod:`~multi_modal_gnn_tpu_torch.tools.cpu_draws`."""
+    through :mod:`~multi_modal_gnn_tpu_torch.tools.cpu_draws`; ``ranks >
+    1`` launches it over that many ranks with ``python -m
+    torch.distributed.run --standalone --nproc-per-node ranks`` (a config
+    with ``train.extras.parallel: dp``, :func:`parallel_config`)."""
     workdir.mkdir(parents=True, exist_ok=True)
     seed_config(config_path, seed, workdir)
     module = {"card": "multi_modal_gnn_tpu_torch.pipeline", "cpu": "multi_modal_gnn_tpu_torch.tools.cpu_draws"}[draws]
-    command = [sys.executable, "-m", module, "--config",
+    launcher = [sys.executable]
+    if ranks > 1:
+        launcher += ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(ranks)]
+    command = [*launcher, "-m", module, "--config",
                str(workdir / "config.yaml"), "--no-confirm", "--device", device]
     if steps is not None:
         command += ["--step", steps]

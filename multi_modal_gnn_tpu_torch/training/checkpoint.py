@@ -14,7 +14,11 @@ with ``torch.save`` and read with ``weights_only=True``::
 :func:`load_checkpoint` also reads a checkpoint the JAX package wrote
 (flax msgpack of its ``TrainState`` and best state, the same sidecar)
 through :func:`load_flax_checkpoint`, with no ``flax`` or ``msgpack``
-installed.  The sharded multi-controller format is not read.
+installed, and the sharded format of a JAX multi-controller run
+(``<path>.procNNN.npz``, :func:`load_jax_sharded_checkpoint`).  Under 1-D
+data parallelism the port's state is replicated, so rank 0 writes the
+port's single-file format; writing the sharded format belongs with the
+row-sharded patient table (ROADMAP.md queue 1 item 8b).
 """
 
 from __future__ import annotations
@@ -22,12 +26,12 @@ from __future__ import annotations
 import logging
 import zipfile
 from pathlib import Path
-from typing import Dict, Mapping, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from multi_modal_gnn_tpu_torch.models.convert import state_dict_from_flax
+from multi_modal_gnn_tpu_torch.models.convert import flax_paths, state_dict_from_flax
 from multi_modal_gnn_tpu_torch.utils.io import load_json, save_json
 from multi_modal_gnn_tpu_torch.utils.msgpack import flax_restore
 
@@ -80,10 +84,22 @@ def save_checkpoint(path, payload: Dict, metadata: Dict) -> Path:
     return path
 
 
-def load_checkpoint(path) -> Tuple[Dict, Dict]:
+def proc_files(path: Path):
+    """The ``<path>.procNNN.npz`` files of a sharded JAX checkpoint."""
+    return sorted(path.parent.glob(f"{path.name}.proc*.npz"))
+
+
+def load_checkpoint(path, model: Optional[torch.nn.Module] = None) -> Tuple[Dict, Dict]:
     """``(payload, metadata)`` of a port checkpoint, or of a JAX one
-    (:func:`load_flax_checkpoint`); tensors on the CPU."""
+    (:func:`load_flax_checkpoint`; the sharded format when ``<path>`` is
+    absent and its ``.procNNN.npz`` files are there, which needs the
+    ``model`` it restores into: :func:`load_jax_sharded_checkpoint`);
+    tensors on the CPU."""
     path = Path(path)
+    if not path.exists() and proc_files(path):
+        if model is None:
+            raise ValueError(f"{path} is a sharded JAX checkpoint: pass the model it restores into")
+        return load_jax_sharded_checkpoint(path, model)
     if not zipfile.is_zipfile(path):
         return load_flax_checkpoint(path)
     payload = torch.load(path, map_location="cpu", weights_only=True)
@@ -140,4 +156,114 @@ def load_flax_checkpoint(path) -> Tuple[Dict, Dict]:
     }
     meta = load_json(_sidecar(path)) if _sidecar(path).exists() else {}
     logger.info("Loaded JAX checkpoint from %s", path)
+    return payload, meta
+
+
+def _nested(paths: List[Tuple[str, ...]], arrays: List[np.ndarray]) -> Dict:
+    tree: Dict = {}
+    for path, arr in zip(paths, arrays):
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = arr
+    return tree
+
+
+def _sharded_leaves(path: Path) -> Tuple[List[np.ndarray], Dict]:
+    """Every leaf of a JAX ``save_checkpoint_sharded`` file set, in its
+    flatten order, each assembled from the chunks the processes own (keys
+    ``"<leaf>||<lo:hi,...>"``, ``"<leaf>||"`` for a scalar, ``"<leaf>||host"``
+    for a host value), and the sidecar."""
+    files = proc_files(path)
+    meta = load_json(_sidecar(path)) if _sidecar(path).exists() else {}
+    sharded = meta.get("sharded_checkpoint") or {}
+    saved = int(sharded.get("num_processes", 0))
+    if saved and len(files) != saved:
+        raise ValueError(
+            f"sharded checkpoint {path} was written by {saved} processes but only "
+            f"{len(files)} .proc*.npz file(s) are present (partial copy, or a host crashed mid-save?)"
+        )
+    chunks: Dict[int, List[Tuple[str, np.ndarray]]] = {}
+    for f in files:
+        with np.load(f) as z:
+            for key in z.files:
+                leaf, _, bounds = key.partition("||")
+                chunks.setdefault(int(leaf), []).append((bounds, z[key]))
+    n = int(sharded.get("num_leaves", 0)) or (max(chunks) + 1 if chunks else 0)
+    leaves = []
+    for i in range(n):
+        if i not in chunks:
+            raise ValueError(f"sharded checkpoint {path} has no chunks for leaf {i}")
+        parts = chunks[i]
+        if len(parts) == 1 and parts[0][0] in ("", "host"):
+            leaves.append(np.asarray(parts[0][1]))
+            continue
+        spans = [[tuple(map(int, b.split(":"))) for b in bounds.split(",")] for bounds, _ in parts]
+        shape = tuple(max(span[d][1] for span in spans) for d in range(len(spans[0])))
+        full = np.zeros(shape, parts[0][1].dtype)
+        for span, (_, value) in zip(spans, parts):
+            full[tuple(slice(lo, hi) for lo, hi in span)] = value
+        leaves.append(full)
+    return leaves, meta
+
+
+def load_jax_sharded_checkpoint(path, model: torch.nn.Module) -> Tuple[Dict, Dict]:
+    """A checkpoint of a JAX multi-controller run (``save_checkpoint_sharded``
+    of the ``Trainer``'s ``{"best_state", "state"}``) as the port's
+    ``(payload, metadata)``, for ``model``.
+
+    The files hold leaves by their position in JAX's flatten order, which
+    the port rebuilds from ``model``'s flax paths
+    (:func:`~multi_modal_gnn_tpu_torch.models.convert.flax_paths`): for
+    ``best_state`` then ``state``, the parameters, the BatchNorm
+    statistics, the optimizer state (``inject_hyperparams``' count and
+    learning rate, Adam's count, ``mu``, ``nu``) and the step.  The leaf
+    count and every shape are checked against that layout."""
+    path = Path(path)
+    leaves, meta = _sharded_leaves(path)
+    params, stats = flax_paths(model)
+    p_paths, s_paths = [p for p, _ in params], [p for p, _ in stats]
+    per_state = 3 * len(p_paths) + len(s_paths) + 4  # params, mu, nu; 3 counters; step
+    if len(leaves) != 2 * per_state:
+        raise ValueError(
+            f"{path}: {len(leaves)} leaves, the JAX trainer state of this model has {2 * per_state} "
+            "(another model, or an optimizer other than the port's Adam chain)"
+        )
+    shapes = {key: tuple(v.shape) for key, v in model.state_dict().items()}
+
+    def state(leaves):
+        i = 0
+
+        def take(paths):
+            nonlocal i
+            out = leaves[i : i + len(paths)]
+            i += len(paths)
+            return _nested(paths, out)
+
+        p_tree = take(p_paths)
+        s_tree = take(s_paths)
+        _count, _lr = leaves[i], leaves[i + 1]
+        adam_count = leaves[i + 2]
+        i += 3
+        mu, nu = take(p_paths), take(p_paths)
+        return {"params": p_tree, "batch_stats": s_tree}, adam_count, mu, nu
+
+    best, _, _, _ = state(leaves[:per_state])
+    live, count, mu, nu = state(leaves[per_state:])
+    model_sd = state_dict_from_flax(live)
+    for key, value in model_sd.items():
+        if key in shapes and tuple(value.shape) != shapes[key]:
+            raise ValueError(f"{path}: {key} has shape {tuple(value.shape)}, the model's is {shapes[key]}")
+    step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
+    moments = {k: state_dict_from_flax({"params": tree}) for k, tree in (("mu", mu), ("nu", nu))}
+    payload = {
+        "model": model_sd,
+        "best_model": state_dict_from_flax(best),
+        "adam": {
+            name: {"step": step.clone(), "exp_avg": m, "exp_avg_sq": moments["nu"][name]}
+            for name, m in moments["mu"].items()
+            if not name.endswith("num_batches_tracked")
+        },
+    }
+    logger.info("Loaded sharded JAX checkpoint from %s (%d files)", path, len(proc_files(path)))
     return payload, meta

@@ -412,7 +412,7 @@ class MiniBatchTrainer(Trainer):
         total, n = None, 0
         for _, graph, batch in self._clusters(split, range(self.num_clusters)):
             preds = self._forward_eval(model, graph, batch)
-            contrib = masked_mean_loss(preds, batch.values, batch.valid, self._loss_type) * batch.num_valid
+            contrib = masked_mean_loss(preds, batch.values, batch.valid, self._loss_type, self.axis) * batch.num_valid
             total = contrib if total is None else total + contrib
             n += batch.num_valid
         if total is None:

@@ -25,6 +25,14 @@ Every draw of an epoch (supervision mask, dropout) is keyed by (seed,
 epoch), so a run restored from a checkpoint (:meth:`Trainer.restore`) continues as the unbroken run would:
 bit for bit on the CPU; on the card within the order of the kernels' float
 atomics.
+
+The data-parallel trainers (``parallel/dp.py``, ``parallel/minibatch_dp.py``)
+set :attr:`Trainer.axis`: the graph is then the rank's edge shard, the
+losses are all-reduced, the backward starts from the rank's share of the
+loss and the parameters' gradients are summed over the ranks after it
+(``parallel/collectives.py``); only rank 0 writes checkpoints, history and
+outputs.  ``train.extras.parallel: dp | data`` routes :func:`train_pipeline`
+to them.
 """
 
 from __future__ import annotations
@@ -51,6 +59,12 @@ from multi_modal_gnn_tpu_torch.models.losses import (
 )
 from multi_modal_gnn_tpu_torch.models.hgt import HeteroGT
 from multi_modal_gnn_tpu_torch.models.rgcn import HeteroRGCN
+from multi_modal_gnn_tpu_torch.parallel.collectives import (
+    all_gather,
+    all_reduce_grads,
+    axis_index,
+    loss_share,
+)
 from multi_modal_gnn_tpu_torch.training.checkpoint import (
     adam_state_by_name,
     load_adam_state,
@@ -94,6 +108,9 @@ class Trainer:
     there; an HGT on the kernel path gets the graph's attention plans
     (:func:`~multi_modal_gnn_tpu_torch.graph.attn_plan.ensure_attn_plans`)."""
 
+    # the data axis of a data-parallel trainer (parallel/dp.py); None: one process
+    axis = None
+
     def __init__(
         self,
         model: Union[HeteroRGCN, HeteroGT],
@@ -104,19 +121,14 @@ class Trainer:
     ):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
-        self.graph = ensure_attn_plans(graph, config).to(self.device)
         self.masker = masker
         self.config = config
         tc = config.train
         # value visibility: the template rides on the graph, so every eval
         # forward (and the serving state) conditions on the train values only
         self._value_context = bool(getattr(self.model, "value_context", False))
+        self.graph = self._place_graph(graph)
         if self._value_context:
-            es = self.graph.edges[PATIENT_LAB]
-            base = torch.from_numpy(masker.visibility_base(es.src.shape[0])).to(self.device)
-            es = dataclasses.replace(es, val_vis=base, value_plan=build_value_plan(es))
-            edges = {**self.graph.edges, PATIENT_LAB: es}
-            self.graph = dataclasses.replace(self.graph, edges=edges)
             # each train-batch slot's edge position (padding slots: 0)
             self._vis_train_pos = torch.from_numpy(masker.train_positions()).long().to(self.device)
         self.optimizer = build_optimizer(self.model, tc)
@@ -145,6 +157,37 @@ class Trainer:
         self.epoch = 0
         self.history: Dict[str, list] = {"train_loss": [], "val_loss": [], "learning_rates": []}
         self.best_state: Optional[dict] = None
+
+    # -- the graph ---------------------------------------------------------
+
+    def _place_graph(self, graph: HeteroGraph) -> HeteroGraph:
+        """The graph the steps run on, on the device: with the attention
+        plans of an HGT on the kernel path and the value context's
+        visibility template and value plan."""
+        graph = ensure_attn_plans(graph, self.config)
+        return self._attach_value_plan(self._attach_visibility(graph).to(self.device))
+
+    def _attach_visibility(self, graph: HeteroGraph) -> HeteroGraph:
+        """``graph`` with the value context's template (train edges' values
+        visible) on its patient->lab edges, where the model reads values."""
+        if not self._value_context:
+            return graph
+        es = graph.edges[PATIENT_LAB]
+        base = torch.from_numpy(self.masker.visibility_base(es.src.shape[0])).to(es.src.device)
+        return dataclasses.replace(graph, edges={**graph.edges, PATIENT_LAB: dataclasses.replace(es, val_vis=base)})
+
+    def _attach_value_plan(self, graph: HeteroGraph) -> HeteroGraph:
+        if not self._value_context:
+            return graph
+        es = graph.edges[PATIENT_LAB]
+        es = dataclasses.replace(es, value_plan=build_value_plan(es))
+        return dataclasses.replace(graph, edges={**graph.edges, PATIENT_LAB: es})
+
+    @property
+    def writes_outputs(self) -> bool:
+        """Whether this process writes checkpoints, history and outputs:
+        rank 0 of a data-parallel run, any single process."""
+        return axis_index(self.axis) == 0
 
     # -- batches -----------------------------------------------------------
 
@@ -180,7 +223,18 @@ class Trainer:
             return graph
         positions = self._vis_train_pos if positions is None else positions.long()
         es = graph.edges[PATIENT_LAB]
-        vis = es.val_vis.clone().index_reduce_(0, positions, 1.0 - sup_mask, "prod")
+        if self.axis is None:
+            vis = es.val_vis.clone().index_reduce_(0, positions, 1.0 - sup_mask, "prod")
+        else:
+            # an edge shard (JAX's shard_map branch): the whole batch's
+            # supervision mask, gathered; positions outside this rank's chunk
+            # of the edge arrays multiply its row 0 by 1
+            sup = all_gather(sup_mask, self.axis)
+            shard = es.val_vis.shape[0]
+            local = positions - axis_index(self.axis) * shard
+            inside = (local >= 0) & (local < shard)
+            factor = torch.where(inside, 1.0 - sup, torch.ones_like(sup))
+            vis = es.val_vis.clone().index_reduce_(0, local.clamp(0, shard - 1), factor, "prod")
         edges = {**graph.edges, PATIENT_LAB: dataclasses.replace(es, val_vis=vis)}
         return dataclasses.replace(graph, edges=edges)
 
@@ -205,9 +259,10 @@ class Trainer:
             weights = batch.sample_weights
         else:
             weights = torch.ones_like(batch.values)
-        loss = weighted_regression_loss(preds, batch.values, weights, sup_mask, self._loss_type)
+        loss = weighted_regression_loss(preds, batch.values, weights, sup_mask, self._loss_type, self.axis)
         self.optimizer.zero_grad(set_to_none=False)
-        loss.backward()
+        loss_share(loss, self.axis).backward()
+        all_reduce_grads(self.model.parameters(), self.axis)
         self.optimizer.step()
         return loss.detach()
 
@@ -294,7 +349,7 @@ class Trainer:
     def _eval_loss(self, split: str, state: Optional[dict] = None) -> torch.Tensor:
         batch = self.get_batch(split)
         preds = self._eval_preds(batch, state)
-        return masked_mean_loss(preds, batch.values, batch.valid, self._loss_type)
+        return masked_mean_loss(preds, batch.values, batch.valid, self._loss_type, self.axis)
 
     def validate(self, split: str = "val", state: Optional[dict] = None) -> float:
         """The masked loss on ``split`` of the live model, or of ``state``
@@ -306,7 +361,8 @@ class Trainer:
         batches are inverted back to row order), of the live model or of
         ``state``."""
         batch = self.get_batch(split)
-        preds = self._eval_preds(batch, state).float().cpu().numpy()
+        # a data-parallel rank predicts its shard: the shards in rank order
+        preds = all_gather(self._eval_preds(batch, state).float(), self.axis).cpu().numpy()
         slots = self.masker.slot_map(split)
         if slots is not None:
             preds = preds[slots]
@@ -357,7 +413,9 @@ class Trainer:
                 logger.info("Auto-resume from %s", resume_from)
         if resume_from is not None:
             self.restore(resume_from)
-        metrics = MetricsWriter(output_dir / "metrics.jsonl") if output_dir is not None else None
+        # the ranks of a data-parallel run train in step; rank 0 writes
+        write_dir = output_dir if self.writes_outputs else None
+        metrics = MetricsWriter(write_dir / "metrics.jsonl") if write_dir is not None else None
 
         logger.info("Starting training: %d epochs (from epoch %d)", tc.epochs, self.epoch)
         t_start = time.perf_counter()
@@ -406,15 +464,15 @@ class Trainer:
                         break
             if improved:
                 self.best_state = copy.deepcopy(self.model.state_dict())
-                if output_dir is not None:
-                    self._save(output_dir / "best_model.ckpt")
+                if write_dir is not None:
+                    self._save(write_dir / "best_model.ckpt")
             if (
-                output_dir is not None
+                write_dir is not None
                 and lc.save_checkpoints
                 and not stop
                 and self.epoch % max(lc.checkpoint_interval, 1) == 0
             ):
-                self._save(output_dir / f"checkpoint_epoch_{self.epoch}.ckpt")
+                self._save(write_dir / f"checkpoint_epoch_{self.epoch}.ckpt")
 
         total_time = time.perf_counter() - t_start
         n_train = self.masker.split_sizes()["train"]
@@ -425,10 +483,10 @@ class Trainer:
         )
         if metrics is not None:
             metrics.close()
-        if output_dir is not None:
+        if write_dir is not None:
             save_json(
                 {k: self.history[k] for k in ("train_loss", "val_loss", "learning_rates")},
-                output_dir / "training_history.json",
+                write_dir / "training_history.json",
             )
         return self.history
 
@@ -464,11 +522,20 @@ class Trainer:
     @staticmethod
     def latest_checkpoint(output_dir) -> Optional[Path]:
         """The ``checkpoint_epoch_N.ckpt`` of ``output_dir`` with the largest
-        N, or None."""
+        N, or None.  A JAX multi-controller run writes
+        ``checkpoint_epoch_N.ckpt.procMMM.npz`` files and no ``.ckpt``: their
+        base path counts too (:func:`~multi_modal_gnn_tpu_torch.training.checkpoint.load_checkpoint`
+        reads it)."""
         candidates = {}
         for p in Path(output_dir).glob("checkpoint_epoch_*.ckpt"):
             try:
                 candidates[int(p.stem.rsplit("_", 1)[1])] = p
+            except ValueError:
+                continue
+        for p in Path(output_dir).glob("checkpoint_epoch_*.ckpt.proc*.npz"):
+            base = p.name.split(".ckpt.proc")[0]
+            try:
+                candidates.setdefault(int(base.rsplit("_", 1)[1]), p.parent / f"{base}.ckpt")
             except ValueError:
                 continue
         return candidates[max(candidates)] if candidates else None
@@ -486,7 +553,7 @@ class Trainer:
         ``model_hash`` (the ``model``, ``graph`` and ``feature_space``
         sections) differs from the live config's unless ``force``;
         run-length settings such as ``train.epochs`` may differ."""
-        payload, meta = load_checkpoint(path)
+        payload, meta = load_checkpoint(path, self.model)
         ckpt_hash = meta.get("model_hash")
         live_hash = self.config.model_hash()
         if ckpt_hash and ckpt_hash != live_hash and not force:
@@ -537,6 +604,13 @@ def train_pipeline(
     ``train.extras.num_clusters``) trains with
     :class:`~multi_modal_gnn_tpu_torch.training.minibatch.MiniBatchTrainer`,
     host-resident under ``train.extras.host_resident``.
+
+    ``train.extras.parallel: dp | data`` trains edge-sharded over the ranks
+    of the launch (JAX ``trainer.py:849-900``): full batch with
+    :class:`~multi_modal_gnn_tpu_torch.parallel.dp.DataParallelTrainer`,
+    clusters with :class:`~multi_modal_gnn_tpu_torch.parallel.minibatch_dp.MiniBatchDPTrainer`;
+    with ``model.use_pallas`` every relation gets its per-shard K1 plans.
+    Only rank 0 writes.
     ``train.extras.warm_start: als | sideinfo`` wires the bilinear channel
     into the model config (:func:`~multi_modal_gnn_tpu_torch.training.warmstart.wire_warm_start`)
     and plants the baseline before ``fit``, as JAX ``train_pipeline`` does."""
@@ -552,7 +626,17 @@ def train_pipeline(
     generator = torch.Generator().manual_seed(stream_seed(tc.seed, "init"))
     model = build_model(config, graph, device=device, generator=generator)
     n_clusters = cluster_count(config, masker.split_sizes()["train"])
-    if n_clusters > 1:
+    parallel = parallel_mode(config)
+    if parallel:
+        if n_clusters > 1 and parallel not in ("dp", "data"):
+            raise ValueError(
+                "mini-batch clustering (train.batch_size / train.extras.num_clusters) composes "
+                "with train.extras.parallel: dp only (cluster-per-step DP, "
+                "parallel/minibatch_dp.py); 2d/gspmd shard the patient table, which conflicts "
+                "with the clusters' patient_id_base windows"
+            )
+        trainer = _parallel_trainer(config, bundle, masker, model, n_clusters, device)
+    elif n_clusters > 1:
         from multi_modal_gnn_tpu_torch.training.minibatch import MiniBatchTrainer
 
         logger.info("Mini-batch training over %d patient clusters", n_clusters)
@@ -571,6 +655,38 @@ def train_pipeline(
         "best_val_loss": trainer.best_val_loss,
         "num_epochs": len(trainer.history["train_loss"]),
     }
-    save_json(results, output_dir / "test_results.json")
+    if trainer.writes_outputs:
+        save_json(results, output_dir / "test_results.json")
     logger.info("Test loss (%s): %.4f", tc.loss, test_loss)
     return trainer, results
+
+
+def parallel_mode(config: Config) -> str:
+    """``train.extras.parallel`` normalized: ``""`` for none (the config
+    has refused the modes that are not ported)."""
+    mode = str(config.train.extras.get("parallel", "") or "").lower()
+    return "" if mode in ("none", "off") else mode
+
+
+def _parallel_trainer(config: Config, bundle, masker, model, n_clusters: int, device):
+    """The data-parallel trainer :func:`train_pipeline` routes to."""
+    from multi_modal_gnn_tpu_torch.graph.build import host_edges_of
+
+    tc = config.train
+    graph = getattr(bundle, "graph", bundle)
+    if n_clusters > 1:
+        from multi_modal_gnn_tpu_torch.parallel.minibatch_dp import MiniBatchDPTrainer
+
+        trainer = MiniBatchDPTrainer(
+            bundle, masker, config, num_clusters=n_clusters, model=model,
+            host_resident=bool(tc.extras.get("host_resident", False)), device=device,
+        )
+    else:
+        from multi_modal_gnn_tpu_torch.parallel.dp import DataParallelTrainer
+
+        host_edges = None
+        if config.model.use_pallas:
+            host_edges = getattr(bundle, "host_edges", None) or host_edges_of(graph)
+        trainer = DataParallelTrainer(graph, masker, config, model=model, device=device, host_edges=host_edges)
+    logger.info("Parallel training (%s) over %d ranks", parallel_mode(config), trainer.axis.size)
+    return trainer

@@ -199,7 +199,11 @@ def warm_start_from_config(trainer, config: Config):
         trainer,
         rank=tc.warm_start_rank,
         reg=float(tc.extras.get("warm_start_reg", 12.0)),
-        memberships=bundle_membership_matrix(trainer.graph) if tc.warm_start == "sideinfo" else None,
+        # a data-parallel trainer's graph is its edge shard: the whole one
+        memberships=(
+            bundle_membership_matrix(getattr(trainer, "full_graph", trainer.graph))
+            if tc.warm_start == "sideinfo" else None
+        ),
         mem_rank=tc.warm_start_mem_rank,
         ridge_reg=float(tc.extras.get("warm_start_ridge_reg", 30.0)),
         huber_delta=float(huber) if huber is not None else None,

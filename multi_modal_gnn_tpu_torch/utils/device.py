@@ -2,16 +2,23 @@
 
 from __future__ import annotations
 
+import os
 import subprocess
 
 import torch
 
 
 def require_cuda() -> torch.device:
-    """The first CUDA device; raises when PyTorch sees none."""
+    """This process's CUDA device; raises when PyTorch sees none.  A rank of
+    a multi-process launch (``python -m torch.distributed.run`` sets
+    ``LOCAL_RANK``) takes card ``LOCAL_RANK % device_count``, so ranks
+    spread over the host's cards and share them when there are fewer cards
+    than ranks; any other process takes card 0."""
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: torch.cuda.is_available() is false")
-    return torch.device("cuda", 0)
+    local_rank = os.environ.get("LOCAL_RANK")
+    index = int(local_rank) % torch.cuda.device_count() if local_rank is not None else 0
+    return torch.device("cuda", index)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -84,6 +84,16 @@ def _within_one_bf16_spacing(got, want, name=""):
 # -- the segment kernels and tiers --------------------------------------------
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one CPU thread: the suite's workers share the cores, and a
+    worker's torch on every core slows all of them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def edges():
     """patient -> lab edges (4,200 patients, 60 labs), one of them 601 times,
@@ -586,13 +596,13 @@ def test_config_takes_jax_dtypes_and_hashes_them():
 
 @pytest.mark.parametrize(
     "section",
-    [{"model": {"compute_dtype": "bfloat16"}, "train": {"extras": {"parallel": "dp"}}},
+    [{"model": {"compute_dtype": "bfloat16"}, "train": {"extras": {"parallel": "2d"}}},
      {"model": {"compute_dtype": "float16", "extras": {"value_context": True}}}],
     ids=["parallel", "float16"],
 )
 def test_config_refuses_what_the_bf16_slice_does_not_run(section):
     """bfloat16 runs everything the float32 config runs on one card; what is
-    refused stays refused (multi-device, queue 1 item 8; other dtypes)."""
+    refused stays refused (the 2-D modes, queue 1 item 8b; other dtypes)."""
     with pytest.raises(ConfigError, match="queue 1 item 8|float32\\|bfloat16\\|auto"):
         Config.from_dict(section)
 

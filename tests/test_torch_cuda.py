@@ -1266,6 +1266,45 @@ def test_k1_routes_match_plain(gpu, route, num_src, width, dtype):
     assert float(np.abs(got[empty]).max()) == 0.0  # zero rows for empty destinations
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("route,num_src", [("shared", 700), ("global", 5000)])
+def test_k1_per_shard_total_matches_plain(gpu, route, num_src, dtype):
+    """K1 as the per-shard total of data parallelism (``ops/segment.py``
+    ``sharded_block_sum``): each of 3 shards' blocks, added at its window
+    offset into a zeroed global buffer (``out=``), against its plain
+    version, and the shards' sum against the unsharded plain total."""
+    from types import SimpleNamespace
+
+    from multi_modal_gnn_tpu_torch.ops.segment import sharded_block_sum
+
+    rng = np.random.default_rng(num_src)
+    dst = np.sort(rng.integers(0, 1000, 120_000))
+    src = rng.integers(0, num_src, dst.shape[0])
+    sh_src, sh_local, sh_tm, sh_off, k_max = hetero.build_sharded_window_plans(src, dst, 1000, 3)
+    x = _randn(num_src, D, seed=7, dtype=dtype).to(gpu)
+    count = torch.from_numpy(np.bincount(dst, minlength=1000).astype(np.float32)).clamp_min(1.0)[:, None].to(gpu)
+    total = torch.zeros(1000, D, device=gpu)
+    key = _key("segment_sum_windowed", dtype)
+    for r in range(3):
+        es = SimpleNamespace(
+            **{name: torch.from_numpy(np.split(a, 3)[r]).to(gpu) for name, a in (
+                ("shard_win_src", sh_src), ("shard_win_local", sh_local), ("shard_win_tile_map", sh_tm))},
+            shard_win_windows=k_max, shard_win_first=int(sh_off[r]),
+        )
+        before = sk.launch_counts[key]
+        got = sharded_block_sum(x, es, 1000)
+        assert sk.launch_counts[key] == before + 1
+        full = torch.zeros((8 + k_max) * 128, D, device=gpu)
+        full[es.shard_win_first * 128 : (es.shard_win_first + k_max) * 128] = sk.segment_sum_windowed_plain(
+            x, es.shard_win_src, es.shard_win_local, es.shard_win_tile_map, k_max
+        )
+        np.testing.assert_allclose((got / count).cpu().numpy(), (full[:1000] / count).cpu().numpy(), **TOL)
+        total += got
+    want = torch.zeros(1000, D, device=gpu).index_add_(0, torch.from_numpy(dst).to(gpu), x.float()[torch.from_numpy(src).to(gpu)])
+    np.testing.assert_allclose((total / count).cpu().numpy(), (want / count).cpu().numpy(), **TOL)
+
+
 K8_WIDTHS = [(h, nh) for h in (32, 64, 128) for nh in (1, 2, 4, 8, 16, 32) if ak.heads_supported(h, nh)]
 
 

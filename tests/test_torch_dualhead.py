@@ -48,6 +48,16 @@ NAMES = ("proj_p", "proj_l", "w1", "b1", "w2", "b2")
 # -- the fused dual head ------------------------------------------------------
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one CPU thread: the suite's workers share the cores, and a
+    worker's torch on every core slows all of them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def problem():
     rng = np.random.default_rng(0)

@@ -73,6 +73,16 @@ def _port(jcfg, **model):
     return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **model))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one CPU thread: the suite's workers share the cores, and a
+    worker's torch on every core slows all of them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def cohort():
     jcfg = _jax_config()

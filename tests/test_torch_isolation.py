@@ -11,7 +11,9 @@ resume from them) and ``evaluate_model`` on its best state; and the
 pipeline command line (``python -m multi_modal_gnn_tpu_torch.pipeline
 --device cpu``) on a tiny synthetic config written by ``save_config``:
 preprocess, graph build, train, evaluate, audit, inference and the serving
-export, whose artifact ``ServingModel`` then loads and serves; and the
+export, whose artifact ``ServingModel`` then loads and serves; 1-D data
+parallelism on one rank (``train.extras.parallel: dp``) and the sharded
+graph artifact written and loaded; and the
 raw-data ingest: small MIMIC-III and eICU raw directories through
 ``preprocess_pipeline`` and the graph build.  matplotlib, sklearn,
 networkx and umap are blocked too, as on the card: the command line's
@@ -155,6 +157,20 @@ SCRIPT = textwrap.dedent(
         served = ServingModel.load(Path(out) / "out" / "serving", device="cpu")
         report = served.predict_patient(0, denormalize=True)
         assert len(report) == served.manifest["num_labs"] and len(served.predict_cold_start({0: 0.5})) == len(report)
+    # 1-D data parallelism on one rank (WORLD_SIZE unset: a one-device mesh)
+    # and the sharded graph artifact
+    from multi_modal_gnn_tpu_torch.graph.build import GraphBundle, GraphMeta, host_edges_of
+    from multi_modal_gnn_tpu_torch.graph.distributed import load_graph_distributed, save_graph_sharded
+    dp_cfg = Config.from_dict({"model": {"hidden_dim": 16, "use_pallas": True},
+                               "train": {"epochs": 1, "extras": {"parallel": "dp"}}})
+    graph = make_synthetic_graph(SyntheticSpec.tiny(), dp_cfg, device="cpu")
+    with tempfile.TemporaryDirectory() as out:
+        trainer, results = train_pipeline(dp_cfg, graph, out, device="cpu")
+        assert type(trainer).__name__ == "DataParallelTrainer" and trainer.axis.size == 1
+        assert trainer.graph.edges["patient", "has_lab", "lab"].shard_win_src is not None
+        base = save_graph_sharded(GraphBundle(graph, GraphMeta(), host_edges_of(graph)), Path(out) / "g", 2,
+                                  kernel_plans=True)
+        assert load_graph_distributed(base, 1, 2).graph.edges["patient", "has_lab", "lab"].shard_win_windows > 0
     # the raw-data ingest: MIMIC-III (the graph core's scan) and eICU CSVs to
     # interim tables and a graph, with no pandas
     from multi_modal_gnn_tpu_torch.data.preprocess import preprocess_pipeline

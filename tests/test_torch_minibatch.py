@@ -369,7 +369,7 @@ def test_cluster_count_and_clamp_follow_jax(caplog):
 @pytest.mark.parametrize(
     "train, match",
     [({"batch_size": -3}, "batch_size"), ({"batch_size": 2.5}, "batch_size"), ({"num_clusters": 0}, "num_clusters"),
-     ({"cluster_balance": "window"}, "cluster_balance"), ({"num_clusters": 4, "parallel": "dp"}, "item 8")],
+     ({"cluster_balance": "window"}, "cluster_balance"), ({"num_clusters": 4, "parallel": "gspmd"}, "item 8")],
 )
 def test_minibatch_config_refusals(train, match):
     d = _config_dict()

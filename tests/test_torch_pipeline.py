@@ -65,7 +65,7 @@ from multi_modal_gnn_tpu_torch.audit import PatientHoldoutSplitter, compute_robu
 from multi_modal_gnn_tpu_torch.config import ATOMIC_TIERS, Config, ConfigError, load_config, save_config
 from multi_modal_gnn_tpu_torch.data import SyntheticSpec, generate_synthetic_tables, make_synthetic_graph, spec_from_config
 from multi_modal_gnn_tpu_torch.data.preprocess import load_table, preprocess_pipeline, save_table
-from multi_modal_gnn_tpu_torch.graph import GraphMeta, build_heterogeneous_graph, load_bundle, save_graph
+from multi_modal_gnn_tpu_torch.graph import GraphMeta, build_graph_from_preprocessed, build_heterogeneous_graph, load_bundle, save_graph
 from multi_modal_gnn_tpu_torch.graph.indexer import NodeIndexer
 from multi_modal_gnn_tpu_torch.graph.stats import GraphValidationError, compute_graph_statistics, validate_graph
 from multi_modal_gnn_tpu_torch.inference import Denormalizer, run_inference
@@ -379,14 +379,17 @@ def test_graph_statistics_and_validation_equal_jax(built):
         es.dst[0] = keep
 
 
-def test_sharded_output_is_refused():
-    cfg = Config.from_dict({"graph": {"num_shards": 4}})
+def test_sharded_output_is_refused(tmp_path):
+    """``graph.extras.num_shards`` writes the sharded artifact at the graph
+    build (``graph/distributed.py``); a count that does not divide the edge
+    padding is refused, with JAX's error, before any shard file is written."""
+    cfg = Config.from_dict({"graph": {"num_shards": 3}})
     tables = generate_synthetic_tables(SyntheticSpec.tiny())
-    with pytest.raises(ConfigError, match="num_shards"):
-        build_heterogeneous_graph(
-            tables["labs_normalized"], tables["diagnoses"], tables["medications"],
-            tables["cohort"], tables["labitems"], cfg,
-        )
+    for name in ("labs_normalized", "diagnoses", "medications", "cohort", "labitems"):
+        save_table(tables[name], tmp_path / "interim" / f"{name}.npz")
+    with pytest.raises(ValueError, match="not divisible by num_shards=3"):
+        build_graph_from_preprocessed(tmp_path / "interim", cfg, output_path=tmp_path / "out" / "graph")
+    assert not list((tmp_path / "out").glob("graph_sharded*"))
 
 
 # -- audit and inference on one JAX checkpoint ----------------------------------------

@@ -60,6 +60,16 @@ def _jax_config():
     )
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one CPU thread: the suite's workers share the cores, and a
+    worker's torch on every core slows all of them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def cohort():
     spec = SyntheticSpec(
@@ -108,8 +118,8 @@ def test_train_config_reads_the_jax_section():
     [
         {"batch_size": 0},
         {"optimizer": {"type": "sgd"}},
-        {"parallel": "dp"},
-        {"num_clusters": 8, "parallel": "dp"},
+        {"parallel": "2d"},
+        {"num_clusters": 8, "parallel": "gspmd"},
         {"cluster_balance": "nodes"},
         {"warm_start": True},
         {"lab_tile_mode": "block"},

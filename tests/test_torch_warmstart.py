@@ -71,6 +71,16 @@ def _config_dict(arch="RGCN", bilinear_rank=RANK + 1 + MEM_RANK, **train):
     return d
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one CPU thread: the suite's workers share the cores, and a
+    worker's torch on every core slows all of them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def cohort():
     d = _config_dict()
