@@ -6,8 +6,9 @@ command line on the flagship config, the serving artifact, the quality
 channels (value context, the bilinear channel, the side-information warm
 start), Cluster-GCN mini-batch training, the bfloat16 compute path, the
 raw-data ingest path (raw MIMIC-III / eICU CSVs, the host graph core), the
-visualize step with the performance ceilings, and 1-D data parallelism over
-two ranks, on one CUDA GPU.
+visualize step with the performance ceilings, 1-D data parallelism over
+two ranks, and the 2-D layout (patient table cut over a model axis) over
+four, on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -269,7 +270,9 @@ Phases, each printing one line with its seconds:
                    evaluate_model's finite test metrics; (e) a raw eICU
                    directory through python -m multi_modal_gnn_tpu_torch
                    --step 1-4 on the card, started at the phase's start
-                   beside (a)-(d)
+                   beside (a)-(d); phase 31's ranks run their RGCN parts
+                   beside the whole phase (phase 3's graph saved for them
+                   first)
  29. visualize     the pipeline's step 6 (viz.visualize) and the ceilings:
                    (a) on phase 20's run directory (scale_100k, full width,
                    use_pallas, dense budget 0), the trainer restored from
@@ -313,12 +316,36 @@ Phases, each printing one line with its seconds:
                    torch.distributed.run --nproc-per-node 2 (run in phase
                    21's pool), its guarded R2 within 0.03 of phase 21's
                    float32 seed 42
+ 31. two-d         the 2-D layout (train.extras.parallel: 2d) over 4 ranks
+                   on the one card (gloo), 2 data x 2 model, on phase 3's
+                   graph (the ranks run beside phase 28, their HGT after
+                   phase 29, the checks after phase 30): (a) 2 RGCN steps on
+                   K1's per-shard plans of
+                   the data axis (dropout 0, phase 30's masks and init)
+                   against phase 30's one-process references: losses rtol
+                   1e-3, the first step's gradients (the table's from each
+                   model rank's rows) within 3e-2 ||ref||, each rank
+                   launching K1 and no other kernel, holding P / 2 rows of
+                   the table and of both Adam moments; (b) every replicated
+                   parameter, BatchNorm buffer and Adam moment bit-equal on
+                   the 4 ranks after (a) and after a step with dropout 0.2;
+                   (c) 2 HGT steps cut to 1 layer (its segment tier, no
+                   kernel; 2 layers hold more than the card a rank)
+                   against one process's; (d) the sharded checkpoint (JAX's
+                   .procNNN.npz format) written by the 4 ranks and restored
+                   into one process on the card: validation within 1e-5
+                   relative, write and load seconds; (e) serving straight
+                   from the 2-D trainer against the restored process's
+                   build_trainer_serving_fn on 4,096 pairs within 1e-5 +
+                   1e-5 |ref|; (f) each rank's peak memory, the first
+                   step's collectives (calls, bytes, host seconds)
 Then a JSON line of per-kernel results (a kernel with a bf16 instantiation
 also carries launches_bf16_step and its bf16 results, and its bf16 cluster
 sites and value-context launches; P1's bf16 kernels have rows of their
 own; every row carries launches_visualize, its launches in phase 29's
-step 6; K1 also carries its launches in a DP step, and its per-shard route
-has a row of its own, segment_sum_windowed_shard), the nvidia-smi line, and
+step 6; K1 also carries its launches in a DP step and in a 2-D step, and
+its per-shard route has a row of its own, segment_sum_windowed_shard), the
+nvidia-smi line, and
 the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero before the last line; without a CUDA device it fails in phase 1.
@@ -613,6 +640,20 @@ DP_UNLAUNCHED = (
     "pair_head_bwd", "pair_head_dual_fwd", "pair_head_dual_bwd", "flash_attention_fwd", "flash_attention_dq",
     "flash_attention_dkv",
 )
+# phase 31: the 2-D layout (train.extras.parallel: 2d) over TWO_D_RANKS ranks
+# on the one card (gloo), TWO_D_MODEL of them on the model axis: phase 30's
+# graph, widths and injected masks, so its one-process references hold the
+# 2-D steps at phase 30's bounds; (b) one step at TWO_D_DROPOUT; (e)
+# TWO_D_REQUESTS random pairs served from the 2-D trainer and from one
+# process holding its checkpoint.  (c) cuts the HGT to TWO_D_HGT_LAYERS
+# layer: one layer's segment tier peaks at 15.9 GiB a rank on the H100
+# (PERF.md §6), and two keep about twice the activations, more than four
+# ranks fit in 80 GB; its one-process reference is computed after the ranks
+TWO_D_RANKS, TWO_D_MODEL = 4, 2
+TWO_D_STEPS, TWO_D_HGT_STEPS, TWO_D_HGT_LAYERS = 2, 2, 1
+TWO_D_DROPOUT = 0.2
+TWO_D_REQUESTS = 4096
+TWO_D_CKPT_RTOL = 1e-5
 # the bfloat16 instantiations' -Xptxas -v lines, by kernel
 BF16_NAMED = tuple((label, entry + "13__nv_bfloat16") for label, entry in (
     ("K2b", "incidence_kernelILb0E"), ("K3", "incidence_kernelILb1E"),
@@ -2858,9 +2899,256 @@ def _dp_rank(job: dict) -> dict:
     return out
 
 
-def _dp_phase(dev, graph_cpu, config, dp_flagship: dict, flagship_r2_f32: float) -> dict:
+def _state_digest(trainer) -> dict:
+    """sha1 of every replicated parameter, buffer and Adam moment of a 2-D
+    trainer (everything but the patient table's rows)."""
+    import hashlib
+
+    def sha(t):
+        return hashlib.sha1(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+    table = "embed_patient.weight"
+    out = {k: sha(v) for k, v in trainer.model.state_dict().items() if k != table}
+    for name, param in trainer.model.named_parameters():
+        if name != table:
+            out.update({f"adam {name} {k}": sha(v) for k, v in trainer.optimizer.state[param].items()})
+    return out
+
+
+def _dp2d_rank(job: dict) -> dict:
+    """One rank of phase 31 (spawned; module docstring): (a) the 2-D RGCN's
+    steps on K1's per-shard plans, (b) a step with dropout, (d) its file of
+    the sharded checkpoint, (e) serving from the trainer, (c) the 2-D HGT's
+    steps, (f) peak memory and the first step's collectives.  (c) waits
+    for ``job["hgt_go"]``: the main process gives the card's memory to the
+    four ranks' HGT once phase 29 is done."""
+    import os
+
+    # before the first CUDA call: the four ranks' HGT peaks leave little room
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    import torch
+
+    from multi_modal_gnn_tpu_torch.config import Config
+    from multi_modal_gnn_tpu_torch.graph.build import host_edges_of
+    from multi_modal_gnn_tpu_torch.models import build_model
+    from multi_modal_gnn_tpu_torch.parallel import collectives
+    from multi_modal_gnn_tpu_torch.parallel.dp import init_generator
+    from multi_modal_gnn_tpu_torch.parallel.dp2d import TwoDTrainer
+    from multi_modal_gnn_tpu_torch.parallel.mesh import init_2d_axes
+    from multi_modal_gnn_tpu_torch.parallel.sharding import shard_rows
+    from multi_modal_gnn_tpu_torch.serving import build_trainer_serving_fn
+    from multi_modal_gnn_tpu_torch.training import masker_from_config
+    from multi_modal_gnn_tpu_torch.utils.device import disable_tf32, require_cuda
+
+    dev = require_cuda()
+    disable_tf32()
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    mesh = init_2d_axes(dev, 0, TWO_D_MODEL)
+    out = {"rank": mesh.world.rank, "data": mesh.data.rank, "model": mesh.model.rank, "device": str(dev),
+           "backend": mesh.world.backend, "seconds": {"start": time.perf_counter() - t0}}
+    graph_cpu = torch.load(job["graph"], weights_only=False)
+
+    # (a) 2-D RGCN steps with K1 plans, dropout 0, phase 30's masks
+    t = time.perf_counter()
+    cfg = Config.from_dict(job["config"])
+    trainer = TwoDTrainer(
+        graph_cpu, masker_from_config(cfg, graph_cpu), cfg,
+        model=build_model(cfg, graph_cpu, device=dev, generator=init_generator(cfg)), mesh=mesh, device=dev,
+        host_edges=host_edges_of(graph_cpu),
+    )
+    out["seconds"]["a_trainer"] = time.perf_counter() - t
+    table = trainer.model.embed_patient.weight
+    full, batch = trainer.full_batch("train"), trainer.get_batch("train")
+    losses, step_ms = [], []
+    for epoch in range(TWO_D_STEPS):
+        sup = shard_rows(_dp_mask(full.valid, epoch), trainer.axis)
+        _dp_reset()
+        collectives.reset_stats()
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        losses.append(trainer.train_step(batch, sup, 0))
+        step_ms.append((time.perf_counter() - s0) * 1e3)
+        if epoch == 0:
+            out["launches_step"] = _dp_launches()
+            out["collectives_step"] = copy.deepcopy(collectives.stats)
+            if mesh.data.rank == 0:  # the rows of the table's gradient; rank 0 the replicated ones
+                out["grads"] = {n: p.grad.detach().cpu().numpy() for n, p in trainer.model.named_parameters()
+                                if mesh.model.rank == 0 or p is table}
+    out["rows"] = trainer.model.embed_patient.row_range
+    out["table_rows"] = [int(table.shape[0])] + [int(trainer.optimizer.state[table][k].shape[0])
+                                                 for k in ("exp_avg", "exp_avg_sq")]
+    out["rgcn"] = {"losses": losses, "step_ms": step_ms, "digest": _state_digest(trainer)}
+    # (b) one step with dropout on every module that draws it
+    for module in trainer.model.modules():
+        if isinstance(getattr(module, "dropout", None), float):
+            module.dropout = TWO_D_DROPOUT
+    _dp_reset()
+    out["dropout_loss"] = float(trainer._seeded_step(batch, shard_rows(_dp_mask(full.valid, TWO_D_STEPS),
+                                                                         trainer.axis), 31))
+    out["launches_dropout_step"] = _dp_launches()
+    out["dropout_digest"] = _state_digest(trainer)
+    out["seconds"]["a_b"] = time.perf_counter() - t
+
+    # (d) this rank's file of the sharded checkpoint, and the validation it holds
+    t = time.perf_counter()
+    trainer.epoch = TWO_D_STEPS + 1
+    trainer._save(Path(job["ckpt"]))
+    out["seconds"]["d_write"] = time.perf_counter() - t
+    out["val"] = trainer.validate("val")
+
+    # (e) serving straight from the 2-D trainer: the gathered table, the whole graph
+    t = time.perf_counter()
+    fn, _ = build_trainer_serving_fn(trainer)
+    out["served"] = fn(*job["requests"]).cpu().numpy()
+    out["seconds"]["e"] = time.perf_counter() - t
+    out["peak_gib_rgcn"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    del trainer, fn, batch, full, table
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # (c) the 2-D HGT on its segment tier: the trainer now, its steps once
+    # the main process is done with phase 29
+    t = time.perf_counter()
+    hcfg = Config.from_dict(job["hgt_config"])
+    hgt = TwoDTrainer(
+        graph_cpu, masker_from_config(hcfg, graph_cpu), hcfg,
+        model=build_model(hcfg, graph_cpu, device=dev, generator=init_generator(hcfg)), mesh=mesh, device=dev,
+    )
+    hfull, hbatch = hgt.full_batch("train"), hgt.get_batch("train")
+    out["seconds"]["c_trainer"] = time.perf_counter() - t
+    t = time.perf_counter()
+    while not Path(job["hgt_go"]).exists():
+        time.sleep(0.2)
+    out["seconds"]["c_wait"] = time.perf_counter() - t
+    t = time.perf_counter()
+    _dp_reset()
+    out["hgt"] = {"losses": [hgt.train_step(hbatch, shard_rows(_dp_mask(hfull.valid, e), hgt.axis), 0)
+                             for e in range(TWO_D_HGT_STEPS)], "launches": _dp_launches()}
+    out["seconds"]["c"] = time.perf_counter() - t
+    out["peak_gib_hgt"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    del hgt, hbatch, hfull
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dp2d_start(graph_file: Path, config, root: Path) -> dict:
+    """Start phase 31's ranks (the main process works on meanwhile)."""
+    import numpy as np
+
+    from multi_modal_gnn_tpu_torch.parallel.launch import Ranks
+
+    cfg = config.replace(model=dataclasses.replace(config.model, dropout=0.0))
+    hcfg = cfg.replace(model=dataclasses.replace(cfg.model, architecture="HGT", use_pallas=False,
+                                                 num_layers=TWO_D_HGT_LAYERS))
+    rng = np.random.default_rng(31)
+    requests = (rng.integers(0, 100_000, TWO_D_REQUESTS), rng.integers(0, 500, TWO_D_REQUESTS))
+    job = {"graph": str(graph_file), "config": cfg.to_dict(), "hgt_config": hcfg.to_dict(),
+           "ckpt": str(root / "two_d.ckpt"), "requests": requests, "hgt_go": str(root / "two_d_hgt_go")}
+    return {"ranks": Ranks(_dp2d_rank, TWO_D_RANKS, (job,)), "job": job, "cfg": cfg, "hcfg": hcfg,
+            "t0": time.perf_counter()}
+
+
+def _dp2d_finish(dev, graph_cpu, started: dict, outs: list, ref: dict) -> dict:
+    """Phase 31's checks: the ranks' results against phase 30's one-process
+    references (the RGCN's) and this process's (the cut HGT's), and against
+    one process restored from their checkpoint."""
+    import torch
+
+    from multi_modal_gnn_tpu_torch.models import build_model
+    from multi_modal_gnn_tpu_torch.parallel.dp import init_generator
+    from multi_modal_gnn_tpu_torch.serving import build_trainer_serving_fn
+    from multi_modal_gnn_tpu_torch.training import Trainer, masker_from_config
+
+    job, cfg = started["job"], started["cfg"]
+    by_pos = {(r["data"], r["model"]): r for r in outs}
+    r0 = by_pos[(0, 0)]
+    for r in outs:
+        print(f"    rank {r['rank']} (data {r['data']}, model {r['model']}) on {r['device']} ({r['backend']}): rows "
+              f"{r['rows']}, seconds " + ", ".join(f"{k} {v:.2f}" for k, v in r["seconds"].items())
+              + f"; peak {r['peak_gib_rgcn']:.3f} GiB (RGCN), {r['peak_gib_hgt']:.3f} GiB (HGT); K1 launches "
+              f"in the first step {r['launches_step']['segment_sum_windowed']}, in the dropout step "
+              f"{r['launches_dropout_step']['segment_sum_windowed']}", flush=True)
+    # (a) each rank launches K1 and no other kernel; P / M rows of the table and both moments
+    half = graph_cpu.num_nodes("patient") // TWO_D_MODEL
+    for r in outs:
+        for launches in (r["launches_step"], r["launches_dropout_step"]):
+            if not launches["segment_sum_windowed"] or any(v for k, v in launches.items()
+                                                          if k != "segment_sum_windowed"):
+                raise AssertionError(f"rank {r['rank']}'s 2-D step launched {launches}: K1 only, on its shard plans")
+        if r["table_rows"] != [half] * 3 or r["rows"] != (r["model"] * half, (r["model"] + 1) * half):
+            raise AssertionError(f"rank {r['rank']} holds rows {r['rows']}, table and moments {r['table_rows']}")
+    print(f"    (a) rank 0: step ms {', '.join('%.1f' % t for t in r0['rgcn']['step_ms'])}; the first step's "
+          f"collectives {r0['collectives_step']}", flush=True)
+    for r in outs:
+        _compare(f"(a) rank {r['rank']}'s 2-D RGCN losses vs one process (phase 30)",
+                 torch.tensor(r["rgcn"]["losses"]), torch.tensor(ref["losses"][:TWO_D_STEPS]), 0.0, DP_LOSS_RTOL)
+    grads = dict(r0["grads"])
+    grads["embed_patient.weight"] = torch.cat(
+        [torch.from_numpy(by_pos[(0, m)]["grads"]["embed_patient.weight"]) for m in range(TWO_D_MODEL)]).numpy()
+    _bf16_grads_close("(a) 2-D first-step gradients vs one process (the table's rows from each model rank)",
+                      {n: torch.from_numpy(g) for n, g in grads.items()}, ref["grads"], rel=STEP_GRAD_NORM_REL)
+    # (b) replicas bit-equal across the model axis (and the data axis)
+    for key in ("digest", "dropout_digest"):
+        for r in outs:
+            want = (r0["rgcn"] if key == "digest" else r0)[key]
+            got = (r["rgcn"] if key == "digest" else r)[key]
+            differ = sorted(k for k in want if got[k] != want[k])
+            if differ:
+                raise AssertionError(f"(b) rank {r['rank']}'s replicated state differs from rank 0's after "
+                                     f"{'the steps' if key == 'digest' else 'the dropout step'}: {differ[:8]}")
+    print(f"    (b) every replicated parameter, BatchNorm buffer and Adam moment ({len(r0['rgcn']['digest'])} "
+          f"tensors) bit-equal on all {TWO_D_RANKS} ranks after {TWO_D_STEPS} steps and after a step with dropout "
+          f"{TWO_D_DROPOUT} (loss {r0['dropout_loss']:.6f})", flush=True)
+    # (c) against one process's segment tier at the same depth
+    hcfg = started["hcfg"]
+    hgt = Trainer(build_model(hcfg, graph_cpu, device=dev, generator=init_generator(hcfg)), graph_cpu,
+                  masker_from_config(hcfg, graph_cpu), hcfg, device=dev)
+    hbatch = hgt.get_batch("train")
+    hgt_ref = [hgt.train_step(hbatch, _dp_mask(hbatch.valid, e), 0) for e in range(TWO_D_HGT_STEPS)]
+    del hgt, hbatch
+    gc.collect()
+    torch.cuda.empty_cache()
+    for r in outs:
+        if any(r["hgt"]["launches"].values()):
+            raise AssertionError(f"rank {r['rank']}'s 2-D HGT launched {r['hgt']['launches']}: its segment tier")
+        _compare(f"(c) rank {r['rank']}'s 2-D HGT ({TWO_D_HGT_LAYERS} layer) losses vs one process (segment tier)",
+                 torch.tensor(r["hgt"]["losses"]), torch.tensor(hgt_ref), 0.0, DP_LOSS_RTOL)
+    # (d) the sharded checkpoint restored into one process on the card
+    one = Trainer(build_model(cfg, graph_cpu, device=dev, generator=init_generator(cfg)), graph_cpu,
+                  masker_from_config(cfg, graph_cpu), cfg, device=dev)
+    t = time.perf_counter()
+    one.restore(job["ckpt"])
+    load_s = time.perf_counter() - t
+    val = one.validate("val")
+    for r in outs:
+        _compare(f"(d) one process restored from the 2-D checkpoint: validation vs rank {r['rank']}'s",
+                 torch.tensor([val]), torch.tensor([r["val"]]), 0.0, TWO_D_CKPT_RTOL)
+    files = sorted(Path(job["ckpt"]).parent.glob("two_d.ckpt.proc*.npz"))
+    print(f"    (d) {len(files)} files, {sum(f.stat().st_size for f in files) / 2**20:.1f} MiB; written in "
+          f"{max(r['seconds']['d_write'] for r in outs):.2f} s (the slowest rank), loaded into one process in "
+          f"{load_s:.2f} s", flush=True)
+    # (e) serving from the 2-D trainer against one process holding the same state
+    fn, _ = build_trainer_serving_fn(one)
+    want = fn(*job["requests"]).cpu()
+    for r in outs:
+        _compare(f"(e) rank {r['rank']}'s serving answers vs one process's", torch.from_numpy(r["served"]), want,
+                 1e-5, 1e-5)
+    del one, fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (f)
+    print(f"    (f) peak per rank (RGCN / HGT) " + ", ".join(
+        f"{r['rank']}: {r['peak_gib_rgcn']:.3f} / {r['peak_gib_hgt']:.3f} GiB" for r in outs), flush=True)
+    return {"ranks": outs, "r0": r0, "load_s": load_s, "val": val, "hgt_ref": hgt_ref}
+
+
+def _dp_phase(dev, graph_cpu, config, dp_flagship: dict, flagship_r2_f32: float, graph_file: Path) -> dict:
     """Phase 30: see the module docstring.  Starts the ranks, runs the
-    one-process references on the card meanwhile, then checks."""
+    one-process references on the card meanwhile, then checks.
+    ``graph_file``: phase 3's graph, saved for the ranks."""
     import torch
 
     from multi_modal_gnn_tpu_torch.graph.build import GraphBundle, GraphMeta, host_edges_of
@@ -2872,15 +3160,12 @@ def _dp_phase(dev, graph_cpu, config, dp_flagship: dict, flagship_r2_f32: float)
     from multi_modal_gnn_tpu_torch.training.minibatch import MiniBatchTrainer
 
     seconds = {}
-    t = time.perf_counter()
     tmp = tempfile.TemporaryDirectory(prefix="mmgnn_dp_")
     root = Path(tmp.name)
-    torch.save(graph_cpu, root / "graph.pt")
-    seconds["graph_file"] = time.perf_counter() - t
     cfg = config.replace(model=dataclasses.replace(config.model, dropout=0.0))
     hcfg = cfg.replace(model=dataclasses.replace(cfg.model, architecture="HGT", use_pallas=False))
     job = {
-        "graph": str(root / "graph.pt"), "artifact": str(root / "graph_sharded"), "hidden": cfg.model.hidden_dim,
+        "graph": str(graph_file), "artifact": str(root / "graph_sharded"), "hidden": cfg.model.hidden_dim,
         "config": cfg.to_dict(), "hgt_config": hcfg.to_dict(), "references_done": str(root / "references_done"),
         "artifact_done": str(root / "artifact_done"),
     }
@@ -5245,6 +5530,15 @@ def main() -> int:
         f"{bf16['quality']['flagship_r2']:.4f} (f32 {flagship_r2_f32:.4f})",
     )
 
+    # phase 3's graph for the ranks of phases 30 and 31; phase 31's ranks run
+    # beside phase 28, its checks after phase 30 (whose references they use)
+    dp_tmp = tempfile.TemporaryDirectory(prefix="mmgnn_dp_")
+    graph_file = Path(dp_tmp.name) / "graph.pt"
+    t0 = time.perf_counter()
+    torch.save(graph_cpu, graph_file)
+    graph_file_s = time.perf_counter() - t0
+    two_d_started = _dp2d_start(graph_file, config, Path(dp_tmp.name))
+
     # 28. ingest -------------------------------------------------------------
     t0 = time.perf_counter()
     gc.collect()
@@ -5258,7 +5552,8 @@ def main() -> int:
         f"cohort {st['cohort']['s']:.3f} s, preprocess {st['preprocess']['s']:.3f} s, graph build core "
         f"{ingest['graph_build_s']['core']:.3f} / plain {ingest['graph_build_s']['plain']:.3f} s, plans equal; "
         f"(d) {ETL_EPOCHS} kernel epochs, test R2 {ingest['train']['test_r2']:.4f}; (e) eICU command line "
-        f"{ingest['eicu']['s']:.2f} s",
+        f"{ingest['eicu']['s']:.2f} s; beside it phase 31's {TWO_D_RANKS} ranks' RGCN parts (the graph saved for "
+        f"them in {graph_file_s:.2f} s)",
     )
 
     # 29. visualize ----------------------------------------------------------
@@ -5281,11 +5576,23 @@ def main() -> int:
         f"within {visual['diagnose']['rel']:.1e}",
     )
 
+    # phase 31's HGT part: the card's memory goes to the four ranks (this
+    # process's graphs are done with)
+    t0 = time.perf_counter()
+    del graph, graph_hgt, graph_seg
+    gc.collect()
+    torch.cuda.empty_cache()
+    main_gib = (torch.cuda.memory_allocated(dev) / 2**30, torch.cuda.memory_reserved(dev) / 2**30)
+    Path(two_d_started["job"]["hgt_go"]).touch()
+    two_d_outs = two_d_started["ranks"].join(900)
+    two_d_ranks_s = time.perf_counter() - two_d_started["t0"]
+    two_d_hgt_s = time.perf_counter() - t0
+
     # 30. data parallelism ----------------------------------------------------
     t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    dp = _dp_phase(dev, graph_cpu, config, dp_run, flagship_r2_f32)
+    dp = _dp_phase(dev, graph_cpu, config, dp_run, flagship_r2_f32, graph_file)
     dp0 = dp["ranks"][0]
     _phase(
         "data-parallel", t0,
@@ -5298,6 +5605,30 @@ def main() -> int:
         f"(d) HGT losses {[round(x, 6) for x in dp0['hgt']['losses']]} vs {[round(x, 6) for x in dp['ref']['hgt']]}; "
         f"(e) the artifact's shards equal the in-memory shards (written in {dp['seconds']['e_write']:.2f} s); "
         f"(f) the DP flagship R2 {dp_run['r2']:.6f} vs {flagship_r2_f32:.6f}",
+    )
+
+    # 31. two-d ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    two_d = _dp2d_finish(dev, graph_cpu, two_d_started, two_d_outs, dp["ref"])
+    dp_tmp.cleanup()
+    td0 = two_d["r0"]
+    _phase(
+        "two-d", t0,
+        f"{TWO_D_RANKS // TWO_D_MODEL} data x {TWO_D_MODEL} model ranks on {td0['device']} ({td0['backend']}), "
+        f"{two_d_ranks_s:.2f} s from their start to their join ({two_d_hgt_s:.2f} s of it after phase 29, the HGT "
+        f"part, this process holding {main_gib[0]:.2f} / {main_gib[1]:.2f} GiB allocated / reserved): (a) 2-D RGCN "
+        f"losses {[round(x, 6) for x in td0['rgcn']['losses']]} "
+        f"vs one process {[round(x, 6) for x in dp['ref']['losses'][:TWO_D_STEPS]]}, step "
+        f"{statistics.median(td0['rgcn']['step_ms']):.1f} ms, K1 {td0['launches_step']['segment_sum_windowed']} "
+        f"launches a step per rank and no other kernel, {graph_cpu.num_nodes('patient') // TWO_D_MODEL} table and "
+        f"moment rows a rank; (b) replicas bit-equal after the steps and a dropout step; (c) HGT losses "
+        f"{[round(x, 6) for x in td0['hgt']['losses']]} vs {[round(x, 6) for x in two_d['hgt_ref']]} "
+        f"({TWO_D_HGT_LAYERS} layer); "
+        f"(d) the sharded checkpoint restored into one process, validation {two_d['val']:.6f} (loaded in "
+        f"{two_d['load_s']:.2f} s); (e) serving from the 2-D trainer = one process's; (f) peak "
+        f"{max(max(r['peak_gib_rgcn'], r['peak_gib_hgt']) for r in two_d['ranks']):.3f} GiB a rank",
     )
 
     cluster_launches = clusters["launches_cluster_epoch"]
@@ -5360,6 +5691,7 @@ def main() -> int:
                                        else visual["launches"]).get(name, 0)
         if name == "segment_sum_windowed":
             entry["launches_dp_step_per_rank"] = dp0["launches_step"][name]
+            entry["launches_2d_step_per_rank"] = td0["launches_step"][name]
         kernels.append(entry)
     # K1's per-shard route (phase 30): rank 0's largest call site heads the
     # entry, every site under "sites"
@@ -5373,6 +5705,7 @@ def main() -> int:
         **{k: shard_sites[head][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "site": head, "ranks": DP_RANKS, "sites": shard_sites,
         "launches_cluster_epoch_per_rank": dp0["clusters"]["launches"]["segment_sum_windowed"],
+        "launches_2d_step_per_rank": td0["launches_step"]["segment_sum_windowed"],
     })
     print(json.dumps({"kernels": kernels}))
     print(identity)

@@ -335,7 +335,9 @@ class TrainConfig:
     # extras.num_clusters (int >= 1), extras.host_resident (bool),
     # extras.cluster_balance (edges | patients): mini-batch training;
     # extras.parallel (dp | data): 1-D data parallelism over the ranks of
-    # the launch, num_devices of them (0: the world size)
+    # the launch, num_devices of them (0: the world size); (2d | dp2d) with
+    # extras.model_parallel (default 2): the 2-D layout, the patient table
+    # cut over a model axis (parallel/dp2d.py)
     extras: Dict[str, Any] = field(default_factory=dict)
 
     def __post_init__(self):
@@ -352,17 +354,17 @@ class TrainConfig:
             isinstance(self.batch_size, bool) or not isinstance(self.batch_size, int) or self.batch_size < 1
         ):
             raise ConfigError(f"train.batch_size must be a positive integer or null, got {self.batch_size!r}")
-        refused = sorted(set(self.extras) & set(_TRAIN_EXTRAS_NOT_PORTED))
-        if refused:
-            raise ConfigError(f"train.extras.{refused[0]}: {_TRAIN_EXTRAS_NOT_PORTED[refused[0]]}")
         unknown = set(self.extras) - _TRAIN_EXTRAS
         if unknown:
             raise ConfigError(f"unsupported train extras: {sorted(unknown)}")
         parallel = str(self.extras.get("parallel", "") or "").lower()
-        if parallel in _PARALLEL_2D:
-            raise ConfigError(f"train.extras.parallel: {parallel}: {_MULTI_DEVICE_2D}")
+        if parallel == "gspmd":
+            raise ConfigError(f"train.extras.parallel: gspmd: {_GSPMD}")
         if parallel not in PARALLEL_MODES:
             raise ConfigError(f"unknown train.extras.parallel={parallel!r} (expected dp | 2d | gspmd)")
+        mp = self.extras.get("model_parallel")
+        if mp is not None and (isinstance(mp, bool) or not isinstance(mp, int) or mp < 1):
+            raise ConfigError(f"train.extras.model_parallel must be a positive integer, got {mp!r}")
         if isinstance(self.num_devices, bool) or not isinstance(self.num_devices, int) or self.num_devices < 0:
             raise ConfigError(f"train.num_devices must be an integer >= 0, got {self.num_devices!r}")
         nc = self.extras.get("num_clusters")
@@ -567,21 +569,17 @@ _TRAIN_EXTRAS = {
     "lab_tile_rows", "lab_tile_mode", "lab_reweighting", "auto_resume", "warm_start",
     "warm_start_rank", "warm_start_mem_rank", "warm_start_reg", "warm_start_ridge_reg",
     "warm_start_huber_delta", "num_clusters", "host_resident", "cluster_balance", "parallel",
+    "model_parallel",
 }
 _WARM_STARTS = ("als", "sideinfo", "none", "off", "")
-_MULTI_DEVICE_2D = (
-    "the 2-D modes (2d / dp2d / gspmd: patient table sharded over a model axis) are not "
-    "ported yet (ROADMAP.md queue 1 item 8b); 1-D data parallelism is parallel: dp"
+_GSPMD = (
+    "XLA's partitioner placing the collectives has no PyTorch counterpart in the port "
+    "(ROADMAP.md queue 1 item 8c); the explicit 2-D layout is parallel: 2d"
 )
-# train.extras.parallel: "" / none / off (one process) or dp / data (1-D
-# data parallelism over the launch's ranks, parallel/dp.py)
-PARALLEL_MODES = ("", "none", "off", "dp", "data")
-_PARALLEL_2D = ("2d", "dp2d", "gspmd")
-
-
-_TRAIN_EXTRAS_NOT_PORTED = {
-    "model_parallel": _MULTI_DEVICE_2D,
-}
+# train.extras.parallel: "" / none / off (one process), dp / data (1-D data
+# parallelism over the launch's ranks, parallel/dp.py) or 2d / dp2d (the
+# patient table cut over a model axis too, parallel/dp2d.py)
+PARALLEL_MODES = ("", "none", "off", "dp", "data", "2d", "dp2d")
 _BASELINES = {"global_mean", "per_lab_mean", "nearest_neighbor", "als", "sideinfo_als"}
 _EVALUATION_EXTRAS = {"conformal_alpha", "conformal_split_fraction", "huber_delta"}
 

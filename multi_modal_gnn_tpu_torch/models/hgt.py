@@ -56,6 +56,7 @@ from multi_modal_gnn_tpu_torch.models.rgcn import edge_head_stream
 from multi_modal_gnn_tpu_torch.models.layers import (
     EdgeRegressionHead,
     bilinear_factor,
+    id_tables,
     make_dense,
     patient_rows,
     refuse_cluster_graph,
@@ -297,23 +298,29 @@ class HeteroGT(nn.Module):
         twin.axis = None
         return twin
 
-    def encode_nodes(self, train: bool = False, graph: Optional[HeteroGraph] = None) -> Dict[str, torch.Tensor]:
+    def encode_nodes(
+        self, train: bool = False, graph: Optional[HeteroGraph] = None, tables: Optional[Dict] = None
+    ) -> Dict[str, torch.Tensor]:
         """Every node's ID embedding (JAX ``HeteroGT.encode_nodes``).  On a
         cluster graph the patient rows are the cluster's window of the
         global table, local row ``i`` reading ``min(base + i, N - 1)``
         (:func:`~multi_modal_gnn_tpu_torch.models.layers.patient_rows`), as
-        the RGCN's; ``train`` is accepted for the RGCN's signature."""
-        x_dict = {nt: getattr(self, f"embed_{nt}").weight for nt in self.node_types}
+        the RGCN's; ``train`` is accepted for the RGCN's signature.
+        ``tables``: the ID tables the forward has read (default:
+        :func:`~multi_modal_gnn_tpu_torch.models.layers.id_tables`)."""
+        x_dict = dict(id_tables(self) if tables is None else tables)
         x_dict[PATIENT] = patient_rows(x_dict[PATIENT], graph)
         return x_dict
 
-    def forward(self, graph: HeteroGraph, train: bool = False) -> Dict[str, torch.Tensor]:
+    def forward(
+        self, graph: HeteroGraph, train: bool = False, tables: Optional[Dict] = None
+    ) -> Dict[str, torch.Tensor]:
         """Final node states.  The last layer computes only the groups the
         heads read (:data:`READ_TYPES`): HGT has no BatchNorm, whose
         training statistics would make every group's output a result of the
         step, so under ``jit`` the JAX step drops the other groups as dead
         code too; the other types keep their previous states."""
-        x_dict = self.encode_nodes(train, graph)
+        x_dict = self.encode_nodes(train, graph, tables)
         if self.value_context:
             x_dict = inject_value_context(x_dict, graph, self.vctx_patient, self.vctx_lab, self.axis)
         for i in range(self.num_layers):
@@ -336,12 +343,13 @@ class HeteroGT(nn.Module):
         gather plans, degrees and dropout seed of the RGCN's signature are
         accepted and not used: HGT has no degree gate, and the head's
         dropout draws from torch's generator."""
-        x_dict = self(graph, train)
+        tables = id_tables(self)
+        x_dict = self(graph, train, tables)
         if self.axis is not None and train:
             edge_head_stream(dropout_seed, self.axis)
         pred = self._head(x_dict[PATIENT], x_dict[LAB], p_idx, l_idx, train)
         if self.shared_bilinear:
-            u, c = shared_bilinear_tables(self, graph)
+            u, c = shared_bilinear_tables(self, graph, tables[PATIENT])
             pred = pred + (u.index_select(0, p_idx.long()) * c.index_select(0, l_idx.long())).sum(-1)
         return pred
 
@@ -359,10 +367,11 @@ class HeteroGT(nn.Module):
         if self.training:
             raise RuntimeError("compute_node_state is an eval-mode forward: call model.eval() first")
         refuse_cluster_graph(graph)
-        x_dict = self(graph)
+        tables = id_tables(self)
+        x_dict = self(graph, tables=tables)
         state = {"final_p": x_dict[PATIENT], "final_l": x_dict[LAB]}
         if self.shared_bilinear:
-            state["bl_u"], state["bl_l"] = shared_bilinear_tables(self, graph)
+            state["bl_u"], state["bl_l"] = shared_bilinear_tables(self, graph, tables[PATIENT])
         return {k: v.detach() for k, v in state.items()}
 
     def predict_pairs_cached(self, state: Dict[str, torch.Tensor], p_idx, l_idx) -> torch.Tensor:

@@ -18,6 +18,12 @@ float32 (flax promotes a bfloat16 input with its float32 scale), the fused
 pair head takes ``w1`` in the compute dtype and ``b1``, ``w2``, ``b2`` in
 float32, and a product of a bfloat16 table with a float32 bilinear factor
 promotes to float32 (:func:`promoted_mm`).
+
+The ID tables are read through :func:`id_tables`: under the 2-D layout
+(``parallel/dp2d.py``) the patient table is a :class:`ShardedEmbedding`,
+whose ``weight`` holds this rank's rows and whose :meth:`~ShardedEmbedding.table`
+gathers the whole table over the model axis; a model's forward gathers it
+once and hands it to every reader.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from multi_modal_gnn_tpu_torch.models.context import patient_value_context
 from multi_modal_gnn_tpu_torch.ops.pairhead import fused_pair_head
 from multi_modal_gnn_tpu_torch.ops.pairhead_kernels import head_widths_supported
 from multi_modal_gnn_tpu_torch.ops.segment import take_with_plan
+from multi_modal_gnn_tpu_torch.parallel.collectives import gather_rows
 
 
 def linear_in(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], dtype) -> torch.Tensor:
@@ -93,6 +100,52 @@ def bilinear_factor(rows: int, rank: int, generator: Optional[torch.Generator] =
     return nn.Parameter(torch.randn(rows, rank, generator=generator) / math.sqrt(rows))
 
 
+class ShardedEmbedding(nn.Embedding):
+    """An ID table cut row-wise over a mesh axis (JAX ``P(MODEL_AXIS)`` on
+    ``embed_patient``): ``weight`` holds rows ``[rank * n, (rank + 1) * n)``
+    of the ``n * axis.size``-row table, so Adam's moments over it hold those
+    rows too; :meth:`table` is the whole table.  The state dict keeps the
+    flax name (``embed_patient.weight``) with the shard's rows."""
+
+    def __init__(self, full: torch.Tensor, axis):
+        rows = full.shape[0] // axis.size
+        lo = axis.rank * rows
+        super().__init__(rows, full.shape[1], _weight=full[lo : lo + rows].detach().clone())
+        self.axis = axis
+        self.global_rows = full.shape[0]
+
+    @property
+    def row_range(self) -> Tuple[int, int]:
+        """This rank's rows of the whole table."""
+        lo = self.axis.rank * self.num_embeddings
+        return lo, lo + self.num_embeddings
+
+    def table(self) -> torch.Tensor:
+        """The whole table: one all-gather over the axis (every rank of the
+        axis must call it); its backward keeps this rank's rows."""
+        return gather_rows(self.weight, self.axis)
+
+
+def id_tables(model: nn.Module) -> dict:
+    """Every node type's ID table of ``model`` (``embed_<type>``), the
+    patient table gathered once when it is a :class:`ShardedEmbedding`."""
+    out = {}
+    for nt in model.node_types:
+        emb = getattr(model, f"embed_{nt}")
+        out[nt] = emb.table() if isinstance(emb, ShardedEmbedding) else emb.weight
+    return out
+
+
+def global_shapes(model: nn.Module) -> dict:
+    """``model``'s state-dict shapes with each :class:`ShardedEmbedding` at
+    its whole table's rows: the shapes of a checkpoint."""
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    for name, module in model.named_modules():
+        if isinstance(module, ShardedEmbedding):
+            shapes[f"{name}.weight"] = (module.global_rows, module.embedding_dim)
+    return shapes
+
+
 def patient_rows(table: torch.Tensor, graph) -> torch.Tensor:
     """The rows of the global patient table that ``graph``'s patients read:
     the whole table on a full graph; on a cluster graph
@@ -119,7 +172,7 @@ def refuse_cluster_graph(graph) -> None:
         )
 
 
-def shared_bilinear_tables(model: nn.Module, graph) -> Tuple[torch.Tensor, torch.Tensor]:
+def shared_bilinear_tables(model: nn.Module, graph, patient_table: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The projected ``[N, rank]`` patient and lab tables of a model's
     shared bilinear term (``bilinear_source`` ``embedding`` or
     ``context``): the raw patient ID table, or each patient's value context
@@ -127,10 +180,11 @@ def shared_bilinear_tables(model: nn.Module, graph) -> Tuple[torch.Tensor, torch
     ``rgcn.py:488-531``, ``hgt.py:331-367``).  On a cluster graph the
     patient table is the cluster's window (:func:`patient_rows`), so the
     batch's local indices read their global rows (JAX offsets the indices
-    by the base instead)."""
+    by the base instead).  ``patient_table`` is the raw patient table the
+    forward has read (:func:`id_tables`)."""
     lab = model.embed_lab.weight
     if model.bilinear_source == "embedding":
-        u = patient_rows(model.embed_patient.weight, graph)
+        u = patient_rows(patient_table, graph)
     else:
         u, _ = patient_value_context(lab, graph.edges[PATIENT_LAB], getattr(model, "axis", None))
     return u @ model.bilinear_u, lab @ model.bilinear_l

@@ -59,6 +59,7 @@ from multi_modal_gnn_tpu_torch.models.layers import (
     PatientEncoder,
     bilinear_factor,
     get_activation,
+    id_tables,
     linear_in,
     make_dense,
     patient_rows,
@@ -77,8 +78,10 @@ def _et_key(et: EdgeTypeKey) -> str:
 
 def edge_head_stream(dropout_seed: int, axis) -> None:
     """Seed torch's generator for the edge heads' dropout with a stream of
-    this rank's own (JAX ``fold_in(edge_key, axis_index)``): the ranks'
-    batch shards draw independent masks."""
+    this rank's data shard (JAX ``fold_in(edge_key, axis_index(DATA_AXIS))``):
+    the batch shards draw independent masks, and the model axis's ranks of
+    one data shard (the 2-D layout) draw the same.  ``axis`` is the data
+    axis, whose ``rank`` is the data index."""
     torch.manual_seed(stream_seed(dropout_seed, "edge_dropout", axis.rank))
 
 
@@ -255,11 +258,15 @@ class HeteroRGCN(nn.Module):
     def node_types(self) -> Tuple[str, ...]:
         return tuple(name for name, _ in self.node_counts)
 
-    def encode_nodes(self, train: bool = False, graph: Optional[HeteroGraph] = None) -> Dict[str, torch.Tensor]:
+    def encode_nodes(
+        self, train: bool = False, graph: Optional[HeteroGraph] = None, tables: Optional[Dict] = None
+    ) -> Dict[str, torch.Tensor]:
         """Initial embeddings; the patient table goes through the encoder.
         On a cluster graph the patient rows are the cluster's window of the
-        global table (:func:`~multi_modal_gnn_tpu_torch.models.layers.patient_rows`)."""
-        x_dict = {nt: getattr(self, f"embed_{nt}").weight for nt in self.node_types}
+        global table (:func:`~multi_modal_gnn_tpu_torch.models.layers.patient_rows`).
+        ``tables``: the ID tables the forward has read (default:
+        :func:`~multi_modal_gnn_tpu_torch.models.layers.id_tables`)."""
+        x_dict = dict(id_tables(self) if tables is None else tables)
         if PATIENT in x_dict:
             x_dict[PATIENT] = self.patient_encoder(patient_rows(x_dict[PATIENT], graph), train)
         return x_dict
@@ -378,7 +385,8 @@ class HeteroRGCN(nn.Module):
         ``degrees`` is the per-pair patient lab-degree: given, it also builds
         the heads' tile masks; None, it is gathered here for the gate only.
         ``dropout_seed`` seeds the fused heads' dropout."""
-        initial = self.encode_nodes(train, graph)
+        tables = id_tables(self)
+        initial = self.encode_nodes(train, graph, tables)
         final = self.propagate(initial, graph, train)
         use_plans = self.impl == "pallas" and self.axis is None
         patient_plan = patient_plan if use_plans else None
@@ -392,7 +400,7 @@ class HeteroRGCN(nn.Module):
         )
         if self.shared_bilinear:
             # tables projected to rank width first, then the narrow rows gathered
-            u, c = shared_bilinear_tables(self, graph)
+            u, c = shared_bilinear_tables(self, graph, tables[PATIENT])
             pred = pred + (take_rows(u, p_idx, patient_plan) * take_rows(c, l_idx, lab_plan)).sum(-1)
         return pred
 
@@ -402,7 +410,8 @@ class HeteroRGCN(nn.Module):
         if self.training:
             raise RuntimeError("compute_node_state is an eval-mode forward: call model.eval() first")
         refuse_cluster_graph(graph)
-        initial = self.encode_nodes()
+        tables = id_tables(self)
+        initial = self.encode_nodes(tables=tables)
         final = self.propagate(initial, graph)
         state = {
             "init_p": initial[PATIENT],
@@ -413,7 +422,7 @@ class HeteroRGCN(nn.Module):
         }
         # the head source's factors live in the heads, which the request path runs
         if self.shared_bilinear:
-            state["bl_u"], state["bl_l"] = shared_bilinear_tables(self, graph)
+            state["bl_u"], state["bl_l"] = shared_bilinear_tables(self, graph, tables[PATIENT])
         return {k: v.detach() for k, v in state.items()}
 
     def predict_pairs_cached(self, state: Dict[str, torch.Tensor], p_idx, l_idx) -> torch.Tensor:

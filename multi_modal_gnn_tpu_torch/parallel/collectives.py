@@ -1,5 +1,6 @@
-"""Collectives over the data axis, as autograd Functions (JAX ``psum``,
-``pmax``, ``all_gather(tiled=True)``, ``axis_index``).
+"""Collectives over a mesh axis, as autograd Functions (JAX ``psum``,
+``pmax``, ``all_gather(tiled=True)``, ``axis_index``).  Each runs in its
+axis's process group (``DataAxis.group``; None, the default group).
 
 The gradient convention of the edge-sharded step.  Node tables and
 parameters are replicated, each rank's partial sums cover its own edges,
@@ -20,6 +21,13 @@ gradient.  So three things hold together:
 Summing the gradients without the ``1 / size`` share, or sharing the loss
 without summing the gradients, gives a wrong gradient; the parity tests
 against one process hold it.
+
+The 2-D layout (``parallel/dp2d.py``) adds :func:`gather_rows`, the
+patient table's all-gather over the model axis.  The model axis's ranks of
+one data index compute the same full-table gradient, so its backward is
+the rank's own row slice of the output gradient, not a sum over the model
+axis (which would count it ``m`` times); the slice's shares are then summed
+over the data axis like any other gradient.
 
 Every collective is the identity without an axis (``None``) or on a
 one-rank axis.  :data:`stats` counts each collective's calls, bytes and
@@ -65,33 +73,41 @@ def all_reduce_(t: torch.Tensor, axis: DataAxis, op: str = "sum") -> torch.Tenso
         return t
     t0 = time.perf_counter()
     reduce_op = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
-    dist.all_reduce(t, op=reduce_op)
+    dist.all_reduce(t, op=reduce_op, group=axis.group)
     _count(f"all_reduce_{op}", t, time.perf_counter() - t0)
     return t
 
 
-def all_gather(t: torch.Tensor, axis: DataAxis) -> torch.Tensor:
-    """The ranks' ``t`` concatenated along dim 0 in rank order (JAX
-    ``all_gather(tiled=True)``); no autograd."""
+def all_gather(t: torch.Tensor, axis: DataAxis, name: str = "all_gather") -> torch.Tensor:
+    """The axis's ranks' ``t`` concatenated along dim 0 in axis order (JAX
+    ``all_gather(tiled=True)``); no autograd.  Counted under ``name``."""
     if _solo(axis):
         return t
     t0 = time.perf_counter()
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(axis.size)]
-    dist.all_gather(parts, t)
+    dist.all_gather(parts, t, group=axis.group)
     out = torch.cat(parts)
-    _count("all_gather", out, time.perf_counter() - t0)
+    _count(name, out, time.perf_counter() - t0)
     return out
 
 
 def broadcast_(t: torch.Tensor, axis: DataAxis, src: int = 0) -> torch.Tensor:
-    """In-place broadcast of rank ``src``'s ``t``; no autograd."""
+    """In-place broadcast of the ``t`` of the axis's rank ``src``; no
+    autograd.  ``torch.distributed`` names the source by its global rank."""
     if _solo(axis):
         return t
     t0 = time.perf_counter()
-    dist.broadcast(t, src=src)
+    root = src if axis.group is None else dist.get_global_rank(axis.group, src)
+    dist.broadcast(t, src=root, group=axis.group)
     _count("broadcast", t, time.perf_counter() - t0)
     return t
+
+
+def barrier(axis: DataAxis) -> None:
+    """Wait until every rank of the axis is here."""
+    if not _solo(axis):
+        dist.barrier(group=axis.group)
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -123,6 +139,27 @@ class _AllReduceMax(torch.autograd.Function):
         return all_reduce_(g.clone(), ctx.axis) * wins / holders, None
 
 
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, shard, axis):
+        ctx.axis, ctx.rows = axis, shard.shape[0]
+        return all_gather(shard, axis, "table_gather")
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.axis.rank * ctx.rows
+        return g[lo : lo + ctx.rows].contiguous(), None
+
+
+def gather_rows(shard: torch.Tensor, axis: DataAxis) -> torch.Tensor:
+    """The whole table from the axis's row shards, in axis order; its
+    backward is this rank's row slice of the output gradient (module
+    docstring)."""
+    if _solo(axis):
+        return shard
+    return _GatherRows.apply(shard, axis)
+
+
 def all_reduce_sum(x: torch.Tensor, axis: DataAxis) -> torch.Tensor:
     """JAX ``psum``: the sum of every rank's ``x``; its backward sums the
     output gradient's shares (module docstring)."""
@@ -152,9 +189,9 @@ def _flat(tensors: List[torch.Tensor]) -> torch.Tensor:
     return torch.cat([t.reshape(-1) for t in tensors])
 
 
-def all_reduce_grads(params: Iterable[torch.nn.Parameter], axis: DataAxis) -> None:
-    """Sum the parameters' gradient shares over the ranks, one all-reduce
-    per dtype and device."""
+def all_reduce_grads(params: Iterable[torch.nn.Parameter], axis: DataAxis, scale: float = 1.0) -> None:
+    """Sum the parameters' gradient shares over the axis's ranks, one
+    all-reduce per dtype and device, and multiply the sums by ``scale``."""
     if _solo(axis):
         return
     groups: Dict[tuple, List[torch.Tensor]] = {}
@@ -163,6 +200,8 @@ def all_reduce_grads(params: Iterable[torch.nn.Parameter], axis: DataAxis) -> No
             groups.setdefault((p.grad.dtype, p.grad.device), []).append(p.grad)
     for grads in groups.values():
         flat = all_reduce_(_flat(grads), axis)
+        if scale != 1.0:
+            flat.mul_(scale)
         offset = 0
         for g in grads:
             n = g.numel()
@@ -170,10 +209,14 @@ def all_reduce_grads(params: Iterable[torch.nn.Parameter], axis: DataAxis) -> No
             offset += n
 
 
-def broadcast_module(module: torch.nn.Module, axis: DataAxis, src: int = 0) -> None:
-    """Make every rank's parameters and buffers rank ``src``'s."""
+def broadcast_module(module: torch.nn.Module, axis: DataAxis, src: int = 0, buffers_only: bool = False) -> None:
+    """Make every rank's parameters and buffers (only the floating-point
+    buffers with ``buffers_only``) the axis's rank ``src``'s."""
     if _solo(axis):
         return
+    tensors = [b for b in module.buffers() if b.is_floating_point()] if buffers_only else (
+        list(module.parameters()) + list(module.buffers())
+    )
     with torch.no_grad():
-        for t in list(module.parameters()) + list(module.buffers()):
+        for t in tensors:
             broadcast_(t.data, axis, src)

@@ -17,7 +17,9 @@ process:
   split order (JAX's ``out_specs P(DATA_AXIS)``);
 * ``fit``, checkpoints and resume are the base class's; rank 0 writes;
 * ``predict_pairs`` runs the given pairs whole on every rank (every rank
-  must call it: the forward all-reduces).
+  must call it: the forward all-reduces);
+* serving (``serving.py``) runs the unsharded model over the whole graph
+  (:meth:`DataParallelTrainer.serving_graph`), with no collective.
 
 With ``host_edges`` (a bundle's host edges, ``model.use_pallas``) every
 relation aggregates through K1 over its per-shard windowed plan, forward
@@ -87,19 +89,36 @@ class DataParallelTrainer(Trainer):
     ):
         device = resolve_device(device)
         self.axis = axis if axis is not None else init_axis(device, config.train.num_devices)
+        if self.world is None:  # 1-D: the data axis is every rank
+            self.world = self.axis
         check_graph_divisible(graph, self.axis.size)
         self.full_graph = graph
         self._host_edges = host_edges
         self._full_batches: Dict[str, SplitBatch] = {}
-        model = sharded_model(model, config, graph, self.axis, device)
+        self._serving_graph: Optional[HeteroGraph] = None
+        model = self._shard_model(model, config, graph, device)
         super().__init__(model, graph, masker, config, device=device)
         logger.info("Data-parallel trainer: rank %d of %d", self.axis.rank, self.axis.size)
+
+    def _shard_model(self, model, config: Config, graph: HeteroGraph, device):
+        """The model every rank trains: rank 0's weights, the data axis set."""
+        return sharded_model(model, config, graph, self.axis, device)
 
     def _place_graph(self, graph: HeteroGraph) -> HeteroGraph:
         """This rank's shard, with the value context's template cut from
         the whole graph's, and its per-shard K1 plans."""
         graph = shard_graph(self._attach_visibility(graph), self.axis, host_edges=self._host_edges)
         return self._attach_value_plan(graph.to(self.device))
+
+    def serving_model(self) -> torch.nn.Module:
+        return super().serving_model().unsharded()
+
+    def serving_graph(self) -> HeteroGraph:
+        """The whole graph, placed as a single process places it (the
+        visibility template, the value plan, the HGT's attention plans)."""
+        if self._serving_graph is None:
+            self._serving_graph = Trainer._place_graph(self, self.full_graph)
+        return self._serving_graph
 
     def full_batch(self, split: str) -> SplitBatch:
         """The whole split's batch on the device, with its degrees and lab

@@ -75,6 +75,7 @@ class MiniBatchDPTrainer(MiniBatchTrainer):
     ):
         device = resolve_device(device)
         self.axis = axis if axis is not None else init_axis(device, config.train.num_devices)
+        self.world = self.axis
         if not isinstance(bundle, GraphBundle):
             bundle = GraphBundle(graph=bundle, meta=GraphMeta(), host_edges=host_edges_of(bundle))
         self.full_graph = bundle.graph
@@ -95,6 +96,9 @@ class MiniBatchDPTrainer(MiniBatchTrainer):
         :class:`MiniBatchTrainer` keeps it), so the unsharded twin runs it,
         with no collective."""
         return self._forward_eval(self.eval_model(state).unsharded(), self.graph, batch)
+
+    def serving_model(self) -> torch.nn.Module:
+        return super().serving_model().unsharded()
 
     def _ensure_clusters(self) -> ClusterData:
         """The partition, each cluster's edge sets and batches cut to this

@@ -31,7 +31,8 @@ command raises without one, unless ``--device cpu`` is given.  A failed
 step ends the run with exit code 1.  The last line of standard output is a
 JSON object with each step's wall seconds.
 
-Over N ranks (a config with ``train.extras.parallel: dp``)::
+Over N ranks (a config with ``train.extras.parallel: dp``, or ``2d`` with
+``model_parallel`` M dividing N)::
 
     python -m torch.distributed.run --nproc-per-node N -m multi_modal_gnn_tpu_torch.pipeline \
         --config ... --no-confirm [--device cpu]
@@ -40,7 +41,9 @@ every rank runs the train step, edge-sharded (``parallel/dp.py``; each rank
 on card ``LOCAL_RANK % device_count``, NCCL when each has its own, else
 gloo); rank 0 alone runs the other steps, writes, and prints the step
 lines and the last line.  With ``WORLD_SIZE`` unset a ``parallel: dp``
-config trains on one rank.
+config trains on one rank.  A ``2d`` run's ``best_model.ckpt`` is JAX's
+sharded format (a ``.procNNN.npz`` file a rank), which the later steps
+read whole.
 """
 
 from __future__ import annotations
@@ -83,8 +86,10 @@ def _load_bundle(config, opts: RunOptions):
 
 def _load_trainer(config, bundle, opts: RunOptions, require_checkpoint: bool = False):
     """The model and masker of ``config`` with ``best_model.ckpt`` restored
-    as the live and the best state; the steps after train never train."""
+    as the live and the best state (a 2-D run's sharded files too); the
+    steps after train never train."""
     from multi_modal_gnn_tpu_torch.models.factory import build_model
+    from multi_modal_gnn_tpu_torch.training.checkpoint import proc_files
     from multi_modal_gnn_tpu_torch.training.masker import masker_from_config
     from multi_modal_gnn_tpu_torch.training.trainer import Trainer
 
@@ -92,7 +97,7 @@ def _load_trainer(config, bundle, opts: RunOptions, require_checkpoint: bool = F
     model = build_model(config, bundle.graph, device=opts.device)
     trainer = Trainer(model, bundle.graph, masker, config, device=opts.device)
     ckpt = Path(config.data.output_dir) / "best_model.ckpt"
-    if ckpt.exists():
+    if ckpt.exists() or proc_files(ckpt):
         trainer.restore(ckpt, force=opts.force)
         trainer.best_state = copy.deepcopy(trainer.model.state_dict())
     elif require_checkpoint:
@@ -302,7 +307,7 @@ def main(argv=None) -> int:
 
         if not parallel_mode(config):
             raise SystemExit(
-                f"launched over {world} ranks, but {args.config} sets no train.extras.parallel: dp"
+                f"launched over {world} ranks, but {args.config} sets no train.extras.parallel (dp | 2d)"
             )
         if not args.no_confirm:
             raise SystemExit("a launch over several ranks runs with --no-confirm")

@@ -119,21 +119,17 @@ def build_serving_fn(
 def serving_model(trainer) -> Model:
     """The model a trainer serves, in eval mode: its best validation state
     once ``fit`` has recorded one, else the live parameters (JAX
-    ``serving._serving_variables``).  A data-parallel trainer's graph is
-    its edge shard: serving from it is not ported (ROADMAP.md queue 1 item
-    8b); restore its ``best_model.ckpt`` into a single-process trainer, as
-    the pipeline's steps 4-8 do."""
-    if getattr(trainer, "axis", None) is not None:
-        raise NotImplementedError(
-            "serving straight from a data-parallel trainer is not ported (ROADMAP.md queue 1 "
-            "item 8b): restore its best_model.ckpt into a single-process Trainer"
-        )
-    return trainer.eval_model(trainer.best_state)
+    ``serving._serving_variables``).  From a data-parallel trainer (1-D or
+    2-D) it is the unsharded model with whole tables, which runs on
+    ``trainer.serving_graph()``, the whole graph, with no collective;
+    every rank of a 2-D trainer must ask for it (its patient table is
+    gathered)."""
+    return trainer.serving_model()
 
 
 def compute_trainer_state(trainer) -> Dict[str, torch.Tensor]:
     """:func:`compute_node_state` of the model the trainer serves."""
-    return compute_node_state(serving_model(trainer), trainer.graph)
+    return compute_node_state(serving_model(trainer), trainer.serving_graph())
 
 
 def build_trainer_serving_fn(
@@ -141,7 +137,7 @@ def build_trainer_serving_fn(
 ) -> Tuple[Callable, Dict[str, torch.Tensor]]:
     """:func:`build_serving_fn` over the model the trainer serves (its best
     state once ``fit`` has recorded one), as JAX ``build_serving_fn(trainer)``."""
-    return build_serving_fn(serving_model(trainer), trainer.graph, state)
+    return build_serving_fn(serving_model(trainer), trainer.serving_graph(), state)
 
 
 def predict_patient(fn: Callable, patient: int, num_labs: int) -> torch.Tensor:
@@ -236,11 +232,16 @@ def export_serving(
     ``conformal`` (``calibrate_from_trainer(trainer)``) ships per-lab
     interval radii in ``conformal.json`` for ``predict(...,
     return_interval=True)``; ``conformal_cold`` (``calibrate_cold_start``)
-    the fold-in channel's own radii in ``conformal_cold.json``."""
+    the fold-in channel's own radii in ``conformal_cold.json``.
+
+    Every rank of a data-parallel trainer calls it (:func:`serving_model`);
+    only the one that ``writes_outputs`` computes and writes the artifact."""
     model = serving_model(trainer)
     path = Path(path)
+    if not trainer.writes_outputs:
+        return path
     path.mkdir(parents=True, exist_ok=True)
-    state = compute_node_state(model, trainer.graph)
+    state = compute_node_state(model, trainer.serving_graph())
     names, leaves = _leaves(model, state)
     device = leaves[-1].device
     np.savez(path / "weights.npz", **{f"w{i}": _to_numpy(t) for i, t in enumerate(leaves)})

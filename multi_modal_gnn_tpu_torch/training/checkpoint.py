@@ -17,8 +17,12 @@ through :func:`load_flax_checkpoint`, with no ``flax`` or ``msgpack``
 installed, and the sharded format of a JAX multi-controller run
 (``<path>.procNNN.npz``, :func:`load_jax_sharded_checkpoint`).  Under 1-D
 data parallelism the port's state is replicated, so rank 0 writes the
-port's single-file format; writing the sharded format belongs with the
-row-sharded patient table (ROADMAP.md queue 1 item 8b).
+port's single-file format.  The 2-D trainer (``parallel/dp2d.py``), whose
+patient table is cut over the ranks, writes JAX's sharded format
+(:func:`save_sharded_checkpoint` over :func:`jax_state_leaves`), which JAX's
+``load_checkpoint_sharded`` reads, and which restores into any other
+partition: the reader assembles whole leaves and each trainer keeps its
+rows.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import numpy as np
 import torch
 
 from multi_modal_gnn_tpu_torch.models.convert import flax_paths, state_dict_from_flax
+from multi_modal_gnn_tpu_torch.models.layers import global_shapes
 from multi_modal_gnn_tpu_torch.utils.io import load_json, save_json
 from multi_modal_gnn_tpu_torch.utils.msgpack import flax_restore
 
@@ -218,7 +223,9 @@ def load_jax_sharded_checkpoint(path, model: torch.nn.Module) -> Tuple[Dict, Dic
     ``best_state`` then ``state``, the parameters, the BatchNorm
     statistics, the optimizer state (``inject_hyperparams``' count and
     learning rate, Adam's count, ``mu``, ``nu``) and the step.  The leaf
-    count and every shape are checked against that layout."""
+    count and every shape (a row-sharded table's whole shape,
+    :func:`~multi_modal_gnn_tpu_torch.models.layers.global_shapes`) are
+    checked against that layout; the payload holds whole tables."""
     path = Path(path)
     leaves, meta = _sharded_leaves(path)
     params, stats = flax_paths(model)
@@ -229,7 +236,7 @@ def load_jax_sharded_checkpoint(path, model: torch.nn.Module) -> Tuple[Dict, Dic
             f"{path}: {len(leaves)} leaves, the JAX trainer state of this model has {2 * per_state} "
             "(another model, or an optimizer other than the port's Adam chain)"
         )
-    shapes = {key: tuple(v.shape) for key, v in model.state_dict().items()}
+    shapes = global_shapes(model)
 
     def state(leaves):
         i = 0
@@ -267,3 +274,83 @@ def load_jax_sharded_checkpoint(path, model: torch.nn.Module) -> Tuple[Dict, Dic
     }
     logger.info("Loaded sharded JAX checkpoint from %s (%d files)", path, len(proc_files(path)))
     return payload, meta
+
+
+# -- writing the sharded format ------------------------------------------------
+
+
+def _flax_leaf(path: Tuple[str, ...], t: torch.Tensor) -> np.ndarray:
+    a = t.detach().cpu().numpy()
+    return np.ascontiguousarray(a.T) if path[-1] == "kernel" else a
+
+
+def jax_state_leaves(
+    model: torch.nn.Module, state: Mapping[str, torch.Tensor], adam: Mapping, lr: float
+) -> List[Tuple[Optional[str], np.ndarray]]:
+    """One JAX ``TrainState`` as ``(state_dict key or None, array)`` pairs
+    in its flatten order (:func:`load_jax_sharded_checkpoint`'s layout):
+    the parameters in flax's layout, the BatchNorm statistics,
+    ``inject_hyperparams``' count and learning rate, Adam's count, ``mu``,
+    ``nu``, and the step.  The counters are the optimizer's step count
+    (int32, as JAX keeps them; 0 and zero moments before the first step or
+    after the warm start's fresh Adam); ``adam`` is
+    :func:`adam_state_by_name`'s layout, ``state`` a ``state_dict`` of
+    ``model``'s layout (a row-sharded table holds this rank's rows)."""
+    params, stats = flax_paths(model)
+    steps = [float(entry["step"]) for entry in adam.values()]
+    count = np.asarray(int(max(steps)) if steps else 0, np.int32)
+    leaves = [(key, _flax_leaf(path, state[key])) for path, key in params]
+    leaves += [(key, _flax_leaf(path, state[key])) for path, key in stats]
+    leaves += [(None, count), (None, np.asarray(lr, np.float32)), (None, count.copy())]
+    for moment in ("exp_avg", "exp_avg_sq"):
+        for path, key in params:
+            value = adam[key][moment] if key in adam else torch.zeros_like(state[key])
+            leaves.append((key, _flax_leaf(path, value)))
+    leaves.append((None, count.copy()))
+    return leaves
+
+
+def save_sharded_checkpoint(
+    path,
+    leaves: List[Tuple[Optional[str], np.ndarray]],
+    metadata: Dict,
+    rank: int,
+    world: int,
+    rows: Optional[Dict[str, Tuple[int, int]]] = None,
+    owns_rows: bool = False,
+) -> Path:
+    """This rank's ``<path>.procNNN.npz`` of JAX's sharded format
+    (``save_checkpoint_sharded``): ``leaves`` (both states'
+    :func:`jax_state_leaves`) by position, each chunk written once, by the
+    lowest rank that holds it.  A leaf whose key is in ``rows`` holds rows
+    ``[lo, hi)`` of its whole array, written by this rank when
+    ``owns_rows``; every other leaf is replicated and written by rank 0
+    (keys ``"<leaf>||<lo>:<hi>,..."``, ``"<leaf>||"`` for a scalar).  Rank 0
+    first removes a stale ``<path>`` and the files of ranks past ``world``,
+    and writes the sidecar with ``sharded_checkpoint: {num_processes,
+    num_leaves}``.  The caller waits for every rank before a file is read."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    rows = rows or {}
+    if rank == 0:
+        # a single file at <path> would shadow this checkpoint at load
+        path.unlink(missing_ok=True)
+        for f in proc_files(path):
+            if int(f.name[len(path.name) + len(".proc") :].split(".")[0]) >= world:
+                f.unlink()
+    chunks: Dict[str, np.ndarray] = {}
+    for i, (key, value) in enumerate(leaves):
+        rest = [f"0:{d}" for d in value.shape[1:]]
+        if key in rows:
+            if owns_rows:
+                lo, hi = rows[key]
+                chunks[f"{i}||" + ",".join([f"{lo}:{hi}", *rest])] = value
+        elif rank == 0:
+            chunks[f"{i}||" + ",".join(f"0:{d}" for d in value.shape)] = value
+    np.savez(path.parent / f"{path.name}.proc{rank:03d}.npz", **chunks)
+    if rank == 0:
+        save_json(
+            {**metadata, "sharded_checkpoint": {"num_processes": world, "num_leaves": len(leaves)}}, _sidecar(path)
+        )
+    logger.info("Saved sharded checkpoint %s (rank %d: %d chunks)", path, rank, len(chunks))
+    return path

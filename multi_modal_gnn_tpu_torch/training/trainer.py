@@ -26,13 +26,15 @@ epoch), so a run restored from a checkpoint (:meth:`Trainer.restore`) continues 
 bit for bit on the CPU; on the card within the order of the kernels' float
 atomics.
 
-The data-parallel trainers (``parallel/dp.py``, ``parallel/minibatch_dp.py``)
-set :attr:`Trainer.axis`: the graph is then the rank's edge shard, the
-losses are all-reduced, the backward starts from the rank's share of the
-loss and the parameters' gradients are summed over the ranks after it
-(``parallel/collectives.py``); only rank 0 writes checkpoints, history and
-outputs.  ``train.extras.parallel: dp | data`` routes :func:`train_pipeline`
-to them.
+The data-parallel trainers (``parallel/dp.py``, ``parallel/minibatch_dp.py``,
+``parallel/dp2d.py``) set :attr:`Trainer.axis`: the graph is then the
+rank's edge shard, the losses are all-reduced, the backward starts from the
+rank's share of the loss and the parameters' gradients are summed over the
+ranks after it (``parallel/collectives.py``, :meth:`Trainer._reduce_grads`);
+only global rank 0 writes checkpoints, history and outputs (the 2-D trainer:
+every rank writes its own file of a sharded checkpoint).
+``train.extras.parallel: dp | data | 2d | dp2d`` routes
+:func:`train_pipeline` to them.
 """
 
 from __future__ import annotations
@@ -108,8 +110,10 @@ class Trainer:
     there; an HGT on the kernel path gets the graph's attention plans
     (:func:`~multi_modal_gnn_tpu_torch.graph.attn_plan.ensure_attn_plans`)."""
 
-    # the data axis of a data-parallel trainer (parallel/dp.py); None: one process
+    # the data axis of a data-parallel trainer (parallel/dp.py) and the axis
+    # of every rank of its launch (1-D: the same); None: one process
     axis = None
+    world = None
 
     def __init__(
         self,
@@ -186,8 +190,14 @@ class Trainer:
     @property
     def writes_outputs(self) -> bool:
         """Whether this process writes checkpoints, history and outputs:
-        rank 0 of a data-parallel run, any single process."""
-        return axis_index(self.axis) == 0
+        global rank 0 of a data-parallel run, any single process."""
+        return axis_index(self.world) == 0
+
+    @property
+    def saves_checkpoints(self) -> bool:
+        """Whether this process writes checkpoint files (a sharded
+        checkpoint has one a rank)."""
+        return self.writes_outputs
 
     # -- batches -----------------------------------------------------------
 
@@ -262,9 +272,14 @@ class Trainer:
         loss = weighted_regression_loss(preds, batch.values, weights, sup_mask, self._loss_type, self.axis)
         self.optimizer.zero_grad(set_to_none=False)
         loss_share(loss, self.axis).backward()
-        all_reduce_grads(self.model.parameters(), self.axis)
+        self._reduce_grads()
         self.optimizer.step()
         return loss.detach()
+
+    def _reduce_grads(self) -> None:
+        """Between ``backward()`` and the Adam step: sum the parameters'
+        gradient shares over the data axis (nothing without one)."""
+        all_reduce_grads(self.model.parameters(), self.axis)
 
     def train_step(
         self,
@@ -415,6 +430,7 @@ class Trainer:
             self.restore(resume_from)
         # the ranks of a data-parallel run train in step; rank 0 writes
         write_dir = output_dir if self.writes_outputs else None
+        save_dir = output_dir if self.saves_checkpoints else None
         metrics = MetricsWriter(write_dir / "metrics.jsonl") if write_dir is not None else None
 
         logger.info("Starting training: %d epochs (from epoch %d)", tc.epochs, self.epoch)
@@ -464,15 +480,15 @@ class Trainer:
                         break
             if improved:
                 self.best_state = copy.deepcopy(self.model.state_dict())
-                if write_dir is not None:
-                    self._save(write_dir / "best_model.ckpt")
+                if save_dir is not None:
+                    self._save(save_dir / "best_model.ckpt")
             if (
-                write_dir is not None
+                save_dir is not None
                 and lc.save_checkpoints
                 and not stop
                 and self.epoch % max(lc.checkpoint_interval, 1) == 0
             ):
-                self._save(write_dir / f"checkpoint_epoch_{self.epoch}.ckpt")
+                self._save(save_dir / f"checkpoint_epoch_{self.epoch}.ckpt")
 
         total_time = time.perf_counter() - t_start
         n_train = self.masker.split_sizes()["train"]
@@ -562,9 +578,7 @@ class Trainer:
                 f"(checkpoint model hash {ckpt_hash[:12]}.. != live {live_hash[:12]}..). "
                 "Pass force=True to restore anyway."
             )
-        self.model.load_state_dict(payload["model"])
-        load_adam_state(self.model, self.optimizer, payload["adam"])
-        self.best_state = {k: v.to(self.device) for k, v in payload["best_model"].items()}
+        self._load_payload(payload)
         self.epoch = int(meta.get("epoch", 0))
         self.best_val_loss = float(meta.get("best_val_loss", float("inf")))
         self.patience_counter = int(meta.get("patience_counter", 0))
@@ -575,6 +589,37 @@ class Trainer:
         for k, v in (meta.get("history") or {}).items():
             self.history[k] = list(v)
         logger.info("Resumed training at epoch %d (best val %.4f)", self.epoch, self.best_val_loss)
+
+    def _load_payload(self, payload: dict) -> None:
+        """The live and best states and Adam's state of a checkpoint's
+        payload (whole tables, on the CPU)."""
+        self.model.load_state_dict(payload["model"])
+        load_adam_state(self.model, self.optimizer, payload["adam"])
+        self.best_state = {k: v.to(self.device) for k, v in payload["best_model"].items()}
+
+    # -- the whole model (serving, the warm start) ---------------------------
+
+    def global_state(self, state: Optional[dict] = None) -> dict:
+        """``state`` (default: the live ``state_dict``) with every table
+        whole; the 2-D trainer gathers its patient table (every rank must
+        call it)."""
+        return self.model.state_dict() if state is None else state
+
+    def load_global_state(self, state: dict) -> None:
+        """Load a state with whole tables into the live model (the 2-D
+        trainer keeps its rows of the patient table)."""
+        self.model.load_state_dict(state)
+
+    def serving_model(self) -> torch.nn.Module:
+        """The model serving reads, in eval mode: the best validation state
+        once ``fit`` has recorded one, else the live parameters (JAX
+        ``serving._serving_variables``), without a data axis and with whole
+        tables, for :meth:`serving_graph`."""
+        return self.eval_model(self.best_state)
+
+    def serving_graph(self) -> HeteroGraph:
+        """The whole graph :meth:`serving_model` runs on, on the device."""
+        return self.graph
 
 
 def cluster_count(config: Config, num_train: int) -> int:
@@ -609,8 +654,10 @@ def train_pipeline(
     of the launch (JAX ``trainer.py:849-900``): full batch with
     :class:`~multi_modal_gnn_tpu_torch.parallel.dp.DataParallelTrainer`,
     clusters with :class:`~multi_modal_gnn_tpu_torch.parallel.minibatch_dp.MiniBatchDPTrainer`;
-    with ``model.use_pallas`` every relation gets its per-shard K1 plans.
-    Only rank 0 writes.
+    ``2d | dp2d`` with :class:`~multi_modal_gnn_tpu_torch.parallel.dp2d.TwoDTrainer`
+    over ``train.extras.model_parallel`` (default 2) model ranks; with
+    ``model.use_pallas`` every relation gets its per-shard K1 plans.
+    Only global rank 0 writes (each rank its file of a 2-D checkpoint).
     ``train.extras.warm_start: als | sideinfo`` wires the bilinear channel
     into the model config (:func:`~multi_modal_gnn_tpu_torch.training.warmstart.wire_warm_start`)
     and plants the baseline before ``fit``, as JAX ``train_pipeline`` does."""
@@ -683,10 +730,12 @@ def _parallel_trainer(config: Config, bundle, masker, model, n_clusters: int, de
         )
     else:
         from multi_modal_gnn_tpu_torch.parallel.dp import DataParallelTrainer
+        from multi_modal_gnn_tpu_torch.parallel.dp2d import TwoDTrainer
 
         host_edges = None
         if config.model.use_pallas:
             host_edges = getattr(bundle, "host_edges", None) or host_edges_of(graph)
-        trainer = DataParallelTrainer(graph, masker, config, model=model, device=device, host_edges=host_edges)
-    logger.info("Parallel training (%s) over %d ranks", parallel_mode(config), trainer.axis.size)
+        cls = TwoDTrainer if parallel_mode(config) in ("2d", "dp2d") else DataParallelTrainer
+        trainer = cls(graph, masker, config, model=model, device=device, host_edges=host_edges)
+    logger.info("Parallel training (%s) over %d ranks", parallel_mode(config), trainer.world.size)
     return trainer

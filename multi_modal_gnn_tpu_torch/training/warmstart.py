@@ -17,9 +17,9 @@ then gets a fresh Adam state, ``best_val_loss`` from one validation and
 only improve on the baseline.
 
 The plants work on ``state_dict`` s (name -> tensor), as the JAX ones work
-on flax parameter trees, and return a new one.  The JAX
-``_plant_preserving_sharding`` (table-sharded trainers) waits for the
-multi-device trainers.
+on flax parameter trees, and return a new one.  A 2-D trainer
+(``parallel/dp2d.py``) hands the plant its whole tables and keeps its rows
+(:func:`warm_start_trainer`; JAX ``_plant_preserving_sharding``).
 """
 
 from __future__ import annotations
@@ -158,11 +158,17 @@ def warm_start_trainer(
     stronger :class:`SideInfoALSBaseline`) and plant it into the live model;
     then a fresh Adam state, ``best_val_loss = validate()`` and
     ``best_state`` a copy of the planted state, which ``fit`` keeps unless
-    an epoch beats it.  Returns the fitted baseline."""
+    an epoch beats it.  Returns the fitted baseline.
+
+    The plant is built on whole tables (``trainer.global_state``); each rank
+    of a 2-D trainer keeps its rows of the patient factors and clears its
+    own Adam state (JAX ``_plant_preserving_sharding``); every rank fits
+    the same ALS on the whole train split."""
     graph = trainer.graph
     tr_p, tr_l, tr_v = trainer.masker.split_arrays("train")
     counts = (graph.num_nodes(PATIENT), graph.num_nodes(LAB))
-    state = trainer.model.state_dict()
+    # whole tables: the 2-D trainer's patient table is cut over its model axis
+    state = trainer.global_state()
     if memberships is not None:
         baseline = SideInfoALSBaseline(
             *counts, rank=rank, mem_rank=mem_rank, reg=reg, ridge_reg=ridge_reg, iters=iters,
@@ -174,7 +180,7 @@ def warm_start_trainer(
             tr_v, tr_p, tr_l
         )
         planted = als_warm_start_params(state, baseline)
-    trainer.model.load_state_dict(planted)
+    trainer.load_global_state(planted)
     trainer.optimizer.state.clear()  # Adam's moments start again from the plant
     trainer.best_val_loss = trainer.validate()
     trainer.best_state = {k: v.clone() for k, v in trainer.model.state_dict().items()}

@@ -596,13 +596,13 @@ def test_config_takes_jax_dtypes_and_hashes_them():
 
 @pytest.mark.parametrize(
     "section",
-    [{"model": {"compute_dtype": "bfloat16"}, "train": {"extras": {"parallel": "2d"}}},
+    [{"model": {"compute_dtype": "bfloat16"}, "train": {"extras": {"parallel": "gspmd"}}},
      {"model": {"compute_dtype": "float16", "extras": {"value_context": True}}}],
     ids=["parallel", "float16"],
 )
 def test_config_refuses_what_the_bf16_slice_does_not_run(section):
     """bfloat16 runs everything the float32 config runs on one card; what is
-    refused stays refused (the 2-D modes, queue 1 item 8b; other dtypes)."""
+    refused stays refused (``gspmd``, queue 1 item 8c; other dtypes)."""
     with pytest.raises(ConfigError, match="queue 1 item 8|float32\\|bfloat16\\|auto"):
         Config.from_dict(section)
 

@@ -12,8 +12,9 @@ pipeline command line (``python -m multi_modal_gnn_tpu_torch.pipeline
 --device cpu``) on a tiny synthetic config written by ``save_config``:
 preprocess, graph build, train, evaluate, audit, inference and the serving
 export, whose artifact ``ServingModel`` then loads and serves; 1-D data
-parallelism on one rank (``train.extras.parallel: dp``) and the sharded
-graph artifact written and loaded; and the
+parallelism on one rank (``train.extras.parallel: dp``, and ``2d`` with
+``model_parallel: 1``) and the sharded graph artifact written and loaded;
+and the
 raw-data ingest: small MIMIC-III and eICU raw directories through
 ``preprocess_pipeline`` and the graph build.  matplotlib, sklearn,
 networkx and umap are blocked too, as on the card: the command line's
@@ -171,6 +172,12 @@ SCRIPT = textwrap.dedent(
         base = save_graph_sharded(GraphBundle(graph, GraphMeta(), host_edges_of(graph)), Path(out) / "g", 2,
                                   kernel_plans=True)
         assert load_graph_distributed(base, 1, 2).graph.edges["patient", "has_lab", "lab"].shard_win_windows > 0
+    # the 2-D layout on one rank (model_parallel 1): the sharded checkpoint's one file
+    two_d_cfg = Config.from_dict({"model": {"hidden_dim": 16, "use_pallas": True},
+                                  "train": {"epochs": 1, "extras": {"parallel": "2d", "model_parallel": 1}}})
+    with tempfile.TemporaryDirectory() as out:
+        trainer, results = train_pipeline(two_d_cfg, graph, out, device="cpu")
+        assert type(trainer).__name__ == "TwoDTrainer" and (Path(out) / "best_model.ckpt.proc000.npz").exists()
     # the raw-data ingest: MIMIC-III (the graph core's scan) and eICU CSVs to
     # interim tables and a graph, with no pandas
     from multi_modal_gnn_tpu_torch.data.preprocess import preprocess_pipeline

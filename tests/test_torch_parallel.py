@@ -23,8 +23,10 @@ and take the same injected supervision masks, with dropout 0, on
   tests), the validation loss and the test predictions, in split order,
   against the single process; the ranks' states identical;
 * the routes and refusals: ``train_pipeline`` on one rank, ``2d`` /
-  ``gspmd`` naming ROADMAP item 8b, an indivisible batch padding and a
-  ``num_devices`` that is not the world size with JAX's errors;
+  ``dp2d`` accepted with ``model_parallel`` (``tests/test_torch_dp2d.py``
+  trains them) and ``gspmd`` refused naming ROADMAP item 8c, an
+  indivisible batch padding and a ``num_devices`` that is not the world
+  size with JAX's errors;
 * the dry-run tool over 2 ranks.
 """
 
@@ -316,10 +318,18 @@ def test_ranks_hold_one_state(runs):
 
 @pytest.mark.parametrize("mode", ["2d", "dp2d", "gspmd"])
 def test_2d_modes_name_item_8b(mode):
-    with pytest.raises(ConfigError, match="item 8b"):
-        Config.from_dict({"train": {"extras": {"parallel": mode}}})
-    with pytest.raises(ConfigError, match="item 8b"):
-        Config.from_dict({"train": {"extras": {"parallel": "dp", "model_parallel": 2}}})
+    """The 2-D modes of ROADMAP item 8b: ``2d`` and ``dp2d`` are accepted
+    with ``model_parallel``; ``gspmd`` is refused, naming item 8c."""
+    from multi_modal_gnn_tpu_torch.training.trainer import parallel_mode
+
+    if mode == "gspmd":
+        with pytest.raises(ConfigError, match="item 8c"):
+            Config.from_dict({"train": {"extras": {"parallel": mode, "model_parallel": 2}}})
+        return
+    cfg = Config.from_dict({"train": {"extras": {"parallel": mode, "model_parallel": 2}}})
+    assert parallel_mode(cfg) == mode and cfg.train.extras["model_parallel"] == 2
+    with pytest.raises(ConfigError, match="model_parallel must be a positive integer"):
+        Config.from_dict({"train": {"extras": {"parallel": mode, "model_parallel": 0}}})
 
 
 def test_indivisible_batch_and_rank_count_are_refused():

@@ -118,7 +118,7 @@ def test_train_config_reads_the_jax_section():
     [
         {"batch_size": 0},
         {"optimizer": {"type": "sgd"}},
-        {"parallel": "2d"},
+        {"parallel": "2d", "model_parallel": 0},
         {"num_clusters": 8, "parallel": "gspmd"},
         {"cluster_balance": "nodes"},
         {"warm_start": True},

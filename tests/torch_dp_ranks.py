@@ -147,3 +147,156 @@ def minibatch_checks(jobs: dict) -> dict:
             "pinned": [g.patient_lab_degree.device.type for g in cd.subgraphs],
         }
     return out
+
+
+# -- the 2-D layout (tests/test_torch_dp2d.py) -------------------------------
+
+
+def _wait_for(path: str, timeout: float = 300.0) -> None:
+    import os
+    import time
+
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} never appeared")
+        time.sleep(0.1)
+
+
+def _table_state(trainer) -> dict:
+    """This rank's rows of the patient table and of its Adam moments."""
+    param = trainer.model.embed_patient.weight
+    adam = trainer.optimizer.state[param]
+    return {
+        "rows": trainer.model.embed_patient.row_range,
+        "weight": param.detach().numpy().copy(),
+        "exp_avg": adam["exp_avg"].numpy().copy(),
+        "exp_avg_sq": adam["exp_avg_sq"].numpy().copy(),
+    }
+
+
+def _two_d(job, case, mesh, host_edges=True):
+    from multi_modal_gnn_tpu_torch.config import Config
+    from multi_modal_gnn_tpu_torch.parallel.dp2d import TwoDTrainer
+    from multi_modal_gnn_tpu_torch.training import EdgeMasker
+
+    cfg = Config.from_dict(case["config"])
+    bundle = port_bundle(job["spec"], case["config"])
+    model = model_with(cfg, bundle.graph, case["state"]) if "state" in case else None
+    return TwoDTrainer(
+        bundle.graph, EdgeMasker(bundle.graph, seed=job["seed"]), cfg, model=model, mesh=mesh, device="cpu",
+        host_edges=bundle.host_edges if case.get("plans") else None,
+    ), bundle
+
+
+def two_d_checks(job: dict) -> dict:
+    """Every check of ``tests/test_torch_dp2d.py`` on this rank of a
+    ``2 x 2`` mesh: the cases' injected steps, a step with dropout, the
+    sharded checkpoint written and JAX's restored (on the mesh and on a
+    ``1 x 2`` sub-mesh), the warm start, serving from the DP and 2-D
+    trainers, and ``train_pipeline`` with ``parallel: 2d``."""
+    import torch.distributed as dist
+
+    from multi_modal_gnn_tpu_torch.config import Config
+    from multi_modal_gnn_tpu_torch.ops import segment_kernels
+    from multi_modal_gnn_tpu_torch.parallel import collectives
+    from multi_modal_gnn_tpu_torch.parallel.dp import DataParallelTrainer
+    from multi_modal_gnn_tpu_torch.parallel.mesh import DataAxis, Mesh2D, init_2d_axes
+    from multi_modal_gnn_tpu_torch.parallel.sharding import shard_rows
+    from multi_modal_gnn_tpu_torch.serving import build_trainer_serving_fn, export_serving
+    from multi_modal_gnn_tpu_torch.training import EdgeMasker
+    from multi_modal_gnn_tpu_torch.training.trainer import train_pipeline
+    from multi_modal_gnn_tpu_torch.training.warmstart import warm_start_trainer
+
+    torch.set_num_threads(1)
+    mesh = init_2d_axes(torch.device("cpu"), 0, 2)
+    # every rank creates both 1 x 2 sub-meshes' groups, in one order
+    r = mesh.world.rank
+    halves = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+    half = DataAxis(r % 2, 2, mesh.world.backend, halves[r // 2])
+    sub = Mesh2D(data=DataAxis(), model=half, world=half)
+    out = {"rank": r, "data": mesh.data.rank, "model": mesh.model.rank, "cases": {}}
+
+    # the cases' injected steps, dropout 0
+    for name, case in job["cases"].items():
+        trainer, _ = _two_d(job, case, mesh)
+        batch = trainer.get_batch("train")
+        segment_kernels.reset_launch_counts()
+        collectives.reset_stats()
+        losses = []
+        for i, mask in enumerate(case["masks"]):
+            losses.append(trainer.train_step(batch, shard_rows(torch.from_numpy(mask), trainer.axis), 0))
+            if i == 0:
+                first = _table_state(trainer)
+                stats = {k: dict(v) for k, v in collectives.stats.items()}
+        es = next(iter(trainer.graph.edges.values()))
+        out["cases"][name] = {
+            "losses": losses, "val": trainer.validate("val"), "test_preds": trainer.predict("test"),
+            "state": numpy_state(trainer.model), "first": first, "stats": stats,
+            "shard_plans": es.shard_win_src is not None, "launches": dict(segment_kernels.launch_counts),
+        }
+        if name == job["checkpoint_case"]:
+            trainer.epoch = len(losses)
+            trainer._save(job["port_ckpt"])
+            out["ckpt_val"] = trainer.validate("val")
+
+    # replicas across the model axis after steps with dropout
+    case = job["dropout"]
+    trainer, _ = _two_d(job, case, mesh)
+    batch = trainer.get_batch("train")
+    for i, mask in enumerate(case["masks"]):
+        trainer._seeded_step(batch, shard_rows(torch.from_numpy(mask), trainer.axis), 100 + i)
+    out["dropout"] = {
+        "state": numpy_state(trainer.model),
+        "adam": {n: {k: v.numpy().copy() for k, v in trainer.optimizer.state[p].items()}
+                 for n, p in trainer.model.named_parameters()},
+    }
+
+    # JAX's 4 x 2 checkpoint into this 2 x 2 mesh and into a 1 x 2 sub-mesh
+    _wait_for(job["jax_ckpt_done"])
+    restored = {}
+    for label, m in (("2x2", mesh), ("1x2", sub)):
+        trainer, _ = _two_d(job, job["restore"], m)
+        trainer.restore(job["jax_ckpt"])
+        restored[label] = {"val": trainer.validate("val"), "rows": trainer.model.embed_patient.row_range,
+                           "epoch": trainer.epoch}
+    out["restored"] = restored
+
+    # the warm start plants each rank's rows
+    trainer, _ = _two_d(job, job["warm"], mesh)
+    warm_start_trainer(trainer, rank=4, reg=3.0)
+    out["warm_val"] = trainer.best_val_loss
+    out["warm_step"] = len(trainer.optimizer.state)
+
+    # serving straight from the DP (4 ranks) and 2-D trainers after 3 epochs
+    case = job["serving"]
+    cfg = Config.from_dict(case["config"])
+    bundle = port_bundle(job["spec"], case["config"])
+    p_idx, l_idx = case["pairs"]
+    dp = DataParallelTrainer(
+        bundle.graph, EdgeMasker(bundle.graph, seed=job["seed"]), cfg, model=model_with(cfg, bundle.graph, case["state"]),
+        axis=mesh.world, device="cpu",
+    )
+    two_d, _ = _two_d(job, case, mesh)
+    served = {}
+    for label, t in (("dp", dp), ("2d", two_d)):
+        for _ in range(3):
+            t.train_epoch()
+            t.epoch += 1
+        fn, _ = build_trainer_serving_fn(t)
+        served[label] = fn(p_idx, l_idx).numpy()
+    export_serving(dp, bundle, job["export_dir"])
+    out["served"] = served
+
+    # train_pipeline routes parallel: 2d
+    case = job["pipeline"]
+    trainer, results = train_pipeline(
+        Config.from_dict(case["config"]), port_bundle(job["spec"], case["config"]), case["out"], device="cpu"
+    )
+    es = next(iter(trainer.graph.edges.values()))
+    out["pipeline"] = {
+        "type": type(trainer).__name__, "shard_plans": es.shard_win_src is not None, "test_loss": results["test_loss"],
+        "table_rows": trainer.model.embed_patient.weight.shape[0], "moments": trainer.optimizer.state[
+            trainer.model.embed_patient.weight]["exp_avg"].shape[0],
+    }
+    return out
