@@ -7,8 +7,9 @@ channels (value context, the bilinear channel, the side-information warm
 start), Cluster-GCN mini-batch training, the bfloat16 compute path, the
 raw-data ingest path (raw MIMIC-III / eICU CSVs, the host graph core), the
 visualize step with the performance ceilings, 1-D data parallelism over
-two ranks, and the 2-D layout (patient table cut over a model axis) over
-four, on one CUDA GPU.
+two ranks, the 2-D layout (patient table cut over a model axis) over
+four, and one-way or disabled relations and the SGD optimizer, on one CUDA
+GPU.
 
     python3 chip_smoke.py
 
@@ -339,12 +340,32 @@ Phases, each printing one line with its seconds:
                    build_trainer_serving_fn on 4,096 pairs within 1e-5 +
                    1e-5 |ref|; (f) each rank's peak memory, the first
                    step's collectives (calls, bytes, host seconds)
+ 32. relations     one-way and disabled relations and SGD at full width:
+                   (a) everything one-way and patient_diagnosis disabled,
+                   built from phase 3's numbered edge arrays: the relation
+                   sets JAX builds, every edge set's plans bit-equal to
+                   phase 3's, each relation's tier by JAX's rule (no mirror:
+                   windowed); (b) K1 on the one-way graph's windowed
+                   relations (patient -> lab over the 100,000-row table)
+                   against its plain version, NaN rows past the table too,
+                   in turns with torch.sparse.mm, with its bound; (c) the
+                   one-way RGCN step, kernel tiers against the plain tiers
+                   (impl "xla") on the card at phase 8's bounds, K1 and
+                   K4f / K4b launched, K2f / K2b / K3 not; (d) the one-way
+                   HGT step, flash against segment tier at phase 13's
+                   bounds, no patient group; (e) the diagnosis-disabled
+                   RGCN step as (c), every RGCN kernel launched; (f) 3 SGD
+                   steps (lr 1e-3, momentum 0.9) on phase 3's graph, kernel
+                   against plain tiers, parameters within SGD_PARAM_ATOL;
+                   (g) one-way RGCN epochs (dropout 0.2), median of 5
 Then a JSON line of per-kernel results (a kernel with a bf16 instantiation
 also carries launches_bf16_step and its bf16 results, and its bf16 cluster
 sites and value-context launches; P1's bf16 kernels have rows of their
 own; every row carries launches_visualize, its launches in phase 29's
 step 6; K1 also carries its launches in a DP step and in a 2-D step, and
-its per-shard route has a row of its own, segment_sum_windowed_shard), the
+its per-shard route has a row of its own, segment_sum_windowed_shard, and
+its phase-32 sites under one_way_sites; the RGCN kernels carry their
+launches in phase 32's steps, the attention kernels in its HGT step), the
 nvidia-smi line, and
 the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -654,6 +675,24 @@ TWO_D_STEPS, TWO_D_HGT_STEPS, TWO_D_HGT_LAYERS = 2, 2, 1
 TWO_D_DROPOUT = 0.2
 TWO_D_REQUESTS = 4096
 TWO_D_CKPT_RTOL = 1e-5
+# phase 32: the configurations JAX runs that the port took up last: every
+# relation one-way (graph.edge_types.<name>.bidirectional: false), the
+# diagnosis relation disabled (enabled: false), and train.optimizer.type:
+# sgd, on phase 3's numbered edge arrays at full width.  (c), (e): the
+# kernel tiers on the card against the plain tiers on the card (the same
+# model with impl "xla": the segment path and unfused heads), at phase 8's
+# bounds; (d) at phase 13's.  (f): SGD's update is linear in the gradients,
+# so the kernels' reordered sums move the parameters by lr times the
+# gradients' drift summed over the steps, not by Adam's 2 * lr: 3 steps
+# (JAX's SGD defaults, lr 1e-3 and momentum 0.9) held to SGD_PARAM_ATOL,
+# about three times the largest drift measured, 2.2e-8 (NVIDIA H100 80GB
+# HBM3, 700.00 W), rounded up
+RELATION_VARIANTS = {
+    "one_way": {name: {"bidirectional": False} for name in ("patient_lab", "patient_diagnosis", "patient_medication")},
+    "dx_off": {"patient_diagnosis": {"enabled": False}},
+}
+SGD_STEPS = 3
+SGD_PARAM_ATOL = 1e-7
 # the bfloat16 instantiations' -Xptxas -v lines, by kernel
 BF16_NAMED = tuple((label, entry + "13__nv_bfloat16") for label, entry in (
     ("K2b", "incidence_kernelILb0E"), ("K3", "incidence_kernelILb1E"),
@@ -2252,6 +2291,24 @@ def _bf16_phase(dev, graph_cpu, graph, graph_hgt, config, hgt_config, dual_confi
     flag, flag_s = flag_run, flag_run["step_seconds"]
     if flag["missing"]:
         raise AssertionError(f"the bf16 flagship run left out {flag['missing']}")
+    # the segment path's bfloat16 totals are bit-equal from call to call (a
+    # served state and its trainer's are two forwards): 2^20 of phase 3's
+    # patient -> lab edges into the lab rows, five calls; float32 totals
+    # rounded to bfloat16 (the rule before) beside them, recorded only
+    es = graph.edges[("patient", "has_lab", "lab")]
+    n = min(2**20, es.num_valid)
+    rows = torch.randn(graph.num_nodes("patient"), d, generator=gen).to(dev, bf).index_select(0, es.src[:n].long())
+    ids = es.dst[:n]
+    sums = [seg_ops.segment_sum(rows, ids, es.num_dst + 1) for _ in range(5)]
+    f32 = [torch.zeros(es.num_dst + 1, d, device=dev).index_add_(0, ids.long(), rows.float()).to(bf) for _ in range(5)]
+    moved = sum(int((s != f32[0]).sum()) for s in f32[1:])
+    print(f"    (f) segment_sum of {n} bf16 rows into {es.num_dst} lab rows, 5 calls: "
+          f"{'bit-equal' if all(torch.equal(s, sums[0]) for s in sums) else 'NOT bit-equal'}; float32 totals "
+          f"rounded to bf16, 5 calls: {moved} of {4 * f32[0].numel()} elements differ from the first call's",
+          flush=True)
+    if not all(torch.equal(s, sums[0]) for s in sums):
+        raise AssertionError("(f) bf16 segment_sum differs from call to call")
+    del rows, sums, f32
     # step 8's bf16 artifact served on the card, as phase 21 serves float32's
     served = _flagship_serving_check(flag_dir, dev)
     print(f"    (f) conf/eicu_real.yaml, compute_dtype bfloat16, seed {FLAGSHIP_SEEDS[0]}: steps "
@@ -2745,6 +2802,16 @@ def _dp_reset() -> None:
     ak.reset_launch_counts()
 
 
+def _one_way_graph(graph_cpu, host_edges, config):
+    """``graph_cpu``'s forward relations assembled again under ``config``
+    (every relation one-way): the same plans, no reverse relation."""
+    from multi_modal_gnn_tpu_torch.graph.build import assemble_graph
+    from multi_modal_gnn_tpu_torch.graph.schema import is_reverse
+
+    forward = {et: arrays for et, arrays in host_edges.items() if not is_reverse(et)}
+    return assemble_graph(forward, graph_cpu.node_count_map, config)
+
+
 def _dp_rank(job: dict) -> dict:
     """One rank of phase 30 (spawned; module docstring): (a) K1 per shard
     on every relation against its plain version and, all-reduced, against
@@ -2834,6 +2901,18 @@ def _dp_rank(job: dict) -> dict:
     out["rgcn"] = {"losses": losses, "val": trainer.validate("val"), "step_ms": step_ms,
                    "edges": {"/".join(et): int(es.src.shape[0]) for et, es in trainer.graph.edges.items()}}
     del trainer
+    # every relation one-way (phase 32's graph): one step on the per-shard
+    # tier whose backward scatters the slot rows (no mirror plan)
+    ow_cfg = Config.from_dict(job["one_way_config"])
+    ow_cpu = _one_way_graph(graph_cpu, host_edges, ow_cfg)
+    one_way = DataParallelTrainer(
+        ow_cpu, masker, ow_cfg, model=build_model(ow_cfg, ow_cpu, device=dev, generator=init_generator(ow_cfg)),
+        axis=axis, device=dev, host_edges=host_edges_of(ow_cpu),
+    )
+    _dp_reset()
+    out["one_way"] = {"loss": one_way.train_step(one_way.get_batch("train"), shard_rows(_dp_mask(full.valid, 0), axis), 0),
+                      "launches": _dp_launches()}
+    del one_way, ow_cpu
     out["seconds"]["b"] = time.perf_counter() - t
 
     # (c) Cluster-GCN, K = DP_CLUSTER_K, host-resident, one epoch
@@ -3164,10 +3243,13 @@ def _dp_phase(dev, graph_cpu, config, dp_flagship: dict, flagship_r2_f32: float,
     root = Path(tmp.name)
     cfg = config.replace(model=dataclasses.replace(config.model, dropout=0.0))
     hcfg = cfg.replace(model=dataclasses.replace(cfg.model, architecture="HGT", use_pallas=False))
+    ow_cfg = cfg.replace(graph=dataclasses.replace(cfg.graph, edge_types={
+        name: dataclasses.replace(et, bidirectional=False) for name, et in cfg.graph.edge_types.items()
+    }))
     job = {
         "graph": str(graph_file), "artifact": str(root / "graph_sharded"), "hidden": cfg.model.hidden_dim,
-        "config": cfg.to_dict(), "hgt_config": hcfg.to_dict(), "references_done": str(root / "references_done"),
-        "artifact_done": str(root / "artifact_done"),
+        "config": cfg.to_dict(), "hgt_config": hcfg.to_dict(), "one_way_config": ow_cfg.to_dict(),
+        "references_done": str(root / "references_done"), "artifact_done": str(root / "artifact_done"),
     }
     ranks = Ranks(_dp_rank, DP_RANKS, (job,))
 
@@ -3189,7 +3271,12 @@ def _dp_phase(dev, graph_cpu, config, dp_flagship: dict, flagship_r2_f32: float,
         if epoch == 0:
             ref["grads"] = {n: p.grad.detach().cpu() for n, p in one.model.named_parameters()}
     ref["val"] = one.validate("val")
-    del one, batch
+    del one
+    ow_cpu = _one_way_graph(graph_cpu, host_edges, ow_cfg)
+    one = Trainer(build_model(ow_cfg, ow_cpu, device=dev, generator=init_generator(ow_cfg)), ow_cpu, masker, ow_cfg,
+                  device=dev)
+    ref["one_way"] = one.train_step(one.get_batch("train"), _dp_mask(batch.valid, 0), 0)
+    del one, batch, ow_cpu
     clusters = MiniBatchTrainer(
         build_model(cfg, graph_cpu, device=dev, generator=init_generator(cfg)),
         GraphBundle(graph_cpu, GraphMeta(), host_edges), masker, cfg, DP_CLUSTER_K, host_resident=True, device=dev,
@@ -3234,6 +3321,12 @@ def _dp_phase(dev, graph_cpu, config, dp_flagship: dict, flagship_r2_f32: float,
              0.0, DP_LOSS_RTOL)
     _compare("(b) DP RGCN validation loss vs one process", torch.tensor([r0["rgcn"]["val"]]),
              torch.tensor([ref["val"]]), 0.0, DP_LOSS_RTOL)
+    for r in outs:  # phase 32's one-way graph: K1's per-shard tier with its no-mirror backward
+        launches = r["one_way"]["launches"]
+        if not launches["segment_sum_windowed"] or any(launches[k] for k in DP_UNLAUNCHED):
+            raise AssertionError(f"rank {r['rank']}'s one-way DP step launched {launches}: K1 only")
+    _compare("(b) one-way DP RGCN step loss vs one process", torch.tensor([r0["one_way"]["loss"]]),
+             torch.tensor([ref["one_way"]]), 0.0, DP_LOSS_RTOL)
     # phase 8's bound; a bias right before a BatchNorm (its gradient 0 in
     # exact arithmetic) within twice the one-process step's noise, as phase 27
     _bf16_grads_close("(b) DP first-step gradients vs one process",
@@ -3266,14 +3359,335 @@ def _dp_phase(dev, graph_cpu, config, dp_flagship: dict, flagship_r2_f32: float,
     return {"ranks": outs, "ref": ref, "seconds": seconds}
 
 
+def _plain_tiers(model):
+    """``model`` on the plain tiers: every module's ``impl`` set to "xla"
+    (the segment path, the heads unfused), its parameters unchanged."""
+    for module in model.modules():
+        if hasattr(module, "impl"):
+            module.impl = "xla"
+    return model
+
+
+def _step_pair(label, cfg, graph_cpu, graph, masker, sup, reset_counts, counts_of, seed=0) -> dict:
+    """One train step (dropout 0) of the kernel tiers and of the plain tiers,
+    both on the card from one init: loss, every gradient, the parameters and
+    the BatchNorm statistics at phase 8's bounds; the kernel step's launches
+    and K1's calls by plan."""
+    import torch
+
+    from multi_modal_gnn_tpu_torch.models import build_model
+    from multi_modal_gnn_tpu_torch.ops import segment as seg_ops
+    from multi_modal_gnn_tpu_torch.training import Trainer
+
+    plan_of = {es.win_local.data_ptr(): et for et, es in graph.edges.items() if es.win_local is not None}
+    k1_calls, k1_real = [], seg_ops.segment_sum_windowed
+
+    def k1_recorded(x, idx, win_local, win_tile_map, num_windows):
+        k1_calls.append(plan_of.get(win_local.data_ptr(), ("the batch's gather plans",)))
+        return k1_real(x, idx, win_local, win_tile_map, num_windows)
+
+    out = {}
+    for tier in ("kernel", "plain"):
+        model = build_model(cfg, graph_cpu, generator=torch.Generator().manual_seed(seed))
+        if tier == "plain":
+            _plain_tiers(model)
+        trainer = Trainer(model, graph, masker, cfg)
+        batch = trainer.get_batch("train")
+        torch.cuda.synchronize()
+        reset_counts()
+        seg_ops.segment_sum_windowed = k1_recorded if tier == "kernel" else k1_real
+        try:
+            t_step = time.perf_counter()
+            loss = trainer.train_step(batch, sup, 0)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t_step) * 1e3
+        finally:
+            seg_ops.segment_sum_windowed = k1_real
+        out[tier] = dict(
+            loss=loss, ms=ms, launches=counts_of(),
+            grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            params={n: p.detach().cpu() for n, p in model.named_parameters()},
+            buffers={n: b.detach().cpu() for n, b in model.named_buffers()},
+        )
+        del model, trainer, batch
+        torch.cuda.empty_cache()
+    kern, plain = out["kernel"], out["plain"]
+    if any(plain["launches"].values()):
+        raise AssertionError(f"{label}: the plain tiers launched a kernel: {plain['launches']}")
+    _compare(f"{label} loss, kernel vs plain tiers", torch.tensor(kern["loss"]), torch.tensor(plain["loss"]),
+             0.0, STEP_LOSS_RTOL)
+    # phase 8's bound; a bias right before a BatchNorm (its gradient 0 in
+    # exact arithmetic) within twice the plain tiers' noise, as phase 30
+    _bf16_grads_close(f"{label} gradients, kernel vs plain tiers", kern["grads"], plain["grads"],
+                      rel=STEP_GRAD_NORM_REL)
+    drift = max(float((kern["params"][n] - p).abs().max()) for n, p in plain["params"].items())
+    if drift > STEP_PARAM_ATOL:
+        raise AssertionError(f"{label}: params after Adam max |d| {drift:.3e} > {STEP_PARAM_ATOL}")
+    for n, b in plain["buffers"].items():
+        if n.endswith(("running_mean", "running_var")):
+            _compare(f"{label} bn {n}", kern["buffers"][n], b, STEP_BN_ATOL, STEP_BN_RTOL)
+    calls = {"/".join(et): k1_calls.count(et) for et in dict.fromkeys(k1_calls)}
+    print(f"    {label}: loss {kern['loss']:.6f} (plain tiers {plain['loss']:.6f}), params max |d| {drift:.3e}; "
+          f"kernel step {kern['ms']:.1f} ms, plain {plain['ms']:.1f} ms; launches {kern['launches']}; "
+          f"K1 by plan {calls}")
+    return dict(loss=kern["loss"], plain_loss=plain["loss"], param_drift=drift, launches=kern["launches"],
+                k1_calls=calls, ms=kern["ms"], plain_ms=plain["ms"])
+
+
+def _relations_phase(dev, graph_cpu, edge_arrays, node_counts, tiers, config, masker, reset_counts,
+                     counts_of) -> dict:
+    """Phase 32 (module docstring) on phase 3's numbered ``edge_arrays`` and
+    ``node_counts``: (a) the graphs, (b) the new K1 sites, (c)-(e) the
+    steps, (f) SGD, (g) one-way epochs."""
+    import numpy as np
+    import torch
+
+    from multi_modal_gnn_tpu_torch.config import EdgeTypeConfig
+    from multi_modal_gnn_tpu_torch.graph.attn_plan import ensure_attn_plans
+    from multi_modal_gnn_tpu_torch.graph.build import assemble_graph, drop_disabled_relations
+    from multi_modal_gnn_tpu_torch.graph.hetero import TILE_E, WINDOW
+    from multi_modal_gnn_tpu_torch.graph.schema import PATIENT, mirror_edge_type
+    from multi_modal_gnn_tpu_torch.models import build_model
+    from multi_modal_gnn_tpu_torch.ops import aggregation_tier
+    from multi_modal_gnn_tpu_torch.ops import attention_kernels as ak
+    from multi_modal_gnn_tpu_torch.ops import segment_kernels as sk
+    from multi_modal_gnn_tpu_torch.training import Trainer
+
+    d = config.model.hidden_dim
+    gen = torch.Generator().manual_seed(32)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {"seconds": {}}
+
+    # (a) the graphs from phase 3's numbered edge arrays
+    t0 = time.perf_counter()
+    arrays, counts = edge_arrays, node_counts
+    configs, graphs = {}, {}
+    for variant, edge_types in RELATION_VARIANTS.items():
+        et_cfg = {**config.graph.edge_types, **{n: EdgeTypeConfig(**f) for n, f in edge_types.items()}}
+        cfg = dataclasses.replace(
+            config, graph=dataclasses.replace(config.graph, edge_types=et_cfg),
+            model=dataclasses.replace(config.model, dropout=0.0),
+        )
+        # as the graph build: a disabled relation and the type it leaves unconnected dropped
+        kept, kept_counts = drop_disabled_relations(arrays, counts, cfg)
+        g = assemble_graph(kept, kept_counts, cfg)
+        want = set(kept) if variant == "one_way" else set(kept) | {mirror_edge_type(et) for et in kept}
+        if variant == "dx_off" and "diagnosis" in g.node_count_map:
+            raise AssertionError("dx_off: the diagnosis type was kept")
+        if set(g.edge_types) != want:
+            raise AssertionError(f"{variant}: relations {sorted(g.edge_types)}, JAX builds {sorted(want)}")
+        bad = _graph_arrays_equal(g, graph_cpu)
+        if bad:
+            raise AssertionError(f"{variant}: plans differ from phase 3's: {bad}")
+        got = {et: aggregation_tier(es, g.edges.get(mirror_edge_type(et)), d) for et, es in g.edges.items()}
+        # JAX's rule: the span and paired tiers need the mirror's plan; without it, windowed
+        expect = {et: tiers[et] if tiers[et] == "fused_table" or mirror_edge_type(et) in g.edges else "windowed"
+                  for et in g.edges}
+        if got != expect:
+            raise AssertionError(f"{variant}: tiers {got}, JAX's rule gives {expect}")
+        print(f"    {variant}: {len(g.edge_types)} relations, plans bit-equal to phase 3's; tiers "
+              + ", ".join(f"{'/'.join(et)} {t}" for et, t in sorted(got.items())))
+        configs[variant], graphs[variant] = cfg, g
+        out[f"tiers_{variant}"] = {"/".join(et): t for et, t in got.items()}
+    out["seconds"]["a"] = time.perf_counter() - t0
+
+    # (b) K1 at the one-way graph's sites: kernel, plain, library in turns, bound
+    t0 = time.perf_counter()
+    one_way = graphs["one_way"].to(dev)
+    sites = {}
+    for et in sorted(one_way.edges, key=lambda et: -one_way.edges[et].num_valid):
+        es = one_way.edges[et]
+        x = torch.randn(es.num_src, d, generator=gen).to(dev)
+        args = (es.win_src, es.win_local, es.win_tile_map, es.num_windows)
+        kernel = lambda x=x, args=args: sk.segment_sum_windowed(x, *args)  # noqa: E731
+        plain = lambda x=x, args=args: sk.segment_sum_windowed_plain(x, *args)  # noqa: E731
+        mean = lambda t, es=es: t[: es.num_dst] / es.dst_count.clamp_min(1.0)[:, None]  # noqa: E731
+        name = f"K1 on {'/'.join(et)} (windowed, one-way)"
+        want = mean(plain())
+        max_abs, _ = _compare(name, mean(kernel()), want, KERNEL_ATOL, KERNEL_RTOL)
+        x_nan = torch.full((es.num_src + 37, d), float("nan"), device=dev)
+        x_nan[: es.num_src] = x
+        _compare(f"{name}, 37 NaN rows past the table", mean(sk.segment_sum_windowed(x_nan, *args)), want,
+                 KERNEL_ATOL, KERNEL_RTOL)
+        del x_nan
+        csr = _csr(es.row_ptr, es.src, es.num_dst, es.num_src, dev)
+        library = lambda csr=csr, x=x: torch.sparse.mm(csr, x)  # noqa: E731
+        turns = [_median_ms(library), _median_ms(kernel), _median_ms(kernel), _median_ms(library)]
+        ms, lib_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        plain_ms = _median_ms(plain)
+        bound = _bound(_nbytes(x, *args[:3]) + es.num_windows * WINDOW * d * 4, es.num_valid * d)
+        route = sk.windowed_route(es.num_src, d)
+        launch = sk.windowed_launch(es.win_local.shape[0] // TILE_E, es.num_src, d, sms, route)
+        print(f"    {name}: route {route}; turns library, kernel, kernel, library "
+              f"{', '.join('%.4f' % t for t in turns)} ms (medians of {TIMING_REPS}); plain {plain_ms:.4f} ms; "
+              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}); {es.num_valid} edges; launch {launch}")
+        sites["/".join(et)] = {"route": route, "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, **bound,
+                               "library_ms": lib_ms, "turns_ms": turns, "edges": es.num_valid}
+        del x, csr
+    out["k1_sites"] = sites
+    out["seconds"]["b"] = time.perf_counter() - t0
+
+    # (c), (e): the one-way and the diagnosis-disabled RGCN steps
+    sup = masker.supervision_mask(0, masker.get_split("train")).to(dev)
+    t0 = time.perf_counter()
+    step = _step_pair("(c) one-way RGCN step", configs["one_way"], graphs["one_way"], one_way, masker, sup,
+                      reset_counts, counts_of)
+    launched = {k for k in RGCN_KERNELS if step["launches"][k]}
+    if launched != {"segment_sum_windowed", "pair_head_fwd", "pair_head_bwd"}:
+        raise AssertionError(f"(c): K1 and K4f / K4b must launch, K2f / K2b / K3 not: {step['launches']}")
+    windowed = {"/".join(et) for et in one_way.edges}
+    if not windowed <= set(step["k1_calls"]):
+        raise AssertionError(f"(c): K1 did not run on every windowed relation: {step['k1_calls']}")
+    for site, entry in sites.items():
+        entry["calls_per_step"] = step["k1_calls"].get(site, 0)
+    out["one_way_step"] = step
+    out["seconds"]["c"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    dx_off = graphs["dx_off"].to(dev)
+    step = _step_pair("(e) diagnosis-disabled RGCN step", configs["dx_off"], graphs["dx_off"], dx_off, masker, sup,
+                      reset_counts, counts_of)
+    want = {"segment_sum_windowed", "pair_head_fwd", "pair_head_bwd"}
+    if "fused_table" in out["tiers_dx_off"].values():
+        want |= {"fused_table_segment_sum", "fused_table_segment_sum_bwd"}
+    if "span" in out["tiers_dx_off"].values():
+        want.add("span_segment_sum")
+    if {k for k in RGCN_KERNELS if step["launches"][k]} != want:
+        raise AssertionError(f"(e): the path's kernels are {sorted(want)}, launched {step['launches']}")
+    out["dx_off_step"] = step
+    del dx_off
+    torch.cuda.empty_cache()
+    out["seconds"]["e"] = time.perf_counter() - t0
+
+    # (d) the one-way HGT step, flash tier against segment tier
+    t0 = time.perf_counter()
+    hgt = dataclasses.replace(
+        configs["one_way"], model=dataclasses.replace(configs["one_way"].model, architecture="HGT", num_heads=HGT_HEADS)
+    )
+    hgt_seg = dataclasses.replace(hgt, model=dataclasses.replace(hgt.model, extras={"hgt_flash": "off"}))
+    g_hgt_cpu = ensure_attn_plans(graphs["one_way"], hgt)
+    groups = sorted(g_hgt_cpu.attn_plans or {})
+    if groups != sorted(et[2] for et in one_way.edges):
+        raise AssertionError(f"(d): attention groups {groups}")
+    g_hgt = g_hgt_cpu.to(dev)
+    steps = {}
+    for tier, cfg, g in (("flash", hgt, g_hgt), ("segment", hgt_seg, dataclasses.replace(g_hgt, attn_plans=None))):
+        model = build_model(cfg, graphs["one_way"], generator=torch.Generator().manual_seed(0))
+        trainer = Trainer(model, g, masker, cfg)
+        b = trainer.get_batch("train")
+        torch.cuda.synchronize()
+        reset_counts()
+        t_step = time.perf_counter()
+        loss = trainer.train_step(b, sup, 0)
+        torch.cuda.synchronize()
+        steps[tier] = dict(
+            loss=loss, ms=(time.perf_counter() - t_step) * 1e3, launches=dict(ak.launch_counts),
+            grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            params={n: p.detach().cpu() for n, p in model.named_parameters()},
+            receivers=sorted(nt for nt in model.hgt_0.groups()),
+        )
+        del model, trainer, b
+        torch.cuda.empty_cache()
+    flash, seg = steps["flash"], steps["segment"]
+    if not all(flash["launches"].values()) or any(seg["launches"].values()) or PATIENT in flash["receivers"]:
+        raise AssertionError(f"(d): launches flash {flash['launches']}, segment {seg['launches']}; "
+                             f"groups {flash['receivers']}")
+    _compare("(d) one-way HGT step loss, flash vs segment tier", torch.tensor(flash["loss"]),
+             torch.tensor(seg["loss"]), 0.0, STEP_LOSS_RTOL)
+    floor = STEP_GRAD_ZERO_FLOOR * max(float(g.norm()) for g in seg["grads"].values())
+    failed = [n for n, g in seg["grads"].items()
+              if not _compare_norm(f"(d) HGT grad {n}", flash["grads"][n], g, HGT_STEP_GRAD_NORM_REL, floor)]
+    drift = max(float((flash["params"][n] - p).abs().max()) for n, p in seg["params"].items())
+    if failed or drift > STEP_PARAM_ATOL:
+        raise AssertionError(f"(d): gradients outside tolerance {failed}, params max |d| {drift:.3e}")
+    print(f"    (d) one-way HGT: groups {groups} (no patient group); loss {flash['loss']:.6f} (segment "
+          f"{seg['loss']:.6f}); flash step {flash['ms']:.1f} ms, segment {seg['ms']:.1f} ms; launches "
+          f"{flash['launches']}")
+    out["hgt_step"] = {"loss": flash["loss"], "segment_loss": seg["loss"], "launches": flash["launches"],
+                       "groups": groups, "param_drift": drift}
+    del steps, flash, seg, g_hgt, g_hgt_cpu
+    torch.cuda.empty_cache()
+    out["seconds"]["d"] = time.perf_counter() - t0
+
+    # (f) SGD on phase 3's graph: SGD_STEPS steps, kernel tiers vs plain tiers
+    t0 = time.perf_counter()
+    sgd = dataclasses.replace(
+        config, model=dataclasses.replace(config.model, dropout=0.0),
+        train=dataclasses.replace(config.train, optimizer=dataclasses.replace(config.train.optimizer, type="sgd")),
+    )
+    graph = graph_cpu.to(dev)
+    runs = {}
+    for tier in ("kernel", "plain"):
+        model = build_model(sgd, graph_cpu, generator=torch.Generator().manual_seed(0))
+        if tier == "plain":
+            _plain_tiers(model)
+        trainer = Trainer(model, graph, masker, sgd)
+        if type(trainer.optimizer).__name__ != "SGD":
+            raise AssertionError(f"(f): the trainer built {type(trainer.optimizer).__name__}")
+        b = trainer.get_batch("train")
+        reset_counts()
+        losses = [trainer.train_step(b, masker.supervision_mask(e, masker.get_split("train")).to(dev), e)
+                  for e in range(SGD_STEPS)]
+        torch.cuda.synchronize()
+        runs[tier] = dict(losses=losses, launches=counts_of(),
+                          params={n: p.detach().cpu() for n, p in model.named_parameters()})
+        del model, trainer, b
+        torch.cuda.empty_cache()
+    kern, plain = runs["kernel"], runs["plain"]
+    if not any(kern["launches"].values()) or any(plain["launches"].values()):
+        raise AssertionError(f"(f): launches kernel {kern['launches']}, plain {plain['launches']}")
+    _compare("(f) SGD losses, kernel vs plain tiers", torch.tensor(kern["losses"]), torch.tensor(plain["losses"]),
+             0.0, STEP_LOSS_RTOL)
+    by_name = {n: float((kern["params"][n] - p).abs().max()) for n, p in plain["params"].items()}
+    drift = max(by_name.values())
+    worst = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    print(f"    (f) SGD, {SGD_STEPS} steps: losses {['%.6f' % x for x in kern['losses']]}; params max |d| "
+          f"{drift:.3e} (tolerance {SGD_PARAM_ATOL:g}; largest {', '.join(f'{n} {v:.2e}' for n, v in worst)})")
+    if drift > SGD_PARAM_ATOL:
+        raise AssertionError(f"(f): params after {SGD_STEPS} SGD steps max |d| {drift:.3e} > {SGD_PARAM_ATOL}")
+    out["sgd"] = {"losses": kern["losses"], "plain_losses": plain["losses"], "param_drift": drift,
+                  "launches": kern["launches"]}
+    del runs, kern, plain, graph
+    torch.cuda.empty_cache()
+    out["seconds"]["f"] = time.perf_counter() - t0
+
+    # (g) one-way RGCN epochs (dropout as phase 9's), median of TRAIN_EPOCHS
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(configs["one_way"], model=config.model)
+    trainer = Trainer(build_model(cfg, graphs["one_way"], generator=torch.Generator().manual_seed(1)), one_way,
+                      masker, cfg)
+    trainer.train_epoch()  # warm-up
+    trainer.epoch += 1
+    torch.cuda.synchronize()
+    reset_counts()
+    epoch_ms, losses = [], []
+    for _ in range(TRAIN_EPOCHS):
+        t_ep = time.perf_counter()
+        losses.append(trainer.train_epoch())
+        torch.cuda.synchronize()
+        epoch_ms.append((time.perf_counter() - t_ep) * 1e3)
+        trainer.epoch += 1
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"(g): non-finite losses {losses}")
+    out["epoch_ms"], out["epoch_launches"] = epoch_ms, counts_of()
+    print(f"    (g) one-way epochs: ms {['%.2f' % x for x in epoch_ms]}; losses {['%.6f' % x for x in losses]}; "
+          f"launches in {TRAIN_EPOCHS} epochs {out['epoch_launches']}")
+    del trainer, one_way
+    torch.cuda.empty_cache()
+    out["seconds"]["g"] = time.perf_counter() - t0
+    return out
+
+
+
 def main() -> int:
     import numpy as np
     import torch
 
     from multi_modal_gnn_tpu_torch import native
     from multi_modal_gnn_tpu_torch.config import Config, GraphConfig, ModelConfig
-    from multi_modal_gnn_tpu_torch.data import SyntheticSpec, make_synthetic_graph
+    from multi_modal_gnn_tpu_torch.data import SyntheticSpec, generate_synthetic_edges, make_synthetic_graph
     from multi_modal_gnn_tpu_torch.graph.attn_plan import ensure_attn_plans
+    from multi_modal_gnn_tpu_torch.graph.build import assemble_graph, number_nodes
     from multi_modal_gnn_tpu_torch.graph.hetero import SPAN_MIN_SRC, TILE_E, WINDOW
     from multi_modal_gnn_tpu_torch.graph.schema import LAB, PATIENT, mirror_edge_type
     from multi_modal_gnn_tpu_torch.models import build_model
@@ -3342,7 +3756,9 @@ def main() -> int:
     )
     d = config.model.hidden_dim
     native.reset_launch_counts()
-    graph_cpu = make_synthetic_graph(SyntheticSpec.scale_100k(seed=0), config, device="cpu")
+    # make_synthetic_graph's steps, the numbered edge arrays kept for phase 32
+    edge_arrays, node_counts = number_nodes(*generate_synthetic_edges(SyntheticSpec.scale_100k(seed=0)))
+    graph_cpu = assemble_graph(edge_arrays, node_counts, config)
     core_calls = dict(native.launch_counts)
     if not all(core_calls[k] for k in ("sort_edges_by_dst", "window_plan", "span_plan")):
         raise AssertionError(f"the graph build did not run its plans in the graph core: {core_calls}")
@@ -5631,6 +6047,24 @@ def main() -> int:
         f"{max(max(r['peak_gib_rgcn'], r['peak_gib_hgt']) for r in two_d['ranks']):.3f} GiB a rank",
     )
 
+    # 32. relations -----------------------------------------------------------
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = _relations_phase(dev, graph_cpu, edge_arrays, node_counts, tiers, config, masker, reset_counts, counts_of)
+    pl_site = rel["k1_sites"]["patient/has_lab/lab"]
+    _phase(
+        "relations", t0,
+        f"(a) one-way and diagnosis-disabled graphs from phase 3's edge arrays, plans bit-equal to phase 3's, "
+        f"tiers by JAX's rule; (b) K1 on patient -> lab (windowed) {pl_site['ms']:.4f} ms, torch.sparse.mm "
+        f"{pl_site['library_ms']:.4f}, bound {pl_site['bound_ms']:.4f}; (c) one-way RGCN step = plain tiers, K1 "
+        f"{rel['one_way_step']['launches']['segment_sum_windowed']} launches, K2f / K2b / K3 none; (d) one-way HGT "
+        f"flash = segment tier, groups {rel['hgt_step']['groups']}; (e) diagnosis-disabled step = plain tiers; (f) "
+        f"SGD {SGD_STEPS} steps, params within {rel['sgd']['param_drift']:.2e}; (g) one-way epoch median "
+        f"{statistics.median(rel['epoch_ms']):.2f} ms (phase 9's {rgcn_train[0]:.2f}); seconds "
+        + ", ".join(f"{k} {v:.1f}" for k, v in rel["seconds"].items()),
+    )
+
     cluster_launches = clusters["launches_cluster_epoch"]
     for name in ("segment_sum_windowed", "fused_table_segment_sum", "fused_table_segment_sum_bwd"):
         if not cluster_launches[name]:
@@ -5692,6 +6126,14 @@ def main() -> int:
         if name == "segment_sum_windowed":
             entry["launches_dp_step_per_rank"] = dp0["launches_step"][name]
             entry["launches_2d_step_per_rank"] = td0["launches_step"][name]
+            entry["one_way_sites"] = rel["k1_sites"]
+        # phase 32: the one-way and diagnosis-disabled steps, the one-way HGT step, SGD's steps
+        if name in rel["one_way_step"]["launches"] and name in RGCN_KERNELS:
+            entry["launches_one_way_step"] = rel["one_way_step"]["launches"][name]
+            entry["launches_dx_off_step"] = rel["dx_off_step"]["launches"][name]
+            entry["launches_sgd_steps"] = rel["sgd"]["launches"][name]
+        if name in rel["hgt_step"]["launches"]:
+            entry["launches_one_way_hgt_step"] = rel["hgt_step"]["launches"][name]
         kernels.append(entry)
     # K1's per-shard route (phase 30): rank 0's largest call site heads the
     # entry, every site under "sites"

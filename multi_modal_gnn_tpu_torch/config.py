@@ -142,15 +142,8 @@ class GraphConfig:
     extras: Dict[str, Any] = field(default_factory=dict)
 
     def __post_init__(self):
+        # read by nothing, as in JAX: the graph build decides the node types
         object.__setattr__(self, "node_types", tuple(self.node_types))
-        if set(self.node_types) != {"patient", "lab", "diagnosis", "medication"}:
-            raise ConfigError(f"graph.node_types: the port builds all four types, got {self.node_types}")
-        for name, et in self.edge_types.items():
-            if not et.enabled or not et.bidirectional:
-                raise ConfigError(
-                    f"graph.edge_types.{name}: disabled or one-way relations are not "
-                    "supported by the PyTorch port yet"
-                )
         _only(self.extras, {"num_shards", "shard_kernel_plans"}, "graph")
 
 
@@ -273,18 +266,16 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class OptimizerConfig:
-    type: str = "adam"  # adam only: the port rejects sgd
+    type: str = "adam"  # adam | sgd
     lr: float = 1e-3
     weight_decay: float = 1e-5
-    momentum: float = 0.9  # sgd only; kept for the JAX field set
+    momentum: float = 0.9  # sgd only
     # extra L2 decay on the ID-embedding tables (embed_*) only
     embedding_weight_decay: float = 0.0
 
     def __post_init__(self):
-        if self.type.lower() != "adam":
-            raise ConfigError(
-                f"train.optimizer.type={self.type!r}: the PyTorch port runs adam only"
-            )
+        if self.type.lower() not in ("adam", "sgd"):
+            raise ConfigError(f"train.optimizer.type={self.type!r}: adam or sgd")
 
 
 @dataclass(frozen=True)

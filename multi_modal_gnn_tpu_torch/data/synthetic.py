@@ -26,7 +26,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from multi_modal_gnn_tpu_torch.config import Config, ConfigError
-from multi_modal_gnn_tpu_torch.graph.build import Table, assemble_graph, number_nodes
+from multi_modal_gnn_tpu_torch.graph.build import Table, assemble_graph, drop_disabled_relations, number_nodes
 from multi_modal_gnn_tpu_torch.graph.hetero import HeteroGraph
 from multi_modal_gnn_tpu_torch.graph.schema import (
     DIAGNOSIS,
@@ -671,10 +671,13 @@ def make_synthetic_graph(
     the card; raises without one).  The nodes are numbered as the JAX
     package numbers them, or in the generator's order when both
     ``graph.cluster_patients_by_degree`` and ``cluster_labs_by_frequency``
-    are off."""
+    are off; disabled relations and the types they leave unconnected are
+    dropped as the graph build drops them."""
     device = resolve_device(device)
     config = config or Config()
-    edge_arrays, node_counts = generate_synthetic_edges(spec or SyntheticSpec.tiny())
+    edge_arrays, node_counts = drop_disabled_relations(
+        *generate_synthetic_edges(spec or SyntheticSpec.tiny()), config
+    )
     gc = config.graph
     if gc.cluster_patients_by_degree or gc.cluster_labs_by_frequency:
         edge_arrays, node_counts = number_nodes(

@@ -7,7 +7,7 @@ preprocess stage's tables, given as dicts of numpy columns;
 directory, builds, validates and saves the graph.  Both number the nodes as
 the JAX build does.  :func:`number_nodes` does the same numbering on
 generator-indexed COO arrays; :func:`assemble_graph` pads, sorts and plans
-every relation, then mirrors it by its reverse relation;
+every enabled relation, then mirrors each two-way one by its reverse;
 ``patient_lab_degree`` counts each patient's lab edges."""
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from multi_modal_gnn_tpu_torch.config import Config
 from multi_modal_gnn_tpu_torch.graph.hetero import EdgeSet, HeteroGraph, pad_edge_set
 from multi_modal_gnn_tpu_torch.graph.indexer import NodeIndexer
 from multi_modal_gnn_tpu_torch.graph.schema import (
+    CONFIG_EDGE_NAMES,
     DIAGNOSIS,
     LAB,
     MEDICATION,
@@ -66,7 +67,8 @@ def number_nodes(
       order), else in first-seen order;
     * diagnoses and medications: those that occur, in first-seen order.
 
-    Node counts shrink to the entities that occur, as the JAX indexers'."""
+    Node counts shrink to the entities that occur, as the JAX indexers'; a
+    type whose relation is absent from ``edge_arrays`` has no count."""
     p_idx, l_idx, val = edge_arrays[PATIENT_LAB]
     num_p = node_counts[PATIENT]
     p_order = (
@@ -79,7 +81,8 @@ def number_nodes(
         l_order = l_order[np.argsort(-freq, kind="stable")]
     orders = {PATIENT: p_order, LAB: l_order}
     for et, nt in ((PATIENT_DIAGNOSIS, DIAGNOSIS), (PATIENT_MEDICATION, MEDICATION)):
-        orders[nt] = _first_seen(edge_arrays[et][1])
+        if et in edge_arrays:
+            orders[nt] = _first_seen(edge_arrays[et][1])
     new_ids = {}
     for nt, order in orders.items():
         new_ids[nt] = np.full(node_counts[nt], -1, np.int64)
@@ -91,31 +94,73 @@ def number_nodes(
     return out, {nt: len(order) for nt, order in orders.items()}
 
 
+def drop_disabled_relations(
+    edge_arrays: Dict[EdgeTypeKey, tuple], node_counts: Dict[str, int], config: Config
+) -> Tuple[Dict[EdgeTypeKey, tuple], Dict[str, int]]:
+    """The relations and node counts the JAX graph build keeps
+    (``build_heterogeneous_graph``, ``graph/build.py:199-228``): a relation
+    whose ``graph.edge_types.<name>.enabled`` is false is never built
+    (``patient_lab``, which carries the targets, raises), and a node type
+    left with no nodes or no relation is dropped with its relations."""
+    edge_arrays = dict(edge_arrays)
+    for name, et in CONFIG_EDGE_NAMES.items():
+        etc = config.graph.edge_types.get(name)
+        if etc is not None and not etc.enabled:
+            if et == PATIENT_LAB:
+                raise ValueError(
+                    "graph.edge_types.patient_lab.enabled=false: the patient-lab "
+                    "relation carries the supervision targets and cannot be disabled"
+                )
+            logger.info("Relation %s disabled by config", name)
+            edge_arrays.pop(et, None)
+    connected = {t for et in edge_arrays for t in (et[0], et[2])}
+    # a type with no nodes has no embedding table and no relations
+    empty = {nt for nt, n in node_counts.items() if n == 0 or nt not in connected}
+    if empty:
+        logger.info("Dropping empty node types: %s", sorted(empty))
+    counts = {nt: n for nt, n in node_counts.items() if nt not in empty}
+    kept = {et: arrs for et, arrs in edge_arrays.items() if et[0] in counts and et[2] in counts}
+    return kept, counts
+
+
 def assemble_graph(
     edge_arrays: Dict[EdgeTypeKey, tuple],
     node_counts: Dict[str, int],
     config: Optional[Config] = None,
 ) -> HeteroGraph:
     """``edge_arrays[et] = (src, dst, val_or_None)`` per forward relation,
-    node indices in ``[0, node_counts[type])``.  The graph lives on the CPU;
-    move it with ``.to(device)``."""
+    node indices in ``[0, node_counts[type])``.  A relation whose
+    ``graph.edge_types.<name>.enabled`` is false is skipped (its node count
+    kept; ``patient_lab`` is always built), one with ``bidirectional:
+    false`` gets no reverse (JAX ``assemble_graph``).  The graph lives on
+    the CPU; move it with ``.to(device)``."""
     gc = (config or Config()).graph
+    bidirectional, disabled = {}, set()
+    for name, et in CONFIG_EDGE_NAMES.items():
+        etc = gc.edge_types.get(name)
+        if etc is not None:
+            bidirectional[et] = etc.bidirectional
+            if not etc.enabled and et != PATIENT_LAB:
+                disabled.add(et)
+    common = dict(
+        pad_multiple=gc.edge_pad_multiple,
+        dense_max_bytes=gc.dense_adjacency_max_bytes,
+        src_span_rows=gc.src_span_rows,
+    )
     edges: Dict[EdgeTypeKey, EdgeSet] = {}
     for et, (src, dst, val) in edge_arrays.items():
+        if et in disabled:
+            continue
         s_type, _, d_type = et
-        common = dict(
-            pad_multiple=gc.edge_pad_multiple,
-            dense_max_bytes=gc.dense_adjacency_max_bytes,
-            src_span_rows=gc.src_span_rows,
-        )
         edges[et] = pad_edge_set(
             src, dst, num_src=node_counts[s_type], num_dst=node_counts[d_type],
             val=val, **common,
         )
-        edges[reverse_edge_type(et)] = pad_edge_set(
-            dst, src, num_src=node_counts[d_type], num_dst=node_counts[s_type],
-            **common,
-        )
+        if bidirectional.get(et, True):
+            edges[reverse_edge_type(et)] = pad_edge_set(
+                dst, src, num_src=node_counts[d_type], num_dst=node_counts[s_type],
+                **common,
+            )
     pl_src = np.asarray(edge_arrays[PATIENT_LAB][0], dtype=np.int64)
     degree = np.bincount(pl_src, minlength=node_counts[PATIENT]).astype(np.int32)
     return HeteroGraph(
@@ -238,8 +283,10 @@ def build_heterogeneous_graph(
     (JAX ``build_heterogeneous_graph``): patients of the cohort (by
     ascending lab degree under ``cluster_patients_by_degree``), labs by
     descending frequency under ``cluster_labs_by_frequency``, diagnoses and
-    medications in first-seen order.  Node types left without nodes are
-    dropped with their relations.  The graph lives on the CPU."""
+    medications in first-seen order.  Relations disabled in
+    ``graph.edge_types`` are not built (``patient_lab`` raises); node types
+    left without nodes or relations are dropped with their relations.  The
+    graph lives on the CPU."""
     diagnoses = diagnoses or {"SUBJECT_ID": np.zeros(0, np.int64), "ICD3_CODE": np.zeros(0, str)}
     medications = medications or {"SUBJECT_ID": np.zeros(0, np.int64), "DRUG": np.zeros(0, str)}
     indexers = {nt: NodeIndexer(nt) for nt in (PATIENT, LAB, DIAGNOSIS, MEDICATION)}
@@ -274,14 +321,7 @@ def build_heterogeneous_graph(
             medications, "SUBJECT_ID", "DRUG", indexers[PATIENT], indexers[MEDICATION]
         ),
     }
-    # a type with no nodes has no embedding table and no relations
-    empty = {nt for nt, n in counts.items() if n == 0}
-    if empty:
-        logger.info("Dropping empty node types: %s", sorted(empty))
-        counts = {k: v for k, v in counts.items() if v > 0}
-        edge_arrays = {
-            et: arrs for et, arrs in edge_arrays.items() if et[0] in counts and et[2] in counts
-        }
+    edge_arrays, counts = drop_disabled_relations(edge_arrays, counts, config)
     graph = assemble_graph(edge_arrays, counts, config)
 
     label_by_item = {}

@@ -25,6 +25,13 @@ FORWARD_EDGE_TYPES: Tuple[EdgeTypeKey, ...] = (
     PATIENT_MEDICATION,
 )
 
+# config section name (graph.edge_types.<name>) -> forward relation
+CONFIG_EDGE_NAMES = {
+    "patient_lab": PATIENT_LAB,
+    "patient_diagnosis": PATIENT_DIAGNOSIS,
+    "patient_medication": PATIENT_MEDICATION,
+}
+
 REV_PREFIX = "rev_"
 
 

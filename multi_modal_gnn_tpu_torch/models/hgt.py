@@ -101,12 +101,15 @@ class HGTLayer(nn.Module):
         self.dense_attn_max_bytes = dense_attn_max_bytes
         self.impl = impl
         dense = lambda: make_dense(hidden_dim, hidden_dim, generator=generator)  # noqa: E731
-        for nt in self.node_types:
+        # a type that receives no relation passes through unchanged and has
+        # no q / out projection (flax creates none for a projection never called)
+        receivers = [nt for nt in self.node_types if nt in self.groups()]
+        for nt in receivers:
             self.add_module(f"q_{nt}", dense())
         for kind in ("k", "v"):
             for et in self.edge_types:
                 self.add_module(f"{kind}_{_et_key(et)}", dense())
-        for nt in self.node_types:
+        for nt in receivers:
             self.add_module(f"out_{nt}", dense())
 
     def groups(self) -> Dict[str, list]:

@@ -57,7 +57,14 @@ the order its atomics land, so a lab row's gradient summed from thousands
 of edges carried an error of a few percent that changed from run to run
 (JAX's scatter on the CPU rounds at every add too, in edge order).  On the
 CPU torch's ``index_add_`` already sums bfloat16 rows in float32, so the CPU
-results do not change.
+results do not change.  On the card :func:`segment_sum` sums bfloat16 rows
+in float64: float32 totals of atomics that land in another order differ in
+their last bits, and now and then one of them rounds to the neighbouring
+bfloat16, so two forwards of the same weights (a served state and its
+trainer's) could disagree by a bfloat16 spacing.  float64 holds a total of
+bfloat16 rows exactly, in any order, while its terms span less than 2^28 in
+magnitude; past that its error stays some float64 spacings, far inside one
+bfloat16 spacing.
 """
 
 from __future__ import annotations
@@ -82,8 +89,11 @@ FUSED_TABLE_MAX_BYTES = 4 * 1024 * 1024
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     """Sum of ``data``'s rows per segment; bfloat16 rows are summed in
-    float32 and each total rounded once (see the module docstring)."""
-    acc = torch.float32 if data.dtype == torch.bfloat16 else data.dtype
+    float32 (float64 on the card) and each total rounded once (see the
+    module docstring)."""
+    acc = data.dtype
+    if data.dtype == torch.bfloat16:
+        acc = torch.float32 if data.device.type == "cpu" else torch.float64
     out = torch.zeros((num_segments,) + tuple(data.shape[1:]), dtype=acc, device=data.device)
     return out.index_add_(0, segment_ids.long(), data.to(acc)).to(data.dtype)
 

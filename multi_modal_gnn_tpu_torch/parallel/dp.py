@@ -6,8 +6,8 @@ process:
 
 * the parameters are initialized once, identically on every rank (the
   same ``train.seed`` stream, then rank 0's broadcast), and stay
-  replicated: the gradients are summed over the ranks before every Adam
-  step (``parallel/collectives.py``);
+  replicated: the gradients are summed over the ranks before every
+  optimizer step (``parallel/collectives.py``);
 * the epoch's supervision mask is the draw over the *whole* train batch,
   which every rank makes from the same generator and then cuts to its
   chunk (JAX ``dp.py:122-170``);

@@ -7,9 +7,9 @@ The layout is JAX's, over the ``D x m`` ranks of
 * edge arrays and the supervised batch are cut over the **data** axis,
   exactly as under 1-D data parallelism (:class:`~.dp.DataParallelTrainer`,
   whose steps this trainer runs);
-* the patient ID table (``embed_patient``) and so its two Adam moments are
-  cut row-wise over the **model** axis: rank ``(d, k)`` holds rows
-  ``[k P / m, (k + 1) P / m)``
+* the patient ID table (``embed_patient``) and so its optimizer state
+  (Adam's two moments, SGD's momentum buffer) are cut row-wise over the
+  **model** axis: rank ``(d, k)`` holds rows ``[k P / m, (k + 1) P / m)``
   (:class:`~multi_modal_gnn_tpu_torch.models.layers.ShardedEmbedding`);
 * everything else is replicated.
 
@@ -25,7 +25,7 @@ Collectives:
   all-reduced over the data axis (the model's ``axis``);
 * the table's gradient slice is summed over the data axis; every other
   gradient over the whole world and divided by ``m``, so every rank takes
-  the same Adam step bit for bit, and the BatchNorm statistics are rank
+  the same optimizer step bit for bit, and the BatchNorm statistics are rank
   ``(d, 0)``'s on the model axis after every step.  On the card K1's
   atomics may sum the model axis's replicas of one shard in other orders:
   without this their parameters would drift apart step by step.  For the
@@ -71,8 +71,9 @@ from multi_modal_gnn_tpu_torch.parallel.collectives import (
 from multi_modal_gnn_tpu_torch.parallel.dp import DataParallelTrainer, sharded_model
 from multi_modal_gnn_tpu_torch.parallel.mesh import Mesh2D, init_2d_axes
 from multi_modal_gnn_tpu_torch.training.checkpoint import (
-    adam_state_by_name,
     jax_state_leaves,
+    optimizer_kind,
+    optimizer_state_by_name,
     save_sharded_checkpoint,
 )
 from multi_modal_gnn_tpu_torch.training.masker import EdgeMasker
@@ -126,8 +127,8 @@ class TwoDTrainer(DataParallelTrainer):
 
     def _shard_model(self, model, config: Config, graph: HeteroGraph, device):
         """Global rank 0's weights on every rank, the data axis set, and
-        the patient table cut to this rank's rows (so Adam, built over the
-        parameters next, holds those rows of its moments)."""
+        the patient table cut to this rank's rows (so the optimizer, built
+        over the parameters next, holds those rows of its state)."""
         model = sharded_model(model, config, graph, self.world, device)
         model.axis = self.axis
         model.embed_patient = ShardedEmbedding(model.embed_patient.weight, self.model_axis)
@@ -185,14 +186,14 @@ class TwoDTrainer(DataParallelTrainer):
 
     def _save(self, path: Path) -> None:
         """This rank's file of JAX's sharded format (module docstring); the
-        best state's optimizer leaves are the live Adam state's (the port
+        best state's optimizer leaves are the live optimizer state's (the port
         keeps no optimizer state with its best parameters).  Returns once
         every rank has written."""
         live = self.model.state_dict()
         best = self.best_state if self.best_state is not None else live
-        adam = adam_state_by_name(self.model, self.optimizer)
-        lr = self.optimizer.param_groups[0]["lr"]
-        leaves = jax_state_leaves(self.model, best, adam, lr) + jax_state_leaves(self.model, live, adam, lr)
+        named = optimizer_state_by_name(self.model, self.optimizer)
+        lr, kind = self.optimizer.param_groups[0]["lr"], optimizer_kind(self.optimizer)
+        leaves = jax_state_leaves(self.model, best, named, lr, kind) + jax_state_leaves(self.model, live, named, lr, kind)
         save_sharded_checkpoint(
             path, leaves, self._host_metadata(), self.world.rank, self.world.size,
             rows={TABLE: self.model.embed_patient.row_range}, owns_rows=self.axis.rank == 0,
@@ -202,11 +203,12 @@ class TwoDTrainer(DataParallelTrainer):
     def _load_payload(self, payload: dict) -> None:
         """A payload of whole tables (any checkpoint the reader takes), cut
         to this rank's rows (JAX ``dp2d.py:228-234``)."""
-        adam = dict(payload["adam"])
-        if TABLE in adam:
-            adam[TABLE] = {k: v if k == "step" else self._rows(v) for k, v in adam[TABLE].items()}
+        kind = optimizer_kind(self.optimizer)
+        named = dict(payload.get(kind) or {})
+        if TABLE in named:
+            named[TABLE] = {k: v if k == "step" else self._rows(v) for k, v in named[TABLE].items()}
         super()._load_payload({
             "model": {**payload["model"], TABLE: self._rows(payload["model"][TABLE])},
             "best_model": {**payload["best_model"], TABLE: self._rows(payload["best_model"][TABLE])},
-            "adam": adam,
+            **({kind: named} if kind in payload else {}),
         })

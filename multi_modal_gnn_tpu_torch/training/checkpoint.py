@@ -7,6 +7,9 @@ with ``torch.save`` and read with ``weights_only=True``::
     {"model": live state_dict, "best_model": best state_dict,
      "adam": {parameter name: {"step", "exp_avg", "exp_avg_sq"}}}
 
+or, under ``train.optimizer.type: sgd``, ``"sgd": {parameter name: {"step",
+"momentum_buffer"}}`` in place of ``"adam"`` (no buffer at momentum 0).
+
 ``<path>.json`` is the sidecar, with the JAX package's fields: ``epoch``,
 ``best_val_loss``, ``patience_counter``, ``scheduler``, ``history``,
 ``config_hash``, ``model_hash`` and ``config``.
@@ -42,7 +45,14 @@ from multi_modal_gnn_tpu_torch.utils.msgpack import flax_restore
 
 logger = logging.getLogger(__name__)
 
-ADAM_KEYS = ("step", "exp_avg", "exp_avg_sq")
+# the per-parameter state each optimizer keeps, by train.optimizer.type;
+# "step" counts the updates (JAX's inject_hyperparams count and
+# TrainState.step; torch's SGD keeps none, the trainer's SGD adds it)
+STATE_KEYS = {"adam": ("step", "exp_avg", "exp_avg_sq"), "sgd": ("step", "momentum_buffer")}
+# JAX's optimizer state leaves after inject_hyperparams' count and learning
+# rate, each a parameter tree but the counter: ScaleByAdamState; TraceState
+JAX_LEAVES = {"adam": ("count", "mu", "nu"), "sgd": ("trace",)}
+TORCH_NAMES = {"mu": "exp_avg", "nu": "exp_avg_sq", "trace": "momentum_buffer"}
 
 
 def _sidecar(path: Path) -> Path:
@@ -55,24 +65,34 @@ def _cpu(tree):
     return tree.detach().cpu().clone()
 
 
-def adam_state_by_name(model: torch.nn.Module, optimizer: torch.optim.Optimizer) -> Dict:
-    """The optimizer's per-parameter Adam state keyed by parameter name."""
+def optimizer_kind(optimizer: torch.optim.Optimizer) -> str:
+    """``"adam"`` or ``"sgd"``: the payload key of ``optimizer``'s state."""
+    return "sgd" if isinstance(optimizer, torch.optim.SGD) else "adam"
+
+
+def optimizer_state_by_name(model: torch.nn.Module, optimizer: torch.optim.Optimizer) -> Dict:
+    """The optimizer's per-parameter state (:data:`STATE_KEYS`) keyed by
+    parameter name."""
+    keys = STATE_KEYS[optimizer_kind(optimizer)]
     return {
-        name: {k: optimizer.state[param][k] for k in ADAM_KEYS}
+        name: {k: optimizer.state[param][k] for k in keys if k in optimizer.state[param]}
         for name, param in model.named_parameters()
         if param in optimizer.state
     }
 
 
-def load_adam_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer, named: Dict) -> None:
-    """Load :func:`adam_state_by_name`'s layout into ``optimizer``, whose
-    parameters are ``model``'s; every parameter must have its state."""
+def load_optimizer_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer, named: Dict) -> None:
+    """Load :func:`optimizer_state_by_name`'s layout into ``optimizer``,
+    whose parameters are ``model``'s; every parameter must have its state
+    (an SGD buffer is dropped at momentum 0, where torch keeps none)."""
+    kind = optimizer_kind(optimizer)
     missing = [name for name, _ in model.named_parameters() if name not in named]
     if missing:
-        raise KeyError(f"no Adam state for {missing}")
+        raise KeyError(f"no {kind} state for {missing}")
+    keys = [k for k in STATE_KEYS[kind] if k != "momentum_buffer" or optimizer.defaults["momentum"]]
     index = {id(p): i for i, p in enumerate(p for g in optimizer.param_groups for p in g["params"])}
     state = {
-        index[id(param)]: {k: named[name][k] for k in ADAM_KEYS}
+        index[id(param)]: {k: named[name][k] for k in keys}
         for name, param in model.named_parameters()
     }
     optimizer.load_state_dict({"state": state, "param_groups": optimizer.state_dict()["param_groups"]})
@@ -113,17 +133,33 @@ def load_checkpoint(path, model: Optional[torch.nn.Module] = None) -> Tuple[Dict
     return payload, meta
 
 
-def _find_adam(tree) -> Mapping:
-    """The ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) inside a flax
-    state dict of the JAX optimizer chain."""
+def _find_optimizer(tree) -> Tuple[Optional[str], Optional[Mapping]]:
+    """``(kind, state)``: the ``ScaleByAdamState`` (``count``, ``mu``,
+    ``nu``) or SGD's ``TraceState`` (``trace``) inside a flax state dict of
+    the JAX optimizer chain, or ``(None, None)``."""
     if isinstance(tree, Mapping):
-        if {"count", "mu", "nu"} <= set(tree):
-            return tree
+        for kind, fields in JAX_LEAVES.items():
+            if set(fields) <= set(tree):
+                return kind, tree
         for value in tree.values():
-            found = _find_adam(value)
-            if found is not None:
+            found = _find_optimizer(value)
+            if found[0] is not None:
                 return found
-    return None
+    return None, None
+
+
+def _named_state(kind: str, step, trees: Mapping[str, Mapping]) -> Dict:
+    """JAX's per-parameter optimizer trees (``mu`` / ``nu`` or ``trace``,
+    through the weight bridge's names and transposes) and the update count
+    as :func:`optimizer_state_by_name`'s layout."""
+    step = torch.tensor(float(np.asarray(step)), dtype=torch.float32)
+    by_field = {f: state_dict_from_flax({"params": trees[f]}) for f in JAX_LEAVES[kind] if f != "count"}
+    first = next(iter(by_field.values()))
+    return {
+        name: {"step": step.clone(), **{TORCH_NAMES[f]: by_field[f][name] for f in by_field}}
+        for name in first
+        if not name.endswith("num_batches_tracked")
+    }
 
 
 def _variables(state: Mapping) -> Dict[str, torch.Tensor]:
@@ -135,29 +171,24 @@ def load_flax_checkpoint(path) -> Tuple[Dict, Dict]:
     of ``{"state", "best_state"}`` and its JSON sidecar) as the port's
     ``(payload, metadata)``.  Parameters and BatchNorm statistics go
     through the weight bridge (``models/convert.py``); Adam's ``mu`` /
-    ``nu`` take the same names and the same transposes, and its ``count``
-    becomes each parameter's ``step``.  The sidecar is returned as JAX wrote
+    ``nu`` (SGD's ``trace``) take the same names and the same transposes,
+    and the update count becomes each parameter's ``step`` (payload key
+    ``"adam"`` or ``"sgd"``).  The sidecar is returned as JAX wrote
     it: the port's ``Config.model_hash`` equals JAX's for the same config,
     so ``Trainer.restore`` compares the recorded hash itself."""
     path = Path(path)
     tree = flax_restore(path.read_bytes())
     state = tree["state"]
-    adam = _find_adam(state.get("opt_state"))
-    if adam is None or not isinstance(adam["mu"], Mapping):
+    kind, opt = _find_optimizer(state.get("opt_state"))
+    if kind is None or not isinstance(opt[JAX_LEAVES[kind][-1]], Mapping):
         raise ValueError(
-            f"{path}: no per-parameter Adam state (a flattened optimizer, "
-            "train.extras.flatten_optimizer, or not adam) is not read by the port"
+            f"{path}: no per-parameter Adam or SGD state (a flattened optimizer, "
+            "train.extras.flatten_optimizer) is not read by the port"
         )
-    step = torch.tensor(float(np.asarray(adam["count"])), dtype=torch.float32)
-    moments = {k: state_dict_from_flax({"params": adam[k]}) for k in ("mu", "nu")}
     payload = {
         "model": _variables(state),
         "best_model": _variables(tree.get("best_state") or state),
-        "adam": {
-            name: {"step": step.clone(), "exp_avg": mu, "exp_avg_sq": moments["nu"][name]}
-            for name, mu in moments["mu"].items()
-            if not name.endswith("num_batches_tracked")
-        },
+        kind: _named_state(kind, opt["count"] if kind == "adam" else state["step"], opt),
     }
     meta = load_json(_sidecar(path)) if _sidecar(path).exists() else {}
     logger.info("Loaded JAX checkpoint from %s", path)
@@ -222,20 +253,27 @@ def load_jax_sharded_checkpoint(path, model: torch.nn.Module) -> Tuple[Dict, Dic
     (:func:`~multi_modal_gnn_tpu_torch.models.convert.flax_paths`): for
     ``best_state`` then ``state``, the parameters, the BatchNorm
     statistics, the optimizer state (``inject_hyperparams``' count and
-    learning rate, Adam's count, ``mu``, ``nu``) and the step.  The leaf
-    count and every shape (a row-sharded table's whole shape,
-    :func:`~multi_modal_gnn_tpu_torch.models.layers.global_shapes`) are
-    checked against that layout; the payload holds whole tables."""
+    learning rate, then Adam's count, ``mu``, ``nu`` or SGD's ``trace``:
+    :data:`JAX_LEAVES`) and the step.  The optimizer is the one whose
+    layout has the file's leaf count; every shape (a row-sharded table's
+    whole shape, :func:`~multi_modal_gnn_tpu_torch.models.layers.global_shapes`)
+    is checked against that layout; the payload holds whole tables."""
     path = Path(path)
     leaves, meta = _sharded_leaves(path)
     params, stats = flax_paths(model)
     p_paths, s_paths = [p for p, _ in params], [p for p, _ in stats]
-    per_state = 3 * len(p_paths) + len(s_paths) + 4  # params, mu, nu; 3 counters; step
-    if len(leaves) != 2 * per_state:
+
+    def per_state(kind):  # params, stats, 2 counters, the optimizer's leaves, step
+        return len(p_paths) + len(s_paths) + 3 + sum(1 if f == "count" else len(p_paths) for f in JAX_LEAVES[kind])
+
+    kinds = [kind for kind in JAX_LEAVES if len(leaves) == 2 * per_state(kind)]
+    if not kinds:
         raise ValueError(
-            f"{path}: {len(leaves)} leaves, the JAX trainer state of this model has {2 * per_state} "
-            "(another model, or an optimizer other than the port's Adam chain)"
+            f"{path}: {len(leaves)} leaves, the JAX trainer state of this model has "
+            + " or ".join(f"{2 * per_state(k)} ({k})" for k in JAX_LEAVES)
+            + " (another model, or another optimizer chain)"
         )
+    kind = kinds[0]
     shapes = global_shapes(model)
 
     def state(leaves):
@@ -249,28 +287,27 @@ def load_jax_sharded_checkpoint(path, model: torch.nn.Module) -> Tuple[Dict, Dic
 
         p_tree = take(p_paths)
         s_tree = take(s_paths)
-        _count, _lr = leaves[i], leaves[i + 1]
-        adam_count = leaves[i + 2]
-        i += 3
-        mu, nu = take(p_paths), take(p_paths)
-        return {"params": p_tree, "batch_stats": s_tree}, adam_count, mu, nu
+        i += 2  # inject_hyperparams' count and learning rate
+        opt = {}
+        for f in JAX_LEAVES[kind]:
+            if f == "count":
+                opt[f] = leaves[i]
+                i += 1
+            else:
+                opt[f] = take(p_paths)
+        return {"params": p_tree, "batch_stats": s_tree}, opt, leaves[i]
 
-    best, _, _, _ = state(leaves[:per_state])
-    live, count, mu, nu = state(leaves[per_state:])
+    n = per_state(kind)
+    best, _, _ = state(leaves[:n])
+    live, opt, step = state(leaves[n:])
     model_sd = state_dict_from_flax(live)
     for key, value in model_sd.items():
         if key in shapes and tuple(value.shape) != shapes[key]:
             raise ValueError(f"{path}: {key} has shape {tuple(value.shape)}, the model's is {shapes[key]}")
-    step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
-    moments = {k: state_dict_from_flax({"params": tree}) for k, tree in (("mu", mu), ("nu", nu))}
     payload = {
         "model": model_sd,
         "best_model": state_dict_from_flax(best),
-        "adam": {
-            name: {"step": step.clone(), "exp_avg": m, "exp_avg_sq": moments["nu"][name]}
-            for name, m in moments["mu"].items()
-            if not name.endswith("num_batches_tracked")
-        },
+        kind: _named_state(kind, opt["count"] if kind == "adam" else step, opt),
     }
     logger.info("Loaded sharded JAX checkpoint from %s (%d files)", path, len(proc_files(path)))
     return payload, meta
@@ -285,27 +322,31 @@ def _flax_leaf(path: Tuple[str, ...], t: torch.Tensor) -> np.ndarray:
 
 
 def jax_state_leaves(
-    model: torch.nn.Module, state: Mapping[str, torch.Tensor], adam: Mapping, lr: float
+    model: torch.nn.Module, state: Mapping[str, torch.Tensor], named: Mapping, lr: float, kind: str = "adam"
 ) -> List[Tuple[Optional[str], np.ndarray]]:
     """One JAX ``TrainState`` as ``(state_dict key or None, array)`` pairs
     in its flatten order (:func:`load_jax_sharded_checkpoint`'s layout):
     the parameters in flax's layout, the BatchNorm statistics,
-    ``inject_hyperparams``' count and learning rate, Adam's count, ``mu``,
-    ``nu``, and the step.  The counters are the optimizer's step count
-    (int32, as JAX keeps them; 0 and zero moments before the first step or
-    after the warm start's fresh Adam); ``adam`` is
-    :func:`adam_state_by_name`'s layout, ``state`` a ``state_dict`` of
-    ``model``'s layout (a row-sharded table holds this rank's rows)."""
+    ``inject_hyperparams``' count and learning rate, the optimizer's leaves
+    (``kind`` ``"adam"``: its count, ``mu``, ``nu``; ``"sgd"``: ``trace``)
+    and the step.  The counters are the optimizer's step count (int32, as
+    JAX keeps them; 0 and zero trees before the first step, after the warm
+    start's fresh optimizer, or for SGD's trace at momentum 0); ``named``
+    is :func:`optimizer_state_by_name`'s layout, ``state`` a ``state_dict``
+    of ``model``'s layout (a row-sharded table holds this rank's rows)."""
     params, stats = flax_paths(model)
-    steps = [float(entry["step"]) for entry in adam.values()]
+    steps = [float(entry["step"]) for entry in named.values() if "step" in entry]
     count = np.asarray(int(max(steps)) if steps else 0, np.int32)
     leaves = [(key, _flax_leaf(path, state[key])) for path, key in params]
     leaves += [(key, _flax_leaf(path, state[key])) for path, key in stats]
-    leaves += [(None, count), (None, np.asarray(lr, np.float32)), (None, count.copy())]
-    for moment in ("exp_avg", "exp_avg_sq"):
+    leaves += [(None, count), (None, np.asarray(lr, np.float32))]
+    for f in JAX_LEAVES[kind]:
+        if f == "count":
+            leaves.append((None, count.copy()))
+            continue
         for path, key in params:
-            value = adam[key][moment] if key in adam else torch.zeros_like(state[key])
-            leaves.append((key, _flax_leaf(path, value)))
+            value = named.get(key, {}).get(TORCH_NAMES[f])
+            leaves.append((key, _flax_leaf(path, torch.zeros_like(state[key]) if value is None else value)))
     leaves.append((None, count.copy()))
     return leaves
 

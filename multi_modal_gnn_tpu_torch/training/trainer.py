@@ -4,15 +4,18 @@ checkpoints and resume (``multi_modal_gnn_tpu/training/trainer.py``).
 Each epoch is one step: draw the epoch's supervision mask, run the whole
 graph forward with ``train=True`` through the dual degree-gated heads,
 take the lab-weighted masked loss, backpropagate through the kernels'
-backward passes, and take one Adam step.  The JAX package jits that step;
+backward passes, and take one optimizer step.  The JAX package jits that step;
 here it runs eagerly on the card.  :meth:`Trainer.train_epochs` runs k
 epochs back to back with no host readback between them, the counterpart
 of the JAX ``train_epochs_scanned``.
 
-Optimizer: ``torch.optim.Adam`` with ``weight_decay``, which adds
-``weight_decay * param`` to the gradient before the moments: the coupled L2
-of the JAX chain ``add_decayed_weights -> adam``.  ``embedding_weight_decay``
-adds to it on the ``embed_*`` tables, as the JAX masked decay does.
+Optimizer: ``torch.optim.Adam`` (or, under ``train.optimizer.type: sgd``,
+``torch.optim.SGD`` with ``momentum`` and no dampening) with
+``weight_decay``, which adds ``weight_decay * param`` to the gradient before
+the moments: the coupled L2 of the JAX chain ``add_decayed_weights -> adam``
+(``-> sgd``, whose ``trace`` is torch's momentum buffer).
+``embedding_weight_decay`` adds to it on the ``embed_*`` tables, as the JAX
+masked decay does.
 
 With the value-context channel (``model.extras.value_context``) the graph
 carries the visibility template (train edges' values visible, val / test
@@ -68,9 +71,10 @@ from multi_modal_gnn_tpu_torch.parallel.collectives import (
     loss_share,
 )
 from multi_modal_gnn_tpu_torch.training.checkpoint import (
-    adam_state_by_name,
-    load_adam_state,
     load_checkpoint,
+    load_optimizer_state,
+    optimizer_kind,
+    optimizer_state_by_name,
     save_checkpoint,
 )
 from multi_modal_gnn_tpu_torch.training.masker import (
@@ -89,9 +93,27 @@ from multi_modal_gnn_tpu_torch.utils.rng import apply_reproducibility, stream_se
 logger = logging.getLogger(__name__)
 
 
-def build_optimizer(model: torch.nn.Module, train_config) -> torch.optim.Adam:
-    """Adam with coupled L2 decay; ``embed_*`` tables get
-    ``weight_decay + embedding_weight_decay``."""
+class SGD(torch.optim.SGD):
+    """``torch.optim.SGD`` that also counts each parameter's updates
+    (``state["step"]``, a CPU tensor as Adam's): JAX's SGD chain keeps the
+    count (``inject_hyperparams``, ``TrainState.step``) and its checkpoints
+    carry it."""
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = super().step(closure)
+        for group in self.param_groups:
+            for param in group["params"]:
+                if param.grad is not None:
+                    state = self.state[param]
+                    state["step"] = state.get("step", torch.tensor(0.0)) + 1
+        return loss
+
+
+def build_optimizer(model: torch.nn.Module, train_config) -> torch.optim.Optimizer:
+    """Adam, or SGD with momentum (``train.optimizer.type``), with coupled
+    L2 decay; ``embed_*`` tables get ``weight_decay +
+    embedding_weight_decay``."""
     oc = train_config.optimizer
     embed, rest = [], []
     for name, param in model.named_parameters():
@@ -101,6 +123,8 @@ def build_optimizer(model: torch.nn.Module, train_config) -> torch.optim.Adam:
         groups.append(
             {"params": embed, "weight_decay": oc.weight_decay + oc.embedding_weight_decay}
         )
+    if oc.type.lower() == "sgd":
+        return SGD(groups, lr=oc.lr, momentum=oc.momentum)
     return torch.optim.Adam(groups, lr=oc.lr, betas=(0.9, 0.999), eps=1e-8)
 
 
@@ -517,7 +541,7 @@ class Trainer:
         return {
             "model": live,
             "best_model": self.best_state if self.best_state is not None else live,
-            "adam": adam_state_by_name(self.model, self.optimizer),
+            optimizer_kind(self.optimizer): optimizer_state_by_name(self.model, self.optimizer),
         }
 
     def _host_metadata(self) -> dict:
@@ -564,7 +588,7 @@ class Trainer:
 
     def restore(self, path, force: bool = False) -> None:
         """Resume from a checkpoint of the port or of the JAX package: the
-        live and best states, Adam's state, the epoch, the early-stopping
+        live and best states, the optimizer's state, the epoch, the early-stopping
         counters, the scheduler and the history.  Refuses a checkpoint whose
         ``model_hash`` (the ``model``, ``graph`` and ``feature_space``
         sections) differs from the live config's unless ``force``;
@@ -591,10 +615,13 @@ class Trainer:
         logger.info("Resumed training at epoch %d (best val %.4f)", self.epoch, self.best_val_loss)
 
     def _load_payload(self, payload: dict) -> None:
-        """The live and best states and Adam's state of a checkpoint's
-        payload (whole tables, on the CPU)."""
+        """The live and best states and the optimizer's state of a
+        checkpoint's payload (whole tables, on the CPU)."""
+        kind = optimizer_kind(self.optimizer)
+        if kind not in payload:
+            raise ValueError(f"the checkpoint holds no {kind} state: it was written by another optimizer")
         self.model.load_state_dict(payload["model"])
-        load_adam_state(self.model, self.optimizer, payload["adam"])
+        load_optimizer_state(self.model, self.optimizer, payload[kind])
         self.best_state = {k: v.to(self.device) for k, v in payload["best_model"].items()}
 
     # -- the whole model (serving, the warm start) ---------------------------

@@ -12,7 +12,7 @@ baseline's prediction (``G`` / ``H`` only for :class:`SideInfoALSBaseline`,
 whose membership factors come from the dx / rx structure, never from lab
 values).  Both heads' output layers are zeroed, so the epoch-0 prediction
 IS the baseline's and the heads learn corrections from zero.  The trainer
-then gets a fresh Adam state, ``best_val_loss`` from one validation and
+then gets a fresh optimizer state, ``best_val_loss`` from one validation and
 ``best_state`` a copy of the planted state, so best-validation selection can
 only improve on the baseline.
 
@@ -156,13 +156,13 @@ def warm_start_trainer(
     """Fit ALS on the trainer's train split (with ``memberships``, the binary
     ``[P, D]`` dx / rx features of :func:`bundle_membership_matrix`, the
     stronger :class:`SideInfoALSBaseline`) and plant it into the live model;
-    then a fresh Adam state, ``best_val_loss = validate()`` and
+    then a fresh optimizer state, ``best_val_loss = validate()`` and
     ``best_state`` a copy of the planted state, which ``fit`` keeps unless
     an epoch beats it.  Returns the fitted baseline.
 
     The plant is built on whole tables (``trainer.global_state``); each rank
     of a 2-D trainer keeps its rows of the patient factors and clears its
-    own Adam state (JAX ``_plant_preserving_sharding``); every rank fits
+    own optimizer state (JAX ``_plant_preserving_sharding``); every rank fits
     the same ALS on the whole train split."""
     graph = trainer.graph
     tr_p, tr_l, tr_v = trainer.masker.split_arrays("train")
@@ -181,7 +181,7 @@ def warm_start_trainer(
         )
         planted = als_warm_start_params(state, baseline)
     trainer.load_global_state(planted)
-    trainer.optimizer.state.clear()  # Adam's moments start again from the plant
+    trainer.optimizer.state.clear()  # the optimizer's state starts again from the plant
     trainer.best_val_loss = trainer.validate()
     trainer.best_state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
     logger.info(

@@ -47,8 +47,14 @@ def _host_edges(bundle, et):
 
 
 def patient_edges(bundle) -> Dict:
-    """:func:`_host_edges` of the three patient relations, read once."""
-    return {et: _host_edges(bundle, et) for et in (PATIENT_LAB, PATIENT_DIAGNOSIS, PATIENT_MEDICATION)}
+    """:func:`_host_edges` of the patient relations the graph has, read
+    once.  A disabled modality is left out of the figures (JAX's step 6
+    raises ``KeyError`` on it)."""
+    return {
+        et: _host_edges(bundle, et)
+        for et in (PATIENT_LAB, PATIENT_DIAGNOSIS, PATIENT_MEDICATION)
+        if et in bundle.graph.edges
+    }
 
 
 def extract_patient_subgraph(
@@ -64,6 +70,8 @@ def extract_patient_subgraph(
         ("diagnoses", PATIENT_DIAGNOSIS, None),
         ("medications", PATIENT_MEDICATION, None),
     ):
+        if et not in edges:
+            continue
         src, dst, val = edges[et]
         sel = np.where(src == patient_idx)[0][:max_neighbors]
         for pos in sel:

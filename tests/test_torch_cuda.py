@@ -392,7 +392,8 @@ def test_bf16_row_scatters_sum_in_float32_on_the_card(gpu):
     (40,000 rows into 50, as a pair head's lab gradients are summed) give
     the float32 sum rounded once, within one bfloat16 spacing and the float32
     atomics' reordering (1e-5 of the largest total); bfloat16 atomics, which
-    round at every add, miss it by percents."""
+    round at every add, miss it by percents.  segment_sum sums in float64
+    there, so its totals are bit-equal from call to call."""
     idx = torch.from_numpy(np.random.default_rng(0).integers(0, 50, 40_000))
     g = _randn(40_000, 64, seed=31, dtype=torch.bfloat16)
     exact = torch.zeros(50, 64, dtype=torch.float64).index_add_(0, idx, g.double())
@@ -402,6 +403,8 @@ def test_bf16_row_scatters_sum_in_float32_on_the_card(gpu):
     for name, got in (("gather_rows backward", x.grad), ("segment_sum", segment_sum(g.to(gpu), idx.to(gpu), 50))):
         assert got.dtype == torch.bfloat16, name
         assert ((got.double().cpu() - exact).abs() <= spacing).all(), name
+    first = segment_sum(g.to(gpu), idx.to(gpu), 50)
+    assert all(torch.equal(segment_sum(g.to(gpu), idx.to(gpu), 50), first) for _ in range(5))
 
 
 @pytest.mark.cuda

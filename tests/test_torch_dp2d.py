@@ -67,7 +67,9 @@ CASES = {  # name: (model settings, per-shard K1 plans)
     "rgcn_plans": ({"use_pallas": True}, True),
     "vctx": ({"value_context": True}, False),
     "hgt": ({"architecture": "HGT"}, False),
+    "rgcn_sgd_plans": ({"use_pallas": True}, True),  # SGD: the momentum buffer's rows cut as the table's
 }
+SECTIONS = {"rgcn_sgd_plans": {"optimizer": {"type": "sgd", "lr": 0.05, "momentum": 0.9}}}  # train section
 SEED = 42
 STEPS = 3
 JAX_RTOL, JAX_ATOL = 2e-4, 1e-5  # tests/test_parallel.py, TestTwoDShardMap
@@ -88,6 +90,13 @@ def _config_dict(**model):
     d = JaxConfig().to_dict()
     d["model"].update(hidden_dim=32, dropout=0.0, **model)
     d["train"].update(donate_state=False)
+    return d
+
+
+def _case_dict(name):
+    d = _config_dict(**CASES[name][0])
+    for key, fields in SECTIONS.get(name, {}).items():
+        d["train"][key].update(fields)
     return d
 
 
@@ -135,7 +144,7 @@ def runs():
         "jax_ckpt_done": str(root / "jax2d.done"), "export_dir": str(root / "serve_dp"),
     }
     for name, (model, plans) in CASES.items():
-        d = _config_dict(**model)
+        d = _case_dict(name)
         bundle = torch_dp_ranks.port_bundle(SPEC, d)
         init = torch_dp_ranks.build_model(
             Config.from_dict(d), bundle.graph, device="cpu", generator=torch.Generator().manual_seed(1)
@@ -171,7 +180,7 @@ def runs():
 
     jax_out, single = {}, {}
     for name, (model, plans) in CASES.items():
-        d = _config_dict(**model)
+        d = _case_dict(name)
         trainer, _ = _single(d, states[name])
         jt = _jax_two_d(d, plans, flax_variables(trainer.model))
         batch = jt._get_batch("train")
@@ -185,10 +194,7 @@ def runs():
         for i, mask in enumerate(masks_of[name]):
             losses.append(trainer.train_step(tb, torch.from_numpy(mask), 0))
             if i == 0:
-                param = trainer.model.embed_patient.weight
-                adam = trainer.optimizer.state[param]
-                first = {"weight": param.detach().numpy().copy(), "exp_avg": adam["exp_avg"].numpy().copy(),
-                         "exp_avg_sq": adam["exp_avg_sq"].numpy().copy()}
+                first = torch_dp_ranks.table_state(trainer)
         single[name] = {"losses": losses, "val": trainer.validate("val"), "test_preds": trainer.predict("test"),
                         "state": torch_dp_ranks.numpy_state(trainer.model), "first": first}
 
@@ -242,10 +248,11 @@ def test_2d_steps_match_one_process(runs, name):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_table_rows_and_moments_after_one_step(runs, name):
-    """Each rank's rows of the table and of both Adam moments after the
-    first step are its rows of the one process's: the table gather's
-    backward is a slice (a reduce-scatter over the model axis would double
-    the gradient, and so the first moment)."""
+    """Each rank's rows of the table and of its optimizer state (both Adam
+    moments, SGD's momentum buffer) after the first step are its rows of
+    the one process's: the table gather's backward is a slice (a
+    reduce-scatter over the model axis would double the gradient, and so
+    the first moment)."""
     want = runs["single"][name]["first"]
     rows = set()
     for rank in runs["ranks"]:
@@ -253,7 +260,8 @@ def test_table_rows_and_moments_after_one_step(runs, name):
         lo, hi = got["rows"]
         assert (lo, hi) == (rank["model"] * (hi - lo), (rank["model"] + 1) * (hi - lo))
         rows.add((lo, hi))
-        for key in ("weight", "exp_avg", "exp_avg_sq"):
+        assert got.keys() - {"rows"} == want.keys() - {"rows"}
+        for key in want.keys() - {"rows"}:
             assert got[key].shape[0] == want[key].shape[0] // 2
             np.testing.assert_allclose(got[key], want[key][lo:hi], rtol=STATE_RTOL, atol=STATE_ATOL, err_msg=key)
     assert len(rows) == 2

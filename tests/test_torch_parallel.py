@@ -68,6 +68,15 @@ CASES = {  # name: (model settings, shard plans, against JAX DP)
     "rgcn": ({}, False, True),
     "vctx_plans": ({"value_context": True, "use_pallas": True}, True, True),
     "hgt": ({"architecture": "HGT"}, False, True),
+    # every relation one-way (no mirror: K1's slot rows scattered back, JAX's
+    # XLA-transposed backward of _sharded_total) and SGD with momentum
+    "one_way_sgd_plans": ({"use_pallas": True}, True, True),
+}
+SECTIONS = {  # a case's other config sections
+    "one_way_sgd_plans": {
+        "graph": {"edge_types": {n: {"bidirectional": False} for n in ("patient_lab", "patient_diagnosis", "patient_medication")}},
+        "train": {"optimizer": {"type": "sgd", "lr": 0.05, "momentum": 0.9}},
+    },
 }
 SEED = 42
 STEPS = 2
@@ -87,6 +96,19 @@ def _config_dict(**model):
     d = JaxConfig().to_dict()
     d["model"].update(hidden_dim=32, dropout=0.0, **model)
     d["train"].update(donate_state=False)
+    return d
+
+
+def _case_dict(name):
+    def merge(into, fields):
+        for key, value in fields.items():
+            if isinstance(value, dict):
+                merge(into[key], value)
+            else:
+                into[key] = value
+
+    d = _config_dict(**CASES[name][0])
+    merge(d, SECTIONS.get(name, {}))
     return d
 
 
@@ -112,7 +134,7 @@ def runs():
     jobs, states, masks_of = {"cases": {}}, {}, {}
     rng = np.random.default_rng(0)
     for name, (model, plans, _) in CASES.items():
-        d = _config_dict(**model)
+        d = _case_dict(name)
         bundle = torch_dp_ranks.port_bundle(SPEC, d)
         init = torch_dp_ranks.build_model(
             Config.from_dict(d), bundle.graph, device="cpu", generator=torch.Generator().manual_seed(1)
@@ -131,7 +153,7 @@ def runs():
 
     jax_out, single = {}, {}
     for name, (model, plans, against_jax) in CASES.items():
-        d = _config_dict(**model)
+        d = _case_dict(name)
         cfg = Config.from_dict(d)
         bundle = torch_dp_ranks.port_bundle(SPEC, d)
         trainer = Trainer(

@@ -158,7 +158,7 @@ def test_config_dict_and_hashes_equal_jax(name):
         {"cohort": {"min_age": 18}},
         {"feature_space": {"labs": {"aggregate": "first"}}},
         {"feature_space": {"vitals": {}}},
-        {"graph": {"node_types": ["patient", "lab"]}},
+        {"graph": {"edge_types": {"patient_lab": {"weighted": True}}}},  # node_types is taken since one-way relations run
         {"graph": {"shard_layout": 2}},
         {"reproducibility": {"strict": True}},
         {"model": {"edge_head": {"final_activation": "relu"}}},

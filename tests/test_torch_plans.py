@@ -22,7 +22,7 @@ from multi_modal_gnn_tpu.graph.serialize import save_graph as jax_save_graph
 from multi_modal_gnn_tpu_torch import config as port_config
 from multi_modal_gnn_tpu_torch.data import SyntheticSpec, generate_synthetic_edges
 from multi_modal_gnn_tpu_torch.graph import hetero as port_hetero
-from multi_modal_gnn_tpu_torch.graph.build import assemble_graph
+from multi_modal_gnn_tpu_torch.graph.build import assemble_graph, build_heterogeneous_graph
 from multi_modal_gnn_tpu_torch.graph.serialize import load_graph
 
 _ARRAYS = (
@@ -254,7 +254,19 @@ def test_config_reads_the_jax_hgt_settings():
 
 
 def test_config_rejects_one_way_relations():
-    with pytest.raises(port_config.ConfigError):
-        port_config.Config.from_dict(
-            {"graph": {"edge_types": {"patient_lab": {"bidirectional": False}}}}
-        )
+    """One-way and disabled relations are taken as JAX takes them; only a
+    disabled ``patient_lab`` is refused, at the graph build, as in JAX."""
+    raw = JaxConfig().to_dict()
+    raw["graph"]["edge_types"]["patient_lab"]["bidirectional"] = False
+    raw["graph"]["edge_types"]["patient_diagnosis"]["enabled"] = False
+    jax_cfg = JaxConfig.from_dict(raw)
+    cfg = port_config.Config.from_dict(raw)
+    assert cfg.to_dict() == jax_cfg.to_dict()
+    assert (cfg.content_hash(), cfg.model_hash()) == (jax_cfg.content_hash(), jax_cfg.model_hash())
+    edge_arrays, node_counts = generate_synthetic_edges(SyntheticSpec.tiny())
+    graph = assemble_graph(edge_arrays, node_counts, cfg)
+    assert set(graph.edge_types) == set(jax_build.assemble_graph(edge_arrays, node_counts, config=jax_cfg).edge_types)
+    off = port_config.Config.from_dict({"graph": {"edge_types": {"patient_lab": {"enabled": False}}}})
+    tables = {"SUBJECT_ID": np.arange(3), "ITEMID": np.arange(3), "VALUE_NORMALIZED": np.zeros(3, np.float32)}
+    with pytest.raises(ValueError, match="patient_lab"):
+        build_heterogeneous_graph(tables, None, None, {"SUBJECT_ID": np.arange(3)}, None, off)

@@ -117,7 +117,7 @@ def test_train_config_reads_the_jax_section():
     "train",
     [
         {"batch_size": 0},
-        {"optimizer": {"type": "sgd"}},
+        {"optimizer": {"type": "rmsprop"}},  # JAX's build_optimizer refuses it too
         {"parallel": "2d", "model_parallel": 0},
         {"num_clusters": 8, "parallel": "gspmd"},
         {"cluster_balance": "nodes"},

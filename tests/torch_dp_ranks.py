@@ -163,16 +163,15 @@ def _wait_for(path: str, timeout: float = 300.0) -> None:
         time.sleep(0.1)
 
 
-def _table_state(trainer) -> dict:
-    """This rank's rows of the patient table and of its Adam moments."""
+def table_state(trainer) -> dict:
+    """This rank's rows of the patient table and of its optimizer state
+    (Adam's moments, SGD's momentum buffer; one process: all rows)."""
     param = trainer.model.embed_patient.weight
-    adam = trainer.optimizer.state[param]
-    return {
-        "rows": trainer.model.embed_patient.row_range,
-        "weight": param.detach().numpy().copy(),
-        "exp_avg": adam["exp_avg"].numpy().copy(),
-        "exp_avg_sq": adam["exp_avg_sq"].numpy().copy(),
-    }
+    state = trainer.optimizer.state[param]
+    out = {k: v.numpy().copy() for k, v in state.items() if k != "step"}
+    out["weight"] = param.detach().numpy().copy()
+    out["rows"] = getattr(trainer.model.embed_patient, "row_range", (0, param.shape[0]))
+    return out
 
 
 def _two_d(job, case, mesh, host_edges=True):
@@ -227,7 +226,7 @@ def two_d_checks(job: dict) -> dict:
         for i, mask in enumerate(case["masks"]):
             losses.append(trainer.train_step(batch, shard_rows(torch.from_numpy(mask), trainer.axis), 0))
             if i == 0:
-                first = _table_state(trainer)
+                first = table_state(trainer)
                 stats = {k: dict(v) for k, v in collectives.stats.items()}
         es = next(iter(trainer.graph.edges.values()))
         out["cases"][name] = {
